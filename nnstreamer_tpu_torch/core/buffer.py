@@ -1,0 +1,120 @@
+"""Stream buffers: the unit of data flowing between pipeline stages.
+
+Port of ``nnstreamer_tpu/core/buffer.py`` (reference: ``GstBuffer``
+carrying one ``GstMemory`` chunk per tensor plus pts/duration metadata).
+
+A chunk's payload is either a host numpy array or a torch tensor, which
+may already sit in GPU memory.  Host boundaries (app ingest, sink pull)
+are the only places payloads cross between host and card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .types import TensorsSpec
+
+_seq = itertools.count()
+
+
+def _on_card(x) -> bool:
+    return isinstance(x, torch.Tensor) and x.is_cuda
+
+
+def _to_numpy(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+@dataclasses.dataclass
+class Buffer:
+    """One pipeline buffer: a tuple of tensors + timing + metadata.
+
+    ``tensors`` entries are numpy arrays or torch tensors.  ``spec``
+    describes them; for FLEXIBLE streams it is derived per buffer.  ``pts``
+    is the presentation timestamp in nanoseconds; ``meta`` carries
+    cross-element metadata (reference: GstMeta).
+    """
+
+    tensors: List[Any]
+    spec: Optional[TensorsSpec] = None
+    pts: Optional[int] = None
+    duration: Optional[int] = None
+    seqno: int = dataclasses.field(default_factory=lambda: next(_seq))
+    meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self):
+        if self.spec is None:
+            self.spec = TensorsSpec.of(self.tensors)
+
+    def __len__(self) -> int:
+        return len(self.tensors)
+
+    def __getitem__(self, i: int):
+        return self.tensors[i]
+
+    @property
+    def on_device(self) -> bool:
+        return all(_on_card(t) for t in self.tensors)
+
+    def with_tensors(self, tensors: Sequence[Any], spec: Optional[TensorsSpec] = None) -> "Buffer":
+        """New buffer with same timing/meta but different payload."""
+        return Buffer(
+            list(tensors),
+            spec=spec,
+            pts=self.pts,
+            duration=self.duration,
+            seqno=self.seqno,
+            meta=dict(self.meta),
+        )
+
+    def to_host(self) -> "Buffer":
+        """Copy every tensor to host numpy (waits for the card)."""
+        return self.with_tensors([_to_numpy(t) for t in self.tensors])
+
+    def to_device(self, device) -> "Buffer":
+        """Move every tensor onto ``device`` (numpy payloads become torch
+        tensors first)."""
+        arrs = [(t if isinstance(t, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(t))).to(device) for t in self.tensors]
+        return self.with_tensors(arrs)
+
+
+def stack_tensors(rows: Sequence[Sequence[Any]], pad_to: Optional[int] = None):
+    """Stack per-buffer tensor rows (all the same signature) on a new
+    leading axis -> a tuple of ``[B, ...]`` tensors; ``pad_to`` repeats the
+    last row up to that many rows."""
+    rows = list(rows)
+    if pad_to is not None and pad_to > len(rows):
+        rows += [rows[-1]] * (pad_to - len(rows))
+    return tuple(torch.stack([torch.as_tensor(r[t]) for r in rows])
+                 for t in range(len(rows[0])))
+
+
+def split_rows(arrays: Sequence[Any], n: int) -> List[Tuple]:
+    """Inverse of :func:`stack_tensors`: ``[B, ...]`` tensors -> n
+    per-buffer tensor tuples (rows past n are dropped)."""
+    return [tuple(a[i] for a in arrays) for i in range(n)]
+
+
+@dataclasses.dataclass
+class Event:
+    """In-band stream event (reference: GstEvent — EOS, caps, error)."""
+
+    kind: str  # "eos" | "caps" | "error"
+    payload: Any = None
+
+    @classmethod
+    def eos(cls) -> "Event":
+        return cls("eos")
+
+    @classmethod
+    def error(cls, exc: BaseException) -> "Event":
+        return cls("error", exc)
+

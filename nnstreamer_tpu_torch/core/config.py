@@ -1,0 +1,83 @@
+"""Global configuration registry.
+
+Port of ``nnstreamer_tpu/core/config.py`` (reference: ``nnstreamer_conf.c``
++ ``nnstreamer.ini``), cut to the settings this package reads.  Populated
+from (in priority order) :func:`set_config` > environment > the ini file
+named by ``NNS_TPU_CONF`` > defaults.
+"""
+
+from __future__ import annotations
+
+import configparser
+import dataclasses
+import os
+import threading
+from typing import List, Optional
+
+_ENV_CONF = "NNS_TPU_CONF"
+_ENV_FW_PRIORITY = "NNS_TPU_FILTER_PRIORITY"
+_ENV_BUCKETING = "NNS_TPU_SHAPE_BUCKETING"
+
+
+@dataclasses.dataclass
+class Config:
+    #: framework priority for tensor_filter framework=auto
+    filter_priority: List[str] = dataclasses.field(
+        default_factory=lambda: ["llm"])
+    #: default queue capacity between pipeline stages (buffers)
+    queue_capacity: int = 4
+    #: pad flexible shapes up to the next bucket (the llm filter pads
+    #: prompts to power-of-two lengths)
+    shape_bucketing: bool = True
+    #: emit per-stage latency measurements
+    enable_latency: bool = True
+
+    @classmethod
+    def load(cls) -> "Config":
+        cfg = cls()
+        path = os.environ.get(_ENV_CONF)
+        if path and os.path.exists(path):
+            ini = configparser.ConfigParser()
+            ini.read(path)
+            if ini.has_option("filter", "priority"):
+                cfg.filter_priority = _split(ini.get("filter", "priority"))
+            if ini.has_option("common", "queue_capacity"):
+                cfg.queue_capacity = ini.getint("common", "queue_capacity")
+            if ini.has_option("common", "shape_bucketing"):
+                cfg.shape_bucketing = ini.getboolean("common",
+                                                     "shape_bucketing")
+        if os.environ.get(_ENV_FW_PRIORITY):
+            cfg.filter_priority = _split(os.environ[_ENV_FW_PRIORITY])
+        if os.environ.get(_ENV_BUCKETING):
+            cfg.shape_bucketing = os.environ[_ENV_BUCKETING].lower() in (
+                "1", "true", "yes", "on")
+        return cfg
+
+
+def _split(s: str) -> List[str]:
+    return [p.strip() for p in s.replace(":", ",").split(",") if p.strip()]
+
+
+_config: Optional[Config] = None
+_lock = threading.Lock()
+
+
+def get_config() -> Config:
+    global _config
+    if _config is None:
+        with _lock:
+            if _config is None:
+                _config = Config.load()
+    return _config
+
+
+def set_config(cfg: Config) -> None:
+    global _config
+    with _lock:
+        _config = cfg
+
+
+def reset_config() -> None:
+    global _config
+    with _lock:
+        _config = None

@@ -1,0 +1,78 @@
+"""Sink elements.
+
+Port of the ``tensor_sink`` of ``nnstreamer_tpu/elements/sink.py``
+(reference: gsttensor_sink.c, an appsink-like terminal).  ``pop()``
+returns host numpy arrays by default (one device-to-host copy at the
+pipeline edge), or the tensors as they arrived with ``to_host=false``.
+"""
+
+from __future__ import annotations
+
+import queue as _queue
+import time as _time
+from typing import Callable, List, Optional
+
+from ..core.buffer import Buffer
+from ..core.log import metrics
+from ..core.registry import register_element
+from .base import SinkElement
+
+
+@register_element("tensor_sink")
+class TensorSink(SinkElement):
+    """Terminal sink with an app-facing pull queue + callbacks.
+
+    Props: ``max-buffers`` (queue bound; the oldest buffer is dropped when
+    full and ``drop=true``, else the pipeline backs up), ``to-host``,
+    ``emit-signals`` (kept for reference familiarity; callbacks fire
+    regardless).
+    """
+
+    kind = "tensor_sink"
+
+    def __init__(self, props=None, name=None):
+        super().__init__(props, name)
+        cap = int(self.props.get("max_buffers", 1024))
+        self.drop = bool(self.props.get("drop", False))
+        self.emit_signals = bool(self.props.get(
+            "emit_signal", self.props.get("emit_signals", True)))
+        self.to_host = bool(self.props.get("to_host", True))
+        self._q: _queue.Queue = _queue.Queue(maxsize=cap)
+        self._callbacks: List[Callable[[Buffer], None]] = []
+
+    def connect_new_data(self, cb: Callable[[Buffer], None]) -> None:
+        """Reference: g_signal_connect(sink, "new-data", ...)."""
+        self._callbacks.append(cb)
+
+    def process(self, pad, buf: Buffer):
+        metrics.count(f"{self.name}.frames")
+        for cb in list(self._callbacks):
+            cb(buf)
+        stop = getattr(self, "_stop_event", None)
+        while True:
+            try:
+                self._q.put(buf, timeout=0.1)
+                return []
+            except _queue.Full:
+                if self.drop:
+                    try:
+                        self._q.get_nowait()
+                    except _queue.Empty:
+                        pass
+                elif stop is not None and stop.is_set():
+                    return []  # pipeline stopping: shed instead of deadlocking
+                # else: keep blocking — backpressure to the pipeline
+
+    # -- app API -----------------------------------------------------------
+    def pop(self, timeout: float = 30.0, check: Optional[Callable] = None) -> Buffer:
+        deadline = _time.monotonic() + timeout
+        while True:
+            try:
+                buf = self._q.get(timeout=0.1)
+                break
+            except _queue.Empty:
+                if check:
+                    check()
+                if _time.monotonic() > deadline:
+                    raise TimeoutError(f"no buffer at sink {self.name!r} in {timeout}s")
+        return buf.to_host() if self.to_host else buf

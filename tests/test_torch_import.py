@@ -1,0 +1,62 @@
+"""nnstreamer_tpu_torch stands alone: it imports torch and never jax, and
+no module of it imports the JAX package.  Its registry is its own."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "nnstreamer_tpu_torch"
+
+
+def test_import_leaves_jax_out_of_sys_modules():
+    # A subprocess: this test process already holds jax (conftest.py).
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import nnstreamer_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'nnstreamer_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
+        "('jax.', 'jaxlib', 'nnstreamer_tpu.')) or m == 'nnstreamer_tpu')\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_module_imports_jax_or_the_jax_package(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "nnstreamer_tpu"), (path, mod)
+
+
+def test_registry_is_the_ports_own():
+    import nnstreamer_tpu_torch as ntt
+    from nnstreamer_tpu.core import registry as jax_registry
+
+    assert ntt.registry.names("element") == ["appsrc", "tensor_filter",
+                                             "tensor_sink"]
+    assert ntt.registry.names("filter") == ["llm"]
+    port_llm = ntt.registry.get("filter", "llm")
+    assert port_llm.__module__ == "nnstreamer_tpu_torch.filters.llm"
+    assert jax_registry.get("filter", "llm").__module__ == \
+        "nnstreamer_tpu.filters.llm"
