@@ -14,16 +14,30 @@ Phases, each of which must pass:
              time kernel, plain version, one PyTorch library call computing
              the same function (the yardstick; the port never calls it) and
              the least time the card could take (the bound).
-3. serve   — the main path through the entry points a user calls:
-             ``appsrc ! tensor_filter framework=llm model=llama2_7b
+3. serve   — the static stream path through the entry points a user
+             calls: ``appsrc ! tensor_filter framework=llm model=llama2_7b
              custom=quant:int4,... ! tensor_sink`` at full width (random
              weights from a seed), three prompts of 32, 200 and 700 token
              ids, 64 tokens pulled for each.  Launch counters are zeroed just
              before and read just after: every kernel must have run, flash
              attention once per layer per request, the int4 matmul 129 times
              per decoded token.
-4. reference — on a small model, decode logits with the kernels on the
-             card agree with the plain versions on the CPU.
+4. continuous — the continuous serving path: the same model behind
+             ``custom=serve:continuous,slots:8,block_size:16,prefill_chunk:32,
+             stream_chunk:8``, eight prompts of 32..700 token ids, four
+             pushed first and four more once each of those has a token (late
+             joiners), 64 tokens each.  Counters are zeroed after the loop's
+             warm-up and read after the loop drained: paged attention 32
+             launches per decode step, flash 32 per prefill chunk, int4 129
+             per step or chunk (the loop counts its steps and chunks); every
+             stream complete and in order, the block pool entirely free.
+             Then, outside the counted run, every token of two streams
+             (one of the first wave, one late joiner) is held against
+             ``llama.forward_paged`` driven step by step on the card.
+5. reference — on a small model, logits with the kernels on the card
+             agree with the plain versions on the CPU: cached prefill and
+             decode, and the paged path (chunked prefill, then decode with
+             a parked row).
 
 Prints the card's name and power limit (nvidia-smi), a ``{"kernels": ...}``
 JSON line, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -75,6 +89,39 @@ MAX_NEW = 64
 INT4_TOL = 2e-2   # max |kernel - plain| / max |plain|, bf16 activations
 FLASH_TOL = 3e-2  # max |kernel - plain|, bf16 q/k/v drawn from N(0, 1)
 REF_TOL = 2e-3    # f32 logits, kernels on the card vs plain on the CPU
+#: paged, per live row: max |kernel - plain| / max |plain| over the row,
+#: bf16 q/pools from N(0, 1); and the same on f32 inputs, where a dropped
+#: or misread block of even the 4096-position row shows
+PAGED_TOL = 2e-2
+PAGED_TOL_F32 = 1e-4
+PAGED_BS = 16
+#: paged shapes (name, B, H, Hkv, D, context lengths, table width): the
+#: continuous path's llama2_7b decode step (8 slots, mixed lengths), the
+#: same with grouped K/V, head dim 64, and one row at 4096 positions
+PAGED_LENS = (0, 1, 33, 100, 257, 512, 700, 1000)
+PAGED_SHAPES = [
+    ("7b", 8, 32, 32, 128, PAGED_LENS, 64),
+    ("7b_kv8", 8, 32, 8, 128, PAGED_LENS, 64),
+    ("d64", 8, 32, 32, 64, PAGED_LENS, 64),
+    ("long", 1, 32, 32, 128, (4096,), 256),
+]
+PAGED_POOL_BLOCKS = 512
+#: continuous phase: first wave, then the late joiners (token ids each)
+CONT_WAVES = ((32, 200, 450, 700), (64, 128, 300, 600))
+CONT_DESC = ("appsrc name=src ! tensor_filter name=llm framework=llm "
+             "model=llama2_7b custom=quant:int4,param_dtype:bfloat16,"
+             f"max_seq:1024,max_new:{MAX_NEW},serve:continuous,slots:8,"
+             "block_size:16,prefill_chunk:32,stream_chunk:8 "
+             "invoke-dynamic=true ! tensor_sink name=out")
+#: continuous streams whose every token is held against forward_paged
+#: driven outside the loop: the first of the first wave, the first joiner
+CONT_CHECKED = (0, len(CONT_WAVES[0]))
+#: a near tie there: top-1/top-2 gap under this share of the row's max
+#: |logit|.  The replay runs the loop's own arithmetic at the loop's
+#: shapes (a row's result does not depend on the other rows), so only a
+#: gap at rounding level counts as a tie
+CONT_TIE = 1e-4
+N_LAYERS = 32
 
 
 def check(cond, msg):
@@ -208,7 +255,102 @@ def phase_kernels(dev, bw, peak, flush):
                                                        attn_mask=mask), flush),
             bound_ms=max(nbytes / bw, ops / peak) * 1e3,
             bound_by="bytes" if nbytes / bw >= ops / peak else "operations"))
+
+    for (name, b, h, hkv, d, lens, max_blocks) in PAGED_SHAPES:
+        rows.append(paged_row(dev, gen, bw, peak, flush, name, b, h, hkv, d,
+                              lens, max_blocks))
     return rows
+
+
+def paged_row(dev, gen, bw, peak, flush, name, b, h, hkv, d, lens, max_blocks):
+    """The paged kernel against its plain version at one shape: blocks
+    scattered through a 512-block pool, sentinel entries past each row."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    from nnstreamer_tpu_torch.ops import attention
+
+    nbk = PAGED_POOL_BLOCKS
+    bs = PAGED_BS
+    bf = torch.bfloat16
+    q = torch.randn((b, 1, h, d), generator=gen, device=dev, dtype=bf)
+    kp = torch.randn((nbk, bs, hkv, d), generator=gen, device=dev, dtype=bf)
+    vp = torch.randn((nbk, bs, hkv, d), generator=gen, device=dev, dtype=bf)
+    perm = torch.randperm(nbk, generator=torch.Generator().manual_seed(len(lens)))
+    tables = torch.full((b, max_blocks), nbk, dtype=torch.int32)
+    used = 0
+    for r, n in enumerate(lens):
+        need = math.ceil(n / bs)
+        tables[r, :need] = perm[used:used + need]
+        used += need
+    tables = tables.to(dev)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    live = lens_t > 0
+
+    def row_errs(got, want):
+        """(max abs error, max over live rows of the row's max abs error
+        over the row's max |want|)."""
+        diff = (got.float() - want.float()).abs().flatten(1).amax(1)[live]
+        scale = want.float().abs().flatten(1).amax(1)[live]
+        return diff.max().item(), (diff / scale).max().item()
+
+    got = attention.paged_attention(q, kp, vp, tables, lens_t)
+    plain = attention.paged_attention_reference(q, kp, vp, tables, lens_t)
+    qf, kf, vf = q.float(), kp.float(), vp.float()
+    f32 = attention.paged_attention_reference(qf, kf, vf, tables, lens_t)
+    got_f32in = attention.paged_attention(qf, kf, vf, tables, lens_t)
+    torch.cuda.synchronize()
+    err, rel = row_errs(got, plain)
+    err32, rel32 = row_errs(got, f32)
+    err_f32in, rel_f32in = row_errs(got_f32in, f32)
+    del kf, vf
+    check(rel <= PAGED_TOL, f"paged {name}: row error {rel} of the row's scale")
+    check(rel32 <= PAGED_TOL, f"paged {name}: f32 row error {rel32}")
+    check(rel_f32in <= PAGED_TOL_F32,
+          f"paged {name}: f32-input row error {rel_f32in}")
+    check(bool((got[~live] == 0).all()) and bool((got_f32in[~live] == 0).all()),
+          f"paged {name}: context-0 rows not zero")
+    # library yardstick: SDPA over K/V already gathered from the pool and
+    # padded to [B, H, Lmax, D], with a key-length mask; the gather is
+    # timed on its own
+    lmax = max(lens)
+    nb_max = math.ceil(lmax / bs)
+    idx = tables[:, :nb_max].long().clamp(max=nbk - 1)
+
+    def gather():
+        k = kp[idx].reshape(b, -1, hkv, d)[:, :lmax]
+        v = vp[idx].reshape(b, -1, hkv, d)[:, :lmax]
+        return (k.repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous(),
+                v.repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous())
+
+    kt, vt = gather()
+    qt = q.transpose(1, 2).contiguous()
+    mask = (torch.arange(lmax, device=dev)[None, :] < lens_t[:, None])[:, None, None, :]
+    lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    lib_err = (lib.transpose(1, 2).float() - f32)[live].abs().max().item()
+    # what the function must move: the live positions' K and V rows, q and
+    # out, the lengths and the live table entries
+    nbytes = (sum(lens) * hkv * d * 2 * 2 + 2 * q.numel() * 2 + 4 * b
+              + 4 * sum(math.ceil(n / bs) for n in lens))
+    ops = 4.0 * h * d * sum(lens)
+    gather_ms, _ = timed_ms(gather, flush)
+    return dict(
+        kernel="paged_attention", shape=dict(name=name, B=b, H=h, Hkv=hkv, D=d,
+                                             lens=list(lens), bs=bs,
+                                             max_blocks=max_blocks),
+        max_abs_err=err, max_row_err=rel, max_abs_err_vs_f32=err32,
+        max_row_err_vs_f32=rel32, max_abs_err_f32_inputs=err_f32in,
+        max_row_err_f32_inputs=rel_f32in, library_err_vs_f32=lib_err,
+        **timings(
+            lambda: attention.paged_attention(q, kp, vp, tables, lens_t),
+            lambda: attention.paged_attention_reference(q, kp, vp, tables, lens_t),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
+            flush),
+        library_gather_ms=gather_ms,
+        bound_ms=max(nbytes / bw, ops / peak) * 1e3,
+        bound_by="bytes" if nbytes / bw >= ops / peak else "operations")
 
 
 def profile_request(run, prompt):
@@ -252,7 +394,6 @@ def phase_serve(dev, profile=False):
     gen = torch.Generator().manual_seed(1)
     prompts = [torch.randint(3, 32000, (n,), generator=gen).to(torch.int32).numpy()
                for n in PROMPT_LENS]
-    n_layers = 32
     requests = []
 
     def run(prompt):
@@ -298,8 +439,8 @@ def phase_serve(dev, profile=False):
     for r in requests:
         bucket = min(_next_bucket(r["prompt_len"]), 1023)
         want_int4 = 129 * (MAX_NEW - 1) + (129 if bucket <= 32 else 0)
-        check(r["flash_launches"] == n_layers,
-              f"flash launches {r['flash_launches']} != {n_layers} per request")
+        check(r["flash_launches"] == N_LAYERS,
+              f"flash launches {r['flash_launches']} != {N_LAYERS} per request")
         check(r["int4_launches"] == want_int4,
               f"int4 launches {r['int4_launches']} != {want_int4}")
         r["prefill_rows"] = bucket
@@ -310,17 +451,241 @@ def phase_serve(dev, profile=False):
                 peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
 
 
+def replay_stream(fw, loop, prompt, ids, dev):
+    """Hold a greedy stream the loop served against ``llama.forward_paged``
+    driven step by step outside the loop, on the card, at the loop's
+    shapes: the prompt in chunks of ``prefill_chunk`` on one row, then
+    decode steps over every slot with the stream in row 0 and the other
+    rows parked, teacher-forced on the stream's own tokens.  Every token
+    must be the argmax of its step's logits, or within a near tie of it.
+    Returns the counts: tokens compared, equal to the argmax, near ties,
+    the least top-1/top-2 gap and the largest |logit|."""
+    import numpy as np
+    import torch
+
+    from nnstreamer_tpu_torch.models import llama
+
+    cfg, params, C, bs, B = fw.cfg, fw.bundle.params, fw.prefill_chunk, \
+        fw.block_size, fw.slots
+    T = len(prompt)
+    P = -(-T // C) * C
+    n_blocks = -(-(P + len(ids)) // bs)
+    pool = llama.init_paged_cache(cfg, n_blocks, bs, dtype=fw.dtype, device=dev)
+    tables = torch.full((B, loop.max_blocks), n_blocks, dtype=torch.int32)
+    tables[0, :n_blocks] = torch.arange(n_blocks, dtype=torch.int32)
+    tables = tables.to(dev)
+    toks = np.zeros((1, P), np.int32)
+    toks[0, :T] = prompt
+    rows = []
+    with torch.inference_mode():
+        for p in range(0, P, C):
+            logits, pool = llama.forward_paged(
+                params, torch.from_numpy(toks[:, p:p + C]).to(dev), pool,
+                tables[:1], np.asarray([p], np.int64), cfg, fw.dtype,
+                logit_off=T - 1 - p if p + C >= P else 0)
+        rows.append(logits[0, -1].float().cpu())
+        pos = np.full((B,), loop.park, np.int64)
+        for i, t in enumerate(ids[:-1]):
+            pos[0] = T + i
+            x = torch.zeros((B, 1), dtype=torch.int32)
+            x[0, 0] = t
+            logits, pool = llama.forward_paged(
+                params, x.to(dev), pool, tables, torch.from_numpy(pos).to(dev),
+                cfg, fw.dtype)
+            rows.append(logits[0, -1].float().cpu())
+    near, least, equal, scale = 0, float("inf"), 0, 0.0
+    for i, (row, g) in enumerate(zip(rows, ids)):
+        top2 = row.topk(2).values
+        gap = (top2[0] - top2[1]).item()
+        least = min(least, gap)
+        scale = max(scale, row.abs().max().item())
+        equal += int(g == int(row.argmax()))
+        tie = CONT_TIE * row.abs().max().item()
+        if gap < tie:
+            near += 1
+            check(row[g].item() >= top2[0].item() - 2 * tie,
+                  f"continuous token {i}: {g} is not one of the near-tied ones")
+        else:
+            check(g == int(row.argmax()),
+                  f"continuous token {i}: {g}, forward_paged chooses "
+                  f"{int(row.argmax())}")
+    return dict(tokens_compared=len(ids), equal_to_argmax=equal,
+                near_ties=near, least_top2_gap=least, max_abs_logit=scale)
+
+
+def phase_continuous(dev):
+    """The continuous serving path at llama2_7b int4, with late joiners."""
+    import math
+
+    import numpy as np
+    import torch
+
+    import nnstreamer_tpu_torch as ntt
+    from nnstreamer_tpu_torch.ops import attention, int4_matmul as i4
+
+    counters = {"paged_attention": attention.PAGED_LAUNCHES,
+                "flash_attention": attention.LAUNCHES,
+                "matmul_int4": i4.LAUNCHES}
+    t0 = time.perf_counter()
+    pipe = ntt.Pipeline(CONT_DESC)
+    setup_s = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(2)
+    lens = [n for wave in CONT_WAVES for n in wave]
+    prompts = [torch.randint(3, 32000, (n,), generator=gen).to(torch.int32).numpy()
+               for n in lens]
+    n_streams = len(prompts)
+    got = {i: [] for i in range(n_streams)}
+    arrived = {i: [] for i in range(n_streams)}
+    pushed = {}
+
+    def push(i):
+        pushed[i] = time.perf_counter()
+        pipe.push("src", ntt.Buffer([prompts[i]], meta={"req": i}))
+
+    def pull_one():
+        buf = pipe.pull("out", timeout=600)
+        r = buf.meta["req"]
+        got[r].append(buf)
+        arrived[r].append(time.perf_counter())
+
+    with pipe:
+        t0 = time.perf_counter()
+        loop = pipe.element("llm").fw.serve_loop()
+        warmup_s = time.perf_counter() - t0
+        for c in counters.values():
+            c.reset()
+        torch.cuda.reset_peak_memory_stats(dev)
+        first = len(CONT_WAVES[0])
+        t_start = time.perf_counter()
+        for i in range(first):
+            push(i)
+        while any(not got[i] for i in range(first)):
+            pull_one()
+        for i in range(first, n_streams):
+            push(i)
+        while sum(len(v) for v in got.values()) < n_streams * MAX_NEW:
+            pull_one()
+        t_end = time.perf_counter()
+        pipe.eos("src")
+        pipe.wait(timeout=120)  # the loop has drained: nothing in flight
+        launches = {k: c.value for k, c in counters.items()}
+        stats = dict(loop.stats)
+        free_ok = sorted(loop._free) == list(range(loop.n_blocks))
+        tables_ok = bool((loop._tables == loop.sentinel).all())
+        parked_ok = bool((loop._pos == loop.park).all())
+        n_blocks = loop.n_blocks
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        # outside the counted run: served tokens against forward_paged
+        replayed = {}
+        for i in CONT_CHECKED:
+            check(len(got[i]) == MAX_NEW, f"stream {i}: {len(got[i])} tokens")
+            replayed[i] = dict(prompt_len=lens[i], **replay_stream(
+                pipe.element("llm").fw, loop, prompts[i],
+                [int(b.tensors[0][0]) for b in got[i]], dev))
+    streams = []
+    for i in range(n_streams):
+        bufs = got[i]
+        check(len(bufs) == MAX_NEW, f"stream {i}: {len(bufs)} tokens")
+        for j, buf in enumerate(bufs):
+            ids = buf.tensors[0]
+            check(ids.dtype == np.int32 and ids.shape == (1,)
+                  and 0 <= int(ids[0]) < 32000, f"bad token buffer {ids!r}")
+            check(buf.meta.get("stream_index") == j,
+                  f"stream {i}: stream_index out of order")
+            check(bool(buf.meta.get("stream_last")) == (j == MAX_NEW - 1),
+                  f"stream {i}: stream_last misplaced")
+            check(not buf.meta.get("stream_aborted"), f"stream {i} aborted")
+        emit = [b.meta["emit_t"] for b in bufs]
+        streams.append(dict(
+            prompt_len=lens[i], late_joiner=i >= first,
+            ttft_ms=(arrived[i][0] - pushed[i]) * 1e3,
+            decode_tok_s=(MAX_NEW - 1) / (emit[-1] - emit[0]),
+            tokens=[int(b.tensors[0][0]) for b in bufs[:8]]))
+    check(free_ok and tables_ok and parked_ok,
+          f"pool not free after the drain: free list {free_ok}, tables "
+          f"{tables_ok}, positions {parked_ok}")
+    steps, chunks = stats["decode_steps"], stats["prefill_chunks"]
+    want_chunks = sum(math.ceil(n / 32) for n in lens)
+    check(chunks == want_chunks, f"prefill chunks {chunks} != {want_chunks}")
+    check(launches["paged_attention"] == N_LAYERS * steps,
+          f"paged launches {launches['paged_attention']} != 32 x {steps} steps")
+    check(launches["flash_attention"] == N_LAYERS * chunks,
+          f"flash launches {launches['flash_attention']} != 32 x {chunks} chunks")
+    check(launches["matmul_int4"] == 129 * (steps + chunks),
+          f"int4 launches {launches['matmul_int4']} != 129 x {steps + chunks}")
+    return dict(setup_s=setup_s, warmup_s=warmup_s, streams=streams,
+                window_s=t_end - t_start,
+                aggregate_tok_s=n_streams * MAX_NEW / (t_end - t_start),
+                decode_steps=steps, prefill_chunks=chunks, launches=launches,
+                n_blocks=n_blocks, peak_mem_gb=peak_gb, replayed=replayed)
+
+
+def params_to(params, dev):
+    """A copy of a llama parameter tree (one nested level) on ``dev``."""
+    return {k: ({kk: vv.to(dev) for kk, vv in v.items()} if isinstance(v, dict)
+                else v.to(dev)) for k, v in params.items()}
+
+
+def phase_reference_paged(dev):
+    """llama_small int4 f32 through forward_paged: kernels on the card
+    against plain versions on the CPU, same params, non-contiguous tables.
+    Row 0 prefills 40 tokens in chunks of 16 (padded to 48), then rows 0
+    and 1 decode 5 steps with row 1 parked."""
+    import numpy as np
+    import torch
+
+    from nnstreamer_tpu_torch.models import llama
+
+    cfg = llama.PRESETS["llama_small"]
+    cpu = llama.init_params(cfg, seed=5, quant="int4", device="cpu")
+    card = params_to(cpu, dev)
+    bs, n_blocks, max_blocks, T, C = 16, 16, 8, 40, 16
+    tables = torch.full((2, max_blocks), n_blocks, dtype=torch.int32)
+    tables[0, :3] = torch.tensor([11, 3, 14])
+    sides = [(cpu, llama.init_paged_cache(cfg, n_blocks, bs, "float32", device="cpu"),
+              tables, "cpu"),
+             (card, llama.init_paged_cache(cfg, n_blocks, bs, "float32", device=dev),
+              tables.to(dev), dev)]
+    prompt = np.zeros((1, 48), np.int32)
+    prompt[0, :T] = torch.randint(3, cfg.vocab, (T,),
+                                  generator=torch.Generator().manual_seed(6)).numpy()
+    worst = 0.0
+
+    def step(toks, pos, rows, logit_off=None):
+        nonlocal worst
+        outs = []
+        for params, pool, tbl, d in sides:
+            logits, _ = llama.forward_paged(
+                params, torch.from_numpy(toks).to(d), pool, tbl[:rows],
+                np.asarray(pos, np.int64), cfg, "float32", logit_off=logit_off)
+            outs.append(logits[0, -1].float().cpu())
+        err = (outs[0] - outs[1]).abs().max().item()
+        worst = max(worst, err)
+        check(bool(torch.isfinite(outs[1]).all()), "non-finite paged logits")
+        check(err <= REF_TOL * max(1.0, outs[0].abs().max().item()),
+              f"paged reference at {pos}: logits differ by {err}")
+        return int(outs[0].argmax())
+
+    for p in range(0, 48, C):
+        tok = step(prompt[:, p:p + C], [p], 1,
+                   logit_off=T - 1 - p if p + C >= 48 else C - 1)
+    for i in range(5):
+        tok = step(np.asarray([[tok], [tok]], np.int32),
+                   [T + i, max_blocks * bs], 2)
+    return dict(model="llama_small int4 f32, paged", prefill_chunks=3,
+                decode_steps=5, max_abs_logit_err=worst)
+
+
 def phase_reference(dev):
     import torch
 
     from nnstreamer_tpu_torch.models import llama
 
     cfg = llama.PRESETS["llama_small"]  # head dim 64, grouped K/V
-    cpu = llama.init_params(cfg, seed=3, quant="int4")
-    card = {k: ({kk: vv.to(dev) for kk, vv in v.items()} if isinstance(v, dict)
-                else v.to(dev)) for k, v in cpu.items()}
+    cpu = llama.init_params(cfg, seed=3, quant="int4", device="cpu")
+    card = params_to(cpu, dev)
     prompt = torch.randint(3, cfg.vocab, (1, 40), generator=torch.Generator().manual_seed(4))
-    caches = [llama.init_cache(cfg, 1, "float32", d) for d in ("cpu", dev)]
+    caches = [llama.init_cache(cfg, 1, "float32", device=d) for d in ("cpu", dev)]
     worst = 0.0
     tok = None
     for step in range(5):
@@ -386,19 +751,40 @@ def main():
               f"flash x{r['flash_launches']}, int4 x{r['int4_launches']}",
               flush=True)
     torch.cuda.empty_cache()
+    cont = phase_continuous(dev)
+    for r in cont["streams"]:
+        print(f"continuous: prompt {r['prompt_len']}"
+              f"{' (late)' if r['late_joiner'] else ''} ttft at sink "
+              f"{r['ttft_ms']:.1f} ms, decode {r['decode_tok_s']:.2f} tok/s",
+              flush=True)
+    print(f"continuous: {cont['aggregate_tok_s']:.2f} tok/s over "
+          f"{cont['window_s']:.2f} s, {cont['decode_steps']} decode steps, "
+          f"{cont['prefill_chunks']} prefill chunks, launches {cont['launches']}, "
+          f"peak {cont['peak_mem_gb']:.2f} GB, warm-up {cont['warmup_s']:.1f} s",
+          flush=True)
+    print(f"continuous: tokens against forward_paged {cont['replayed']}", flush=True)
+    torch.cuda.empty_cache()
     ref = phase_reference(dev)
     print(f"reference: {ref}", flush=True)
+    ref_paged = phase_reference_paged(dev)
+    print(f"reference: {ref_paged}", flush=True)
 
     # one line per kernel: int4 per decoded token (129 launches at B=1),
-    # flash per request at the 1023-row prompt bucket (32 launches)
+    # flash per request at the 1023-row prompt bucket (32 launches), paged
+    # per continuous decode step at the 7B 8-slot shape (32 launches);
+    # launches are the static serve phase's plus the continuous phase's
     tok = [r for r in rows if r["kernel"] == "matmul_int4" and r["B"] == 1]
     fl = [r for r in rows if r["kernel"] == "flash_attention"
           and r["shape"]["Sq"] == 1023][0]
+    pg = [r for r in rows if r["kernel"] == "paged_attention"
+          and r["shape"]["name"] == "7b"][0]
+    both = {k: serve["launches"][k] + cont["launches"][k]
+            for k in serve["launches"]}
     summary = [
         dict(name="matmul_int4", route="cuda",
              source="nnstreamer_tpu_torch/csrc/int4_matmul.cu",
              replaces="nnstreamer_tpu/ops/int4_matmul.py:193",
-             launches=serve["launches"]["matmul_int4"],
+             launches=both["matmul_int4"],
              max_abs_err=max(r["max_abs_err"] for r in rows
                              if r["kernel"] == "matmul_int4"),
              **{k: sum(r[k] * r["per_token"] for r in tok)
@@ -407,15 +793,25 @@ def main():
         dict(name="flash_attention", route="cuda",
              source="nnstreamer_tpu_torch/csrc/flash_attention.cu",
              replaces="nnstreamer_tpu/ops/attention.py:210",
-             launches=serve["launches"]["flash_attention"],
+             launches=both["flash_attention"],
              max_abs_err=max(r["max_abs_err"] for r in rows
                              if r["kernel"] == "flash_attention"),
              **{k: 32 * fl[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
              bound_by=fl["bound_by"]),
+        dict(name="paged_attention", route="cuda",
+             source="nnstreamer_tpu_torch/csrc/paged_attention.cu",
+             replaces="nnstreamer_tpu/ops/attention.py:429",
+             launches=cont["launches"]["paged_attention"],
+             max_abs_err=max(r["max_abs_err"] for r in rows
+                             if r["kernel"] == "paged_attention"),
+             **{k: N_LAYERS * pg[k] for k in ("ms", "plain_ms", "bound_ms",
+                                              "library_ms")},
+             bound_by=pg["bound_by"]),
     ]
     detail = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                   rates=dict(bytes_per_s=bw, bf16_flops=peak), build_s=build_s,
-                  kernels=rows, serve=serve, reference=ref, summary=summary)
+                  kernels=rows, serve=serve, continuous=cont,
+                  reference=[ref, ref_paged], summary=summary)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump(detail, fh, indent=1)
     print(card)

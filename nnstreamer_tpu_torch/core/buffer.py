@@ -86,6 +86,16 @@ class Buffer:
         return self.with_tensors(arrs)
 
 
+def upload(x, device) -> torch.Tensor:
+    """A host array (or tensor) as a fresh tensor on ``device``: one small
+    copy, staged through pinned memory so that it does not wait for the
+    card."""
+    t = torch.as_tensor(np.ascontiguousarray(x) if isinstance(x, np.ndarray) else x)
+    if torch.device(device).type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device, copy=True)
+
+
 def stack_tensors(rows: Sequence[Sequence[Any]], pad_to: Optional[int] = None):
     """Stack per-buffer tensor rows (all the same signature) on a new
     leading axis -> a tuple of ``[B, ...]`` tensors; ``pad_to`` repeats the

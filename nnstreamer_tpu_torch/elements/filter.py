@@ -6,11 +6,14 @@ Port of ``nnstreamer_tpu/elements/filter.py`` (reference:
 input/output specs from the framework, per-invoke latency, and
 ``invoke-dynamic`` flexible output.  A streaming framework (the llm
 filter) emits one buffer per generated token, marked with
-``stream_index`` and, on the last one, ``stream_last``.
+``stream_index`` and, on the last one, ``stream_last``.  A continuous-
+serving framework (``serve:continuous``) takes each input into its
+standing loop and emits the tokens from the loop's thread (async emit).
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Dict, Optional
 
@@ -58,6 +61,9 @@ class TensorFilter(Element):
     latency)."""
 
     kind = "tensor_filter"
+    #: set at negotiation for a continuous-serving framework: the runner
+    #: then injects ``_async_emit``
+    wants_async_emit = False
 
     def __init__(self, props=None, name=None):
         super().__init__(props, name)
@@ -65,6 +71,7 @@ class TensorFilter(Element):
         self.invoke_dynamic = bool(self.props.get("invoke_dynamic", False))
         self.latency_report = bool(self.props.get("latency", get_config().enable_latency))
         self._out_spec: Optional[TensorsSpec] = None
+        self._async_emit = None
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> None:
@@ -84,6 +91,8 @@ class TensorFilter(Element):
     def configure(self, in_caps, out_pads):
         self.in_caps = dict(in_caps)
         fw = self._ensure_fw()
+        if getattr(fw, "continuous", False):
+            self.wants_async_emit = True
         fw_in, fw_out = fw.get_model_info()
         src = next(iter(in_caps.values()), Caps.any())
         up_spec = src.spec
@@ -108,6 +117,12 @@ class TensorFilter(Element):
     # -- streaming ---------------------------------------------------------
     def process(self, pad, buf: Buffer):
         fw = self._ensure_fw()
+        if getattr(fw, "continuous", False):
+            # the standing serve loop takes the request (its meta rides
+            # along) and emits one buffer per token from its own thread
+            fw.submit(list(buf.tensors), dict(buf.meta),
+                      functools.partial(self._emit_serve_token, buf))
+            return []
         if fw.streaming:
             return self._stream(fw, buf)
         t0 = time.perf_counter()
@@ -131,6 +146,26 @@ class TensorFilter(Element):
             prev.meta[META_STREAM_LAST] = True
             yield (SRC, prev)
         self._record(time.perf_counter() - t0)
+
+    def _emit_serve_token(self, src_buf: Buffer, tensors, meta) -> None:
+        """Serve-thread callback: one generated token -> one buffer derived
+        from the originating one (pts survives); the loop's meta wins."""
+        emit = self._async_emit
+        if emit is None:
+            raise ElementError(f"{self.name}: not attached to a pipeline")
+        out = src_buf.with_tensors(list(tensors), spec=None)
+        out.meta = dict(meta)
+        emit([(SRC, out)])
+
+    def finalize(self):
+        fw = self.fw
+        if fw is not None and getattr(fw, "continuous", False):
+            # EOS reached the element: every admitted stream finishes (and
+            # emits its stream_last) before EOS goes downstream
+            if not fw.drain(timeout=600):
+                raise ElementError(
+                    f"{self.name}: continuous serve loop failed to drain")
+        return []
 
     def _record(self, dt: float) -> None:
         if self.latency_report:

@@ -1,8 +1,9 @@
 """LLM token-streaming framework for tensor_filter.
 
-Port of the static stream path of ``nnstreamer_tpu/filters/llm.py``
-(reference analog: the llama.cpp sub-plugin — prompt in, generated
-tokens streamed out as flexible tensors):
+Port of the static stream path and the continuous serving loop of
+``nnstreamer_tpu/filters/llm.py`` (reference analog: the llama.cpp
+sub-plugin — prompt in, generated tokens streamed out as flexible
+tensors).  The static path (``serve`` unset):
 
 * one prefill over the (bucketed) prompt, then decode one token per
   step against a KV cache that stays on the device;
@@ -12,6 +13,10 @@ tokens streamed out as flexible tensors):
 * ``llm.prefill`` (prompt in to first token on the host) and
   ``llm.decode_token`` (burst time per token) are recorded as latency
   series in :data:`~..core.log.metrics`.
+
+``custom=serve:continuous`` runs :class:`_ContinuousLoop` instead: a
+standing decode loop over a block-paged KV pool that several requests
+share, each admitted into a free slot while the others decode.
 
 Pipeline usage::
 
@@ -26,19 +31,29 @@ unless the element sets ``accelerator=true:cpu``.
 
 from __future__ import annotations
 
+import itertools
+import math
+import queue
+import threading
 import time
 from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..core.buffer import upload
 from ..core.config import get_config
-from ..core.log import metrics
+from ..core.log import logger, metrics
+from ..core.meta_keys import (META_ABORT_REASON, META_EMIT_T,
+                              META_STREAM_ABORTED, META_STREAM_ID,
+                              META_STREAM_INDEX, META_STREAM_LAST)
 from ..core.registry import register_filter
 from ..core.types import TensorFormat, TensorsSpec
 from ..models import llama
 from ..models.zoo import build as build_model
 from .base import Framework, FrameworkError, parse_custom_options, resolve_device
+
+log = logger(__name__)
 
 
 def _next_bucket(t: int) -> int:
@@ -70,7 +85,42 @@ class ByteTokenizer:
 
 #: custom= options of the JAX package's llm filter whose paths this port
 #: does not carry yet; asking for one raises instead of serving another path
-_NOT_PORTED = ("serve", "draft", "tp", "tokenizer")
+_NOT_PORTED = ("draft", "spec_k", "draft_seed", "tp", "tokenizer",
+               "stream_idle_timeout")
+#: switches of the continuous loop that turn on a path not ported yet:
+#: only their off value is taken (the JAX package's prefix_cache defaults
+#: to on; here it is off)
+_OFF_ONLY = ("prefix_cache", "nan_guard")
+
+_stream_ids = itertools.count(1)
+
+
+def next_stream_id() -> int:
+    """Process-unique continuous-serving stream id, minted at submit."""
+    return next(_stream_ids)
+
+
+def serving_plan(cfg, *, slots: int, block_size: int = 16,
+                 kv_blocks: int = 0, prefill_chunk: int = 32) -> Dict[str, int]:
+    """Static sizing of the paged-KV serving state, without building
+    anything (the JAX package's ``serving_plan``, same integers, cut to
+    the two the loop reads):
+
+    * ``max_blocks`` — block-table width per slot.  Prefill pads prompts
+      to ``prefill_chunk`` multiples, so the table spans the largest
+      padded prompt's final chunk, not just ``max_seq``; the extra
+      entries stay sentinel.
+    * ``n_blocks`` — pool size.  ``kv_blocks`` 0 = worst case
+      (``slots * ceil(max_seq / block_size)``: admission never defers on
+      blocks); larger is clamped to it.
+    """
+    bs = max(1, int(block_size))
+    C = max(1, int(prefill_chunk))
+    pad_max = math.ceil((cfg.max_seq - 1) / C) * C
+    max_blocks = math.ceil(max(cfg.max_seq, pad_max) / bs)
+    worst = int(slots) * math.ceil(cfg.max_seq / bs)
+    n_blocks = min(int(kv_blocks), worst) if kv_blocks else worst
+    return {"max_blocks": max_blocks, "n_blocks": n_blocks}
 
 
 @register_filter("llm", aliases=("llamacpp", "llama.cpp"))
@@ -85,9 +135,21 @@ class LLMFramework(Framework):
     through the CUDA kernel of ``csrc/int4_matmul.cu``),
     ``dtype:bfloat16|float32`` (compute), ``param_dtype:...`` (weights),
     plus model geometry overrides (``dim:…``, ``n_layers:…``,
-    ``max_seq:…``) forwarded to the zoo.  ``serve:continuous``, ``draft:``,
-    ``tp:``, ``tokenizer:`` and ``quant:int8`` are not ported yet and
-    raise.
+    ``max_seq:…``) forwarded to the zoo.
+
+    ``serve:continuous`` + ``slots:N`` (default 4) runs the standing
+    decode loop (:class:`_ContinuousLoop`) with ``block_size:N`` (KV pool
+    granularity, default 16), ``kv_blocks:N`` (pool size in blocks,
+    default 0 = worst case), ``prefill_chunk:N`` (tokens per prefill
+    step, default 32), ``prefill_budget:N`` (prefill tokens per loop
+    iteration while streams decode, default one chunk) and
+    ``admit_timeout:S`` (seconds a prompt may wait at the head of the
+    queue, default 30, 0 = forever); ``stream_chunk`` is then the decode
+    steps per host sync.
+
+    Not ported yet, and raising: ``draft:`` (speculative decoding),
+    ``prefix_cache:1``, ``nan_guard:1``, ``stream_idle_timeout:``,
+    ``tp:``, ``tokenizer:``, ``quant:int8``.
     """
 
     name = "llm"
@@ -99,6 +161,9 @@ class LLMFramework(Framework):
         self.cfg: Optional[llama.LlamaConfig] = None
         self.tokenizer = ByteTokenizer()
         self.device = torch.device("cpu")
+        self.continuous = False
+        self._serve: Optional[_ContinuousLoop] = None
+        self._serve_lock = threading.Lock()
 
     def open(self, props: Dict[str, object]) -> None:
         super().open(props)
@@ -108,7 +173,24 @@ class LLMFramework(Framework):
             if key in opts:
                 raise FrameworkError(
                     f"custom={key}:{opts[key]} is not yet ported to "
-                    "nnstreamer_tpu_torch (static stream path only)")
+                    "nnstreamer_tpu_torch")
+        for key in _OFF_ONLY:
+            if str(opts.pop(key, "0")).lower() not in ("0", "false", "no"):
+                raise FrameworkError(
+                    f"custom={key}:1 is not yet ported to "
+                    "nnstreamer_tpu_torch")
+        serve = str(opts.pop("serve", "")).lower()
+        if serve not in ("", "continuous"):
+            raise FrameworkError(f"custom=serve:{serve}: unknown serve mode "
+                                 "(continuous)")
+        self.continuous = serve == "continuous"
+        self.slots = max(1, int(opts.pop("slots", 4)))
+        self.block_size = max(1, int(opts.pop("block_size", 16)))
+        self.kv_blocks = max(0, int(opts.pop("kv_blocks", 0)))
+        self.prefill_chunk = max(1, int(opts.pop("prefill_chunk", 32)))
+        self.prefill_budget = max(
+            1, int(opts.pop("prefill_budget", self.prefill_chunk)))
+        self.admit_timeout = max(0.0, float(opts.pop("admit_timeout", 30.0)))
         quant = str(opts.get("quant", "")).lower()
         if quant not in ("", "int4"):
             raise FrameworkError(
@@ -125,7 +207,7 @@ class LLMFramework(Framework):
         self.chunk = max(1, int(opts.pop("stream_chunk", 8)))
         self.dtype = opts.get("dtype", "bfloat16")
         try:
-            self.bundle = build_model(model, opts, self.device)
+            self.bundle = build_model(model, opts, device=self.device)
         except KeyError as e:
             raise FrameworkError(str(e)) from e
         self.cfg = self.bundle.config
@@ -135,7 +217,45 @@ class LLMFramework(Framework):
                 "a decoder-LM bundle (models/llama.py)")
 
     def close(self) -> None:
+        if self._serve is not None:
+            self._serve.shutdown()
+            self._serve = None
         self.bundle = None
+
+    # -- continuous serving ------------------------------------------------
+    def _loop(self) -> "_ContinuousLoop":
+        if not self.continuous:
+            raise FrameworkError("not a serve:continuous filter")
+        with self._serve_lock:
+            if self._serve is None:
+                self._serve = _ContinuousLoop(self)
+            return self._serve
+
+    def serve_loop(self, timeout: float = 600.0) -> "_ContinuousLoop":
+        """Start the continuous loop if it is not running and wait until
+        its warm-up has run; returns the loop, whose ``stats`` count the
+        decode steps and prefill chunks dispatched since warm-up."""
+        loop = self._loop()
+        if not loop.warmed.wait(timeout):
+            raise FrameworkError(f"serve loop warm-up took over {timeout} s")
+        loop.check()
+        return loop
+
+    def submit(self, inputs: Sequence, meta: Dict, emit) -> int:
+        """Queue one prompt into the standing decode loop.  ``emit(tensors,
+        meta)`` is called from the serve thread once per generated token
+        with the request's meta plus stream_id/stream_index/emit_t (and
+        stream_last on the final one).  Returns the minted stream id."""
+        prompt = self._to_tokens(inputs[0])
+        if prompt.shape[0] != 1:
+            raise FrameworkError(
+                f"serve:continuous takes one prompt per request, got "
+                f"{prompt.shape[0]} rows")
+        return self._loop().submit(prompt, meta, emit)
+
+    def drain(self, timeout: float = 600.0) -> bool:
+        """Block until every submitted stream has finished (EOS path)."""
+        return self._serve is None or self._serve.drain(timeout)
 
     def get_model_info(self):
         flex_in = TensorsSpec.from_string("1", "uint8").replace(
@@ -235,3 +355,383 @@ class LLMFramework(Framework):
         ids = np.stack(chunks, axis=1)
         text = b"".join(self.tokenizer.decode_piece(int(t)) for t in ids[0])
         return [ids, np.frombuffer(text, np.uint8).copy()]
+
+
+class _ContinuousLoop:
+    """Standing decode loop for ``custom=serve:continuous`` over a
+    block-paged KV pool (port of the JAX package's ``_ContinuousLoop``,
+    without prefix sharing, speculative decoding, drain/adopt, tenant
+    quotas or the poison guard).
+
+    **The pool.**  One thread owns the pool ``[L, n_blocks + 1, bs, Hkv,
+    hd]`` (:func:`~..models.llama.init_paged_cache`; the extra block takes
+    dropped writes), a host free list of block ids and a per-slot block
+    table ``[slots, max_blocks]`` whose entries map a stream's logical
+    block j to a pool block (``n_blocks`` = sentinel).  A decode step
+    reads only each stream's live blocks (the paged kernel).
+
+    **Admission = reservation.**  A prompt of T tokens is admitted, in
+    FIFO order, when a slot and ``ceil((T + n) / block_size)`` free blocks
+    exist (n = tokens to generate): a live stream never stalls on an
+    empty free list.  A prompt of ``max_seq`` tokens or more is rejected
+    (``prompt-oversize``), so is one whose reservation exceeds the whole
+    pool (``reservation-impossible``), and one that waited at the head of
+    the queue past ``admit_timeout`` (``admit-timeout``): each with a
+    ``stream_aborted`` terminator carrying ``abort_reason``.
+
+    **Chunked prefill.**  An admitted prompt pads to a multiple of
+    ``prefill_chunk`` and prefills chunk by chunk into its blocks, at most
+    ``prefill_budget`` tokens per iteration while other streams decode.
+
+    **Decode.**  Each iteration dispatches ``stream_chunk`` steps of every
+    slot at its own position (idle slots parked at ``max_blocks *
+    block_size``: they write only the sink block and attend nothing) with
+    ONE card-to-host copy of the chunk's tokens.  Tables and positions go
+    up once per chunk.
+
+    **Sampling.**  Greedy at temperature 0.  Otherwise each admitted stream
+    gets a ``torch.Generator`` seeded from (seed, admission number), drawn
+    once for its first token and once per decode step it is live in: its
+    tokens are a function of the seed, its admission number and its
+    positions, whichever streams share the batch.
+    """
+
+    def __init__(self, fw: LLMFramework):
+        self.fw = fw
+        plan = serving_plan(fw.cfg, slots=fw.slots, block_size=fw.block_size,
+                            kv_blocks=fw.kv_blocks,
+                            prefill_chunk=fw.prefill_chunk)
+        self.max_blocks = plan["max_blocks"]
+        self.n_blocks = plan["n_blocks"]
+        self.sentinel = self.n_blocks  # unallocated table entry
+        self.park = self.max_blocks * fw.block_size  # idle-slot position
+        self._pending: "queue.Queue" = queue.Queue()
+        self._wake = threading.Event()
+        self._stop = threading.Event()
+        self._idle = threading.Event()
+        self._idle.set()
+        # Guards the idle decision: without it, submit() could clear _idle
+        # and THEN enqueue while the loop, between those two steps, sees an
+        # empty queue and sets _idle — drain() would return with a request
+        # pending and EOS would cut it off.
+        self._idle_lock = threading.Lock()
+        self._error: Optional[BaseException] = None
+        #: admission-order queue (entries ``(prompt, meta, emit, t_enq)``)
+        #: and prefill-in-progress states: both crash-visible
+        self._waiting: list = []
+        self._admitting: list = []
+        self._live_slots: list = [None] * fw.slots  # (meta, emit) per slot
+        #: set once the warm-up (one prefill chunk, one decode step) ran
+        self.warmed = threading.Event()
+        #: decode steps and prefill chunks dispatched since the warm-up
+        self.stats = {"decode_steps": 0, "prefill_chunks": 0}
+        self._thread = threading.Thread(
+            target=self._run, name="llm-serve", daemon=True)
+        self._thread.start()
+
+    # -- producer side -----------------------------------------------------
+    def submit(self, prompt: np.ndarray, meta: Dict, emit) -> int:
+        meta = dict(meta)
+        sid = next_stream_id()
+        meta[META_STREAM_ID] = sid
+        # The error check lives inside the lock: the crash terminator
+        # drains _pending under it, so no request slips into a dead loop.
+        with self._idle_lock:
+            self.check()
+            self._idle.clear()
+            self._pending.put((prompt, meta, emit, time.monotonic()))
+        self._wake.set()
+        return sid
+
+    def check(self) -> None:
+        if self._error is not None:
+            raise FrameworkError(
+                f"continuous serve loop died: {self._error!r}")
+
+    def drain(self, timeout: float) -> bool:
+        return self._idle.wait(timeout)
+
+    def shutdown(self) -> None:
+        self._stop.set()
+        self._wake.set()
+        self._thread.join(timeout=30)
+
+    # -- serve thread ------------------------------------------------------
+    def _emit_token(self, emit, meta: Dict, token_id: int, index: int,
+                    last: bool) -> None:
+        out_meta = dict(meta)
+        out_meta[META_STREAM_INDEX] = index
+        out_meta[META_EMIT_T] = time.monotonic()
+        if last:
+            out_meta[META_STREAM_LAST] = True
+        piece = self.fw.tokenizer.decode_piece(token_id)
+        emit([np.asarray([token_id], np.int32),
+              np.frombuffer(piece, np.uint8).copy()], out_meta)
+        metrics.count("llm.tokens")
+
+    def _abort(self, meta: Dict, emit, reason: Optional[str] = None,
+               idx: int = 0) -> None:
+        """Typed terminator: one ``stream_aborted`` token buffer, with the
+        policy that fired as ``abort_reason``."""
+        meta = {**meta, META_STREAM_ABORTED: True}
+        if reason is not None:
+            meta[META_ABORT_REASON] = reason
+        try:
+            self._emit_token(emit, meta, 0, idx, True)
+        except Exception:  # noqa: BLE001 - downstream may be gone too
+            log.exception("abort terminator could not be emitted")
+
+    def _run(self) -> None:
+        try:
+            fw = self.fw
+            if fw.device.type == "cuda":
+                # device, stream and inference mode are per thread
+                torch.cuda.set_device(fw.device)
+            with torch.inference_mode():
+                self._serve()
+        except BaseException as e:  # noqa: BLE001 - daemon thread: report
+            log.exception("continuous serve loop died")
+            # Terminate every live, mid-prefill, waiting and queued stream
+            # so no client waits out its timeout on a dead loop.  The queue
+            # drain and the idle flag go under _idle_lock, pairing with
+            # submit().
+            for slot in list(self._live_slots):
+                if slot is not None:
+                    self._abort(slot[0], slot[1], idx=1 << 30)
+            for st in list(self._admitting):
+                self._abort(st["meta"], st["emit"])
+            for ent in list(self._waiting):
+                self._abort(ent[1], ent[2])
+            with self._idle_lock:
+                self._error = e
+                while True:
+                    try:
+                        ent = self._pending.get_nowait()
+                    except queue.Empty:
+                        break
+                    self._abort(ent[1], ent[2])
+                self._idle.set()
+            self.warmed.set()
+
+    def _generator(self, admission: int) -> torch.Generator:
+        seed = np.random.SeedSequence([self.fw.seed, admission])
+        gen = torch.Generator(device=self.fw.device)
+        gen.manual_seed(int(seed.generate_state(1, np.uint64)[0] >> 1))
+        return gen
+
+    def _serve(self) -> None:
+        fw, cfg, dev = self.fw, self.fw.cfg, self.fw.device
+        B, bs, C = fw.slots, fw.block_size, fw.prefill_chunk
+        params = fw.bundle.params
+        pool = llama.init_paged_cache(cfg, self.n_blocks, bs, dtype=fw.dtype,
+                                      device=dev)
+        tok = torch.zeros((B,), dtype=torch.int32, device=dev)
+        # Host bookkeeping: positions advance by the chunk for live rows
+        # (parked rows stay parked) and tables change only at admit and
+        # retire, so both live as numpy and go up once per chunk.
+        pos = np.full((B,), self.park, np.int64)
+        tables = np.full((B, self.max_blocks), self.sentinel, np.int32)
+        free = list(range(self.n_blocks))
+        slot_blocks: list = [[] for _ in range(B)]
+        remaining = np.zeros((B,), np.int64)
+        sidx = np.zeros((B,), np.int64)
+        slots = self._live_slots
+        gens: List[Optional[torch.Generator]] = [None] * B
+        # published for tests and post-mortems (mutated in place)
+        self._pos, self._tables = pos, tables
+        self._free, self._slot_blocks = free, slot_blocks
+        eos = self.fw.tokenizer.eos if fw.stop_eos else -1
+        admissions = 0
+        dirty = False  # host tables changed since the last upload
+
+        def take_blocks(need: int) -> list:
+            if len(free) < need:
+                # admission checks capacity first: a shortfall is an
+                # allocator bug, never a truncated table
+                raise RuntimeError(f"KV allocator invariant violated: asked "
+                                   f"for {need} blocks, {len(free)} free")
+            got = free[:need]
+            del free[:need]
+            return got
+
+        def retire(s: int) -> None:
+            nonlocal dirty
+            free.extend(slot_blocks[s])
+            slot_blocks[s] = []
+            tables[s, :] = self.sentinel
+            dirty = True
+            pos[s] = self.park
+            slots[s] = None
+            gens[s] = None
+            remaining[s] = 0
+            sidx[s] = 0
+
+        # Warm-up before admitting real work: first-use costs (kernel
+        # library loads, allocator growth, library handles) land here and
+        # not on the first requests.  It writes garbage through real
+        # blocks and frees them; nothing can attend it.
+        warm = take_blocks(min(math.ceil(C / bs), self.n_blocks))
+        tables[0, :len(warm)] = warm
+        zeros = torch.zeros((1, C), dtype=torch.int32, device=dev)
+        llama.forward_paged(params, zeros, pool, upload(tables[:1], dev),
+                            np.zeros(1, np.int64), cfg, fw.dtype,
+                            logit_off=C - 1)
+        free[0:0] = warm
+        tables[0, :] = self.sentinel
+        tables_dev = upload(tables, dev)
+        logits, _ = llama.forward_paged(params, tok[:, None], pool, tables_dev,
+                                        upload(pos, dev), cfg, fw.dtype)
+        logits.sum().item()  # the warm-up has run on the card
+        self.warmed.set()
+
+        while not self._stop.is_set():
+            progressed = False
+            # 0. the thread hand-off queue into the admission-order list
+            while True:
+                try:
+                    self._waiting.append(self._pending.get_nowait())
+                except queue.Empty:
+                    break
+
+            # 1. admission: waiting prompts into free slots while a slot
+            # and the stream's whole block reservation are free.  Strict
+            # FIFO; the head times out after admit_timeout.
+            while self._waiting:
+                prompt, meta, emit, t_enq = self._waiting[0]
+                T = prompt.shape[1]
+                n = max(1, min(fw.max_new, cfg.max_seq - T))
+                reason = None
+                if T >= cfg.max_seq:
+                    reason = "prompt-oversize"
+                elif T + n > self.n_blocks * bs:
+                    # no amount of retiring satisfies it: deferring would
+                    # wedge the FIFO head
+                    reason = "reservation-impossible"
+                need = math.ceil((T + n) / bs)
+                busy = {st["slot"] for st in self._admitting}
+                freeslots = [s for s in range(B) if remaining[s] == 0
+                             and slots[s] is None and s not in busy]
+                if reason is None and (not freeslots or len(free) < need):
+                    if fw.admit_timeout > 0 and \
+                            time.monotonic() - t_enq > fw.admit_timeout:
+                        reason = "admit-timeout"
+                        metrics.count("llm.serve.admit_timeouts")
+                    else:
+                        break  # pool or slots full: defer, never overflow
+                self._waiting.pop(0)
+                progressed = True
+                if reason is not None:
+                    self._abort(meta, emit, reason)
+                    continue
+                s = freeslots[0]
+                slot_blocks[s] = take_blocks(need)
+                tables[s, :need] = slot_blocks[s]
+                dirty = True
+                P = math.ceil(T / C) * C  # chunk-multiple padding
+                if P > T:
+                    prompt = np.pad(prompt, ((0, 0), (0, P - T)))
+                metrics.count("llm.serve.prefill_tokens", P)
+                metrics.count("llm.serve.prefill_pad_waste", P - T)
+                self._admitting.append({
+                    "slot": s, "prompt": prompt.astype(np.int32), "T": T,
+                    "P": P, "p": 0, "n": n, "meta": meta, "emit": emit,
+                    "first": None})
+
+            # 2. chunked prefill: up to prefill_budget tokens of [1, C]
+            # chunks into the admitting streams' blocks (the budget is
+            # waived while nothing decodes)
+            budget = fw.prefill_budget if (remaining > 0).any() else 1 << 30
+            newly_live = []
+            for st in list(self._admitting):
+                while budget > 0 and st["p"] < st["P"]:
+                    s, p = st["slot"], st["p"]
+                    final = p + C >= st["P"]
+                    if dirty:
+                        tables_dev, dirty = upload(tables, dev), False
+                    # last REAL token's offset within the final chunk
+                    off = st["T"] - 1 - p if final else 0
+                    logits, pool = llama.forward_paged(
+                        params, upload(st["prompt"][:, p:p + C], dev), pool,
+                        tables_dev[s:s + 1], np.asarray([p], np.int64), cfg,
+                        fw.dtype, logit_off=off)
+                    self.stats["prefill_chunks"] += 1
+                    st["p"] = p + C
+                    budget -= C
+                    progressed = True
+                    if final:
+                        gens[s] = self._generator(admissions)
+                        admissions += 1
+                        st["first"] = llama.sample_token_per_slot(
+                            logits[:, 0], [gens[s]], fw.temperature,
+                            fw.top_k, fw.top_p)
+                        tok[s] = st["first"][0]
+                        pos[s] = st["T"]
+                        remaining[s] = st["n"] - 1
+                        sidx[s] = 1
+                        # visible to the crash terminator from here on
+                        slots[s] = (st["meta"], st["emit"])
+                        newly_live.append(st)
+                        self._admitting.remove(st)
+                        break
+
+            # 3. dispatch one chunk of per-row paged decode for the live
+            # slots.  The chunk is always stream_chunk steps: streams that
+            # finish mid-chunk decode garbage to its end (their writes stay
+            # in their reserved blocks or go to the sink; never emitted).
+            live = remaining > 0
+            toks_dev = None
+            if live.any():
+                if dirty:
+                    tables_dev, dirty = upload(tables, dev), False
+                p_dev = upload(pos, dev)
+                row_gens = [gens[s] if live[s] else None for s in range(B)]
+                steps = []
+                for _ in range(fw.chunk):
+                    logits, pool = llama.forward_paged(
+                        params, tok[:, None], pool, tables_dev, p_dev, cfg,
+                        fw.dtype)
+                    tok = llama.sample_token_per_slot(
+                        logits[:, -1], row_gens, fw.temperature, fw.top_k,
+                        fw.top_p)
+                    steps.append(tok)
+                    p_dev = p_dev + 1
+                toks_dev = torch.stack(steps, dim=1)
+                self.stats["decode_steps"] += fw.chunk
+                pos[live] += fw.chunk
+                progressed = True
+
+            # 4. emit the admitted streams' first tokens (the card is
+            # already computing the chunk above)
+            for st in newly_live:
+                s = st["slot"]
+                first = int(st["first"][0])
+                first_last = st["n"] == 1 or first == eos
+                self._emit_token(st["emit"], st["meta"], first, 0, first_last)
+                if first_last:
+                    retire(s)
+
+            # 5. deliver the chunk's tokens: ONE copy to the host per chunk
+            if toks_dev is not None:
+                host = toks_dev.cpu().numpy()
+                for j in range(host.shape[1]):
+                    for s in np.flatnonzero(live):
+                        if remaining[s] == 0:
+                            continue  # finished mid-chunk: discard
+                        meta, emit = slots[s]
+                        tokid = int(host[s, j])
+                        last = remaining[s] == 1 or tokid == eos
+                        self._emit_token(emit, meta, tokid, int(sidx[s]),
+                                         bool(last))
+                        sidx[s] += 1
+                        remaining[s] -= 1
+                        if last:
+                            retire(int(s))
+
+            if not progressed:
+                with self._idle_lock:
+                    if self._pending.empty() and not self._waiting \
+                            and not self._admitting \
+                            and not (remaining > 0).any():
+                        self._idle.set()
+                self._wake.wait(0.02)
+                self._wake.clear()

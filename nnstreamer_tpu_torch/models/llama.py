@@ -1,6 +1,7 @@
 """Llama-family decoder-only LM (benchmark config #5: token streaming).
 
-Port of ``nnstreamer_tpu/models/llama.py`` (the static-cache path).  The
+Port of ``nnstreamer_tpu/models/llama.py`` (the static-cache and the
+block-paged paths).  The
 parameter tree keeps the JAX package's layout — layer weights stacked on
 a leading layer axis, int4 mats nibble-packed under ``<name>_p`` with
 per-output-channel scales under ``<name>_s`` and q|k|v and gate|up fused
@@ -9,23 +10,26 @@ for leaf.  The block is the Llama-2 block: RMSNorm, rotate-half RoPE with
 f32 angles, GQA, SwiGLU.
 
 Where the JAX package threads the KV cache through a functional carry,
-:func:`forward_cached` writes the new rows into the cache tensors in
-place.  Prefill into an empty cache runs :func:`~..ops.attention.flash_attention`;
-int4 projections and the int4 lm_head run
-:func:`~..ops.int4_matmul.matmul_int4`.
+:func:`forward_cached` and :func:`forward_paged` write the new rows into
+the cache or pool tensors in place.  Prefill into an empty cache runs
+:func:`~..ops.attention.flash_attention`; the paged path runs
+:func:`~..ops.attention.paged_attention`; int4 projections and the int4
+lm_head run :func:`~..ops.int4_matmul.matmul_int4`.  Every builder takes
+its ``device`` explicitly.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.buffer import upload
 from ..core.types import TensorFormat, TensorsSpec
-from ..ops.attention import flash_attention, repeat_kv_heads
+from ..ops.attention import flash_attention, paged_attention, repeat_kv_heads
 from ..ops.int4_matmul import matmul_int4, quantize_int4
 from .zoo import ModelBundle, register_model
 
@@ -90,8 +94,8 @@ def _mat_shapes(cfg: LlamaConfig) -> Dict[str, tuple]:
             "w_down": (F_, D)}
 
 
-def init_params(cfg: LlamaConfig, seed: int = 0, dtype="float32",
-                device="cpu", quant: str = "") -> Dict:
+def init_params(cfg: LlamaConfig, seed: int = 0, dtype="float32", *,
+                device, quant: str = "") -> Dict:
     """Deterministic-random params from a ``torch.Generator`` on ``device``
     (it cannot reproduce ``jax.random``; tests move JAX trees over with
     :func:`params_from_jax` instead).  Each weight is normal with std
@@ -143,14 +147,14 @@ def init_params(cfg: LlamaConfig, seed: int = 0, dtype="float32",
     return params
 
 
-def params_from_jax(tree, device="cpu"):
+def params_from_jax(tree, *, device):
     """The JAX package's parameter tree, given as numpy arrays (from its
     ``init_params``, ``init_params_int4`` or ``quantize_int4_params``),
     as the port's tree of torch tensors on ``device``.  Leaves come across
     bit for bit: packed int8 nibbles, f32 scales, and bf16 leaves (numpy's
     ``bfloat16`` extension dtype) by their raw 16-bit patterns."""
     if isinstance(tree, dict):
-        return {k: params_from_jax(v, device) for k, v in tree.items()}
+        return {k: params_from_jax(v, device=device) for k, v in tree.items()}
     a = np.asarray(tree)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
@@ -228,10 +232,14 @@ def _rope(x, positions, theta):
 
 
 def _block(cfg: LlamaConfig, lp, x, positions, kv=None,
-           pos_offset: Optional[int] = None):
+           pos_offset: Optional[int] = None, paged=None):
     """One transformer block.  ``kv=(k_cache, v_cache)`` ([B, S_max, Hkv,
     hd] each) enables cached decode: x is the new suffix, written into the
-    caches in place at ``pos_offset``."""
+    caches in place at ``pos_offset``.  ``paged=(tables, blk, off, lens)``
+    switches ``kv`` to one layer of the block pool ([n_blocks + 1, bs,
+    Hkv, hd]): the suffix row (b, t) is written at pool block
+    ``blk[b, t]``, offset ``off[b, t]``, then attended through the tables
+    (:func:`forward_paged` computes all four once per step)."""
     B, T, D = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = x.dtype
@@ -250,20 +258,28 @@ def _block(cfg: LlamaConfig, lp, x, positions, kv=None,
     k = _rope(k, positions, cfg.rope_theta)
     v = v.contiguous()
 
-    if kv is not None:
+    if paged is not None:
+        # suffix rows go to their (block, offset) first, then the row
+        # attends its context through the tables
+        k_pool, v_pool = kv
+        tables, blk, off, lens = paged
+        k_pool[blk, off] = k.to(k_pool.dtype)
+        v_pool[blk, off] = v.to(v_pool.dtype)
+        attn = paged_attention(q, k_pool, v_pool, tables, lens).to(dt)
+    elif kv is None or pos_offset == 0:
+        if kv is not None:
+            kv[0][:, :T] = k.to(kv[0].dtype)
+            kv[1][:, :T] = v.to(kv[1].dtype)
+        # pos_offset == 0 means "prefill into an empty cache": the fresh
+        # k/v ARE the filled cache rows, so attention reduces to causal
+        # attention over the prompt — the flash kernel's case — instead of
+        # a masked sweep over all S_max cache rows.  K/V go in UNREPEATED:
+        # the kernel shares each K/V tile across the query-head group.
+        attn = flash_attention(q, k, v, causal=True)
+    else:
         k_cache, v_cache = kv
         k_cache[:, pos_offset:pos_offset + T] = k.to(k_cache.dtype)
         v_cache[:, pos_offset:pos_offset + T] = v.to(v_cache.dtype)
-
-    # pos_offset == 0 means "prefill into an empty cache": the fresh k/v
-    # ARE the filled cache rows, so attention reduces to causal attention
-    # over the prompt — the flash kernel's case — instead of a masked
-    # sweep over all S_max cache rows.
-    if kv is None or pos_offset == 0:
-        # K/V go in UNREPEATED: the kernel shares each K/V tile across
-        # the query-head group
-        attn = flash_attention(q, k, v, causal=True)
-    else:
         kr = repeat_kv_heads(k_cache.to(dt), H // Hkv)
         vr = repeat_kv_heads(v_cache.to(dt), H // Hkv)
         S = kr.shape[1]
@@ -308,7 +324,7 @@ def forward(params, tokens, cfg: LlamaConfig, compute_dtype="bfloat16"):
     return _lm_head(params, x, dt)
 
 
-def init_cache(cfg: LlamaConfig, batch: int, dtype="bfloat16", device="cpu"):
+def init_cache(cfg: LlamaConfig, batch: int, dtype="bfloat16", *, device):
     """KV cache: k/v of [L, B, S_max, H_kv, head_dim]."""
     shape = (cfg.n_layers, batch, cfg.max_seq, cfg.n_kv_heads, cfg.head_dim)
     dt = torch_dtype(dtype)
@@ -331,6 +347,88 @@ def forward_cached(params, tokens, cache, pos_offset: int, cfg: LlamaConfig,
                    kv=(cache["k"][i], cache["v"][i]), pos_offset=pos_offset)
     x = _rmsnorm(x, params["ln_out"], cfg.norm_eps)
     return _lm_head(params, x, dt), cache
+
+
+# -- block-paged KV pool (continuous serving) -------------------------------
+
+def init_paged_cache(cfg: LlamaConfig, n_blocks: int, block_size: int,
+                     dtype="bfloat16", *, device):
+    """Block-pool KV cache: k/v of [L, n_blocks + 1, block_size, H_kv,
+    head_dim] on ``device``.
+
+    Blocks ``0 .. n_blocks - 1`` are the pool of the JAX package's
+    ``init_paged_cache``.  The one extra block, index ``n_blocks`` (the
+    block tables' sentinel), takes the writes the JAX package DROPS (a
+    parked row, a position past the row's reservation): torch has no
+    dropping scatter, and a masked write would cost a host sync per layer.
+    No table entry of a live position ever points at it."""
+    shape = (cfg.n_layers, n_blocks + 1, block_size, cfg.n_kv_heads,
+             cfg.head_dim)
+    dt = torch_dtype(dtype)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def paged_cache_bytes(cfg: LlamaConfig, n_blocks: int, block_size: int,
+                      dtype="bfloat16") -> int:
+    """Footprint of the ``n_blocks`` pool blocks of
+    :func:`init_paged_cache` (k + v), by arithmetic — the JAX package's
+    figure; the write-sink block adds one block more."""
+    itemsize = 2 if str(dtype) in ("bfloat16", "float16") else 4
+    return (2 * cfg.n_layers * n_blocks * block_size * cfg.n_kv_heads
+            * cfg.head_dim * itemsize)
+
+
+def _context_lens(p: torch.Tensor, T: int, span: int) -> torch.Tensor:
+    """Positions attendable per row including the T-row suffix; 0 for a
+    parked row (the kernel then reads none of its blocks)."""
+    return torch.where(p + T <= span, p + T, torch.zeros_like(p)).to(torch.int32)
+
+
+def forward_paged(params, tokens, pool, block_tables, pos, cfg: LlamaConfig,
+                  compute_dtype="bfloat16", logit_off: Optional[int] = None):
+    """Forward a suffix against the block-paged KV pool -> (logits
+    [B, T, vocab] f32, pool).
+
+    ``tokens``: [B, T] (T == 1 for a decode step of every slot; B == 1
+    with T == prefill_chunk for a chunked-prefill step); ``pool``: the
+    :func:`init_paged_cache` dict, written IN PLACE (the same dict is
+    returned); ``block_tables``: [B, max_blocks] int32 on the pool's
+    device (entry ``n_blocks`` = unallocated sentinel); ``pos``: [B] —
+    the position token 0 of each row writes at, a tensor on the card or
+    values on the host.  A parked row (``pos >= max_blocks *
+    block_size``) writes only the sink block and attends nothing.  A
+    T > 1 step on the card needs its positions on the host: they size
+    the row's gather (a card tensor is read back once).
+
+    ``logit_off``: return logits for ONLY that suffix position — [B, 1,
+    vocab]; a chunked-prefill step needs the last real token's logits,
+    and slicing before the lm_head keeps it at one row."""
+    dt = torch_dtype(compute_dtype)
+    B, T = tokens.shape
+    dev = tokens.device
+    x = params["embed"][tokens].to(dt)
+    sink = pool["k"].shape[1] - 1  # == n_blocks, the tables' sentinel
+    bs = pool["k"].shape[2]
+    span = block_tables.shape[1] * bs
+    p = torch.as_tensor(pos, dtype=torch.long).reshape(-1)
+    pd = p if p.device == dev else upload(p, dev)
+    idx = pd[:, None] + torch.arange(T, device=dev)[None, :]  # [B, T]
+    valid = (idx >= 0) & (idx < span)
+    slot_blk = torch.clamp(idx // bs, 0, block_tables.shape[1] - 1)
+    blk = torch.where(valid, block_tables.to(torch.long).gather(1, slot_blk),
+                      torch.full_like(idx, sink)).clamp_(0, sink)
+    off = idx % bs
+    # a prefill step (T > 1) sizes its gather from host lengths
+    lens = _context_lens(p.cpu() if T > 1 else pd, T, span)
+    for i in range(cfg.n_layers):
+        x = _block(cfg, _layer(params, i), x, idx,
+                   kv=(pool["k"][i], pool["v"][i]),
+                   paged=(block_tables, blk, off, lens))
+    x = _rmsnorm(x, params["ln_out"], cfg.norm_eps)
+    if logit_off is not None:
+        x = x[:, int(logit_off):int(logit_off) + 1]
+    return _lm_head(params, x, dt), pool
 
 
 def filter_logits(logits, temperature: float, top_k: int = 0,
@@ -368,6 +466,29 @@ def sample_token(logits, generator: Optional[torch.Generator],
     probs = torch.softmax(
         filter_logits(logits, temperature, top_k, top_p).to(torch.float32), dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+
+
+def sample_token_per_slot(logits, generators: Sequence[Optional[torch.Generator]],
+                          temperature: float, top_k: int = 0,
+                          top_p: float = 1.0):
+    """logits [B, vocab] + one generator per row -> token ids [B] int32.
+
+    The continuous-serving sampler: greedy (argmax) at ``temperature <=
+    0``; else each row with a generator draws once from its own
+    ``softmax(filter_logits(...))`` with it, so a stream's tokens depend
+    only on its own generator and logits, whoever shares the batch.  Rows
+    whose generator is None (idle slots) take the argmax and draw
+    nothing."""
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    if temperature <= 0.0:
+        return tok
+    probs = torch.softmax(
+        filter_logits(logits, temperature, top_k, top_p).to(torch.float32), dim=-1)
+    rows: List[torch.Tensor] = []
+    for i, gen in enumerate(generators):
+        rows.append(tok[i:i + 1] if gen is None else torch.multinomial(
+            probs[i:i + 1], 1, generator=gen)[:, 0].to(torch.int32))
+    return torch.cat(rows)
 
 
 # -- zoo builders ---------------------------------------------------------

@@ -61,9 +61,10 @@ def model_names() -> List[str]:
         return sorted(_builders)
 
 
-def build(name: str, opts: Optional[Dict[str, str]] = None,
-          device="cpu") -> ModelBundle:
-    """Resolve a zoo name to a bundle built on ``device``."""
+def build(name: str, opts: Optional[Dict[str, str]] = None, *,
+          device) -> ModelBundle:
+    """Resolve a zoo name to a bundle built on ``device`` (required: no
+    builder of this package picks the CPU by itself)."""
     _ensure_builtin()
     with _lock:
         b = _builders.get(str(name))

@@ -1,15 +1,18 @@
-"""Flash (blockwise, online-softmax) attention.
+"""Flash (blockwise, online-softmax) attention and paged attention.
 
-Port of the flash half of ``nnstreamer_tpu/ops/attention.py``.  Layouts
-are the JAX package's: q is ``[B, Sq, H, D]``, k/v are ``[B, Skv, Hkv, D]``
-with ``H % Hkv == 0`` and arrive UNREPEATED (GQA/MQA): query head ``h``
-reads kv head ``h // (H // Hkv)``.  Causal queries align to the BACK of
-kv (``q_offset = Skv - Sq``), the cached-prefix convention.
+Port of ``nnstreamer_tpu/ops/attention.py``.  Layouts are the JAX
+package's: q is ``[B, Sq, H, D]``, k/v are ``[B, Skv, Hkv, D]`` with
+``H % Hkv == 0`` and arrive UNREPEATED (GQA/MQA): query head ``h`` reads
+kv head ``h // (H // Hkv)``.  Causal queries align to the BACK of kv
+(``q_offset = Skv - Sq``), the cached-prefix convention.  Paged attention
+reads K/V from a shared block pool ``[n_blocks, block_size, Hkv, D]``
+through per-row block tables (the continuous-serving layout).
 
-:func:`flash_attention` launches the hand-written CUDA kernel
-(``csrc/flash_attention.cu``) on CUDA tensors; :func:`attention_reference`
-is its plain PyTorch version (the score matrix materialized), taken for
-CPU tensors.
+:func:`flash_attention` and :func:`paged_attention` launch the
+hand-written CUDA kernels (``csrc/flash_attention.cu``,
+``csrc/paged_attention.cu``) on CUDA tensors; :func:`attention_reference`
+and :func:`paged_attention_reference` are their plain PyTorch versions
+(scores materialized), taken for CPU tensors.
 """
 
 from __future__ import annotations
@@ -21,11 +24,15 @@ import torch
 
 from . import kernels
 
-#: launches of the CUDA kernel (added where it launches, nowhere else)
+#: launches of the flash CUDA kernel (added where it launches, nowhere else)
 LAUNCHES = kernels.LaunchCount()
+#: launches of the paged CUDA kernel (added where it launches, nowhere else)
+PAGED_LAUNCHES = kernels.LaunchCount()
 
-#: head dims the kernel is compiled for
+#: head dims the kernels are compiled for
 _KERNEL_HEAD_DIMS = (32, 64, 128)
+#: query heads per kv head the paged kernel is compiled for
+_PAGED_GROUPS = (1, 2, 4, 8)
 
 
 def repeat_kv_heads(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -108,4 +115,154 @@ def flash_attention(q, k, v, *, causal: bool = False,
         int(q.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
     kernels.check(lib, rc, "flash_attention")
     LAUNCHES.add()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Paged (block-pool) attention: the continuous-serving decode path
+# ---------------------------------------------------------------------------
+
+def paged_attention_reference(q, k_pool, v_pool, block_tables, context_lens,
+                              *, scale: Optional[float] = None):
+    """Plain paged attention (the JAX package's reference formulation).
+
+    ``q``: [B, T, H, D] query suffix; ``k_pool``/``v_pool``: [n_blocks,
+    block_size, Hkv, D]; ``block_tables``: [B, max_blocks] int — row b's
+    logical block j is pool block ``block_tables[b, j]`` (entries >=
+    n_blocks are unallocated sentinels, clipped into the pool: their
+    positions lie past the row's context and are masked);
+    ``context_lens``: [B] int — positions attendable per row INCLUDING the
+    suffix, whose K/V must already be in the pool.  Query t of row b sits
+    at position ``context_lens[b] - T + t``.  Scores and softmax in f32,
+    probabilities cast to q's dtype for the value sum, as the JAX
+    reference does.  A row with context length 0 gives zeros, as the
+    kernel does (the JAX reference gives finite garbage there).
+    """
+    B, T, H, D = q.shape
+    n_blocks, _, hkv, _ = k_pool.shape
+    scale = (D ** -0.5) if scale is None else scale
+    dt = q.dtype
+    tbl = block_tables.to(q.device, torch.long).clamp(0, n_blocks - 1)
+    k_all = k_pool[tbl].reshape(B, -1, hkv, D).to(dt)
+    v_all = v_pool[tbl].reshape(B, -1, hkv, D).to(dt)
+    if H != hkv:
+        k_all = repeat_kv_heads(k_all, H // hkv)
+        v_all = repeat_kv_heads(v_all, H // hkv)
+    lens = context_lens.to(q.device, torch.long)
+    q_pos = lens[:, None] - T + torch.arange(T, device=q.device)[None, :]
+    k_pos = torch.arange(k_all.shape[1], device=q.device)
+    mask = (k_pos[None, None, :] <= q_pos[:, :, None])[:, None]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k_all.float()) * scale
+    s = s.masked_fill(~mask, -1e30)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(dt), v_all)
+    return torch.where((lens > 0)[:, None, None, None], out,
+                       torch.zeros((), dtype=dt, device=q.device))
+
+
+def _declare_paged(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.nns_paged_attention.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                        ctypes.c_float, i, p]
+    lib.nns_paged_attention.restype = i
+
+
+def paged_attention(q, k_pool, v_pool, block_tables, context_lens, *,
+                    scale: Optional[float] = None):
+    """Attention over a block-paged KV pool (continuous LLM serving).
+
+    Shapes as in :func:`paged_attention_reference`.  CPU tensors take the
+    plain version.  On CUDA tensors:
+
+    * T == 1 (a decode step) launches the kernel of
+      ``csrc/paged_attention.cu``: each row reads only its
+      ``ceil(context_len / block_size)`` live blocks; tables and lengths
+      stay on the card (int32, read by the kernel);
+    * T > 1 with B == 1 (a chunked-prefill step) gathers the row's live
+      blocks into a contiguous ``[1, L, Hkv, D]`` and runs
+      :func:`flash_attention` causally over it: its back-aligned offset
+      ``L - T`` is the reference's query position.  ``context_lens`` must
+      then lie on the CPU, since it sizes the gather.
+
+    Anything else raises: another device, dtype or head dim, a pool that
+    is not contiguous, B > 1 with T > 1, and (as the launch's CUDA error)
+    a table wider than the 4096 entries the kernel stages.
+    """
+    if q.dim() != 4 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
+        raise ValueError(f"want q [B,T,H,D] and pools [n_blocks,bs,Hkv,D], got "
+                         f"{tuple(q.shape)}, {tuple(k_pool.shape)}, "
+                         f"{tuple(v_pool.shape)}")
+    b, t, h, d = q.shape
+    n_pool, bs, hkv = k_pool.shape[0], k_pool.shape[1], k_pool.shape[2]
+    if k_pool.shape[3] != d or h % hkv:
+        raise ValueError(f"pools {tuple(k_pool.shape)} do not match q {tuple(q.shape)}")
+    if block_tables.dim() != 2 or block_tables.shape[0] != b or \
+            tuple(context_lens.shape) != (b,):
+        raise ValueError(f"want block_tables [B, max_blocks] and context_lens "
+                         f"[B] for B={b}, got {tuple(block_tables.shape)}, "
+                         f"{tuple(context_lens.shape)}")
+    scale_v = (d ** -0.5) if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return paged_attention_reference(q, k_pool, v_pool, block_tables,
+                                         context_lens, scale=scale_v)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention: no kernel for device {q.device}")
+    if k_pool.device != q.device or v_pool.device != q.device or \
+            block_tables.device != q.device:
+        raise ValueError("paged_attention: q, pools and block_tables must "
+                         "share a device")
+    if q.dtype not in (torch.float32, torch.bfloat16) or \
+            k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+        raise ValueError(f"paged_attention: kernel takes f32/bf16 q and pools "
+                         f"of one dtype, got {q.dtype}, {k_pool.dtype}, "
+                         f"{v_pool.dtype}")
+    if d not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"paged_attention: head dim {d} not in {_KERNEL_HEAD_DIMS}")
+    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
+        raise ValueError("paged_attention: kernel takes contiguous pools")
+    if t > 1:
+        if b != 1:
+            raise ValueError(f"paged_attention: a {t}-row suffix takes one "
+                             f"row (chunked prefill), got B={b}")
+        if context_lens.device.type != "cpu":
+            raise ValueError("paged_attention: a T > 1 step takes its "
+                             "context_lens on the CPU (they size the gather)")
+        n = int(context_lens[0])
+        if n == 0:
+            return torch.zeros_like(q)
+        if n < t:
+            raise ValueError(f"paged_attention: context {n} is shorter than "
+                             f"the {t}-row suffix")
+        nb = -(-n // bs)
+        idx = block_tables[0, :nb].to(torch.long).clamp(0, n_pool - 1)
+        k = k_pool.index_select(0, idx).reshape(1, nb * bs, hkv, d)[:, :n]
+        v = v_pool.index_select(0, idx).reshape(1, nb * bs, hkv, d)[:, :n]
+        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                               causal=True, scale=scale_v)
+    if context_lens.device != q.device:
+        raise ValueError("paged_attention: a decode step takes its "
+                         "context_lens on the card")
+    if q.device.index != torch.cuda.current_device():
+        raise ValueError(f"paged_attention: {q.device} is not the current device")
+    if h // hkv not in _PAGED_GROUPS:
+        raise ValueError(f"paged_attention: {h // hkv} query heads per kv "
+                         f"head not in {_PAGED_GROUPS}")
+    if block_tables.dtype != torch.int32 or context_lens.dtype != torch.int32:
+        raise ValueError("paged_attention: block_tables and context_lens "
+                         "must be int32")
+    q = q.contiguous()
+    block_tables = block_tables.contiguous()
+    context_lens = context_lens.contiguous()
+    if any(x.data_ptr() % 16 for x in (q, k_pool, v_pool)):
+        raise ValueError("paged_attention: kernel takes 16-byte aligned tensors")
+    lib = kernels.library("paged_attention", _declare_paged)
+    out = torch.empty_like(q)
+    rc = lib.nns_paged_attention(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
+        b, h, hkv, d, bs, block_tables.shape[1], n_pool, scale_v,
+        int(q.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    kernels.check(lib, rc, "paged_attention")
+    PAGED_LAUNCHES.add()
     return out

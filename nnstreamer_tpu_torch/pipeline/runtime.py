@@ -110,6 +110,10 @@ class _Runner:
         self.thread = threading.Thread(
             target=self._run, name=f"nns-{self.element.name}", daemon=True
         )
+        # Elements that emit from a thread of their own (the continuous
+        # LLM serve loop) push downstream through this runner's _emit.
+        if getattr(self.element, "wants_async_emit", False):
+            self.element._async_emit = self._emit
         self.in_pads: List[str] = []
         self._eos_pads: set = set()
         name = self.element.name
@@ -127,7 +131,11 @@ class _Runner:
 
     def _emit(self, outs) -> None:
         """Push (out_pad, item) pairs downstream; ``outs`` may be a
-        generator, pushed item by item as it yields."""
+        generator, pushed item by item as it yields.  Safe to call from
+        another thread while the runner also emits: the ports are fixed
+        at construction and each feed is a locked queue put.  EOS leaves
+        only after the element's ``finalize``, which for an async emitter
+        waits until its thread has emitted everything."""
         for out_pad, item in outs:
             ports = self.out_ports.get(out_pad, [])
             if not ports and isinstance(item, Buffer):

@@ -31,6 +31,35 @@ def test_import_leaves_jax_out_of_sys_modules():
     assert out.stdout.strip() == "ok"
 
 
+def test_continuous_serving_runs_without_jax():
+    """The serve thread, the paged path and the async emit import nothing
+    of jax either: serve two prompts on the CPU in a fresh process."""
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import nnstreamer_tpu_torch as ntt\n"
+        "p = ntt.Pipeline('appsrc name=src ! tensor_filter framework=llm "
+        "model=llama_tiny custom=max_new:3,dtype:float32,serve:continuous,"
+        "slots:2,block_size:8,prefill_chunk:8 accelerator=true:cpu ! "
+        "tensor_sink name=out')\n"
+        "with p:\n"
+        "    p.push('src', np.arange(1, 6, dtype=np.int32))\n"
+        "    p.push('src', np.arange(1, 12, dtype=np.int32))\n"
+        "    bufs = [p.pull('out', timeout=60) for _ in range(6)]\n"
+        "    p.eos('src')\n"
+        "    p.wait(timeout=60)\n"
+        "assert sum(bool(b.meta.get('stream_last')) for b in bufs) == 2\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
+        "('jax.', 'jaxlib', 'nnstreamer_tpu.')) or m == 'nnstreamer_tpu')\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def _imported_modules(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

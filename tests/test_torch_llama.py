@@ -60,7 +60,7 @@ def int4():
 def test_params_from_jax_bit_exact(kind, dense, int4):
     tree = {"dense_f32": dense, "int4": int4,
             "dense_bf16": _np_tree(jl.init_params(CFG, 0, dtype="bfloat16"))}[kind]
-    _assert_tree_bit_equal(tl.params_from_jax(tree), tree)
+    _assert_tree_bit_equal(tl.params_from_jax(tree, device="cpu"), tree)
 
 
 def test_quantize_int4_params_matches(dense):
@@ -69,7 +69,7 @@ def test_quantize_int4_params_matches(dense):
     ``amax * (1/7)``; the port divides, as the eager ``quantize_int4``
     does (test_torch_int4.py holds that one bit for bit)."""
     want = _np_tree(jl.quantize_int4_params(jl.init_params(CFG, seed=0)))
-    got = tl.quantize_int4_params(tl.params_from_jax(dense))
+    got = tl.quantize_int4_params(tl.params_from_jax(dense, device="cpu"))
     scales = [("layers", k) for k in want["layers"] if k.endswith("_s")]
     scales.append((None, "lm_head_s"))
     for outer, k in scales:
@@ -82,8 +82,8 @@ def test_quantize_int4_params_matches(dense):
 @pytest.mark.parametrize("quant", ["", "int4"])
 def test_own_init_matches_jax_tree_layout(quant, dense, int4):
     want = int4 if quant else dense
-    got = tl.init_params(TCFG, seed=0, quant=quant)
-    again = tl.init_params(TCFG, seed=0, quant=quant)
+    got = tl.init_params(TCFG, seed=0, quant=quant, device="cpu")
+    again = tl.init_params(TCFG, seed=0, quant=quant, device="cpu")
 
     def walk(p, a, w):
         assert p.keys() == w.keys()
@@ -109,7 +109,8 @@ def test_forward_matches(quant, dense, int4):
     toks = _tokens(9)
     want = np.asarray(jl.forward(tree, jnp.asarray(toks), CFG,
                                  compute_dtype="float32"))
-    got = tl.forward(tl.params_from_jax(tree), torch.from_numpy(toks).long(),
+    got = tl.forward(tl.params_from_jax(tree, device="cpu"),
+                     torch.from_numpy(toks).long(),
                      TCFG, compute_dtype="float32").numpy()
     np.testing.assert_allclose(got, want, **(INT4_TOL if quant else DENSE_TOL))
 
@@ -124,8 +125,8 @@ def test_forward_cached_prefill_then_decode_matches(quant, dense, int4):
     jcache = jl.init_cache(CFG, 1, dtype="float32")
     jlog, jcache = jl.forward_cached(tree, jnp.asarray(prompt), jcache, 0, CFG,
                                      compute_dtype="float32")
-    params = tl.params_from_jax(tree)
-    tcache = tl.init_cache(TCFG, 1, dtype="float32")
+    params = tl.params_from_jax(tree, device="cpu")
+    tcache = tl.init_cache(TCFG, 1, dtype="float32", device="cpu")
     tlog, tcache = tl.forward_cached(params, torch.from_numpy(prompt), tcache,
                                      0, TCFG, compute_dtype="float32")
     np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **tol)
