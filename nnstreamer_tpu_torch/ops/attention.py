@@ -72,13 +72,36 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.nns_flash_attention.restype = i
 
 
+def flash_route(q, k, v) -> str:
+    """The kernel a CUDA call of :func:`flash_attention` launches, by dtype
+    alone: ``"bf16"`` (tensor cores) or ``"f32"`` (CUDA cores).  Raises on
+    what neither kernel takes: another dtype or mixed dtypes, a head dim
+    outside {32, 64, 128}, a tensor that is not contiguous or not 16-byte
+    aligned."""
+    if q.dtype not in (torch.float32, torch.bfloat16) or \
+            k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention: kernel takes f32/bf16 q, k, v of "
+                         f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.shape[-1] not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {q.shape[-1]} not in "
+                         f"{_KERNEL_HEAD_DIMS}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention: kernel takes contiguous tensors")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: kernel takes 16-byte aligned tensors")
+    return "bf16" if q.dtype == torch.bfloat16 else "f32"
+
+
 def flash_attention(q, k, v, *, causal: bool = False,
                     scale: Optional[float] = None):
     """Blockwise attention for [B, Sq, H, D] q and [B, Skv, Hkv, D] k/v.
 
-    CPU tensors take :func:`attention_reference`.  CUDA tensors launch the
-    kernel, which takes any Sq and Skv, D in {32, 64, 128}, f32 or bf16;
-    any other device, dtype, head dim or layout raises.
+    CPU tensors take :func:`attention_reference`.  CUDA tensors launch a
+    kernel of ``csrc/flash_attention.cu``, chosen by dtype alone: bf16
+    launches the tensor-core kernel (wgmma, K/V tiles by TMA), f32 the
+    CUDA-core kernel (wgmma takes no f32 operands).  Both take any Sq and
+    Skv and D in {32, 64, 128}, and both count in :data:`LAUNCHES`; any
+    other device, dtype, head dim or layout raises.
     """
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"want q [B,Sq,H,D] and k/v [B,Skv,Hkv,D], got "
@@ -96,23 +119,13 @@ def flash_attention(q, k, v, *, causal: bool = False,
         raise ValueError("flash_attention: q, k and v must share a device")
     if q.device.index != torch.cuda.current_device():
         raise ValueError(f"flash_attention: {q.device} is not the current device")
-    if q.dtype not in (torch.float32, torch.bfloat16) or \
-            k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_attention: kernel takes f32/bf16 q, k, v of "
-                         f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in "
-                         f"{_KERNEL_HEAD_DIMS}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention: kernel takes contiguous tensors")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: kernel takes 16-byte aligned tensors")
+    route = flash_route(q, k, v)
     lib = kernels.library("flash_attention", _declare)
     out = torch.empty_like(q)
     rc = lib.nns_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, sq, skv, h, hkv, d, int(causal), scale_v,
-        int(q.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+        b, sq, skv, h, hkv, d, int(causal), scale_v, int(route == "bf16"),
+        torch.cuda.current_stream().cuda_stream)
     kernels.check(lib, rc, "flash_attention")
     LAUNCHES.add()
     return out

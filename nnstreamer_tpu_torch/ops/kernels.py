@@ -29,10 +29,6 @@ SOURCES = ("int4_matmul", "flash_attention", "paged_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: nvcc's output per source from the last build in this process (the
-#: ``-Xptxas -v`` register / shared-memory / spill report)
-build_log: Dict[str, str] = {}
-
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
@@ -69,11 +65,26 @@ def _nvcc() -> str:
                        "are built from csrc/ at first use")
 
 
+def toolkit_program(name: str) -> str:
+    """A program of the CUDA toolkit that holds ``nvcc`` (``cuobjdump``)."""
+    path = Path(_nvcc()).parent / name
+    if not path.exists():
+        raise RuntimeError(f"{name} not found beside {_nvcc()}")
+    return str(path)
+
+
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_report(name: str) -> str:
+    """nvcc's output for the built library of ``csrc/<name>.cu``: its
+    ``-Xptxas -v`` registers, shared memory and spills per kernel."""
+    path = library_path(name)
+    return path.with_name(path.name + ".log").read_text()
 
 
 def build(names: Iterable[str] = SOURCES) -> float:
@@ -98,10 +109,10 @@ def build(names: Iterable[str] = SOURCES) -> float:
         errors = []
         for n, out, tmp, p in procs:
             text, _ = p.communicate()
-            build_log[n] = text
             if p.returncode:
                 errors.append(f"{n}.cu: nvcc exited {p.returncode}\n{text}")
             else:
+                out.with_name(out.name + ".log").write_text(text)
                 os.replace(tmp, out)
         if errors:
             raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))

@@ -70,3 +70,92 @@ def test_wrapper_rejects_mismatched_heads():
     k = torch.zeros(1, 8, 4, 32)
     with pytest.raises(ValueError, match="do not match"):
         port.flash_attention(q, k, k)
+
+
+# -- the cases the card's tiling must get right (128-row blocks of two
+# 64-row warpgroups, 128-key tiles), held on the plain path ----------------
+
+@pytest.mark.parametrize("sq,skv,hkv,block", [
+    (40, 40, 2, 8),     # G = 2, Sq not a multiple of 64
+    (100, 100, 1, 20),  # G = 4, 400 rows: the last 128-row block is ragged
+    (100, 160, 1, 20),  # G = 4, kv longer than q
+])
+def test_grouped_ragged_rows_match_interpreted_kernel(sq, skv, hkv, block):
+    q, k, v = _qkv(1, sq, skv, 4, hkv, 64, seed=sq + skv)
+    got = _port(q, k, v, True)
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    kern = np.asarray(jax_flash(jq, jk, jv, causal=True, block_q=block,
+                                block_k=block, interpret=True))
+    np.testing.assert_allclose(got, kern, atol=3e-5)
+    want = np.asarray(jax_ref(jq, jk, jv, causal=True))
+    np.testing.assert_allclose(got, want, atol=3e-5)
+
+
+@pytest.mark.parametrize("skv", [256, 704])
+def test_prefill_chunk_on_gathered_kv_matches_interpreted_kernel(skv):
+    """The continuous loop's chunk: 32 queries at the back of ``skv``
+    gathered positions, causal."""
+    q, k, v = _qkv(1, 32, skv, 2, 2, 128, seed=skv)
+    got = _port(q, k, v, True)
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    kern = np.asarray(jax_flash(jq, jk, jv, causal=True, block_q=32,
+                                block_k=64, interpret=True))
+    np.testing.assert_allclose(got, kern, atol=3e-5)
+    want = np.asarray(jax_ref(jq, jk, jv, causal=True))
+    np.testing.assert_allclose(got, want, atol=3e-5)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_head_dims_match_interpreted_kernel(d):
+    q, k, v = _qkv(2, 64, 128, 4, 2, d, seed=d)
+    got = _port(q, k, v, True)
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    kern = np.asarray(jax_flash(jq, jk, jv, causal=True, block_q=32,
+                                block_k=64, interpret=True))
+    np.testing.assert_allclose(got, kern, atol=3e-5)
+    want = np.asarray(jax_ref(jq, jk, jv, causal=True))
+    np.testing.assert_allclose(got, want, atol=3e-5)
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "bf16"),
+                                         (torch.float32, "f32")])
+def test_dtype_routes_to_its_kernel_and_cpu_takes_plain(dtype, route):
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _qkv(1, 16, 24, 4, 2, 64))
+    assert port.flash_route(q, k, v) == route
+    before = port.LAUNCHES.value
+    got = port.flash_attention(q, k, v, causal=True)
+    assert got.dtype == dtype
+    torch.testing.assert_close(
+        got, port.attention_reference(q, k, v, causal=True), rtol=0, atol=0)
+    assert port.LAUNCHES.value == before
+
+
+def _bad_inputs(case):
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(1, 16, 16, 4, 2, 64))
+    if case == "f16":
+        return q.half(), k.half(), v.half()
+    if case == "mixed":
+        return q, k.float(), v
+    if case == "non-contiguous":
+        return q.transpose(1, 2).contiguous().transpose(1, 2), k, v
+    if case == "d96":
+        return (torch.from_numpy(a).to(torch.bfloat16)
+                for a in _qkv(1, 16, 16, 4, 2, 96))
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("f16", "f32/bf16"), ("mixed", "one dtype"),
+    ("non-contiguous", "contiguous"), ("d96", "head dim 96")])
+def test_route_rejects_what_no_kernel_takes(case, match):
+    with pytest.raises(ValueError, match=match):
+        port.flash_route(*_bad_inputs(case))
+
+
+def test_wrapper_rejects_meta_device_for_every_dtype():
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.from_numpy(a).to(dtype).to("meta")
+                   for a in _qkv(1, 16, 16, 4, 2, 64))
+        with pytest.raises(ValueError, match="no kernel for device"):
+            port.flash_attention(q, k, v, causal=True)
