@@ -9,17 +9,23 @@ Phases, each of which must pass:
 
 1. build   — compile every CUDA kernel of the main path from csrc/ (one
              nvcc per source, started together) and print the seconds.
-             The flash library's SASS (cuobjdump) must hold tensor-core
-             (HGMMA) and TMA (UTMALDG) instructions, and ptxas must report
-             no spill for its bf16 kernel.
+             The flash and int4 libraries' SASS (cuobjdump) must hold
+             tensor-core (HGMMA) instructions and asynchronous copies (TMA:
+             UTMALDG; for int4 UTMALDG or UBLKCP), and ptxas must report no
+             spill for any of their bf16 kernels.
 2. kernels — hold each kernel against its plain PyTorch version on the
              card, at the shapes the main path gives it and a few more, and
              time kernel, plain version, one PyTorch library call computing
              the same function (the yardstick; the port never calls it) and
              the least time the card could take (the bound).  Errors are
-             per row (a batch row, query position and head for flash; a
-             batch row for paged): max |kernel - plain| over the row within
-             a share of the row's max |plain|, on bf16 and on f32 inputs.
+             per row (a batch row for int4 and paged; a batch row, query
+             position and head for flash): max |kernel - plain| over the row
+             within a share of the row's max |plain|, on bf16 and on f32
+             inputs.  int4 runs the llama2_7b, llama_small and three ragged
+             mats at B = 1, 5, 8, 17 and 32 and is held to the f32 plain
+             version; at B = 8 and 32 on the llama2_7b mats two calls must
+             agree bitwise, and row 0 must not change when the other rows
+             do (what the continuous replay below relies on).
 3. serve   — the static stream path through the entry points a user
              calls: ``appsrc ! tensor_filter framework=llm model=llama2_7b
              custom=quant:int4,... ! tensor_sink`` at full width (random
@@ -69,16 +75,34 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 #: and bf16 tensor-core flop/s, for the SXM part and the PCIe part
 RATES = {"sxm": (3.35e12, 989e12), "pcie": (2.0e12, 756e12)}
 
-#: llama2_7b int4 mats: name -> (packed rows Din/2, out F, launches per
-#: decoded token, output dtype name)
+#: int4 mats: name -> (packed rows Din/2, out F, launches per decoded
+#: token of llama2_7b, output dtype name).  The five llama2_7b mats, the
+#: llama_small ones (dim 512, ffn 1024, 4 kv heads of 64) and three ragged
+#: ones whose d2 and F are multiples of neither 64 nor 128: the weights of
+#: "ragged_tma" still come by TMA (F % 16 == 0), those of "ragged" and
+#: "odd" by the producer warp's own loads, and "odd"'s activations by
+#: 2-byte loads (d2 % 8 != 0)
 INT4_MATS = {
     "wqkv": (2048, 12288, 32, "bf16"),
     "wo": (2048, 4096, 32, "bf16"),
     "wgu": (2048, 22016, 32, "bf16"),
     "w_down": (5504, 4096, 32, "bf16"),
     "lm_head": (2048, 32000, 1, "f32"),
+    "small_wqkv": (256, 1024, 0, "bf16"),
+    "small_wo": (256, 512, 0, "bf16"),
+    "small_wgu": (256, 2048, 0, "bf16"),
+    "small_w_down": (512, 512, 0, "bf16"),
+    "small_lm_head": (256, 2048, 0, "f32"),
+    "ragged_tma": (1000, 1040, 0, "bf16"),
+    "ragged": (1000, 1000, 0, "bf16"),
+    "odd": (1001, 1001, 0, "f32"),
 }
-INT4_ROWS = (1, 8, 32)
+#: batch rows: static decode (1), a continuous decode step (8 slots), a
+#: prefill chunk or the static 32-bucket (32), and two ragged counts
+INT4_ROWS = (1, 5, 8, 17, 32)
+#: rows at which two calls must agree bitwise and row 0 must not depend on
+#: the other rows (what replay_stream assumes of the continuous loop)
+INT4_BITWISE_ROWS = (8, 32)
 #: flash shapes (B, Sq, Skv, H, Hkv, D, causal): the static path's prompt
 #: buckets (32, 256, 1023) and 200, 1024; the continuous loop's chunked
 #: prefill (32 queries on 32, 256 and 704 gathered positions, back
@@ -105,7 +129,15 @@ FLASH_SHAPES = [
 FLASH_CHUNK_SKV = (32, 256, 704)
 PROMPT_LENS = (32, 200, 700)
 MAX_NEW = 64
-INT4_TOL = 2e-2   # max |kernel - plain| / max |plain|, bf16 activations
+#: int4, per batch row, against the f32 plain version on the same inputs:
+#: max |kernel - f32 plain| over the row <= this share of the row's max
+#: |f32 plain|.  bf16 outputs round each value by up to 2^-8 (0.39%) of
+#: itself, so 1% is 2.5 times that; a dropped 8-row k-slice, split or packed row,
+#: a swapped nibble or a wrong output column breaks it
+#: (tests/test_torch_int4.py).  f32 outputs (the lm_head) and f32 inputs
+#: differ from the plain version only in the order of the sum
+INT4_ROW_TOL = 1e-2
+INT4_ROW_TOL_F32 = 1e-4
 REF_TOL = 2e-3    # f32 logits, kernels on the card vs plain on the CPU
 #: bf16 llama_small logits, card against the CPU on the same parameters:
 #: max |card - cpu| over a step's logits <= this share of the step's
@@ -222,17 +254,26 @@ def ptxas_entries(text):
     return out
 
 
-def phase_build_evidence():
-    """What the built flash library really holds: SASS counts of
-    tensor-core (HGMMA) and TMA load (UTMALDG) instructions, and the bf16
-    kernel's registers and spills as ptxas reports them."""
+def sass_counts(name, ops):
+    """How many of each SASS instruction the built library of
+    ``csrc/<name>.cu`` holds (``cuobjdump -sass``)."""
     from nnstreamer_tpu_torch.ops import kernels
 
-    lib = kernels.library_path("flash_attention")
-    out = subprocess.run([kernels.toolkit_program("cuobjdump"), "-sass", str(lib)],
+    out = subprocess.run([kernels.toolkit_program("cuobjdump"), "-sass",
+                          str(kernels.library_path(name))],
                          capture_output=True, text=True, timeout=300)
     check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
-    sass = {op: out.stdout.count(op) for op in ("HGMMA", "UTMALDG")}
+    return {op: out.stdout.count(op) for op in ops}
+
+
+def phase_build_evidence():
+    """What the built flash and int4 libraries really hold: SASS counts of
+    tensor-core (HGMMA) and asynchronous copy (UTMALDG for TMA, UBLKCP for
+    cp.async.bulk) instructions, and each kernel's registers and spills as
+    ptxas reports them."""
+    from nnstreamer_tpu_torch.ops import kernels
+
+    sass = sass_counts("flash_attention", ("HGMMA", "UTMALDG"))
     check(sass["HGMMA"] > 0, "flash library: no HGMMA (wgmma) instruction in its SASS")
     check(sass["UTMALDG"] > 0, "flash library: no UTMALDG (TMA load) instruction in its SASS")
     bf16 = {name: e for name, e in ptxas_entries(
@@ -241,51 +282,35 @@ def phase_build_evidence():
     for name, e in bf16.items():
         check(e.get("spill_stores") == 0 and e.get("spill_loads") == 0,
               f"flash bf16 kernel spills: {name} {e}")
-    return dict(sass=sass, bf16_kernels=sorted(bf16.values(), key=str))
+    int4_sass = sass_counts("int4_matmul", ("HGMMA", "UTMALDG", "UBLKCP"))
+    check(int4_sass["HGMMA"] > 0, "int4 library: no HGMMA (wgmma) instruction in its SASS")
+    check(int4_sass["UTMALDG"] + int4_sass["UBLKCP"] > 0,
+          "int4 library: no asynchronous copy (UTMALDG or UBLKCP) in its SASS")
+    int4 = {name: e for name, e in ptxas_entries(
+        kernels.build_report("int4_matmul")).items() if "int4_bf16_kernel" in name}
+    check(bool(int4), "int4 library: ptxas reported no bf16 kernel")
+    for name, e in int4.items():
+        check(e.get("spill_stores") == 0 and e.get("spill_loads") == 0,
+              f"int4 bf16 kernel spills: {name} {e}")
+    return dict(sass=sass, bf16_kernels=sorted(bf16.values(), key=str),
+                int4_sass=int4_sass, int4_bf16_kernels=sorted(int4.values(), key=str))
 
 
 def phase_kernels(dev, bw, peak, flush):
     import torch
-    import torch.nn.functional as F
 
-    from nnstreamer_tpu_torch.ops import attention, int4_matmul as i4
+    from nnstreamer_tpu_torch.ops import int4_matmul as i4
 
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
     for name, (d2, f, per_token, odt_name) in INT4_MATS.items():
-        odt = torch.bfloat16 if odt_name == "bf16" else torch.float32
         packed = torch.randint(-128, 128, (d2, f), generator=gen, device=dev,
                                dtype=torch.int8)
         scale = torch.rand((1, f), generator=gen, device=dev) * 1e-2 + 1e-3
         w = (i4.unpack_int4(packed).float() * scale).to(torch.bfloat16)
         for B in INT4_ROWS:
-            h = torch.randn((B, 2 * d2), generator=gen, device=dev,
-                            dtype=torch.bfloat16)
-            got = i4.matmul_int4(h, packed, scale, out_dtype=odt)
-            plain = i4.matmul_int4_reference(h, packed, scale, out_dtype=odt)
-            f32 = i4.matmul_int4_reference(h.float(), packed, scale)
-            torch.cuda.synchronize()
-            err = (got.float() - plain.float()).abs().max().item()
-            ref = plain.float().abs().max().item()
-            err32 = (got.float() - f32).abs().max().item()
-            check(err <= INT4_TOL * ref,
-                  f"int4 {name} B={B}: max err {err} > {INT4_TOL} x {ref}")
-            check(err32 <= INT4_TOL * f32.abs().max().item(),
-                  f"int4 {name} B={B}: f32 err {err32}")
-            nbytes = (h.numel() * 2 + packed.numel() + scale.numel() * 4
-                      + B * f * got.element_size())
-            ops = 2.0 * B * 2 * d2 * f
-            rows.append(dict(
-                kernel="matmul_int4", shape=name, B=B, out=odt_name,
-                per_token=per_token, max_abs_err=err, max_abs_plain=ref,
-                max_abs_err_vs_f32=err32,
-                **timings(
-                    lambda: i4.matmul_int4(h, packed, scale, out_dtype=odt),
-                    lambda: i4.matmul_int4_reference(h, packed, scale,
-                                                     out_dtype=odt),
-                    lambda: torch.matmul(h, w), flush),
-                bound_ms=max(nbytes / bw, ops / peak) * 1e3,
-                bound_by="bytes" if nbytes / bw >= ops / peak else "operations"))
+            rows.append(int4_row(dev, gen, bw, peak, flush, name, packed, scale,
+                                 w, B, per_token, odt_name))
         del packed, scale, w
 
     for shape in FLASH_SHAPES:
@@ -305,6 +330,74 @@ def row_errs(got, want, live=None):
     if live is not None:
         diff, scale = diff[live], scale[live]
     return diff.max().item(), (diff / scale).max().item()
+
+
+def bitwise_equal(a, b):
+    """Whether two tensors of one float dtype hold the same bits."""
+    import torch
+
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[a.dtype]
+    return bool(torch.equal(a.view(ints), b.view(ints)))
+
+
+def int4_row(dev, gen, bw, peak, flush, name, packed, scale, w, B, per_token,
+             odt_name):
+    """The int4 kernel against its plain version at one mat and row count.
+    bf16 activations (the tensor-core route) are held per row against the
+    f32 plain version on the same values, f32 activations (the CUDA-core
+    route) the same with an f32 output; the error against the bf16 plain
+    version is kept as a number only.  At INT4_BITWISE_ROWS on the
+    llama2_7b mats, two calls must agree bitwise, and so must row 0 when
+    every other row changes."""
+    import torch
+
+    from nnstreamer_tpu_torch.ops import int4_matmul as i4
+
+    d2, f = packed.shape
+    odt = torch.bfloat16 if odt_name == "bf16" else torch.float32
+    tol = INT4_ROW_TOL if odt == torch.bfloat16 else INT4_ROW_TOL_F32
+    h = torch.randn((B, 2 * d2), generator=gen, device=dev, dtype=torch.bfloat16)
+    h32 = h.float()
+    got = i4.matmul_int4(h, packed, scale, out_dtype=odt)
+    plain = i4.matmul_int4_reference(h, packed, scale, out_dtype=odt)
+    f32 = i4.matmul_int4_reference(h32, packed, scale, out_dtype=torch.float32)
+    got_f32in = i4.matmul_int4(h32, packed, scale, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    err, rel = row_errs(got, f32)
+    err_bf16, rel_bf16 = row_errs(got, plain)
+    err_f32in, rel_f32in = row_errs(got_f32in, f32)
+    shape = f"int4 {name} (d2 {d2}, F {f}) B={B}"
+    check(rel <= tol, f"{shape}: row error {rel} > {tol} of the row's scale")
+    check(rel_f32in <= INT4_ROW_TOL_F32,
+          f"{shape}: f32-input row error {rel_f32in} > {INT4_ROW_TOL_F32}")
+    bitwise = None
+    if per_token and B in INT4_BITWISE_ROWS:
+        again = i4.matmul_int4(h, packed, scale, out_dtype=odt)
+        h_other = h.clone()
+        h_other[1:] = torch.randn((B - 1, 2 * d2), generator=gen, device=dev,
+                                  dtype=torch.bfloat16)
+        other = i4.matmul_int4(h_other, packed, scale, out_dtype=odt)
+        torch.cuda.synchronize()
+        bitwise = dict(repeat=bitwise_equal(got, again),
+                       row0_alone=bitwise_equal(got[0], other[0]))
+        check(bitwise["repeat"], f"{shape}: two calls on the same inputs differ")
+        check(bitwise["row0_alone"],
+              f"{shape}: row 0 changed when only the other rows did")
+    nbytes = (h.numel() * 2 + packed.numel() + scale.numel() * 4
+              + B * f * got.element_size())
+    ops = 2.0 * B * 2 * d2 * f
+    return dict(
+        kernel="matmul_int4", shape=name, d2=d2, F=f, B=B, out=odt_name,
+        per_token=per_token, max_abs_err=err, max_row_err=rel,
+        max_abs_err_vs_bf16_plain=err_bf16, max_row_err_vs_bf16_plain=rel_bf16,
+        max_abs_err_f32_inputs=err_f32in, max_row_err_f32_inputs=rel_f32in,
+        bitwise=bitwise,
+        **timings(
+            lambda: i4.matmul_int4(h, packed, scale, out_dtype=odt),
+            lambda: i4.matmul_int4_reference(h, packed, scale, out_dtype=odt),
+            lambda: torch.matmul(h, w), flush),
+        bound_ms=max(nbytes / bw, ops / peak) * 1e3,
+        bound_by="bytes" if nbytes / bw >= ops / peak else "operations")
 
 
 def flash_row(dev, gen, bw, peak, flush, b, sq, skv, h, hkv, d, causal):
@@ -889,12 +982,18 @@ def main():
     evidence = phase_build_evidence()
     print(f"build: flash SASS {evidence['sass']}, bf16 kernels (D = 128, 64, 32) "
           f"{evidence['bf16_kernels']}", flush=True)
+    print(f"build: int4 SASS {evidence['int4_sass']}, bf16 kernels (N = 8, 16, 32) "
+          f"{evidence['int4_bf16_kernels']}", flush=True)
 
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     rows = phase_kernels(dev, bw, peak, flush_buf.zero_)
     del flush_buf
     for r in rows:
         row_err = f" row_err={r['max_row_err']:.3g}" if "max_row_err" in r else ""
+        if r["kernel"] == "matmul_int4":
+            row_err += (f" f32in_row_err={r['max_row_err_f32_inputs']:.3g}"
+                        f" vs_bf16_plain={r['max_row_err_vs_bf16_plain']:.3g}"
+                        f" bitwise={r['bitwise']}")
         print(f"kernels: {r['kernel']} {r['shape']} B={r.get('B', '-')} "
               f"err={r['max_abs_err']:.3g}{row_err} ms={r['ms']:.4f} "
               f"plain={r['plain_ms']:.4f} lib={r['library_ms']:.4f} "
@@ -936,11 +1035,17 @@ def main():
     print(f"reference: {ref_bf16}", flush=True)
 
     # one line per kernel: int4 per decoded token (129 launches at B=1),
-    # flash per request at the 1023-row prompt bucket (32 launches) and
-    # per continuous prefill chunk (32 launches at Sq = 32, by Skv), paged
-    # per continuous decode step at the 7B 8-slot shape (32 launches);
-    # launches are the static serve phase's plus the continuous phase's
-    tok = [r for r in rows if r["kernel"] == "matmul_int4" and r["B"] == 1]
+    # with the same 129 launches at B=8 (a continuous decode step) and
+    # B=32 (a prefill chunk) beside it; flash per request at the 1023-row
+    # prompt bucket (32 launches) and per continuous prefill chunk (32
+    # launches at Sq = 32, by Skv), paged per continuous decode step at
+    # the 7B 8-slot shape (32 launches); launches are the static serve
+    # phase's plus the continuous phase's
+    int4_rows = [r for r in rows if r["kernel"] == "matmul_int4"]
+
+    def per_step(B, key):
+        return sum(r[key] * r["per_token"] for r in int4_rows if r["B"] == B)
+
     fl = [r for r in rows if r["kernel"] == "flash_attention"
           and r["shape"]["Sq"] == 1023][0]
     chunk = {r["shape"]["Skv"]: r for r in rows if r["kernel"] == "flash_attention"
@@ -954,11 +1059,12 @@ def main():
              source="nnstreamer_tpu_torch/csrc/int4_matmul.cu",
              replaces="nnstreamer_tpu/ops/int4_matmul.py:193",
              launches=both["matmul_int4"],
-             max_abs_err=max(r["max_abs_err"] for r in rows
-                             if r["kernel"] == "matmul_int4"),
-             **{k: sum(r[k] * r["per_token"] for r in tok)
-                for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
-             bound_by="bytes"),
+             max_abs_err=max(r["max_abs_err"] for r in int4_rows),
+             max_row_err=max(r["max_row_err"] for r in int4_rows),
+             **{k: per_step(1, k) for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+             bound_by="bytes",
+             **{f"{what}_{k}": per_step(B, k) for what, B in (("step8", 8), ("chunk32", 32))
+                for k in ("ms", "bound_ms", "library_ms")}),
         dict(name="flash_attention", route="cuda",
              source="nnstreamer_tpu_torch/csrc/flash_attention.cu",
              replaces="nnstreamer_tpu/ops/attention.py:210",
