@@ -11,8 +11,9 @@ Phases, each of which must pass:
              nvcc per source, started together) and print the seconds.
              The flash and int4 libraries' SASS (cuobjdump) must hold
              tensor-core (HGMMA) instructions and asynchronous copies (TMA:
-             UTMALDG; for int4 UTMALDG or UBLKCP), and ptxas must report no
-             spill for any of their bf16 kernels.
+             UTMALDG; for int4 UTMALDG or UBLKCP), the paged library's
+             mma.sync (HMMA) and UTMALDG, and ptxas must report no spill
+             for any of their bf16 kernels.
 2. kernels — hold each kernel against its plain PyTorch version on the
              card, at the shapes the main path gives it and a few more, and
              time kernel, plain version, one PyTorch library call computing
@@ -25,7 +26,17 @@ Phases, each of which must pass:
              mats at B = 1, 5, 8, 17 and 32 and is held to the f32 plain
              version; at B = 8 and 32 on the llama2_7b mats two calls must
              agree bitwise, and row 0 must not change when the other rows
-             do (what the continuous replay below relies on).
+             do (what the continuous replay below relies on).  The five
+             7B mats at B = 8, launched on two streams at once with
+             different inputs, must equal the same launches run one after
+             another, bitwise.  Paged runs the 7B 8-slot decode step,
+             grouped heads (G = 4 and 8), D = 64 and 32, one 4096-position
+             row, lengths at the partition edges and a full table, the
+             speculative-verify shape (8 rows of T = 5 queries, at G = 1
+             and 4; T = 8 at G = 8) and 4 rows of T = 9 at G = 8, which
+             take gathered flash row by row; at the 7B step two calls must
+             agree bitwise, and row 0 must not change when every other
+             row's length and K/V do.
 3. serve   — the static stream path through the entry points a user
              calls: ``appsrc ! tensor_filter framework=llm model=llama2_7b
              custom=quant:int4,... ! tensor_sink`` at full width (random
@@ -49,9 +60,10 @@ Phases, each of which must pass:
 5. reference — on a small model, logits with the kernels on the card
              agree with the plain versions on the CPU: cached prefill and
              decode, and the paged path (chunked prefill, then decode with
-             a parked row), in f32; then the same model in bf16 (cached
-             prefill and decode, chunked paged prefill), whose flash calls
-             take the tensor-core kernel.
+             a parked row, then a [2, 5] verify-shaped step of two live
+             rows), in f32; then the same model in bf16 (cached prefill and
+             decode, chunked paged prefill), whose flash calls take the
+             tensor-core kernel.
 
 Prints the card's name and power limit (nvidia-smi), a ``{"kernels": ...}``
 JSON line, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -158,16 +170,38 @@ BF16_REF_TOL = 8e-2
 ROW_TOL = 2e-2
 ROW_TOL_F32 = 1e-4
 PAGED_BS = 16
-#: paged shapes (name, B, H, Hkv, D, context lengths, table width): the
+#: paged shapes (name, B, T, H, Hkv, D, context lengths, table width): the
 #: continuous path's llama2_7b decode step (8 slots, mixed lengths), the
-#: same with grouped K/V, head dim 64, and one row at 4096 positions
+#: same with grouped K/V (4 and 8 query heads per kv head), head dims 64
+#: and 32, one row at 4096 positions, lengths at the edges of the kernel's
+#: 256-position partitions and a row filling its whole table; then the
+#: speculative-verify step (T = 5 queries per row; the first row's context
+#: holds only its suffix), the same with 4 query heads per kv head (20
+#: query rows: two 16-row tiles) and at T = 8 with 8 (64 rows: four
+#: tiles), and last 9 queries with 8 query heads per kv head (72 rows,
+#: past the kernel: each row through gathered flash attention)
 PAGED_LENS = (0, 1, 33, 100, 257, 512, 700, 1000)
 PAGED_SHAPES = [
-    ("7b", 8, 32, 32, 128, PAGED_LENS, 64),
-    ("7b_kv8", 8, 32, 8, 128, PAGED_LENS, 64),
-    ("d64", 8, 32, 32, 64, PAGED_LENS, 64),
-    ("long", 1, 32, 32, 128, (4096,), 256),
+    ("7b", 8, 1, 32, 32, 128, PAGED_LENS, 64),
+    ("7b_kv8", 8, 1, 32, 8, 128, PAGED_LENS, 64),
+    ("g8", 8, 1, 64, 8, 128, PAGED_LENS, 64),
+    ("d64", 8, 1, 32, 32, 64, PAGED_LENS, 64),
+    ("d32", 8, 1, 32, 32, 32, PAGED_LENS, 64),
+    ("long", 1, 1, 32, 32, 128, (4096,), 256),
+    ("edges", 4, 1, 32, 32, 128, (255, 256, 257, 1024), 64),
+    ("7b_spec", 8, 5, 32, 32, 128, (5, 6, 33, 100, 257, 512, 700, 1000), 64),
+    ("spec_kv8", 8, 5, 32, 8, 128, (5, 6, 33, 100, 257, 512, 700, 1000), 64),
+    ("spec_g8", 8, 8, 64, 8, 128, (8, 9, 33, 100, 257, 512, 700, 1000), 64),
+    ("wide", 4, 9, 64, 8, 128, (0, 9, 300, 1000), 64),
 ]
+#: paged shapes at which two calls must agree bitwise and row 0 must not
+#: depend on the other rows
+PAGED_BITWISE = ("7b",)
+#: int4 mats launched on two streams at once (the five llama2_7b mats at
+#: a continuous decode step's 8 rows), rounds of launches
+INT4_STREAM_MATS = ("wqkv", "wo", "wgu", "w_down", "lm_head")
+INT4_STREAM_ROWS = 8
+INT4_STREAM_ROUNDS = 4
 PAGED_POOL_BLOCKS = 512
 #: continuous phase: first wave, then the late joiners (token ids each)
 CONT_WAVES = ((32, 200, 450, 700), (64, 128, 300, 600))
@@ -266,37 +300,61 @@ def sass_counts(name, ops):
     return {op: out.stdout.count(op) for op in ops}
 
 
-def phase_build_evidence():
-    """What the built flash and int4 libraries really hold: SASS counts of
-    tensor-core (HGMMA) and asynchronous copy (UTMALDG for TMA, UBLKCP for
-    cp.async.bulk) instructions, and each kernel's registers and spills as
-    ptxas reports them."""
+def bf16_kernels(name, entry):
+    """ptxas's registers and spills of the library's kernels whose name
+    holds ``entry``; each must spill nothing."""
     from nnstreamer_tpu_torch.ops import kernels
 
+    found = {k: e for k, e in ptxas_entries(kernels.build_report(name)).items()
+             if entry in k}
+    check(bool(found), f"{name} library: ptxas reported no {entry}")
+    for k, e in found.items():
+        check(e.get("spill_stores") == 0 and e.get("spill_loads") == 0,
+              f"{name} bf16 kernel spills: {k} {e}")
+    return sorted(found.values(), key=str)
+
+
+def phase_build_evidence():
+    """What the built libraries really hold: SASS counts of tensor-core
+    (HGMMA for wgmma, HMMA for mma.sync) and asynchronous copy (UTMALDG
+    for TMA, UBLKCP for cp.async.bulk) instructions, and each bf16
+    kernel's registers and spills as ptxas reports them."""
     sass = sass_counts("flash_attention", ("HGMMA", "UTMALDG"))
     check(sass["HGMMA"] > 0, "flash library: no HGMMA (wgmma) instruction in its SASS")
     check(sass["UTMALDG"] > 0, "flash library: no UTMALDG (TMA load) instruction in its SASS")
-    bf16 = {name: e for name, e in ptxas_entries(
-        kernels.build_report("flash_attention")).items() if "flash_bf16_kernel" in name}
-    check(bool(bf16), "flash library: ptxas reported no bf16 kernel")
-    for name, e in bf16.items():
-        check(e.get("spill_stores") == 0 and e.get("spill_loads") == 0,
-              f"flash bf16 kernel spills: {name} {e}")
     int4_sass = sass_counts("int4_matmul", ("HGMMA", "UTMALDG", "UBLKCP"))
     check(int4_sass["HGMMA"] > 0, "int4 library: no HGMMA (wgmma) instruction in its SASS")
     check(int4_sass["UTMALDG"] + int4_sass["UBLKCP"] > 0,
           "int4 library: no asynchronous copy (UTMALDG or UBLKCP) in its SASS")
-    int4 = {name: e for name, e in ptxas_entries(
-        kernels.build_report("int4_matmul")).items() if "int4_bf16_kernel" in name}
-    check(bool(int4), "int4 library: ptxas reported no bf16 kernel")
-    for name, e in int4.items():
-        check(e.get("spill_stores") == 0 and e.get("spill_loads") == 0,
-              f"int4 bf16 kernel spills: {name} {e}")
-    return dict(sass=sass, bf16_kernels=sorted(bf16.values(), key=str),
-                int4_sass=int4_sass, int4_bf16_kernels=sorted(int4.values(), key=str))
+    paged_sass = sass_counts("paged_attention", ("HMMA", "UTMALDG"))
+    check(paged_sass["HMMA"] > 0, "paged library: no HMMA (mma.sync) instruction in its SASS")
+    check(paged_sass["UTMALDG"] > 0, "paged library: no UTMALDG (TMA load) instruction in its SASS")
+    return dict(sass=sass, bf16_kernels=bf16_kernels("flash_attention", "flash_bf16_kernel"),
+                int4_sass=int4_sass,
+                int4_bf16_kernels=bf16_kernels("int4_matmul", "int4_bf16_kernel"),
+                paged_sass=paged_sass,
+                paged_bf16_kernels=bf16_kernels("paged_attention", "paged_split_bf16"))
+
+
+def print_row(r):
+    row_err = f" row_err={r['max_row_err']:.3g}" if "max_row_err" in r else ""
+    if r["kernel"] == "matmul_int4":
+        row_err += (f" f32in_row_err={r['max_row_err_f32_inputs']:.3g}"
+                    f" vs_bf16_plain={r['max_row_err_vs_bf16_plain']:.3g}"
+                    f" bitwise={r['bitwise']}")
+    if r["kernel"] == "paged_attention":
+        row_err += (f" route={r['route']} f32_row_err={r['max_row_err_vs_f32']:.3g}"
+                    f" f32in_row_err={r['max_row_err_f32_inputs']:.3g}"
+                    f" bitwise={r['bitwise']}")
+    print(f"kernels: {r['kernel']} {r['shape']} B={r.get('B', '-')} "
+          f"err={r['max_abs_err']:.3g}{row_err} ms={r['ms']:.4f} "
+          f"plain={r['plain_ms']:.4f} lib={r['library_ms']:.4f} "
+          f"bound={r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
 
 
 def phase_kernels(dev, bw, peak, flush):
+    """Every kernel against its plain version at its shapes, and the int4
+    two-stream check; returns (rows, the two-stream result)."""
     import torch
 
     from nnstreamer_tpu_torch.ops import int4_matmul as i4
@@ -311,15 +369,65 @@ def phase_kernels(dev, bw, peak, flush):
         for B in INT4_ROWS:
             rows.append(int4_row(dev, gen, bw, peak, flush, name, packed, scale,
                                  w, B, per_token, odt_name))
+            print_row(rows[-1])
         del packed, scale, w
+    streams = int4_two_streams(dev, gen)
+    print(f"kernels: int4 on two streams at once {streams}", flush=True)
 
     for shape in FLASH_SHAPES:
         rows.append(flash_row(dev, gen, bw, peak, flush, *shape))
+        print_row(rows[-1])
 
-    for (name, b, h, hkv, d, lens, max_blocks) in PAGED_SHAPES:
-        rows.append(paged_row(dev, gen, bw, peak, flush, name, b, h, hkv, d,
-                              lens, max_blocks))
-    return rows
+    for shape in PAGED_SHAPES:
+        rows.append(paged_row(dev, gen, bw, peak, flush, *shape))
+        print_row(rows[-1])
+    return rows, streams
+
+
+def int4_two_streams(dev, gen):
+    """The five llama2_7b int4 mats at INT4_STREAM_ROWS rows, launched on
+    two streams at once (one input set each, every mat in turn on both
+    streams, INT4_STREAM_ROUNDS times), against the same launches run one
+    after another on the current stream: every output bitwise equal.  Two
+    launches in flight on two streams must not share split-K tickets."""
+    import torch
+
+    from nnstreamer_tpu_torch.ops import int4_matmul as i4
+
+    mats = []
+    for name in INT4_STREAM_MATS:
+        d2, f, _, odt_name = INT4_MATS[name]
+        packed = torch.randint(-128, 128, (d2, f), generator=gen, device=dev,
+                               dtype=torch.int8)
+        scale = torch.rand((1, f), generator=gen, device=dev) * 1e-2 + 1e-3
+        odt = torch.bfloat16 if odt_name == "bf16" else torch.float32
+        hs = [torch.randn((INT4_STREAM_ROWS, 2 * d2), generator=gen, device=dev,
+                          dtype=torch.bfloat16) for _ in range(2)]
+        mats.append((packed, scale, odt, hs))
+    want = [[i4.matmul_int4(h, packed, scale, out_dtype=odt) for h in hs]
+            for packed, scale, odt, hs in mats]
+    main = torch.cuda.current_stream()
+    side = [torch.cuda.Stream(device=dev) for _ in range(2)]
+    for st in side:
+        st.wait_stream(main)
+    got = []
+    for _ in range(INT4_STREAM_ROUNDS):
+        outs = [[None, None] for _ in mats]
+        for m, (packed, scale, odt, hs) in enumerate(mats):
+            for k, st in enumerate(side):
+                with torch.cuda.stream(st):
+                    outs[m][k] = i4.matmul_int4(hs[k], packed, scale, out_dtype=odt)
+        got.append(outs)
+    for st in side:
+        main.wait_stream(st)
+    torch.cuda.synchronize()
+    equal = sum(bitwise_equal(outs[m][k], want[m][k])
+                for outs in got for m in range(len(mats)) for k in range(2))
+    total = INT4_STREAM_ROUNDS * len(mats) * 2
+    check(equal == total, f"int4 on two streams: {total - equal} of {total} "
+                          f"outputs differ from the launches run one by one")
+    return dict(mats=list(INT4_STREAM_MATS), B=INT4_STREAM_ROWS,
+                rounds=INT4_STREAM_ROUNDS, bitwise_equal=equal, outputs=total)
 
 
 def row_errs(got, want, live=None):
@@ -455,9 +563,71 @@ def flash_row(dev, gen, bw, peak, flush, b, sq, skv, h, hkv, d, causal):
         bound_by="bytes" if nbytes / bw >= ops / peak else "operations")
 
 
-def paged_row(dev, gen, bw, peak, flush, name, b, h, hkv, d, lens, max_blocks):
-    """The paged kernel against its plain version at one shape: blocks
-    scattered through a 512-block pool, sentinel entries past each row."""
+def paged_inputs(dev, gen, b, t, h, hkv, d, lens, max_blocks, seed):
+    """bf16 q [b, t, h, d] and pools, blocks scattered through a 512-block
+    pool (a permutation from ``seed``), sentinel entries past each row."""
+    import math
+
+    import torch
+
+    nbk, bs, bf = PAGED_POOL_BLOCKS, PAGED_BS, torch.bfloat16
+    q = torch.randn((b, t, h, d), generator=gen, device=dev, dtype=bf)
+    kp = torch.randn((nbk, bs, hkv, d), generator=gen, device=dev, dtype=bf)
+    vp = torch.randn((nbk, bs, hkv, d), generator=gen, device=dev, dtype=bf)
+    perm = torch.randperm(nbk, generator=torch.Generator().manual_seed(seed))
+    tables = torch.full((b, max_blocks), nbk, dtype=torch.int32)
+    used = 0
+    for r, n in enumerate(lens):
+        need = math.ceil(n / bs)
+        tables[r, :need] = perm[used:used + need]
+        used += need
+    return q, kp, vp, tables.to(dev), torch.tensor(lens, dtype=torch.int32, device=dev)
+
+
+def paged_row_alone(dev, gen, q, kp, vp, tables, lens_t):
+    """Row 0 given the batch's longest context (the longest row moved to
+    the front), then every other row's query, length, blocks and K/V
+    changed: row 0's output must not change, bitwise."""
+    import math
+
+    import torch
+
+    from nnstreamer_tpu_torch.ops import attention
+
+    order = [int(lens_t.argmax())] + [r for r in range(len(lens_t)) if r != int(lens_t.argmax())]
+    q, tables, lens_t = q[order], tables[order], lens_t[order]
+    want = attention.paged_attention(q, kp, vp, tables, lens_t)
+    nbk, bs = kp.shape[0], kp.shape[1]
+    mine = tables[0, :math.ceil(int(lens_t[0]) / bs)].long()
+    free = torch.ones(nbk, dtype=torch.bool, device=dev)
+    free[mine] = False
+    q2, kp2, vp2 = q.clone(), kp.clone(), vp.clone()
+    q2[1:] = torch.randn(q2[1:].shape, generator=gen, device=dev, dtype=q.dtype)
+    kp2[free] = torch.randn(kp2[free].shape, generator=gen, device=dev, dtype=kp.dtype)
+    vp2[free] = torch.randn(vp2[free].shape, generator=gen, device=dev, dtype=vp.dtype)
+    lens2 = lens_t.clone()
+    lens2[1:] = lens_t[1:].flip(0)
+    spare = free.nonzero().flatten()
+    tables2 = tables.clone()
+    tables2[1:] = nbk
+    used = 0
+    for r in range(1, len(lens2)):
+        need = math.ceil(int(lens2[r]) / bs)
+        tables2[r, :need] = spare[used:used + need].to(torch.int32)
+        used += need
+    got = attention.paged_attention(q2, kp2, vp2, tables2, lens2)
+    torch.cuda.synchronize()
+    return bitwise_equal(want[0], got[0])
+
+
+def paged_row(dev, gen, bw, peak, flush, name, b, t, h, hkv, d, lens, max_blocks):
+    """The paged kernel against its plain version at one shape (T query
+    rows per batch row): bf16 inputs against the plain version on the same
+    inputs and on their f32 copies, f32 inputs against the f32 plain
+    version, per live batch row; exact zeros at context 0.  At
+    PAGED_BITWISE shapes, bitwise repeat and row-0 independence.  A shape
+    past the kernel's query rows goes where ``paged_route`` sends it, its
+    context lengths on the CPU."""
     import math
 
     import torch
@@ -465,30 +635,20 @@ def paged_row(dev, gen, bw, peak, flush, name, b, h, hkv, d, lens, max_blocks):
 
     from nnstreamer_tpu_torch.ops import attention
 
-    nbk = PAGED_POOL_BLOCKS
     bs = PAGED_BS
-    bf = torch.bfloat16
-    q = torch.randn((b, 1, h, d), generator=gen, device=dev, dtype=bf)
-    kp = torch.randn((nbk, bs, hkv, d), generator=gen, device=dev, dtype=bf)
-    vp = torch.randn((nbk, bs, hkv, d), generator=gen, device=dev, dtype=bf)
-    perm = torch.randperm(nbk, generator=torch.Generator().manual_seed(len(lens)))
-    tables = torch.full((b, max_blocks), nbk, dtype=torch.int32)
-    used = 0
-    for r, n in enumerate(lens):
-        need = math.ceil(n / bs)
-        tables[r, :need] = perm[used:used + need]
-        used += need
-    tables = tables.to(dev)
-    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q, kp, vp, tables, lens_t = paged_inputs(dev, gen, b, t, h, hkv, d, lens, max_blocks,
+                                             seed=len(lens))
     live = lens_t > 0
+    route = attention.paged_route(b, t, h // hkv)
+    lens_in = lens_t if route == "kernel" else lens_t.cpu()
 
-    got = attention.paged_attention(q, kp, vp, tables, lens_t)
+    got = attention.paged_attention(q, kp, vp, tables, lens_in)
     plain = attention.paged_attention_reference(q, kp, vp, tables, lens_t)
     qf, kf, vf = q.float(), kp.float(), vp.float()
     f32 = attention.paged_attention_reference(qf, kf, vf, tables, lens_t)
-    got_f32in = attention.paged_attention(qf, kf, vf, tables, lens_t)
+    got_f32in = attention.paged_attention(qf, kf, vf, tables, lens_in)
     torch.cuda.synchronize()
-    # a paged row is one batch row: its heads and head dims together
+    # a paged row is one batch row: its queries, heads and head dims together
     err, rel = row_errs(got.flatten(1), plain.flatten(1), live)
     err32, rel32 = row_errs(got.flatten(1), f32.flatten(1), live)
     err_f32in, rel_f32in = row_errs(got_f32in.flatten(1), f32.flatten(1), live)
@@ -499,12 +659,21 @@ def paged_row(dev, gen, bw, peak, flush, name, b, h, hkv, d, lens, max_blocks):
           f"paged {name}: f32-input row error {rel_f32in}")
     check(bool((got[~live] == 0).all()) and bool((got_f32in[~live] == 0).all()),
           f"paged {name}: context-0 rows not zero")
+    bitwise = None
+    if name in PAGED_BITWISE:
+        again = attention.paged_attention(q, kp, vp, tables, lens_t)
+        torch.cuda.synchronize()
+        bitwise = dict(repeat=bitwise_equal(got, again),
+                       row0_alone=paged_row_alone(dev, gen, q, kp, vp, tables, lens_t))
+        check(bitwise["repeat"], f"paged {name}: two calls on the same inputs differ")
+        check(bitwise["row0_alone"],
+              f"paged {name}: row 0 changed when only the other rows did")
     # library yardstick: SDPA over K/V already gathered from the pool and
-    # padded to [B, H, Lmax, D], with a key-length mask; the gather is
+    # padded to [B, H, Lmax, D], with each query's mask; the gather is
     # timed on its own
+    nbk = kp.shape[0]
     lmax = max(lens)
-    nb_max = math.ceil(lmax / bs)
-    idx = tables[:, :nb_max].long().clamp(max=nbk - 1)
+    idx = tables[:, :math.ceil(lmax / bs)].long().clamp(max=nbk - 1)
 
     def gather():
         k = kp[idx].reshape(b, -1, hkv, d)[:, :lmax]
@@ -514,24 +683,26 @@ def paged_row(dev, gen, bw, peak, flush, name, b, h, hkv, d, lens, max_blocks):
 
     kt, vt = gather()
     qt = q.transpose(1, 2).contiguous()
-    mask = (torch.arange(lmax, device=dev)[None, :] < lens_t[:, None])[:, None, None, :]
+    qpos = lens_t[:, None] - t + torch.arange(t, device=dev)[None, :]
+    mask = (torch.arange(lmax, device=dev)[None, None, :] <= qpos[:, :, None])[:, None]
     lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
     lib_err = (lib.transpose(1, 2).float() - f32)[live].abs().max().item()
     # what the function must move: the live positions' K and V rows, q and
-    # out, the lengths and the live table entries
+    # out, the lengths and the live table entries; each query row attends
+    # the positions up to its own
     nbytes = (sum(lens) * hkv * d * 2 * 2 + 2 * q.numel() * 2 + 4 * b
               + 4 * sum(math.ceil(n / bs) for n in lens))
-    ops = 4.0 * h * d * sum(lens)
+    ops = 4.0 * h * d * sum(n - t + i + 1 for n in lens if n for i in range(t))
     gather_ms, _ = timed_ms(gather, flush)
     return dict(
-        kernel="paged_attention", shape=dict(name=name, B=b, H=h, Hkv=hkv, D=d,
-                                             lens=list(lens), bs=bs,
-                                             max_blocks=max_blocks),
+        kernel="paged_attention", route=route,
+        shape=dict(name=name, B=b, T=t, H=h, Hkv=hkv, D=d, lens=list(lens), bs=bs,
+                   max_blocks=max_blocks),
         max_abs_err=err, max_row_err=rel, max_abs_err_vs_f32=err32,
         max_row_err_vs_f32=rel32, max_abs_err_f32_inputs=err_f32in,
-        max_row_err_f32_inputs=rel_f32in, library_err_vs_f32=lib_err,
+        max_row_err_f32_inputs=rel_f32in, library_err_vs_f32=lib_err, bitwise=bitwise,
         **timings(
-            lambda: attention.paged_attention(q, kp, vp, tables, lens_t),
+            lambda: attention.paged_attention(q, kp, vp, tables, lens_in),
             lambda: attention.paged_attention_reference(q, kp, vp, tables, lens_t),
             lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
             flush),
@@ -817,7 +988,9 @@ def phase_reference_paged(dev):
     """llama_small int4 f32 through forward_paged: kernels on the card
     against plain versions on the CPU, same params, non-contiguous tables.
     Row 0 prefills 40 tokens in chunks of 16 (padded to 48), then rows 0
-    and 1 decode 5 steps with row 1 parked."""
+    and 1 decode 5 steps with row 1 parked; then row 1 prefills 16 tokens
+    of its own and both rows take one [2, 5] step (the shape of a
+    speculative verify step), every position's logits compared."""
     import numpy as np
     import torch
 
@@ -838,14 +1011,14 @@ def phase_reference_paged(dev):
                                   generator=torch.Generator().manual_seed(6)).numpy()
     worst = 0.0
 
-    def step(toks, pos, rows, logit_off=None):
+    def step(toks, pos, rows, logit_off=None, rows_from=0, all_positions=False):
         nonlocal worst
         outs = []
         for params, pool, tbl, d in sides:
             logits, _ = llama.forward_paged(
-                params, torch.from_numpy(toks).to(d), pool, tbl[:rows],
+                params, torch.from_numpy(toks).to(d), pool, tbl[rows_from:rows_from + rows],
                 np.asarray(pos, np.int64), cfg, "float32", logit_off=logit_off)
-            outs.append(logits[0, -1].float().cpu())
+            outs.append((logits if all_positions else logits[0, -1]).float().cpu())
         err = (outs[0] - outs[1]).abs().max().item()
         worst = max(worst, err)
         check(bool(torch.isfinite(outs[1]).all()), "non-finite paged logits")
@@ -859,8 +1032,14 @@ def phase_reference_paged(dev):
     for i in range(5):
         tok = step(np.asarray([[tok], [tok]], np.int32),
                    [T + i, max_blocks * bs], 2)
-    return dict(model="llama_small int4 f32, paged", prefill_chunks=3,
-                decode_steps=5, max_abs_logit_err=worst)
+    for params, pool, tbl, d in sides:  # row 0 reaches a 4th block
+        tbl[0, 3] = 1
+        tbl[1, :2] = torch.tensor([6, 9], dtype=torch.int32)
+    step(prompt[:, 16:32], [0], 1, rows_from=1)
+    verify = np.asarray([[tok, 5, 6, 7, 8], [9, 10, 11, 12, 13]], np.int32)
+    step(verify, [T + 5, 16], 2, all_positions=True)
+    return dict(model="llama_small int4 f32, paged", prefill_chunks=4,
+                decode_steps=5, verify_steps=1, max_abs_logit_err=worst)
 
 
 def phase_reference(dev):
@@ -971,37 +1150,38 @@ def main():
     card = card_line()
     bw, peak = RATES["pcie" if "pcie" in card.lower() else "sxm"]
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    detail = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
+                  rates=dict(bytes_per_s=bw, bf16_flops=peak))
+
+    def save():
+        with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
+            json.dump(detail, fh, indent=1)
 
     t0 = time.perf_counter()
-    build_s = kernels.build()
-    print(f"build: {build_s:.1f} s ({time.perf_counter() - t0:.1f} s wall)", flush=True)
+    detail["build_s"] = kernels.build()
+    print(f"build: {detail['build_s']:.1f} s ({time.perf_counter() - t0:.1f} s wall)",
+          flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "kernel_build.log"), "w") as fh:
         for name in kernels.SOURCES:
             fh.write(f"== {name}\n{kernels.build_report(name)}\n")
-    evidence = phase_build_evidence()
+    evidence = detail["build_evidence"] = phase_build_evidence()
     print(f"build: flash SASS {evidence['sass']}, bf16 kernels (D = 128, 64, 32) "
           f"{evidence['bf16_kernels']}", flush=True)
     print(f"build: int4 SASS {evidence['int4_sass']}, bf16 kernels (N = 8, 16, 32) "
           f"{evidence['int4_bf16_kernels']}", flush=True)
+    print(f"build: paged SASS {evidence['paged_sass']}, bf16 split kernels "
+          f"(D = 32, 64, 128) {evidence['paged_bf16_kernels']}", flush=True)
 
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    rows = phase_kernels(dev, bw, peak, flush_buf.zero_)
+    rows, streams = phase_kernels(dev, bw, peak, flush_buf.zero_)
     del flush_buf
-    for r in rows:
-        row_err = f" row_err={r['max_row_err']:.3g}" if "max_row_err" in r else ""
-        if r["kernel"] == "matmul_int4":
-            row_err += (f" f32in_row_err={r['max_row_err_f32_inputs']:.3g}"
-                        f" vs_bf16_plain={r['max_row_err_vs_bf16_plain']:.3g}"
-                        f" bitwise={r['bitwise']}")
-        print(f"kernels: {r['kernel']} {r['shape']} B={r.get('B', '-')} "
-              f"err={r['max_abs_err']:.3g}{row_err} ms={r['ms']:.4f} "
-              f"plain={r['plain_ms']:.4f} lib={r['library_ms']:.4f} "
-              f"bound={r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    detail.update(kernels=rows, int4_two_streams=streams)
+    save()
     torch.cuda.empty_cache()
 
     torch.cuda.reset_peak_memory_stats(dev)
-    serve = phase_serve(dev, profile="--profile" in sys.argv[1:])
+    serve = detail["serve"] = phase_serve(dev, profile="--profile" in sys.argv[1:])
     if serve["profile"]:
         pr = serve["profile"]
         print(f"profile: request {pr['wall_ms']:.1f} ms, device busy "
@@ -1014,7 +1194,7 @@ def main():
               f"flash x{r['flash_launches']}, int4 x{r['int4_launches']}",
               flush=True)
     torch.cuda.empty_cache()
-    cont = phase_continuous(dev)
+    cont = detail["continuous"] = phase_continuous(dev)
     for r in cont["streams"]:
         print(f"continuous: prompt {r['prompt_len']}"
               f"{' (late)' if r['late_joiner'] else ''} ttft at sink "
@@ -1027,12 +1207,10 @@ def main():
           flush=True)
     print(f"continuous: tokens against forward_paged {cont['replayed']}", flush=True)
     torch.cuda.empty_cache()
-    ref = phase_reference(dev)
-    print(f"reference: {ref}", flush=True)
-    ref_paged = phase_reference_paged(dev)
-    print(f"reference: {ref_paged}", flush=True)
-    ref_bf16 = phase_reference_bf16(dev)
-    print(f"reference: {ref_bf16}", flush=True)
+    detail["reference"] = []
+    for phase in (phase_reference, phase_reference_paged, phase_reference_bf16):
+        detail["reference"].append(phase(dev))
+        print(f"reference: {detail['reference'][-1]}", flush=True)
 
     # one line per kernel: int4 per decoded token (129 launches at B=1),
     # with the same 129 launches at B=8 (a continuous decode step) and
@@ -1050,8 +1228,9 @@ def main():
           and r["shape"]["Sq"] == 1023][0]
     chunk = {r["shape"]["Skv"]: r for r in rows if r["kernel"] == "flash_attention"
              and r["shape"]["Sq"] == 32 and r["shape"]["Skv"] in FLASH_CHUNK_SKV}
-    pg = [r for r in rows if r["kernel"] == "paged_attention"
-          and r["shape"]["name"] == "7b"][0]
+    paged_rows = [r for r in rows if r["kernel"] == "paged_attention"
+                  and r["route"] == "kernel"]
+    pg = [r for r in paged_rows if r["shape"]["name"] == "7b"][0]
     both = {k: serve["launches"][k] + cont["launches"][k]
             for k in serve["launches"]}
     summary = [
@@ -1080,19 +1259,14 @@ def main():
              source="nnstreamer_tpu_torch/csrc/paged_attention.cu",
              replaces="nnstreamer_tpu/ops/attention.py:429",
              launches=cont["launches"]["paged_attention"],
-             max_abs_err=max(r["max_abs_err"] for r in rows
-                             if r["kernel"] == "paged_attention"),
+             max_abs_err=max(r["max_abs_err"] for r in paged_rows),
+             max_row_err=max(r["max_row_err"] for r in paged_rows),
              **{k: N_LAYERS * pg[k] for k in ("ms", "plain_ms", "bound_ms",
                                               "library_ms")},
              bound_by=pg["bound_by"]),
     ]
-    detail = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
-                  rates=dict(bytes_per_s=bw, bf16_flops=peak), build_s=build_s,
-                  build_evidence=evidence,
-                  kernels=rows, serve=serve, continuous=cont,
-                  reference=[ref, ref_paged, ref_bf16], summary=summary)
-    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
-        json.dump(detail, fh, indent=1)
+    detail["summary"] = summary
+    save()
     print(card)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

@@ -54,18 +54,16 @@
 // 32-key K/V tiles staged in shared memory, a warp per 4 rows with one key
 // per lane, warp shuffles for the row max and sum.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper_tma.cuh"
 
 namespace {
 
+using namespace nns;
+
 constexpr unsigned kFull = 0xffffffffu;
-// errors of the C entry beyond cudaError_t
-constexpr int kErrNoEncoder = 10001;   // cuTensorMapEncodeTiled unavailable
-constexpr int kErrTensorMap = 10002;   // cuTensorMapEncodeTiled refused
 
 // ---------------------------------------------------------------------------
 // f32 inputs: CUDA cores
@@ -246,50 +244,6 @@ struct Layout {
   static constexpr int kAlloc = kBar + 3 * kStages * 8 + 1024;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(bar) : "memory");
-}
-
-// Wait until the phase of `bar` with this parity has completed.  A phase
-// that never completes (a lost transaction) traps after 2^26 polls, so the
-// launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t n = 0;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (n == (1u << 26)) __trap();
-  }
-}
-
-// One TMA box of a 4-D tensor map into shared memory; completion counts
-// its bytes on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
-         "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
-}
-
 // wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
 // byte offset (MN-major: between 64-column panels; unused K-major), stride
 // byte offset 1024 (between 8-row groups), all in 16-byte units.
@@ -429,11 +383,11 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
         mbar_expect_tx(full_k + 8 * s, L::kTile);
 #pragma unroll
         for (int p = 0; p < L::kPanels; ++p)
-          tma_load(kd + p * L::kTilePanel, &tm_k, full_k + 8 * s, p * kPanel, kvh, j * kBN, b);
+          tma_load_4d(kd + p * L::kTilePanel, &tm_k, full_k + 8 * s, p * kPanel, kvh, j * kBN, b);
         mbar_expect_tx(full_v + 8 * s, L::kTile);
 #pragma unroll
         for (int p = 0; p < L::kPanels; ++p)
-          tma_load(vd + p * L::kTilePanel, &tm_v, full_v + 8 * s, p * kPanel, kvh, j * kBN, b);
+          tma_load_4d(vd + p * L::kTilePanel, &tm_v, full_v + 8 * s, p * kPanel, kvh, j * kBN, b);
       }
     }
     return;
@@ -580,30 +534,6 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API call: take it through the runtime's
-// driver entry point, so the library links against the runtime alone.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult got;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                     cudaEnableDefault, &got);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &got);
-#endif
-    if (e == cudaSuccess && got == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
 
 // [B, Skv, Hkv, D] bf16 as a 4-D tensor map (innermost first), boxes of
 // 64 head-dim columns x 1 head x kBN keys, 128-byte swizzle; reads past

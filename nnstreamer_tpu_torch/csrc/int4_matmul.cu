@@ -72,16 +72,15 @@
 // batch rows staged as f32 in shared memory, a cross-warp sum through
 // shared memory.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "hopper_tma.cuh"
 
 namespace {
 
-// errors of the C entry beyond cudaError_t
-constexpr int kErrNoEncoder = 10001;  // cuTensorMapEncodeTiled unavailable
-constexpr int kErrTensorMap = 10002;  // cuTensorMapEncodeTiled refused
+using namespace nns;
+
+// an error of the C entry beyond cudaError_t and hopper_tma.cuh's
 constexpr int kErrPlan = 10003;       // a launch plan the kernel does not take
 
 // ---------------------------------------------------------------------------
@@ -264,59 +263,6 @@ __host__ __device__ constexpr int h_stage_bytes(int n) { return 256 * n; }
 __host__ __device__ constexpr int smem_bytes(int n) {
   return kStages * kWBytes + kHStages * h_stage_bytes(n) + 16 * (kStages + kHStages) + 16 +
          1024;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(bar) : "memory");
-}
-
-// Wait until the phase of `bar` with this parity has completed.  A phase
-// that never completes (a lost transaction) traps after 2^26 polls, so the
-// launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t n = 0;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (n == (1u << 26)) __trap();
-  }
-}
-
-// One TMA box of a 2-D or 4-D tensor map into shared memory; completion
-// counts its bytes on `bar`.
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
-         "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
 }
 
 // wgmma shared-memory descriptor, K-major without swizzle (8 x 16-byte core
@@ -639,30 +585,6 @@ int4_bf16_kernel(const __grid_constant__ CUtensorMap tm_w, const __grid_constant
         }
       }
     }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API call: take it through the runtime's
-// driver entry point, so the library links against the runtime alone.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult got;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                     cudaEnableDefault, &got);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &got);
-#endif
-    if (e == cudaSuccess && got == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // packed [d2, F] int8 as a 2-D tensor map (columns innermost), boxes of

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, NamedTuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
@@ -141,18 +141,31 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
-#: per device: int32 tickets of the split-K reduction, one per column
-#: tile, zero between launches (the last block of a tile resets its own)
-_tickets: Dict[int, torch.Tensor] = {}
+#: int32 tickets of the split-K reduction, one per column tile, zero
+#: between launches (the last block of a tile resets its own).  One set
+#: per (device, stream): launches in flight on two streams never share a
+#: counter.  No set is ever freed: a launch in flight or a captured CUDA
+#: graph may still hold its pointer, so a set outgrown by a wider F stays
+#: in ``_outgrown``.  Sets are keyed by the stream's handle: PyTorch's own
+#: streams come from a fixed pool per device and are never destroyed, so
+#: the sets stay few; a caller's external stream must outlive its
+#: launches, since a new stream given a destroyed one's handle would share
+#: its set
+_tickets: Dict[Tuple[int, int], torch.Tensor] = {}
+_outgrown: List[torch.Tensor] = []
 _tickets_lock = threading.Lock()
 
 
-def _ticket_counters(device: torch.device, n: int) -> torch.Tensor:
+def _ticket_counters(device: torch.device, stream: torch.cuda.Stream,
+                     n: int) -> torch.Tensor:
+    key = (device.index, stream.cuda_stream)
     with _tickets_lock:
-        t = _tickets.get(device.index)
+        t = _tickets.get(key)
         if t is None or t.numel() < n:
+            if t is not None:
+                _outgrown.append(t)
             t = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
-            _tickets[device.index] = t
+            _tickets[key] = t
         return t
 
 
@@ -199,24 +212,25 @@ def matmul_int4(h, packed, scale, *, out_dtype=None):
         raise ValueError("matmul_int4: packed rows must be 4-byte aligned")
     lib = kernels.library("int4_matmul", _declare)
     out = torch.empty((B, F), dtype=odt, device=h.device)
-    stream = torch.cuda.current_stream().cuda_stream
+    stream = torch.cuda.current_stream()
     if route == "cuda_cores":
         rc = lib.nns_int4_matmul_f32(
             h.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            B, d2, F, int(odt == torch.bfloat16), stream)
+            B, d2, F, int(odt == torch.bfloat16), stream.cuda_stream)
     else:
         plan = int4_plan(B, d2, F)
         ws = (torch.empty((plan.splits, B, plan.col_tiles * TILE_COLS),
                           dtype=torch.float32, device=h.device)
               if plan.splits > 1 else None)
-        tickets = _ticket_counters(h.device, plan.col_tiles)
+        tickets = _ticket_counters(h.device, stream, plan.col_tiles)
         flags = ((_FLAG_TMA_W if F % 16 == 0 and packed.data_ptr() % 16 == 0 else 0)
                  | (_FLAG_TMA_H if d2 % 8 == 0 and h.data_ptr() % 16 == 0 else 0)
                  | (_FLAG_OUT_BF16 if odt == torch.bfloat16 else 0))
         rc = lib.nns_int4_matmul_bf16(
             h.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
             ws.data_ptr() if ws is not None else None, tickets.data_ptr(),
-            B, d2, F, plan.n, plan.splits, plan.rows_per_split, flags, stream)
+            B, d2, F, plan.n, plan.splits, plan.rows_per_split, flags,
+            stream.cuda_stream)
     kernels.check(lib, rc, "int4_matmul")
     LAUNCHES.add()
     return out

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library under
 ``build/torch_kernels/`` at the root of the checkout, then loaded with
-``ctypes``.  A library is named after a hash of its source and flags, so
-an edited source rebuilds and an unchanged one loads as built.  Nothing
+``ctypes``.  A library is named after a hash of its source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source or header
+rebuilds and an unchanged one loads as built.  Nothing
 here runs at import time: the first launch builds, or a caller (the chip
 smoke script) builds every kernel up front with :func:`build`, one
 ``nvcc`` per source, all started together.  A failed build raises; there
@@ -74,9 +75,9 @@ def toolkit_program(name: str) -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    text = b"".join(f.read_bytes() for f in
+                    [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

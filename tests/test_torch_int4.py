@@ -165,6 +165,32 @@ def test_plan_rejects_rows_the_kernel_does_not_take():
             port.int4_plan(B, 64, 128)
 
 
+class _Stream:
+    """Stands in for a torch.cuda.Stream: the tickets key on its handle."""
+
+    def __init__(self, handle):
+        self.cuda_stream = handle
+
+
+def test_ticket_counters_per_stream_and_never_freed(monkeypatch):
+    """Split-K tickets: one zeroed set per (device, stream), so launches
+    in flight on two streams never share a counter; a set outgrown by a
+    wider F is replaced but kept alive (a launch in flight or a captured
+    graph may hold its pointer)."""
+    monkeypatch.setattr(port, "_tickets", {})
+    monkeypatch.setattr(port, "_outgrown", [])
+    dev = torch.device("cpu")
+    one = port._ticket_counters(dev, _Stream(1), 10)
+    two = port._ticket_counters(dev, _Stream(2), 10)
+    assert one.data_ptr() != two.data_ptr()
+    assert one.dtype == torch.int32 and not one.any()
+    assert port._ticket_counters(dev, _Stream(1), 250) is one  # still wide enough
+    wide = port._ticket_counters(dev, _Stream(1), 300)
+    assert wide.numel() >= 300 and not wide.any()
+    assert wide is not one and any(t is one for t in port._outgrown)
+    assert port._ticket_counters(dev, _Stream(2), 10) is two
+
+
 def _emulate(h, packed, scale, plan, fault=None):
     """The tensor-core kernel's arithmetic in plain PyTorch, in plan order:
     per split, per 64-row stage, per k16 slice of 8 packed rows (kernel K
