@@ -44,7 +44,9 @@ Phases, each of which must pass:
              ids, 64 tokens pulled for each.  Launch counters are zeroed just
              before and read just after: every kernel must have run, flash
              attention once per layer per request, the int4 matmul 129 times
-             per decoded token.
+             per decoded token.  Decode replays one captured CUDA graph per
+             batch size: after the warm-up request the filter's census must
+             hold one signature and capture nothing more.
 4. continuous — the continuous serving path: the same model behind
              ``custom=serve:continuous,slots:8,block_size:16,prefill_chunk:32,
              stream_chunk:8``, eight prompts of 32..700 token ids, four
@@ -53,10 +55,20 @@ Phases, each of which must pass:
              warm-up and read after the loop drained: paged attention 32
              launches per decode step, flash 32 per prefill chunk, int4 129
              per step or chunk (the loop counts its steps and chunks); every
-             stream complete and in order, the block pool entirely free.
-             Then, outside the counted run, every token of two streams
-             (one of the first wave, one late joiner) is held against
-             ``llama.forward_paged`` driven step by step on the card.
+             stream complete and in order, the block pool entirely free;
+             the decode step captured once, in the warm-up, and never
+             after (one signature in the census).  The loop's host time
+             per decode step is printed.  Then, outside the counted run,
+             every token of two streams (one of the first wave, one late
+             joiner) is held against ``llama.forward_paged`` driven step
+             by step on the card, and the loop's decode step, captured,
+             against the same step called eagerly at the 7B 8-slot shape:
+             from copies of the same inputs, pool and generator states
+             (each generator seeded and drawn once, as at a stream's
+             admission), eight replays and eight eager calls give bitwise
+             equal tokens, positions and pool after every step, greedy
+             and sampled (temperature 0.9, top_k 40); the replay's device
+             and host time per step are printed beside the eager step's.
 5. reference — on a small model, logits with the kernels on the card
              agree with the plain versions on the CPU: cached prefill and
              decode, and the paged path (chunked prefill, then decode with
@@ -71,7 +83,9 @@ card, outside a checkout, or when any phase fails it exits non-zero and
 prints no result.  Per-shape detail goes to chiprun_out/chip_smoke.json.
 
 ``--profile`` adds one more 200-token request under torch.profiler and
-writes its operator tables to chiprun_out/profile_decode.txt.
+writes its operator tables to chiprun_out/profile_decode.txt, and traces
+the continuous phase's counted run (card activity only): the card's busy
+ms per decode step and idle share over that run.
 """
 
 import json
@@ -219,6 +233,16 @@ CONT_CHECKED = (0, len(CONT_WAVES[0]))
 #: gap at rounding level counts as a tie
 CONT_TIE = 1e-4
 N_LAYERS = 32
+#: the graph-against-eager check at the 7B 8-slot decode step: each
+#: slot's position (None: parked; one parked row, so that the sink block's
+#: one write is deterministic too), the sampler settings of its runs, and
+#: the blocks each live slot reserves past its position (the timed
+#: replays advance it)
+GRAPH_POS = (31, 199, 449, None, 699, 63, 127, 599)
+GRAPH_SAMPLERS = (("greedy", 0.0, 0), ("sampled", 0.9, 40))
+GRAPH_SPARE = 48
+#: replays held against as many eager calls, each compared bitwise
+GRAPH_STEPS = 8
 
 
 def check(cond, msg):
@@ -718,11 +742,13 @@ def profile_request(run, prompt):
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    t0 = time.perf_counter()
     with profile(activities=acts) as prof:
+        # the profiler's own start and stop (seconds, with a graph's
+        # nodes to trace) stay outside the request's wall time
+        t0 = time.perf_counter()
         r = run(prompt)
         torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
     avgs = prof.key_averages()
     busy_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in avgs) / 1e3
     with open(os.path.join(OUT_DIR, "profile_decode.txt"), "w") as fh:
@@ -743,7 +769,7 @@ def phase_serve(dev, profile=False):
     from nnstreamer_tpu_torch.filters.llm import _next_bucket
     from nnstreamer_tpu_torch.ops import attention, int4_matmul as i4
 
-    desc = ("appsrc name=src ! tensor_filter framework=llm model=llama2_7b "
+    desc = ("appsrc name=src ! tensor_filter name=llm framework=llm model=llama2_7b "
             "custom=quant:int4,param_dtype:bfloat16,max_seq:1024,"
             f"max_new:{MAX_NEW},stream_chunk:64 ! tensor_sink name=out")
     t0 = time.perf_counter()
@@ -784,7 +810,9 @@ def phase_serve(dev, profile=False):
             tokens=[int(b.tensors[0][0]) for b in outs[:8]])
 
     with pipe:
-        warm = run(prompts[0])  # first-call library and allocator set-up
+        warm = run(prompts[0])  # first-call set-up and the decode capture
+        census = pipe.element("llm").fw.census
+        warm_captures = census.captures
         attention.LAUNCHES.reset()
         i4.LAUNCHES.reset()
         for prompt in prompts:
@@ -792,6 +820,7 @@ def phase_serve(dev, profile=False):
         launches = {"flash_attention": attention.LAUNCHES.value,
                     "matmul_int4": i4.LAUNCHES.value}
         prof = profile_request(run, prompts[1]) if profile else None
+        census_line = census_of(census, warm_captures)
         pipe.eos("src")
         pipe.wait(timeout=120)
     for r in requests:
@@ -804,9 +833,22 @@ def phase_serve(dev, profile=False):
         r["prefill_rows"] = bucket
     for name, n in launches.items():
         check(n > 0, f"{name} never launched on the main path")
+    check(census_line["signatures"] == ["('static', 1, 'bfloat16', False)"],
+          f"static census: {census_line}")
     return dict(setup_s=setup_s, warmup=warm, requests=requests,
-                launches=launches, profile=prof,
+                launches=launches, profile=prof, census=census_line,
                 peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+
+
+def census_of(census, warm_captures):
+    """A filter's census after its warm-up: no capture may follow it."""
+    line = dict(signatures=sorted(str(s) for s in census.signatures),
+                captures=census.captures,
+                captures_after_warmup=census.captures - warm_captures,
+                replays=census.replays)
+    check(line["captures_after_warmup"] == 0,
+          f"{line['captures_after_warmup']} captures after the warm-up")
+    return line
 
 
 def replay_stream(fw, loop, prompt, ids, dev):
@@ -871,12 +913,104 @@ def replay_stream(fw, loop, prompt, ids, dev):
                 near_ties=near, least_top2_gap=least, max_abs_logit=scale)
 
 
-def phase_continuous(dev):
+def graph_vs_eager(fw, loop, dev, flush):
+    """The loop's decode step (``paged_decode_step``) at the 7B 8-slot
+    shape, captured by a census of its own, against the same step called
+    eagerly: each side has its own copies of the same tokens, positions,
+    tables, live mask, pool (random, from one seed) and per-slot
+    generators.  As in the loop, each generator is seeded, draws once
+    eagerly (a stream's first token) and then feeds the steps:
+    ``GRAPH_STEPS`` replays against as many eager calls, and after each
+    one the two sides must agree bitwise in the tokens, the positions and
+    every pool block (so a generator that did not advance between
+    replays would show).  Greedy, then sampled.  Then each side is timed
+    (``timed_ms``: device ms and host ms per step).  Launches here are
+    held back from the counters."""
+    import torch
+
+    from nnstreamer_tpu_torch.filters.llm import paged_decode_step
+    from nnstreamer_tpu_torch.models import llama
+    from nnstreamer_tpu_torch.ops import kernels
+    from nnstreamer_tpu_torch.pipeline.graphs import Census
+
+    cfg, params, B, bs = fw.cfg, fw.bundle.params, fw.slots, fw.block_size
+    shape = (cfg.n_layers, loop.n_blocks + 1, bs, cfg.n_kv_heads, cfg.head_dim)
+    perm = torch.randperm(loop.n_blocks, generator=torch.Generator().manual_seed(13))
+    tables = torch.full((B, loop.max_blocks), loop.sentinel, dtype=torch.int32)
+    pos = torch.full((B,), loop.park, dtype=torch.long)
+    used = 0
+    for s, p in enumerate(GRAPH_POS):
+        if p is not None:
+            need = -(-(p + GRAPH_SPARE) // bs)
+            tables[s, :need] = perm[used:used + need].to(torch.int32)
+            used += need
+            pos[s] = p
+    live = torch.tensor([p is not None for p in GRAPH_POS])
+    tok = torch.randint(3, cfg.vocab, (B,), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(14))
+
+    def side():
+        return dict(pool={k: torch.empty(shape, dtype=torch.bfloat16, device=dev)
+                          for k in ("k", "v")},
+                    tok=tok.to(dev, copy=True), pos=pos.to(dev, copy=True),
+                    tables=tables.to(dev, copy=True), live=live.to(dev, copy=True),
+                    gens=[torch.Generator(device=dev) for _ in range(B)])
+
+    first_logits = torch.randn((1, cfg.vocab), generator=torch.Generator().manual_seed(16))
+
+    def reset(st, temperature, top_k):
+        for i, k in enumerate(("k", "v")):
+            st["pool"][k].normal_(generator=torch.Generator(device=dev).manual_seed(15 + i))
+        st["tok"].copy_(tok)
+        st["pos"].copy_(pos)
+        for i, g in enumerate(st["gens"]):
+            g.manual_seed(100 + i)
+            llama.sample_token_per_slot(first_logits.to(dev), [g], temperature, top_k)
+
+    out = {}
+    with torch.inference_mode(), kernels.held_launches():
+        for name, temperature, top_k in GRAPH_SAMPLERS:
+            graph_side, eager_side = side(), side()
+            steps = [paged_decode_step(params, cfg, fw.dtype, st["pool"], st["tok"],
+                                       st["pos"], st["tables"], st["live"], st["gens"],
+                                       temperature, top_k)
+                     for st in (graph_side, eager_side)]
+            census = Census(dev)
+            replay = census.capture(name, steps[0], generators=graph_side["gens"]).replay
+            reset(graph_side, temperature, top_k)
+            reset(eager_side, temperature, top_k)
+            r = dict(steps=GRAPH_STEPS, tokens=[])
+            for i in range(GRAPH_STEPS):
+                replay()
+                steps[1]()
+                equal = dict(
+                    tokens_equal=torch.equal(graph_side["tok"], eager_side["tok"]),
+                    positions_equal=torch.equal(graph_side["pos"], eager_side["pos"]),
+                    pool_equal=all(torch.equal(graph_side["pool"][k], eager_side["pool"][k])
+                                   for k in ("k", "v")))
+                check(all(equal.values()), f"graph against eager, {name}, step {i}: {equal}")
+                r["tokens"].append(graph_side["tok"].tolist())
+            r.update(equal)
+            # a stream's tokens move from step to step: the draws (and the
+            # greedy choices) follow the state the previous step left
+            check(len({tuple(t) for t in r["tokens"]}) > 1,
+                  f"graph against eager, {name}: the same tokens at every step")
+            r["graph_ms"], r["graph_host_ms"] = timed_ms(replay, flush)
+            r["eager_ms"], r["eager_host_ms"] = timed_ms(steps[1], flush)
+            out[name] = r
+            del graph_side, eager_side, steps, replay, census
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_continuous(dev, profile=False):
     """The continuous serving path at llama2_7b int4, with late joiners."""
+    import contextlib
     import math
 
     import numpy as np
     import torch
+    from torch.profiler import ProfilerActivity
 
     import nnstreamer_tpu_torch as ntt
     from nnstreamer_tpu_torch.ops import attention, int4_matmul as i4
@@ -906,28 +1040,36 @@ def phase_continuous(dev):
         got[r].append(buf)
         arrived[r].append(time.perf_counter())
 
+    traced = (torch.profiler.profile(activities=[ProfilerActivity.CUDA])
+              if profile else contextlib.nullcontext())
     with pipe:
+        fw = pipe.element("llm").fw
         t0 = time.perf_counter()
-        loop = pipe.element("llm").fw.serve_loop()
+        loop = fw.serve_loop()
         warmup_s = time.perf_counter() - t0
+        warm_captures = fw.census.captures
         for c in counters.values():
             c.reset()
         torch.cuda.reset_peak_memory_stats(dev)
         first = len(CONT_WAVES[0])
-        t_start = time.perf_counter()
-        for i in range(first):
-            push(i)
-        while any(not got[i] for i in range(first)):
-            pull_one()
-        for i in range(first, n_streams):
-            push(i)
-        while sum(len(v) for v in got.values()) < n_streams * MAX_NEW:
-            pull_one()
-        t_end = time.perf_counter()
-        pipe.eos("src")
-        pipe.wait(timeout=120)  # the loop has drained: nothing in flight
+        with traced as prof:
+            t_start = time.perf_counter()
+            for i in range(first):
+                push(i)
+            while any(not got[i] for i in range(first)):
+                pull_one()
+            for i in range(first, n_streams):
+                push(i)
+            while sum(len(v) for v in got.values()) < n_streams * MAX_NEW:
+                pull_one()
+            t_end = time.perf_counter()
+            pipe.eos("src")
+            pipe.wait(timeout=120)  # the loop has drained: nothing in flight
+            torch.cuda.synchronize()
+            t_traced = time.perf_counter()
         launches = {k: c.value for k, c in counters.items()}
         stats = dict(loop.stats)
+        census_line = census_of(fw.census, warm_captures)
         free_ok = sorted(loop._free) == list(range(loop.n_blocks))
         tables_ok = bool((loop._tables == loop.sentinel).all())
         parked_ok = bool((loop._pos == loop.park).all())
@@ -938,8 +1080,10 @@ def phase_continuous(dev):
         for i in CONT_CHECKED:
             check(len(got[i]) == MAX_NEW, f"stream {i}: {len(got[i])} tokens")
             replayed[i] = dict(prompt_len=lens[i], **replay_stream(
-                pipe.element("llm").fw, loop, prompts[i],
-                [int(b.tensors[0][0]) for b in got[i]], dev))
+                fw, loop, prompts[i], [int(b.tensors[0][0]) for b in got[i]], dev))
+        flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+        graph = graph_vs_eager(fw, loop, dev, flush_buf.zero_)
+        del flush_buf
     streams = []
     for i in range(n_streams):
         bufs = got[i]
@@ -971,10 +1115,22 @@ def phase_continuous(dev):
           f"flash launches {launches['flash_attention']} != 32 x {chunks} chunks")
     check(launches["matmul_int4"] == 129 * (steps + chunks),
           f"int4 launches {launches['matmul_int4']} != 129 x {steps + chunks}")
+    check(census_line["signatures"] == ["('continuous', 8, 'bfloat16', False)"],
+          f"continuous census: {census_line}")
+    busy = None
+    if profile:
+        traced_ms = (t_traced - t_start) * 1e3
+        busy_ms = sum(getattr(e, "self_device_time_total", 0.0)
+                      for e in prof.key_averages()) / 1e3
+        busy = dict(traced_ms=traced_ms, device_busy_ms=busy_ms,
+                    device_busy_ms_per_step=busy_ms / steps,
+                    device_idle_share=1.0 - busy_ms / traced_ms)
     return dict(setup_s=setup_s, warmup_s=warmup_s, streams=streams,
                 window_s=t_end - t_start,
                 aggregate_tok_s=n_streams * MAX_NEW / (t_end - t_start),
                 decode_steps=steps, prefill_chunks=chunks, launches=launches,
+                host_us_per_step=stats["decode_host_s"] / steps * 1e6,
+                census=census_line, busy=busy, graph_vs_eager=graph,
                 n_blocks=n_blocks, peak_mem_gb=peak_gb, replayed=replayed)
 
 
@@ -1193,8 +1349,10 @@ def main():
               f"decode {r['decode_tok_s']:.2f} tok/s, request {r['request_s']:.2f} s, "
               f"flash x{r['flash_launches']}, int4 x{r['int4_launches']}",
               flush=True)
+    print(f"census: static {serve['census']}", flush=True)
     torch.cuda.empty_cache()
-    cont = detail["continuous"] = phase_continuous(dev)
+    cont = detail["continuous"] = phase_continuous(
+        dev, profile="--profile" in sys.argv[1:])
     for r in cont["streams"]:
         print(f"continuous: prompt {r['prompt_len']}"
               f"{' (late)' if r['late_joiner'] else ''} ttft at sink "
@@ -1206,6 +1364,16 @@ def main():
           f"peak {cont['peak_mem_gb']:.2f} GB, warm-up {cont['warmup_s']:.1f} s",
           flush=True)
     print(f"continuous: tokens against forward_paged {cont['replayed']}", flush=True)
+    print(f"census: continuous {cont['census']}", flush=True)
+    print(f"continuous: host {cont['host_us_per_step']:.1f} us per decode step "
+          f"(issuing it){'' if cont['busy'] is None else ', traced: ' + str(cont['busy'])}",
+          flush=True)
+    for name, r in cont["graph_vs_eager"].items():
+        print(f"census: graph against eager at the 7B 8-slot step, {name}, "
+              f"{r['steps']} steps: tokens {r['tokens_equal']}, positions {r['positions_equal']}, pool "
+              f"{r['pool_equal']}; replay {r['graph_ms']:.3f} ms on the card, "
+              f"{r['graph_host_ms'] * 1e3:.1f} us host; eager {r['eager_ms']:.3f} ms, "
+              f"{r['eager_host_ms'] * 1e3:.1f} us host", flush=True)
     torch.cuda.empty_cache()
     detail["reference"] = []
     for phase in (phase_reference, phase_reference_paged, phase_reference_bf16):

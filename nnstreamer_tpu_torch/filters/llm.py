@@ -7,8 +7,12 @@ tensors).  The static path (``serve`` unset):
 
 * one prefill over the (bucketed) prompt, then decode one token per
   step against a KV cache that stays on the device;
-* tokens are produced in bursts of ``stream_chunk``: each burst is a
-  Python loop of decode steps with ONE host sync at its end, and the
+* a decode step is one captured graph per batch size (the census of
+  :mod:`..pipeline.graphs`; eager on the CPU), over a cache, a
+  generator, a token and a position on the card that one request holds
+  from its prefill to its last token;
+* tokens are produced in bursts of ``stream_chunk``: each burst is
+  that many replays of the step with ONE host sync at its end, and the
   burst's tokens then stream downstream one buffer each;
 * ``llm.prefill`` (prompt in to first token on the host) and
   ``llm.decode_token`` (burst time per token) are recorded as latency
@@ -36,7 +40,7 @@ import math
 import queue
 import threading
 import time
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -51,6 +55,7 @@ from ..core.registry import register_filter
 from ..core.types import TensorFormat, TensorsSpec
 from ..models import llama
 from ..models.zoo import build as build_model
+from ..pipeline.graphs import Census
 from .base import Framework, FrameworkError, parse_custom_options, resolve_device
 
 log = logger(__name__)
@@ -164,6 +169,12 @@ class LLMFramework(Framework):
         self.continuous = False
         self._serve: Optional[_ContinuousLoop] = None
         self._serve_lock = threading.Lock()
+        #: the captured decode steps of this filter (static sets or the
+        #: continuous loop's one step)
+        self.census: Optional[Census] = None
+        #: idle static decode sets, at most one per batch size
+        self._free_sets: Dict[int, _StaticDecode] = {}
+        self._sets_lock = threading.Lock()
 
     def open(self, props: Dict[str, object]) -> None:
         super().open(props)
@@ -215,11 +226,14 @@ class LLMFramework(Framework):
             raise FrameworkError(
                 f"model {model!r} has no LlamaConfig; the llm framework needs "
                 "a decoder-LM bundle (models/llama.py)")
+        self.census = Census(self.device)
 
     def close(self) -> None:
         if self._serve is not None:
             self._serve.shutdown()
             self._serve = None
+        with self._sets_lock:
+            self._free_sets = {}
         self.bundle = None
 
     # -- continuous serving ------------------------------------------------
@@ -278,6 +292,26 @@ class LLMFramework(Framework):
         return toks
 
     # -- generation --------------------------------------------------------
+    def _take_decode(self, B: int) -> "_StaticDecode":
+        """The idle decode set of batch size B, or a new one, captured
+        then: a request that overlaps another of the same B gets a set of
+        its own.  Before a new set is made every idle set is dropped, so
+        the sets held are at most those that were in use together when
+        the last one was made: never more card memory than requests in
+        flight at one time needed, as when each request freed its own
+        cache."""
+        with self._sets_lock:
+            dec = self._free_sets.pop(B, None)
+            if dec is None:
+                self._free_sets.clear()
+        return dec if dec is not None else _StaticDecode(self, B)
+
+    def _give_back(self, dec: "_StaticDecode") -> None:
+        """Keep ``dec`` idle unless its batch size has an idle set already
+        (then it is dropped)."""
+        with self._sets_lock:
+            self._free_sets.setdefault(dec.B, dec)
+
     @torch.inference_mode()
     def _gen_tokens(self, prompt: np.ndarray) -> Iterator[np.ndarray]:
         cfg = self.cfg
@@ -285,46 +319,56 @@ class LLMFramework(Framework):
         if T >= cfg.max_seq:
             raise FrameworkError(f"prompt length {T} >= max_seq {cfg.max_seq}")
         t0 = time.perf_counter()
-        cache = llama.init_cache(cfg, B, dtype=self.dtype, device=self.device)
+        dec = self._take_decode(B)
+        try:
+            yield from self._decode(dec, prompt, t0)
+        finally:
+            self._give_back(dec)
+
+    def _decode(self, dec: "_StaticDecode", prompt: np.ndarray,
+                t0: float) -> Iterator[np.ndarray]:
+        cfg = self.cfg
+        B, T = prompt.shape
         params = self.bundle.params
         # Prompt-length bucketing: right-pad to the next power of two so
         # mixed prompt lengths share a few prefill shapes.  Causal
         # attention keeps real tokens from seeing pad rows, decode
         # overwrites cache row `pos` before any later position attends it,
-        # and the sampled logit is read at the REAL last position.
+        # and the sampled logit is read at the REAL last position.  The
+        # same holds for the rows an earlier request left in the set's
+        # cache: prefill overwrites [0, P), decode row `pos` before any
+        # position attends it.
         P = T
         if get_config().shape_bucketing:
             P = min(_next_bucket(T), cfg.max_seq - 1)
         if P > T:
             prompt = np.pad(prompt, ((0, 0), (0, P - T)))
         tokens = torch.from_numpy(prompt).to(self.device)
-        logits, cache = llama.forward_cached(params, tokens, cache, 0, cfg,
-                                             compute_dtype=self.dtype)
-        gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        logits, _ = llama.forward_cached(params, tokens, dec.cache, 0, cfg,
+                                         compute_dtype=self.dtype)
+        dec.gen.manual_seed(self.seed)
         # At least one token is always safe; later decode steps feed
         # positions T..T+n-2, each of which must stay < max_seq.
         n = max(1, min(self.max_new, cfg.max_seq - T))
         eos = self.tokenizer.eos if self.stop_eos else -1
-        tok = llama.sample_token(logits[:, T - 1], gen, self.temperature,
+        tok = llama.sample_token(logits[:, T - 1], dec.gen, self.temperature,
                                  self.top_k, self.top_p)
+        dec.tok.copy_(tok[:, None])
+        dec.pos.fill_(T)
         first = tok.cpu().numpy()
         # host clock around work that ends in a device sync (the copy)
         metrics.observe_latency("llm.prefill", time.perf_counter() - t0)
         yield first
         if B == 1 and int(first[0]) == eos:
             return
-        done, pos = 1, T
+        done = 1
         while done < n:
             length = min(self.chunk, n - done)
             t0 = time.perf_counter()
             steps = []
-            for i in range(length):
-                logits, cache = llama.forward_cached(
-                    params, tok[:, None], cache, pos + i, cfg,
-                    compute_dtype=self.dtype)
-                tok = llama.sample_token(logits[:, -1], gen, self.temperature,
-                                         self.top_k, self.top_p)
-                steps.append(tok)
+            for _ in range(length):
+                dec.step.replay()
+                steps.append(dec.tok[:, 0].clone())
             host = torch.stack(steps, dim=1).cpu().numpy()  # ONE sync per chunk
             metrics.observe_latency("llm.decode_token",
                                     (time.perf_counter() - t0) / length)
@@ -333,7 +377,6 @@ class LLMFramework(Framework):
                 if B == 1 and int(host[0, j]) == eos:
                     return
             done += length
-            pos += length
 
     def invoke_stream(self, inputs: Sequence) -> Iterator[List[np.ndarray]]:
         """Yield one output list per generated token: [ids [B] int32,
@@ -355,6 +398,58 @@ class LLMFramework(Framework):
         ids = np.stack(chunks, axis=1)
         text = b"".join(self.tokenizer.decode_piece(int(t)) for t in ids[0])
         return [ids, np.frombuffer(text, np.uint8).copy()]
+
+
+class _StaticDecode:
+    """One static-path decode set for batch size B: the KV cache, the
+    sampling generator, the step's token ``[B, 1]`` and position (0-d)
+    on the card, and the decode step captured over them, which reads the
+    token and position and advances both in place (a chunk of any length
+    is that many replays).  A request holds the set from its prefill to
+    its last token, and re-seeds the generator."""
+
+    def __init__(self, fw: LLMFramework, B: int):
+        cfg, dev, params, dtype = fw.cfg, fw.device, fw.bundle.params, fw.dtype
+        temperature, top_k, top_p = fw.temperature, fw.top_k, fw.top_p
+        self.B = B
+        cache = self.cache = llama.init_cache(cfg, B, dtype=dtype, device=dev)
+        gen = self.gen = torch.Generator(device=dev)
+        tok = self.tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+        pos = self.pos = torch.zeros((), dtype=torch.long, device=dev)
+
+        # refers to neither the set nor the filter: no reference cycle, so
+        # closing the filter frees the set, its graph and the weights at once
+        def step() -> None:
+            logits, _ = llama.forward_cached(params, tok, cache, pos, cfg, dtype)
+            tok.copy_(llama.sample_token(
+                logits[:, -1], gen, temperature, top_k, top_p)[:, None])
+            pos.add_(1)
+
+        self.step = fw.census.capture(
+            ("static", B, str(dtype), temperature > 0), step,
+            generators=(gen,) if temperature > 0 else ())
+
+
+def paged_decode_step(params, cfg, dtype, pool: Dict, tok: torch.Tensor,
+                      pos: torch.Tensor, tables: torch.Tensor,
+                      live: torch.Tensor, gens: Sequence[torch.Generator],
+                      temperature: float, top_k: int = 0,
+                      top_p: float = 1.0) -> Callable[[], None]:
+    """The continuous loop's decode step over its static tensors, the
+    function its census captures: ``forward_paged`` of every slot's token
+    ``tok`` [B] at its position ``pos`` [B] int64 through ``tables`` [B,
+    max_blocks] int32, the per-slot sampler (``live`` [B] bool keeps the
+    draws of live slots, one generator per slot), then ``tok`` takes the
+    sampled tokens and ``pos`` advances by one, in place."""
+
+    def step() -> None:
+        logits, _ = llama.forward_paged(params, tok[:, None], pool, tables, pos,
+                                        cfg, dtype)
+        tok.copy_(llama.sample_token_per_slot(
+            logits[:, -1], gens, temperature, top_k, top_p, live=live))
+        pos.add_(1)
+
+    return step
 
 
 class _ContinuousLoop:
@@ -383,15 +478,20 @@ class _ContinuousLoop:
     ``prefill_chunk`` and prefills chunk by chunk into its blocks, at most
     ``prefill_budget`` tokens per iteration while other streams decode.
 
-    **Decode.**  Each iteration dispatches ``stream_chunk`` steps of every
-    slot at its own position (idle slots parked at ``max_blocks *
-    block_size``: they write only the sink block and attend nothing) with
-    ONE card-to-host copy of the chunk's tokens.  Tables and positions go
-    up once per chunk.
+    **Decode.**  Each iteration replays ``stream_chunk`` times the one
+    decode step its warm-up captured (:func:`paged_decode_step`, one
+    signature in the filter's census), every slot at its own position
+    (idle slots parked at ``max_blocks * block_size``: they write only
+    the sink block and attend nothing), with ONE card-to-host copy of the
+    chunk's tokens.  The step reads the token, positions, tables and live
+    mask in place; the host copies its own positions, tables and live
+    mask into them once per chunk, and a stream's join, leave or
+    completion changes only those values, never the step.
 
-    **Sampling.**  Greedy at temperature 0.  Otherwise each admitted stream
-    gets a ``torch.Generator`` seeded from (seed, admission number), drawn
-    once for its first token and once per decode step it is live in: its
+    **Sampling.**  Greedy at temperature 0.  Otherwise each slot keeps one
+    ``torch.Generator``, re-seeded from (seed, admission number) when a
+    stream is admitted to it, drawn once for the first token and once per
+    decode step (an idle slot's draws are thrown away): a stream's
     tokens are a function of the seed, its admission number and its
     positions, whichever streams share the batch.
     """
@@ -423,8 +523,11 @@ class _ContinuousLoop:
         self._live_slots: list = [None] * fw.slots  # (meta, emit) per slot
         #: set once the warm-up (one prefill chunk, one decode step) ran
         self.warmed = threading.Event()
-        #: decode steps and prefill chunks dispatched since the warm-up
-        self.stats = {"decode_steps": 0, "prefill_chunks": 0}
+        #: decode steps and prefill chunks dispatched since the warm-up, and
+        #: the host seconds spent issuing the decode steps (a replay waits
+        #: there while the card's launch queue is full)
+        self.stats = {"decode_steps": 0, "prefill_chunks": 0,
+                      "decode_host_s": 0.0}
         self._thread = threading.Thread(
             target=self._run, name="llm-serve", daemon=True)
         self._thread.start()
@@ -513,11 +616,9 @@ class _ContinuousLoop:
                 self._idle.set()
             self.warmed.set()
 
-    def _generator(self, admission: int) -> torch.Generator:
+    def _seed(self, admission: int) -> int:
         seed = np.random.SeedSequence([self.fw.seed, admission])
-        gen = torch.Generator(device=self.fw.device)
-        gen.manual_seed(int(seed.generate_state(1, np.uint64)[0] >> 1))
-        return gen
+        return int(seed.generate_state(1, np.uint64)[0] >> 1)
 
     def _serve(self) -> None:
         fw, cfg, dev = self.fw, self.fw.cfg, self.fw.device
@@ -525,7 +626,17 @@ class _ContinuousLoop:
         params = fw.bundle.params
         pool = llama.init_paged_cache(cfg, self.n_blocks, bs, dtype=fw.dtype,
                                       device=dev)
+        # The decode step's static inputs on the card, which its graph
+        # reads and writes in place; the host's values go into them by
+        # copies (from fresh pinned buffers: an earlier copy may still be
+        # reading the last one) on this thread's stream, which a replay
+        # follows.
         tok = torch.zeros((B,), dtype=torch.int32, device=dev)
+        pos_dev = torch.full((B,), self.park, dtype=torch.long, device=dev)
+        tables_dev = torch.full((B, self.max_blocks), self.sentinel,
+                                dtype=torch.int32, device=dev)
+        live_dev = torch.zeros((B,), dtype=torch.bool, device=dev)
+        gens = [torch.Generator(device=dev) for _ in range(B)]
         # Host bookkeeping: positions advance by the chunk for live rows
         # (parked rows stay parked) and tables change only at admit and
         # retire, so both live as numpy and go up once per chunk.
@@ -536,7 +647,6 @@ class _ContinuousLoop:
         remaining = np.zeros((B,), np.int64)
         sidx = np.zeros((B,), np.int64)
         slots = self._live_slots
-        gens: List[Optional[torch.Generator]] = [None] * B
         # published for tests and post-mortems (mutated in place)
         self._pos, self._tables = pos, tables
         self._free, self._slot_blocks = free, slot_blocks
@@ -562,14 +672,15 @@ class _ContinuousLoop:
             dirty = True
             pos[s] = self.park
             slots[s] = None
-            gens[s] = None
             remaining[s] = 0
             sidx[s] = 0
 
         # Warm-up before admitting real work: first-use costs (kernel
-        # library loads, allocator growth, library handles) land here and
-        # not on the first requests.  It writes garbage through real
-        # blocks and frees them; nothing can attend it.
+        # library loads, allocator growth, library handles) and the decode
+        # step's capture land here and not on the first requests.  The
+        # prefill chunk writes garbage through real blocks and frees them,
+        # the decode step (every slot parked) only the sink block; nothing
+        # can attend either.
         warm = take_blocks(min(math.ceil(C / bs), self.n_blocks))
         tables[0, :len(warm)] = warm
         zeros = torch.zeros((1, C), dtype=torch.int32, device=dev)
@@ -578,10 +689,13 @@ class _ContinuousLoop:
                             logit_off=C - 1)
         free[0:0] = warm
         tables[0, :] = self.sentinel
-        tables_dev = upload(tables, dev)
-        logits, _ = llama.forward_paged(params, tok[:, None], pool, tables_dev,
-                                        upload(pos, dev), cfg, fw.dtype)
-        logits.sum().item()  # the warm-up has run on the card
+        decode = fw.census.capture(
+            ("continuous", B, str(fw.dtype), fw.temperature > 0),
+            paged_decode_step(params, cfg, fw.dtype, pool, tok, pos_dev,
+                              tables_dev, live_dev, gens, fw.temperature,
+                              fw.top_k, fw.top_p),
+            generators=gens if fw.temperature > 0 else ())
+        tok.cpu()  # the warm-up has run on the card
         self.warmed.set()
 
         while not self._stop.is_set():
@@ -647,7 +761,8 @@ class _ContinuousLoop:
                     s, p = st["slot"], st["p"]
                     final = p + C >= st["P"]
                     if dirty:
-                        tables_dev, dirty = upload(tables, dev), False
+                        tables_dev.copy_(upload(tables, dev))
+                        dirty = False
                     # last REAL token's offset within the final chunk
                     off = st["T"] - 1 - p if final else 0
                     logits, pool = llama.forward_paged(
@@ -659,7 +774,7 @@ class _ContinuousLoop:
                     budget -= C
                     progressed = True
                     if final:
-                        gens[s] = self._generator(admissions)
+                        gens[s].manual_seed(self._seed(admissions))
                         admissions += 1
                         st["first"] = llama.sample_token_per_slot(
                             logits[:, 0], [gens[s]], fw.temperature,
@@ -682,20 +797,17 @@ class _ContinuousLoop:
             toks_dev = None
             if live.any():
                 if dirty:
-                    tables_dev, dirty = upload(tables, dev), False
-                p_dev = upload(pos, dev)
-                row_gens = [gens[s] if live[s] else None for s in range(B)]
+                    tables_dev.copy_(upload(tables, dev))
+                    dirty = False
+                pos_dev.copy_(upload(pos, dev))
+                live_dev.copy_(upload(live, dev))
+                t_host = time.perf_counter()
                 steps = []
                 for _ in range(fw.chunk):
-                    logits, pool = llama.forward_paged(
-                        params, tok[:, None], pool, tables_dev, p_dev, cfg,
-                        fw.dtype)
-                    tok = llama.sample_token_per_slot(
-                        logits[:, -1], row_gens, fw.temperature, fw.top_k,
-                        fw.top_p)
-                    steps.append(tok)
-                    p_dev = p_dev + 1
+                    decode.replay()
+                    steps.append(tok.clone())
                 toks_dev = torch.stack(steps, dim=1)
+                self.stats["decode_host_s"] += time.perf_counter() - t_host
                 self.stats["decode_steps"] += fw.chunk
                 pos[live] += fw.chunk
                 progressed = True

@@ -21,7 +21,7 @@ its ``device`` explicitly.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -232,10 +232,12 @@ def _rope(x, positions, theta):
 
 
 def _block(cfg: LlamaConfig, lp, x, positions, kv=None,
-           pos_offset: Optional[int] = None, paged=None):
+           pos_offset: Union[int, torch.Tensor, None] = None, paged=None):
     """One transformer block.  ``kv=(k_cache, v_cache)`` ([B, S_max, Hkv,
     hd] each) enables cached decode: x is the new suffix, written into the
-    caches in place at ``pos_offset``.  ``paged=(tables, blk, off, lens)``
+    caches in place at ``pos_offset`` (the Python int 0: prefill into an
+    empty cache; else a 0-d int64 tensor on x's device, the position the
+    suffix starts at).  ``paged=(tables, blk, off, lens)``
     switches ``kv`` to one layer of the block pool ([n_blocks + 1, bs,
     Hkv, hd]): the suffix row (b, t) is written at pool block
     ``blk[b, t]``, offset ``off[b, t]``, then attended through the tables
@@ -266,26 +268,29 @@ def _block(cfg: LlamaConfig, lp, x, positions, kv=None,
         k_pool[blk, off] = k.to(k_pool.dtype)
         v_pool[blk, off] = v.to(v_pool.dtype)
         attn = paged_attention(q, k_pool, v_pool, tables, lens).to(dt)
-    elif kv is None or pos_offset == 0:
+    elif kv is None or isinstance(pos_offset, int):
         if kv is not None:
             kv[0][:, :T] = k.to(kv[0].dtype)
             kv[1][:, :T] = v.to(kv[1].dtype)
-        # pos_offset == 0 means "prefill into an empty cache": the fresh
+        # the int 0 means "prefill into an empty cache": the fresh
         # k/v ARE the filled cache rows, so attention reduces to causal
         # attention over the prompt — the flash kernel's case — instead of
         # a masked sweep over all S_max cache rows.  K/V go in UNREPEATED:
         # the kernel shares each K/V tile across the query-head group.
         attn = flash_attention(q, k, v, causal=True)
     else:
+        # the position is a tensor on the card, read there (the JAX
+        # package's dynamic_update_slice at a traced pos_offset): one
+        # captured step serves every position
         k_cache, v_cache = kv
-        k_cache[:, pos_offset:pos_offset + T] = k.to(k_cache.dtype)
-        v_cache[:, pos_offset:pos_offset + T] = v.to(v_cache.dtype)
+        q_pos = pos_offset + torch.arange(T, device=x.device)  # [T]
+        k_cache.index_copy_(1, q_pos, k.to(k_cache.dtype))
+        v_cache.index_copy_(1, q_pos, v.to(v_cache.dtype))
         kr = repeat_kv_heads(k_cache.to(dt), H // Hkv)
         vr = repeat_kv_heads(v_cache.to(dt), H // Hkv)
         S = kr.shape[1]
-        q_pos = (pos_offset + torch.arange(T, device=x.device))[None, :]
         k_pos = torch.arange(S, device=x.device)
-        mask = (k_pos[None, None, :] <= q_pos[:, :, None])[:, None]
+        mask = (k_pos[None, None, :] <= q_pos[None, :, None])[:, None]
         s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
                          kr.to(torch.float32))
         s = s * (1.0 / np.sqrt(hd))
@@ -332,15 +337,24 @@ def init_cache(cfg: LlamaConfig, batch: int, dtype="bfloat16", *, device):
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
-def forward_cached(params, tokens, cache, pos_offset: int, cfg: LlamaConfig,
-                   compute_dtype="bfloat16"):
+def forward_cached(params, tokens, cache, pos_offset: Union[int, torch.Tensor],
+                   cfg: LlamaConfig, compute_dtype="bfloat16"):
     """Forward a suffix with the KV cache -> (logits [B, T, vocab] f32,
-    cache).  Prefill (``pos_offset == 0``, T = prompt) and decode (T = 1)
-    run the same code; the suffix's K/V rows are written into ``cache``
-    in place, and the same dict is returned."""
+    cache).  The suffix's K/V rows are written into ``cache`` in place,
+    and the same dict is returned.
+
+    ``pos_offset``: the Python int 0 is prefill into an empty cache
+    (causal flash attention over the suffix alone, the JAX package's
+    ``type(pos_offset) is int and pos_offset == 0``); a 0-d int64 tensor
+    on the tokens' device is the position of the suffix's first row,
+    written with ``index_copy_`` and attended through a masked sweep of
+    the cache, all on the card (a captured decode step advances it in
+    place).  Any other int is taken as that tensor."""
     dt = torch_dtype(compute_dtype)
     B, T = tokens.shape
     x = params["embed"][tokens].to(dt)
+    if isinstance(pos_offset, int) and pos_offset != 0:
+        pos_offset = torch.full((), pos_offset, dtype=torch.long, device=x.device)
     positions = pos_offset + torch.arange(T, device=x.device)[None, :]
     for i in range(cfg.n_layers):
         x = _block(cfg, _layer(params, i), x, positions,
@@ -441,10 +455,9 @@ def filter_logits(logits, temperature: float, top_k: int = 0,
     positions go to -inf.  Caller must have temperature > 0.
     """
     logits = logits / temperature
-    neg = torch.tensor(float("-inf"), dtype=logits.dtype, device=logits.device)
     if top_k and 0 < top_k < logits.shape[-1]:
         kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
-        logits = torch.where(logits < kth, neg, logits)
+        logits = logits.masked_fill(logits < kth, float("-inf"))
     if top_p < 1.0:
         sort = torch.sort(logits, dim=-1, descending=True).values
         probs = torch.softmax(sort, dim=-1)
@@ -452,8 +465,18 @@ def filter_logits(logits, temperature: float, top_k: int = 0,
             & (torch.arange(sort.shape[-1], device=logits.device) > 0)
         kept = torch.where(cut, torch.full_like(sort, float("inf")), sort)
         thresh = kept.amin(dim=-1, keepdim=True)
-        logits = torch.where(logits < thresh, neg, logits)
+        logits = logits.masked_fill(logits < thresh, float("-inf"))
     return logits
+
+
+def _draw(probs, generator: Optional[torch.Generator]):
+    """One draw per row of ``probs`` [.., vocab] -> ids [..] int32: the
+    argmax of ``probs / q``, q ~ Exp(1), which is what ``torch.multinomial``
+    computes for one sample (the same draws from the same generator
+    state), without its host-side checks of the probabilities: those read
+    the card, which a captured step cannot."""
+    q = torch.empty_like(probs).exponential_(generator=generator)
+    return torch.argmax(probs / q, dim=-1).to(torch.int32)
 
 
 def sample_token(logits, generator: Optional[torch.Generator],
@@ -465,30 +488,28 @@ def sample_token(logits, generator: Optional[torch.Generator],
         return torch.argmax(logits, dim=-1).to(torch.int32)
     probs = torch.softmax(
         filter_logits(logits, temperature, top_k, top_p).to(torch.float32), dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+    return _draw(probs, generator)
 
 
-def sample_token_per_slot(logits, generators: Sequence[Optional[torch.Generator]],
+def sample_token_per_slot(logits, generators: Sequence[torch.Generator],
                           temperature: float, top_k: int = 0,
-                          top_p: float = 1.0):
+                          top_p: float = 1.0, live: Optional[torch.Tensor] = None):
     """logits [B, vocab] + one generator per row -> token ids [B] int32.
 
     The continuous-serving sampler: greedy (argmax) at ``temperature <=
-    0``; else each row with a generator draws once from its own
-    ``softmax(filter_logits(...))`` with it, so a stream's tokens depend
-    only on its own generator and logits, whoever shares the batch.  Rows
-    whose generator is None (idle slots) take the argmax and draw
-    nothing."""
+    0``; else each row draws once from its own ``softmax(filter_logits(
+    ...))`` with its own generator, so a stream's tokens depend only on
+    its own generator and logits, whoever shares the batch.  ``live``
+    ([B] bool on the logits' device) keeps the draws of its True rows;
+    the others draw all the same (a captured step draws the same way
+    every time) and take the argmax."""
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     if temperature <= 0.0:
         return tok
     probs = torch.softmax(
         filter_logits(logits, temperature, top_k, top_p).to(torch.float32), dim=-1)
-    rows: List[torch.Tensor] = []
-    for i, gen in enumerate(generators):
-        rows.append(tok[i:i + 1] if gen is None else torch.multinomial(
-            probs[i:i + 1], 1, generator=gen)[:, 0].to(torch.int32))
-    return torch.cat(rows)
+    drawn = torch.stack([_draw(probs[i], gen) for i, gen in enumerate(generators)])
+    return drawn if live is None else torch.where(live, drawn, tok)
 
 
 # -- zoo builders ---------------------------------------------------------

@@ -14,6 +14,7 @@ is no fallback.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -22,7 +23,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, Iterable
+from typing import Callable, Dict, Iterable, Iterator
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -32,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_held = threading.local()
 
 
 class LaunchCount:
@@ -41,9 +43,15 @@ class LaunchCount:
         self._n = 0
         self._lock = threading.Lock()
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
+        """Count ``n`` launches, or hold them back while this thread is
+        inside :func:`held_launches`."""
+        held = getattr(_held, "counts", None)
+        if held is not None:
+            held[self] = held.get(self, 0) + n
+            return
         with self._lock:
-            self._n += 1
+            self._n += n
 
     def reset(self) -> None:
         with self._lock:
@@ -53,6 +61,21 @@ class LaunchCount:
     def value(self) -> int:
         with self._lock:
             return self._n
+
+
+@contextlib.contextmanager
+def held_launches() -> Iterator[Dict[LaunchCount, int]]:
+    """Launches that this thread's wrappers make inside the block are not
+    counted: the block yields them as ``{counter: n}``.  A CUDA graph's
+    warm-up and capture run inside it, so that only its replays count
+    (:mod:`..pipeline.graphs`)."""
+    outer = getattr(_held, "counts", None)
+    held: Dict[LaunchCount, int] = {}
+    _held.counts = held
+    try:
+        yield held
+    finally:
+        _held.counts = outer
 
 
 def _nvcc() -> str:

@@ -514,13 +514,15 @@ def test_paged_cache_sizes():
 def test_sample_token_per_slot(temperature):
     logits = torch.from_numpy(
         np.random.default_rng(14).standard_normal((3, 64)).astype(np.float32))
-    gens = [torch.Generator().manual_seed(5), None, torch.Generator().manual_seed(5)]
-    got = tl.sample_token_per_slot(logits, gens, temperature, top_k=8)
+    live = torch.tensor([True, False, True])
+
+    def gens():
+        return [torch.Generator().manual_seed(5) for _ in range(3)]
+
+    got = tl.sample_token_per_slot(logits, gens(), temperature, top_k=8, live=live)
     assert got.dtype == torch.int32 and got.shape == (3,)
-    assert int(got[1]) == int(torch.argmax(logits[1]))  # no generator: argmax
+    assert int(got[1]) == int(torch.argmax(logits[1]))  # idle row: argmax
     if temperature == 0.0:
         np.testing.assert_array_equal(got.numpy(), torch.argmax(logits, -1).numpy())
-    again = tl.sample_token_per_slot(
-        logits, [torch.Generator().manual_seed(5), None,
-                 torch.Generator().manual_seed(5)], temperature, top_k=8)
+    again = tl.sample_token_per_slot(logits, gens(), temperature, top_k=8, live=live)
     torch.testing.assert_close(got, again)
