@@ -69,7 +69,28 @@ Phases, each of which must pass:
              equal tokens, positions and pool after every step, greedy
              and sampled (temperature 0.9, top_k 40); the replay's device
              and host time per step are printed beside the eager step's.
-5. reference — on a small model, logits with the kernels on the card
+5. query   — the continuous cell over the query wire: the same model,
+             settings (plus ``stream_idle_timeout:0.2``), prompts and waves
+             served by ``tensor_query_serversrc ! tensor_filter !
+             tensor_query_serversink`` to eight ``appsrc ! tensor_query_client
+             ! tensor_sink`` pipelines over loopback TCP.  Counters are
+             zeroed after the server's warm-up and read after the drain,
+             with the continuous phase's checks (every stream whole and in
+             order, none aborted, the pool free, prefill chunks, launches
+             per step and chunk, one census signature and no capture
+             after the warm-up, two streams against ``forward_paged``).
+             Prints the aggregate over the wire beside the in-process
+             one, first token at the client and decode tok/s per stream,
+             the wire's per-token latency (client arrival minus
+             ``emit_t``, one monotonic clock) and the host time per decode
+             step, and how many streams are bitwise equal to the in-process
+             run's.  Then, un-timed: a client that stops after one token
+             of a 200-id prompt has its stream reaped exactly once
+             (``llm.serve.reaped``) with the pool free again while a second
+             client gets its whole stream, and one static request of 32
+             ids over the wire (``serve`` unset) must give ``serve``'s 64
+             tokens bitwise.
+6. reference — on a small model, logits with the kernels on the card
              agree with the plain versions on the CPU: cached prefill and
              decode, and the paged path (chunked prefill, then decode with
              a parked row, then a [2, 5] verify-shaped step of two live
@@ -224,6 +245,12 @@ CONT_DESC = ("appsrc name=src ! tensor_filter name=llm framework=llm "
              f"max_seq:1024,max_new:{MAX_NEW},serve:continuous,slots:8,"
              "block_size:16,prefill_chunk:32,stream_chunk:8 "
              "invoke-dynamic=true ! tensor_sink name=out")
+#: the query phase: the continuous cell's options behind the query pair,
+#: with a dead client's grace of 0.2 s (a 64-token stream lasts about
+#: eight 62 ms decode chunks on the card, so a grace near 0.5 s would let
+#: it finish before the reap)
+QUERY_CUSTOM = (CONT_DESC.split("custom=")[1].split(" ")[0]
+                + ",stream_idle_timeout:0.2")
 #: continuous streams whose every token is held against forward_paged
 #: driven outside the loop: the first of the first wave, the first joiner
 CONT_CHECKED = (0, len(CONT_WAVES[0]))
@@ -775,9 +802,7 @@ def phase_serve(dev, profile=False):
     t0 = time.perf_counter()
     pipe = ntt.Pipeline(desc)
     setup_s = time.perf_counter() - t0
-    gen = torch.Generator().manual_seed(1)
-    prompts = [torch.randint(3, 32000, (n,), generator=gen).to(torch.int32).numpy()
-               for n in PROMPT_LENS]
+    prompts = _serve_prompts()
     requests = []
 
     def run(prompt):
@@ -807,7 +832,8 @@ def phase_serve(dev, profile=False):
             request_s=stamps[-1] - t_push,
             flash_launches=attention.LAUNCHES.value - f0,
             int4_launches=i4.LAUNCHES.value - q0,
-            tokens=[int(b.tensors[0][0]) for b in outs[:8]])
+            tokens=[int(b.tensors[0][0]) for b in outs[:8]],
+            ids=[int(b.tensors[0][0]) for b in outs])
 
     with pipe:
         warm = run(prompts[0])  # first-call set-up and the decode capture
@@ -1102,7 +1128,8 @@ def phase_continuous(dev, profile=False):
             prompt_len=lens[i], late_joiner=i >= first,
             ttft_ms=(arrived[i][0] - pushed[i]) * 1e3,
             decode_tok_s=(MAX_NEW - 1) / (emit[-1] - emit[0]),
-            tokens=[int(b.tensors[0][0]) for b in bufs[:8]]))
+            tokens=[int(b.tensors[0][0]) for b in bufs[:8]],
+            ids=[int(b.tensors[0][0]) for b in bufs]))
     check(free_ok and tables_ok and parked_ok,
           f"pool not free after the drain: free list {free_ok}, tables "
           f"{tables_ok}, positions {parked_ok}")
@@ -1132,6 +1159,253 @@ def phase_continuous(dev, profile=False):
                 host_us_per_step=stats["decode_host_s"] / steps * 1e6,
                 census=census_line, busy=busy, graph_vs_eager=graph,
                 n_blocks=n_blocks, peak_mem_gb=peak_gb, replayed=replayed)
+
+
+def query_server(desc_custom, sid):
+    """A query server around the llm filter (named ``llm``)."""
+    import nnstreamer_tpu_torch as ntt
+
+    return ntt.Pipeline(
+        f"tensor_query_serversrc name=ssrc port=0 id={sid} ! "
+        "tensor_filter name=llm framework=llm model=llama2_7b "
+        f"custom={desc_custom} invoke-dynamic=true ! "
+        f"tensor_query_serversink id={sid}")
+
+
+class QueryClient:
+    """One ``appsrc ! tensor_query_client ! tensor_sink`` pipeline and a
+    thread pulling one stream from it.  A callback at the sink stamps
+    each buffer's arrival on the host's monotonic clock, the clock the
+    serve loop's ``emit_t`` is on."""
+
+    def __init__(self, port):
+        import threading
+
+        import nnstreamer_tpu_torch as ntt
+
+        self.pipe = ntt.Pipeline(
+            f"appsrc name=src ! tensor_query_client port={port} "
+            "timeout=600 ! tensor_sink name=out")
+        self.bufs, self.arrived = [], []
+        self.first = threading.Event()
+        self.thread = None
+        self.error = None
+        self.pipe.element("out").connect_new_data(
+            lambda b: b.meta.__setitem__("_arrive_t", time.monotonic()))
+
+    def start(self):
+        self.pipe.start()
+        return self
+
+    def push(self, prompt, n):
+        import threading
+
+        self.pushed = time.monotonic()
+        self.pipe.push("src", prompt)
+        self.thread = threading.Thread(target=self._pull, args=(n,),
+                                       daemon=True)
+        self.thread.start()
+
+    def _pull(self, n):
+        try:
+            for _ in range(n):
+                buf = self.pipe.pull("out", timeout=600)
+                self.bufs.append(buf)
+                self.arrived.append(buf.meta["_arrive_t"])
+                self.first.set()
+        except BaseException as e:  # noqa: BLE001 - reported by join()
+            self.error = e
+            self.first.set()
+
+    def join(self):
+        self.thread.join(timeout=900)
+        check(self.error is None, f"query client failed: {self.error!r}")
+        check(not self.thread.is_alive(), "query client did not finish")
+        return self.bufs
+
+    def close(self):
+        self.pipe.eos("src")
+        self.pipe.wait(timeout=120)
+        self.pipe.stop()
+
+
+def phase_query(dev, serve, cont):
+    """The continuous cell over the query wire: the same model, settings,
+    prompts and waves as ``phase_continuous``, served by
+    ``tensor_query_serversrc ! tensor_filter ! tensor_query_serversink``
+    to eight client pipelines over loopback TCP.  Then, un-timed, a client
+    that disconnects mid-stream (reaped once, pool free) and one static
+    request over the wire (bitwise equal to ``phase_serve``'s)."""
+    import math
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from nnstreamer_tpu_torch.core.log import metrics
+    from nnstreamer_tpu_torch.ops import attention, int4_matmul as i4
+
+    counters = {"paged_attention": attention.PAGED_LAUNCHES,
+                "flash_attention": attention.LAUNCHES,
+                "matmul_int4": i4.LAUNCHES}
+    gen = torch.Generator().manual_seed(2)
+    lens = [n for wave in CONT_WAVES for n in wave]
+    prompts = [torch.randint(3, 32000, (n,), generator=gen).to(torch.int32).numpy()
+               for n in lens]
+    n_streams, first = len(prompts), len(CONT_WAVES[0])
+    t0 = time.perf_counter()
+    srv = query_server(QUERY_CUSTOM, 71)
+    setup_s = time.perf_counter() - t0
+    out = dict(setup_s=setup_s)
+    with srv:
+        port = srv.element("ssrc").bound_port
+        el = srv.element("llm")
+        fw = el.fw
+        t0 = time.perf_counter()
+        loop = fw.serve_loop()
+        out["warmup_s"] = time.perf_counter() - t0
+        warm_captures = fw.census.captures
+        clients = [QueryClient(port).start() for _ in range(n_streams)]
+        stats0 = dict(loop.stats)
+        for c in counters.values():
+            c.reset()
+        t_start = time.monotonic()
+        for i in range(first):
+            clients[i].push(prompts[i], MAX_NEW)
+        for i in range(first):
+            check(clients[i].first.wait(600), f"query stream {i}: no first token")
+        for i in range(first, n_streams):
+            clients[i].push(prompts[i], MAX_NEW)
+        got = [c.join() for c in clients]
+        t_end = max(c.arrived[-1] for c in clients)
+        check(fw.drain(120), "serve loop did not drain")
+        launches = {k: c.value for k, c in counters.items()}
+        stats = {k: loop.stats[k] - stats0[k] for k in stats0}
+        census_line = census_of(fw.census, warm_captures)
+        pool_ok = dict(free=sorted(loop._free) == list(range(loop.n_blocks)),
+                       tables=bool((loop._tables == loop.sentinel).all()),
+                       parked=bool((loop._pos == loop.park).all()))
+        check(all(pool_ok.values()), f"query: pool not free after the drain: {pool_ok}")
+        for c in clients:
+            c.close()
+        streams, lat = [], []
+        for i, bufs in enumerate(got):
+            check(len(bufs) == MAX_NEW, f"query stream {i}: {len(bufs)} tokens")
+            for j, buf in enumerate(bufs):
+                ids = np.asarray(buf.tensors[0])
+                check(ids.dtype == np.int32 and ids.shape == (1,)
+                      and 0 <= int(ids[0]) < 32000, f"bad token buffer {ids!r}")
+                check(buf.meta.get("stream_index") == j,
+                      f"query stream {i}: stream_index out of order")
+                check(bool(buf.meta.get("stream_last")) == (j == MAX_NEW - 1),
+                      f"query stream {i}: stream_last misplaced")
+                check(not buf.meta.get("stream_aborted"), f"query stream {i} aborted")
+            emit = [b.meta["emit_t"] for b in bufs]
+            lat += [a - e for a, e in zip(clients[i].arrived, emit)]
+            ids = [int(b.tensors[0][0]) for b in bufs]
+            streams.append(dict(
+                prompt_len=lens[i], late_joiner=i >= first,
+                ttft_ms=(clients[i].arrived[0] - clients[i].pushed) * 1e3,
+                decode_tok_s=(MAX_NEW - 1) / (emit[-1] - emit[0]),
+                equal_to_in_process=ids == cont["streams"][i]["ids"], ids=ids))
+        steps, chunks = stats["decode_steps"], stats["prefill_chunks"]
+        want_chunks = sum(math.ceil(n / 32) for n in lens)
+        check(chunks == want_chunks, f"query: prefill chunks {chunks} != {want_chunks}")
+        check(launches["paged_attention"] == N_LAYERS * steps,
+              f"query: paged launches {launches['paged_attention']} != 32 x {steps}")
+        check(launches["flash_attention"] == N_LAYERS * chunks,
+              f"query: flash launches {launches['flash_attention']} != 32 x {chunks}")
+        check(launches["matmul_int4"] == 129 * (steps + chunks),
+              f"query: int4 launches {launches['matmul_int4']} != 129 x {steps + chunks}")
+        check(census_line["signatures"] == ["('continuous', 8, 'bfloat16', False)"],
+              f"query census: {census_line}")
+        replayed = {}
+        for i in CONT_CHECKED:
+            replayed[i] = dict(prompt_len=lens[i], **replay_stream(
+                fw, loop, prompts[i], streams[i]["ids"], dev))
+        lat.sort()
+        out.update(
+            streams=streams, window_s=t_end - t_start,
+            aggregate_tok_s=n_streams * MAX_NEW / (t_end - t_start),
+            wire_ms_p50=statistics.median(lat) * 1e3,
+            wire_ms_p99=lat[min(len(lat) - 1, int(len(lat) * 0.99))] * 1e3,
+            decode_steps=steps, prefill_chunks=chunks, launches=launches,
+            host_us_per_step=stats["decode_host_s"] / steps * 1e6,
+            census=census_line, replayed=replayed, pool=pool_ok,
+            bitwise_equal_streams=sum(s["equal_to_in_process"] for s in streams))
+
+        # un-timed: a client that stops after one token of a 200-id prompt
+        seen = []
+        emit_token = el._emit_serve_token
+
+        def spy(src_buf, tensors, meta):
+            seen.append(dict(meta))
+            emit_token(src_buf, tensors, meta)
+
+        el._emit_serve_token = spy
+        base = metrics.snapshot()
+        doomed = QueryClient(port).start()
+        doomed.push(prompts[1], 1)
+        doomed.join()
+        dead_sid = doomed.bufs[0].meta["stream_id"]
+        doomed.pipe.stop()
+        survivor = QueryClient(port).start()
+        survivor.push(prompts[0], MAX_NEW)
+        bufs = survivor.join()
+        survivor.close()
+        check(fw.drain(120), "serve loop did not drain after the dead client")
+        snap = metrics.snapshot()
+        el._emit_serve_token = emit_token
+        check([b.meta.get("stream_index") for b in bufs] == list(range(MAX_NEW))
+              and bufs[-1].meta.get("stream_last")
+              and not any(b.meta.get("stream_aborted") for b in bufs),
+              "dead client: the survivor's stream is not whole")
+        mine = [m for m in seen if m.get("stream_id") == dead_sid]
+        emitted = sum(1 for m in mine if not m.get("stream_aborted"))
+        reaped = snap.get("llm.serve.reaped", 0.0) - base.get("llm.serve.reaped", 0.0)
+        pool_ok = dict(free=sorted(loop._free) == list(range(loop.n_blocks)),
+                       tables=bool((loop._tables == loop.sentinel).all()),
+                       parked=bool((loop._pos == loop.park).all()))
+        out["dead_client"] = dict(
+            doomed_emitted=emitted, reaped=reaped,
+            reaped_blocks=snap.get("llm.serve.reaped_blocks", 0.0)
+            - base.get("llm.serve.reaped_blocks", 0.0),
+            terminator=mine[-1].get("abort_reason") if mine else None,
+            survivor_equal_to_in_process=[int(b.tensors[0][0]) for b in bufs]
+            == cont["streams"][0]["ids"], pool=pool_ok)
+        check(reaped == 1, f"dead client: llm.serve.reaped rose by {reaped}, not 1")
+        check(emitted < MAX_NEW, f"dead client: the doomed stream emitted {emitted}")
+        check(all(pool_ok.values()), f"dead client: pool not free: {pool_ok}")
+    del srv, el, fw, loop
+    torch.cuda.empty_cache()
+
+    # un-timed: the static path over the wire, phase_serve's options
+    srv = query_server(f"quant:int4,param_dtype:bfloat16,max_seq:1024,"
+                       f"max_new:{MAX_NEW},stream_chunk:64", 72)
+    with srv:
+        c = QueryClient(srv.element("ssrc").bound_port).start()
+        prompt = next(p for p in _serve_prompts() if len(p) == 32)
+        c.push(prompt, MAX_NEW)
+        bufs = c.join()
+        c.close()
+    ids = [int(b.tensors[0][0]) for b in bufs]
+    want = next(r["ids"] for r in serve["requests"] if r["prompt_len"] == 32)
+    check([b.meta.get("stream_index") for b in bufs] == list(range(MAX_NEW))
+          and bufs[-1].meta.get("stream_last"), "static over the wire: stream not whole")
+    check(ids == want, "static over the wire: tokens differ from phase_serve's")
+    out["static_over_wire"] = dict(tokens=len(ids), equal_to_serve=True)
+    del srv
+    torch.cuda.empty_cache()
+    return out
+
+
+def _serve_prompts():
+    """phase_serve's prompts (the same generator and seed)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(1)
+    return [torch.randint(3, 32000, (n,), generator=gen).to(torch.int32).numpy()
+            for n in PROMPT_LENS]
 
 
 def params_to(params, dev):
@@ -1374,6 +1648,28 @@ def main():
               f"{r['pool_equal']}; replay {r['graph_ms']:.3f} ms on the card, "
               f"{r['graph_host_ms'] * 1e3:.1f} us host; eager {r['eager_ms']:.3f} ms, "
               f"{r['eager_host_ms'] * 1e3:.1f} us host", flush=True)
+    torch.cuda.empty_cache()
+    query = detail["query"] = phase_query(dev, serve, cont)
+    for r in query["streams"]:
+        print(f"query: prompt {r['prompt_len']}"
+              f"{' (late)' if r['late_joiner'] else ''} first token at the client "
+              f"{r['ttft_ms']:.1f} ms, decode {r['decode_tok_s']:.2f} tok/s",
+              flush=True)
+    print(f"query: {query['aggregate_tok_s']:.2f} tok/s over the wire in "
+          f"{query['window_s']:.2f} s (in process: {cont['aggregate_tok_s']:.2f} "
+          f"in {cont['window_s']:.2f} s); wire per token p50 "
+          f"{query['wire_ms_p50']:.3f} ms, p99 {query['wire_ms_p99']:.3f} ms; host "
+          f"{query['host_us_per_step']:.1f} us per decode step (in process "
+          f"{cont['host_us_per_step']:.1f}); {query['decode_steps']} decode steps, "
+          f"{query['prefill_chunks']} prefill chunks, launches {query['launches']}",
+          flush=True)
+    print(f"query: {query['bitwise_equal_streams']} of {len(query['streams'])} "
+          f"streams bitwise equal to the in-process run's; tokens against "
+          f"forward_paged {query['replayed']}", flush=True)
+    print(f"census: query {query['census']}", flush=True)
+    print(f"query: dead client {query['dead_client']}; static over the wire "
+          f"{query['static_over_wire']}", flush=True)
+    save()
     torch.cuda.empty_cache()
     detail["reference"] = []
     for phase in (phase_reference, phase_reference_paged, phase_reference_bf16):

@@ -6,7 +6,7 @@ on PyTorch, with the kernels on the main path written by hand in CUDA C++
 for Hopper (``csrc/``).  This package imports ``torch`` and never
 ``jax``; the JAX package stays the reference it is tested against.
 
-What runs so far is the static LLM stream path::
+What runs so far is the LLM serving path: the static stream path::
 
     import nnstreamer_tpu_torch as ntt
 
@@ -18,8 +18,11 @@ What runs so far is the static LLM stream path::
         p.push("src", prompt_ids)       # int32 token ids, or text bytes
         token = p.pull("out")           # one buffer per generated token
 
-Filters run on the CUDA card unless ``accelerator=true:cpu`` is set on
-the tensor_filter.
+the continuous serving loop (``custom=serve:continuous``), and the query
+front door in front of either (``tensor_query_serversrc ! tensor_filter
+! tensor_query_serversink`` serving ``tensor_query_client`` pipelines
+over TCP).  Filters run on the CUDA card unless ``accelerator=true:cpu``
+is set on the tensor_filter.
 """
 
 from .core.types import (  # noqa: F401

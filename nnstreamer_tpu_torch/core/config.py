@@ -1,7 +1,10 @@
 """Global configuration registry.
 
 Port of ``nnstreamer_tpu/core/config.py`` (reference: ``nnstreamer_conf.c``
-+ ``nnstreamer.ini``), cut to the settings this package reads.  Populated
++ ``nnstreamer.ini``), cut to the settings this package reads: the
+filter priority, queue capacity, prompt bucketing and latency switch of
+the LLM paths, and the flight recorder's mode and ring size, which the
+query front door and the runtime's trace hooks read.  Populated
 from (in priority order) :func:`set_config` > environment > the ini file
 named by ``NNS_TPU_CONF`` > defaults.
 """
@@ -17,6 +20,8 @@ from typing import List, Optional
 _ENV_CONF = "NNS_TPU_CONF"
 _ENV_FW_PRIORITY = "NNS_TPU_FILTER_PRIORITY"
 _ENV_BUCKETING = "NNS_TPU_SHAPE_BUCKETING"
+_ENV_TRACE = "NNS_TPU_TRACE"
+_ENV_TRACE_RING = "NNS_TPU_TRACE_RING"
 
 
 @dataclasses.dataclass
@@ -31,6 +36,12 @@ class Config:
     shape_bucketing: bool = True
     #: emit per-stage latency measurements
     enable_latency: bool = True
+    #: flight-recorder trace mode (utils/tracing.py): ``off`` = no
+    #: recorder installed (hot paths pay one pointer check), ``ring`` =
+    #: bounded ring of span events, ``full`` = unbounded capture
+    trace_mode: str = "off"
+    #: span capacity of the ``ring`` trace mode
+    trace_ring_capacity: int = 65536
 
     @classmethod
     def load(cls) -> "Config":
@@ -46,11 +57,21 @@ class Config:
             if ini.has_option("common", "shape_bucketing"):
                 cfg.shape_bucketing = ini.getboolean("common",
                                                      "shape_bucketing")
+            if ini.has_option("common", "trace_mode"):
+                cfg.trace_mode = ini.get("common",
+                                         "trace_mode").strip().lower()
+            if ini.has_option("common", "trace_ring_capacity"):
+                cfg.trace_ring_capacity = ini.getint(
+                    "common", "trace_ring_capacity")
         if os.environ.get(_ENV_FW_PRIORITY):
             cfg.filter_priority = _split(os.environ[_ENV_FW_PRIORITY])
         if os.environ.get(_ENV_BUCKETING):
             cfg.shape_bucketing = os.environ[_ENV_BUCKETING].lower() in (
                 "1", "true", "yes", "on")
+        if os.environ.get(_ENV_TRACE):
+            cfg.trace_mode = os.environ[_ENV_TRACE].strip().lower()
+        if os.environ.get(_ENV_TRACE_RING):
+            cfg.trace_ring_capacity = int(os.environ[_ENV_TRACE_RING])
         return cfg
 
 

@@ -23,12 +23,14 @@ _lock = threading.RLock()
 _builtins_loaded = False
 
 #: Modules imported lazily on first lookup; each registers its plugins at
-#: import time.  The port carries the elements of the static LLM stream
-#: path (appsrc ! tensor_filter framework=llm ! tensor_sink).
+#: import time.  The port carries the elements of the LLM stream paths
+#: (appsrc ! tensor_filter framework=llm ! tensor_sink) and of the query
+#: front door in front of them (tensor_query_serversrc/serversink/client).
 _BUILTIN_MODULES = [
     "nnstreamer_tpu_torch.elements.source",
     "nnstreamer_tpu_torch.elements.filter",
     "nnstreamer_tpu_torch.elements.sink",
+    "nnstreamer_tpu_torch.elements.query",
     "nnstreamer_tpu_torch.filters.llm",
 ]
 

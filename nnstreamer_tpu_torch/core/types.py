@@ -6,9 +6,10 @@ Port of ``nnstreamer_tpu/core/types.py`` (the reference's
 * ``GstTensorInfo``  -> :class:`TensorSpec`   (name, dtype, dims)
 * ``GstTensorsInfo`` -> :class:`TensorsSpec`  (up to ``TENSOR_COUNT_LIMIT`` specs)
 
-dtypes are numpy dtypes (``bfloat16`` included when ``ml_dtypes`` is
-installed); a spec of a torch tensor maps its dtype through
-:func:`numpy_dtype`.  dims keep nnstreamer's innermost-first string
+dtypes are numpy dtypes; a spec of a torch tensor maps its dtype through
+:func:`numpy_dtype`.  ``bfloat16`` is ``ml_dtypes``' numpy type where
+that package is installed, and otherwise a 2-byte stand-in that only
+names the type in a spec: a bf16 payload then stays a torch tensor.  dims keep nnstreamer's innermost-first string
 syntax ("3:224:224:1" = C:W:H:N); :attr:`TensorSpec.shape` is the
 outermost-first shape torch and numpy use.
 """
@@ -28,7 +29,7 @@ try:  # bfloat16 as a numpy extension dtype, when available
 
     bfloat16 = np.dtype(ml_dtypes.bfloat16)
 except ImportError:  # pragma: no cover - depends on the installation
-    bfloat16 = None
+    bfloat16 = np.dtype([("bfloat16", "<u2")])
 
 #: Maximum rank of a single tensor (reference: NNS_TENSOR_RANK_LIMIT == 16).
 TENSOR_RANK_LIMIT = 16
@@ -58,8 +59,7 @@ _DTYPE_NAMES = {
     "float32": np.dtype(np.float32),
     "float64": np.dtype(np.float64),
 }
-if bfloat16 is not None:
-    _DTYPE_NAMES["bfloat16"] = bfloat16
+_DTYPE_NAMES["bfloat16"] = bfloat16
 _DTYPE_TO_NAME = {v: k for k, v in reversed(_DTYPE_NAMES.items())}
 
 

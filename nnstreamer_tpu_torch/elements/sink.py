@@ -4,6 +4,9 @@ Port of the ``tensor_sink`` of ``nnstreamer_tpu/elements/sink.py``
 (reference: gsttensor_sink.c, an appsink-like terminal).  ``pop()``
 returns host numpy arrays by default (one device-to-host copy at the
 pipeline edge), or the tensors as they arrived with ``to_host=false``.
+A buffer's appsrc ``max-inflight`` credit is released when the app takes
+it (pop or callback), or when a ``drop=true`` sink discards it.  The
+JAX package's fetch window (``fetch-depth``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -14,8 +17,17 @@ from typing import Callable, List, Optional
 
 from ..core.buffer import Buffer
 from ..core.log import metrics
+from ..core.meta_keys import META_TENANT
 from ..core.registry import register_element
 from .base import SinkElement
+
+
+def _release_credit(buf) -> None:
+    """Free an appsrc max-inflight admission slot: called at delivery
+    (pop/callback) or when a drop-mode sink discards the buffer."""
+    credit = getattr(buf, "meta", {}).get("_inflight_credit")
+    if credit is not None:
+        credit.release()
 
 
 @register_element("tensor_sink")
@@ -45,8 +57,13 @@ class TensorSink(SinkElement):
         self._callbacks.append(cb)
 
     def process(self, pad, buf: Buffer):
-        metrics.count(f"{self.name}.frames")
-        for cb in list(self._callbacks):
+        # frames split per tenant when the buffer carries one
+        metrics.count(f"{self.name}.frames",
+                      tenant=buf.meta.get(META_TENANT))
+        callbacks = list(self._callbacks)
+        if callbacks:
+            _release_credit(buf)  # callback consumers take delivery here
+        for cb in callbacks:
             cb(buf)
         stop = getattr(self, "_stop_event", None)
         while True:
@@ -56,9 +73,11 @@ class TensorSink(SinkElement):
             except _queue.Full:
                 if self.drop:
                     try:
-                        self._q.get_nowait()
+                        dropped = self._q.get_nowait()
                     except _queue.Empty:
                         pass
+                    else:
+                        _release_credit(dropped)  # never popped: free now
                 elif stop is not None and stop.is_set():
                     return []  # pipeline stopping: shed instead of deadlocking
                 # else: keep blocking — backpressure to the pipeline
@@ -75,4 +94,6 @@ class TensorSink(SinkElement):
                     check()
                 if _time.monotonic() > deadline:
                     raise TimeoutError(f"no buffer at sink {self.name!r} in {timeout}s")
-        return buf.to_host() if self.to_host else buf
+        out = buf.to_host() if self.to_host else buf
+        _release_credit(out)  # delivered: the admission slot frees
+        return out

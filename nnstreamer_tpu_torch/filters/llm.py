@@ -35,7 +35,7 @@ unless the element sets ``accelerator=true:cpu``.
 
 from __future__ import annotations
 
-import itertools
+import functools
 import math
 import queue
 import threading
@@ -56,6 +56,7 @@ from ..core.types import TensorFormat, TensorsSpec
 from ..models import llama
 from ..models.zoo import build as build_model
 from ..pipeline.graphs import Census
+from ..utils import elastic
 from .base import Framework, FrameworkError, parse_custom_options, resolve_device
 
 log = logger(__name__)
@@ -90,20 +91,11 @@ class ByteTokenizer:
 
 #: custom= options of the JAX package's llm filter whose paths this port
 #: does not carry yet; asking for one raises instead of serving another path
-_NOT_PORTED = ("draft", "spec_k", "draft_seed", "tp", "tokenizer",
-               "stream_idle_timeout")
+_NOT_PORTED = ("draft", "spec_k", "draft_seed", "tp", "tokenizer")
 #: switches of the continuous loop that turn on a path not ported yet:
 #: only their off value is taken (the JAX package's prefix_cache defaults
 #: to on; here it is off)
 _OFF_ONLY = ("prefix_cache", "nan_guard")
-
-_stream_ids = itertools.count(1)
-
-
-def next_stream_id() -> int:
-    """Process-unique continuous-serving stream id, minted at submit."""
-    return next(_stream_ids)
-
 
 def serving_plan(cfg, *, slots: int, block_size: int = 16,
                  kv_blocks: int = 0, prefill_chunk: int = 32) -> Dict[str, int]:
@@ -149,12 +141,16 @@ class LLMFramework(Framework):
     step, default 32), ``prefill_budget:N`` (prefill tokens per loop
     iteration while streams decode, default one chunk) and
     ``admit_timeout:S`` (seconds a prompt may wait at the head of the
-    queue, default 30, 0 = forever); ``stream_chunk`` is then the decode
-    steps per host sync.
+    queue, default 30, 0 = forever) and ``stream_idle_timeout:S`` (the
+    grace between a stream being cancelled through
+    :func:`~..utils.elastic.cancel_stream`, as the query serversink does
+    when its client's connection died, and its slot and KV blocks being
+    reaped, default 5); ``stream_chunk`` is then the decode steps per
+    host sync.
 
     Not ported yet, and raising: ``draft:`` (speculative decoding),
-    ``prefix_cache:1``, ``nan_guard:1``, ``stream_idle_timeout:``,
-    ``tp:``, ``tokenizer:``, ``quant:int8``.
+    ``prefix_cache:1``, ``nan_guard:1``, ``tp:``, ``tokenizer:``,
+    ``quant:int8``.
     """
 
     name = "llm"
@@ -202,6 +198,8 @@ class LLMFramework(Framework):
         self.prefill_budget = max(
             1, int(opts.pop("prefill_budget", self.prefill_chunk)))
         self.admit_timeout = max(0.0, float(opts.pop("admit_timeout", 30.0)))
+        self.stream_idle_timeout = max(
+            0.0, float(opts.pop("stream_idle_timeout", 5.0)))
         quant = str(opts.get("quant", "")).lower()
         if quant not in ("", "int4"):
             raise FrameworkError(
@@ -494,6 +492,16 @@ class _ContinuousLoop:
     decode step (an idle slot's draws are thrown away): a stream's
     tokens are a function of the seed, its admission number and its
     positions, whichever streams share the batch.
+
+    **Cancel.**  Every stream registers its id with
+    :mod:`~..utils.elastic` at submit and unregisters when it completes
+    or is aborted.  A cancel (:meth:`_mark_cancel`, e.g. the query
+    serversink on a dead connection) marks it with a deadline
+    ``stream_idle_timeout`` ahead; the first chunk boundary past it reaps
+    the stream, queued, mid-prefill or live: its blocks go back to the
+    free list, its slot parks, and a typed terminator goes downstream.
+    Like a completion, a reap changes only the host's tables, positions
+    and live mask, which reach the captured step by copies.
     """
 
     def __init__(self, fw: LLMFramework):
@@ -521,6 +529,12 @@ class _ContinuousLoop:
         self._waiting: list = []
         self._admitting: list = []
         self._live_slots: list = [None] * fw.slots  # (meta, emit) per slot
+        #: stream id -> (reason, reap deadline), set by _mark_cancel from
+        #: any thread, consumed by the serve thread at chunk boundaries
+        self._cancelled: Dict[int, tuple] = {}
+        #: registered stream ids not yet unregistered (shutdown clears
+        #: what completion and abort did not)
+        self._owned_sids: set = set()
         #: set once the warm-up (one prefill chunk, one decode step) ran
         self.warmed = threading.Event()
         #: decode steps and prefill chunks dispatched since the warm-up, and
@@ -534,17 +548,44 @@ class _ContinuousLoop:
 
     # -- producer side -----------------------------------------------------
     def submit(self, prompt: np.ndarray, meta: Dict, emit) -> int:
+        # The id is minted HERE, server-side: a client-supplied value is
+        # overwritten, so no client can cancel another's stream.
         meta = dict(meta)
-        sid = next_stream_id()
+        sid = elastic.next_stream_id()
         meta[META_STREAM_ID] = sid
         # The error check lives inside the lock: the crash terminator
         # drains _pending under it, so no request slips into a dead loop.
         with self._idle_lock:
             self.check()
             self._idle.clear()
+            self._owned_sids.add(sid)
+            elastic.register_stream(
+                sid, functools.partial(self._mark_cancel, sid))
             self._pending.put((prompt, meta, emit, time.monotonic()))
         self._wake.set()
         return sid
+
+    def _mark_cancel(self, sid: int, reason: str = "cancelled",
+                     force: bool = False) -> None:
+        """The :mod:`~..utils.elastic` backchannel: mark one stream dead.
+        Reaped at the first chunk boundary past the
+        ``stream_idle_timeout`` grace (``force=True`` skips the grace).
+        Idempotent: an earlier deadline is never extended."""
+        grace = 0.0 if force else self.fw.stream_idle_timeout
+        deadline = time.monotonic() + grace
+        prev = self._cancelled.get(sid)
+        if prev is None or deadline < prev[1]:
+            self._cancelled[sid] = (reason, deadline)
+            metrics.count("llm.serve.cancelled")
+        self._wake.set()
+
+    def _release_sid(self, sid) -> None:
+        """A stream left the loop (completed, aborted or reaped)."""
+        if sid is None:
+            return
+        elastic.unregister_stream(sid)
+        self._owned_sids.discard(sid)
+        self._cancelled.pop(sid, None)
 
     def check(self) -> None:
         if self._error is not None:
@@ -558,6 +599,10 @@ class _ContinuousLoop:
         self._stop.set()
         self._wake.set()
         self._thread.join(timeout=30)
+        # the process-wide registry must not keep pointing at a dead loop
+        for sid in list(self._owned_sids):
+            elastic.unregister_stream(sid)
+        self._owned_sids.clear()
 
     # -- serve thread ------------------------------------------------------
     def _emit_token(self, emit, meta: Dict, token_id: int, index: int,
@@ -576,6 +621,7 @@ class _ContinuousLoop:
                idx: int = 0) -> None:
         """Typed terminator: one ``stream_aborted`` token buffer, with the
         policy that fired as ``abort_reason``."""
+        self._release_sid(meta.get(META_STREAM_ID))
         meta = {**meta, META_STREAM_ABORTED: True}
         if reason is not None:
             meta[META_ABORT_REASON] = reason
@@ -644,6 +690,7 @@ class _ContinuousLoop:
         tables = np.full((B, self.max_blocks), self.sentinel, np.int32)
         free = list(range(self.n_blocks))
         slot_blocks: list = [[] for _ in range(B)]
+        slot_sid: list = [None] * B  # stream id holding each slot
         remaining = np.zeros((B,), np.int64)
         sidx = np.zeros((B,), np.int64)
         slots = self._live_slots
@@ -666,6 +713,8 @@ class _ContinuousLoop:
 
         def retire(s: int) -> None:
             nonlocal dirty
+            self._release_sid(slot_sid[s])
+            slot_sid[s] = None
             free.extend(slot_blocks[s])
             slot_blocks[s] = []
             tables[s, :] = self.sentinel
@@ -707,6 +756,46 @@ class _ContinuousLoop:
                 except queue.Empty:
                     break
 
+            # 0b. reap cancelled streams past their grace: queued ones
+            # leave the queue, mid-prefill and live ones give their slot
+            # and blocks back; each gets a typed terminator
+            if self._cancelled:
+                now = time.monotonic()
+                for sid, (reason, deadline) in list(self._cancelled.items()):
+                    if now < deadline:
+                        continue
+                    ent = next((e for e in self._waiting
+                                if e[1].get(META_STREAM_ID) == sid), None)
+                    if ent is not None:
+                        self._waiting.remove(ent)
+                        self._abort(ent[1], ent[2], reason)
+                        progressed = True
+                        continue
+                    st = next((st for st in self._admitting
+                               if st["meta"].get(META_STREAM_ID) == sid),
+                              None)
+                    s = st["slot"] if st is not None else next(
+                        (s for s in range(B) if slot_sid[s] == sid), None)
+                    if s is None:
+                        # a stale mark (the stream has left the loop);
+                        # an owned id not found is still being handed off
+                        if sid not in self._owned_sids:
+                            self._cancelled.pop(sid, None)
+                        continue
+                    nb = len(slot_blocks[s])
+                    if st is not None:
+                        # mid-prefill: nothing emitted yet; drop its state
+                        # first so step 2 writes no more into its blocks
+                        self._admitting.remove(st)
+                        meta, emit, idx = st["meta"], st["emit"], 0
+                    else:
+                        (meta, emit), idx = slots[s], int(sidx[s])
+                    metrics.count("llm.serve.reaped")
+                    metrics.count("llm.serve.reaped_blocks", nb)
+                    retire(s)
+                    self._abort(meta, emit, reason, idx=idx)
+                    progressed = True
+
             # 1. admission: waiting prompts into free slots while a slot
             # and the stream's whole block reservation are free.  Strict
             # FIFO; the head times out after admit_timeout.
@@ -738,6 +827,7 @@ class _ContinuousLoop:
                     self._abort(meta, emit, reason)
                     continue
                 s = freeslots[0]
+                slot_sid[s] = meta.get(META_STREAM_ID)
                 slot_blocks[s] = take_blocks(need)
                 tables[s, :need] = slot_blocks[s]
                 dirty = True

@@ -10,7 +10,17 @@ boundaries):
 * EOS and error events travel in-band through the same queues;
 * a stage whose ``process`` returns a generator (a streaming
   tensor_filter) has it iterated by the runner, so every yielded buffer
-  is pushed downstream as soon as it exists.
+  is pushed downstream as soon as it exists;
+* with ``trace_mode`` on, a trace id, ingress time and default tenant are
+  stamped at the source, enqueue times at every stage queue, and queue,
+  stage and end-to-end spans go to the flight recorder
+  (``utils/tracing.py``); with it off (the default) no stamp is written;
+* a poison terminator (``utils/armor.py``) rides to the sinks without
+  invoking any stage, and ``quarantine=`` turns a stage's failed invoke
+  into one.
+
+Left for later slices: ``slo=``, elastic stage restarts and the
+autoscaler, micro-batching and the dispatch and fetch windows.
 
 Threads, not asyncio: stages do blocking work (device dispatch, host
 copies) and release the interpreter lock inside torch.
@@ -28,7 +38,9 @@ from ..core.caps import Caps
 from ..core.config import get_config
 from ..core.log import Timer, logger, metrics
 from ..core.registry import KIND_ELEMENT, get as registry_get
-from ..elements.base import Element, SourceElement, SRC
+from ..elements.base import Element, SinkElement, SourceElement, SRC
+from ..utils import tracing
+from ..utils.armor import META_POISON as _META_POISON
 from .graph import PipelineGraph
 from .parser import parse as parse_launch
 from .plan import Stage, plan_stages
@@ -116,17 +128,35 @@ class _Runner:
             self.element._async_emit = self._emit
         self.in_pads: List[str] = []
         self._eos_pads: set = set()
-        name = self.element.name
+        name = self._nm = self.element.name
         self._m_in = f"{name}.in"
         self._m_out = f"{name}.out"
         self._m_dropped = f"{name}.dropped"
         self._m_proc = f"{name}.proc"
+        self._m_qwait = f"{name}.queue_wait"
+        self._m_e2e = f"{name}.e2e"
+        # Flight recorder: None when trace_mode is off, so every hook
+        # below is one pointer check and no meta stamp is written.  Also
+        # pinned on the element, so its own spans (query admission,
+        # replies) follow THIS pipeline's trace mode.
+        self._tr = tracing.recorder if pipeline.trace_mode != "off" else None
+        self.element._trace_rec = self._tr
+        self._is_sink = isinstance(self.element, SinkElement)
 
     def connect(self, out_pad: str, port: _Port) -> None:
         self.out_ports.setdefault(out_pad, []).append(port)
 
     def feed(self, pad: str, item: Union[Buffer, Event]) -> None:
         """Blocking put (backpressure point)."""
+        if self._tr is not None and isinstance(item, Buffer):
+            # queue-wait span start, keyed by the CONSUMING stage so
+            # fan-out is exact; the stamp map is rebuilt, not mutated, so
+            # two buffers that inherited one map never overwrite each
+            # other's start time
+            stamps = item.meta.get(tracing.META_ENQUEUE_NS)
+            base = stamps if isinstance(stamps, dict) else {}
+            item.meta[tracing.META_ENQUEUE_NS] = {
+                **base, self._nm: time.monotonic_ns()}
         self.queue.put((pad, item))
 
     def _emit(self, outs) -> None:
@@ -164,13 +194,119 @@ class _Runner:
 
     def _run_source(self) -> None:
         el = self.element
+        tr = self._tr
         for item in el.generate():
             if self.pipeline._stopping.is_set():
                 break
+            if tr is not None and isinstance(item, Buffer):
+                self._stamp_ingress(tr, item)
             self._emit([(SRC, item)])
             metrics.count(self._m_out)
         self._emit(el.finalize())
         self._broadcast(Event.eos())
+
+    def _stamp_ingress(self, tr, buf: Buffer) -> None:
+        """INGRESS: the buffer's trace id is born here (or kept, when the
+        query wire brought one) and rides ``Buffer.meta`` downstream; the
+        pipeline's default tenant is stamped here, in traced runs only
+        (an element-level tenant, appsrc ``tenant=`` or the wire meta, is
+        app data and rides whatever the trace mode)."""
+        tid = buf.meta.get(tracing.META_TRACE_ID)
+        if tid is None:
+            tid = buf.meta[tracing.META_TRACE_ID] = tracing.next_trace_id()
+        t = time.monotonic_ns()
+        buf.meta[tracing.META_INGRESS_NS] = t
+        ten = buf.meta.get(tracing.META_TENANT)
+        if ten is None and self.pipeline.tenant is not None:
+            ten = buf.meta[tracing.META_TENANT] = self.pipeline.tenant
+        if ten is None:
+            tr.record("ingress", self._nm, tid, t, 0, pts=buf.pts)
+        else:
+            tr.record("ingress", self._nm, tid, t, 0, pts=buf.pts,
+                      tenant=ten)
+
+    # -- nns-armor: poison-pill quarantine ---------------------------------
+    def _invoke(self, el, pad: str, buf: Buffer):
+        """The stage invoke, armored under ``Pipeline(quarantine=...)``: an
+        exception quarantines the request to the DLQ and answers it with
+        a typed ``abort_reason=poison`` terminator, and the pipeline
+        serves on.  Sinks keep the plain semantics (a failed send is not
+        a poisoned request).  A streaming stage's generator is iterated
+        under the armor as the runner emits it, so a failure mid-stream is
+        caught too (tokens already emitted stay emitted)."""
+        armor = self.pipeline._armor
+        if armor is None or self._is_sink:
+            return el.process(pad, buf)
+        return self._armored(armor, el, pad, buf)
+
+    def _armored(self, armor, el, pad: str, buf: Buffer):
+        try:
+            yield from el.process(pad, buf)
+        except Exception as e:  # noqa: BLE001 - the quarantine contract
+            from ..utils import armor as _armor_mod
+
+            metrics.count(f"{self._nm}.poisoned")
+            armor.quarantine(buf, error=e, stage=self._nm)
+            yield SRC, _armor_mod.poison_terminator(buf, e)
+
+    # -- tracing helpers ---------------------------------------------------
+    def _trace_queue_wait(self, buf: Buffer, end_ns: int) -> Optional[int]:
+        """Record the queue-wait span of one consumed buffer (popping THIS
+        stage's enqueue stamp); returns its trace id."""
+        tid = buf.meta.get(tracing.META_TRACE_ID)
+        stamps = buf.meta.get(tracing.META_ENQUEUE_NS)
+        tq = None
+        if isinstance(stamps, dict):
+            tq = stamps.pop(self._nm, None)
+            if not stamps:
+                # drained map: delivered buffers (and wire-encoded
+                # responses) stay free of it
+                buf.meta.pop(tracing.META_ENQUEUE_NS, None)
+        if tq is not None and end_ns >= tq:
+            ten = buf.meta.get(tracing.META_TENANT)
+            if ten is None:
+                self._tr.record("queue", self._nm, tid, tq, end_ns - tq)
+            else:
+                self._tr.record("queue", self._nm, tid, tq, end_ns - tq,
+                                tenant=ten)
+            metrics.observe_latency(self._m_qwait, (end_ns - tq) / 1e9,
+                                    tenant=ten)
+        return tid
+
+    @staticmethod
+    def _propagate_trace(src: Buffer, outs) -> None:
+        """Back-fill the trace id and ingress time onto output buffers an
+        element built from scratch (``with_tensors`` already copies
+        meta).  Returns the outputs, a generator's lazily."""
+        def fill(o):
+            if isinstance(o, Buffer):
+                if tracing.META_TRACE_ID not in o.meta:
+                    o.meta[tracing.META_TRACE_ID] = \
+                        src.meta.get(tracing.META_TRACE_ID)
+                if (tracing.META_INGRESS_NS not in o.meta
+                        and tracing.META_INGRESS_NS in src.meta):
+                    o.meta[tracing.META_INGRESS_NS] = \
+                        src.meta[tracing.META_INGRESS_NS]
+            return o
+
+        for out_pad, o in outs:
+            yield out_pad, fill(o)
+
+    def _trace_sink_delivery(self, buf: Buffer, end_ns: int) -> None:
+        """End-to-end span (ingress -> sink delivery) of one buffer, split
+        per tenant when it carries one."""
+        ts0 = buf.meta.get(tracing.META_INGRESS_NS)
+        if ts0 is None or end_ns < ts0:
+            return
+        ten = buf.meta.get(tracing.META_TENANT)
+        metrics.observe_latency(self._m_e2e, (end_ns - ts0) / 1e9,
+                                tenant=ten)
+        tid = buf.meta.get(tracing.META_TRACE_ID)
+        if ten is None:
+            self._tr.record("e2e", self._nm, tid, ts0, end_ns - ts0)
+        else:
+            self._tr.record("e2e", self._nm, tid, ts0, end_ns - ts0,
+                            tenant=ten)
 
     def _run_stream(self) -> None:
         el = self.element
@@ -191,9 +327,34 @@ class _Runner:
                     continue
                 self._emit(el.on_event(pad, item))
                 continue
+            if not self._is_sink and item.meta.get(_META_POISON):
+                # a poison terminator is an ANSWER riding to the sink,
+                # never work: forward it untouched
+                metrics.count(self._m_in)
+                self._emit([(SRC, item)])
+                metrics.count(self._m_out)
+                continue
             metrics.count(self._m_in)
-            with Timer(self._m_proc):
-                self._emit(el.process(pad, item))
+            tr = self._tr
+            if tr is None:
+                with Timer(self._m_proc):
+                    self._emit(self._invoke(el, pad, item))
+            else:
+                now0 = time.monotonic_ns()
+                tid = self._trace_queue_wait(item, now0)
+                ten = item.meta.get(tracing.META_TENANT)
+                t0 = time.perf_counter()
+                self._emit(self._propagate_trace(
+                    item, self._invoke(el, pad, item)))
+                dt = time.perf_counter() - t0
+                metrics.observe_latency(self._m_proc, dt, tenant=ten)
+                dur = int(dt * 1e9)
+                if ten is None:
+                    tr.record("stage", self._nm, tid, now0, dur)
+                else:
+                    tr.record("stage", self._nm, tid, now0, dur, tenant=ten)
+                if self._is_sink:
+                    self._trace_sink_delivery(item, now0 + dur)
             metrics.count(self._m_out)
 
 
@@ -201,19 +362,57 @@ class Pipeline:
     """Build + run a pipeline graph.
 
     Accepts a pipeline description string or a parsed PipelineGraph.
-    ``queue_capacity`` bounds each stage's input queue (backpressure);
-    the default comes from :func:`get_config`.  Elements are instantiated
-    and caps negotiated at construction (which opens models); threads
-    start at :meth:`start` or on entering a ``with`` block.
+    ``queue_capacity`` bounds each stage's input queue (backpressure).
+    ``trace_mode`` (``off``/``ring``/``full``) switches on the per-buffer
+    flight recorder (:meth:`dump_trace` writes it as Chrome trace JSON);
+    ``tenant`` is a default tenant stamped at source ingress in traced
+    runs.  ``quarantine`` (a DLQ directory, policy dict or
+    ``QuarantinePolicy``) turns a request whose stage invoke raises into
+    a DLQ record and a typed ``abort_reason=poison`` answer, with a
+    per-tenant circuit breaker that sheds repeat offenders at the query
+    front door; ``journal_replay=True`` asks every journaled query
+    serversrc to re-admit its accepted-but-unanswered requests at start.
+    Defaults come from :func:`get_config`.  Elements are instantiated and
+    caps negotiated at construction (which opens models); threads start
+    at :meth:`start` or on entering a ``with`` block.
     """
 
     def __init__(self, graph: Union[str, PipelineGraph], *,
-                 queue_capacity: Optional[int] = None):
+                 queue_capacity: Optional[int] = None,
+                 trace_mode: Optional[str] = None,
+                 tenant: Optional[str] = None,
+                 quarantine=None,
+                 journal_replay: bool = False):
         if isinstance(graph, str):
             graph = parse_launch(graph)
         graph.validate()
+        cfg = get_config()
         self.graph = graph
-        self.capacity = queue_capacity or get_config().queue_capacity
+        self.capacity = queue_capacity or cfg.queue_capacity
+        self.trace_mode = str(
+            trace_mode if trace_mode is not None else cfg.trace_mode)
+        if self.trace_mode not in ("off", "ring", "full"):
+            raise PipelineError(
+                f"trace_mode must be off|ring|full, got {self.trace_mode!r}")
+        self.tenant = None if tenant is None else str(tenant)
+        if self.trace_mode != "off":
+            # the flight recorder is process-wide, like core.log.metrics;
+            # an untraced pipeline never touches it
+            tracing.recorder.configure(self.trace_mode,
+                                       cfg.trace_ring_capacity)
+        self._armor = None
+        if quarantine is not None:
+            from ..utils import armor as _armor
+
+            try:
+                self._armor = _armor.Armor(
+                    _armor.QuarantinePolicy.of(quarantine), nan_guard=False,
+                    apply_admission=self._breaker_admission,
+                    recorder=(tracing.recorder
+                              if self.trace_mode != "off" else None))
+            except ValueError as e:
+                raise PipelineError(str(e)) from e
+        self._journal_replay = bool(journal_replay)
         self._stopping = threading.Event()
         self._errors: List[Tuple[str, BaseException]] = []
         self._err_lock = threading.Lock()
@@ -228,6 +427,11 @@ class Pipeline:
                 cls = registry_get(KIND_ELEMENT, node.kind)
                 el = cls(dict(node.props), name=node.name or f"{node.kind}{node.id}")
             self.elements[node.id] = el
+            # armor + journal attach: journaled serversrcs honour the
+            # pipeline-level replay flag
+            el._armor = self._armor
+            if self._journal_replay:
+                el._journal_replay = True
 
         # 2. caps negotiation in topo order
         self._negotiate()
@@ -338,6 +542,27 @@ class Pipeline:
     def _record_error(self, name: str, exc: BaseException) -> None:
         with self._err_lock:
             self._errors.append((name, exc))
+        # post-mortem: the recent span timeline, when the recorder is on
+        tracing.dump_recent_to_log(
+            log, reason=f"stage {name} failed: {exc!r}")
+
+    def _breaker_admission(self, tenant: str, engage: bool) -> None:
+        """The armor circuit breaker's lever: flip ``tenant``'s admission
+        override to shed on every query-server core of this pipeline."""
+        for el in self.elements.values():
+            core = getattr(el, "_core", None)
+            if core is not None and hasattr(core, "tenant_admission"):
+                if engage:
+                    # unconditional: a poison spewer must not keep
+                    # crashing invokes because the queue has room
+                    core.tenant_admission[tenant] = "shed-all"
+                else:
+                    core.tenant_admission.pop(tenant, None)
+
+    def dump_trace(self, path: str) -> int:
+        """Write the flight recorder's contents as Chrome trace-event JSON
+        (Perfetto / chrome://tracing); returns the span count."""
+        return tracing.dump_chrome(tracing.recorder.events(), path)
 
     def __enter__(self) -> "Pipeline":
         return self.start()

@@ -1,0 +1,756 @@
+"""nns-trace: per-buffer flight recorder + stage span tracing.
+
+Port of ``nnstreamer_tpu/utils/tracing.py``, copied whole (no torch:
+stdlib, plus numpy and the wire codec for ring dumps).
+
+Reference analog (SURVEY §5.1): GStreamer tracers / gst-shark attribute
+latency per element by hooking pad-push probes.  This package's analog is
+a process-wide **flight recorder**: a lock-cheap ring buffer of span
+events (stage enter/exit, queue wait, batch-formation linger, in-flight
+dispatch window, sharded dispatch, host fetch, end-to-end delivery) keyed
+by a per-buffer **trace id** assigned at source ingress and threaded
+through ``Buffer.meta`` — so "where did frame N spend its 40 ms?" has an
+answer even after the batching/sharding machinery amortized N's device
+time across a micro-batch.
+
+Three trace modes (``Config.trace_mode`` / ``Pipeline(trace_mode=...)``):
+
+* ``off``  — the default.  No recorder is installed: every hot-path hook
+  reduces to one ``is not None`` check, and no meta stamps are written.
+* ``ring`` — always-on flight recorder: the last ``trace_ring_capacity``
+  spans in a ``deque(maxlen=...)``.  Appends are GIL-atomic (no lock on
+  the hot path); eviction is oldest-first.  This is the post-mortem mode:
+  watchdog fires and ``Pipeline._record_error`` dump the recent window to
+  the log automatically.
+* ``full`` — unbounded event list for short profiling runs that must not
+  lose the head of the timeline.
+
+Exports: :func:`to_chrome` renders Chrome trace-event JSON (one track per
+stage, flow arrows binding batch dispatch spans to every member row's
+trace id) loadable in Perfetto / ``chrome://tracing`` alongside the
+``utils.profiler.trace`` xplane; :func:`dump_recent_to_log` formats the
+last K seconds for crash reports.  See docs/OBSERVABILITY.md.
+
+nns-weave (docs/OBSERVABILITY.md "Distributed tracing") extends the
+recorder across processes: trace ids carry a random per-process **epoch**
+in their high bits (:func:`trace_epoch`, so ids minted by different
+processes never collide), NTP-style echoes on the query handshake feed
+per-peer clock offsets into :meth:`FlightRecorder.note_clock`,
+:func:`dump_ring`/:func:`load_ring` serialize a ring to a wire-codec
+framed file, and :func:`merge_rings` joins N dumps into ONE Chrome trace
+— one pid per process, offset-corrected timestamps, cross-wire flow
+arrows (client ``query.send`` → server ``ingress``, server
+``query.reply`` → client ``query.recv``).
+"""
+
+from __future__ import annotations
+
+import collections
+import itertools
+import json
+import os
+import threading
+import time
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence
+
+from ..core.meta_keys import (  # noqa: F401  (canonical registry; re-exported)
+    META_ENQUEUE_NS, META_INGRESS_NS, META_TENANT, META_TRACE_ID,
+)
+
+#: span taxonomy (docs/OBSERVABILITY.md) — kind -> meaning
+SPAN_KINDS: Dict[str, str] = {
+    "ingress": "trace id born at a source (instant; args carry pts)",
+    "queue": "buffer waited in a stage's input queue",
+    "batch": "batch formation: first buffer in hand -> dispatch start "
+             "(drain + linger)",
+    "stage": "element process()/process_batch()/process_group() execution"
+             " (batch spans LINK member trace ids; per_row_ns amortizes)",
+    "inflight": "dispatched-but-unemitted window (dispatch_depth > 1)",
+    "shard": "sharded bucketed dispatch incl. the assembled host fetch "
+             "(args: rows, bucket, replicas = data-axis width; 2-D runs "
+             "add model = model-axis width, and per-replica counters "
+             "carry (data, model) coordinates as .d<di>m<mi>)",
+    "fetch": "sink host materialization (D2H / deferred host_post)",
+    "fetch.window": "buffer submitted into a sink's async fetch window "
+                    "(instant; args: depth = submitted-but-unmaterialized "
+                    "fetches; CONCURRENCY is bounded by fetch_depth, the "
+                    "backlog only by queue capacity — docs/FETCH.md)",
+    "e2e": "source ingress -> sink delivery for one buffer",
+    "serve.admit": "continuous LLM serving: prompt admitted into a slot "
+                   "(args: slot, tokens, blocks reserved)",
+    "serve.prefill_chunk": "continuous LLM serving: one chunked-prefill "
+                           "step written into the slot's pool blocks "
+                           "(args: slot, pos, final; times the ASYNC "
+                           "dispatch — device time overlaps the decode "
+                           "chunk by design)",
+    "serve.decode": "continuous LLM serving: one paged decode chunk over "
+                    "the live slots (args: occupancy, chunk; closes at "
+                    "chunk materialization, so it covers the device "
+                    "time)",
+    "serve.prefix_hit": "continuous LLM serving: an admitted prompt's "
+                        "leading blocks matched the prefix cache and "
+                        "mapped copy-on-write into its table (instant; "
+                        "args: slot, blocks = shared mappings, tokens = "
+                        "prefill skipped)",
+    "serve.cow_fork": "continuous LLM serving: a shared block a stream "
+                      "was about to write got a private copy first "
+                      "(args: src, dst pool block ids — an eager value "
+                      "move, no program touched)",
+    "serve.spec_verify": "continuous LLM serving: one speculative round "
+                         "(draft propose + k+1-wide target verify; "
+                         "args: occupancy, k; closes at round "
+                         "materialization like serve.decode)",
+    "admit.shed": "query-server admission shed a request under backlog "
+                  "(instant; args: tenant, msg, backlog — the victim's "
+                  "trace id is the span tid, minted at shed when the "
+                  "client did not stamp one)",
+    "admit.downgrade": "query-server admission moved a request to the "
+                       "low-priority lane under backlog (instant; args: "
+                       "tenant, msg, backlog)",
+    "elastic.scale": "autoscaler action edge (utils/elastic.py — "
+                     "instant; args: action, tenant, burn, edge = "
+                     "engage|relax; rate-limited with hysteresis)",
+    "elastic.drain": "live serve stream serialized off its pipeline "
+                     "(Pipeline.drain_stream; args: stream_id, state, "
+                     "blocks — a host-side value move, the 3-program "
+                     "decode census is untouched)",
+    "elastic.adopt": "serialized serve stream re-admitted on a pipeline "
+                     "(Pipeline.adopt_stream; args: stream_id, state, "
+                     "blocks; greedy continuation is bit-identical)",
+    "serve.reap": "continuous LLM serving: an orphaned/cancelled "
+                  "stream's slot + KV blocks reclaimed to the free "
+                  "list (args: slot, stream_id, blocks, reason)",
+    "armor.quarantine": "poison-pill quarantine: a request whose stage "
+                        "invoke raised (or produced NaN/Inf under "
+                        "nan_guard) was serialized to the DLQ and "
+                        "answered with abort_reason=poison (instant; "
+                        "args: stage, tenant, error, dlq = the record "
+                        "file — docs/ROBUSTNESS.md)",
+    "armor.breaker": "repeat-offender circuit breaker edge: N poisons "
+                     "from one tenant inside the window flipped its "
+                     "tenant_admission override to shed (instant; "
+                     "args: tenant, threshold, window_s, edge = "
+                     "trip|reset)",
+    "journal.append": "durable request journal: one accepted request's "
+                      "wire payload appended to the WAL (instant; "
+                      "args: seq, tenant; fsync policy decides "
+                      "durability — docs/ROBUSTNESS.md)",
+    "journal.replay": "durable request journal: restart re-admitted "
+                      "the accepted-but-unanswered entries "
+                      "(instant; args: entries, acked_skipped)",
+    "learn.step": "nns-learn: one trained epoch on a tensor_trainer "
+                  "stage (args: epoch, step = optimizer step counter, "
+                  "loss, tenant; tid = the last contributing sample's "
+                  "trace id — docs/TRAINING.md)",
+    "learn.swap": "nns-learn: live param hot-swap into a serving stage "
+                  "(Pipeline.swap_params — a VALUE move at a dispatch/"
+                  "chunk boundary, zero recompiles; args: version = the "
+                  "stage's per-swap counter)",
+    "learn.ckpt": "nns-learn: one fsync'd step-versioned trainer "
+                  "checkpoint write (args: step, path; model-load-path "
+                  "resume continues bit-identically)",
+    "device": "nns-xray device-time attribution: one tracked-program "
+              "dispatch on its own `device:<stage>` track beside the "
+              "host spans (args: program, flops from the lowered "
+              "program's cost analysis; dur = measured dispatch wall "
+              "time — docs/OBSERVABILITY.md 'Predicted vs actual')",
+    "xray.drift": "nns-xray census drift: a compiled program escaped "
+                  "the deep lint's predicted census (instant; args: "
+                  "program, reason; the flight-recorder window is "
+                  "dumped to the log alongside)",
+    "tsan.inversion": "nns-tsan: a live lock-order inversion or "
+                      "guarded-field violation observed by the tracked "
+                      "locks (NNS_TPU_TSAN=1; instant; args: reason = "
+                      "both acquisition paths; the flight-recorder "
+                      "window is dumped to the log alongside — "
+                      "docs/ANALYSIS.md 'Threads pass')",
+    "query.send": "nns-weave: one request frame written to the query "
+                  "wire by the client (args: msg = wire message id; tid "
+                  "= the epoch-prefixed trace id stamped as _tparent — "
+                  "the merge pairs it with the server's ingress span)",
+    "query.recv": "nns-weave: one response/token frame consumed by the "
+                  "query client (instant; args: msg; tid = the echoed "
+                  "_tparent context — pairs with the server's "
+                  "query.reply span in a merged trace)",
+    "query.reply": "nns-weave: one response/token frame written to a "
+                   "connection by the serversink (instant; args: msg; "
+                   "tid = the adopted distributed trace id)",
+    "clock.sync": "nns-weave: one NTP-style clock sample against a peer "
+                  "(instant; args: epoch = peer trace epoch, offset_ns "
+                  "= peer minus local monotonic base, uncertainty_ns = "
+                  "half the echo round trip — the residual skew a "
+                  "merged timeline carries, never hides)",
+}
+
+# Buffer-meta keys the tracer owns (META_TRACE_ID / META_INGRESS_NS /
+# META_ENQUEUE_NS, stamped only when tracing is active) and META_TENANT
+# (docs/SERVING.md "Front door"; NOT tracer-owned in the off-path sense:
+# an app/element that sets it explicitly owns the key, the RUNTIME only
+# stamps a pipeline-default tenant at ingress when tracing is active)
+# are declared in core/meta_keys.py — the shared protocol registry —
+# and re-exported above for the existing importers.
+
+DEFAULT_RING_CAPACITY = 65536
+
+#: random 31-bit process epoch: the high half of every trace id minted by
+#: this process, so ids from different processes (a query client and its
+#: server, N soak workers) never alias in a merged view.  31 bits keeps
+#: ``(epoch << 32) | counter`` inside a signed int64 for the wire codec
+#: and Perfetto; zero is reserved (no epoch / pre-weave dumps).
+_PROCESS_EPOCH = (int.from_bytes(os.urandom(4), "little") & 0x7FFFFFFF) or 1
+
+_trace_ids = itertools.count(1)
+
+
+def trace_epoch() -> int:
+    """This process's random 31-bit trace epoch (the id high bits; also
+    exchanged on the query handshake so clock offsets are keyed by it)."""
+    return _PROCESS_EPOCH
+
+
+def next_trace_id() -> int:
+    """Globally-unique per-buffer trace id (assigned at source ingress):
+    ``epoch << 32 | local counter``.  The 32-bit counter wraps after 4 G
+    ids — far beyond any ring's lifetime — and the random epoch high bits
+    keep two processes' ids disjoint without coordination."""
+    return (_PROCESS_EPOCH << 32) | (next(_trace_ids) & 0xFFFFFFFF)
+
+
+def clock_offset(t0: int, t1: int, t2: int, t3: int) -> "tuple[int, int]":
+    """NTP-style offset estimate from one echo: the caller stamped ``t0``
+    (send) and ``t3`` (receive) on ITS monotonic clock, the peer stamped
+    ``t1`` (receive) and ``t2`` (send) on ITS OWN.  Returns
+    ``(offset_ns, uncertainty_ns)`` where ``offset = peer - local`` and
+    the true offset lies within ``offset ± uncertainty`` (half the
+    round-trip minus the peer's hold time) — asymmetric path delay can
+    consume the whole bound, which is why merged traces carry it as a
+    span arg instead of pretending the correction is exact."""
+    offset = ((t1 - t0) + (t2 - t3)) // 2
+    delay = (t3 - t0) - (t2 - t1)
+    return int(offset), max(0, int(delay // 2))
+
+
+class Span(NamedTuple):
+    """One recorded span.  ``ts``/``dur`` are ``time.monotonic_ns()``
+    values (dur 0 = instant event); ``tid`` is the buffer trace id (None
+    for spans not attributable to one buffer, e.g. sharded dispatches);
+    ``args`` is an optional dict of extras (``trace_ids`` on batch-linked
+    spans, ``rows``, ``per_row_ns``, ``pts``)."""
+
+    ts: int
+    dur: int
+    kind: str
+    stage: str
+    tid: Optional[int]
+    args: Optional[Dict[str, Any]]
+
+
+class FlightRecorder:
+    """Lock-cheap ring buffer of :class:`Span` events.
+
+    The hot path is :meth:`record` → ``deque.append`` — GIL-atomic, so
+    concurrent runner threads never contend on a lock, and a bounded
+    ``maxlen`` deque evicts oldest-first without allocation churn.  The
+    lock below guards only cold operations (configure/clear/snapshot
+    consistency of mode flips).  ``active`` is the single attribute every
+    instrumentation site checks; with mode ``off`` callers hold ``None``
+    instead of the recorder, so the off cost is one pointer test.
+    """
+
+    def __init__(self, mode: str = "off",
+                 capacity: int = DEFAULT_RING_CAPACITY):
+        self._lock = threading.Lock()
+        self._ring: collections.deque = collections.deque(maxlen=capacity)
+        #: peer trace epoch -> (offset_ns, uncertainty_ns, sampled_at_ns)
+        #: fed by the query handshake / periodic clock echoes (cold path)
+        self._clock: Dict[int, "tuple[int, int, int]"] = {}
+        self.mode = "off"
+        self.capacity = capacity
+        self.active = False
+        if mode != "off":
+            self.configure(mode, capacity)
+
+    def configure(self, mode: str,
+                  capacity: Optional[int] = None) -> "FlightRecorder":
+        """Switch mode (off/ring/full).  ``ring`` bounds the buffer at
+        ``capacity`` spans; ``full`` is unbounded; ``off`` stops recording
+        but keeps already-captured events readable (post-mortem).
+
+        Re-configuring with the SAME bound keeps the live deque; changing
+        it rebuilds the deque (existing spans carried over), and a
+        concurrent lock-free ``record`` that already fetched the old
+        reference may land its span in the orphan — acceptable for a
+        flight recorder (reconfigure happens at pipeline construction,
+        not mid-stream, and loses at most the handful of spans in
+        flight), and the alternative is a lock on every hot-path append."""
+        if mode not in ("off", "ring", "full"):
+            raise ValueError(
+                f"trace_mode must be off|ring|full, got {mode!r}")
+        with self._lock:
+            cap = capacity or self.capacity or DEFAULT_RING_CAPACITY
+            if mode == "ring" and (self._ring.maxlen != cap):
+                self._ring = collections.deque(self._ring, maxlen=cap)
+            elif mode == "full" and self._ring.maxlen is not None:
+                self._ring = collections.deque(self._ring)
+            self.mode = mode
+            self.capacity = cap
+            self.active = mode != "off"
+        return self
+
+    # -- hot path ----------------------------------------------------------
+    def record(self, kind: str, stage: str, tid: Optional[int],
+               ts_ns: int, dur_ns: int, **args) -> None:
+        """Append one span.  No lock: deque.append is GIL-atomic and the
+        ring's maxlen does the eviction."""
+        self._ring.append(
+            Span(ts_ns, dur_ns, kind, stage, tid, args or None))
+
+    # -- cold path ---------------------------------------------------------
+    def events(self) -> List[Span]:
+        """Snapshot of the current ring, oldest first."""
+        return list(self._ring)
+
+    def clear(self) -> None:
+        self._ring.clear()
+        with self._lock:
+            self._clock.clear()
+
+    def note_clock(self, peer_epoch: int, offset_ns: int,
+                   uncertainty_ns: int) -> None:
+        """Record one clock sample against a peer process (cold path,
+        called from the handshake / periodic echo).  A tighter sample
+        replaces a looser one; a looser sample only replaces an entry
+        older than ~60 s (drift makes stale precision worthless)."""
+        with self._lock:
+            now = time.monotonic_ns()
+            prev = self._clock.get(int(peer_epoch))
+            if prev is not None and uncertainty_ns > prev[1] \
+                    and now - prev[2] < 60_000_000_000:
+                return
+            self._clock[int(peer_epoch)] = (
+                int(offset_ns), int(uncertainty_ns), now)
+
+    def clock(self) -> Dict[int, "tuple[int, int, int]"]:
+        """Snapshot of the per-peer clock table (offset = peer − local)."""
+        with self._lock:
+            return dict(self._clock)
+
+    def __len__(self) -> int:
+        return len(self._ring)
+
+    def recent(self, seconds: float) -> List[Span]:
+        """Spans whose END falls within ``seconds`` of the newest event
+        (the watchdog post-mortem window)."""
+        evs = self.events()
+        if not evs:
+            return []
+        horizon = max(e.ts + e.dur for e in evs) - int(seconds * 1e9)
+        return [e for e in evs if e.ts + e.dur >= horizon]
+
+
+#: the process-wide recorder (one per process, like ``core.log.metrics``);
+#: ``Pipeline(trace_mode=...)`` configures it, runners hold it (or None)
+recorder = FlightRecorder()
+
+
+# -- Chrome trace-event export ----------------------------------------------
+
+def to_chrome(events: Sequence[Span]) -> Dict[str, Any]:
+    """Render spans as a Chrome trace-event JSON object (Perfetto /
+    chrome://tracing 'JSON array format' under ``traceEvents``).
+
+    * one track (tid) per stage, named via thread_name metadata; spans
+      whose args carry a ``tenant`` land on that tenant's OWN process
+      (pid) — Perfetto groups them as per-tenant track sets named
+      ``tenant:<name>``, the per-tenant timeline view of a multi-tenant
+      front door (untenanted spans stay on pid 1);
+    * spans become complete events (``ph=X``, µs timebase), instants
+      (dur 0) become ``ph=i``;
+    * every span with linked ``trace_ids`` (a batched dispatch) gets flow
+      arrows (``ph=s``/``ph=f``) from each member row's most recent prior
+      span — Perfetto draws the per-row attribution the batch amortized;
+    * ``traceEvents`` is sorted by ``ts`` (validated by
+      :func:`validate_chrome`).
+    """
+    evs = sorted(events, key=lambda e: (e.ts, e.dur))
+    track: Dict[Any, int] = {}
+    out: List[Dict[str, Any]] = []
+    meta: List[Dict[str, Any]] = [{
+        "ph": "M", "pid": 1, "tid": 0, "ts": 0, "name": "process_name",
+        "args": {"name": "nnstreamer_tpu_torch"},
+    }]
+    tenant_pid: Dict[Any, int] = {None: 1}
+    last_by_tid: Dict[int, Dict[str, Any]] = {}
+    flow_ids = itertools.count(1)
+    flows: List[Dict[str, Any]] = []
+    for e in evs:
+        tenant = (e.args or {}).get("tenant")
+        pid = tenant_pid.get(tenant)
+        if pid is None:
+            pid = tenant_pid[tenant] = len(tenant_pid) + 1
+            meta.append({"ph": "M", "pid": pid, "tid": 0, "ts": 0,
+                         "name": "process_name",
+                         "args": {"name": f"tenant:{tenant}"}})
+        t = track.get((pid, e.stage))
+        if t is None:
+            t = track[(pid, e.stage)] = len(track) + 1
+            meta.append({"ph": "M", "pid": pid, "tid": t, "ts": 0,
+                         "name": "thread_name", "args": {"name": e.stage}})
+        args: Dict[str, Any] = {}
+        if e.tid is not None:
+            args["trace_id"] = e.tid
+        if e.args:
+            args.update(e.args)
+        rec = {
+            "name": e.kind, "cat": e.kind,
+            "ph": "X" if e.dur > 0 else "i",
+            "ts": e.ts / 1e3, "pid": pid, "tid": t, "args": args,
+        }
+        if e.dur > 0:
+            rec["dur"] = e.dur / 1e3
+        else:
+            rec["s"] = "t"  # instant scope: thread
+        # flow arrows: batch dispatch span -> every member row's previous
+        # span (per-row attribution of the amortized device time)
+        linked = (e.args or {}).get("trace_ids")
+        if linked:
+            for member in linked:
+                src = last_by_tid.get(member)
+                if src is None or src is rec:
+                    continue
+                fid = next(flow_ids)
+                flows.append({
+                    "ph": "s", "id": fid, "pid": src["pid"],
+                    "tid": src["tid"],
+                    "ts": src["ts"] + src.get("dur", 0.0),
+                    "name": "row", "cat": "row-link",
+                })
+                flows.append({
+                    "ph": "f", "bp": "e", "id": fid, "pid": pid,
+                    "tid": t, "ts": rec["ts"],
+                    "name": "row", "cat": "row-link",
+                })
+        if e.tid is not None:
+            last_by_tid[e.tid] = rec
+        out.append(rec)
+    # flows carry ts of their anchors; merge + resort so the stream stays
+    # monotonic in ts (the validator's contract)
+    all_events = meta + out + flows
+    all_events.sort(key=lambda r: (r["ts"], 0 if r["ph"] == "M" else 1))
+    return {"traceEvents": all_events, "displayTimeUnit": "ms",
+            "otherData": {"spanKinds": dict(SPAN_KINDS)}}
+
+
+def dump_chrome(events: Sequence[Span], path: str) -> int:
+    """Write :func:`to_chrome` JSON to ``path``; returns the span count."""
+    with open(path, "w") as f:
+        json.dump(to_chrome(events), f)
+    return len(events)
+
+
+def validate_chrome(obj: Any) -> List[str]:
+    """Schema-check a Chrome trace object (as loaded from JSON).  Returns
+    a list of problems (empty = valid): ``traceEvents`` list present,
+    required keys per event, non-negative durations, and the event stream
+    monotonic in ``ts``."""
+    problems: List[str] = []
+    if not isinstance(obj, dict) or "traceEvents" not in obj:
+        return ["top level must be an object with a 'traceEvents' list"]
+    evs = obj["traceEvents"]
+    if not isinstance(evs, list):
+        return ["'traceEvents' must be a list"]
+    last_ts = None
+    for i, e in enumerate(evs):
+        if not isinstance(e, dict):
+            problems.append(f"event {i}: not an object")
+            continue
+        for key in ("ph", "ts", "pid", "tid", "name"):
+            if key not in e:
+                problems.append(f"event {i}: missing {key!r}")
+        ph = e.get("ph")
+        ts = e.get("ts")
+        if not isinstance(ts, (int, float)):
+            problems.append(f"event {i}: ts must be a number")
+            continue
+        if ph == "X":
+            dur = e.get("dur")
+            if not isinstance(dur, (int, float)) or dur < 0:
+                problems.append(f"event {i}: X event needs dur >= 0")
+        if last_ts is not None and ts < last_ts:
+            problems.append(
+                f"event {i}: ts {ts} < previous {last_ts} (not monotonic)")
+        last_ts = ts
+    return problems
+
+
+# -- distributed ring export + merge (nns-weave) -----------------------------
+
+def _json_safe(v: Any) -> Any:
+    try:
+        json.dumps(v)
+        return v
+    except (TypeError, ValueError):
+        return str(v)
+
+
+def dump_ring(path: str, rec: Optional[FlightRecorder] = None,
+              proc: Optional[str] = None) -> int:
+    """Serialize the recorder's ring (plus its per-peer clock table and
+    this process's trace epoch) to ``path`` as ONE wire-codec frame:
+    the span columns ride as int64 tensors, everything else as wire
+    meta.  Works in any mode (a breach post-mortem may dump a recorder
+    that was just switched off).  Returns the span count."""
+    import numpy as np
+
+    from . import wire
+    rec = rec or recorder
+    evs = rec.events()
+    cols = [
+        np.asarray([e.ts for e in evs], np.int64),
+        np.asarray([e.dur for e in evs], np.int64),
+        np.asarray([-1 if e.tid is None else e.tid for e in evs],
+                   np.int64),
+    ]
+    from ..core.buffer import Buffer
+    meta = {
+        "weave_ring": 1,
+        "epoch": trace_epoch(),
+        "proc": proc or f"pid{os.getpid()}",
+        "clock": [[pe, off, unc]
+                  for pe, (off, unc, _t) in sorted(rec.clock().items())],
+        "kind": [e.kind for e in evs],
+        "stage": [e.stage for e in evs],
+        "args": [({k: _json_safe(v) for k, v in e.args.items()}
+                  if e.args else None) for e in evs],
+    }
+    payload = wire.encode_buffer(Buffer(cols, meta=meta))
+    with open(path, "wb") as f:
+        f.write(wire.frame_bytes(payload))
+    return len(evs)
+
+
+#: ring dumps are trusted local artifacts, not front-door input — the
+#: limits only need to admit a full 64 Ki-span ring with fat args
+_RING_LIMITS = None
+
+
+def _ring_limits():
+    global _RING_LIMITS
+    if _RING_LIMITS is None:
+        from . import wire
+        _RING_LIMITS = wire.WireLimits(max_meta_bytes=256 << 20,
+                                       max_frame_bytes=1 << 30)
+    return _RING_LIMITS
+
+
+def load_ring(path: str) -> Dict[str, Any]:
+    """Read one :func:`dump_ring` file back.  Returns ``{"epoch", "proc",
+    "clock": {peer_epoch: (offset_ns, uncertainty_ns)}, "spans"}``.
+    Raises :class:`ValueError` (wire rejects are a subclass) on anything
+    that is not a framed weave ring dump."""
+    from . import wire
+    with open(path, "rb") as f:
+        raw = f.read()
+    payload = wire.unframe_bytes(raw, _ring_limits())
+    buf, _flags = wire.decode_buffer(payload, _ring_limits())
+    meta = buf.meta
+    if meta.get("weave_ring") != 1 or len(buf.tensors) != 3:
+        raise ValueError(f"{path}: not a weave ring dump")
+    ts, dur, tid = buf.tensors
+    kinds, stages, argses = meta["kind"], meta["stage"], meta["args"]
+    if not (len(ts) == len(kinds) == len(stages) == len(argses)):
+        raise ValueError(f"{path}: ring dump columns disagree on length")
+    spans = [
+        Span(int(ts[i]), int(dur[i]), kinds[i], stages[i],
+             None if int(tid[i]) < 0 else int(tid[i]), argses[i])
+        for i in range(len(kinds))
+    ]
+    return {
+        "epoch": int(meta.get("epoch", 0)),
+        "proc": str(meta.get("proc", "?")),
+        "clock": {int(pe): (int(off), int(unc))
+                  for pe, off, unc in meta.get("clock", [])},
+        "spans": spans,
+    }
+
+
+def _solve_offsets(rings: Sequence[Dict[str, Any]]) -> List[Dict[str, Any]]:
+    """Per-ring timebase correction: walk the clock-sample graph (each
+    ring's samples are edges epoch → peer with offset = peer − local)
+    from ring 0's epoch, accumulating uncertainty.  ``ts_reference =
+    ts_local + delta``.  Rings with no path to the reference keep delta 0
+    and are flagged unaligned (their skew is unknown, not hidden)."""
+    delta: Dict[int, "tuple[int, int]"] = {rings[0]["epoch"]: (0, 0)}
+    # adjacency over epochs, both directions of every sample
+    edges: Dict[int, List["tuple[int, int, int]"]] = {}
+    for r in rings:
+        for peer, (off, unc) in r["clock"].items():
+            # local -> peer: t_peer = t_local + off
+            edges.setdefault(r["epoch"], []).append((peer, off, unc))
+            edges.setdefault(peer, []).append((r["epoch"], -off, unc))
+    frontier = [rings[0]["epoch"]]
+    while frontier:
+        ep = frontier.pop()
+        d, u = delta[ep]
+        for peer, off, unc in edges.get(ep, ()):
+            if peer in delta:
+                continue
+            # ts_ref = t_peer + delta_peer and t_peer = t_local + off
+            # with ts_ref = t_local + d  =>  delta_peer = d - off
+            delta[peer] = (d - off, u + unc)
+            frontier.append(peer)
+    out = []
+    for r in rings:
+        d, u = delta.get(r["epoch"], (0, 0))
+        out.append({"proc": r["proc"], "epoch": r["epoch"],
+                    "offset_ns": d, "uncertainty_ns": u,
+                    "aligned": r["epoch"] in delta})
+    return out
+
+
+def merge_rings(rings: Sequence[Dict[str, Any]]
+                ) -> "tuple[Dict[str, Any], Dict[str, Any]]":
+    """Join N loaded ring dumps (:func:`load_ring`) into one Chrome trace
+    object: one pid per process, per-stage tracks, timestamps corrected
+    onto ring 0's timebase via the clock-sample graph, and cross-wire
+    flow arrows pairing client ``query.send`` → server ``ingress`` and
+    server ``query.reply`` → client ``query.recv`` spans that share a
+    (globally-unique) trace id across different processes.  Returns
+    ``(chrome_obj, stats)``; the object passes :func:`validate_chrome`."""
+    if not rings:
+        return to_chrome([]), {"rings": 0, "spans": 0, "arrows": 0}
+    align = _solve_offsets(rings)
+    meta_evs: List[Dict[str, Any]] = []
+    out: List[Dict[str, Any]] = []
+    track: Dict[Any, int] = {}
+    # tid -> [(ring_idx, rec_dict)] per linkable kind
+    ends: Dict[str, Dict[int, List["tuple[int, Dict[str, Any]]"]]] = {
+        "query.send": {}, "ingress": {}, "query.reply": {},
+        "query.recv": {},
+    }
+    total = 0
+    for i, (r, al) in enumerate(zip(rings, align)):
+        pid = i + 1
+        meta_evs.append({
+            "ph": "M", "pid": pid, "tid": 0, "ts": 0,
+            "name": "process_name",
+            "args": {"name": f"{r['proc']} epoch={r['epoch']}"},
+        })
+        d = al["offset_ns"]
+        for e in r["spans"]:
+            total += 1
+            t = track.get((pid, e.stage))
+            if t is None:
+                t = track[(pid, e.stage)] = len(track) + 1
+                meta_evs.append({
+                    "ph": "M", "pid": pid, "tid": t, "ts": 0,
+                    "name": "thread_name", "args": {"name": e.stage}})
+            args: Dict[str, Any] = {}
+            if e.tid is not None:
+                args["trace_id"] = e.tid
+            if e.args:
+                args.update(e.args)
+            rec = {"name": e.kind, "cat": e.kind,
+                   "ph": "X" if e.dur > 0 else "i",
+                   "ts": (e.ts + d) / 1e3, "pid": pid, "tid": t,
+                   "args": args}
+            if e.dur > 0:
+                rec["dur"] = e.dur / 1e3
+            else:
+                rec["s"] = "t"
+            if e.tid is not None and e.kind in ends:
+                ends[e.kind].setdefault(e.tid, []).append((i, rec))
+            out.append(rec)
+    # cross-wire flow arrows: same trace id, different process, ordered
+    # pairing (one send per request; replies/recvs pair per token)
+    flows: List[Dict[str, Any]] = []
+    flow_ids = itertools.count(1)
+    for src_kind, dst_kind in (("query.send", "ingress"),
+                               ("query.reply", "query.recv")):
+        for tid, srcs in ends[src_kind].items():
+            dsts = [p for p in ends[dst_kind].get(tid, ())]
+            if dst_kind == "ingress":
+                # the id's epoch prefix names the MINTING ring: its own
+                # source-ingress span (same tid, earlier ts) is not a
+                # wire adoption and must not eat the ordered pairing
+                # slot of the server's adopted-ingress span
+                dsts = [p for p in dsts
+                        if rings[p[0]]["epoch"] != (tid >> 32)]
+            for (si, srec), (di, drec) in zip(sorted(srcs, key=lambda p: p[1]["ts"]),
+                                              sorted(dsts, key=lambda p: p[1]["ts"])):
+                if si == di:
+                    continue  # same process: not a wire crossing
+                fid = next(flow_ids)
+                unc = (align[si]["uncertainty_ns"]
+                       + align[di]["uncertainty_ns"])
+                flows.append({
+                    "ph": "s", "id": fid, "pid": srec["pid"],
+                    "tid": srec["tid"],
+                    "ts": srec["ts"] + srec.get("dur", 0.0),
+                    "name": "xwire", "cat": "xwire",
+                    "args": {"trace_id": tid, "uncertainty_ns": unc}})
+                flows.append({
+                    "ph": "f", "bp": "e", "id": fid, "pid": drec["pid"],
+                    "tid": drec["tid"], "ts": drec["ts"],
+                    "name": "xwire", "cat": "xwire",
+                    "args": {"trace_id": tid}})
+    all_events = meta_evs + out + flows
+    all_events.sort(key=lambda r: (r["ts"], 0 if r["ph"] == "M" else 1))
+    obj = {"traceEvents": all_events, "displayTimeUnit": "ms",
+           "otherData": {"spanKinds": dict(SPAN_KINDS), "weave": align}}
+    stats = {"rings": len(rings), "spans": total,
+             "arrows": len(flows) // 2,
+             "unaligned": [a["proc"] for a in align if not a["aligned"]]}
+    return obj, stats
+
+
+def merge_ring_files(paths: Sequence[str]
+                     ) -> "tuple[Dict[str, Any], Dict[str, Any]]":
+    """:func:`load_ring` each path, :func:`merge_rings` the lot."""
+    return merge_rings([load_ring(p) for p in paths])
+
+
+# -- post-mortem log dump ----------------------------------------------------
+
+def format_recent(seconds: float = 5.0,
+                  rec: Optional[FlightRecorder] = None) -> List[str]:
+    """The last ``seconds`` of the ring as human-readable timeline lines
+    (newest window, oldest first), relative to the newest event."""
+    rec = rec or recorder
+    evs = rec.recent(seconds)
+    if not evs:
+        return []
+    t_end = max(e.ts + e.dur for e in evs)
+    lines = []
+    for e in sorted(evs, key=lambda s: s.ts):
+        rel_ms = (e.ts - t_end) / 1e6
+        tid = f" #{e.tid}" if e.tid is not None else ""
+        extra = ""
+        if e.args:
+            extra = " " + " ".join(
+                f"{k}={v}" for k, v in sorted(e.args.items()))
+        lines.append(
+            f"  {rel_ms:+10.3f}ms {e.stage:<20s} {e.kind:<8s}"
+            f" {e.dur / 1e6:9.3f}ms{tid}{extra}")
+    return lines
+
+
+def dump_recent_to_log(log, seconds: float = 5.0, reason: str = "",
+                       rec: Optional[FlightRecorder] = None) -> int:
+    """Dump the recent flight-recorder window to ``log`` (a stdlib
+    logger) — the watchdog-fire / pipeline-error post-mortem.  No-op when
+    the recorder is off or empty; returns the number of spans dumped.
+    Never raises (a crash report must not crash)."""
+    try:
+        rec = rec or recorder
+        if not rec.active:
+            return 0
+        lines = format_recent(seconds, rec)
+        if not lines:
+            return 0
+        head = (f"flight recorder: last {seconds:g}s "
+                f"({len(lines)} spans){' — ' + reason if reason else ''}")
+        log.error("%s\n%s", head, "\n".join(lines))
+        return len(lines)
+    except Exception:  # noqa: BLE001 - post-mortem path must not raise
+        return 0

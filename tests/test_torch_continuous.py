@@ -378,8 +378,7 @@ def test_sampled_stream_reproducible_and_independent_of_batch():
 
 
 @pytest.mark.parametrize("opt", ["prefix_cache:1", "draft:llama_tiny",
-                                 "nan_guard:1", "spec_k:4",
-                                 "stream_idle_timeout:5"])
+                                 "nan_guard:1", "spec_k:4", "tp:2"])
 def test_options_not_yet_ported_raise(opt):
     with pytest.raises(Exception, match="not yet ported"):
         ntt.Pipeline("appsrc name=src ! tensor_filter framework=llm "

@@ -82,8 +82,11 @@ def test_registry_is_the_ports_own():
     import nnstreamer_tpu_torch as ntt
     from nnstreamer_tpu.core import registry as jax_registry
 
-    assert ntt.registry.names("element") == ["appsrc", "tensor_filter",
-                                             "tensor_sink"]
+    assert ntt.registry.names("element") == [
+        "appsrc", "tensor_filter", "tensor_query_client",
+        "tensor_query_serversink", "tensor_query_serversrc", "tensor_sink"]
+    assert ntt.registry.get("element", "tensor_query_client").__module__ \
+        == "nnstreamer_tpu_torch.elements.query"
     assert ntt.registry.names("filter") == ["llm"]
     port_llm = ntt.registry.get("filter", "llm")
     assert port_llm.__module__ == "nnstreamer_tpu_torch.filters.llm"
