@@ -97,6 +97,32 @@ Phases, each of which must pass:
              rows), in f32; then the same model in bf16 (cached prefill and
              decode, chunked paged prefill), whose flash calls take the
              tensor-core kernel.
+7. vision  — the vision path, which runs no kernel of csrc/ (cuDNN
+             convolutions and torch ops, one captured CUDA graph per fused
+             stage), batch 64, bf16, random weights from seed 0: (1) the
+             README quick-start, ``appsrc max-inflight=4 ! tensor_transform
+             ! tensor_filter framework=jax model=mobilenet_v1 (224, 1001
+             classes) ! tensor_decoder mode=image_labeling ! tensor_sink``,
+             3 warm-up and 30 timed batches of seeded uint8 frames: frames/s,
+             p50/p99 per-batch latency (push admitted -> pull), the card's
+             ms per batch (CUDA events over replays) and busy share, peak
+             memory, the stage names (one fused stage) and the census
+             (one signature, no capture after the warm-up); (2) the same
+             frames with ``fuse=False``: labels and scores bitwise equal;
+             (3) the first batch on the CPU at f32 with the same weights:
+             scores within 2% of the frame's largest |logit|, labels equal
+             wherever the CPU's top-1/top-2 gap exceeds that; (4) the
+             quick-start fed by ``videotestsrc device=true`` (folded into
+             the stage), 200 timed batches, and a truncated tail batch
+             (2 x 64 + 10 frames, all processed before the first pull: a
+             second signature, each buffer bitwise equal to fuse=False);
+             (5) ssd_mobilenet (320, 2,000
+             anchors, 91 classes) behind ``videotestsrc device=true
+             pattern=ball`` with ``bounding_boxes option7=device
+             option9=tensors`` and again with ``option7=host``: frames/s,
+             census, and the first 33 batches' detections (valid rows,
+             boxes, classes, scores) equal.  ``--profile`` adds each
+             fused stage's kernels (chiprun_out/profile_vision.txt).
 
 Prints the card's name and power limit (nvidia-smi), a ``{"kernels": ...}``
 JSON line, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -1566,6 +1592,383 @@ def phase_reference_bf16(dev):
                 greedy_held=sum(s["greedy_held"] for s in steps))
 
 
+#: the vision phase: the README quick-start (mobilenet_v1 at 224, 1001
+#: classes) and BASELINE config #2 in bench.py's form (ssd_mobilenet at 320,
+#: 2,000 anchors, 91 classes), batch 64, bf16, random weights from seed 0
+VISION_BATCH = 64
+VISION_WARM = 3
+VISION_TIMED = 30
+#: batches timed after the warm-up where a device source feeds the stage
+#: (a batch takes well under 10 ms there, so 30 would time ~10 ms)
+VISION_SOURCE_TIMED = 200
+NORM = "tensor_transform mode=arithmetic option=typecast:float32,add:-127.5,div:127.5"
+QUICKSTART = ("appsrc name=src caps=other/tensors,dimensions=3:{size}:{size}:{batch},"
+              "types=uint8 max-inflight=4 ! " + NORM + " ! "
+              "tensor_filter framework=jax model={model} custom=size:{size},batch:{batch}"
+              "{custom} {acc} ! tensor_decoder mode=image_labeling ! tensor_sink name=out")
+QUICKSTART_SRC = ("videotestsrc device=true batch={batch} num-buffers={frames} "
+                  "width={size} height={size} name=src ! " + NORM + " ! "
+                  "tensor_filter framework=jax model=mobilenet_v1 "
+                  "custom=size:{size},batch:{batch} {acc} ! "
+                  "tensor_decoder mode=image_labeling ! tensor_sink name=out max-buffers=4")
+DETECTION = ("videotestsrc device=true batch={batch} num-buffers={frames} width={size} "
+             "height={size} pattern=ball name=src ! " + NORM + " ! "
+             "tensor_filter framework=jax model=ssd_mobilenet "
+             "custom=size:{size},classes:91,batch:{batch}{custom} {acc} ! "
+             "tensor_decoder mode=bounding_boxes option1=ssd option3=0.5 "
+             "option4={size}:{size} option6=16 option7={nms} option9=tensors ! "
+             "tensor_sink name=out max-buffers=4")
+#: bf16 on the card against f32 on the CPU, same weights: a logit may differ
+#: by this share of the frame's largest |logit| (bf16 keeps 8 bits, and
+#: every one of the 28 convs and its scale and bias rounds to it), and a
+#: frame's label is held only where the CPU's top-1/top-2 gap exceeds it
+VISION_TOL = 0.02
+
+
+def vision_stage(pipe, kind="fused"):
+    """The fused stage of a pipeline (its census) and the stage names."""
+    names = [s.element.name for s in pipe.stages]
+    fused = [s.element for s in pipe.stages if s.element.kind == kind]
+    check(len(fused) == 1, f"expected one fused stage, got {names}")
+    return getattr(fused[0], "fused", fused[0]), names
+
+
+def stage_card_ms(stage, reps=20):
+    """Device ms of one replay of a fused stage's captured step (its one
+    signature), by CUDA events around ``reps`` replays queued behind a
+    spin kernel; None off the card."""
+    import torch
+
+    if stage.device.type != "cuda":
+        return None
+    (st,) = stage._sets.values()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(2_000_000)
+    start.record()
+    for _ in range(reps):
+        st.step.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def stage_profile(stage, tag, fh):
+    """The fused stage's callable run eagerly three times under
+    torch.profiler (card activity): its top kernels by device ms per
+    batch, as (name, ms) pairs, and the table into ``fh``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    (st,) = stage._sets.values()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            stage.composed(tuple(st.inputs))
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    fh.write(f"== {tag}\n" + avgs.table(sort_by="self_device_time_total",
+                                          row_limit=25) + "\n")
+    top = sorted(avgs, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:6]
+    return [(e.key[:60], e.self_device_time_total / 3e3) for e in top]
+
+
+def vision_host_fed(desc, frames, fuse=True):
+    """Push every batch of ``frames`` through an appsrc pipeline: the
+    first VISION_WARM one at a time (the capture), the rest from a pusher
+    thread while this thread pulls.  Returns (outputs, timed stats)."""
+    import threading
+
+    import numpy as np
+
+    import nnstreamer_tpu_torch as ntt
+
+    pipe = ntt.Pipeline(desc, fuse=fuse)
+    outs, push_ts, e2e = [], {}, []
+    with pipe:
+        for f in frames[:VISION_WARM]:
+            pipe.push("src", f)
+            outs.append(pipe.pull("out", timeout=600))
+        stage = names = None
+        if fuse:
+            stage, names = vision_stage(pipe)
+            warm_captures = stage.census.captures
+
+        def pusher():
+            for i, f in enumerate(frames[VISION_WARM:]):
+                push_ts[i] = time.perf_counter()
+                pipe.push("src", f)
+                push_ts[i] = time.perf_counter()  # admitted (max-inflight)
+
+        t = threading.Thread(target=pusher, daemon=True)
+        t0 = time.perf_counter()
+        t.start()
+        for i in range(len(frames) - VISION_WARM):
+            outs.append(pipe.pull("out", timeout=600))
+            e2e.append((time.perf_counter() - push_ts[i]) * 1e3)
+        wall = time.perf_counter() - t0
+        t.join(timeout=60)
+        census = card_ms = None
+        if fuse:
+            census = census_of(stage.census, warm_captures)
+            card_ms = stage_card_ms(stage)
+        pipe.eos("src")
+        pipe.wait(timeout=120)
+    n = len(frames) - VISION_WARM
+    lat = np.sort(np.asarray(e2e))
+    stats = dict(frames_per_s=n * frames[0].shape[0] / wall,
+                 p50_ms=float(np.percentile(lat, 50)),
+                 p99_ms=float(np.percentile(lat, 99)), stages=names,
+                 census=census, card_ms_per_batch=card_ms, stage=stage)
+    return [(np.asarray(o.meta["label_index"]), np.asarray(o.meta["score"]))
+            for o in outs], stats
+
+
+def vision_pulled(desc, n, keep, batch):
+    """Pull ``n`` buffers of ``batch`` frames from a pipeline with a device
+    source; the rate over the last n - VISION_WARM pulls (the sink's queue
+    is 4 deep, so the source is at most ~10 batches ahead when the clock
+    starts).  Keeps the first ``keep`` buffers."""
+    import nnstreamer_tpu_torch as ntt
+
+    pipe = ntt.Pipeline(desc)
+    outs = []
+    with pipe:
+        for _ in range(VISION_WARM):
+            outs.append(pipe.pull("out", timeout=600))
+        stage, names = vision_stage(pipe)
+        warm_captures = stage.census.captures
+        t0 = time.perf_counter()
+        for _ in range(n - VISION_WARM):
+            buf = pipe.pull("out", timeout=600)
+            if len(outs) < keep:
+                outs.append(buf)
+        wall = time.perf_counter() - t0
+        frames = (n - VISION_WARM) * batch
+        census = census_of(stage.census, warm_captures)
+        card_ms = stage_card_ms(stage)
+        pipe.wait(timeout=120)
+    return outs, dict(frames_per_s=frames / wall, stages=names, census=census,
+                      card_ms_per_batch=card_ms, stage=stage)
+
+
+def phase_vision(dev, size=224, det_size=320, batch=VISION_BATCH, acc="",
+                 profile=False):
+    """The vision path's five checks on ``dev`` (``acc`` is the filter's
+    accelerator= property; empty on the card).  ``profile`` writes each
+    fused stage's kernels to chiprun_out/profile_vision.txt."""
+    import numpy as np
+    import torch
+
+    import nnstreamer_tpu_torch as ntt
+    from nnstreamer_tpu_torch.models import mobilenet, zoo
+
+    on_card = dev.type == "cuda"
+    out = {}
+    rng = np.random.default_rng(0)
+    frames = [rng.integers(0, 256, (batch, size, size, 3), dtype=np.uint8)
+              for _ in range(VISION_WARM + VISION_TIMED)]
+    qs = dict(size=size, batch=batch, model="mobilenet_v1", custom="", acc=acc)
+    # 1. the quick-start, host-fed, fused
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    fused, out["quickstart"] = vision_host_fed(QUICKSTART.format(**qs), frames)
+    if on_card:
+        out["quickstart"]["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(len(out["quickstart"]["stages"]) == 3
+          and out["quickstart"]["stages"][1].count("+") == 2,
+          f"quick-start not fused into one stage: {out['quickstart']['stages']}")
+    for ids, scores in fused:
+        check(ids.shape == (batch,) and bool(np.isfinite(scores).all()),
+              "quick-start: bad labels or scores")
+    # 2. the same frames unfused on the same device: bitwise the same (one
+    # program on the same inputs; the unfused transform runs on the host
+    # in float32 with the same two IEEE operations)
+    unfused, st = vision_host_fed(QUICKSTART.format(**qs), frames, fuse=False)
+    out["unfused_frames_per_s"] = st["frames_per_s"]
+    out["unfused_bitwise_equal"] = sum(
+        bool(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]))
+        for a, b in zip(fused, unfused))
+    check(out["unfused_bitwise_equal"] == len(frames),
+          f"fuse=False differs from fused in "
+          f"{len(frames) - out['unfused_bitwise_equal']} batches")
+
+    # 3. the first batch through the port on the CPU at f32, with the
+    # weights the card drew (the zoo draws them on the build device)
+    def card_weights(opts, device):
+        params = mobilenet.init_params(seed=0, device=dev)
+        params = {k: {n: t.cpu() for n, t in v.items()} for k, v in params.items()}
+        return mobilenet.build_bundle(params, opts, "mobilenet_v1_card_weights")
+
+    zoo.register_model("mobilenet_v1_card_weights", card_weights)
+    ref = ntt.Pipeline(
+        "appsrc name=src ! " + NORM + " ! tensor_filter framework=jax "
+        f"model=mobilenet_v1_card_weights custom=size:{size},batch:{batch},"
+        "dtype:float32 accelerator=true:cpu ! tensor_sink name=out")
+    with ref:
+        ref.push("src", frames[0])
+        logits = np.asarray(ref.pull("out", timeout=600).tensors[0])
+        ref.eos("src")
+        ref.wait(timeout=60)
+    top = np.sort(logits, axis=1)
+    tol = VISION_TOL * np.abs(logits).max(axis=1)
+    gap = top[:, -1] - top[:, -2]
+    ids, scores = fused[0]
+    held = gap > tol
+    score_err = np.abs(scores - top[:, -1])
+    out["cpu_reference"] = dict(
+        frames_held=int(held.sum()), labels_equal=int((ids == logits.argmax(1))[held].sum()),
+        max_score_err_share=float((score_err / np.abs(logits).max(axis=1)).max()),
+        tol_share=VISION_TOL)
+    check(bool((ids == logits.argmax(1))[held].all()),
+          f"labels differ from the CPU's where the gap exceeds the tolerance: "
+          f"{out['cpu_reference']}")
+    check(bool((score_err <= tol).all()), f"scores off the CPU's: {out['cpu_reference']}")
+
+    # 4. the quick-start with a folded device source
+    n_src = VISION_WARM + VISION_SOURCE_TIMED
+    _, out["quickstart_device_source"] = vision_pulled(QUICKSTART_SRC.format(
+        size=size, batch=batch, frames=n_src * batch, acc=acc), n_src, 0, batch)
+    names = out["quickstart_device_source"]["stages"]
+    check(len(names) == 2 and names[0].startswith("src+"),
+          f"device source not folded: {names}")
+    # a truncated tail batch (two full batches and 10 frames), every
+    # buffer processed before the first pull: a second signature, and
+    # each pulled buffer still holds its own values
+    rest = max(1, batch // 6)  # 10 of 64
+    tail = QUICKSTART_SRC.format(size=size, batch=batch, frames=2 * batch + rest,
+                                 acc=acc).replace(" max-buffers=4", "")
+    late = []
+    for fuse in (True, False):
+        pipe = ntt.Pipeline(tail, fuse=fuse)
+        with pipe:
+            pipe.wait(timeout=300)
+            late.append([(np.atleast_1d(b.meta["label_index"]),
+                          np.atleast_1d(b.meta["score"]))
+                         for b in (pipe.pull("out", timeout=60) for _ in range(3))])
+        if fuse:
+            stage, _ = vision_stage(pipe)
+    out["tail_batch"] = dict(
+        rows=[len(ids) for ids, _ in late[0]], signatures=len(stage.census.signatures),
+        captures=stage.census.captures, bitwise_equal_to_unfused=sum(
+            bool(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]))
+            for a, b in zip(*late)))
+    check(out["tail_batch"]["rows"] == [batch, batch, rest]
+          and out["tail_batch"]["signatures"] == 2
+          and out["tail_batch"]["bitwise_equal_to_unfused"] == 3,
+          f"tail batch: {out['tail_batch']}")
+
+    # 5. detection, NMS on the card against NMS on the host, same frames
+    det = {}
+    n_cmp = VISION_WARM + VISION_TIMED  # batches compared, device against host
+    for nms in ("device", "host"):
+        bufs, det[nms] = vision_pulled(DETECTION.format(
+            size=det_size, batch=batch, frames=n_src * batch, custom="", acc=acc,
+            nms=nms), n_src, n_cmp, batch)
+        det[nms]["outputs"] = [[np.asarray(t) for t in b.tensors] for b in bufs]
+    same, valid = 0, 0
+    for a, b in zip(det["device"].pop("outputs"), det["host"].pop("outputs")):
+        va, vb = a[3].astype(bool), b[3].astype(bool)
+        valid += int(va.sum())
+        same += int(np.array_equal(va, vb) and np.array_equal(a[0][va], b[0][vb])
+                    and np.array_equal(a[1][va], b[1][vb])
+                    and np.array_equal(a[2][va], b[2][vb]))
+    det["valid_rows"] = valid
+    det["batches_equal"] = same
+    det["batches_compared"] = n_cmp
+    out["detection"] = det
+    check(same == n_cmp, f"device NMS differs from host NMS in {n_cmp - same} batches")
+    check(valid > 0, "detection: no valid row in the batches compared")
+    # NMS at work: at option3=0.0 every top-k candidate is live, so a
+    # frame's kept scores differ from its top option6 candidates' exactly
+    # where NMS suppressed one.  Device and host NMS, and host NMS with
+    # option5=1.0 (no IoU exceeds 1: nothing suppressed), on the same frames
+    n_low = VISION_WARM + 2
+    low = {}
+    for tag, nms, iou in (("device", "device", ""), ("host", "host", ""),
+                          ("none suppressed", "host", " option5=1.0")):
+        bufs, _ = vision_pulled(DETECTION.format(
+            size=det_size, batch=batch, frames=n_low * batch, custom="", acc=acc,
+            nms=nms).replace("option3=0.5", "option3=0.0" + iou), n_low, n_low, batch)
+        low[tag] = [[np.asarray(t) for t in b.tensors] for b in bufs]
+    same, valid, suppressed = 0, 0, 0
+    for a, b, c in zip(low["device"], low["host"], low["none suppressed"]):
+        va, vb, vc = (x[3].astype(bool) for x in (a, b, c))
+        valid += int(va.sum())
+        same += int(np.array_equal(va, vb) and np.array_equal(a[0][va], b[0][vb])
+                    and np.array_equal(a[1][va], b[1][vb])
+                    and np.array_equal(a[2][va], b[2][vb]))
+        suppressed += sum(not np.array_equal(b[1][i][vb[i]], c[1][i][vc[i]])
+                          for i in range(len(vb)))
+    det["low_threshold"] = dict(batches_equal=same, batches_compared=n_low,
+                                valid_rows=valid, frames=n_low * batch,
+                                frames_with_suppression=suppressed)
+    check(same == n_low and valid > 0 and suppressed > 0,
+          f"detection at option3=0.0: {det['low_threshold']}")
+
+    stages = {"quick-start": out["quickstart"], "device source":
+              out["quickstart_device_source"], "detection option7=device":
+              det["device"], "detection option7=host": det["host"]}
+    for r in stages.values():
+        stage = r.pop("stage")
+        if r["card_ms_per_batch"] is not None:
+            r["card_busy_share"] = (r["card_ms_per_batch"] * r["frames_per_s"]
+                                    / batch / 1e3)
+        r["_stage"] = stage
+    if profile and on_card:
+        with open(os.path.join(OUT_DIR, "profile_vision.txt"), "w") as fh:
+            for tag, r in stages.items():
+                r["top_kernels_ms"] = stage_profile(r["_stage"], tag, fh)
+    for r in stages.values():
+        del r["_stage"]
+    return out
+
+
+def card_share(r):
+    if r["card_ms_per_batch"] is None:
+        return "card time not measured"
+    return (f"card {r['card_ms_per_batch']:.3f} ms per batch, busy share "
+            f"{r['card_busy_share']:.3f}")
+
+
+def print_vision(v):
+    qs = v["quickstart"]
+    print(f"vision: quick-start (mobilenet_v1 224, batch {VISION_BATCH}, host-fed, "
+          f"max-inflight 4) {qs['frames_per_s']:.1f} frames/s, per batch p50 "
+          f"{qs['p50_ms']:.2f} ms, p99 {qs['p99_ms']:.2f} ms, {card_share(qs)}, peak "
+          f"{qs.get('peak_mem_gb', 0.0):.2f} GB; stages {qs['stages']}", flush=True)
+    print(f"census: vision quick-start {qs['census']}", flush=True)
+    print(f"vision: fuse=False {v['unfused_frames_per_s']:.1f} frames/s, "
+          f"{v['unfused_bitwise_equal']} of {VISION_WARM + VISION_TIMED} batches "
+          f"bitwise equal to fused", flush=True)
+    print(f"vision: bf16 card against f32 CPU, first batch {v['cpu_reference']}",
+          flush=True)
+    src = v["quickstart_device_source"]
+    print(f"vision: quick-start from videotestsrc device=true "
+          f"{src['frames_per_s']:.1f} frames/s, {card_share(src)}; stages "
+          f"{src['stages']}", flush=True)
+    print(f"census: vision device source {src['census']}", flush=True)
+    print(f"vision: tail batch, all processed before the first pull "
+          f"{v['tail_batch']}", flush=True)
+    det = v["detection"]
+    for nms in ("device", "host"):
+        print(f"vision: detection (ssd_mobilenet 320, 91 classes, batch "
+              f"{VISION_BATCH}, option7={nms}) {det[nms]['frames_per_s']:.1f} "
+              f"frames/s, {card_share(det[nms])}; stages {det[nms]['stages']}",
+              flush=True)
+        print(f"census: vision detection option7={nms} {det[nms]['census']}",
+              flush=True)
+    print(f"vision: detection option7=device against host: {det['batches_equal']} "
+          f"of {det['batches_compared']} batches equal, {det['valid_rows']} valid "
+          f"rows", flush=True)
+    print(f"vision: detection at option3=0.0, device against host NMS "
+          f"{det['low_threshold']}", flush=True)
+    for tag, r in (("quick-start", qs), ("device source", src),
+                   ("detection device NMS", det["device"]),
+                   ("detection host NMS", det["host"])):
+        if "top_kernels_ms" in r:
+            print(f"profile: vision {tag} top kernels, ms per batch "
+                  f"{r['top_kernels_ms']}", flush=True)
+
+
 def main():
     import torch
 
@@ -1675,6 +2078,14 @@ def main():
     for phase in (phase_reference, phase_reference_paged, phase_reference_bf16):
         detail["reference"].append(phase(dev))
         print(f"reference: {detail['reference'][-1]}", flush=True)
+    save()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    vision = detail["vision"] = phase_vision(
+        dev, profile="--profile" in sys.argv[1:])
+    vision["phase_s"] = time.perf_counter() - t0
+    print_vision(vision)
+    print(f"vision: phase {vision['phase_s']:.1f} s", flush=True)
 
     # one line per kernel: int4 per decoded token (129 launches at B=1),
     # with the same 129 launches at B=8 (a continuous decode step) and

@@ -18,10 +18,14 @@ What runs so far is the LLM serving path: the static stream path::
         p.push("src", prompt_ids)       # int32 token ids, or text bytes
         token = p.pull("out")           # one buffer per generated token
 
-the continuous serving loop (``custom=serve:continuous``), and the query
+the continuous serving loop (``custom=serve:continuous``), the query
 front door in front of either (``tensor_query_serversrc ! tensor_filter
 ! tensor_query_serversink`` serving ``tensor_query_client`` pipelines
-over TCP).  Filters run on the CUDA card unless ``accelerator=true:cpu``
+over TCP), and the vision path: ``tensor_transform ! tensor_filter
+framework=jax model=mobilenet_v1|ssd_mobilenet ! tensor_decoder
+mode=image_labeling|bounding_boxes``, each such chain fused into one
+stage that runs as a captured CUDA graph (``Pipeline(fuse=True)``, the
+default).  Filters run on the CUDA card unless ``accelerator=true:cpu``
 is set on the tensor_filter.
 """
 

@@ -6,6 +6,13 @@ carrying one ``GstMemory`` chunk per tensor plus pts/duration metadata).
 A chunk's payload is either a host numpy array or a torch tensor, which
 may already sit in GPU memory.  Host boundaries (app ingest, sink pull)
 are the only places payloads cross between host and card.
+
+A fused stage whose tail decoder finishes its decode on the host emits a
+buffer with a deferred mapping (``meta["_host_post"]``): its tensors are
+the decoder's small device outputs, already on their way to pinned host
+memory (``meta["_d2h_done"]``, the event that copy records).
+:meth:`Buffer.resolve` waits for that copy and applies the mapping; the
+runtime does so at a sink's pull or callback, or before a host element.
 """
 
 from __future__ import annotations
@@ -74,9 +81,31 @@ class Buffer:
             meta=dict(self.meta),
         )
 
+    def resolve(self) -> "Buffer":
+        """Apply a deferred device->media mapping (set by fused stages whose
+        tail decoder runs on the card and finishes the decode on the
+        host); a buffer without one is returned as it is."""
+        post = self.meta.get("_host_post")
+        if post is None:
+            return self
+        base = self._on_host()
+        base.meta.pop("_host_post", None)
+        return post(base.tensors, base)
+
+    def _on_host(self) -> "Buffer":
+        done = self.meta.get("_d2h_done")
+        if done is not None:
+            done.synchronize()  # the copy into pinned memory has landed
+        out = self.with_tensors([_to_numpy(t) for t in self.tensors])
+        out.meta.pop("_d2h_done", None)
+        return out
+
     def to_host(self) -> "Buffer":
-        """Copy every tensor to host numpy (waits for the card)."""
-        return self.with_tensors([_to_numpy(t) for t in self.tensors])
+        """Copy every tensor to host numpy (waits for the card); a deferred
+        mapping is applied."""
+        if "_host_post" in self.meta:
+            return self.resolve()
+        return self._on_host()
 
     def to_device(self, device) -> "Buffer":
         """Move every tensor onto ``device`` (numpy payloads become torch
@@ -94,6 +123,19 @@ def upload(x, device) -> torch.Tensor:
     if torch.device(device).type == "cuda" and t.device.type == "cpu":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device, copy=True)
+
+
+def start_fetch(tensors: Sequence[torch.Tensor]):
+    """Start copying card tensors into fresh pinned host tensors on the
+    current stream -> (host tensors, the event that marks the copies
+    done).  The host tensors must not be read before the event."""
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            for t in tensors]
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
 
 
 def stack_tensors(rows: Sequence[Sequence[Any]], pad_to: Optional[int] = None):

@@ -35,6 +35,27 @@ class _Any:
 
 ANY = _Any()
 
+_VIDEO_FORMATS_BPP = {
+    "RGB": 3,
+    "BGR": 3,
+    "RGBA": 4,
+    "BGRA": 4,
+    "ARGB": 4,
+    "ABGR": 4,
+    "RGBx": 4,
+    "BGRx": 4,
+    "GRAY8": 1,
+    "GRAY16_LE": 2,
+}
+
+
+def video_bpp(fmt: str) -> int:
+    """Bytes per pixel of a raw video format (``RGB`` -> 3)."""
+    try:
+        return _VIDEO_FORMATS_BPP[fmt]
+    except KeyError:
+        raise ValueError(f"unsupported video format {fmt!r}") from None
+
 
 @dataclasses.dataclass(frozen=True)
 class Caps:

@@ -16,6 +16,7 @@ from typing import Dict, Iterable, List, Optional, Tuple
 
 KIND_ELEMENT = "element"
 KIND_FILTER = "filter"
+KIND_DECODER = "decoder"
 
 _registry: Dict[Tuple[str, str], type] = {}
 _aliases: Dict[Tuple[str, str], str] = {}
@@ -24,14 +25,23 @@ _builtins_loaded = False
 
 #: Modules imported lazily on first lookup; each registers its plugins at
 #: import time.  The port carries the elements of the LLM stream paths
-#: (appsrc ! tensor_filter framework=llm ! tensor_sink) and of the query
-#: front door in front of them (tensor_query_serversrc/serversink/client).
+#: (appsrc ! tensor_filter framework=llm ! tensor_sink), of the query
+#: front door in front of them (tensor_query_serversrc/serversink/client)
+#: and of the vision path (videotestsrc, tensor_converter,
+#: tensor_transform, tensor_filter framework=jax, tensor_decoder with
+#: image_labeling and bounding_boxes).
 _BUILTIN_MODULES = [
     "nnstreamer_tpu_torch.elements.source",
+    "nnstreamer_tpu_torch.elements.converter",
+    "nnstreamer_tpu_torch.elements.transform",
     "nnstreamer_tpu_torch.elements.filter",
+    "nnstreamer_tpu_torch.elements.decoder",
     "nnstreamer_tpu_torch.elements.sink",
     "nnstreamer_tpu_torch.elements.query",
     "nnstreamer_tpu_torch.filters.llm",
+    "nnstreamer_tpu_torch.filters.device_fw",
+    "nnstreamer_tpu_torch.decoders.image_labeling",
+    "nnstreamer_tpu_torch.decoders.bounding_boxes",
 ]
 
 
@@ -54,6 +64,10 @@ def register_element(name: str, cls=None, **kw):
 
 def register_filter(name: str, cls=None, **kw):
     return register(KIND_FILTER, name, cls, **kw)
+
+
+def register_decoder(name: str, cls=None, **kw):
+    return register(KIND_DECODER, name, cls, **kw)
 
 
 def _ensure_builtins():

@@ -7,17 +7,24 @@ GstBaseTransform and the per-element chain functions).  An element has:
   output Caps once, before streaming starts;
 * **streaming** — :meth:`Element.process` handles one buffer push and
   returns downstream pushes (a list, or a generator that the runner
-  iterates, so a streaming element emits many buffers per input).
+  iterates, so a streaming element emits many buffers per input);
+* **fusion** — :meth:`Element.device_fn` offers the element's streaming
+  math as a torch callable, which the planner composes with its
+  neighbours' into one fused stage (``pipeline/plan.py``), and
+  ``host_post`` pairs it with a mapping that finishes on the host.
 
-Fusing elements into one device program is not part of this package yet.
+``process_batch`` (micro-batching) and ``place_params`` (meshes) are
+not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Iterator, List, Optional, Tuple, Union
+from typing import (Callable, Dict, Iterable, Iterator, List, Optional,
+                    Tuple, Union)
 
 from ..core.buffer import Buffer, Event
 from ..core.caps import Caps
+from ..core.types import TensorsSpec
 
 #: (out_pad, payload) pairs returned from process/finalize.
 Out = Iterable[Tuple[str, Union[Buffer, Event]]]
@@ -121,6 +128,22 @@ class Element:
     def finalize(self) -> Out:
         """All input pads reached EOS: flush buffered state."""
         return []
+
+    # -- fusion ------------------------------------------------------------
+    def device_fn(
+        self, in_spec: TensorsSpec
+    ) -> Optional[Tuple[Callable, TensorsSpec]]:
+        """``(fn, out_spec)`` when this element's streaming math can run
+        inside a fused stage: ``fn`` maps a tuple of torch tensors to a
+        tuple of torch tensors on the same device, with no host read and no
+        host-to-device copy (the fused stage captures it as a CUDA graph).
+        None => host-only element."""
+        return None
+
+    #: deferred host mapping paired with :meth:`device_fn`: called as
+    #: ``host_post(host_arrays, buf)`` at the pipeline edge on the fused
+    #: stage's (small) outputs; None => the device outputs are the payload
+    host_post = None
 
     def __repr__(self):  # pragma: no cover
         return f"<{type(self).__name__} {self.name!r}>"

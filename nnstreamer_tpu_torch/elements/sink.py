@@ -4,6 +4,9 @@ Port of the ``tensor_sink`` of ``nnstreamer_tpu/elements/sink.py``
 (reference: gsttensor_sink.c, an appsink-like terminal).  ``pop()``
 returns host numpy arrays by default (one device-to-host copy at the
 pipeline edge), or the tensors as they arrived with ``to_host=false``.
+A buffer with a deferred host mapping (a fused decoder's ``host_post``)
+is resolved here, in the app's thread: at ``pop()``, or before the
+callbacks see it.
 A buffer's appsrc ``max-inflight`` credit is released when the app takes
 it (pop or callback), or when a ``drop=true`` sink discards it.  The
 JAX package's fetch window (``fetch-depth``) is not ported yet.
@@ -62,6 +65,7 @@ class TensorSink(SinkElement):
                       tenant=buf.meta.get(META_TENANT))
         callbacks = list(self._callbacks)
         if callbacks:
+            buf = buf.resolve()
             _release_credit(buf)  # callback consumers take delivery here
         for cb in callbacks:
             cb(buf)
@@ -94,6 +98,6 @@ class TensorSink(SinkElement):
                     check()
                 if _time.monotonic() > deadline:
                     raise TimeoutError(f"no buffer at sink {self.name!r} in {timeout}s")
-        out = buf.to_host() if self.to_host else buf
+        out = buf.to_host() if self.to_host else buf.resolve()
         _release_credit(out)  # delivered: the admission slot frees
         return out

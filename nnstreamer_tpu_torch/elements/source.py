@@ -1,9 +1,12 @@
 """Source elements.
 
-Port of the ``appsrc`` of ``nnstreamer_tpu/elements/source.py``: the
-application-driven source, with its end-to-end admission bound
-(``max-inflight``) and tenant stamp (``tenant``).  Sources produce host
-buffers; the stage that consumes them moves payloads to the card.
+Port of the ``appsrc`` and ``videotestsrc`` of
+``nnstreamer_tpu/elements/source.py``: the application-driven source,
+with its end-to-end admission bound (``max-inflight``) and tenant stamp
+(``tenant``), and the deterministic video source.  Sources produce host
+buffers, and the stage that consumes them moves payloads to the device;
+``videotestsrc device=true`` generates its batches on the device itself.
+``audiotestsrc`` and ``filesrc`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,12 +20,13 @@ import numpy as np
 import torch
 
 from ..core.buffer import Buffer, Event
-from ..core.caps import Caps, parse_caps_string
+from ..core.caps import Caps, MediaType, parse_caps_string, video_bpp
 from ..core.log import STALL_FLOOR_S
 from ..core.log import metrics as _metrics
 from ..core.meta_keys import META_TENANT
 from ..core.registry import register_element
-from .base import SourceElement
+from ..core.types import TensorsSpec, parse_fraction
+from .base import ElementError, SourceElement
 
 
 class _InflightCredit:
@@ -135,3 +139,128 @@ class AppSrc(SourceElement):
                 # stop() without EOS: exit instead of pinning the runner
                 if stop is not None and stop.is_set():
                     return
+
+
+@register_element("videotestsrc")
+class VideoTestSrc(SourceElement):
+    """Deterministic video frames (the reference test pipelines' workhorse).
+
+    Props: ``width``, ``height``, ``format`` (RGB/BGR/RGBA/GRAY8),
+    ``num-buffers``, ``pattern`` (``smpte`` gradient, ``ball``, ``black``,
+    ``white``, ``random`` with a fixed seed), ``framerate``.  Host frames
+    are bitwise the JAX package's.
+
+    ``device=true`` generates the pattern on the device, ``batch`` frames
+    per buffer, as batched ``other/tensors`` that stay there (the same
+    bits as the host frames); ``num-buffers`` counts frames and the tail
+    batch is truncated to it.  It generates on the device of the filter
+    below it, folded into a fused stage or not (the planner sets
+    ``gen_device``), and with no filter below it on the card, raising
+    without one.  ``pattern=random`` with ``device=true``
+    draws from ``jax.random`` in the JAX package, which torch cannot
+    reproduce: it raises "not yet ported".
+    """
+
+    kind = "videotestsrc"
+
+    def __init__(self, props=None, name=None):
+        super().__init__(props, name)
+        self.width = int(self.props.get("width", 320))
+        self.height = int(self.props.get("height", 240))
+        self.format = str(self.props.get("format", "RGB"))
+        self.num_buffers = int(self.props.get("num_buffers", -1))
+        self.pattern = str(self.props.get("pattern", "smpte"))
+        self.rate = parse_fraction(self.props.get("framerate", (30, 1)))
+        self.device = bool(self.props.get("device", False))
+        self.batch = int(self.props.get("batch", 1))
+        #: where a device batch is generated: the planner sets the device of
+        #: the filter below (None: the card)
+        self.gen_device: Optional[torch.device] = None
+        if self.device and self.pattern == "random":
+            raise ElementError(
+                "videotestsrc device=true pattern=random is not yet ported "
+                "(the JAX package draws it from jax.random)")
+
+    def configure(self, in_caps, out_pads):
+        if self.device:
+            c = video_bpp(self.format)
+            spec = TensorsSpec.from_string(
+                f"{c}:{self.width}:{self.height}:{self.batch}", "uint8"
+            )
+            caps = Caps.tensors(spec)
+        else:
+            caps = Caps.new(
+                MediaType.VIDEO,
+                format=self.format,
+                width=self.width,
+                height=self.height,
+                framerate=self.rate,
+            )
+        self.out_caps = {p: caps for p in out_pads}
+        return self.out_caps
+
+    def _frame(self, i: int) -> np.ndarray:
+        c = video_bpp(self.format)
+        h, w = self.height, self.width
+        if self.pattern == "black":
+            f = np.zeros((h, w, c), np.uint8)
+        elif self.pattern == "white":
+            f = np.full((h, w, c), 255, np.uint8)
+        elif self.pattern == "random":
+            rng = np.random.default_rng(i)
+            f = rng.integers(0, 256, size=(h, w, c), dtype=np.uint8)
+        elif self.pattern == "ball":
+            f = np.zeros((h, w, c), np.uint8)
+            cy = (i * 7) % h
+            cx = (i * 11) % w
+            yy, xx = np.ogrid[:h, :w]
+            mask = (yy - cy) ** 2 + (xx - cx) ** 2 <= (min(h, w) // 8) ** 2
+            f[mask] = 255
+        else:  # smpte-ish deterministic gradient
+            yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+            base = (xx * 255 // max(1, w - 1) + yy + i) % 256
+            f = np.stack([(base + 85 * k) % 256 for k in range(c)], axis=-1).astype(np.uint8)
+        return f
+
+    def device_batch(self, i0: int, n: int, device) -> torch.Tensor:
+        """Frames ``i0 .. i0 + n - 1`` as one ``[n, H, W, C]`` uint8 tensor
+        made on ``device``: the host frames' integer arithmetic, batched."""
+        h, w, c = self.height, self.width, video_bpp(self.format)
+        if self.pattern == "black":
+            return torch.zeros((n, h, w, c), dtype=torch.uint8, device=device)
+        if self.pattern == "white":
+            return torch.full((n, h, w, c), 255, dtype=torch.uint8, device=device)
+        idx = torch.arange(i0, i0 + n, device=device)[:, None, None]
+        yy = torch.arange(h, device=device)[None, :, None]
+        xx = torch.arange(w, device=device)[None, None, :]
+        if self.pattern == "ball":
+            cy, cx = (idx * 7) % h, (idx * 11) % w
+            mask = (yy - cy) ** 2 + (xx - cx) ** 2 <= (min(h, w) // 8) ** 2
+            f = mask.to(torch.uint8) * 255
+            return f[..., None].expand(n, h, w, c).contiguous()
+        base = (xx * 255 // max(1, w - 1) + yy + idx) % 256
+        return torch.stack([(base + 85 * k) % 256 for k in range(c)],
+                           dim=-1).to(torch.uint8)
+
+    def generate(self):
+        num = self.num_buffers if self.num_buffers >= 0 else 1 << 62
+        frame_ns = int(1e9 * self.rate[1] / max(1, self.rate[0]))
+        if self.device:
+            from ..filters.base import resolve_device
+
+            device = self.gen_device or resolve_device("")
+            # num-buffers counts FRAMES; the tail batch is truncated so
+            # the total matches.  The frame index wraps at 2^30, as in the
+            # JAX package.
+            emitted = 0
+            i = 0
+            while emitted < num:
+                take = min(self.batch, num - emitted)
+                arr = self.device_batch((i * self.batch) % (1 << 30), take,
+                                        device)
+                yield Buffer([arr], pts=emitted * frame_ns)
+                emitted += take
+                i += 1
+            return
+        for i in range(num):
+            yield Buffer([self._frame(i)], pts=i * frame_ns)

@@ -1,7 +1,8 @@
 """Model zoo: named models loadable by ``tensor_filter``.
 
-Port of ``nnstreamer_tpu/models/zoo.py``, cut to the llama presets.  A
-model is a ``ModelBundle`` (callable, params, IO specs); the zoo maps
+Port of ``nnstreamer_tpu/models/zoo.py``, cut to the llama presets and
+the vision models of configs #1 and #2 (``mobilenet_v1``,
+``ssd_mobilenet``).  A model is a ``ModelBundle`` (callable, params, IO specs); the zoo maps
 pipeline-string names (``model=llama2_7b``) to builder functions that
 take the filter's parsed ``custom=`` options and the device to build on.
 """
@@ -52,7 +53,8 @@ def _ensure_builtin():
     global _builtin_loaded
     if not _builtin_loaded:
         _builtin_loaded = True
-        importlib.import_module("nnstreamer_tpu_torch.models.llama")
+        for mod in ("llama", "mobilenet", "ssd"):
+            importlib.import_module(f"nnstreamer_tpu_torch.models.{mod}")
 
 
 def model_names() -> List[str]:

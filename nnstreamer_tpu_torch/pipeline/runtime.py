@@ -4,8 +4,14 @@ Port of ``nnstreamer_tpu/pipeline/runtime.py`` (reference analog:
 GStreamer's streaming threads, with ``queue`` elements as stage
 boundaries):
 
-* each planned stage runs on its own runner thread with ONE bounded
+* each planned stage (an element, or a fused chain of device elements,
+  ``pipeline/plan.py``) runs on its own runner thread with ONE bounded
   input queue;
+* a buffer with a deferred host mapping (``_host_post``, from a fused
+  stage whose decoder finishes on the host) stays lazy up to a
+  ``tensor_sink``, which resolves it at pull or callback; any other
+  consumer (a host element, the query server's sink) gets it resolved
+  first;
 * upstream pushes block when the queue is full (backpressure);
 * EOS and error events travel in-band through the same queues;
 * a stage whose ``process`` returns a generator (a streaming
@@ -20,7 +26,8 @@ boundaries):
   into one.
 
 Left for later slices: ``slo=``, elastic stage restarts and the
-autoscaler, micro-batching and the dispatch and fetch windows.
+autoscaler, micro-batching, ingress donation and the dispatch and fetch
+windows.
 
 Threads, not asyncio: stages do blocking work (device dispatch, host
 copies) and release the interpreter lock inside torch.
@@ -39,6 +46,7 @@ from ..core.config import get_config
 from ..core.log import Timer, logger, metrics
 from ..core.registry import KIND_ELEMENT, get as registry_get
 from ..elements.base import Element, SinkElement, SourceElement, SRC
+from ..elements.sink import TensorSink
 from ..utils import tracing
 from ..utils.armor import META_POISON as _META_POISON
 from .graph import PipelineGraph
@@ -142,6 +150,8 @@ class _Runner:
         self._tr = tracing.recorder if pipeline.trace_mode != "off" else None
         self.element._trace_rec = self._tr
         self._is_sink = isinstance(self.element, SinkElement)
+        # the one consumer that resolves a deferred host mapping itself
+        self._lazy_post = isinstance(self.element, TensorSink)
 
     def connect(self, out_pad: str, port: _Port) -> None:
         self.out_ports.setdefault(out_pad, []).append(port)
@@ -172,6 +182,11 @@ class _Runner:
                 metrics.count(self._m_dropped)
                 continue
             for port in ports:
+                # a deferred host mapping stays lazy up to a tensor_sink;
+                # any other consumer needs the real payload now
+                if (isinstance(item, Buffer) and "_host_post" in item.meta
+                        and not port.stage._lazy_post):
+                    item = item.resolve()
                 port.stage.feed(port.pad, item)
 
     def _broadcast(self, item) -> None:
@@ -366,7 +381,9 @@ class Pipeline:
     ``trace_mode`` (``off``/``ring``/``full``) switches on the per-buffer
     flight recorder (:meth:`dump_trace` writes it as Chrome trace JSON);
     ``tenant`` is a default tenant stamped at source ingress in traced
-    runs.  ``quarantine`` (a DLQ directory, policy dict or
+    runs.  ``fuse=True`` (the default) lets the planner merge adjacent
+    device-capable elements into one fused stage (``pipeline/plan.py``);
+    ``fuse=False`` runs one stage per element.  ``quarantine`` (a DLQ directory, policy dict or
     ``QuarantinePolicy``) turns a request whose stage invoke raises into
     a DLQ record and a typed ``abort_reason=poison`` answer, with a
     per-tenant circuit breaker that sheds repeat offenders at the query
@@ -382,12 +399,14 @@ class Pipeline:
                  trace_mode: Optional[str] = None,
                  tenant: Optional[str] = None,
                  quarantine=None,
-                 journal_replay: bool = False):
+                 journal_replay: bool = False,
+                 fuse: bool = True):
         if isinstance(graph, str):
             graph = parse_launch(graph)
         graph.validate()
         cfg = get_config()
         self.graph = graph
+        self.fuse = bool(fuse)
         self.capacity = queue_capacity or cfg.queue_capacity
         self.trace_mode = str(
             trace_mode if trace_mode is not None else cfg.trace_mode)
@@ -436,8 +455,9 @@ class Pipeline:
         # 2. caps negotiation in topo order
         self._negotiate()
 
-        # 3. plan stages and wire one runner per stage
-        self.stages: List[Stage] = plan_stages(graph, self.elements)
+        # 3. plan stages (the fusion pass) and wire one runner per stage
+        self.stages: List[Stage] = plan_stages(graph, self.elements,
+                                               fuse=self.fuse)
         self._runners: Dict[int, _Runner] = {}
         for st in self.stages:
             r = _Runner(self, st, self.capacity)
@@ -445,6 +465,8 @@ class Pipeline:
                 self._runners[nid] = r
         for e in graph.edges:
             r_src, r_dst = self._runners[e.src], self._runners[e.dst]
+            if r_src is r_dst:
+                continue  # an edge inside a fused stage
             r_src.connect(e.src_pad, _Port(r_dst, e.dst_pad))
             r_dst.in_pads.append(e.dst_pad)
 
@@ -621,3 +643,11 @@ class _CapsFilter(Element):
 
     def process(self, pad, buf):
         return [(SRC, buf)]
+
+    def device_fn(self, in_spec):
+        # Identity: the constraint was enforced at negotiation, so inside
+        # a fused stage this element is a no-op; the out spec is the
+        # merged caps' spec when one was negotiated, else the input's.
+        caps = self.out_caps.get(SRC) if self.out_caps else None
+        spec = getattr(caps, "spec", None)
+        return (lambda arrays: arrays), (spec or in_spec)

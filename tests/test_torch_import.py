@@ -83,12 +83,60 @@ def test_registry_is_the_ports_own():
     from nnstreamer_tpu.core import registry as jax_registry
 
     assert ntt.registry.names("element") == [
-        "appsrc", "tensor_filter", "tensor_query_client",
-        "tensor_query_serversink", "tensor_query_serversrc", "tensor_sink"]
+        "appsrc", "tensor_converter", "tensor_decoder", "tensor_filter",
+        "tensor_query_client", "tensor_query_serversink",
+        "tensor_query_serversrc", "tensor_sink", "tensor_transform",
+        "videotestsrc"]
     assert ntt.registry.get("element", "tensor_query_client").__module__ \
         == "nnstreamer_tpu_torch.elements.query"
-    assert ntt.registry.names("filter") == ["llm"]
+    assert ntt.registry.names("filter") == ["jax", "llm"]
     port_llm = ntt.registry.get("filter", "llm")
     assert port_llm.__module__ == "nnstreamer_tpu_torch.filters.llm"
     assert jax_registry.get("filter", "llm").__module__ == \
         "nnstreamer_tpu.filters.llm"
+    # framework=jax runs the JAX package's strings on the port's device
+    # framework; torch/pytorch stay free for a TorchScript counterpart
+    assert ntt.registry.get("filter", "jax").__module__ == \
+        "nnstreamer_tpu_torch.filters.device_fw"
+    assert ntt.registry.lookup("filter", "torch") is None
+    assert ntt.registry.names("decoder") == ["bounding_boxes", "image_labeling"]
+    assert jax_registry.get("decoder", "image_labeling").__module__ == \
+        "nnstreamer_tpu.decoders.image_labeling"
+
+
+#: the vision slice's modules, each imported alone in a fresh process
+VISION_MODULES = [
+    "core.registry", "core.caps", "core.buffer", "elements.base",
+    "elements.transform", "models.backbone", "models.mobilenet", "models.zoo",
+    "filters.device_fw", "elements.filter", "decoders.base",
+    "decoders.image_labeling", "elements.decoder", "pipeline.plan",
+    "pipeline.runtime", "elements.sink", "elements.source", "models.ssd",
+    "ops.nms", "decoders.bounding_boxes", "elements.converter"]
+
+
+def test_vision_modules_import_without_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {VISION_MODULES!r}:\n"
+        "    importlib.import_module('nnstreamer_tpu_torch.' + m)\n"
+        "    assert 'jax' not in sys.modules, m\n"
+        "import nnstreamer_tpu_torch as p\n"
+        "pipe = p.Pipeline('videotestsrc device=true batch=2 num-buffers=3 width=32 '\n"
+        "    'height=32 name=src ! tensor_transform mode=arithmetic '\n"
+        "    'option=typecast:float32,add:-127.5,div:127.5 ! tensor_filter '\n"
+        "    'framework=jax model=ssd_mobilenet custom=size:32,classes:3,batch:2,'\n"
+        "    'width:0.25 accelerator=true:cpu ! tensor_decoder mode=bounding_boxes '\n"
+        "    'option3=0.0 option6=4 option7=device option9=tensors ! tensor_sink name=out')\n"
+        "with pipe:\n"
+        "    outs = [pipe.pull('out', timeout=60) for _ in range(2)]\n"
+        "    pipe.wait(timeout=60)\n"
+        "assert [o.tensors[0].shape for o in outs] == [(2, 4, 4), (1, 4, 4)]\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
+        "('jax.', 'jaxlib', 'nnstreamer_tpu.')) or m == 'nnstreamer_tpu')\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
