@@ -123,6 +123,34 @@ Phases, each of which must pass:
              census, and the first 33 batches' detections (valid rows,
              boxes, classes, scores) equal.  ``--profile`` adds each
              fused stage's kernels (chiprun_out/profile_vision.txt).
+8. models  — the rest of BASELINE's model families in bench.py's form, no
+             kernel of csrc/, batch 64, random weights from seed 0, each
+             behind a folded device source and fused with its transform
+             and decoder into one stage captured as one CUDA graph:
+             yolov5s detection (640, 91 classes, 25,200 predictions,
+             ``bounding_boxes option1=yolov5 option3=0.5 option7=device
+             option9=tensors``), posenet (224, ``pose_estimation
+             option4=tensors``), deeplab (224, ``image_segment
+             option1=classmap``: the residency planner must pick the
+             native-stride map, equal to the argmax of the ``upsample:0``
+             scores; and again with ``upsample:1``, full resolution),
+             speech_commands and wav2vec2 + ``ctc`` (``audiotestsrc
+             device=true``, 16,000-sample windows, float32).  Each cell:
+             3 warm-up and 50 timed batches (frames or windows/s, the
+             card's ms per batch over 20 replays, busy share, peak
+             memory), one stage and one census signature with no capture
+             after the warm-up, ``fuse=False`` bitwise equal on the first
+             3 batches (yolov5s: its model outputs), and its first frames
+             (2 for yolov5s, 4 else) against the CPU at f32 with the
+             card's weights: outputs within 3% of the frame's largest
+             |output| (audio, float32 on both: 2e-3), decisions (classes,
+             keypoint cells, tokens) equal where the CPU's top-2 gap
+             exceeds twice the error.  yolov5s: NMS on the card equals
+             NMS on the host at option3=0.5 and 0.0, and on the model's
+             boxes widened to overlap, where NMS must suppress some (host
+             NMS at option5=1.0 suppresses none); wav2vec2: the CTC ids
+             equal the host argmax of the same logits.  ``--profile``
+             writes each stage's kernels to chiprun_out/profile_models.txt.
 
 Prints the card's name and power limit (nvidia-smi), a ``{"kernels": ...}``
 JSON line, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -1969,6 +1997,375 @@ def print_vision(v):
                   f"{r['top_kernels_ms']}", flush=True)
 
 
+#: the models phase: bench.py's cells for the rest of BASELINE's model
+#: families, batch 64, random weights from seed 0: yolov5s detection (640,
+#: 91 classes, 25,200 predictions), posenet (224, 17 keypoints), deeplab
+#: segmentation (224, 21 classes; the planner's native-stride map, and the
+#: full resolution pinned by upsample:1), speech_commands and wav2vec2 +
+#: CTC (1 s windows of 16,000 samples, float32 as bench.py runs them)
+MODELS_BATCH = 64
+MODELS_TIMED = 50
+#: batches compared: fused against fuse=False, and in the cells' own checks
+MODELS_CMP = 3
+DIV = "tensor_transform mode=arithmetic option=typecast:float32,div:255.0"
+_VSRC = ("videotestsrc device=true batch={batch} num-buffers={frames} width={size} "
+         "height={size} pattern={pattern} name=src ! " + DIV + " ! ")
+_ASRC = ("audiotestsrc device=true batch={batch} num-buffers={frames} "
+         "samplesperbuffer={samples} rate=16000 name=src ! ")
+_SINK = " ! tensor_sink name=out max-buffers=4"
+MODEL_CELLS = {
+    "yolov5s": _VSRC + "tensor_filter framework=jax model={model} custom=size:{size},"
+    "classes:91,batch:{batch}{custom} {acc} ! tensor_decoder mode=bounding_boxes "
+    "option1=yolov5 option3=0.5 option4={size}:{size} option6=16 option7=device "
+    "option9=tensors" + _SINK,
+    "posenet": _VSRC + "tensor_filter framework=jax model={model} custom=size:{size},"
+    "batch:{batch}{custom} {acc} ! tensor_decoder mode=pose_estimation "
+    "option2={size}:{size} option3=0.3 option4=tensors" + _SINK,
+    "deeplab": _VSRC + "tensor_filter framework=jax model={model} custom=size:{size},"
+    "batch:{batch}{custom} {acc} name=f ! tensor_decoder mode=image_segment "
+    "option1=classmap" + _SINK,
+    "speech_commands": _ASRC + "tensor_filter framework=jax model={model} "
+    "custom=dtype:float32,batch:{batch}{custom} {acc}" + _SINK,
+    "wav2vec2": _ASRC + "tensor_filter framework=jax model={model} "
+    "custom=dtype:float32,batch:{batch},samples:{samples}{custom} {acc} ! "
+    "tensor_decoder mode=ctc" + _SINK,
+}
+MODEL_NAMES = ("yolov5s", "posenet", "deeplab", "deeplab_full", "speech_commands",
+               "wav2vec2")
+AUDIO_CELLS = ("speech_commands", "wav2vec2")
+#: the card's bf16 vision cells against the CPU at f32, same weights: a
+#: model output may differ by this share of the frame's largest |output|
+#: (at least 1; the port's own bf16 on the CPU reads up to 1.5% for deeplab
+#: at full width).  The audio cells run float32 on the card too (TF32 off):
+#: REF_TOL, the float32 bound of the reference phase.  A decision (a
+#: class, a keypoint's cell, a token) must equal the CPU's wherever the
+#: CPU's top-1/top-2 gap exceeds twice the frame's largest error
+MODELS_TOL = 0.03
+
+
+def _cut_decoder(desc):
+    """A cell's string with its decoder cut: the model's own outputs."""
+    import re
+
+    return re.sub(r" ! tensor_decoder [^!]*!", " !", desc)
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def _register_card_weights(dev):
+    """``<model>_card_weights``: the zoo model with the weights its seed
+    draws on ``dev`` (the card), built where the pipeline asks (the CPU)."""
+    from nnstreamer_tpu_torch.models import audio, posenet, segment, yolo, zoo
+
+    def draw(name, o):
+        seed = int(o.get("seed", 0))
+        if name == "yolov5s":
+            return yolo.init_v5s_params(
+                classes=int(o.get("classes", 80)), width=float(o.get("width", 0.5)),
+                depth=float(o.get("depth", 0.33)), seed=seed, device=dev)
+        if name == "posenet":
+            return posenet.init_params(width=float(o.get("width", 1.0)), seed=seed,
+                                       device=dev)
+        if name == "deeplab_mobilenet":
+            return segment.init_params(width=float(o.get("width", 1.0)),
+                                       classes=int(o.get("classes", 21)), seed=seed,
+                                       device=dev)
+        if name == "speech_commands":
+            return audio.init_params_kws(classes=int(o.get("classes", 12)),
+                                         mels=int(o.get("mels", 64)), seed=seed, device=dev)
+        return audio.init_params_w2v(dim=int(o.get("dim", 256)),
+                                     n_layers=int(o.get("n_layers", 4)),
+                                     n_heads=int(o.get("n_heads", 4)),
+                                     vocab=int(o.get("vocab", 32)), seed=seed, device=dev)
+
+    bundles = {"yolov5s": lambda p, o, d, t: yolo.build_bundle_v5s(p, o, d, t),
+               "posenet": lambda p, o, d, t: posenet.build_bundle(p, o, t),
+               "deeplab_mobilenet": lambda p, o, d, t: segment.build_bundle(p, o, t),
+               "speech_commands": lambda p, o, d, t: audio.build_bundle_kws(p, o, d, t),
+               "wav2vec2": lambda p, o, d, t: audio.build_bundle_w2v(p, o, t)}
+    for name, bundle in bundles.items():
+        def build(opts, device, name=name, bundle=bundle):
+            return bundle(_tree_to(draw(name, opts), device), opts, device,
+                          f"{name}_card_weights")
+        zoo.register_model(f"{name}_card_weights", build)
+
+
+def _pulled(desc, n, fuse=True):
+    """The first ``n`` buffers of a pipeline: (host arrays, meta) each."""
+    import numpy as np
+
+    import nnstreamer_tpu_torch as ntt
+
+    pipe = ntt.Pipeline(desc, fuse=fuse)
+    with pipe:
+        bufs = [pipe.pull("out", timeout=600) for _ in range(n)]
+    return [([np.asarray(t) for t in b.tensors], b.meta) for b in bufs]
+
+
+def _bitwise(a, b):
+    import numpy as np
+
+    return len(a) == len(b) and all(
+        len(x[0]) == len(y[0]) and all(np.array_equal(p, q) for p, q in zip(x[0], y[0]))
+        for x, y in zip(a, b))
+
+
+def _decisions(name, x):
+    """(decisions, top-1/top-2 gaps) of a model's first raw output: a
+    keypoint's cell (posenet), a pixel's class (deeplab), a window's
+    keyword (speech_commands), a frame's token (wav2vec2)."""
+    import numpy as np
+
+    if name == "posenet":
+        x = x.reshape(x.shape[0], -1, x.shape[-1]).swapaxes(1, 2)
+    top = np.sort(x, axis=-1)
+    return x.argmax(-1), top[..., -1] - top[..., -2]
+
+
+class ModelCell:
+    """One cell's pipeline strings: ``desc(batch, frames)`` on the card,
+    ``cpu(batch)`` the same cut before its decoder at f32 on the CPU with
+    the card's weights."""
+
+    def __init__(self, name, size, samples, custom, acc):
+        self.name = name
+        self.model = "deeplab_mobilenet" if name.startswith("deeplab") else name
+        self.tmpl = MODEL_CELLS["deeplab" if name.startswith("deeplab") else name]
+        self.fmt = dict(size=size, samples=samples, model=self.model, acc=acc,
+                        pattern="smpte" if name.startswith("deeplab") else "ball",
+                        custom=custom + (",upsample:1" if name == "deeplab_full" else ""))
+
+    def desc(self, batch, frames, **kw):
+        return self.tmpl.format(batch=batch, frames=frames, **dict(self.fmt, **kw))
+
+    def cpu(self, batch):
+        f32 = "" if self.name in AUDIO_CELLS else ",dtype:float32"
+        return _cut_decoder(self.desc(batch, batch, model=f"{self.model}_card_weights",
+                                      acc="accelerator=true:cpu",
+                                      custom=self.fmt["custom"] + f32))
+
+
+def model_cell(cell, dev, batch, timed):
+    """The cell's fused run (rate, census, card ms, peak memory),
+    ``fuse=False`` bitwise on the first batches, and its first frames
+    against the CPU at f32.  Returns (stats, the first MODELS_CMP fused
+    outputs, yolov5s' first batch of model outputs or None)."""
+    import numpy as np
+    import torch
+
+    name, on_card = cell.name, dev.type == "cuda"
+    n = VISION_WARM + timed
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    bufs, st = vision_pulled(cell.desc(batch, n * batch), n, MODELS_CMP, batch)
+    if on_card:
+        st["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(len(st["stages"]) == 2 and st["stages"][0].startswith("src+"),
+          f"{name}: not one fused stage: {st['stages']}")
+    check(len(st["stage"].census.signatures) == 1,
+          f"{name}: {len(st['stage'].census.signatures)} signatures")
+    fused = [([np.asarray(t) for t in b.tensors], b.meta) for b in bufs]
+    check(all(np.isfinite(t).all() for ts, _ in fused for t in ts if t.dtype.kind == "f"),
+          f"{name}: non-finite output")
+    # fuse=False on the same device: bitwise.  yolov5s compares its model
+    # outputs (its unfused decode is the host path's NMS over all 25,200
+    # predictions, another algorithm than the fused top-k)
+    cmp = cell.desc(batch, MODELS_CMP * batch)
+    raw = None
+    if name == "yolov5s":
+        cmp = _cut_decoder(cmp)
+        a = _pulled(cmp, MODELS_CMP)
+        raw = a[0][0][0]
+    else:
+        a = fused
+    b = _pulled(cmp, MODELS_CMP, fuse=False)
+    st["unfused_bitwise_equal"] = sum(_bitwise([x], [y]) for x, y in zip(a, b))
+    check(st["unfused_bitwise_equal"] == MODELS_CMP,
+          f"{name}: fuse=False differs from fused in "
+          f"{MODELS_CMP - st['unfused_bitwise_equal']} of {MODELS_CMP} batches")
+    # the first frames on the CPU at f32 with the card's weights: the
+    # outputs within the tolerance, the decisions where the CPU's gap
+    # exceeds it
+    n_ref = 2 if name == "yolov5s" else 4
+    tol = REF_TOL if name in AUDIO_CELLS else MODELS_TOL
+    card = _pulled(_cut_decoder(cell.desc(n_ref, n_ref)), 1)[0][0]
+    cpu = _pulled(cell.cpu(n_ref), 1)[0][0]
+    ref = dict(frames=n_ref, tol_share=tol, max_err_share=0.0)
+    for c, r in zip(card, cpu):
+        check(c.shape == r.shape, f"{name}: card {c.shape} against CPU {r.shape}")
+        scale = np.abs(r).reshape(n_ref, -1).max(1).clip(min=1.0)
+        err = np.abs(c - r).reshape(n_ref, -1).max(1) / scale
+        ref["max_err_share"] = max(ref["max_err_share"], float(err.max()))
+    if name != "yolov5s":
+        # a decision can flip only where the gap is under twice the frame's
+        # largest error of that output
+        got, _ = _decisions(name, card[0])
+        want, gap = _decisions(name, cpu[0])
+        err = np.abs(card[0] - cpu[0]).reshape(n_ref, -1).max(1)
+        held = gap > 2 * err.reshape((n_ref,) + (1,) * (gap.ndim - 1))
+        ref.update(decisions=int(gap.size), held=int(held.sum()),
+                   held_equal=int((got == want)[held].sum()))
+        check(ref["held"] > 0 and ref["held_equal"] == ref["held"],
+              f"{name}: decisions off the CPU's where the gap exceeds the tolerance: {ref}")
+    check(ref["max_err_share"] <= tol, f"{name}: card against the CPU: {ref}")
+    st["cpu_reference"] = ref
+    return st, fused, raw
+
+
+def _nms_match(a, b):
+    """Two option9=tensors detection outputs: (equal on their valid rows,
+    valid rows of a)."""
+    import numpy as np
+
+    va, vb = a[3].astype(bool), b[3].astype(bool)
+    eq = bool(np.array_equal(va, vb) and np.array_equal(a[0][va], b[0][vb])
+              and np.array_equal(a[1][va], b[1][vb]) and np.array_equal(a[2][va], b[2][vb]))
+    return eq, int(va.sum())
+
+
+def yolo_nms_checks(cell, dev, batch, fused, raw):
+    """yolov5s' decode: option7=device against option7=host at the cell's
+    option3=0.5 and at 0.0 (every top-k candidate live); then NMS at work
+    on the card, at the cell's shape: the model's first batch with every
+    box's w/h set to 0.1 of the frame (the random weights' own boxes are
+    about 0.05 px wide and never overlap), device against host NMS, and
+    host NMS at option5=1.0 (nothing suppressed)."""
+    import numpy as np
+    import torch
+
+    from nnstreamer_tpu_torch.core.buffer import Buffer
+    from nnstreamer_tpu_torch.core.types import TensorsSpec
+    from nnstreamer_tpu_torch.decoders.bounding_boxes import BoundingBoxes
+
+    out = {}
+    cmp = cell.desc(batch, MODELS_CMP * batch)
+    host = _pulled(cmp.replace("option7=device", "option7=host"), MODELS_CMP)
+    res = [_nms_match(a[0], b[0]) for a, b in zip(fused, host)]
+    out["option3=0.5"] = dict(batches_equal=sum(e for e, _ in res), batches=MODELS_CMP,
+                              valid_rows=sum(v for _, v in res))
+    low = cmp.replace("option3=0.5", "option3=0.0")
+    d = _pulled(low, MODELS_CMP)
+    h = _pulled(low.replace("option7=device", "option7=host"), MODELS_CMP)
+    res = [_nms_match(a[0], b[0]) for a, b in zip(d, h)]
+    out["option3=0.0"] = dict(batches_equal=sum(e for e, _ in res), batches=MODELS_CMP,
+                              valid_rows=sum(v for _, v in res))
+    pred = raw.copy()
+    pred[..., 2:4] = 0.1
+    x = torch.from_numpy(pred).to(dev)
+    size = cell.fmt["size"]
+    outs = {}
+    for tag, nms, iou in (("device", "device", "0.5"), ("host", "host", "0.5"),
+                          ("none", "host", "1.0")):
+        dec = BoundingBoxes(dict(option1="yolov5", option3="0.0", option4=f"{size}:{size}",
+                                 option5=iou, option6="16", option7=nms, option9="tensors"))
+        fn, _ = dec.device_fn(TensorsSpec.of([pred]))
+        arrays = [t.cpu().numpy() for t in fn((x,))]
+        outs[tag] = [np.asarray(t) for t in dec.host_post(arrays, Buffer(arrays)).tensors]
+    eq, valid = _nms_match(outs["device"], outs["host"])
+    vb, vc = outs["host"][3].astype(bool), outs["none"][3].astype(bool)
+    out["overlapping_boxes"] = dict(
+        equal=eq, valid_rows=valid, frames=len(vb), frames_with_suppression=sum(
+            not np.array_equal(outs["host"][1][i][vb[i]], outs["none"][1][i][vc[i]])
+            for i in range(len(vb))))
+    check(out["option3=0.5"]["batches_equal"] == MODELS_CMP
+          and out["option3=0.0"]["batches_equal"] == MODELS_CMP
+          and out["option3=0.0"]["valid_rows"] > 0, f"yolov5s device against host NMS: {out}")
+    r = out["overlapping_boxes"]
+    check(r["equal"] and r["valid_rows"] > 0 and r["frames_with_suppression"] > 0,
+          f"yolov5s NMS on overlapping boxes: {r}")
+    return out
+
+
+def phase_models(dev, batch=MODELS_BATCH, yolo_size=640, size=224, samples=16000,
+                 custom="", acc="", timed=MODELS_TIMED, profile=False):
+    """The models phase on ``dev`` (``acc``: the filters' accelerator=
+    property, empty on the card; ``custom``: extra options of the vision
+    models, to cut their widths in a CPU rehearsal).  ``profile`` writes
+    each fused stage's kernels to chiprun_out/profile_models.txt."""
+    import numpy as np
+    import torch
+
+    import nnstreamer_tpu_torch as ntt
+    from nnstreamer_tpu_torch.decoders.ctc import collapse_ctc
+
+    _register_card_weights(dev)
+    if dev.type == "cuda":
+        torch.cuda.init()  # the allocator's peak counters exist from here
+    out, stages = {}, {}
+    for name in MODEL_NAMES:
+        t0 = time.perf_counter()
+        cell = ModelCell(name, yolo_size if name == "yolov5s" else size, samples,
+                         "" if name in AUDIO_CELLS else custom, acc)
+        st, fused, raw = model_cell(cell, dev, batch, timed)
+        cmp = cell.desc(batch, MODELS_CMP * batch)
+        if name == "yolov5s":
+            st["nms"] = yolo_nms_checks(cell, dev, batch, fused, raw)
+        elif name.startswith("deeplab"):
+            st["reduced_outputs"] = ntt.Pipeline(cmp).residency.reduced_outputs
+            st["map_shape"] = list(fused[0][0][0].shape)
+            if name == "deeplab":
+                # the planner's native map is the argmax of the upsample:0 scores
+                scores = _pulled(_cut_decoder(cmp.replace(
+                    f"batch:{batch}", f"batch:{batch},upsample:0")), MODELS_CMP)
+                st["native_map_equal_to_argmax_of_upsample0"] = sum(
+                    bool(np.array_equal(s[0][0].argmax(-1).astype(np.uint8), f[0][0]))
+                    for s, f in zip(scores, fused))
+                check(st["reduced_outputs"] == ["f"] and st[
+                    "native_map_equal_to_argmax_of_upsample0"] == MODELS_CMP,
+                    f"deeplab: planner {st['reduced_outputs']}, native map "
+                    f"{st['native_map_equal_to_argmax_of_upsample0']} of {MODELS_CMP}")
+            else:
+                check(st["reduced_outputs"] == [] and st["map_shape"][1] == size,
+                      f"deeplab upsample:1: {st['reduced_outputs']} {st['map_shape']}")
+        elif name == "wav2vec2":
+            logits = _pulled(_cut_decoder(cmp), MODELS_CMP)
+            st["frames_per_window"] = int(logits[0][0][0].shape[1])
+            st["ctc_equal_to_host_argmax"] = sum(
+                [list(t) for t in meta["tokens"]] ==
+                [list(t) for t in collapse_ctc(lg[0].argmax(-1).astype(np.int32), 0)]
+                for (lg, _), (_, meta) in zip(logits, fused))
+            check(st["ctc_equal_to_host_argmax"] == MODELS_CMP,
+                  f"wav2vec2: CTC ids off the host argmax in "
+                  f"{MODELS_CMP - st['ctc_equal_to_host_argmax']} batches")
+        if st["card_ms_per_batch"] is not None:
+            st["card_busy_share"] = (st["card_ms_per_batch"] * st["frames_per_s"]
+                                     / batch / 1e3)
+        st["cell_s"] = time.perf_counter() - t0
+        stages[name] = st.pop("stage")
+        out[name] = st
+    if profile and dev.type == "cuda":
+        with open(os.path.join(OUT_DIR, "profile_models.txt"), "w") as fh:
+            for name, stage in stages.items():
+                out[name]["top_kernels_ms"] = stage_profile(stage, name, fh)
+    return out
+
+
+def print_models(m):
+    for name, r in m.items():
+        unit = "windows/s" if name in AUDIO_CELLS else "frames/s"
+        print(f"models: {name} (batch {MODELS_BATCH}) {r['frames_per_s']:.1f} {unit}, "
+              f"{card_share(r)}, peak {r.get('peak_mem_gb', 0.0):.2f} GB, "
+              f"{r['cell_s']:.1f} s; stages {r['stages']}", flush=True)
+        print(f"census: models {name} {r['census']}", flush=True)
+        print(f"models: {name} fuse=False {r['unfused_bitwise_equal']} of {MODELS_CMP} "
+              f"batches bitwise equal; card against f32 CPU {r['cpu_reference']}",
+              flush=True)
+        for key in ("nms", "reduced_outputs", "map_shape",
+                    "native_map_equal_to_argmax_of_upsample0", "frames_per_window",
+                    "ctc_equal_to_host_argmax"):
+            if key in r:
+                print(f"models: {name} {key} {r[key]}", flush=True)
+        if "top_kernels_ms" in r:
+            print(f"profile: models {name} top kernels, ms per batch "
+                  f"{r['top_kernels_ms']}", flush=True)
+
+
 def main():
     import torch
 
@@ -2086,6 +2483,12 @@ def main():
     vision["phase_s"] = time.perf_counter() - t0
     print_vision(vision)
     print(f"vision: phase {vision['phase_s']:.1f} s", flush=True)
+    save()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    models = detail["models"] = phase_models(dev, profile="--profile" in sys.argv[1:])
+    print_models(models)
+    print(f"models: phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # one line per kernel: int4 per decoded token (129 launches at B=1),
     # with the same 129 launches at B=8 (a continuous decode step) and

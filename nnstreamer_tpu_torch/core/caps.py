@@ -49,12 +49,25 @@ _VIDEO_FORMATS_BPP = {
 }
 
 
+_AUDIO_FORMATS = {"S8": "int8", "U8": "uint8", "S16LE": "int16", "U16LE": "uint16",
+                  "S32LE": "int32", "U32LE": "uint32", "F32LE": "float32",
+                  "F64LE": "float64"}
+
+
 def video_bpp(fmt: str) -> int:
     """Bytes per pixel of a raw video format (``RGB`` -> 3)."""
     try:
         return _VIDEO_FORMATS_BPP[fmt]
     except KeyError:
         raise ValueError(f"unsupported video format {fmt!r}") from None
+
+
+def audio_dtype(fmt: str) -> str:
+    """The sample dtype name of a raw audio format (``S16LE`` -> int16)."""
+    try:
+        return _AUDIO_FORMATS[fmt]
+    except KeyError:
+        raise ValueError(f"unsupported audio format {fmt!r}") from None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -22,6 +22,7 @@ _ENV_FW_PRIORITY = "NNS_TPU_FILTER_PRIORITY"
 _ENV_BUCKETING = "NNS_TPU_SHAPE_BUCKETING"
 _ENV_TRACE = "NNS_TPU_TRACE"
 _ENV_TRACE_RING = "NNS_TPU_TRACE_RING"
+_ENV_REDUCE_OUTPUTS = "NNS_TPU_REDUCE_OUTPUTS"
 
 
 @dataclasses.dataclass
@@ -42,6 +43,10 @@ class Config:
     trace_mode: str = "off"
     #: span capacity of the ``ring`` trace mode
     trace_ring_capacity: int = 65536
+    #: residency planner (``pipeline/residency.py``): let a filter switch
+    #: to its model's reduced output (deeplab's native-stride score map)
+    #: when every consumer below it admits any geometry
+    reduce_outputs: bool = True
 
     @classmethod
     def load(cls) -> "Config":
@@ -63,6 +68,9 @@ class Config:
             if ini.has_option("common", "trace_ring_capacity"):
                 cfg.trace_ring_capacity = ini.getint(
                     "common", "trace_ring_capacity")
+            if ini.has_option("common", "reduce_outputs"):
+                cfg.reduce_outputs = ini.getboolean("common",
+                                                    "reduce_outputs")
         if os.environ.get(_ENV_FW_PRIORITY):
             cfg.filter_priority = _split(os.environ[_ENV_FW_PRIORITY])
         if os.environ.get(_ENV_BUCKETING):
@@ -72,6 +80,9 @@ class Config:
             cfg.trace_mode = os.environ[_ENV_TRACE].strip().lower()
         if os.environ.get(_ENV_TRACE_RING):
             cfg.trace_ring_capacity = int(os.environ[_ENV_TRACE_RING])
+        if os.environ.get(_ENV_REDUCE_OUTPUTS):
+            cfg.reduce_outputs = os.environ[_ENV_REDUCE_OUTPUTS].lower() in (
+                "1", "true", "yes", "on")
         return cfg
 
 

@@ -27,9 +27,10 @@ _builtins_loaded = False
 #: import time.  The port carries the elements of the LLM stream paths
 #: (appsrc ! tensor_filter framework=llm ! tensor_sink), of the query
 #: front door in front of them (tensor_query_serversrc/serversink/client)
-#: and of the vision path (videotestsrc, tensor_converter,
-#: tensor_transform, tensor_filter framework=jax, tensor_decoder with
-#: image_labeling and bounding_boxes).
+#: and of the vision and audio paths (videotestsrc, audiotestsrc,
+#: tensor_converter, tensor_transform, tensor_filter framework=jax,
+#: tensor_decoder with image_labeling, bounding_boxes, pose_estimation,
+#: image_segment and ctc).
 _BUILTIN_MODULES = [
     "nnstreamer_tpu_torch.elements.source",
     "nnstreamer_tpu_torch.elements.converter",
@@ -42,6 +43,9 @@ _BUILTIN_MODULES = [
     "nnstreamer_tpu_torch.filters.device_fw",
     "nnstreamer_tpu_torch.decoders.image_labeling",
     "nnstreamer_tpu_torch.decoders.bounding_boxes",
+    "nnstreamer_tpu_torch.decoders.pose",
+    "nnstreamer_tpu_torch.decoders.image_segment",
+    "nnstreamer_tpu_torch.decoders.ctc",
 ]
 
 

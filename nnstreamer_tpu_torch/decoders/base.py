@@ -6,8 +6,8 @@ the ``tensor_decoder`` shell element dispatches to a sub-plugin chosen by
 ``mode=``.  Options follow the reference convention: ``option1..option9``
 carry mode-specific config (labels, output size, thresholds, ...).
 
-The residency planner's ``admits_reduced_payload`` opt-in waits for
-``pipeline/residency.py``.
+A decoder opts in to the residency planner (``pipeline/residency.py``)
+with ``admits_reduced_payload``.
 """
 
 from __future__ import annotations
@@ -53,6 +53,12 @@ class Decoder:
     # host, lazily, at the pipeline edge.  None => the device outputs ARE
     # the final payload.
     host_post = None
+
+    #: residency planner opt-in: True when this decoder's output contract
+    #: holds whatever geometry the model above emits (a native-stride
+    #: score map instead of the full-resolution one).  A decoder that makes
+    #: fixed-geometry media (overlays, canvases) stays False.
+    admits_reduced_payload = False
 
 
 def load_labels(path_or_name: str) -> List[str]:

@@ -5,15 +5,21 @@ Port of ``nnstreamer_tpu/decoders/bounding_boxes.py`` (reference:
 model output -> threshold -> NMS -> ``video/x-raw`` RGBA overlay with box
 rectangles; labels via option properties.
 
-Input contract (``option1``): ``ssd`` (default) — two tensors, boxes
-(N,4) corner-format normalized [0,1] and scores (N,C) per class, as
-``models/ssd.py`` emits them.  The ``yolov5``/``yolov8`` formats raise
-"not yet ported" until the yolo models come.
+Input contracts (``option1``):
+
+* ``ssd`` (default): two tensors, boxes (N,4) corner-format normalized
+  [0,1] and scores (N,C) per class, as ``models/ssd.py`` emits them;
+* ``yolov5`` (or ``yolo``): one tensor (N, 5+C): cx, cy, w, h
+  (normalized), objectness, class scores (``models/yolo.py``);
+* ``yolov8``: one channels-first tensor (4+C, N), anchor-free, the class
+  scores are the confidence; ``option8=W[:H]`` (the model's input size)
+  when the boxes are in pixels.
 
 Options (reference numbering): option1=format, option2=labels,
 option3=score threshold (default 0.5), option4=WIDTH:HEIGHT of the
 output overlay (default 640:480), option5=iou threshold (default 0.5),
 option6=max detections, option7=NMS placement (host|device),
+option8=model input size for pixel-coordinate boxes,
 option9=output form (overlay|tensors).
 
 Fused (``device_fn``): per-anchor class argmax and top-k run on the
@@ -25,7 +31,8 @@ on the device too (:func:`~..ops.nms.nms_torch`), and only the final
 detections cross: a packed ``[B, M, 7]`` tensor (x1 y1 x2 y2 score class
 valid) with ``option9=tensors``.  Unfused, batched inputs decode per
 frame and emit one buffer per frame, after the same top-k on the device
-where the tensors lie.
+where the tensors lie (ssd formats; the yolo formats fetch the frame's
+predictions as they are, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -39,29 +46,51 @@ from ..core.buffer import Buffer, _to_numpy
 from ..core.caps import Caps, MediaType
 from ..core.registry import register_decoder
 from ..core.types import TensorSpec, TensorsSpec
-from ..ops.nms import nms_numpy, nms_torch
+from ..ops.nms import center_to_corner, nms_numpy, nms_torch
 from .base import Decoder, load_labels
 
 _SSD_FORMATS = ("ssd", "mobilenet-ssd", "mobilenetv2-ssd")
 _YOLO_FORMATS = ("yolov5", "yolov8", "yolo")
 
 
+def _topk(boxes: torch.Tensor, sc: torch.Tensor, cls: torch.Tensor, k: int):
+    """The ``k`` best-scoring rows of boxes [B,N,4], scores [B,N] and
+    classes [B,N] -> ([B,K,4] f32, [B,K] f32, [B,K] i32).  Equal scores keep
+    the lower index first, as ``lax.top_k``: ``torch.topk`` promises no
+    order for ties on the card, a stable sort does."""
+    top_sc, idx = torch.sort(sc, dim=1, descending=True, stable=True)
+    top_sc, idx = top_sc[:, :k], idx[:, :k]
+    top_b = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4))
+    return top_b.float(), top_sc.float(), torch.gather(cls, 1, idx)
+
+
 def _ssd_topk(boxes: torch.Tensor, scores: torch.Tensor, k: int):
     """SSD prefilter shared by the fused ``device_fn`` and the unfused
     path: per-anchor class argmax + top-k.  boxes [B,N,4], scores [B,N,C]
-    -> ([B,K,4] f32, [B,K] f32, [B,K] i32).  Equal scores keep the lower
-    anchor first, as ``lax.top_k``: ``torch.topk`` promises no order for
-    ties on the card, a stable sort does."""
+    -> ([B,K,4] f32, [B,K] f32, [B,K] i32)."""
     b, n = scores.shape[0], scores.shape[1]
     s = scores.reshape(b, n, -1)
-    cls = torch.argmax(s, dim=-1).to(torch.int32)
-    sc = torch.amax(s, dim=-1)
-    top_sc, idx = torch.sort(sc, dim=1, descending=True, stable=True)
-    top_sc, idx = top_sc[:, :k], idx[:, :k]
-    top_b = torch.gather(boxes.reshape(b, -1, 4), 1,
-                         idx[..., None].expand(-1, -1, 4))
-    top_c = torch.gather(cls, 1, idx)
-    return top_b.float(), top_sc.float(), top_c
+    return _topk(boxes.reshape(b, -1, 4), torch.amax(s, dim=-1),
+                 torch.argmax(s, dim=-1).to(torch.int32), k)
+
+
+def _yolo_topk(pred: torch.Tensor, k: int, v8: bool, box_scale):
+    """The yolo prefilter: per-prediction class argmax (objectness times
+    class score for v5) + top-k, the kept boxes in corner form.  pred
+    [B,N,5+C] (v8: [B,4+C,N]) -> ([B,K,4] f32, [B,K] f32, [B,K] i32)."""
+    pred = pred.float()
+    if v8:
+        pred = pred.transpose(1, 2)  # -> (B, N, 4+C)
+        xywh = pred[..., :4] / box_scale
+        sc_all = pred[..., 4:]
+    else:
+        xywh, obj, cls = pred[..., :4], pred[..., 4], pred[..., 5:]
+        sc_all = obj[..., None] * cls if cls.shape[-1] else obj[..., None]
+    cx, cy = xywh[..., 0], xywh[..., 1]
+    w2, h2 = xywh[..., 2] / 2, xywh[..., 3] / 2
+    boxes = torch.stack([cx - w2, cy - h2, cx + w2, cy + h2], dim=-1)
+    return _topk(boxes, torch.amax(sc_all, dim=-1),
+                 torch.argmax(sc_all, dim=-1).to(torch.int32), k)
 
 
 _PALETTE = np.array(
@@ -82,10 +111,7 @@ class BoundingBoxes(Decoder):
     def __init__(self, props):
         super().__init__(props)
         self.format = (self.option(1) or "ssd").lower()
-        if self.format in _YOLO_FORMATS:
-            raise ValueError(f"bounding_boxes option1={self.format} is not "
-                             "yet ported (it comes with the yolo models)")
-        if self.format not in _SSD_FORMATS:
+        if self.format not in _SSD_FORMATS + _YOLO_FORMATS:
             raise ValueError(f"unknown bounding-box format {self.format!r}")
         labels = self.option(2) or "coco-mini"
         self.labels = load_labels(labels)
@@ -102,6 +128,15 @@ class BoundingBoxes(Decoder):
             raise ValueError(f"option7 (nms placement) must be host|device, "
                              f"got {nms_opt!r}")
         self.nms_mode = nms_opt
+        # option8 (yolov8): the model's input WIDTH[:HEIGHT] when the
+        # tensor carries pixel-coordinate boxes; unset = normalized
+        o8 = self.option(8)
+        if o8:
+            wh = [int(v) for v in str(o8).split(":")]
+            mw, mh = (wh[0], wh[0]) if len(wh) == 1 else (wh[0], wh[1])
+            self.box_scale = np.asarray([mw, mh, mw, mh], np.float32)
+        else:
+            self.box_scale = np.float32(1.0)
         out_mode = (self.option(9) or "overlay").lower()
         if out_mode not in ("overlay", "tensors"):
             raise ValueError(f"option9 (output form) must be "
@@ -163,7 +198,7 @@ class BoundingBoxes(Decoder):
         candidates per frame cross to the host."""
         n = tensors[0].shape[1]
         k = 4 * self.max_detections
-        if n > k:
+        if self.format in _SSD_FORMATS and n > k:
             tb, ts, tc = (_to_numpy(t) for t in _ssd_topk(
                 torch.as_tensor(tensors[0]), torch.as_tensor(tensors[1]), k))
             return [("triple", (tb[b], ts[b], tc[b]))
@@ -177,8 +212,12 @@ class BoundingBoxes(Decoder):
             boxes, scores, classes = data
             m = scores >= self.threshold
             boxes, scores, classes = boxes[m], scores[m], classes[m]
-        else:
+        elif self.format in _SSD_FORMATS:
             boxes, scores, classes = self._decode_ssd(data)
+        elif self.format == "yolov8":
+            boxes, scores, classes = self._decode_yolov8(data)
+        else:
+            boxes, scores, classes = self._decode_yolo(data)
         keep = nms_numpy(boxes, scores, self.iou_threshold, self.max_detections)
         detections = []
         for i in keep:
@@ -201,15 +240,64 @@ class BoundingBoxes(Decoder):
         m = scores >= self.threshold
         return boxes[m], scores[m], classes[m]
 
+    def _decode_yolo(self, tensors):
+        pred = np.asarray(tensors[0], np.float32)
+        pred = pred.reshape(-1, pred.shape[-1])
+        xywh, obj, cls = pred[:, :4], pred[:, 4], pred[:, 5:]
+        scores_all = obj[:, None] * cls if cls.size else obj[:, None]
+        classes = scores_all.argmax(axis=1)
+        scores = scores_all.max(axis=1)
+        boxes = center_to_corner(xywh)
+        m = scores >= self.threshold
+        return boxes[m], scores[m], classes[m]
+
+    def _decode_yolov8(self, tensors):
+        # channels-first (4+C, N) a frame, anchor-free: the class scores
+        # are the confidence (no objectness)
+        pred = np.asarray(tensors[0], np.float32)
+        if pred.ndim == 3:
+            pred = pred.reshape(pred.shape[-2], pred.shape[-1])
+        pred = pred.T  # (N, 4+C)
+        xywh, cls = pred[:, :4], pred[:, 4:]
+        classes = cls.argmax(axis=1)
+        scores = cls.max(axis=1)
+        boxes = center_to_corner(xywh / self.box_scale)
+        m = scores >= self.threshold
+        return boxes[m], scores[m], classes[m]
+
     # -- fusion ------------------------------------------------------------
     def device_fn(self, in_spec: TensorsSpec):
-        if len(in_spec) < 2 or len(in_spec[0].shape) != 3:
-            return None
-        batch, n = in_spec[0].shape[0], in_spec[0].shape[1]
-        k = min(4 * self.max_detections, n)
+        if self.format in _SSD_FORMATS:
+            if len(in_spec) < 2 or len(in_spec[0].shape) != 3:
+                return None
+            batch, n = in_spec[0].shape[0], in_spec[0].shape[1]
+            k = min(4 * self.max_detections, n)
 
-        def topk(arrays):
-            return _ssd_topk(arrays[0], arrays[1], k)
+            def topk(arrays):
+                return _ssd_topk(arrays[0], arrays[1], k)
+        else:
+            if len(in_spec) != 1 or len(in_spec[0].shape) != 3:
+                return None
+            v8 = self.format == "yolov8"
+            if v8:
+                batch, c4, n = in_spec[0].shape  # channels-first (B,4+C,N)
+                if c4 < 5:
+                    return None
+            else:
+                batch, n, width = in_spec[0].shape
+                if width < 5:
+                    return None
+            k = min(4 * self.max_detections, n)
+            scale_np = np.asarray(self.box_scale, np.float32)
+            scales = {}
+
+            def topk(arrays):
+                # option8's scale goes to the input's device on the first
+                # (eager warm-up) call: a capture cannot copy from the host
+                dev = arrays[0].device
+                if dev not in scales:
+                    scales[dev] = torch.from_numpy(scale_np).to(dev)
+                return _yolo_topk(arrays[0], k, v8, scales[dev])
 
         if self.nms_mode == "host":
             return topk, TensorsSpec((

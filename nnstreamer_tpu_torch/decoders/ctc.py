@@ -1,0 +1,99 @@
+"""ctc decoder: per-frame vocab logits -> collapsed token ids / text.
+
+Port of ``nnstreamer_tpu/decoders/ctc.py``: decode-on-edge for streaming
+speech models (wav2vec2-class CTC heads; the reference has no CTC mode).
+``device_fn`` reduces the ``[B, T, vocab]`` logits to ``[B, T]`` int32
+argmax ids on the device (the first maximum, as ``jnp.argmax``), so only
+the ids cross to the host; ``host_post`` does the CTC collapse (drop
+repeats, drop blanks) at the sink.
+
+Options: ``option1`` = blank id (default 0); ``option2`` = a labels file
+or built-in name for text output (one character or token a line,
+id-indexed).  Output: left-packed ids padded with -1 to the longest row
+(``meta["tokens"]``, ``meta["lengths"]``), or with ``option2`` the texts
+joined by newlines as uint8 bytes (``meta["text"]``).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..core.buffer import Buffer, _to_numpy
+from ..core.caps import Caps, MediaType
+from ..core.registry import register_decoder
+from ..core.types import TensorSpec, TensorsSpec
+from .base import Decoder, load_labels
+
+
+def collapse_ctc(ids: np.ndarray, blank: int) -> List[np.ndarray]:
+    """[B, T] argmax ids -> per-row collapsed sequences (repeat and blank
+    removal as boolean masks, no Python loop over T)."""
+    ids = np.asarray(ids)
+    if ids.ndim == 1:
+        ids = ids[None, :]
+    keep = np.ones(ids.shape, bool)
+    keep[:, 1:] = ids[:, 1:] != ids[:, :-1]
+    keep &= ids != blank
+    return [row[k] for row, k in zip(ids, keep)]
+
+
+@register_decoder("ctc")
+class CTC(Decoder):
+    mode = "ctc"
+
+    def __init__(self, props):
+        super().__init__(props)
+        self.blank = int(self.option(1) or 0)
+        labels = self.option(2)
+        self.labels = load_labels(labels) if labels else None
+
+    def out_caps(self, in_spec: Optional[TensorsSpec]) -> Caps:
+        return Caps.new(MediaType.TEXT if self.labels else MediaType.TENSORS)
+
+    # -- host path (unfused pipelines) -------------------------------------
+    def decode(self, tensors: List, buf: Buffer) -> Buffer:
+        logits = _to_numpy(tensors[0])
+        if logits.ndim == 2:
+            logits = logits[None]
+        return self._emit(np.argmax(logits, axis=-1).astype(np.int32), buf)
+
+    # -- fused path ---------------------------------------------------------
+    def device_fn(self, in_spec: TensorsSpec):
+        shape = in_spec[0].shape if in_spec is not None else None
+
+        def fn(arrays):
+            logits = arrays[0]
+            if logits.ndim == 2:
+                logits = logits[None]
+            return (torch.argmax(logits, dim=-1).to(torch.int32),)
+
+        if shape is not None and len(shape) == 3:
+            out_spec = TensorsSpec((TensorSpec.from_shape(shape[:2], np.int32),))
+        else:
+            out_spec = None  # flexible upstream: derived per buffer
+        return fn, out_spec
+
+    def host_post(self, arrays, buf: Buffer) -> Buffer:
+        return self._emit(np.asarray(arrays[0]), buf)
+
+    def _emit(self, ids: np.ndarray, buf: Buffer) -> Buffer:
+        seqs = collapse_ctc(ids, self.blank)
+        if self.labels is not None:
+            texts = ["".join(self.labels[i] if i < len(self.labels) else "?"
+                             for i in s) for s in seqs]
+            joined = "\n".join(texts)
+            new = buf.with_tensors(
+                [np.frombuffer(joined.encode("utf-8"), np.uint8)], spec=None)
+            new.meta.update(tokens=seqs, text=texts)
+            return new
+        width = max((len(s) for s in seqs), default=0) or 1
+        out = np.full((len(seqs), width), -1, np.int32)
+        for r, s in enumerate(seqs):
+            out[r, :len(s)] = s
+        new = buf.with_tensors([out], spec=None)
+        new.meta.update(tokens=seqs,
+                        lengths=np.array([len(s) for s in seqs], np.int32))
+        return new

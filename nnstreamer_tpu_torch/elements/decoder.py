@@ -2,7 +2,8 @@
 
 Port of ``nnstreamer_tpu/elements/decoder.py`` (reference:
 ``gsttensor_decoder.c``): ``other/tensors`` -> media via the decoder
-sub-plugin named by ``mode=`` (``image_labeling``, ``bounding_boxes``).
+sub-plugin named by ``mode=`` (``image_labeling``, ``bounding_boxes``,
+``pose_estimation``, ``image_segment``, ``ctc``).
 The sub-plugin's device half and deferred host mapping are the element's
 :meth:`~TensorDecoder.device_fn` and ``host_post``, so a decoder fuses
 into the stage in front of it.
@@ -52,3 +53,10 @@ class TensorDecoder(Element):
     def host_post(self):
         """Deferred host mapping paired with the decoder's device_fn."""
         return self.decoder.host_post
+
+    @property
+    def admits_reduced_payload(self):
+        """The residency planner's opt-in, the decoder's own
+        (``pipeline/residency.py``): True only for a decode that holds
+        whatever geometry it is given (``image_segment`` classmap)."""
+        return getattr(self.decoder, "admits_reduced_payload", False)

@@ -23,12 +23,14 @@ from typing import Dict, List, Optional, Tuple
 from ..core.buffer import Buffer
 from ..core.caps import Caps
 from ..core.config import get_config
-from ..core.log import metrics
+from ..core.log import logger, metrics
 from ..core.meta_keys import META_STREAM_INDEX, META_STREAM_LAST
 from ..core.registry import KIND_FILTER, lookup, register_element
 from ..core.types import TensorFormat, TensorsSpec
 from ..filters.base import Framework, FrameworkError
 from .base import Element, ElementError, SRC
+
+log = logger(__name__)
 
 
 def _parse_input_combination(s: str) -> Optional[List[int]]:
@@ -102,6 +104,12 @@ class TensorFilter(Element):
         self._out_spec: Optional[TensorsSpec] = None
         self._up_spec: Optional[TensorsSpec] = None
         self._async_emit = None
+        #: set by the residency planner (``pipeline/residency.py``) before
+        #: negotiation when every consumer below admits reduced output
+        #: geometry; configure() then asks the framework to switch
+        self._reduced_admissible = False
+        #: what reduced output the planner selected (None: the full one)
+        self.reduced_output_selected: Optional[str] = None
         self.input_combination = _parse_input_combination(
             str(self.props.get("input_combination", "")))
         self.output_combination = _parse_output_combination(
@@ -132,6 +140,17 @@ class TensorFilter(Element):
         fw = self._ensure_fw()
         if getattr(fw, "continuous", False):
             self.wants_async_emit = True
+        if (self._reduced_admissible
+                and self.reduced_output_selected is None
+                and not self.props.get("output")):
+            # residency planner: every consumer below admits any geometry
+            # and no output= pins it, so the model switches to its reduced
+            # variant (none: no-op) before the spec propagates
+            desc = fw.select_reduced_output()
+            if desc:
+                self.reduced_output_selected = desc
+                log.info("%s: residency planner selected reduced output: %s",
+                         self.name, desc)
         fw_in, fw_out = fw.get_model_info()
         src = next(iter(in_caps.values()), Caps.any())
         up_spec = self._up_spec = src.spec

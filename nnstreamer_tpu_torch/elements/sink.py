@@ -44,6 +44,9 @@ class TensorSink(SinkElement):
     """
 
     kind = "tensor_sink"
+    #: residency planner (``pipeline/residency.py``): the pull API hands
+    #: the app whatever geometry arrives
+    admits_reduced_payload = True
 
     def __init__(self, props=None, name=None):
         super().__init__(props, name)

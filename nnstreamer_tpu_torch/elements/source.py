@@ -1,16 +1,18 @@
 """Source elements.
 
-Port of the ``appsrc`` and ``videotestsrc`` of
+Port of the ``appsrc``, ``videotestsrc`` and ``audiotestsrc`` of
 ``nnstreamer_tpu/elements/source.py``: the application-driven source,
 with its end-to-end admission bound (``max-inflight``) and tenant stamp
-(``tenant``), and the deterministic video source.  Sources produce host
-buffers, and the stage that consumes them moves payloads to the device;
-``videotestsrc device=true`` generates its batches on the device itself.
-``audiotestsrc`` and ``filesrc`` are not ported yet.
+(``tenant``), and the deterministic video and audio sources.  Sources
+produce host buffers, and the stage that consumes them moves payloads to
+the device; ``videotestsrc device=true`` and ``audiotestsrc device=true``
+generate their batches on the device itself.  ``filesrc`` is not ported
+yet.
 """
 
 from __future__ import annotations
 
+import math
 import queue as _queue
 import threading
 import time as _time
@@ -264,3 +266,98 @@ class VideoTestSrc(SourceElement):
             return
         for i in range(num):
             yield Buffer([self._frame(i)], pts=i * frame_ns)
+
+
+@register_element("audiotestsrc")
+class AudioTestSrc(SourceElement):
+    """Deterministic audio: a sine wave.  Props: ``freq``,
+    ``samplesperbuffer``, ``num-buffers``, ``rate``, ``channels``,
+    ``format`` (S16LE/F32LE/U8).  Host buffers are ``(samples, channels)``
+    arrays computed in float64, bitwise the JAX package's.
+
+    ``device=true`` generates the sine on the device as batched float32
+    ``other/tensors`` windows ``[batch, samplesperbuffer]`` that stay
+    there; ``num-buffers`` counts windows, the tail batch is truncated to
+    it, and ``channels`` is 1.  The sample index is an int32 folded by the
+    rate (for an integer ``freq``, ``n -> n + rate`` moves the phase by
+    whole cycles) and the phase is float32, computed as XLA compiles the
+    JAX package's ``2 pi freq n / rate``: ``n * k`` with one float32
+    constant ``k = f32(2 pi freq) * f32(1 / rate)``.  The batches then
+    differ from the JAX package's only where torch's sine rounds
+    otherwise than XLA's.  Like ``videotestsrc device=true`` it generates
+    on the device of the filter below it (the planner sets
+    ``gen_device``), folded into a fused stage or not, and with no filter
+    below it on the card, raising without one.
+    """
+
+    kind = "audiotestsrc"
+
+    def __init__(self, props=None, name=None):
+        super().__init__(props, name)
+        self.freq = float(self.props.get("freq", 440.0))
+        self.spb = int(self.props.get("samplesperbuffer", 1024))
+        self.num_buffers = int(self.props.get("num_buffers", -1))
+        self.sample_rate = int(self.props.get("rate", 44100))
+        self.channels = int(self.props.get("channels", 1))
+        self.format = str(self.props.get("format", "S16LE"))
+        self.device = bool(self.props.get("device", False))
+        self.batch = int(self.props.get("batch", 1))
+        #: where a device batch is generated: the planner sets the device of
+        #: the filter below (None: the card)
+        self.gen_device: Optional[torch.device] = None
+
+    def configure(self, in_caps, out_pads):
+        if self.device:
+            caps = Caps.tensors(TensorsSpec.from_string(
+                f"{self.spb}:{self.batch}", "float32"))
+        else:
+            caps = Caps.new(MediaType.AUDIO, format=self.format,
+                            rate=self.sample_rate, channels=self.channels)
+        self.out_caps = {p: caps for p in out_pads}
+        return self.out_caps
+
+    def device_batch(self, n0: int, device) -> torch.Tensor:
+        """One ``[batch, spb]`` float32 window batch on ``device``, the
+        first sample at index ``n0`` (< rate)."""
+        spb, rate = self.spb, self.sample_rate
+        k = float(np.float32(2 * math.pi * self.freq) * np.float32(1.0 / rate))
+        j = torch.arange(self.batch, dtype=torch.int32, device=device)[:, None]
+        n = torch.remainder(
+            n0 + j * spb + torch.arange(spb, dtype=torch.int32, device=device),
+            rate)
+        return torch.sin(n.float() * k)
+
+    def generate(self):
+        num = self.num_buffers if self.num_buffers >= 0 else 1 << 62
+        if self.device:
+            from ..filters.base import resolve_device
+
+            device = self.gen_device or resolve_device("")
+            emitted = 0
+            i = 0
+            while emitted < num:
+                # the base index folded by the rate in exact python ints
+                arr = self.device_batch(
+                    (i * self.batch * self.spb) % self.sample_rate, device)
+                take = min(self.batch, num - emitted)
+                if take < self.batch:
+                    arr = arr[:take]
+                pts = int(1e9 * emitted * self.spb / self.sample_rate)
+                yield Buffer([arr], pts=pts)
+                emitted += take
+                i += 1
+            return
+        t0 = 0
+        for _ in range(num):
+            n = np.arange(t0, t0 + self.spb, dtype=np.float64)
+            wave = np.sin(2 * np.pi * self.freq * n / self.sample_rate)
+            if self.format == "S16LE":
+                samples = (wave * 32767).astype(np.int16)
+            elif self.format == "U8":
+                samples = ((wave * 0.5 + 0.5) * 255).astype(np.uint8)
+            else:
+                samples = wave.astype(np.float32)
+            frame = np.repeat(samples[:, None], self.channels, axis=1)
+            pts = int(1e9 * t0 / self.sample_rate)
+            t0 += self.spb
+            yield Buffer([frame], pts=pts)

@@ -66,6 +66,14 @@ class Framework:
         """Optional pure torch callable ``tuple(tensors) -> tuple(tensors)``."""
         return None
 
+    def select_reduced_output(self) -> Optional[str]:
+        """Switch the loaded model to its reduced output variant when it
+        has one (``ModelBundle.reduced_variant``), and say what it is.
+        tensor_filter calls this during negotiation, only after the
+        residency planner found that every consumer below admits the
+        reduced geometry (``pipeline/residency.py``).  Default: none."""
+        return None
+
     def abstract_invoke(self, in_specs: Sequence[TensorsSpec]) -> Optional[List]:
         """Run :meth:`pure_fn` on meta tensors built from ``in_specs``
         (one :class:`~..core.types.TensorSpec` per input) and return the

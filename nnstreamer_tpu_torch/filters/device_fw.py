@@ -16,9 +16,11 @@ model=mobilenet_v1 ...``) run here as written; the names ``torch`` and
   planner's fused stages (``pipeline/plan.py``), which capture it as a
   CUDA graph on the card.
 
+* :meth:`DeviceFramework.select_reduced_output` swaps in the bundle's
+  reduced output variant for the residency planner (its params shared).
+
 Not ported yet: the ``mesh=data:N`` batch sharding (the mesh slice) and
-``swap_params`` / the reduced-output variants (with train-while-serve and
-the residency planner).
+``swap_params`` (with train-while-serve).
 """
 
 from __future__ import annotations
@@ -63,6 +65,13 @@ class DeviceFramework(Framework):
         if self.bundle is None:
             return None, None
         return self.bundle.in_spec, self.bundle.out_spec
+
+    def select_reduced_output(self) -> Optional[str]:
+        b = self.bundle
+        if b is None or b.reduced_variant is None:
+            return None
+        self.bundle = b.reduced_variant()
+        return b.reduced_desc or "reduced output"
 
     def invoke(self, inputs) -> List:
         arrays = tuple(x if isinstance(x, torch.Tensor) and x.device == self.device

@@ -92,9 +92,12 @@ def sep_block_params(gen, cin: int, cout: int) -> Dict:
 def params_from_jax(tree, device) -> Dict:
     """The JAX package's numpy parameter tree as the port's: 4-D kernels
     HWIO -> OIHW (a depthwise ``[kh, kw, 1, C]`` -> ``[C, 1, kh, kw]``),
-    everything else as it is, on ``device``."""
+    everything else as it is, on ``device``; dicts and lists keep their
+    structure."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_jax(v, device) for v in tree]
     a = np.asarray(tree, np.float32)
     if a.ndim == 4:
         a = a.transpose(3, 2, 0, 1)
@@ -106,6 +109,8 @@ def prepare(params, dtype: torch.dtype) -> Dict:
     the JAX package casts at every apply, done once."""
     if isinstance(params, dict):
         return {k: prepare(v, dtype) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [prepare(v, dtype) for v in params]
     t = params.to(dtype)
     return t.contiguous(memory_format=torch.channels_last) if t.ndim == 4 else t
 

@@ -1,8 +1,10 @@
 """Model zoo: named models loadable by ``tensor_filter``.
 
 Port of ``nnstreamer_tpu/models/zoo.py``, cut to the llama presets and
-the vision models of configs #1 and #2 (``mobilenet_v1``,
-``ssd_mobilenet``).  A model is a ``ModelBundle`` (callable, params, IO specs); the zoo maps
+the vision and audio models of BASELINE's configs #1-#4
+(``mobilenet_v1``; ``ssd_mobilenet``, ``yolov5``, ``yolov8``,
+``yolov5s``; ``posenet``; ``deeplab_mobilenet``; ``speech_commands``,
+``wav2vec2``).  A model is a ``ModelBundle`` (callable, params, IO specs); the zoo maps
 pipeline-string names (``model=llama2_7b``) to builder functions that
 take the filter's parsed ``custom=`` options and the device to build on.
 """
@@ -30,6 +32,15 @@ class ModelBundle:
     name: str = "model"
     #: model geometry the llm framework drives its decode loop with
     config: object = None
+    #: a REDUCED output variant for the residency planner
+    #: (``pipeline/residency.py``): a thunk returning a bundle that shares
+    #: this bundle's params but emits a smaller output (deeplab's
+    #: native-stride score map).  The planner selects it only when every
+    #: consumer below the filter admits any tensor geometry.  None = no
+    #: reduced form exists, or the caller pinned the output.
+    reduced_variant: Optional[Callable[[], "ModelBundle"]] = None
+    #: what the reduced variant is (logged when selected)
+    reduced_desc: str = ""
 
 
 _builders: Dict[str, Callable[[Dict[str, str], torch.device], ModelBundle]] = {}
@@ -53,7 +64,8 @@ def _ensure_builtin():
     global _builtin_loaded
     if not _builtin_loaded:
         _builtin_loaded = True
-        for mod in ("llama", "mobilenet", "ssd"):
+        for mod in ("llama", "mobilenet", "ssd", "yolo", "posenet",
+                    "segment", "audio"):
             importlib.import_module(f"nnstreamer_tpu_torch.models.{mod}")
 
 

@@ -23,7 +23,11 @@ boundaries):
   (``utils/tracing.py``); with it off (the default) no stamp is written;
 * a poison terminator (``utils/armor.py``) rides to the sinks without
   invoking any stage, and ``quarantine=`` turns a stage's failed invoke
-  into one.
+  into one;
+* before negotiation the residency planner (``pipeline/residency.py``)
+  lets a filter whose consumers all admit any geometry switch to its
+  model's reduced output (``reduce_outputs``), and after planning
+  ``Pipeline.residency`` records what crosses to the host at each sink.
 
 Left for later slices: ``slo=``, elastic stage restarts and the
 autoscaler, micro-batching, ingress donation and the dispatch and fetch
@@ -51,6 +55,7 @@ from ..utils import tracing
 from ..utils.armor import META_POISON as _META_POISON
 from .graph import PipelineGraph
 from .parser import parse as parse_launch
+from . import residency as _residency
 from .plan import Stage, plan_stages
 
 log = logger(__name__)
@@ -389,7 +394,10 @@ class Pipeline:
     per-tenant circuit breaker that sheds repeat offenders at the query
     front door; ``journal_replay=True`` asks every journaled query
     serversrc to re-admit its accepted-but-unanswered requests at start.
-    Defaults come from :func:`get_config`.  Elements are instantiated and
+    ``reduce_outputs`` lets the residency planner switch a filter to its
+    model's reduced output (deeplab's native-stride map) when every
+    consumer below admits any geometry; ``Pipeline.residency`` is the
+    plan.  Defaults come from :func:`get_config`.  Elements are instantiated and
     caps negotiated at construction (which opens models); threads start
     at :meth:`start` or on entering a ``with`` block.
     """
@@ -400,13 +408,16 @@ class Pipeline:
                  tenant: Optional[str] = None,
                  quarantine=None,
                  journal_replay: bool = False,
-                 fuse: bool = True):
+                 fuse: bool = True,
+                 reduce_outputs: Optional[bool] = None):
         if isinstance(graph, str):
             graph = parse_launch(graph)
         graph.validate()
         cfg = get_config()
         self.graph = graph
         self.fuse = bool(fuse)
+        self.reduce_outputs = bool(reduce_outputs if reduce_outputs is not None
+                                   else cfg.reduce_outputs)
         self.capacity = queue_capacity or cfg.queue_capacity
         self.trace_mode = str(
             trace_mode if trace_mode is not None else cfg.trace_mode)
@@ -452,12 +463,22 @@ class Pipeline:
             if self._journal_replay:
                 el._journal_replay = True
 
-        # 2. caps negotiation in topo order
+        # 2. residency pre-pass, before negotiation (it changes specs):
+        # mark the filters whose consumers all admit reduced geometry
+        if self.reduce_outputs:
+            _residency.mark_reduced_admissible(graph, self.elements)
+
+        # 3. caps negotiation in topo order
         self._negotiate()
 
-        # 3. plan stages (the fusion pass) and wire one runner per stage
+        # 4. plan stages (the fusion pass), the residency plan, and one
+        # runner per stage
         self.stages: List[Stage] = plan_stages(graph, self.elements,
                                                fuse=self.fuse)
+        self.residency = _residency.plan_residency(graph, self.elements,
+                                                   self.stages)
+        if self.residency.fetch or self.residency.reduced_outputs:
+            log.info("%s", self.residency.render())
         self._runners: Dict[int, _Runner] = {}
         for st in self.stages:
             r = _Runner(self, st, self.capacity)

@@ -83,8 +83,8 @@ def test_registry_is_the_ports_own():
     from nnstreamer_tpu.core import registry as jax_registry
 
     assert ntt.registry.names("element") == [
-        "appsrc", "tensor_converter", "tensor_decoder", "tensor_filter",
-        "tensor_query_client", "tensor_query_serversink",
+        "appsrc", "audiotestsrc", "tensor_converter", "tensor_decoder",
+        "tensor_filter", "tensor_query_client", "tensor_query_serversink",
         "tensor_query_serversrc", "tensor_sink", "tensor_transform",
         "videotestsrc"]
     assert ntt.registry.get("element", "tensor_query_client").__module__ \
@@ -99,7 +99,9 @@ def test_registry_is_the_ports_own():
     assert ntt.registry.get("filter", "jax").__module__ == \
         "nnstreamer_tpu_torch.filters.device_fw"
     assert ntt.registry.lookup("filter", "torch") is None
-    assert ntt.registry.names("decoder") == ["bounding_boxes", "image_labeling"]
+    assert ntt.registry.names("decoder") == [
+        "bounding_boxes", "ctc", "image_labeling", "image_segment",
+        "pose_estimation"]
     assert jax_registry.get("decoder", "image_labeling").__module__ == \
         "nnstreamer_tpu.decoders.image_labeling"
 
@@ -111,7 +113,11 @@ VISION_MODULES = [
     "filters.device_fw", "elements.filter", "decoders.base",
     "decoders.image_labeling", "elements.decoder", "pipeline.plan",
     "pipeline.runtime", "elements.sink", "elements.source", "models.ssd",
-    "ops.nms", "decoders.bounding_boxes", "elements.converter"]
+    "ops.nms", "decoders.bounding_boxes", "elements.converter",
+    # the rest of the vision and audio path
+    "models.yolo", "models.posenet", "models.segment", "models.audio",
+    "decoders.pose", "decoders.image_segment", "decoders.ctc",
+    "pipeline.residency"]
 
 
 def test_vision_modules_import_without_jax():
@@ -131,6 +137,19 @@ def test_vision_modules_import_without_jax():
         "    outs = [pipe.pull('out', timeout=60) for _ in range(2)]\n"
         "    pipe.wait(timeout=60)\n"
         "assert [o.tensors[0].shape for o in outs] == [(2, 4, 4), (1, 4, 4)]\n"
+        "for desc in ('audiotestsrc device=true batch=2 num-buffers=2 samplesperbuffer=1600 '\n"
+        "             'rate=16000 ! tensor_filter framework=jax model=wav2vec2 '\n"
+        "             'custom=batch:2,samples:1600,dim:32,n_layers:1 accelerator=true:cpu ! '\n"
+        "             'tensor_decoder mode=ctc ! tensor_sink name=out',\n"
+        "             'videotestsrc device=true batch=2 num-buffers=2 width=32 height=32 ! '\n"
+        "             'tensor_transform mode=arithmetic option=typecast:float32,div:255.0 ! '\n"
+        "             'tensor_filter framework=jax model=deeplab_mobilenet custom=size:32,'\n"
+        "             'batch:2,width:0.25 accelerator=true:cpu ! tensor_decoder '\n"
+        "             'mode=image_segment option1=classmap ! tensor_sink name=out'):\n"
+        "    pipe = p.Pipeline(desc)\n"
+        "    with pipe:\n"
+        "        pipe.pull('out', timeout=60)\n"
+        "        pipe.wait(timeout=60)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib', 'nnstreamer_tpu.')) or m == 'nnstreamer_tpu')\n"
         "assert not bad, bad\n"

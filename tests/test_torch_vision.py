@@ -353,9 +353,13 @@ def test_bounding_boxes_host_decode_matches_jax(form):
 
 
 def test_bounding_boxes_yolo_formats_raise_not_yet_ported():
-    for fmt in ("yolov5", "yolov8"):
-        with pytest.raises(ValueError, match="not yet ported"):
-            tbb.BoundingBoxes({"option1": fmt})
+    """The yolo formats came with the yolo models
+    (tests/test_torch_decoders.py holds them against the JAX package):
+    they construct now, and an unknown format is what raises."""
+    for fmt in ("yolov5", "yolo", "yolov8"):
+        assert tbb.BoundingBoxes({"option1": fmt}).format == fmt
+    with pytest.raises(ValueError, match="unknown bounding-box format"):
+        tbb.BoundingBoxes({"option1": "yolov9"})
 
 
 @pytest.mark.parametrize("batch", [1, 3])
