@@ -33,8 +33,10 @@ Phases, each of which must pass:
              grouped heads (G = 4 and 8), D = 64 and 32, one 4096-position
              row, lengths at the partition edges and a full table, the
              speculative-verify shape (8 rows of T = 5 queries, at G = 1
-             and 4; T = 8 at G = 8) and 4 rows of T = 9 at G = 8, which
-             take gathered flash row by row; at the 7B step two calls must
+             and 4; T = 8 at G = 8; the spec phase's [8, 4] at G = 1, and
+             its draft's decode step, G = 2, D = 32) and 4 rows of T = 9
+             at G = 8, which take gathered flash row by row; flash also at
+             the draft's prefill chunk (D = 32); at the 7B step two calls must
              agree bitwise, and row 0 must not change when every other
              row's length and K/V do.
 3. serve   — the static stream path through the entry points a user
@@ -90,14 +92,46 @@ Phases, each of which must pass:
              client gets its whole stream, and one static request of 32
              ids over the wire (``serve`` unset) must give ``serve``'s 64
              tokens bitwise.
-6. reference — on a small model, logits with the kernels on the card
+6. prefix  — prefix sharing on the continuous cell (``prefix_cache`` at
+             its default, on): a 512-token system prompt (seed 0) with
+             eight distinct suffixes of 8..64 tokens, 64 tokens each; the
+             first stream alone (cold: 17 prefill chunks), the second alone
+             after it (a hit on the 32 blocks left resting in the free
+             list: 1 chunk), the other six together.  Prints the chunks
+             cold against per hit, first token at the sink cold against
+             hit, ``prefix_hits`` and ``prefix_hit_blocks``; every stream
+             bitwise equal to the same traffic through ``prefix_cache:0``,
+             the pool free with every count 0, launches per step and
+             chunk, one census signature and no capture after the
+             warm-up.  Then the fork sub-case at ``prefill_chunk:24`` (a
+             hit's suffix starts inside a block): three streams of 32
+             tokens, ``cow_forks`` >= 1, bitwise equal to
+             ``prefix_cache:0``.
+7. spec    — speculative decoding: the continuous cell's prompts and waves
+             with ``draft:llama_tiny,spec_k:3,draft_seed:7`` (the [8, 4]
+             verify: 32 int4 rows, the paged kernel at G = 1; the draft's
+             prefill twin through flash at D = 32, its propose steps
+             through paged at G = 2, D = 32).  Launches per round and
+             chunk, the propose and verify steps one census signature
+             each and no capture after the warm-up, no decode step; every
+             stream replayed at the verify shape (each token its step's
+             argmax) and at the decode shape against the continuous
+             phase's tokens (equal, or apart first at a near tie of
+             ``SPEC_TIE``), the logits spread between the two shapes, the
+             accept rate, rounds, target dispatches per token and tok/s
+             beside the continuous phase's, and the round's captured steps
+             timed against the decode step.  A sampled run
+             (``temperature:0.8,seed:1``) twice, bitwise, one sampled
+             signature each; the accept path at llama_small f32 with a
+             same-weights draft (accept rate, streams equal to no draft).
+8. reference — on a small model, logits with the kernels on the card
              agree with the plain versions on the CPU: cached prefill and
              decode, and the paged path (chunked prefill, then decode with
              a parked row, then a [2, 5] verify-shaped step of two live
              rows), in f32; then the same model in bf16 (cached prefill and
              decode, chunked paged prefill), whose flash calls take the
              tensor-core kernel.
-7. vision  — the vision path, which runs no kernel of csrc/ (cuDNN
+9. vision  — the vision path, which runs no kernel of csrc/ (cuDNN
              convolutions and torch ops, one captured CUDA graph per fused
              stage), batch 64, bf16, random weights from seed 0: (1) the
              README quick-start, ``appsrc max-inflight=4 ! tensor_transform
@@ -123,7 +157,7 @@ Phases, each of which must pass:
              census, and the first 33 batches' detections (valid rows,
              boxes, classes, scores) equal.  ``--profile`` adds each
              fused stage's kernels (chiprun_out/profile_vision.txt).
-8. models  — the rest of BASELINE's model families in bench.py's form, no
+10. models — the rest of BASELINE's model families in bench.py's form, no
              kernel of csrc/, batch 64, random weights from seed 0, each
              behind a folded device source and fused with its transform
              and decoder into one stage captured as one CUDA graph:
@@ -224,6 +258,8 @@ FLASH_SHAPES = [
     (1, 256, 256, 32, 32, 128, False),
     (1, 40, 40, 8, 4, 64, True),
     (2, 100, 137, 4, 2, 32, True),
+    # the llama_tiny draft's prefill twin: a 32-row chunk on 704 positions
+    (1, 32, 704, 4, 2, 32, True),
 ]
 #: the continuous loop's chunk shapes (Sq = prefill_chunk, Skv = gathered
 #: positions): their time per chunk (32 launches) joins the summary line
@@ -282,6 +318,10 @@ PAGED_SHAPES = [
     ("spec_kv8", 8, 5, 32, 8, 128, (5, 6, 33, 100, 257, 512, 700, 1000), 64),
     ("spec_g8", 8, 8, 64, 8, 128, (8, 9, 33, 100, 257, 512, 700, 1000), 64),
     ("wide", 4, 9, 64, 8, 128, (0, 9, 300, 1000), 64),
+    # the spec phase's steps: the target's [8, 4] verify (spec_k 3) and the
+    # llama_tiny draft's decode-shaped propose steps (4 heads on 2, D = 32)
+    ("7b_verify", 8, 4, 32, 32, 128, (4, 5, 33, 100, 257, 512, 700, 1000), 65),
+    ("draft", 8, 1, 4, 2, 32, PAGED_LENS, 65),
 ]
 #: paged shapes at which two calls must agree bitwise and row 0 must not
 #: depend on the other rows
@@ -931,15 +971,28 @@ def census_of(census, warm_captures):
     return line
 
 
-def replay_stream(fw, loop, prompt, ids, dev):
+def replay_stream(fw, loop, prompt, ids, dev, tie_share=None, other=None,
+                  width=1, keep_rows=False, dtype=None):
     """Hold a greedy stream the loop served against ``llama.forward_paged``
     driven step by step outside the loop, on the card, at the loop's
     shapes: the prompt in chunks of ``prefill_chunk`` on one row, then
     decode steps over every slot with the stream in row 0 and the other
     rows parked, teacher-forced on the stream's own tokens.  Every token
-    must be the argmax of its step's logits, or within a near tie of it.
-    Returns the counts: tokens compared, equal to the argmax, near ties,
-    the least top-1/top-2 gap and the largest |logit|."""
+    must be the argmax of its step's logits, or within a near tie of it
+    (a top-1/top-2 gap under ``tie_share``, default ``CONT_TIE``, of the
+    row's max |logit|).  ``other``: another greedy stream of the same
+    prompt (the same model through other shapes); up to its first token
+    that differs the two are one stream, and there both tokens must be
+    near-tied.  ``width`` k + 1 drives the steps at the speculative verify
+    shape instead, [slots, k + 1] with the stream's token in row 0's
+    first column.  ``dtype``: the compute dtype (default the filter's;
+    the pool takes it too), e.g. float32 over the same weights.  Returns
+    the counts: tokens compared, equal to the
+    argmax, near ties, the least top-1/top-2 gap and the largest |logit|
+    (and the index of the first difference from ``other``, None if none;
+    the logits rows themselves with ``keep_rows``)."""
+    tie_share = CONT_TIE if tie_share is None else tie_share
+    dtype = fw.dtype if dtype is None else dtype
     import numpy as np
     import torch
 
@@ -949,8 +1002,8 @@ def replay_stream(fw, loop, prompt, ids, dev):
         fw.block_size, fw.slots
     T = len(prompt)
     P = -(-T // C) * C
-    n_blocks = -(-(P + len(ids)) // bs)
-    pool = llama.init_paged_cache(cfg, n_blocks, bs, dtype=fw.dtype, device=dev)
+    n_blocks = -(-(P + len(ids) + width - 1) // bs)
+    pool = llama.init_paged_cache(cfg, n_blocks, bs, dtype=dtype, device=dev)
     tables = torch.full((B, loop.max_blocks), n_blocks, dtype=torch.int32)
     tables[0, :n_blocks] = torch.arange(n_blocks, dtype=torch.int32)
     tables = tables.to(dev)
@@ -961,18 +1014,18 @@ def replay_stream(fw, loop, prompt, ids, dev):
         for p in range(0, P, C):
             logits, pool = llama.forward_paged(
                 params, torch.from_numpy(toks[:, p:p + C]).to(dev), pool,
-                tables[:1], np.asarray([p], np.int64), cfg, fw.dtype,
+                tables[:1], np.asarray([p], np.int64), cfg, dtype,
                 logit_off=T - 1 - p if p + C >= P else 0)
         rows.append(logits[0, -1].float().cpu())
         pos = np.full((B,), loop.park, np.int64)
         for i, t in enumerate(ids[:-1]):
             pos[0] = T + i
-            x = torch.zeros((B, 1), dtype=torch.int32)
+            x = torch.zeros((B, width), dtype=torch.int32)
             x[0, 0] = t
             logits, pool = llama.forward_paged(
                 params, x.to(dev), pool, tables, torch.from_numpy(pos).to(dev),
-                cfg, fw.dtype)
-            rows.append(logits[0, -1].float().cpu())
+                cfg, dtype)
+            rows.append(logits[0, 0].float().cpu())
     near, least, equal, scale = 0, float("inf"), 0, 0.0
     for i, (row, g) in enumerate(zip(rows, ids)):
         top2 = row.topk(2).values
@@ -980,7 +1033,7 @@ def replay_stream(fw, loop, prompt, ids, dev):
         least = min(least, gap)
         scale = max(scale, row.abs().max().item())
         equal += int(g == int(row.argmax()))
-        tie = CONT_TIE * row.abs().max().item()
+        tie = tie_share * row.abs().max().item()
         if gap < tie:
             near += 1
             check(row[g].item() >= top2[0].item() - 2 * tie,
@@ -989,8 +1042,21 @@ def replay_stream(fw, loop, prompt, ids, dev):
             check(g == int(row.argmax()),
                   f"continuous token {i}: {g}, forward_paged chooses "
                   f"{int(row.argmax())}")
-    return dict(tokens_compared=len(ids), equal_to_argmax=equal,
-                near_ties=near, least_top2_gap=least, max_abs_logit=scale)
+    out = dict(tokens_compared=len(ids), equal_to_argmax=equal,
+               near_ties=near, least_top2_gap=least, max_abs_logit=scale)
+    if other is not None:
+        d = next((i for i, (a, b) in enumerate(zip(ids, other)) if a != b), None)
+        if d is not None:
+            row = rows[d]
+            top = row.max().item()
+            tie = tie_share * row.abs().max().item()
+            check(row[ids[d]].item() >= top - 2 * tie
+                  and row[other[d]].item() >= top - 2 * tie,
+                  f"token {d}: {ids[d]} against {other[d]}, not a near tie")
+        out["first_difference"] = d
+    if keep_rows:
+        out["rows"] = rows
+    return out
 
 
 def graph_vs_eager(fw, loop, dev, flush):
@@ -1085,108 +1151,32 @@ def graph_vs_eager(fw, loop, dev, flush):
 
 def phase_continuous(dev, profile=False):
     """The continuous serving path at llama2_7b int4, with late joiners."""
-    import contextlib
     import math
 
-    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity
 
-    import nnstreamer_tpu_torch as ntt
-    from nnstreamer_tpu_torch.ops import attention, int4_matmul as i4
-
-    counters = {"paged_attention": attention.PAGED_LAUNCHES,
-                "flash_attention": attention.LAUNCHES,
-                "matmul_int4": i4.LAUNCHES}
-    t0 = time.perf_counter()
-    pipe = ntt.Pipeline(CONT_DESC)
-    setup_s = time.perf_counter() - t0
-    gen = torch.Generator().manual_seed(2)
-    lens = [n for wave in CONT_WAVES for n in wave]
-    prompts = [torch.randint(3, 32000, (n,), generator=gen).to(torch.int32).numpy()
-               for n in lens]
-    n_streams = len(prompts)
-    got = {i: [] for i in range(n_streams)}
-    arrived = {i: [] for i in range(n_streams)}
-    pushed = {}
-
-    def push(i):
-        pushed[i] = time.perf_counter()
-        pipe.push("src", ntt.Buffer([prompts[i]], meta={"req": i}))
-
-    def pull_one():
-        buf = pipe.pull("out", timeout=600)
-        r = buf.meta["req"]
-        got[r].append(buf)
-        arrived[r].append(time.perf_counter())
-
+    prompts = continuous_prompts()
+    lens = [len(p) for p in prompts]
+    first = len(CONT_WAVES[0])
+    groups = [(list(range(first)), "first"), (list(range(first, len(prompts))), "first")]
     traced = (torch.profiler.profile(activities=[ProfilerActivity.CUDA])
-              if profile else contextlib.nullcontext())
-    with pipe:
-        fw = pipe.element("llm").fw
-        t0 = time.perf_counter()
-        loop = fw.serve_loop()
-        warmup_s = time.perf_counter() - t0
-        warm_captures = fw.census.captures
-        for c in counters.values():
-            c.reset()
-        torch.cuda.reset_peak_memory_stats(dev)
-        first = len(CONT_WAVES[0])
-        with traced as prof:
-            t_start = time.perf_counter()
-            for i in range(first):
-                push(i)
-            while any(not got[i] for i in range(first)):
-                pull_one()
-            for i in range(first, n_streams):
-                push(i)
-            while sum(len(v) for v in got.values()) < n_streams * MAX_NEW:
-                pull_one()
-            t_end = time.perf_counter()
-            pipe.eos("src")
-            pipe.wait(timeout=120)  # the loop has drained: nothing in flight
-            torch.cuda.synchronize()
-            t_traced = time.perf_counter()
-        launches = {k: c.value for k, c in counters.items()}
-        stats = dict(loop.stats)
-        census_line = census_of(fw.census, warm_captures)
-        free_ok = sorted(loop._free) == list(range(loop.n_blocks))
-        tables_ok = bool((loop._tables == loop.sentinel).all())
-        parked_ok = bool((loop._pos == loop.park).all())
-        n_blocks = loop.n_blocks
-        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+              if profile else None)
+    out = {}
+
+    def inside(fw, loop, res):
         # outside the counted run: served tokens against forward_paged
-        replayed = {}
-        for i in CONT_CHECKED:
-            check(len(got[i]) == MAX_NEW, f"stream {i}: {len(got[i])} tokens")
-            replayed[i] = dict(prompt_len=lens[i], **replay_stream(
-                fw, loop, prompts[i], [int(b.tensors[0][0]) for b in got[i]], dev))
+        out["replayed"] = {i: dict(prompt_len=lens[i], **replay_stream(
+            fw, loop, prompts[i], res["ids"][i], dev)) for i in CONT_CHECKED}
         flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-        graph = graph_vs_eager(fw, loop, dev, flush_buf.zero_)
-        del flush_buf
-    streams = []
-    for i in range(n_streams):
-        bufs = got[i]
-        check(len(bufs) == MAX_NEW, f"stream {i}: {len(bufs)} tokens")
-        for j, buf in enumerate(bufs):
-            ids = buf.tensors[0]
-            check(ids.dtype == np.int32 and ids.shape == (1,)
-                  and 0 <= int(ids[0]) < 32000, f"bad token buffer {ids!r}")
-            check(buf.meta.get("stream_index") == j,
-                  f"stream {i}: stream_index out of order")
-            check(bool(buf.meta.get("stream_last")) == (j == MAX_NEW - 1),
-                  f"stream {i}: stream_last misplaced")
-            check(not buf.meta.get("stream_aborted"), f"stream {i} aborted")
-        emit = [b.meta["emit_t"] for b in bufs]
-        streams.append(dict(
-            prompt_len=lens[i], late_joiner=i >= first,
-            ttft_ms=(arrived[i][0] - pushed[i]) * 1e3,
-            decode_tok_s=(MAX_NEW - 1) / (emit[-1] - emit[0]),
-            tokens=[int(b.tensors[0][0]) for b in bufs[:8]],
-            ids=[int(b.tensors[0][0]) for b in bufs]))
-    check(free_ok and tables_ok and parked_ok,
-          f"pool not free after the drain: free list {free_ok}, tables "
-          f"{tables_ok}, positions {parked_ok}")
+        out["graph_vs_eager"] = graph_vs_eager(fw, loop, dev, flush_buf.zero_)
+
+    r = serve_traffic(CONT_DESC, prompts, groups, MAX_NEW, dev, inside=inside,
+                      around=traced)
+    streams = [dict(prompt_len=lens[i], late_joiner=i >= first, ttft_ms=r["ttft_ms"][i],
+                    decode_tok_s=r["decode_tok_s"][i], tokens=ids[:8], ids=ids)
+               for i, ids in enumerate(r["ids"])]
+    launches, stats = r["launches"], r["stats"]
     steps, chunks = stats["decode_steps"], stats["prefill_chunks"]
     want_chunks = sum(math.ceil(n / 32) for n in lens)
     check(chunks == want_chunks, f"prefill chunks {chunks} != {want_chunks}")
@@ -1196,23 +1186,24 @@ def phase_continuous(dev, profile=False):
           f"flash launches {launches['flash_attention']} != 32 x {chunks} chunks")
     check(launches["matmul_int4"] == 129 * (steps + chunks),
           f"int4 launches {launches['matmul_int4']} != 129 x {steps + chunks}")
-    check(census_line["signatures"] == ["('continuous', 8, 'bfloat16', False)"],
-          f"continuous census: {census_line}")
+    check(r["census"]["signatures"] == ["('continuous', 8, 'bfloat16', False)"],
+          f"continuous census: {r['census']}")
     busy = None
     if profile:
-        traced_ms = (t_traced - t_start) * 1e3
+        traced_ms = r["drained_s"] * 1e3
         busy_ms = sum(getattr(e, "self_device_time_total", 0.0)
-                      for e in prof.key_averages()) / 1e3
+                      for e in traced.key_averages()) / 1e3
         busy = dict(traced_ms=traced_ms, device_busy_ms=busy_ms,
                     device_busy_ms_per_step=busy_ms / steps,
                     device_idle_share=1.0 - busy_ms / traced_ms)
-    return dict(setup_s=setup_s, warmup_s=warmup_s, streams=streams,
-                window_s=t_end - t_start,
-                aggregate_tok_s=n_streams * MAX_NEW / (t_end - t_start),
+    return dict(setup_s=r["setup_s"], warmup_s=r["warmup_s"], streams=streams,
+                window_s=r["window_s"], aggregate_tok_s=r["aggregate_tok_s"],
                 decode_steps=steps, prefill_chunks=chunks, launches=launches,
+                step_launches=r["step_launches"], eager_launches=r["eager_launches"],
                 host_us_per_step=stats["decode_host_s"] / steps * 1e6,
-                census=census_line, busy=busy, graph_vs_eager=graph,
-                n_blocks=n_blocks, peak_mem_gb=peak_gb, replayed=replayed)
+                census=r["census"], busy=busy, graph_vs_eager=out["graph_vs_eager"],
+                n_blocks=r["n_blocks"], peak_mem_gb=r["peak_mem_gb"],
+                replayed=out["replayed"])
 
 
 def query_server(desc_custom, sid):
@@ -1451,6 +1442,490 @@ def phase_query(dev, serve, cont):
     del srv
     torch.cuda.empty_cache()
     return out
+
+
+class EagerLaunches:
+    """Kernel launches of the eager ``llama.forward_paged`` calls (prefill
+    chunks and the draft's prefill twin; a captured step's replays do not
+    call it), by model: the growth of each launch counter across each
+    call, keyed ``"dim<dim>_layers<n_layers>"``.  While a pipeline serves
+    here its serve thread is the only one that launches, so a call's
+    growth is that call's own.  A context manager: inside it
+    ``llama.forward_paged`` is wrapped."""
+
+    def __init__(self, counters):
+        self.counters = counters
+        self.by_model = {}
+
+    def __enter__(self):
+        from nnstreamer_tpu_torch.models import llama
+
+        real = self._real = llama.forward_paged
+
+        def counted(*args, **kw):
+            cfg = kw["cfg"] if "cfg" in kw else args[5]
+            before = {k: c.value for k, c in self.counters.items()}
+            out = real(*args, **kw)
+            tally = self.by_model.setdefault(f"dim{cfg.dim}_layers{cfg.n_layers}", {})
+            for k, c in self.counters.items():
+                tally[k] = tally.get(k, 0) + c.value - before[k]
+            return out
+
+        llama.forward_paged = counted
+        return self
+
+    def __exit__(self, *exc):
+        from nnstreamer_tpu_torch.models import llama
+
+        llama.forward_paged = self._real
+
+
+def serve_traffic(desc, prompts, groups, max_new, dev, inside=None, around=None):
+    """Serve ``prompts`` through the continuous pipeline ``desc`` (its
+    filter named ``llm``) in ``groups``: each ``(indices, wait)`` is pushed
+    at once, and the next group follows when each of its streams has its
+    first token (``wait="first"``) or all of them (``"all"``).  Launch
+    counters and the peak memory are reset after the loop's warm-up and
+    read after the drain; ``around`` (a context manager, e.g. a profiler)
+    is entered just before the first push and left after the drain;
+    ``inside(fw, loop, result)`` runs before the pipeline closes, outside
+    the counted run.  Every stream must be whole and in order, none
+    aborted, the block pool free again with every count 0, and no capture
+    may follow the warm-up.  Returns the streams' ids, first token at the
+    sink (push to pull), decode tok/s, prefill chunks per ``"all"``
+    group, the loop's stats, launches (in all, by captured step and by
+    model of the eager calls), the growth of the ``llm.serve`` counters,
+    the census line and the aggregate tok/s over the window."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    import nnstreamer_tpu_torch as ntt
+    from nnstreamer_tpu_torch.core.log import metrics
+    from nnstreamer_tpu_torch.ops import attention, int4_matmul as i4
+
+    counters = {"paged_attention": attention.PAGED_LAUNCHES,
+                "flash_attention": attention.LAUNCHES,
+                "matmul_int4": i4.LAUNCHES}
+    names = {id(c): k for k, c in counters.items()}
+    n = len(prompts)
+    got = {i: [] for i in range(n)}
+    pushed, first_at, group_chunks = {}, {}, []
+    t0 = time.perf_counter()
+    pipe = ntt.Pipeline(desc)
+    res = dict(setup_s=time.perf_counter() - t0)
+
+    def pull_one():
+        buf = pipe.pull("out", timeout=600)
+        r = buf.meta["req"]
+        got[r].append(buf)
+        first_at.setdefault(r, time.perf_counter())
+
+    with pipe, EagerLaunches(counters) as eager:
+        fw = pipe.element("llm").fw
+        t0 = time.perf_counter()
+        loop = fw.serve_loop()
+        res["warmup_s"] = time.perf_counter() - t0
+        warm_captures = fw.census.captures
+        before = {k: v for k, v in metrics.snapshot().items()
+                  if k.startswith("llm.serve.")}
+        for c in counters.values():
+            c.reset()
+        eager.by_model.clear()
+        census0 = {sig: dict(t) for sig, t in fw.census.launches.items()}
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        stats0 = dict(loop.stats)
+        with around if around is not None else contextlib.nullcontext():
+            t_start = time.perf_counter()
+            for group, wait in groups:
+                c0 = loop.stats["prefill_chunks"]
+                for i in group:
+                    pushed[i] = time.perf_counter()
+                    pipe.push("src", ntt.Buffer([prompts[i]], meta={"req": i}))
+                need = 1 if wait == "first" else max_new
+                while any(len(got[i]) < need for i in group):
+                    pull_one()
+                if wait == "all":
+                    group_chunks.append(loop.stats["prefill_chunks"] - c0)
+            while sum(len(v) for v in got.values()) < n * max_new:
+                pull_one()
+            t_end = time.perf_counter()
+            pipe.eos("src")
+            pipe.wait(timeout=120)  # the loop has drained: nothing in flight
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            res["drained_s"] = time.perf_counter() - t_start
+        res["launches"] = {k: c.value for k, c in counters.items()}
+        res["step_launches"] = {
+            str(sig): {names[id(c)]: v - census0.get(sig, {}).get(c, 0)
+                       for c, v in t.items()}
+            for sig, t in fw.census.launches.items()}
+        res["eager_launches"] = {m: dict(t) for m, t in eager.by_model.items()}
+        res["peak_mem_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9
+                              if dev.type == "cuda" else None)
+        res["stats"] = {k: loop.stats[k] - stats0[k] for k in stats0}
+        res["census"] = census_of(fw.census, warm_captures)
+        after = metrics.snapshot()
+        res["serve_counters"] = {k: v - before.get(k, 0.0) for k, v in after.items()
+                                 if k.startswith("llm.serve.")
+                                 and not k.endswith("accept_rate")}
+        res["pool_free"] = (sorted(loop._free) == list(range(loop.n_blocks))
+                            and bool((loop._ref == 0).all())
+                            and bool((loop._tables == loop.sentinel).all())
+                            and bool((loop._pos == loop.park).all()))
+        res["n_blocks"], res["indexed_blocks"] = loop.n_blocks, len(loop._prefix_index)
+        res["ids"] = [[int(b.tensors[0][0]) for b in got[i]] for i in range(n)]
+        if inside is not None:
+            inside(fw, loop, res)
+    check(res["pool_free"], "block pool not free after the drain, or a count left")
+    # every launch of the run is a captured step's or an eager call's
+    for k in counters:
+        parts = sum(t.get(k, 0) for t in res["step_launches"].values()) + \
+            sum(t.get(k, 0) for t in res["eager_launches"].values())
+        check(parts == res["launches"][k],
+              f"{k}: {res['launches'][k]} launches, {parts} by step and model")
+    for i in range(n):
+        bufs = got[i]
+        check(len(bufs) == max_new, f"stream {i}: {len(bufs)} tokens")
+        for j, buf in enumerate(bufs):
+            ids = buf.tensors[0]
+            check(ids.dtype == np.int32 and ids.shape == (1,)
+                  and 0 <= int(ids[0]) < 32000, f"bad token buffer {ids!r}")
+            check(buf.meta.get("stream_index") == j,
+                  f"stream {i}: stream_index out of order")
+            check(bool(buf.meta.get("stream_last")) == (j == max_new - 1),
+                  f"stream {i}: stream_last misplaced")
+            check(not buf.meta.get("stream_aborted"), f"stream {i} aborted")
+    res["ttft_ms"] = [(first_at[i] - pushed[i]) * 1e3 for i in range(n)]
+    res["decode_tok_s"] = [(max_new - 1) / (got[i][-1].meta["emit_t"]
+                                            - got[i][0].meta["emit_t"])
+                           for i in range(n)]
+    res["spec_draft"] = [[b.meta.get("spec_draft") for b in got[i]] for i in range(n)]
+    res["group_chunks"] = group_chunks
+    res["window_s"] = t_end - t_start
+    res["aggregate_tok_s"] = n * max_new / (t_end - t_start)
+    return res
+
+
+#: the prefix phase: one 512-token system prompt and eight distinct
+#: suffixes of 8..64 tokens (seed 0), 64 tokens each, through the
+#: continuous cell's options with prefix sharing at its default (on)
+PREFIX_SYSTEM = 512
+PREFIX_SUFFIXES = (8, 16, 24, 32, 40, 48, 56, 64)
+#: the fork sub-case: prefill_chunk 24 starts a hit's suffix at 504, inside
+#: block 31 (block_size 16), which is forked; three streams of 32 tokens
+PREFIX_FORK_CHUNK = 24
+PREFIX_FORK_STREAMS = 3
+PREFIX_FORK_NEW = 32
+
+
+def prefix_prompts():
+    import numpy as np
+    import torch
+
+    gen = torch.Generator().manual_seed(0)
+    system = torch.randint(3, 32000, (PREFIX_SYSTEM,), generator=gen)
+    return [np.concatenate([system.to(torch.int32).numpy(), torch.randint(
+        3, 32000, (n,), generator=gen).to(torch.int32).numpy()])
+        for n in PREFIX_SUFFIXES]
+
+
+def phase_prefix(dev, base=CONT_DESC):
+    """Prefix sharing at llama2_7b int4 (``base``: the continuous cell's
+    pipeline): the first stream prefills the system prompt cold and
+    alone; the second, alone after it, hits the 32 blocks it left resting
+    in the free list; the other six hit together.  The same traffic
+    through ``prefix_cache:0`` must give the same tokens bitwise.  Then
+    the fork sub-case at ``prefill_chunk:24``, on and off."""
+    import math
+
+    prompts = prefix_prompts()
+    groups = [([0], "all"), ([1], "all"), (list(range(2, len(prompts))), "all")]
+    on = serve_traffic(base, prompts, groups, MAX_NEW, dev)
+    off = serve_traffic(base.replace("stream_chunk:8", "stream_chunk:8,prefix_cache:0"),
+                        prompts, groups, MAX_NEW, dev)
+    cold_chunks = math.ceil(len(prompts[0]) / 32)
+    hit_chunks = [math.ceil((len(p) - PREFIX_SYSTEM) / 32) for p in prompts[1:]]
+    check(on["group_chunks"] == [cold_chunks, hit_chunks[0], sum(hit_chunks[1:])],
+          f"prefill chunks {on['group_chunks']}, want {cold_chunks}, "
+          f"{hit_chunks[0]}, {sum(hit_chunks[1:])}")
+    check(off["group_chunks"][1] == math.ceil(len(prompts[1]) / 32),
+          f"prefix_cache:0 prefill chunks {off['group_chunks']}")
+    sc = on["serve_counters"]
+    check(sc.get("llm.serve.prefix_hits") == len(prompts) - 1
+          and sc.get("llm.serve.prefix_hit_blocks")
+          == (len(prompts) - 1) * PREFIX_SYSTEM // 16,
+          f"prefix counters {sc}")
+    check(not off["serve_counters"].get("llm.serve.prefix_hits"),
+          "prefix_cache:0 hit the cache")
+    equal = [a == b for a, b in zip(on["ids"], off["ids"])]
+    check(all(equal), f"tokens with sharing against prefix_cache:0: {equal}")
+    for r in (on, off):
+        steps, chunks = r["stats"]["decode_steps"], r["stats"]["prefill_chunks"]
+        want = dict(paged_attention=N_LAYERS * steps, flash_attention=N_LAYERS * chunks,
+                    matmul_int4=129 * (steps + chunks))
+        check(r["launches"] == want, f"prefix launches {r['launches']} != {want}")
+        check(r["census"]["signatures"] == ["('continuous', 8, 'bfloat16', False)"],
+              f"prefix census: {r['census']}")
+    fork_desc = base.replace("prefill_chunk:32", f"prefill_chunk:{PREFIX_FORK_CHUNK}") \
+        .replace(f"max_new:{MAX_NEW}", f"max_new:{PREFIX_FORK_NEW}")
+    fprompts = prompts[:PREFIX_FORK_STREAMS]
+    fgroups = [([i], "all") for i in range(PREFIX_FORK_STREAMS)]
+    fork_on = serve_traffic(fork_desc, fprompts, fgroups, PREFIX_FORK_NEW, dev)
+    fork_off = serve_traffic(fork_desc.replace("stream_chunk:8",
+                                               "stream_chunk:8,prefix_cache:0"),
+                             fprompts, fgroups, PREFIX_FORK_NEW, dev)
+    forks = fork_on["serve_counters"].get("llm.serve.cow_forks", 0)
+    check(forks >= 1, f"fork sub-case: {forks} forks")
+    fork_equal = [a == b for a, b in zip(fork_on["ids"], fork_off["ids"])]
+    check(all(fork_equal), f"fork sub-case tokens against prefix_cache:0: {fork_equal}")
+    return dict(on=on, off=off, cold_chunks=on["group_chunks"][0],
+                hit_chunks=[on["group_chunks"][1]] + hit_chunks[1:],
+                streams_equal=sum(equal), fork_on=fork_on, fork_off=fork_off,
+                cow_forks=forks, fork_streams_equal=sum(fork_equal))
+
+
+#: the spec phase: the continuous cell with a llama_tiny draft proposing
+#: three tokens a round ([8, 4] verify: 32 int4 rows, the paged kernel at
+#: G = 1), and the same with sampling
+SPEC_K = 3
+SPEC_OPTS = f",draft:llama_tiny,spec_k:{SPEC_K},draft_seed:7"
+SPEC_SAMPLED = ",temperature:0.8,seed:1"
+#: speculative greedy tokens against plain greedy ones: the [8, 4] verify
+#: and the [8, 1] decode step are two bf16 evaluations that round in
+#: different places (other int4 and paged launch plans), so a step is a
+#: near tie when its top-1/top-2 gap is under the repo's bf16 logits
+#: tolerance (BF16_REF_TOL: twice the spread of two such evaluations)
+SPEC_TIE = BF16_REF_TOL
+#: each stream is also evaluated in f32 over the same weights: the verify
+#: shape's bf16 logits may lie at most this many times as far from f32 as
+#: the decode shape's (llama2_7b int4, random weights, on an H100: each
+#: 8.5-11.8% of max |logit| at its worst step, PERF.md section 6)
+SPEC_F32_RATIO = 1.3
+#: the accept path: llama_small at f32 (params and compute), no quant, its
+#: draft the same preset from the same seed, so the same weights
+ACCEPT_DESC = ("appsrc name=src ! tensor_filter name=llm framework=llm "
+               "model=llama_small custom=param_dtype:float32,dtype:float32,"
+               "max_new:32,serve:continuous,slots:8,block_size:16,"
+               "prefill_chunk:32,stream_chunk:8{opts} invoke-dynamic=true ! "
+               "tensor_sink name=out")
+ACCEPT_LENS = (16, 40, 75, 130)
+
+
+def continuous_prompts():
+    """phase_continuous's prompts (the same generator and seed)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(2)
+    return [torch.randint(3, 32000, (n,), generator=gen).to(torch.int32).numpy()
+            for wave in CONT_WAVES for n in wave]
+
+
+def spec_round_ms(fw, dev):
+    """A speculative round's captured steps (propose, verify) against the
+    plain decode step, all three captured by a census of their own over
+    fresh tensors at the filter's shapes: the 7B 8-slot step with the
+    slots at ``GRAPH_POS`` (one parked), random pools and tokens.  Each is
+    timed by ``timed_ms`` (device ms per replay, the same flush); the
+    timed replays advance the positions into blocks reserved for them.
+    Launches here are held back from the counters."""
+    import torch
+
+    from nnstreamer_tpu_torch.filters import llm as tllm
+    from nnstreamer_tpu_torch.models import llama
+    from nnstreamer_tpu_torch.ops import kernels
+    from nnstreamer_tpu_torch.pipeline.graphs import Census
+
+    cfg, dcfg, B, bs, k = fw.cfg, fw.draft_cfg, fw.slots, fw.block_size, fw.spec_k
+    spare = 128  # positions the timed replays may advance
+    plan = tllm.serving_plan(cfg, slots=B, block_size=bs, prefill_chunk=fw.prefill_chunk,
+                             draft_cfg=dcfg, spec_k=k)
+    n_blocks, max_blocks = plan["n_blocks"], plan["max_blocks"]
+    park = max_blocks * bs
+    tables = torch.full((B, max_blocks), n_blocks, dtype=torch.int32)
+    pos = torch.full((B,), park, dtype=torch.long)
+    used = 0
+    for s, p in enumerate(GRAPH_POS):
+        if p is not None:
+            need = -(-(p + spare) // bs)
+            tables[s, :need] = torch.arange(used, used + need, dtype=torch.int32)
+            used += need
+            pos[s] = p
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    def pool_of(c):
+        pool = llama.init_paged_cache(c, n_blocks, bs, dtype=fw.dtype, device=dev)
+        for t in pool.values():
+            t.normal_(generator=gen)
+        return pool
+
+    pool, dpool = pool_of(cfg), pool_of(dcfg)
+    tables, pos = tables.to(dev), pos.to(dev)
+    tok = torch.randint(3, cfg.vocab, (B,), dtype=torch.int32, device=dev, generator=gen)
+    tok_prev = tok.clone()
+    props = torch.zeros((B, k), dtype=torch.int32, device=dev)
+    out = torch.zeros((B, k + 2), dtype=torch.int32, device=dev)
+    live = pos < park
+    gens = [torch.Generator(device=dev) for _ in range(B)]
+    census = Census(dev)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev).zero_
+    with torch.inference_mode(), kernels.held_launches():
+        propose = census.capture("propose", tllm.spec_propose_step(
+            fw.draft_bundle.params, dcfg, fw.dtype, dpool, tok, tok_prev, pos, tables,
+            props, None, gens, park, 0.0))
+        verify = census.capture("verify", tllm.spec_verify_step(
+            fw.bundle.params, cfg, fw.dtype, pool, tok, tok_prev, pos, tables, props,
+            None, out, gens, park, 0.0))
+        decode = census.capture("decode", tllm.paged_decode_step(
+            fw.bundle.params, cfg, fw.dtype, pool, tok, pos, tables, live, gens, 0.0))
+
+        def round_():
+            propose.replay()
+            verify.replay()
+
+        times = {name: timed_ms(fn, flush)[0] for name, fn in (
+            ("propose_ms", propose.replay), ("verify_ms", verify.replay),
+            ("round_ms", round_), ("decode_step_ms", decode.replay))}
+    times["round_per_decode_step"] = times["round_ms"] / times["decode_step_ms"]
+    return times
+
+
+def phase_spec(dev, cont, base=CONT_DESC, accept_desc=ACCEPT_DESC):
+    """Speculative decoding at llama2_7b int4 with the llama_tiny draft, on
+    the continuous cell's prompts and waves: greedy tokens held against
+    the continuous phase's (``cont``) by the near-tie rule, the accept
+    rate, rounds, target dispatches per token and tok/s beside the
+    continuous cell's; a sampled run twice, bitwise; the accept path at
+    llama_small with a same-weights draft."""
+    import torch
+
+    prompts = continuous_prompts()
+    first = len(CONT_WAVES[0])
+    groups = [(list(range(first)), "first"), (list(range(first, len(prompts))), "first")]
+    desc = base.replace("stream_chunk:8", "stream_chunk:8" + SPEC_OPTS)
+    plain = [r["ids"] for r in cont["streams"]]
+    replayed, verify_replayed, rounding, step_ms, models = {}, {}, {}, {}, {}
+
+    def rule(fw, loop, res):
+        models.update({m: f"dim{c.dim}_layers{c.n_layers}"
+                       for m, c in (("target", fw.cfg), ("draft", fw.draft_cfg))})
+        for i, ids in enumerate(res["ids"]):
+            # the loop's own arithmetic: each stream replayed at the verify
+            # shape (a row's result does not depend on the other rows), so
+            # only a gap at rounding level is a near tie
+            v = replay_stream(fw, loop, prompts[i], ids, dev, width=SPEC_K + 1,
+                              keep_rows=True)
+            # the rule against plain greedy decode: the decode shape, the
+            # continuous cell's tokens, bf16 near ties
+            d = replay_stream(fw, loop, prompts[i], ids, dev, tie_share=SPEC_TIE,
+                              other=plain[i], keep_rows=True)
+            # the same weights in f32, teacher-forced alike, at the decode
+            # shape and at the verify shape: the two f32 evaluations must
+            # agree to f32 rounding (a fault of the verify shape, a wrong
+            # mask, position or block, would show there too), and each
+            # bf16 shape's distance from f32 is its rounding
+            f = replay_stream(fw, loop, prompts[i], ids, dev, tie_share=SPEC_TIE,
+                              other=plain[i], keep_rows=True, dtype="float32")
+            fv = replay_stream(fw, loop, prompts[i], ids, dev, width=SPEC_K + 1,
+                               tie_share=SPEC_TIE, keep_rows=True, dtype="float32")
+            rows = {k: r.pop("rows") for k, r in (("verify", v), ("decode", d),
+                                                  ("f32", f), ("f32_verify", fv))}
+
+            def dist(a, b):
+                errs = [(x - y).abs().max().item() / z.abs().max().item()
+                        for x, y, z in zip(rows[a], rows[b], rows["f32"])]
+                return dict(max=max(errs), mean=sum(errs) / len(errs), steps=errs)
+
+            r = dict(verify_to_f32=dist("verify", "f32"),
+                     decode_to_f32=dist("decode", "f32"),
+                     verify_to_decode=dist("verify", "decode"),
+                     f32_verify_to_f32=dist("f32_verify", "f32"),
+                     f32_tokens_equal_to_argmax=f["equal_to_argmax"])
+            check(r["f32_verify_to_f32"]["max"] <= REF_TOL,
+                  f"stream {i}: in f32 the verify and the decode shape differ by "
+                  f"{r['f32_verify_to_f32']['max']} > {REF_TOL} of max |logit|")
+            # in bf16 the verify shape may lie no farther from f32 than the
+            # decode shape's rounding does (a fault of the bf16 kernels at
+            # the verify shape moves its logits by 15% or more)
+            check(r["verify_to_f32"]["max"] <= SPEC_F32_RATIO * r["decode_to_f32"]["max"],
+                  f"stream {i}: bf16 verify lies {r['verify_to_f32']['max']} from f32, "
+                  f"decode {r['decode_to_f32']['max']}")
+            fd = d["first_difference"]
+            if fd is not None:
+                # where spec and plain part, the context is still shared:
+                # which of the two tokens does the f32 evaluation prefer
+                row = rows["f32"][fd]
+                gap = (row[ids[fd]] - row[plain[i][fd]]).item() / row.abs().max().item()
+                r["f32_at_difference"] = dict(
+                    step=fd, prefers="spec" if gap > 0 else "plain",
+                    spec_minus_plain=gap)
+            rounding[i] = r
+            verify_replayed[i], replayed[i] = v, d
+        step_ms.update(spec_round_ms(fw, dev))
+
+    greedy = serve_traffic(desc, prompts, groups, MAX_NEW, dev, inside=rule)
+    rounds, chunks = greedy["stats"]["spec_rounds"], greedy["stats"]["prefill_chunks"]
+    check(greedy["stats"]["decode_steps"] == 0, "the decode step ran beside speculation")
+    want = dict(paged_attention=rounds * (N_LAYERS + 2 * (SPEC_K + 1)),
+                flash_attention=chunks * (N_LAYERS + 2),
+                matmul_int4=129 * (rounds + chunks))
+    check(greedy["launches"] == want, f"spec launches {greedy['launches']} != {want}")
+    sigs = ["('propose', 8, 3, 'bfloat16', False)", "('verify', 8, 3, 'bfloat16', False)"]
+    check(greedy["census"]["signatures"] == sigs, f"spec census: {greedy['census']}")
+    # the new shapes' launches, as counted: by captured step, and the
+    # draft's eager prefill twin by model
+    steps_l, eager_l = greedy["step_launches"], greedy["eager_launches"]
+    propose_l, verify_l = steps_l.get(sigs[0], {}), steps_l.get(sigs[1], {})
+    draft_l = eager_l.get(models["draft"], {})
+    spec_launches = dict(
+        matmul_int4={"verify_8x4_32_rows": verify_l.get("matmul_int4", 0)},
+        flash_attention={"draft_prefill_d32": draft_l.get("flash_attention", 0)},
+        paged_attention={"verify_8x4_g1": verify_l.get("paged_attention", 0),
+                         "propose_draft_8x1_g2_d32": propose_l.get("paged_attention", 0)})
+    expected = dict(
+        matmul_int4={"verify_8x4_32_rows": 129 * rounds},
+        flash_attention={"draft_prefill_d32": 2 * chunks},
+        paged_attention={"verify_8x4_g1": N_LAYERS * rounds,
+                         "propose_draft_8x1_g2_d32": 2 * (SPEC_K + 1) * rounds})
+    if dev.type == "cuda":
+        check(spec_launches == expected,
+              f"spec launches by shape {spec_launches} != {expected}")
+    sc = greedy["serve_counters"]
+    acc, rej = sc.get("llm.serve.spec_accepted", 0), sc.get("llm.serve.spec_rejected", 0)
+    pairs = (acc + rej) / SPEC_K  # (stream, round) pairs
+    flags = [f[1:] for f in greedy["spec_draft"]]
+    check(all(set(f) <= {0, 1} for f in flags), "spec_draft missing on a round token")
+    sampled = [serve_traffic(desc.replace("stream_chunk:8", "stream_chunk:8" + SPEC_SAMPLED),
+                             prompts, groups, MAX_NEW, dev) for _ in range(2)]
+    check(sampled[0]["ids"] == sampled[1]["ids"], "sampled speculation: two runs differ")
+    for r in sampled:
+        check(r["census"]["signatures"] == [x.replace("False", "True") for x in sigs],
+              f"sampled spec census: {r['census']}")
+    gen = torch.Generator().manual_seed(3)
+    small = [torch.randint(3, 2048, (n,), generator=gen).to(torch.int32).numpy()
+             for n in ACCEPT_LENS]
+    sgroups = [(list(range(len(small))), "first")]
+    accept = serve_traffic(accept_desc.format(opts=",draft:llama_small,spec_k:3,draft_seed:0"),
+                           small, sgroups, 32, dev)
+    accept_plain = serve_traffic(accept_desc.format(opts=""), small, sgroups, 32, dev)
+    asc = accept["serve_counters"]
+    a_acc, a_rej = asc.get("llm.serve.spec_accepted", 0), asc.get("llm.serve.spec_rejected", 0)
+    # the draft is the target: only rounding-level disagreements may reject
+    check(a_acc >= 0.9 * max(1, a_acc + a_rej),
+          f"accept path: {a_acc} accepted, {a_rej} rejected with a same-weights draft")
+    return dict(
+        greedy=greedy, replayed=replayed, verify_replayed=verify_replayed,
+        rounding=rounding, spec_launches=spec_launches, step_ms=step_ms,
+        streams_equal_to_plain=sum(a == b for a, b in zip(greedy["ids"], plain)),
+        accept_rate=acc / max(1, acc + rej), rounds=rounds, prefill_chunks=chunks,
+        target_dispatches_per_token=pairs / max(1.0, acc + pairs),
+        tok_s=greedy["aggregate_tok_s"], plain_tok_s=cont["aggregate_tok_s"],
+        sampled=sampled, sampled_bitwise=sampled[0]["ids"] == sampled[1]["ids"],
+        accept=accept, accept_plain=accept_plain,
+        small_accept_rate=a_acc / max(1, a_acc + a_rej),
+        small_streams_equal=sum(a == b for a, b in zip(accept["ids"], accept_plain["ids"])))
 
 
 def _serve_prompts():
@@ -2366,6 +2841,86 @@ def print_models(m):
                   f"{r['top_kernels_ms']}", flush=True)
 
 
+def print_prefix(r):
+    on, fk = r["on"], r["fork_on"]
+    print(f"prefix: prefill chunks cold {r['cold_chunks']} against per hit "
+          f"{r['hit_chunks']}; first token at the sink alone, cold "
+          f"{on['ttft_ms'][0]:.1f} ms against hit {on['ttft_ms'][1]:.1f} ms "
+          f"(prefix_cache:0: {r['off']['ttft_ms'][1]:.1f} ms); the six hits "
+          f"together {[round(t, 1) for t in on['ttft_ms'][2:]]} ms", flush=True)
+    sc = on["serve_counters"]
+    print(f"prefix: prefix_hits {sc.get('llm.serve.prefix_hits')}, prefix_hit_blocks "
+          f"{sc.get('llm.serve.prefix_hit_blocks')}, cow_forks "
+          f"{sc.get('llm.serve.cow_forks', 0)}, evictions "
+          f"{sc.get('llm.serve.prefix_evictions', 0)}; indexed blocks "
+          f"{on['indexed_blocks']} of {on['n_blocks']}", flush=True)
+    print(f"prefix: {r['streams_equal']} of {len(on['ids'])} streams bitwise equal "
+          f"to prefix_cache:0; pool free after the drain (every count 0): "
+          f"{on['pool_free']}; {on['aggregate_tok_s']:.2f} tok/s in "
+          f"{on['window_s']:.2f} s (prefix_cache:0 {r['off']['aggregate_tok_s']:.2f} "
+          f"in {r['off']['window_s']:.2f} s); prefill chunks {on['stats']['prefill_chunks']} "
+          f"against {r['off']['stats']['prefill_chunks']}", flush=True)
+    print(f"census: prefix {on['census']}", flush=True)
+    print(f"prefix: fork sub-case (llama2_7b, prefill_chunk:{PREFIX_FORK_CHUNK}, "
+          f"{PREFIX_FORK_STREAMS} streams of {PREFIX_FORK_NEW}): cow_forks "
+          f"{r['cow_forks']}, {r['fork_streams_equal']} of {PREFIX_FORK_STREAMS} "
+          f"streams bitwise equal to prefix_cache:0, pool free {fk['pool_free']}, "
+          f"prefill chunks {fk['group_chunks']} against {r['fork_off']['group_chunks']}, "
+          f"census {fk['census']}", flush=True)
+
+
+def print_spec(r):
+    g = r["greedy"]
+    lens = [n for wave in CONT_WAVES for n in wave]
+    for i, (t, d) in enumerate(zip(g["ttft_ms"], g["decode_tok_s"])):
+        print(f"spec: prompt {lens[i]}"
+              f"{' (late)' if i >= len(CONT_WAVES[0]) else ''} ttft at sink "
+              f"{t:.1f} ms, decode {d:.2f} tok/s", flush=True)
+    print(f"spec: accept rate {r['accept_rate']:.4f} (random weights: the draft "
+          f"and the target agree by chance only), {r['rounds']} rounds, "
+          f"{r['prefill_chunks']} prefill chunks, target dispatches per emitted "
+          f"token per stream {r['target_dispatches_per_token']:.4f}; "
+          f"{r['tok_s']:.2f} tok/s in {g['window_s']:.2f} s against the continuous "
+          f"cell's {r['plain_tok_s']:.2f}; host {g['stats']['decode_host_s'] / max(1, r['rounds']) * 1e6:.1f} "
+          f"us per round; launches {g['launches']}", flush=True)
+    diffs = [v.get("first_difference") for v in r["replayed"].values()]
+    print(f"spec: greedy tokens by the near-tie rule (share {SPEC_TIE}): "
+          f"{r['streams_equal_to_plain']} of {len(g['ids'])} streams equal to the "
+          f"continuous cell's, first differences at {diffs}; near ties "
+          f"{[v['near_ties'] for v in r['replayed'].values()]}", flush=True)
+    print(f"spec: the same streams replayed at the [8, {SPEC_K + 1}] verify shape "
+          f"{r['verify_replayed']}", flush=True)
+    for i, d in r["rounding"].items():
+        print(f"spec: rounding, stream {i} teacher-forced (max |diff| / max |f32 "
+              f"logit|, max and mean over steps): verify to f32 "
+              f"{d['verify_to_f32']['max']:.4f} / {d['verify_to_f32']['mean']:.4f}, "
+              f"decode to f32 {d['decode_to_f32']['max']:.4f} / "
+              f"{d['decode_to_f32']['mean']:.4f}, verify to decode "
+              f"{d['verify_to_decode']['max']:.4f} / {d['verify_to_decode']['mean']:.4f}; "
+              f"in f32 verify to decode shape {d['f32_verify_to_f32']['max']:.2e}; "
+              f"f32 argmax equal to the spec token at {d['f32_tokens_equal_to_argmax']} "
+              f"of {MAX_NEW} steps; at the first difference from plain greedy "
+              f"{d.get('f32_at_difference')}", flush=True)
+    print(f"spec: launches by shape (counted) {r['spec_launches']}", flush=True)
+    t = r["step_ms"]
+    print(f"spec: captured steps at the 7B 8-slot shape, device ms per replay: "
+          f"propose {t['propose_ms']:.3f}, verify {t['verify_ms']:.3f}, round "
+          f"{t['round_ms']:.3f} against the decode step's {t['decode_step_ms']:.3f} "
+          f"({t['round_per_decode_step']:.3f}x)", flush=True)
+    print(f"census: spec {g['census']}", flush=True)
+    s0, s1 = r["sampled"]
+    print(f"spec: sampled (temperature 0.8, seed 1) two runs bitwise "
+          f"{r['sampled_bitwise']}, {s0['aggregate_tok_s']:.2f} / "
+          f"{s1['aggregate_tok_s']:.2f} tok/s, accept rate "
+          f"{s0['serve_counters'].get('llm.serve.spec_accepted', 0) / max(1, s0['serve_counters'].get('llm.serve.spec_accepted', 0) + s0['serve_counters'].get('llm.serve.spec_rejected', 0)):.4f}, "
+          f"census {s0['census']}", flush=True)
+    print(f"spec: accept path (llama_small f32, draft llama_small from the "
+          f"target's seed): accept rate {r['small_accept_rate']:.4f}, "
+          f"{r['small_streams_equal']} of {len(r['accept']['ids'])} streams equal "
+          f"to the same model without a draft; {r['accept']['aggregate_tok_s']:.2f} "
+          f"tok/s against {r['accept_plain']['aggregate_tok_s']:.2f}", flush=True)
+
+
 def main():
     import torch
 
@@ -2471,6 +3026,18 @@ def main():
           f"{query['static_over_wire']}", flush=True)
     save()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    prefix = detail["prefix"] = phase_prefix(dev)
+    print_prefix(prefix)
+    print(f"prefix: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    save()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    spec = detail["spec"] = phase_spec(dev, cont)
+    print_spec(spec)
+    print(f"spec: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    save()
+    torch.cuda.empty_cache()
     detail["reference"] = []
     for phase in (phase_reference, phase_reference_paged, phase_reference_bf16):
         detail["reference"].append(phase(dev))
@@ -2492,11 +3059,16 @@ def main():
 
     # one line per kernel: int4 per decoded token (129 launches at B=1),
     # with the same 129 launches at B=8 (a continuous decode step) and
-    # B=32 (a prefill chunk) beside it; flash per request at the 1023-row
-    # prompt bucket (32 launches) and per continuous prefill chunk (32
-    # launches at Sq = 32, by Skv), paged per continuous decode step at
-    # the 7B 8-slot shape (32 launches); launches are the static serve
-    # phase's plus the continuous phase's
+    # B=32 (a prefill chunk or an [8, 4] verify step) beside it; flash per
+    # request at the 1023-row prompt bucket (32 launches) and per
+    # continuous prefill chunk (32 launches at Sq = 32, by Skv), paged per
+    # continuous decode step at the 7B 8-slot shape (32 launches), with
+    # the verify step's 32 and the draft's propose launches beside it;
+    # launches are those of every LLM phase (serve, continuous, prefix,
+    # spec), each counted from 0 after its warm-up, by phase in
+    # launches_by_phase; spec_launches, the spec phase's greedy run's
+    # launches of the new shapes, counted by captured step (verify,
+    # propose) and around the draft's eager prefill calls
     int4_rows = [r for r in rows if r["kernel"] == "matmul_int4"]
 
     def per_step(B, key):
@@ -2505,12 +3077,21 @@ def main():
     fl = [r for r in rows if r["kernel"] == "flash_attention"
           and r["shape"]["Sq"] == 1023][0]
     chunk = {r["shape"]["Skv"]: r for r in rows if r["kernel"] == "flash_attention"
-             and r["shape"]["Sq"] == 32 and r["shape"]["Skv"] in FLASH_CHUNK_SKV}
+             and r["shape"]["Sq"] == 32 and r["shape"]["D"] == 128
+             and r["shape"]["Skv"] in FLASH_CHUNK_SKV}
     paged_rows = [r for r in rows if r["kernel"] == "paged_attention"
                   and r["route"] == "kernel"]
     pg = [r for r in paged_rows if r["shape"]["name"] == "7b"][0]
-    both = {k: serve["launches"][k] + cont["launches"][k]
-            for k in serve["launches"]}
+    runs = dict(serve=[serve], continuous=[cont],
+                prefix=[prefix[k] for k in ("on", "off", "fork_on", "fork_off")],
+                spec=[spec["greedy"], *spec["sampled"], spec["accept"],
+                      spec["accept_plain"]])
+    by_phase = {k: {ph: sum(r["launches"].get(k, 0) for r in rs)
+                    for ph, rs in runs.items()}
+                for k in ("matmul_int4", "flash_attention", "paged_attention")}
+    both = {k: sum(v.values()) for k, v in by_phase.items()}
+    spec_shapes = spec["spec_launches"]
+    vr = [r for r in paged_rows if r["shape"]["name"] == "7b_verify"][0]
     summary = [
         dict(name="matmul_int4", route="cuda",
              source="nnstreamer_tpu_torch/csrc/int4_matmul.cu",
@@ -2521,7 +3102,9 @@ def main():
              **{k: per_step(1, k) for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
              bound_by="bytes",
              **{f"{what}_{k}": per_step(B, k) for what, B in (("step8", 8), ("chunk32", 32))
-                for k in ("ms", "bound_ms", "library_ms")}),
+                for k in ("ms", "bound_ms", "library_ms")},
+             launches_by_phase=by_phase["matmul_int4"],
+             spec_launches=spec_shapes["matmul_int4"]),
         dict(name="flash_attention", route="cuda",
              source="nnstreamer_tpu_torch/csrc/flash_attention.cu",
              replaces="nnstreamer_tpu/ops/attention.py:210",
@@ -2532,16 +3115,22 @@ def main():
                              if r["kernel"] == "flash_attention"),
              **{k: 32 * fl[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
              bound_by=fl["bound_by"],
-             chunk_ms={str(n): N_LAYERS * r["ms"] for n, r in sorted(chunk.items())}),
+             chunk_ms={str(n): N_LAYERS * r["ms"] for n, r in sorted(chunk.items())},
+             launches_by_phase=by_phase["flash_attention"],
+             spec_launches=spec_shapes["flash_attention"]),
         dict(name="paged_attention", route="cuda",
              source="nnstreamer_tpu_torch/csrc/paged_attention.cu",
              replaces="nnstreamer_tpu/ops/attention.py:429",
-             launches=cont["launches"]["paged_attention"],
+             launches=both["paged_attention"],
              max_abs_err=max(r["max_abs_err"] for r in paged_rows),
              max_row_err=max(r["max_row_err"] for r in paged_rows),
              **{k: N_LAYERS * pg[k] for k in ("ms", "plain_ms", "bound_ms",
                                               "library_ms")},
-             bound_by=pg["bound_by"]),
+             bound_by=pg["bound_by"],
+             **{f"verify_{k}": N_LAYERS * vr[k] for k in ("ms", "bound_ms",
+                                                          "library_ms")},
+             launches_by_phase=by_phase["paged_attention"],
+             spec_launches=spec_shapes["paged_attention"]),
     ]
     detail["summary"] = summary
     save()

@@ -122,6 +122,9 @@ class TensorFilter(Element):
     def _ensure_fw(self) -> Framework:
         if self.fw is None:
             self.fw = _load_framework(self.props)
+        # the pipeline's armor (Pipeline(quarantine=...)), through which the
+        # llm serve loop's nan_guard quarantines a poisoned prompt
+        self.fw._armor = getattr(self, "_armor", None)
         return self.fw
 
     def stop(self) -> None:

@@ -20,7 +20,9 @@ tensors).  The static path (``serve`` unset):
 
 ``custom=serve:continuous`` runs :class:`_ContinuousLoop` instead: a
 standing decode loop over a block-paged KV pool that several requests
-share, each admitted into a free slot while the others decode.
+share, each admitted into a free slot while the others decode, with
+prefix sharing (on by default) and, with ``draft:<preset>``, speculative
+decoding.
 
 Pipeline usage::
 
@@ -36,6 +38,7 @@ unless the element sets ``accelerator=true:cpu``.
 from __future__ import annotations
 
 import functools
+import hashlib
 import math
 import queue
 import threading
@@ -45,7 +48,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..core.buffer import upload
+from ..core.buffer import Buffer, upload
 from ..core.config import get_config
 from ..core.log import logger, metrics
 from ..core.meta_keys import (META_ABORT_REASON, META_EMIT_T,
@@ -55,6 +58,7 @@ from ..core.registry import register_filter
 from ..core.types import TensorFormat, TensorsSpec
 from ..models import llama
 from ..models.zoo import build as build_model
+from ..ops.attention import PAGED_MAX_ROWS, paged_route
 from ..pipeline.graphs import Census
 from ..utils import elastic
 from .base import Framework, FrameworkError, parse_custom_options, resolve_device
@@ -91,33 +95,48 @@ class ByteTokenizer:
 
 #: custom= options of the JAX package's llm filter whose paths this port
 #: does not carry yet; asking for one raises instead of serving another path
-_NOT_PORTED = ("draft", "spec_k", "draft_seed", "tp", "tokenizer")
-#: switches of the continuous loop that turn on a path not ported yet:
-#: only their off value is taken (the JAX package's prefix_cache defaults
-#: to on; here it is off)
-_OFF_ONLY = ("prefix_cache", "nan_guard")
+_NOT_PORTED = ("tp", "tokenizer")
+
 
 def serving_plan(cfg, *, slots: int, block_size: int = 16,
-                 kv_blocks: int = 0, prefill_chunk: int = 32) -> Dict[str, int]:
+                 kv_blocks: int = 0, prefill_chunk: int = 32,
+                 dtype: str = "bfloat16", draft_cfg=None,
+                 spec_k: int = 4) -> Dict[str, int]:
     """Static sizing of the paged-KV serving state, without building
-    anything (the JAX package's ``serving_plan``, same integers, cut to
-    the two the loop reads):
+    anything (the JAX package's ``serving_plan``: the same integers under
+    the same names, less those that price the JAX package's own programs
+    and PRNG keys):
 
     * ``max_blocks`` — block-table width per slot.  Prefill pads prompts
       to ``prefill_chunk`` multiples, so the table spans the largest
-      padded prompt's final chunk, not just ``max_seq``; the extra
-      entries stay sentinel.
+      padded prompt's final chunk, not just ``max_seq``; with a draft it
+      also spans the ``spec_k`` positions past ``max_seq`` that a
+      stream's last ``[slots, spec_k + 1]`` verify step writes (a prefix
+      hit starts its suffix on the same chunk grid, so neither bound
+      moves).  The extra entries stay sentinel.
     * ``n_blocks`` — pool size.  ``kv_blocks`` 0 = worst case
       (``slots * ceil(max_seq / block_size)``: admission never defers on
       blocks); larger is clamped to it.
+    * ``pool_bytes`` / ``draft_pool_bytes`` — the ``n_blocks`` blocks of
+      the target's pool and of the draft's (same blocks and tables at the
+      draft's layers and heads; 0 without a draft), k + v.
     """
     bs = max(1, int(block_size))
     C = max(1, int(prefill_chunk))
+    k = max(1, int(spec_k))
     pad_max = math.ceil((cfg.max_seq - 1) / C) * C
-    max_blocks = math.ceil(max(cfg.max_seq, pad_max) / bs)
+    seq_span = cfg.max_seq + (k if draft_cfg is not None else 0)
+    max_blocks = math.ceil(max(seq_span, pad_max) / bs)
     worst = int(slots) * math.ceil(cfg.max_seq / bs)
     n_blocks = min(int(kv_blocks), worst) if kv_blocks else worst
-    return {"max_blocks": max_blocks, "n_blocks": n_blocks}
+    return {
+        "max_blocks": max_blocks,
+        "n_blocks": n_blocks,
+        "pool_bytes": llama.paged_cache_bytes(cfg, n_blocks, bs, dtype=dtype),
+        "draft_pool_bytes": (
+            llama.paged_cache_bytes(draft_cfg, n_blocks, bs, dtype=dtype)
+            if draft_cfg is not None else 0),
+    }
 
 
 @register_filter("llm", aliases=("llamacpp", "llama.cpp"))
@@ -146,11 +165,17 @@ class LLMFramework(Framework):
     :func:`~..utils.elastic.cancel_stream`, as the query serversink does
     when its client's connection died, and its slot and KV blocks being
     reaped, default 5); ``stream_chunk`` is then the decode steps per
-    host sync.
+    host sync.  The loop also takes ``prefix_cache:0|1`` (share the KV
+    blocks of a common prompt prefix, default 1), ``nan_guard:0|1``
+    (answer a prompt whose prefill logits are not finite with
+    ``abort_reason=poison`` and quarantine it through the pipeline's
+    armor, default 0) and ``draft:<preset>`` (speculative decoding: a
+    ``llama.PRESETS`` model at the target's vocab and ``max_seq``, weights
+    from ``draft_seed:N`` at ``param_dtype``, proposes ``spec_k:N``
+    tokens a round, default 4, and the target verifies them in one
+    ``[slots, spec_k + 1]`` step).
 
-    Not ported yet, and raising: ``draft:`` (speculative decoding),
-    ``prefix_cache:1``, ``nan_guard:1``, ``tp:``, ``tokenizer:``,
-    ``quant:int8``.
+    Not ported yet, and raising: ``tp:``, ``tokenizer:``, ``quant:int8``.
     """
 
     name = "llm"
@@ -163,6 +188,12 @@ class LLMFramework(Framework):
         self.tokenizer = ByteTokenizer()
         self.device = torch.device("cpu")
         self.continuous = False
+        #: the speculative loop's draft model (``draft:``), else None
+        self.draft_bundle = None
+        self.draft_cfg: Optional[llama.LlamaConfig] = None
+        #: the pipeline's armor (``Pipeline(quarantine=...)``), handed over
+        #: by the tensor_filter element; ``nan_guard:1`` quarantines through it
+        self._armor = None
         self._serve: Optional[_ContinuousLoop] = None
         self._serve_lock = threading.Lock()
         #: the captured decode steps of this filter (static sets or the
@@ -181,11 +212,6 @@ class LLMFramework(Framework):
                 raise FrameworkError(
                     f"custom={key}:{opts[key]} is not yet ported to "
                     "nnstreamer_tpu_torch")
-        for key in _OFF_ONLY:
-            if str(opts.pop(key, "0")).lower() not in ("0", "false", "no"):
-                raise FrameworkError(
-                    f"custom={key}:1 is not yet ported to "
-                    "nnstreamer_tpu_torch")
         serve = str(opts.pop("serve", "")).lower()
         if serve not in ("", "continuous"):
             raise FrameworkError(f"custom=serve:{serve}: unknown serve mode "
@@ -200,6 +226,13 @@ class LLMFramework(Framework):
         self.admit_timeout = max(0.0, float(opts.pop("admit_timeout", 30.0)))
         self.stream_idle_timeout = max(
             0.0, float(opts.pop("stream_idle_timeout", 5.0)))
+        self.prefix_cache = str(opts.pop("prefix_cache", "1")).lower() \
+            not in ("0", "false", "no")
+        self.nan_guard = str(opts.pop("nan_guard", "0")).lower() \
+            in ("1", "true", "yes")
+        draft = str(opts.pop("draft", "") or "")
+        self.spec_k = max(1, int(opts.pop("spec_k", 4)))
+        draft_seed = int(opts.pop("draft_seed", 0))
         quant = str(opts.get("quant", "")).lower()
         if quant not in ("", "int4"):
             raise FrameworkError(
@@ -224,7 +257,45 @@ class LLMFramework(Framework):
             raise FrameworkError(
                 f"model {model!r} has no LlamaConfig; the llm framework needs "
                 "a decoder-LM bundle (models/llama.py)")
+        if draft:
+            self._open_draft(draft, draft_seed, opts)
         self.census = Census(self.device)
+
+    def _open_draft(self, name: str, seed: int, opts: Dict[str, str]) -> None:
+        """Build the speculative loop's draft (the JAX package's checks):
+        a ``llama.PRESETS`` model at the target's vocab and ``max_seq``,
+        so that its proposals are target ids at target positions, built
+        on the target's device.  The verify step must take the paged
+        kernel on the card: ``open`` refuses a ``[slots, spec_k + 1]``
+        shape that :func:`~..ops.attention.paged_route` sends row by row
+        through gathered flash (that route sizes its gathers on the host,
+        which a captured step cannot)."""
+        if not self.continuous:
+            raise FrameworkError(
+                "draft: (speculative decoding) requires serve:continuous: "
+                "the per-request stream path has no standing verify loop")
+        if name not in llama.PRESETS:
+            raise FrameworkError(
+                f"draft model {name!r} must be a preset zoo name "
+                f"({sorted(llama.PRESETS)})")
+        cfg, T = self.cfg, self.spec_k + 1
+        group = cfg.n_heads // cfg.n_kv_heads
+        try:
+            route = paged_route(self.slots, T, group)
+        except ValueError as e:
+            raise FrameworkError(f"draft: verify step: {e}") from e
+        if route != "kernel":
+            raise FrameworkError(
+                f"draft: the [slots, spec_k + 1] = [{self.slots}, {T}] verify "
+                f"step takes the paged kernel only with slots > 1 and "
+                f"(n_heads / n_kv_heads) * (spec_k + 1) = {group * T} <= "
+                f"{PAGED_MAX_ROWS} query rows")
+        self.draft_bundle = build_model(name, {
+            "vocab": str(cfg.vocab), "max_seq": str(cfg.max_seq),
+            "seed": str(seed),
+            "param_dtype": str(opts.get("param_dtype", "float32"))},
+            device=self.device)
+        self.draft_cfg = self.draft_bundle.config
 
     def close(self) -> None:
         if self._serve is not None:
@@ -232,7 +303,7 @@ class LLMFramework(Framework):
             self._serve = None
         with self._sets_lock:
             self._free_sets = {}
-        self.bundle = None
+        self.bundle = self.draft_bundle = None
 
     # -- continuous serving ------------------------------------------------
     def _loop(self) -> "_ContinuousLoop":
@@ -450,31 +521,281 @@ def paged_decode_step(params, cfg, dtype, pool: Dict, tok: torch.Tensor,
     return step
 
 
+def spec_commit(pt, dprobs, props, u, gumbel, live):
+    """Speculative rejection sampling as a function of its draws (the
+    JAX package's ``spec_rejection_commit``, with the draws handed in).
+
+    ``pt`` [B, k+1, V]: the target's filtered distributions after the last
+    committed token and each of the k proposals; ``dprobs`` [B, k, V]: the
+    draft distributions the proposals were drawn from; ``props`` [B, k]
+    int32; ``u`` [B, k]: uniforms on [0, 1); ``gumbel`` [B, V]: standard
+    Gumbel noise; ``live`` [B] bool (a parked row commits nothing).
+
+    Proposal i is accepted iff ``u_i * q(x_i) < p(x_i)``; the longest
+    accepted prefix is kept, and the token after it is drawn from the
+    normalised residual ``max(p - q, 0)`` at the first rejection, or from
+    ``pt[k]`` when all k are accepted (``pt`` itself where the residual
+    has no mass), as ``argmax(log r + gumbel)``: how
+    ``jax.random.categorical`` draws.  The emitted tokens are distributed
+    as sampling the target one token at a time.
+
+    Returns ``(em, acc)``: ``em`` [B, k+1] int32, the accepted proposals
+    and then the drawn token at column ``acc``; ``acc`` [B] int64, the
+    accept counts."""
+    k = props.shape[1]
+    idx = props.long()[:, :, None]
+    q_x = dprobs.gather(2, idx)[:, :, 0]
+    pt_x = pt[:, :k].gather(2, idx)[:, :, 0]
+    ok = (u * q_x < pt_x).to(torch.int32)
+    acc = torch.cumprod(ok, dim=1).sum(dim=1)
+    acc = torch.where(live, acc, torch.zeros_like(acc))
+    qpad = torch.cat([dprobs, torch.zeros_like(dprobs[:, :1])], dim=1)
+    resid = torch.clamp(pt - qpad, min=0.0)
+    at = acc[:, None, None].expand(-1, 1, pt.shape[-1])
+    r_at = resid.gather(1, at)[:, 0]
+    pt_at = pt.gather(1, at)[:, 0]
+    r = torch.where(r_at.sum(dim=-1, keepdim=True) > 1e-20, r_at, pt_at)
+    final = torch.argmax(torch.log(torch.clamp(r, min=1e-38)) + gumbel,
+                         dim=-1).to(torch.int32)
+    em = torch.cat([props, torch.zeros_like(props[:, :1])], dim=1)
+    col = torch.arange(k + 1, device=props.device)[None, :]
+    return torch.where(col == acc[:, None], final[:, None], em), acc
+
+
+def spec_draws(gens: Sequence[torch.Generator], k: int, vocab: int,
+               device) -> tuple:
+    """A sampled verify step's draws, from each slot's own generator in
+    this order: ``k`` accept uniforms [B, k], then one Gumbel row [B,
+    vocab] (``-log`` of Exp(1) draws, kept finite) for the final token."""
+    u, g = [], []
+    for gen in gens:
+        u.append(torch.rand(k, generator=gen, device=device))
+        e = torch.empty(vocab, device=device).exponential_(generator=gen)
+        g.append(-torch.log(e.clamp_(min=torch.finfo(torch.float32).tiny)))
+    return torch.stack(u), torch.stack(g)
+
+
+def spec_propose_step(dparams, dcfg, dtype, dpool: Dict, tok: torch.Tensor,
+                      tok_prev: torch.Tensor, pos: torch.Tensor,
+                      tables: torch.Tensor, props: torch.Tensor,
+                      dprobs: Optional[torch.Tensor],
+                      gens: Sequence[torch.Generator], park: int,
+                      temperature: float, top_k: int = 0,
+                      top_p: float = 1.0) -> Callable[[], None]:
+    """A speculative round's draft side over the loop's static tensors,
+    the function its census captures: first the refresh step, the
+    draft's ``forward_paged`` of ``tok_prev`` at ``pos - 1`` (after a
+    round that accepted every proposal the draft pool lacks that
+    position; a parked row stays at ``pos``, so it still reads nothing),
+    then ``k = props.shape[1]`` draft steps from ``tok`` at ``pos``.
+    Greedy takes each step's argmax; sampled draws each proposal from
+    the filtered draft distribution with the slot's generator and keeps
+    the distributions in ``dprobs`` [B, k, V].  Writes ``props`` [B, k]
+    in place."""
+    k = props.shape[1]
+
+    def step() -> None:
+        rpos = torch.where(pos >= park, pos, pos - 1)
+        llama.forward_paged(dparams, tok_prev[:, None], dpool, tables, rpos,
+                            dcfg, dtype, logit_off=0)
+        t = tok
+        for i in range(k):
+            logits, _ = llama.forward_paged(dparams, t[:, None], dpool, tables,
+                                            pos + i, dcfg, dtype)
+            if temperature > 0.0:
+                probs = torch.softmax(llama.filter_logits(
+                    logits[:, -1], temperature, top_k, top_p), dim=-1)
+                dprobs[:, i].copy_(probs)
+                t = llama.draw_per_slot(probs, gens)
+            else:
+                t = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            props[:, i].copy_(t)
+
+    return step
+
+
+def spec_verify_step(params, cfg, dtype, pool: Dict, tok: torch.Tensor,
+                     tok_prev: torch.Tensor, pos: torch.Tensor,
+                     tables: torch.Tensor, props: torch.Tensor,
+                     dprobs: Optional[torch.Tensor], out: torch.Tensor,
+                     gens: Sequence[torch.Generator], park: int,
+                     temperature: float, top_k: int = 0,
+                     top_p: float = 1.0) -> Callable[[], None]:
+    """A speculative round's target side, the function its census
+    captures: one ``[B, k+1]`` ``forward_paged`` of the last committed
+    token and the k proposals, then the accept and commit in the same
+    step.  Greedy keeps the longest prefix of proposals equal to the
+    target's argmax, plus the target's own next token; sampled runs
+    :func:`spec_commit` on :func:`spec_draws`.  ``out`` [B, k+2] int32
+    takes the accept counts (column 0) and the emitted rows; ``tok``,
+    ``tok_prev`` and ``pos`` advance in place for live rows (``pos <
+    park``) and stay for parked ones."""
+    k = props.shape[1]
+
+    def step() -> None:
+        toks = torch.cat([tok[:, None], props], dim=1)
+        logits, _ = llama.forward_paged(params, toks, pool, tables, pos, cfg,
+                                        dtype)
+        live = pos < park
+        if temperature > 0.0:
+            pt = torch.softmax(llama.filter_logits(
+                logits, temperature, top_k, top_p), dim=-1)
+            u, gumbel = spec_draws(gens, k, logits.shape[-1], logits.device)
+            em, acc = spec_commit(pt, dprobs, props, u, gumbel, live)
+        else:
+            em = torch.argmax(logits, dim=-1).to(torch.int32)
+            ok = (props == em[:, :k]).to(torch.int32)
+            acc = torch.cumprod(ok, dim=1).sum(dim=1)
+            acc = torch.where(live, acc, torch.zeros_like(acc))
+        new_tok = em.gather(1, acc[:, None])[:, 0]
+        prev = em.gather(1, (acc - 1).clamp(min=0)[:, None])[:, 0]
+        out[:, 0].copy_(acc)
+        out[:, 1:].copy_(em)
+        tok_prev.copy_(torch.where(live, torch.where(acc > 0, prev, tok),
+                                   tok_prev))
+        tok.copy_(torch.where(live, new_tok, tok))
+        pos.copy_(torch.where(live, pos + acc + 1, pos))
+
+    return step
+
+
+class BlockAllocator:
+    """Host bookkeeping of the block pool with prefix sharing (the JAX
+    loop's ``take_blocks``, ``release``, ``map_shared`` and
+    ``chain_hashes``, ``nnstreamer_tpu/filters/llm.py:1600-1790``).
+
+    ``free`` is the free list of block ids, taken from its head and
+    released to its tail; ``ref`` [n_blocks] the reference counts (0: on
+    the free list, 1: one owner, more: a prefix mapped into several
+    streams' tables); ``prefix_index`` maps the chain hash of a full
+    prompt block to the block that holds its K/V, ``block_hash`` the
+    other way.  A cached block whose count drops to 0 rests in the free
+    list with its content and index entry: the cache never costs
+    admission capacity, and eviction is allocation."""
+
+    def __init__(self, n_blocks: int, block_size: int):
+        self.block_size = block_size
+        self.free: List[int] = list(range(n_blocks))
+        self.ref = np.zeros((n_blocks,), np.int64)
+        self.prefix_index: Dict[bytes, int] = {}
+        self.block_hash: Dict[int, bytes] = {}
+
+    def take(self, need: int) -> List[int]:
+        """``need`` private blocks (count 1) off the free list, blocks
+        that hold no cached prefix first; then the oldest-released cached
+        ones, whose index entries go (``llm.serve.prefix_evictions``).
+        Cached blocks passed over keep their place at the head."""
+        free = self.free
+        got: List[int] = []
+        cached: List[int] = []
+        while free and len(got) < need:
+            b = free.pop(0)
+            (cached if b in self.block_hash else got).append(b)
+        while cached and len(got) < need:
+            b = cached.pop(0)
+            del self.prefix_index[self.block_hash.pop(b)]
+            metrics.count("llm.serve.prefix_evictions")
+            got.append(b)
+        free[0:0] = cached
+        if len(got) < need:
+            # admission checks capacity first: a shortfall is an allocator
+            # bug, never a truncated table
+            free[0:0] = got
+            raise RuntimeError(f"KV allocator invariant violated: asked for "
+                               f"{need} blocks, only {len(got)} allocatable")
+        self.ref[got] = 1
+        return got
+
+    def release(self, blocks: Sequence[int]) -> None:
+        """Drop one reference per block; a block goes back to the free
+        list only at count 0 (a shared one stays for its other holders;
+        a cached one keeps its content and index entry)."""
+        for b in blocks:
+            self.ref[b] -= 1
+            if self.ref[b] <= 0:
+                self.ref[b] = 0
+                self.free.append(b)
+
+    def map_shared(self, b: int) -> None:
+        """One more reference on a cached block, taken off the free list
+        if it rested there."""
+        if self.ref[b] == 0:
+            self.free.remove(b)
+        self.ref[b] += 1
+
+    def chain_hashes(self, row: np.ndarray, full: int) -> List[bytes]:
+        """The chain hashes of the first ``full`` blocks of ``row``: hash j
+        commits to every token of blocks 0..j, so two prompts share block
+        j only when their whole prefixes match, which is when its K/V
+        (position-dependent through RoPE) is valid for both."""
+        bs = self.block_size
+        h = b"nns-prefix-v1"
+        out = []
+        for j in range(full):
+            h = hashlib.sha1(h + row[j * bs:(j + 1) * bs].tobytes()).digest()
+            out.append(h)
+        return out
+
+    def match(self, hashes: Sequence[bytes]) -> List[int]:
+        """The indexed blocks of the longest indexed prefix of ``hashes``."""
+        got = []
+        for h in hashes:
+            b = self.prefix_index.get(h)
+            if b is None:
+                break
+            got.append(b)
+        return got
+
+    def register(self, hashes: Sequence[bytes], blocks: Sequence[int]) -> None:
+        """Index a prefilled prompt's full blocks; hashes already indexed
+        (its shared and forked blocks) keep their block."""
+        for h, b in zip(hashes, blocks):
+            if h not in self.prefix_index:
+                self.prefix_index[h] = b
+                self.block_hash[b] = h
+
+
 class _ContinuousLoop:
     """Standing decode loop for ``custom=serve:continuous`` over a
     block-paged KV pool (port of the JAX package's ``_ContinuousLoop``,
-    without prefix sharing, speculative decoding, drain/adopt, tenant
-    quotas or the poison guard).
+    without drain/adopt or tenant quotas).
 
     **The pool.**  One thread owns the pool ``[L, n_blocks + 1, bs, Hkv,
     hd]`` (:func:`~..models.llama.init_paged_cache`; the extra block takes
-    dropped writes), a host free list of block ids and a per-slot block
+    dropped writes), the allocator's host state (:class:`BlockAllocator`:
+    free list, reference counts, prefix index) and a per-slot block
     table ``[slots, max_blocks]`` whose entries map a stream's logical
     block j to a pool block (``n_blocks`` = sentinel).  A decode step
     reads only each stream's live blocks (the paged kernel).
 
     **Admission = reservation.**  A prompt of T tokens is admitted, in
-    FIFO order, when a slot and ``ceil((T + n) / block_size)`` free blocks
-    exist (n = tokens to generate): a live stream never stalls on an
-    empty free list.  A prompt of ``max_seq`` tokens or more is rejected
-    (``prompt-oversize``), so is one whose reservation exceeds the whole
-    pool (``reservation-impossible``), and one that waited at the head of
-    the queue past ``admit_timeout`` (``admit-timeout``): each with a
+    FIFO order, when a slot and the blocks of ``ceil((T + n) /
+    block_size)`` positions that it does not share exist (n = tokens to
+    generate): a live stream never stalls on an empty free list.  A
+    prompt of ``max_seq`` tokens or more is rejected (``prompt-oversize``),
+    so is one whose reservation exceeds the whole pool
+    (``reservation-impossible``), and one that waited at the head of the
+    queue past ``admit_timeout`` (``admit-timeout``): each with a
     ``stream_aborted`` terminator carrying ``abort_reason``.
+
+    **Prefix sharing** (``prefix_cache``, on by default).  After its
+    prefill, a prompt's full blocks are indexed by their token chain
+    hashes.  A new prompt looks the index up before the capacity check:
+    the matched blocks up to ``p0``, the largest ``prefill_chunk``
+    multiple within the match and before the last real token, map into
+    its table with one more reference each instead of a reservation, and
+    only ``[p0, P)`` is prefilled, on the cold path's chunk grid.  A
+    matched block that straddles ``p0`` is copied into a fresh block
+    first (the copy-on-write fork, target and draft pools, rows copied in
+    place: the pools keep their addresses).  Blocks free at count 0;
+    cached ones rest in the free list and are evicted by allocation.
 
     **Chunked prefill.**  An admitted prompt pads to a multiple of
     ``prefill_chunk`` and prefills chunk by chunk into its blocks, at most
     ``prefill_budget`` tokens per iteration while other streams decode.
+    With ``nan_guard:1`` the final chunk's logits are read once on the
+    host: a prompt whose logits are not all finite is quarantined through
+    the pipeline's armor and answered ``abort_reason=poison``.
 
     **Decode.**  Each iteration replays ``stream_chunk`` times the one
     decode step its warm-up captured (:func:`paged_decode_step`, one
@@ -486,29 +807,44 @@ class _ContinuousLoop:
     mask into them once per chunk, and a stream's join, leave or
     completion changes only those values, never the step.
 
+    **Speculative decoding** (``draft:<preset>``).  The draft has a pool
+    of its own with the same blocks and tables; its prefill twin runs
+    eagerly on each prefill chunk.  Each iteration runs one round in
+    place of the decode chunk: the captured propose step
+    (:func:`spec_propose_step`) and the captured verify step
+    (:func:`spec_verify_step`, one ``[slots, spec_k + 1]`` target step
+    that accepts and commits), two census signatures.  Tokens, their
+    predecessors and positions advance on the card; the host reads the
+    accept counts and emitted rows once a round, stamps ``spec_draft``
+    (1: an accepted proposal, 0: the target's token) on each buffer, and
+    copies its positions over the card's only when a stream joins or
+    leaves.
+
     **Sampling.**  Greedy at temperature 0.  Otherwise each slot keeps one
     ``torch.Generator``, re-seeded from (seed, admission number) when a
     stream is admitted to it, drawn once for the first token and once per
-    decode step (an idle slot's draws are thrown away): a stream's
-    tokens are a function of the seed, its admission number and its
-    positions, whichever streams share the batch.
+    decode step (an idle slot's draws are thrown away); a speculative
+    round draws k proposals, k accept uniforms and one Gumbel row, in that
+    order.  A stream's tokens are a function of the seed, its admission
+    number and its positions, whichever streams share the batch.
 
     **Cancel.**  Every stream registers its id with
     :mod:`~..utils.elastic` at submit and unregisters when it completes
     or is aborted.  A cancel (:meth:`_mark_cancel`, e.g. the query
     serversink on a dead connection) marks it with a deadline
     ``stream_idle_timeout`` ahead; the first chunk boundary past it reaps
-    the stream, queued, mid-prefill or live: its blocks go back to the
-    free list, its slot parks, and a typed terminator goes downstream.
-    Like a completion, a reap changes only the host's tables, positions
-    and live mask, which reach the captured step by copies.
+    the stream, queued, mid-prefill or live: its blocks are released, its
+    slot parks, and a typed terminator goes downstream.  Like a
+    completion, a reap changes only the host's tables, positions and
+    live mask, which reach the captured steps by copies.
     """
 
     def __init__(self, fw: LLMFramework):
         self.fw = fw
         plan = serving_plan(fw.cfg, slots=fw.slots, block_size=fw.block_size,
                             kv_blocks=fw.kv_blocks,
-                            prefill_chunk=fw.prefill_chunk)
+                            prefill_chunk=fw.prefill_chunk, dtype=fw.dtype,
+                            draft_cfg=fw.draft_cfg, spec_k=fw.spec_k)
         self.max_blocks = plan["max_blocks"]
         self.n_blocks = plan["n_blocks"]
         self.sentinel = self.n_blocks  # unallocated table entry
@@ -537,11 +873,12 @@ class _ContinuousLoop:
         self._owned_sids: set = set()
         #: set once the warm-up (one prefill chunk, one decode step) ran
         self.warmed = threading.Event()
-        #: decode steps and prefill chunks dispatched since the warm-up, and
-        #: the host seconds spent issuing the decode steps (a replay waits
-        #: there while the card's launch queue is full)
-        self.stats = {"decode_steps": 0, "prefill_chunks": 0,
-                      "decode_host_s": 0.0}
+        #: decode steps, speculative rounds and prefill chunks dispatched
+        #: since the warm-up, and the host seconds spent issuing the decode
+        #: steps or rounds (a replay waits there while the card's launch
+        #: queue is full)
+        self.stats = {"decode_steps": 0, "spec_rounds": 0,
+                      "prefill_chunks": 0, "decode_host_s": 0.0}
         self._thread = threading.Thread(
             target=self._run, name="llm-serve", daemon=True)
         self._thread.start()
@@ -606,8 +943,8 @@ class _ContinuousLoop:
 
     # -- serve thread ------------------------------------------------------
     def _emit_token(self, emit, meta: Dict, token_id: int, index: int,
-                    last: bool) -> None:
-        out_meta = dict(meta)
+                    last: bool, extra: Optional[Dict] = None) -> None:
+        out_meta = dict(meta, **(extra or {}))
         out_meta[META_STREAM_INDEX] = index
         out_meta[META_EMIT_T] = time.monotonic()
         if last:
@@ -670,10 +1007,19 @@ class _ContinuousLoop:
         fw, cfg, dev = self.fw, self.fw.cfg, self.fw.device
         B, bs, C = fw.slots, fw.block_size, fw.prefill_chunk
         params = fw.bundle.params
+        spec = fw.draft_bundle is not None
+        sampled = fw.temperature > 0
         pool = llama.init_paged_cache(cfg, self.n_blocks, bs, dtype=fw.dtype,
                                       device=dev)
-        # The decode step's static inputs on the card, which its graph
-        # reads and writes in place; the host's values go into them by
+        dparams = dpool = None
+        if spec:
+            # one allocator and one table set steer both pools: block j
+            # holds both models' K/V of the same positions
+            dparams = fw.draft_bundle.params
+            dpool = llama.init_paged_cache(fw.draft_cfg, self.n_blocks, bs,
+                                           dtype=fw.dtype, device=dev)
+        # The captured steps' static inputs on the card, which their graphs
+        # read and write in place; the host's values go into them by
         # copies (from fresh pinned buffers: an earlier copy may still be
         # reading the last one) on this thread's stream, which a replay
         # follows.
@@ -681,14 +1027,14 @@ class _ContinuousLoop:
         pos_dev = torch.full((B,), self.park, dtype=torch.long, device=dev)
         tables_dev = torch.full((B, self.max_blocks), self.sentinel,
                                 dtype=torch.int32, device=dev)
-        live_dev = torch.zeros((B,), dtype=torch.bool, device=dev)
         gens = [torch.Generator(device=dev) for _ in range(B)]
-        # Host bookkeeping: positions advance by the chunk for live rows
-        # (parked rows stay parked) and tables change only at admit and
-        # retire, so both live as numpy and go up once per chunk.
+        # Host bookkeeping: positions advance by the chunk (or the round's
+        # accepted tokens) for live rows, parked rows stay parked, and
+        # tables change only at admit and retire, so both live as numpy
+        # and go up when they changed.
         pos = np.full((B,), self.park, np.int64)
         tables = np.full((B, self.max_blocks), self.sentinel, np.int32)
-        free = list(range(self.n_blocks))
+        alloc = BlockAllocator(self.n_blocks, bs)
         slot_blocks: list = [[] for _ in range(B)]
         slot_sid: list = [None] * B  # stream id holding each slot
         remaining = np.zeros((B,), np.int64)
@@ -696,54 +1042,87 @@ class _ContinuousLoop:
         slots = self._live_slots
         # published for tests and post-mortems (mutated in place)
         self._pos, self._tables = pos, tables
-        self._free, self._slot_blocks = free, slot_blocks
+        self._free, self._slot_blocks = alloc.free, slot_blocks
+        self._ref, self._prefix_index = alloc.ref, alloc.prefix_index
+        self._block_hash = alloc.block_hash
+        self._pool, self._draft_pool = pool, dpool
         eos = self.fw.tokenizer.eos if fw.stop_eos else -1
         admissions = 0
-        dirty = False  # host tables changed since the last upload
+        dirty = False      # host tables changed since the last upload
+        pos_dirty = False  # host positions changed outside a round
+        #: stream id -> chain hashes of its prompt, for prompts still
+        #: waiting (a deferred head is looked up again every iteration)
+        chain_cache: Dict[int, list] = {}
 
-        def take_blocks(need: int) -> list:
-            if len(free) < need:
-                # admission checks capacity first: a shortfall is an
-                # allocator bug, never a truncated table
-                raise RuntimeError(f"KV allocator invariant violated: asked "
-                                   f"for {need} blocks, {len(free)} free")
-            got = free[:need]
-            del free[:need]
-            return got
+        def cow_fork(src: int) -> int:
+            """Copy-on-write fork: a private copy of shared block ``src``,
+            target and draft rows, copied in place on this thread's
+            stream before the prefill chunk that writes into it."""
+            new = alloc.take(1)[0]
+            for p in (pool, dpool):
+                if p is not None:
+                    for key in ("k", "v"):
+                        p[key][:, new].copy_(p[key][:, src])
+            metrics.count("llm.serve.cow_forks")
+            return new
 
         def retire(s: int) -> None:
-            nonlocal dirty
+            nonlocal dirty, pos_dirty
             self._release_sid(slot_sid[s])
             slot_sid[s] = None
-            free.extend(slot_blocks[s])
+            alloc.release(slot_blocks[s])
             slot_blocks[s] = []
             tables[s, :] = self.sentinel
             dirty = True
             pos[s] = self.park
+            pos_dirty = True
             slots[s] = None
             remaining[s] = 0
             sidx[s] = 0
 
         # Warm-up before admitting real work: first-use costs (kernel
-        # library loads, allocator growth, library handles) and the decode
-        # step's capture land here and not on the first requests.  The
-        # prefill chunk writes garbage through real blocks and frees them,
-        # the decode step (every slot parked) only the sink block; nothing
+        # library loads, allocator growth, library handles) and the
+        # captures land here and not on the first requests.  The prefill
+        # chunk writes garbage through real blocks and releases them, the
+        # captured steps (every slot parked) only the sink block; nothing
         # can attend either.
-        warm = take_blocks(min(math.ceil(C / bs), self.n_blocks))
+        warm = alloc.take(min(math.ceil(C / bs), self.n_blocks))
         tables[0, :len(warm)] = warm
         zeros = torch.zeros((1, C), dtype=torch.int32, device=dev)
-        llama.forward_paged(params, zeros, pool, upload(tables[:1], dev),
-                            np.zeros(1, np.int64), cfg, fw.dtype,
-                            logit_off=C - 1)
-        free[0:0] = warm
+        for prm, mcfg, p in ((params, cfg, pool), (dparams, fw.draft_cfg, dpool)):
+            if prm is not None:
+                llama.forward_paged(prm, zeros, p, upload(tables[:1], dev),
+                                    np.zeros(1, np.int64), mcfg, fw.dtype,
+                                    logit_off=C - 1)
+        alloc.release(warm)
         tables[0, :] = self.sentinel
-        decode = fw.census.capture(
-            ("continuous", B, str(fw.dtype), fw.temperature > 0),
-            paged_decode_step(params, cfg, fw.dtype, pool, tok, pos_dev,
-                              tables_dev, live_dev, gens, fw.temperature,
-                              fw.top_k, fw.top_p),
-            generators=gens if fw.temperature > 0 else ())
+        generators = gens if sampled else ()
+        if spec:
+            K = fw.spec_k
+            tok_prev = torch.zeros((B,), dtype=torch.int32, device=dev)
+            props = torch.zeros((B, K), dtype=torch.int32, device=dev)
+            dprobs = torch.zeros((B, K, cfg.vocab), dtype=torch.float32,
+                                 device=dev) if sampled else None
+            spec_out = torch.zeros((B, K + 2), dtype=torch.int32, device=dev)
+            propose = fw.census.capture(
+                ("propose", B, K, str(fw.dtype), sampled),
+                spec_propose_step(dparams, fw.draft_cfg, fw.dtype, dpool, tok,
+                                  tok_prev, pos_dev, tables_dev, props, dprobs,
+                                  gens, self.park, fw.temperature, fw.top_k,
+                                  fw.top_p), generators=generators)
+            verify = fw.census.capture(
+                ("verify", B, K, str(fw.dtype), sampled),
+                spec_verify_step(params, cfg, fw.dtype, pool, tok, tok_prev,
+                                 pos_dev, tables_dev, props, dprobs, spec_out,
+                                 gens, self.park, fw.temperature, fw.top_k,
+                                 fw.top_p), generators=generators)
+        else:
+            live_dev = torch.zeros((B,), dtype=torch.bool, device=dev)
+            decode = fw.census.capture(
+                ("continuous", B, str(fw.dtype), sampled),
+                paged_decode_step(params, cfg, fw.dtype, pool, tok, pos_dev,
+                                  tables_dev, live_dev, gens, fw.temperature,
+                                  fw.top_k, fw.top_p), generators=generators)
         tok.cpu()  # the warm-up has run on the card
         self.warmed.set()
 
@@ -797,10 +1176,16 @@ class _ContinuousLoop:
                     progressed = True
 
             # 1. admission: waiting prompts into free slots while a slot
-            # and the stream's whole block reservation are free.  Strict
-            # FIFO; the head times out after admit_timeout.
+            # and the stream's unshared block reservation are free.
+            # Strict FIFO; the head times out after admit_timeout.  The
+            # prefix lookup comes before the capacity check: a hit needs
+            # blocks for its unshared part only.
+            waiting_sids = {e[1].get(META_STREAM_ID) for e in self._waiting}
+            for k in [k for k in chain_cache if k not in waiting_sids]:
+                del chain_cache[k]
             while self._waiting:
                 prompt, meta, emit, t_enq = self._waiting[0]
+                sid = meta.get(META_STREAM_ID)
                 T = prompt.shape[1]
                 n = max(1, min(fw.max_new, cfg.max_seq - T))
                 reason = None
@@ -810,11 +1195,29 @@ class _ContinuousLoop:
                     # no amount of retiring satisfies it: deferring would
                     # wedge the FIFO head
                     reason = "reservation-impossible"
-                need = math.ceil((T + n) / bs)
+                hashes, matched = [], []
+                if reason is None and fw.prefix_cache:
+                    hashes = chain_cache.get(sid)
+                    if hashes is None:
+                        hashes = chain_cache[sid] = alloc.chain_hashes(
+                            prompt[0], T // bs)
+                    matched = alloc.match(hashes)
+                # the suffix starts at p0, the largest chunk multiple not
+                # past the matched extent or the last real token; a
+                # matched block straddling p0 is forked
+                s0 = len(matched) * bs
+                p0 = min(s0 // C, (T - 1) // C) * C if s0 else 0
+                shared = p0 // bs
+                fork = 1 if p0 % bs else 0
+                phys = math.ceil((T + n) / bs) - shared
+                # matched blocks resting in the free list count as free
+                # now, but mapping them takes them off it
+                resting = sum(1 for b in matched[:shared] if alloc.ref[b] == 0)
                 busy = {st["slot"] for st in self._admitting}
                 freeslots = [s for s in range(B) if remaining[s] == 0
                              and slots[s] is None and s not in busy]
-                if reason is None and (not freeslots or len(free) < need):
+                if reason is None and (not freeslots
+                                       or len(alloc.free) < phys + resting):
                     if fw.admit_timeout > 0 and \
                             time.monotonic() - t_enq > fw.admit_timeout:
                         reason = "admit-timeout"
@@ -827,23 +1230,35 @@ class _ContinuousLoop:
                     self._abort(meta, emit, reason)
                     continue
                 s = freeslots[0]
-                slot_sid[s] = meta.get(META_STREAM_ID)
-                slot_blocks[s] = take_blocks(need)
-                tables[s, :need] = slot_blocks[s]
+                slot_sid[s] = sid
+                blocks = list(matched[:shared])
+                for b in blocks:
+                    alloc.map_shared(b)
+                if fork:
+                    blocks.append(cow_fork(matched[shared]))
+                blocks.extend(alloc.take(phys - fork))
+                slot_blocks[s] = blocks
+                tables[s, :len(blocks)] = blocks
                 dirty = True
-                P = math.ceil(T / C) * C  # chunk-multiple padding
+                if shared:
+                    metrics.count("llm.serve.prefix_hits")
+                    metrics.count("llm.serve.prefix_hit_blocks", shared)
+                # chunk-multiple padding; only the suffix [p0, P) is
+                # prefilled
+                P = p0 + math.ceil((T - p0) / C) * C
                 if P > T:
                     prompt = np.pad(prompt, ((0, 0), (0, P - T)))
-                metrics.count("llm.serve.prefill_tokens", P)
+                metrics.count("llm.serve.prefill_tokens", P - p0)
                 metrics.count("llm.serve.prefill_pad_waste", P - T)
                 self._admitting.append({
                     "slot": s, "prompt": prompt.astype(np.int32), "T": T,
-                    "P": P, "p": 0, "n": n, "meta": meta, "emit": emit,
-                    "first": None})
+                    "P": P, "p": p0, "n": n, "meta": meta, "emit": emit,
+                    "first": None, "hashes": hashes})
 
             # 2. chunked prefill: up to prefill_budget tokens of [1, C]
             # chunks into the admitting streams' blocks (the budget is
-            # waived while nothing decodes)
+            # waived while nothing decodes); the draft's twin writes the
+            # same chunk into the draft pool
             budget = fw.prefill_budget if (remaining > 0).any() else 1 << 30
             newly_live = []
             for st in list(self._admitting):
@@ -855,51 +1270,81 @@ class _ContinuousLoop:
                         dirty = False
                     # last REAL token's offset within the final chunk
                     off = st["T"] - 1 - p if final else 0
+                    chunk = upload(st["prompt"][:, p:p + C], dev)
+                    start = np.asarray([p], np.int64)
                     logits, pool = llama.forward_paged(
-                        params, upload(st["prompt"][:, p:p + C], dev), pool,
-                        tables_dev[s:s + 1], np.asarray([p], np.int64), cfg,
+                        params, chunk, pool, tables_dev[s:s + 1], start, cfg,
                         fw.dtype, logit_off=off)
+                    if spec:
+                        llama.forward_paged(dparams, chunk, dpool,
+                                            tables_dev[s:s + 1], start,
+                                            fw.draft_cfg, fw.dtype, logit_off=0)
                     self.stats["prefill_chunks"] += 1
                     st["p"] = p + C
                     budget -= C
                     progressed = True
-                    if final:
-                        gens[s].manual_seed(self._seed(admissions))
-                        admissions += 1
-                        st["first"] = llama.sample_token_per_slot(
-                            logits[:, 0], [gens[s]], fw.temperature,
-                            fw.top_k, fw.top_p)
-                        tok[s] = st["first"][0]
-                        pos[s] = st["T"]
-                        remaining[s] = st["n"] - 1
-                        sidx[s] = 1
-                        # visible to the crash terminator from here on
-                        slots[s] = (st["meta"], st["emit"])
-                        newly_live.append(st)
+                    if not final:
+                        continue
+                    if fw.nan_guard and not bool(torch.isfinite(logits).all()):
                         self._admitting.remove(st)
+                        self._poisoned(st)
+                        retire(s)
                         break
+                    gens[s].manual_seed(self._seed(admissions))
+                    admissions += 1
+                    st["first"] = llama.sample_token_per_slot(
+                        logits[:, 0], [gens[s]], fw.temperature,
+                        fw.top_k, fw.top_p)
+                    tok[s] = st["first"][0]
+                    if spec:
+                        # the round's refresh step re-feeds the last
+                        # prompt token at T - 1
+                        tok_prev[s] = int(st["prompt"][0, st["T"] - 1])
+                    if fw.prefix_cache:
+                        alloc.register(st["hashes"], slot_blocks[s])
+                    pos[s] = st["T"]
+                    pos_dirty = True
+                    remaining[s] = st["n"] - 1
+                    sidx[s] = 1
+                    # visible to the crash terminator from here on
+                    slots[s] = (st["meta"], st["emit"])
+                    newly_live.append(st)
+                    self._admitting.remove(st)
+                    break
 
-            # 3. dispatch one chunk of per-row paged decode for the live
-            # slots.  The chunk is always stream_chunk steps: streams that
-            # finish mid-chunk decode garbage to its end (their writes stay
-            # in their reserved blocks or go to the sink; never emitted).
+            # 3. dispatch for the live slots: one speculative round, or one
+            # chunk of stream_chunk decode steps.  Streams that finish
+            # mid-chunk decode garbage to its end (their writes stay in
+            # their reserved blocks or go to the sink; never emitted).
             live = remaining > 0
             toks_dev = None
+            round_sent = False
             if live.any():
                 if dirty:
                     tables_dev.copy_(upload(tables, dev))
                     dirty = False
-                pos_dev.copy_(upload(pos, dev))
-                live_dev.copy_(upload(live, dev))
-                t_host = time.perf_counter()
-                steps = []
-                for _ in range(fw.chunk):
-                    decode.replay()
-                    steps.append(tok.clone())
-                toks_dev = torch.stack(steps, dim=1)
+                if spec:
+                    if pos_dirty:
+                        pos_dev.copy_(upload(pos, dev))
+                        pos_dirty = False
+                    t_host = time.perf_counter()
+                    propose.replay()
+                    verify.replay()
+                    self.stats["spec_rounds"] += 1
+                    metrics.count("llm.serve.spec_rounds")
+                    round_sent = True
+                else:
+                    pos_dev.copy_(upload(pos, dev))
+                    live_dev.copy_(upload(live, dev))
+                    t_host = time.perf_counter()
+                    steps = []
+                    for _ in range(fw.chunk):
+                        decode.replay()
+                        steps.append(tok.clone())
+                    toks_dev = torch.stack(steps, dim=1)
+                    self.stats["decode_steps"] += fw.chunk
+                    pos[live] += fw.chunk
                 self.stats["decode_host_s"] += time.perf_counter() - t_host
-                self.stats["decode_steps"] += fw.chunk
-                pos[live] += fw.chunk
                 progressed = True
 
             # 4. emit the admitted streams' first tokens (the card is
@@ -929,6 +1374,36 @@ class _ContinuousLoop:
                         if last:
                             retire(int(s))
 
+            # 5b. deliver the round's tokens: ONE copy of the accept
+            # counts and emitted rows; everything past a stream's first
+            # rejection is dropped (its K/V rows are overwritten before
+            # any position attends them)
+            if round_sent:
+                host = spec_out.cpu().numpy()
+                for s in np.flatnonzero(live):
+                    s = int(s)
+                    if remaining[s] == 0:
+                        continue  # retired at its first token
+                    meta, emit = slots[s]
+                    acc = int(host[s, 0])
+                    metrics.count("llm.serve.spec_accepted", acc)
+                    metrics.count("llm.serve.spec_rejected", K - acc)
+                    metrics.gauge("llm.serve.spec_accept_rate", acc / K)
+                    for j in range(acc + 1):
+                        tokid = int(host[s, 1 + j])
+                        last = remaining[s] == 1 or tokid == eos
+                        self._emit_token(emit, meta, tokid, int(sidx[s]),
+                                         bool(last),
+                                         extra={"spec_draft": int(j < acc)})
+                        sidx[s] += 1
+                        remaining[s] -= 1
+                        if last:
+                            # re-parks the row over the round's advance
+                            retire(s)
+                            break
+                    else:
+                        pos[s] += acc + 1
+
             if not progressed:
                 with self._idle_lock:
                     if self._pending.empty() and not self._waiting \
@@ -937,3 +1412,17 @@ class _ContinuousLoop:
                         self._idle.set()
                 self._wake.wait(0.02)
                 self._wake.clear()
+
+    def _poisoned(self, st: Dict) -> None:
+        """``nan_guard``: the prompt of admission state ``st`` prefilled
+        to non-finite logits.  Quarantine it through the pipeline's armor
+        (when the pipeline has one) and answer ``abort_reason=poison``;
+        the loop serves every other stream on."""
+        err = FloatingPointError("non-finite prefill logits (nan_guard)")
+        armor = self.fw._armor
+        if armor is not None:
+            armor.quarantine(Buffer([st["prompt"][:, :st["T"]].copy()],
+                                    meta=dict(st["meta"])),
+                             error=err, stage="llm.serve")
+        metrics.count("llm.serve.poisoned")
+        self._abort(st["meta"], st["emit"], "poison")

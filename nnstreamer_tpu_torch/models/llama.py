@@ -29,7 +29,8 @@ import torch.nn.functional as F
 
 from ..core.buffer import upload
 from ..core.types import TensorFormat, TensorsSpec
-from ..ops.attention import flash_attention, paged_attention, repeat_kv_heads
+from ..ops.attention import (flash_attention, paged_attention, paged_route,
+                             repeat_kv_heads)
 from ..ops.int4_matmul import matmul_int4, quantize_int4
 from .zoo import ModelBundle, register_model
 
@@ -412,8 +413,11 @@ def forward_paged(params, tokens, pool, block_tables, pos, cfg: LlamaConfig,
     the position token 0 of each row writes at, a tensor on the card or
     values on the host.  A parked row (``pos >= max_blocks *
     block_size``) writes only the sink block and attends nothing.  A
-    T > 1 step on the card needs its positions on the host: they size
-    the row's gather (a card tensor is read back once).
+    T > 1 step that :func:`~..ops.attention.paged_route` sends through
+    gathered flash (a prefill chunk) needs its positions on the host:
+    they size the row's gather (a card tensor is read back once); one
+    that takes the paged kernel (B > 1 rows of a verify step) reads them
+    on the card.
 
     ``logit_off``: return logits for ONLY that suffix position — [B, 1,
     vocab]; a chunked-prefill step needs the last real token's logits,
@@ -433,8 +437,12 @@ def forward_paged(params, tokens, pool, block_tables, pos, cfg: LlamaConfig,
     blk = torch.where(valid, block_tables.to(torch.long).gather(1, slot_blk),
                       torch.full_like(idx, sink)).clamp_(0, sink)
     off = idx % bs
-    # a prefill step (T > 1) sizes its gather from host lengths
-    lens = _context_lens(p.cpu() if T > 1 else pd, T, span)
+    # the lengths stay on the card where the paged kernel reads them (a
+    # decode or verify step, which a captured step needs); a step that
+    # gathers row by row (a prefill chunk) sizes its gathers on the host
+    on_card = T == 1 or (dev.type == "cuda" and paged_route(
+        B, T, cfg.n_heads // cfg.n_kv_heads) == "kernel")
+    lens = _context_lens(pd if on_card else p.cpu(), T, span)
     for i in range(cfg.n_layers):
         x = _block(cfg, _layer(params, i), x, idx,
                    kv=(pool["k"][i], pool["v"][i]),
@@ -479,6 +487,13 @@ def _draw(probs, generator: Optional[torch.Generator]):
     return torch.argmax(probs / q, dim=-1).to(torch.int32)
 
 
+def draw_per_slot(probs, generators: Sequence[torch.Generator]):
+    """probs [B, vocab] -> ids [B] int32: row i drawn with ``generators[i]``
+    (:func:`_draw`), so that a row's draw depends only on its own
+    generator and probabilities."""
+    return torch.stack([_draw(probs[i], gen) for i, gen in enumerate(generators)])
+
+
 def sample_token(logits, generator: Optional[torch.Generator],
                  temperature: float, top_k: int = 0, top_p: float = 1.0):
     """logits [B, vocab] -> token ids [B] int32.  Greedy (argmax, first
@@ -508,7 +523,7 @@ def sample_token_per_slot(logits, generators: Sequence[torch.Generator],
         return tok
     probs = torch.softmax(
         filter_logits(logits, temperature, top_k, top_p).to(torch.float32), dim=-1)
-    drawn = torch.stack([_draw(probs[i], gen) for i, gen in enumerate(generators)])
+    drawn = draw_per_slot(probs, generators)
     return drawn if live is None else torch.where(live, drawn, tok)
 
 

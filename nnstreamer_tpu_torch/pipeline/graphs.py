@@ -58,7 +58,7 @@ class Step:
             caller.wait_stream(self._stream)
             for counter, n in self._launches.items():
                 counter.add(n)
-        self.census._replayed()
+        self.census._replayed(self.signature, self._launches)
 
 
 class Census:
@@ -67,13 +67,15 @@ class Census:
     ``signatures`` is the set of signatures captured so far, ``captures``
     the number of captures (a signature captured again, for a second set
     of static buffers or after its set was dropped, counts again) and
-    ``replays`` the replays of all of them."""
+    ``replays`` the replays of all of them; ``launches`` holds, by
+    signature, the kernel launches its replays added to each counter."""
 
     def __init__(self, device):
         self.device = torch.device(device)
         self.signatures: set = set()
         self.captures = 0
         self.replays = 0
+        self.launches: Dict[Hashable, Dict[kernels.LaunchCount, int]] = {}
         self._lock = threading.Lock()
 
     def capture(self, signature: Hashable, fn: Callable[[], None],
@@ -112,6 +114,10 @@ class Census:
         caller.wait_stream(stream)
         return Step(self, signature, fn, graph, stream, dict(launches))
 
-    def _replayed(self) -> None:
+    def _replayed(self, signature: Hashable,
+                  launches: Dict[kernels.LaunchCount, int]) -> None:
         with self._lock:
             self.replays += 1
+            tally = self.launches.setdefault(signature, {})
+            for counter, n in launches.items():
+                tally[counter] = tally.get(counter, 0) + n

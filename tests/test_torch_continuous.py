@@ -6,6 +6,7 @@ JAX paged model's choices, at occupancies 1..4, chunked prefill and int4,
 the block allocator's contracts, typed rejects, the crash terminator,
 and the sampled loop's reproducibility."""
 
+import dataclasses
 import functools
 import threading
 
@@ -175,11 +176,30 @@ def _assert_stream_markers(bufs):
     ("llama_tiny", dict(slots=2, block_size=16, kv_blocks=5)),
     ("llama_small", dict(slots=3, block_size=8, prefill_chunk=24)),
     ("llama2_7b", dict(slots=8, block_size=16, prefill_chunk=32)),
+    # with a draft: the table spans spec_k positions past max_seq
+    ("llama_tiny", dict(slots=2, block_size=16, prefill_chunk=32,
+                        draft="llama_tiny", spec_k=4)),
+    ("llama_tiny", dict(slots=3, block_size=8, prefill_chunk=4, dtype="float32",
+                        draft="llama_tiny", spec_k=3)),
+    ("llama2_7b", dict(slots=8, block_size=16, prefill_chunk=32,
+                       draft="llama_tiny", spec_k=3)),
+    ("llama_small", dict(slots=4, block_size=16, kv_blocks=64, draft="llama_tiny",
+                         spec_k=4)),
 ])
 def test_serving_plan_integers_equal_jax(preset, kw):
-    want = jax_plan(jl.PRESETS[preset], **kw)
-    got = tllm.serving_plan(tl.PRESETS[preset], **kw)
-    assert got == {"max_blocks": want["max_blocks"], "n_blocks": want["n_blocks"]}
+    kw = dict(kw)
+    draft = kw.pop("draft", None)
+    cfgs = {}
+    for name, presets in (("jax", jl.PRESETS), ("port", tl.PRESETS)):
+        cfg = presets[preset]
+        # the draft at the target's vocab and max_seq, as the filters build it
+        cfgs[name] = (cfg, None if draft is None else dataclasses.replace(
+            presets[draft], vocab=cfg.vocab, max_seq=cfg.max_seq))
+    want = jax_plan(cfgs["jax"][0], draft_cfg=cfgs["jax"][1], **kw)
+    got = tllm.serving_plan(cfgs["port"][0], draft_cfg=cfgs["port"][1], **kw)
+    keys = ("max_blocks", "n_blocks", "pool_bytes", "draft_pool_bytes")
+    assert {k: got[k] for k in keys} == {k: want[k] for k in keys}
+    assert set(got) == set(keys)
 
 
 # -- the pipeline against the JAX pipeline -------------------------------------
@@ -377,13 +397,38 @@ def test_sampled_stream_reproducible_and_independent_of_batch():
     assert len(runs[0]) == 12
 
 
-@pytest.mark.parametrize("opt", ["prefix_cache:1", "draft:llama_tiny",
-                                 "nan_guard:1", "spec_k:4", "tp:2"])
-def test_options_not_yet_ported_raise(opt):
-    with pytest.raises(Exception, match="not yet ported"):
-        ntt.Pipeline("appsrc name=src ! tensor_filter framework=llm "
-                     f"model=llama_tiny custom=serve:continuous,{opt} "
-                     "accelerator=true:cpu ! tensor_sink name=out")
+@pytest.mark.parametrize("opt,want", [
+    # ported since: they open a loop
+    ("prefix_cache:1", dict(prefix_cache=True)),
+    ("draft:llama_tiny,spec_k:4", dict(spec_k=4)),
+    ("nan_guard:1", dict(nan_guard=True)),
+    # the draft's own errors, as the JAX package's
+    ("draft:/tmp/x.gguf", "must be a preset"),
+    ("slots:1,draft:llama_tiny", "paged kernel only"),
+    ("draft:llama_tiny,spec_k:40", "<= 64 query rows"),
+    # still not ported
+    ("tp:2", "not yet ported"),
+    ("tokenizer:/tmp/x.gguf", "not yet ported"),
+    ("quant:int8", "not yet ported"),
+])
+def test_options_not_yet_ported_raise(opt, want):
+    """The JAX loop's options: the ones the port carries open a loop, a
+    draft the paged kernel cannot verify raises naming the limit, and
+    the rest raise as not ported."""
+    desc = ("appsrc name=src ! tensor_filter name=f framework=llm "
+            f"model=llama_tiny custom=serve:continuous,{opt} "
+            "accelerator=true:cpu ! tensor_sink name=out")
+    if isinstance(want, str):
+        with pytest.raises(Exception, match=want):
+            ntt.Pipeline(desc)
+        return
+    fw = ntt.Pipeline(desc).element("f").fw
+    try:
+        assert fw.continuous
+        assert {k: getattr(fw, k) for k in want} == want
+        assert (fw.draft_cfg is not None) == ("draft:" in opt)
+    finally:
+        fw.close()
 
 
 def test_prefix_cache_off_is_accepted():

@@ -151,13 +151,16 @@ def test_opening_without_cpu_on_a_machine_without_cuda_raises(monkeypatch):
 @pytest.mark.parametrize("prop,match", [
     ("accelerator=true:gpu,cpu", "preference list"),
     ("accelerator=true:tpu", "unknown device"),
-    # the continuous loop is ported; its prefix cache is not
-    pytest.param("custom=serve:continuous,prefix_cache:1 accelerator=true:cpu",
-                 "not yet ported",
+    # the continuous loop and its prefix cache are ported: a draft that is
+    # no preset raises, as in the JAX package
+    pytest.param("custom=serve:continuous,prefix_cache:1,draft:x.gguf "
+                 "accelerator=true:cpu", "must be a preset",
                  id="custom=serve:continuous accelerator=true:cpu-not yet ported"),
-    ("custom=draft:llama_tiny accelerator=true:cpu", "not yet ported"),
+    # speculation needs the continuous loop
+    ("custom=draft:llama_tiny accelerator=true:cpu", "requires serve:continuous"),
     ("custom=tp:2 accelerator=true:cpu", "not yet ported"),
     ("custom=quant:int8 accelerator=true:cpu", "not yet ported"),
+    ("custom=tokenizer:/tmp/x.gguf accelerator=true:cpu", "not yet ported"),
 ])
 def test_unported_or_ambiguous_requests_raise(prop, match):
     with pytest.raises(Exception, match=match):
