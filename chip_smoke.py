@@ -71,6 +71,12 @@ Phases, each of which must pass:
              equal tokens, positions and pool after every step, greedy
              and sampled (temperature 0.9, top_k 40); the replay's device
              and host time per step are printed beside the eager step's.
+             Each stream carries a tenant of its own, so the loop's
+             timeline (``llm.serve.ttft_ms``, ``itl_ms``, ``queue_ms``,
+             ``prefill_ms``, ``decode_ms``) reads per stream: one TTFT
+             sample per stream, no later than its first token at the sink
+             (so in every phase that serves this way); p50, p99 and counts
+             are printed beside the sink's numbers.
 5. query   — the continuous cell over the query wire: the same model,
              settings (plus ``stream_idle_timeout:0.2``), prompts and waves
              served by ``tensor_query_serversrc ! tensor_filter !
@@ -106,7 +112,11 @@ Phases, each of which must pass:
              warm-up.  Then the fork sub-case at ``prefill_chunk:24`` (a
              hit's suffix starts inside a block): three streams of 32
              tokens, ``cow_forks`` >= 1, bitwise equal to
-             ``prefix_cache:0``.
+             ``prefix_cache:0``.  Last, the sharing run again under
+             ``trace_mode="ring"``: as many ``serve.admit``,
+             ``serve.prefix_hit`` and ``serve.prefill_chunk`` spans as
+             admissions, hits and chunks, tokens equal to the untraced
+             run's.
 7. spec    — speculative decoding: the continuous cell's prompts and waves
              with ``draft:llama_tiny,spec_k:3,draft_seed:7`` (the [8, 4]
              verify: 32 int4 rows, the paged kernel at G = 1; the draft's
@@ -124,14 +134,30 @@ Phases, each of which must pass:
              (``temperature:0.8,seed:1``) twice, bitwise, one sampled
              signature each; the accept path at llama_small f32 with a
              same-weights draft (accept rate, streams equal to no draft).
-8. reference — on a small model, logits with the kernels on the card
+8. files   — a model FILE at llama2_7b's full width: the seed-0 bf16
+             tree (what the zoo's ``quant:int4`` draws and quantizes) is
+             written as a 13.5 GB BF16 GGUF with an embedded SentencePiece
+             vocab (32,000 pieces) and as a 2-layer HF checkpoint directory
+             (two shards, index, config.json; loaded back bitwise), under
+             build/files/ (removed after; the depth is cut when disk or host
+             memory is short).  The GGUF serves the continuous cell's
+             traffic (``model=<file>``, ``stop_eos:0``) with ``quant:int4``
+             (8 streams bitwise equal to the continuous phase's, launches
+             per step and chunk) and ``quant:int8`` (two streams against
+             teacher-forced ``forward_paged``; no int4 launch); the
+             captured decode step of int8, int4 and bf16 weights is timed
+             (CUDA events over replays); one static text request ("hello
+             world" as bytes, ``stop_eos`` at its default, on) comes back as
+             the vocab's pieces.  Prints load seconds, GB/s from the file,
+             peak memory of each load and serve, and the phase's seconds.
+9. reference — on a small model, logits with the kernels on the card
              agree with the plain versions on the CPU: cached prefill and
              decode, and the paged path (chunked prefill, then decode with
              a parked row, then a [2, 5] verify-shaped step of two live
              rows), in f32; then the same model in bf16 (cached prefill and
              decode, chunked paged prefill), whose flash calls take the
              tensor-core kernel.
-9. vision  — the vision path, which runs no kernel of csrc/ (cuDNN
+10. vision — the vision path, which runs no kernel of csrc/ (cuDNN
              convolutions and torch ops, one captured CUDA graph per fused
              stage), batch 64, bf16, random weights from seed 0: (1) the
              README quick-start, ``appsrc max-inflight=4 ! tensor_transform
@@ -157,7 +183,7 @@ Phases, each of which must pass:
              census, and the first 33 batches' detections (valid rows,
              boxes, classes, scores) equal.  ``--profile`` adds each
              fused stage's kernels (chiprun_out/profile_vision.txt).
-10. models — the rest of BASELINE's model families in bench.py's form, no
+11. models — the rest of BASELINE's model families in bench.py's form, no
              kernel of csrc/, batch 64, random weights from seed 0, each
              behind a folded device source and fused with its transform
              and decoder into one stage captured as one CUDA graph:
@@ -199,6 +225,7 @@ ms per decode step and idle share over that run.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1174,6 +1201,7 @@ def phase_continuous(dev, profile=False):
     r = serve_traffic(CONT_DESC, prompts, groups, MAX_NEW, dev, inside=inside,
                       around=traced)
     streams = [dict(prompt_len=lens[i], late_joiner=i >= first, ttft_ms=r["ttft_ms"][i],
+                    loop_ttft_ms=r["loop_ttft_ms"][i],
                     decode_tok_s=r["decode_tok_s"][i], tokens=ids[:8], ids=ids)
                for i, ids in enumerate(r["ids"])]
     launches, stats = r["launches"], r["stats"]
@@ -1203,7 +1231,7 @@ def phase_continuous(dev, profile=False):
                 host_us_per_step=stats["decode_host_s"] / steps * 1e6,
                 census=r["census"], busy=busy, graph_vs_eager=out["graph_vs_eager"],
                 n_blocks=r["n_blocks"], peak_mem_gb=r["peak_mem_gb"],
-                replayed=out["replayed"])
+                replayed=out["replayed"], timeline=r["timeline"])
 
 
 def query_server(desc_custom, sid):
@@ -1480,7 +1508,12 @@ class EagerLaunches:
         llama.forward_paged = self._real
 
 
-def serve_traffic(desc, prompts, groups, max_new, dev, inside=None, around=None):
+#: the loop's serving timeline series (filters/llm.py ``_ContinuousLoop``)
+TIMELINE = ("ttft_ms", "itl_ms", "queue_ms", "prefill_ms", "decode_ms")
+
+
+def serve_traffic(desc, prompts, groups, max_new, dev, inside=None, around=None,
+                  trace_mode=None):
     """Serve ``prompts`` through the continuous pipeline ``desc`` (its
     filter named ``llm``) in ``groups``: each ``(indices, wait)`` is pushed
     at once, and the next group follows when each of its streams has its
@@ -1489,13 +1522,19 @@ def serve_traffic(desc, prompts, groups, max_new, dev, inside=None, around=None)
     read after the drain; ``around`` (a context manager, e.g. a profiler)
     is entered just before the first push and left after the drain;
     ``inside(fw, loop, result)`` runs before the pipeline closes, outside
-    the counted run.  Every stream must be whole and in order, none
-    aborted, the block pool free again with every count 0, and no capture
-    may follow the warm-up.  Returns the streams' ids, first token at the
-    sink (push to pull), decode tok/s, prefill chunks per ``"all"``
-    group, the loop's stats, launches (in all, by captured step and by
-    model of the eager calls), the growth of the ``llm.serve`` counters,
-    the census line and the aggregate tok/s over the window."""
+    the counted run; ``trace_mode`` is the pipeline's.  Every stream must
+    be whole and in order, none aborted, the block pool free again with
+    every count 0, and no capture may follow the warm-up.  Each stream
+    carries a tenant of its own, so the loop's tenant-labelled timeline
+    (``llm.serve.ttft_ms`` ...) reads per stream: one TTFT per stream, no
+    later than its first token at the sink.  Returns the streams' ids,
+    first token at the sink (push to pull) and in the loop, decode tok/s,
+    prefill chunks per ``"all"`` group, the loop's stats, launches (in
+    all, by captured step and by model of the eager calls), the growth of
+    the ``llm.serve`` counters, the census line, the timeline's p50 / p99
+    / count per series, the seconds and peak memory of the pipeline's
+    construction (the model's load) and the aggregate tok/s over the
+    window."""
     import contextlib
 
     import numpy as np
@@ -1512,9 +1551,14 @@ def serve_traffic(desc, prompts, groups, max_new, dev, inside=None, around=None)
     n = len(prompts)
     got = {i: [] for i in range(n)}
     pushed, first_at, group_chunks = {}, {}, []
+    tenants = [f"run{time.monotonic_ns()}.{i}" for i in range(n)]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    pipe = ntt.Pipeline(desc)
+    pipe = ntt.Pipeline(desc, trace_mode=trace_mode)
     res = dict(setup_s=time.perf_counter() - t0)
+    res["setup_peak_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9
+                            if dev.type == "cuda" else None)
 
     def pull_one():
         buf = pipe.pull("out", timeout=600)
@@ -1543,7 +1587,8 @@ def serve_traffic(desc, prompts, groups, max_new, dev, inside=None, around=None)
                 c0 = loop.stats["prefill_chunks"]
                 for i in group:
                     pushed[i] = time.perf_counter()
-                    pipe.push("src", ntt.Buffer([prompts[i]], meta={"req": i}))
+                    pipe.push("src", ntt.Buffer([prompts[i]], meta={
+                        "req": i, "_tenant": tenants[i]}))
                 need = 1 if wait == "first" else max_new
                 while any(len(got[i]) < need for i in group):
                     pull_one()
@@ -1599,6 +1644,17 @@ def serve_traffic(desc, prompts, groups, max_new, dev, inside=None, around=None)
                   f"stream {i}: stream_last misplaced")
             check(not buf.meta.get("stream_aborted"), f"stream {i} aborted")
     res["ttft_ms"] = [(first_at[i] - pushed[i]) * 1e3 for i in range(n)]
+    loop_ttft = [metrics.reservoir("llm.serve.ttft_ms", t) for t in tenants]
+    check(all(len(v) == 1 for v in loop_ttft),
+          f"loop TTFT samples per stream {[len(v) for v in loop_ttft]}, want one each")
+    res["loop_ttft_ms"] = [v[0] for v in loop_ttft]
+    late = [i for i in range(n) if res["loop_ttft_ms"][i] > res["ttft_ms"][i]]
+    check(not late, f"streams {late}: the loop's TTFT is later than the sink's first token")
+    res["timeline"] = {}
+    for name in TIMELINE:
+        vals = [x for t in tenants for x in metrics.reservoir(f"llm.serve.{name}", t)]
+        res["timeline"][name] = dict(p50=float(np.percentile(vals, 50)),
+                                     p99=float(np.percentile(vals, 99)), n=len(vals))
     res["decode_tok_s"] = [(max_new - 1) / (got[i][-1].meta["emit_t"]
                                             - got[i][0].meta["emit_t"])
                            for i in range(n)]
@@ -1632,14 +1688,42 @@ def prefix_prompts():
         for n in PREFIX_SUFFIXES]
 
 
+def check_cell_launches(r, int4=True, tag="continuous", layers=N_LAYERS):
+    """A continuous run's launches: paged one per layer per decode step,
+    flash one per layer per prefill chunk and, with int4 weights, the int4
+    matmul four per layer and one more (129 at 32 layers) per step or
+    chunk (none without)."""
+    steps, chunks = r["stats"]["decode_steps"], r["stats"]["prefill_chunks"]
+    want = dict(paged_attention=layers * steps, flash_attention=layers * chunks,
+                matmul_int4=(4 * layers + 1) * (steps + chunks) if int4 else 0)
+    check(r["launches"] == want, f"{tag} launches {r['launches']} != {want}")
+
+
+def span_counts(t0_ns):
+    """The loop's spans (stage ``llm.serve``) in the process's flight
+    recorder since ``t0_ns``, by kind."""
+    from nnstreamer_tpu_torch.utils import tracing
+
+    out = {}
+    for e in tracing.recorder.events():
+        if e.stage == "llm.serve" and e.ts >= t0_ns:
+            out[e.kind] = out.get(e.kind, 0) + 1
+    return out
+
+
 def phase_prefix(dev, base=CONT_DESC):
     """Prefix sharing at llama2_7b int4 (``base``: the continuous cell's
     pipeline): the first stream prefills the system prompt cold and
     alone; the second, alone after it, hits the 32 blocks it left resting
     in the free list; the other six hit together.  The same traffic
     through ``prefix_cache:0`` must give the same tokens bitwise.  Then
-    the fork sub-case at ``prefill_chunk:24``, on and off."""
+    the fork sub-case at ``prefill_chunk:24``, on and off.  Last, the
+    sharing run once more under ``trace_mode="ring"``: its ``serve.admit``,
+    ``serve.prefix_hit`` and ``serve.prefill_chunk`` spans must number the
+    admissions, hits and chunks, and its tokens equal the untraced run's."""
     import math
+
+    from nnstreamer_tpu_torch.utils import tracing
 
     prompts = prefix_prompts()
     groups = [([0], "all"), ([1], "all"), (list(range(2, len(prompts))), "all")]
@@ -1663,10 +1747,7 @@ def phase_prefix(dev, base=CONT_DESC):
     equal = [a == b for a, b in zip(on["ids"], off["ids"])]
     check(all(equal), f"tokens with sharing against prefix_cache:0: {equal}")
     for r in (on, off):
-        steps, chunks = r["stats"]["decode_steps"], r["stats"]["prefill_chunks"]
-        want = dict(paged_attention=N_LAYERS * steps, flash_attention=N_LAYERS * chunks,
-                    matmul_int4=129 * (steps + chunks))
-        check(r["launches"] == want, f"prefix launches {r['launches']} != {want}")
+        check_cell_launches(r, tag="prefix")
         check(r["census"]["signatures"] == ["('continuous', 8, 'bfloat16', False)"],
               f"prefix census: {r['census']}")
     fork_desc = base.replace("prefill_chunk:32", f"prefill_chunk:{PREFIX_FORK_CHUNK}") \
@@ -1681,10 +1762,21 @@ def phase_prefix(dev, base=CONT_DESC):
     check(forks >= 1, f"fork sub-case: {forks} forks")
     fork_equal = [a == b for a, b in zip(fork_on["ids"], fork_off["ids"])]
     check(all(fork_equal), f"fork sub-case tokens against prefix_cache:0: {fork_equal}")
+    t0 = time.monotonic_ns()
+    ring = serve_traffic(base, prompts, groups, MAX_NEW, dev, trace_mode="ring")
+    spans = span_counts(t0)
+    tracing.recorder.configure("off")  # later phases run untraced
+    want = {"serve.admit": len(prompts),
+            "serve.prefix_hit": ring["serve_counters"].get("llm.serve.prefix_hits"),
+            "serve.prefill_chunk": ring["stats"]["prefill_chunks"]}
+    check({k: spans.get(k) for k in want} == want,
+          f"ring-traced prefix run: spans {spans}, want {want}")
+    check(ring["ids"] == on["ids"], "ring-traced prefix run: tokens differ from untraced")
     return dict(on=on, off=off, cold_chunks=on["group_chunks"][0],
                 hit_chunks=[on["group_chunks"][1]] + hit_chunks[1:],
                 streams_equal=sum(equal), fork_on=fork_on, fork_off=fork_off,
-                cow_forks=forks, fork_streams_equal=sum(fork_equal))
+                cow_forks=forks, fork_streams_equal=sum(fork_equal), ring=ring,
+                ring_spans=spans)
 
 
 #: the spec phase: the continuous cell with a llama_tiny draft proposing
@@ -1723,25 +1815,22 @@ def continuous_prompts():
             for wave in CONT_WAVES for n in wave]
 
 
-def spec_round_ms(fw, dev):
-    """A speculative round's captured steps (propose, verify) against the
-    plain decode step, all three captured by a census of their own over
-    fresh tensors at the filter's shapes: the 7B 8-slot step with the
-    slots at ``GRAPH_POS`` (one parked), random pools and tokens.  Each is
-    timed by ``timed_ms`` (device ms per replay, the same flush); the
-    timed replays advance the positions into blocks reserved for them.
-    Launches here are held back from the counters."""
+def step_state(fw, dev, cfgs, spare=128):
+    """Fresh static tensors for a decode-shaped step captured outside the
+    loop, at the filter's shapes: the 8-slot tables and positions with
+    the slots at ``GRAPH_POS`` (one parked), each live slot's blocks
+    reaching ``spare`` positions past it (the timed replays advance
+    there), a random pool per config of ``cfgs``, random tokens, the
+    live mask and per-slot generators."""
     import torch
 
     from nnstreamer_tpu_torch.filters import llm as tllm
     from nnstreamer_tpu_torch.models import llama
-    from nnstreamer_tpu_torch.ops import kernels
-    from nnstreamer_tpu_torch.pipeline.graphs import Census
 
-    cfg, dcfg, B, bs, k = fw.cfg, fw.draft_cfg, fw.slots, fw.block_size, fw.spec_k
-    spare = 128  # positions the timed replays may advance
-    plan = tllm.serving_plan(cfg, slots=B, block_size=bs, prefill_chunk=fw.prefill_chunk,
-                             draft_cfg=dcfg, spec_k=k)
+    B, bs = fw.slots, fw.block_size
+    plan = tllm.serving_plan(fw.cfg, slots=B, block_size=bs,
+                             prefill_chunk=fw.prefill_chunk,
+                             draft_cfg=fw.draft_cfg, spec_k=fw.spec_k)
     n_blocks, max_blocks = plan["n_blocks"], plan["max_blocks"]
     park = max_blocks * bs
     tables = torch.full((B, max_blocks), n_blocks, dtype=torch.int32)
@@ -1754,21 +1843,60 @@ def spec_round_ms(fw, dev):
             used += need
             pos[s] = p
     gen = torch.Generator(device=dev).manual_seed(21)
-
-    def pool_of(c):
+    pools = []
+    for c in cfgs:
         pool = llama.init_paged_cache(c, n_blocks, bs, dtype=fw.dtype, device=dev)
         for t in pool.values():
             t.normal_(generator=gen)
-        return pool
+        pools.append(pool)
+    pos = pos.to(dev)
+    return dict(pools=pools, tables=tables.to(dev), pos=pos, park=park, live=pos < park,
+                tok=torch.randint(3, fw.cfg.vocab, (B,), dtype=torch.int32, device=dev,
+                                  generator=gen),
+                gens=[torch.Generator(device=dev) for _ in range(B)])
 
-    pool, dpool = pool_of(cfg), pool_of(dcfg)
-    tables, pos = tables.to(dev), pos.to(dev)
-    tok = torch.randint(3, cfg.vocab, (B,), dtype=torch.int32, device=dev, generator=gen)
+
+def decode_step_ms(fw, dev):
+    """The loop's decode step (``paged_decode_step``, greedy) captured over
+    fresh tensors (``step_state``) at the filter's shapes and weights:
+    device ms per replay (``timed_ms``).  Launches here are held back
+    from the counters."""
+    import torch
+
+    from nnstreamer_tpu_torch.filters import llm as tllm
+    from nnstreamer_tpu_torch.ops import kernels
+    from nnstreamer_tpu_torch.pipeline.graphs import Census
+
+    st = step_state(fw, dev, [fw.cfg])
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev).zero_
+    with torch.inference_mode(), kernels.held_launches():
+        decode = Census(dev).capture("decode", tllm.paged_decode_step(
+            fw.bundle.params, fw.cfg, fw.dtype, st["pools"][0], st["tok"], st["pos"],
+            st["tables"], st["live"], st["gens"], 0.0))
+        return timed_ms(decode.replay, flush)[0]
+
+
+def spec_round_ms(fw, dev):
+    """A speculative round's captured steps (propose, verify) against the
+    plain decode step, all three captured by a census of their own over
+    fresh tensors at the filter's shapes (``step_state``: the 7B 8-slot
+    step with the slots at ``GRAPH_POS``, one parked, random pools and
+    tokens).  Each is timed by ``timed_ms`` (device ms per replay, the
+    same flush); the timed replays advance the positions into blocks
+    reserved for them.  Launches here are held back from the counters."""
+    import torch
+
+    from nnstreamer_tpu_torch.filters import llm as tllm
+    from nnstreamer_tpu_torch.ops import kernels
+    from nnstreamer_tpu_torch.pipeline.graphs import Census
+
+    cfg, dcfg, B, k = fw.cfg, fw.draft_cfg, fw.slots, fw.spec_k
+    st = step_state(fw, dev, [cfg, dcfg])
+    (pool, dpool), tables, pos, park = st["pools"], st["tables"], st["pos"], st["park"]
+    tok, gens = st["tok"], st["gens"]
     tok_prev = tok.clone()
     props = torch.zeros((B, k), dtype=torch.int32, device=dev)
     out = torch.zeros((B, k + 2), dtype=torch.int32, device=dev)
-    live = pos < park
-    gens = [torch.Generator(device=dev) for _ in range(B)]
     census = Census(dev)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev).zero_
     with torch.inference_mode(), kernels.held_launches():
@@ -1779,7 +1907,7 @@ def spec_round_ms(fw, dev):
             fw.bundle.params, cfg, fw.dtype, pool, tok, tok_prev, pos, tables, props,
             None, out, gens, park, 0.0))
         decode = census.capture("decode", tllm.paged_decode_step(
-            fw.bundle.params, cfg, fw.dtype, pool, tok, pos, tables, live, gens, 0.0))
+            fw.bundle.params, cfg, fw.dtype, pool, tok, pos, tables, st["live"], gens, 0.0))
 
         def round_():
             propose.replay()
@@ -1926,6 +2054,241 @@ def phase_spec(dev, cont, base=CONT_DESC, accept_desc=ACCEPT_DESC):
         accept=accept, accept_plain=accept_plain,
         small_accept_rate=a_acc / max(1, a_acc + a_rej),
         small_streams_equal=sum(a == b for a, b in zip(accept["ids"], accept_plain["ids"])))
+
+
+#: the files phase: llama2_7b's seed-0 bf16 tree (what the zoo's
+#: ``quant:int4,param_dtype:bfloat16`` draws and quantizes) written as a
+#: GGUF with an embedded SentencePiece vocab (``toy_vocab`` with these
+#: merges, padded to 32,000 pieces with text pieces "▁p<i>" that merge
+#: last, so random weights' tokens decode to visible text), and as a HF
+#: checkpoint directory at full width and ``FILES_HF_LAYERS`` layers;
+#: served from the GGUF
+FILES_HF_LAYERS = 2
+FILES_MERGES = {"▁h": 2.0, "▁he": 3.0, "ll": 2.5, "llo": 3.5, "▁hello": 5.0,
+                "▁w": 1.0, "or": 1.5, "ld": 1.2, "▁world": 4.0}
+FILES_TEXT = "hello world"
+FILES_TEXT_NEW = 16
+#: bytes the phase leaves free on the disk and in host memory (the GGUF
+#: is read three times and should stay in the page cache)
+FILES_SPARE = 4e9
+
+
+def files_desc(path, quant, base=CONT_DESC):
+    """The continuous cell's pipeline (``base``) serving ``path`` with
+    ``quant`` ("int4", "int8" or "" for bf16 weights) and ``stop_eos:0``
+    (the file carries a real vocab, whose EOS would otherwise end
+    streams)."""
+    desc = re.sub(r"model=\S+", f"model={path}", base).replace(
+        "stream_chunk:8", "stream_chunk:8,stop_eos:0")
+    return desc.replace("quant:int4,", f"quant:{quant}," if quant else "")
+
+
+def files_layers(cfg, root):
+    """How many of ``cfg``'s layers the GGUF can hold: the whole model
+    unless the disk under ``root`` (GGUF and HF directory) or the host's
+    available memory (the GGUF in the page cache) is short.  Returns
+    (layers, bytes per layer, fixed bytes, free disk, available memory)."""
+    import shutil
+
+    from nnstreamer_tpu_torch.models import llama
+
+    shapes = sum(a * b for a, b in llama._mat_shapes(cfg).values()) * 2 + 2 * cfg.dim * 4
+    fixed = 2 * cfg.vocab * cfg.dim * 2 + cfg.dim * 4
+    disk = shutil.disk_usage(root).free
+    with open("/proc/meminfo") as fh:
+        mem = next(int(line.split()[1]) * 1024 for line in fh
+                   if line.startswith("MemAvailable:"))
+    hf = fixed + FILES_HF_LAYERS * shapes
+    budget = min(disk - hf, mem) - FILES_SPARE
+    layers = min(cfg.n_layers, int((budget - fixed) // shapes))
+    check(layers >= FILES_HF_LAYERS,
+          f"files: {disk / 1e9:.1f} GB of disk and {mem / 1e9:.1f} GB of host memory "
+          f"hold {layers} layers")
+    return layers, shapes, fixed, disk, mem
+
+
+def phase_files(dev, cont, base=CONT_DESC, cfg=None):
+    """Serve a model FILE at llama2_7b's full width: write the GGUF (and
+    the 2-layer HF directory, loaded back bitwise), then serve the GGUF
+    as the continuous cell with ``quant:int4`` (8 streams bitwise equal to
+    the continuous phase's ``cont``), with ``quant:int8`` (held against
+    teacher-forced ``forward_paged``), time the captured decode step of
+    each and of bf16 weights, and answer one static text request through
+    the file's own vocab.  Files live in a temporary directory under
+    build/files/, removed at the end.  ``base`` and ``cfg`` (default
+    llama2_7b at ``max_seq`` 1024) are the cell's pipeline and model, for
+    a rehearsal at a small size."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import nnstreamer_tpu_torch as ntt
+    from nnstreamer_tpu_torch.models import gguf, llama, tokenizer
+    from nnstreamer_tpu_torch.ops import attention, int4_matmul as i4
+
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "build", "files")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=root)
+    out = {}
+    try:
+        cfg = cfg or dataclasses.replace(llama.PRESETS["llama2_7b"], max_seq=1024)
+        full = cfg.n_layers
+        layers, per_layer, fixed, disk, mem = files_layers(cfg, tmp)
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+        out.update(layers=layers, disk_free_gb=disk / 1e9, mem_available_gb=mem / 1e9)
+        pad = cfg.vocab - tokenizer.toy_vocab(FILES_MERGES).n_vocab
+        tok = tokenizer.toy_vocab({**FILES_MERGES,
+                                   **{f"▁p{i}": -2e4 for i in range(pad)}})
+        path, hf_dir = os.path.join(tmp, "llama2_7b.gguf"), os.path.join(tmp, "hf")
+
+        with torch.inference_mode():
+            params = llama.init_params(cfg, seed=0, dtype="bfloat16", device=dev)
+            t0 = time.perf_counter()
+            gguf.export_llama(path, params, cfg, tokenizer=tok)
+            out["gguf_write_s"] = time.perf_counter() - t0
+            out["gguf_gb"] = os.path.getsize(path) / 1e9
+            hcfg = dataclasses.replace(cfg, n_layers=FILES_HF_LAYERS)
+            head = {k: params[k] for k in ("embed", "ln_out", "lm_head")}
+            head["layers"] = {k: v[:FILES_HF_LAYERS] for k, v in params["layers"].items()}
+            t0 = time.perf_counter()
+            llama.export_hf(hf_dir, head, hcfg, shards=2)
+            out["hf_write_s"] = time.perf_counter() - t0
+            out["hf_gb"] = sum(os.path.getsize(os.path.join(hf_dir, f))
+                               for f in os.listdir(hf_dir)) / 1e9
+            t0 = time.perf_counter()
+            got, got_cfg = llama.load_checkpoint(hf_dir, dtype="bfloat16", device=dev)
+            torch.cuda.synchronize()
+            out["hf_load_s"] = time.perf_counter() - t0
+            same = [torch.equal(got[k], head[k]) for k in ("embed", "ln_out", "lm_head")]
+            same += [torch.equal(got["layers"][k], v) for k, v in head["layers"].items()]
+            check(all(same) and got_cfg == hcfg,
+                  f"files: the HF directory loads back otherwise ({same}, {got_cfg})")
+            del params, head, got
+        torch.cuda.empty_cache()
+
+        prompts = continuous_prompts()
+        first = len(CONT_WAVES[0])
+        groups = [(list(range(first)), "first"), (list(range(first, len(prompts))), "first")]
+        want = [r["ids"] for r in cont["streams"]] if layers == full else serve_traffic(
+            base.replace("max_seq:1024", f"max_seq:1024,n_layers:{layers}"),
+            prompts, groups, MAX_NEW, dev)["ids"]
+        lens = [len(p) for p in prompts]
+
+        def timed_step(fw, loop, res):
+            res["step_ms"] = decode_step_ms(fw, dev)
+            res["file_tokenizer"] = (type(fw.tokenizer).__name__, fw.tokenizer.n_vocab,
+                                     fw.stop_eos)
+
+        def replayed(fw, loop, res):
+            res["replayed"] = {i: dict(prompt_len=lens[i], **replay_stream(
+                fw, loop, prompts[i], res["ids"][i], dev)) for i in CONT_CHECKED}
+            timed_step(fw, loop, res)
+
+        runs = {}
+        for quant, inside in (("int4", timed_step), ("int8", replayed)):
+            r = runs[quant] = serve_traffic(files_desc(path, quant, base), prompts,
+                                            groups, MAX_NEW, dev, inside=inside)
+            check(r["file_tokenizer"] == ("SentencePieceTokenizer", cfg.vocab, False),
+                  f"files {quant}: tokenizer {r['file_tokenizer']}")
+            check_cell_launches(r, int4=quant == "int4", tag=f"files {quant}", layers=layers)
+            check(r["census"]["signatures"] == ["('continuous', 8, 'bfloat16', False)"],
+                  f"files {quant} census: {r['census']}")
+            r["load_gb_s"] = out["gguf_gb"] / r["setup_s"]
+            torch.cuda.empty_cache()
+        equal = [a == b for a, b in zip(runs["int4"]["ids"], want)]
+        check(all(equal), f"files: GGUF int4 streams against the continuous phase's: {equal}")
+        out.update(int4=runs["int4"], int8=runs["int8"], int4_streams_equal=sum(equal))
+
+        # bf16 weights: the decode step alone
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        pipe = ntt.Pipeline(files_desc(path, "", base))
+        bf16 = dict(setup_s=time.perf_counter() - t0,
+                    setup_peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+        with pipe:
+            fw = pipe.element("llm").fw
+            fw.serve_loop()
+            bf16["step_ms"] = decode_step_ms(fw, dev)
+            pipe.eos("src")
+            pipe.wait(timeout=120)
+        bf16["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        bf16["load_gb_s"] = out["gguf_gb"] / bf16["setup_s"]
+        out["bf16"] = bf16
+        torch.cuda.empty_cache()
+
+        # one static text request through the file's own vocab
+        desc = re.sub(r"max_new:\d+,serve:continuous,slots:8,", f"max_new:{FILES_TEXT_NEW},",
+                      re.sub(r"model=\S+", f"model={path}", base))
+        t0 = time.perf_counter()
+        pipe = ntt.Pipeline(desc)
+        text = dict(setup_s=time.perf_counter() - t0)
+        prompt = np.frombuffer(FILES_TEXT.encode(), np.uint8)
+        with pipe:
+            fw = pipe.element("llm").fw
+            check(fw.stop_eos and fw.tokenizer.n_vocab == cfg.vocab,
+                  f"files text: stop_eos {fw.stop_eos}, vocab {fw.tokenizer.n_vocab}")
+            text["prompt_ids"] = fw._to_tokens(prompt)[0].tolist()
+            check(text["prompt_ids"] == tok.encode(FILES_TEXT.encode()),
+                  f"files text: prompt ids {text['prompt_ids']}")
+            f0, q0 = attention.LAUNCHES.value, i4.LAUNCHES.value
+            pipe.push("src", prompt)
+            bufs = [pipe.pull("out", timeout=600)]
+            while not bufs[-1].meta.get("stream_last"):
+                bufs.append(pipe.pull("out", timeout=600))
+            text["launches"] = {"flash_attention": attention.LAUNCHES.value - f0,
+                                "matmul_int4": i4.LAUNCHES.value - q0}
+            pipe.eos("src")
+            pipe.wait(timeout=120)
+        text["ids"] = [int(b.tensors[0][0]) for b in bufs]
+        pieces = [bytes(np.asarray(b.tensors[1])) for b in bufs]
+        check(len(bufs) <= FILES_TEXT_NEW
+              and pieces == [tok.decode_piece(i) for i in text["ids"]]
+              and (len(bufs) == FILES_TEXT_NEW or text["ids"][-1] == tok.eos),
+              f"files text: {len(bufs)} tokens {text['ids']}, pieces {pieces}")
+        check(all(v > 0 for v in text["launches"].values()),
+              f"files text: launches {text['launches']}")
+        text["text"] = b"".join(pieces).decode("utf-8", "replace")
+        out["text"] = text
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def print_files(r):
+    print(f"files: {r['layers']} of {N_LAYERS} layers (disk free "
+          f"{r['disk_free_gb']:.1f} GB, host memory available "
+          f"{r['mem_available_gb']:.1f} GB); GGUF {r['gguf_gb']:.2f} GB written in "
+          f"{r['gguf_write_s']:.1f} s ({r['gguf_gb'] / r['gguf_write_s']:.2f} GB/s); HF "
+          f"directory ({FILES_HF_LAYERS} layers, 2 shards) {r['hf_gb']:.2f} GB written in "
+          f"{r['hf_write_s']:.1f} s, loaded back bitwise in {r['hf_load_s']:.2f} s "
+          f"({r['hf_gb'] / r['hf_load_s']:.2f} GB/s)", flush=True)
+    for q in ("int4", "int8", "bf16"):
+        x = r[q]
+        serve = (f", serve peak {x['peak_mem_gb']:.2f} GB, {x['aggregate_tok_s']:.2f} "
+                 f"tok/s in {x['window_s']:.2f} s" if "window_s" in x else
+                 f", peak {x['peak_mem_gb']:.2f} GB")
+        print(f"files: {q} load {x['setup_s']:.2f} s ({x['load_gb_s']:.2f} GB/s from "
+              f"the file), load peak {x['setup_peak_gb']:.2f} GB{serve}; captured "
+              f"decode step {x['step_ms']:.3f} ms", flush=True)
+    print(f"files: decode step ms int8 {r['int8']['step_ms']:.3f} / int4 "
+          f"{r['int4']['step_ms']:.3f} / bf16 {r['bf16']['step_ms']:.3f} "
+          f"(int8 / bf16 {r['int8']['step_ms'] / r['bf16']['step_ms']:.3f})", flush=True)
+    print(f"files: int4 from the GGUF: {r['int4_streams_equal']} of "
+          f"{len(r['int4']['ids'])} streams bitwise equal to the continuous phase's; "
+          f"int8 tokens against forward_paged {r['int8']['replayed']}", flush=True)
+    for q in ("int4", "int8"):
+        print(f"files: {q} loop timeline {r[q]['timeline']}; launches "
+              f"{r[q]['launches']}; census {r[q]['census']}", flush=True)
+    t = r["text"]
+    print(f"files: static text {FILES_TEXT!r} -> prompt ids {t['prompt_ids']}, "
+          f"{len(t['ids'])} ids {t['ids']}, text {t['text']!r}, load {t['setup_s']:.2f} s, "
+          f"launches {t['launches']}", flush=True)
+    print(f"files: phase {r['phase_s']:.1f} s", flush=True)
 
 
 def _serve_prompts():
@@ -2861,6 +3224,13 @@ def print_prefix(r):
           f"in {r['off']['window_s']:.2f} s); prefill chunks {on['stats']['prefill_chunks']} "
           f"against {r['off']['stats']['prefill_chunks']}", flush=True)
     print(f"census: prefix {on['census']}", flush=True)
+    print(f"prefix: first token in the loop alone, cold {on['loop_ttft_ms'][0]:.1f} ms "
+          f"against hit {on['loop_ttft_ms'][1]:.1f} ms; loop timeline (ms) "
+          f"{on['timeline']}", flush=True)
+    print(f"prefix: under trace_mode=ring, spans {r['ring_spans']} for "
+          f"{len(on['ids'])} admissions, {r['ring']['serve_counters'].get('llm.serve.prefix_hits')} "
+          f"hits, {r['ring']['stats']['prefill_chunks']} chunks; tokens equal to the "
+          f"untraced run's; {r['ring']['aggregate_tok_s']:.2f} tok/s", flush=True)
     print(f"prefix: fork sub-case (llama2_7b, prefill_chunk:{PREFIX_FORK_CHUNK}, "
           f"{PREFIX_FORK_STREAMS} streams of {PREFIX_FORK_NEW}): cow_forks "
           f"{r['cow_forks']}, {r['fork_streams_equal']} of {PREFIX_FORK_STREAMS} "
@@ -2985,8 +3355,9 @@ def main():
     for r in cont["streams"]:
         print(f"continuous: prompt {r['prompt_len']}"
               f"{' (late)' if r['late_joiner'] else ''} ttft at sink "
-              f"{r['ttft_ms']:.1f} ms, decode {r['decode_tok_s']:.2f} tok/s",
-              flush=True)
+              f"{r['ttft_ms']:.1f} ms (in the loop {r['loop_ttft_ms']:.1f}), decode "
+              f"{r['decode_tok_s']:.2f} tok/s", flush=True)
+    print(f"continuous: loop timeline (ms) {cont['timeline']}", flush=True)
     print(f"continuous: {cont['aggregate_tok_s']:.2f} tok/s over "
           f"{cont['window_s']:.2f} s, {cont['decode_steps']} decode steps, "
           f"{cont['prefill_chunks']} prefill chunks, launches {cont['launches']}, "
@@ -3038,6 +3409,10 @@ def main():
     print(f"spec: phase {time.perf_counter() - t0:.1f} s", flush=True)
     save()
     torch.cuda.empty_cache()
+    files = detail["files"] = phase_files(dev, cont)
+    print_files(files)
+    save()
+    torch.cuda.empty_cache()
     detail["reference"] = []
     for phase in (phase_reference, phase_reference_paged, phase_reference_bf16):
         detail["reference"].append(phase(dev))
@@ -3065,7 +3440,8 @@ def main():
     # continuous decode step at the 7B 8-slot shape (32 launches), with
     # the verify step's 32 and the draft's propose launches beside it;
     # launches are those of every LLM phase (serve, continuous, prefix,
-    # spec), each counted from 0 after its warm-up, by phase in
+    # spec, files), each counted from 0 after its warm-up (the files
+    # phase's static text request from its push), by phase in
     # launches_by_phase; spec_launches, the spec phase's greedy run's
     # launches of the new shapes, counted by captured step (verify,
     # propose) and around the draft's eager prefill calls
@@ -3083,9 +3459,10 @@ def main():
                   and r["route"] == "kernel"]
     pg = [r for r in paged_rows if r["shape"]["name"] == "7b"][0]
     runs = dict(serve=[serve], continuous=[cont],
-                prefix=[prefix[k] for k in ("on", "off", "fork_on", "fork_off")],
+                prefix=[prefix[k] for k in ("on", "off", "fork_on", "fork_off", "ring")],
                 spec=[spec["greedy"], *spec["sampled"], spec["accept"],
-                      spec["accept_plain"]])
+                      spec["accept_plain"]],
+                files=[files["int4"], files["int8"], files["text"]])
     by_phase = {k: {ph: sum(r["launches"].get(k, 0) for r in rs)
                     for ph, rs in runs.items()}
                 for k in ("matmul_int4", "flash_attention", "paged_attention")}

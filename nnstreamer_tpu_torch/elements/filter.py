@@ -227,7 +227,10 @@ class TensorFilter(Element):
         fw = self._ensure_fw()
         if getattr(fw, "continuous", False):
             # the standing serve loop takes the request (its meta rides
-            # along) and emits one buffer per token from its own thread
+            # along) and emits one buffer per token from its own thread;
+            # its serve.* spans follow THIS pipeline's trace_mode (the
+            # element's recorder, None when tracing is off)
+            fw._trace_rec = getattr(self, "_trace_rec", None)
             fw.submit(self._select_inputs(buf.tensors), dict(buf.meta),
                       functools.partial(self._emit_serve_token, buf))
             return []

@@ -29,10 +29,13 @@ Pipeline usage::
     appsrc name=prompt ! tensor_filter framework=llm model=llama_tiny
         custom=max_new:32,temperature:0.0 ! tensor_sink name=tokens
 
-Input: one uint8 tensor (UTF-8 prompt bytes, byte-level ids) or int32
-token ids ``[T]`` / ``[B, T]``.  Output per token: ``[B]`` int32 ids, plus
-the uint8 piece bytes at batch 1.  The filter runs on the CUDA card
-unless the element sets ``accelerator=true:cpu``.
+Input: one uint8 tensor (UTF-8 prompt bytes, encoded by the filter's
+tokenizer: byte-level ids, or the SentencePiece vocab of the model file or
+of ``tokenizer:``) or int32 token ids ``[T]`` / ``[B, T]``.  Output per
+token: ``[B]`` int32 ids, plus the uint8 piece bytes at batch 1.
+``model=`` is a zoo name or a Llama-family model file (``.gguf``,
+``.safetensors``, a HF checkpoint directory, ``.npz``).  The filter runs
+on the CUDA card unless the element sets ``accelerator=true:cpu``.
 """
 
 from __future__ import annotations
@@ -53,10 +56,11 @@ from ..core.config import get_config
 from ..core.log import logger, metrics
 from ..core.meta_keys import (META_ABORT_REASON, META_EMIT_T,
                               META_STREAM_ABORTED, META_STREAM_ID,
-                              META_STREAM_INDEX, META_STREAM_LAST)
+                              META_STREAM_INDEX, META_STREAM_LAST, META_TENANT)
 from ..core.registry import register_filter
 from ..core.types import TensorFormat, TensorsSpec
 from ..models import llama
+from ..models.tokenizer import load_gguf_tokenizer
 from ..models.zoo import build as build_model
 from ..ops.attention import PAGED_MAX_ROWS, paged_route
 from ..pipeline.graphs import Census
@@ -95,7 +99,7 @@ class ByteTokenizer:
 
 #: custom= options of the JAX package's llm filter whose paths this port
 #: does not carry yet; asking for one raises instead of serving another path
-_NOT_PORTED = ("tp", "tokenizer")
+_NOT_PORTED = ("tp",)
 
 
 def serving_plan(cfg, *, slots: int, block_size: int = 16,
@@ -146,12 +150,17 @@ class LLMFramework(Framework):
     ``max_new:N`` (default 32), ``temperature:F`` (0 = greedy), ``seed:N``
     (sampling seed), ``top_k:N`` / ``top_p:F`` (sampler truncation),
     ``stream_chunk:N`` (tokens decoded per host sync, default 8),
-    ``stop_eos:0|1`` (stop at the tokenizer's EOS id, default off for the
-    byte-level tokenizer), ``quant:int4`` (nibble-packed weights, decoded
-    through the CUDA kernel of ``csrc/int4_matmul.cu``),
-    ``dtype:bfloat16|float32`` (compute), ``param_dtype:...`` (weights),
-    plus model geometry overrides (``dim:…``, ``n_layers:…``,
-    ``max_seq:…``) forwarded to the zoo.
+    ``tokenizer:<file.gguf>`` (the text tokenizer of that file's
+    ``tokenizer.ggml.*`` vocab; default: the model file's own vocab, else
+    byte-level ids), ``stop_eos:0|1`` (stop at the tokenizer's EOS id,
+    default on with a real vocab and off for the byte-level tokenizer),
+    ``quant:int4`` (nibble-packed weights, decoded through the CUDA kernel
+    of ``csrc/int4_matmul.cu``) or ``quant:int8`` (per-channel int8,
+    scale after the product), ``dtype:bfloat16|float32`` (compute),
+    ``param_dtype:...`` (weights), plus model geometry overrides
+    (``dim:…``, ``n_layers:…``, ``max_seq:…``) forwarded to the zoo.
+    ``model=`` takes a zoo name or a Llama-family model file (``.gguf``,
+    ``.safetensors``, a HF checkpoint directory, ``.npz``).
 
     ``serve:continuous`` + ``slots:N`` (default 4) runs the standing
     decode loop (:class:`_ContinuousLoop`) with ``block_size:N`` (KV pool
@@ -175,7 +184,7 @@ class LLMFramework(Framework):
     tokens a round, default 4, and the target verifies them in one
     ``[slots, spec_k + 1]`` step).
 
-    Not ported yet, and raising: ``tp:``, ``tokenizer:``, ``quant:int8``.
+    Not ported yet, and raising: ``tp:``.
     """
 
     name = "llm"
@@ -234,18 +243,17 @@ class LLMFramework(Framework):
         self.spec_k = max(1, int(opts.pop("spec_k", 4)))
         draft_seed = int(opts.pop("draft_seed", 0))
         quant = str(opts.get("quant", "")).lower()
-        if quant not in ("", "int4"):
-            raise FrameworkError(
-                f"custom=quant:{quant} is not yet ported to "
-                "nnstreamer_tpu_torch (quant:int4 only)")
+        if quant not in ("", "int4", "int8"):
+            raise FrameworkError(f"custom=quant:{quant}: unsupported quant "
+                                 "(int8, int4)")
+        tok_path = opts.pop("tokenizer", None)
+        stop_opt = opts.pop("stop_eos", None)
         self.device = resolve_device(str(props.get("accelerator", "")))
         self.max_new = int(opts.pop("max_new", 32))
         self.temperature = float(opts.pop("temperature", 0.0))
         self.top_k = int(opts.pop("top_k", 0))
         self.top_p = float(opts.pop("top_p", 1.0))
         self.seed = int(opts.pop("seed", 0))
-        self.stop_eos = str(opts.pop("stop_eos", "0")).lower() \
-            not in ("0", "false", "no")
         self.chunk = max(1, int(opts.pop("stream_chunk", 8)))
         self.dtype = opts.get("dtype", "bfloat16")
         try:
@@ -259,7 +267,35 @@ class LLMFramework(Framework):
                 "a decoder-LM bundle (models/llama.py)")
         if draft:
             self._open_draft(draft, draft_seed, opts)
+        self._open_tokenizer(tok_path, stop_opt)
         self.census = Census(self.device)
+
+    def _open_tokenizer(self, tok_path, stop_opt) -> None:
+        """The JAX filter's tokenizer choice: an explicit
+        ``tokenizer:<file>`` first, then the model file's own vocab, then
+        byte-level ids.  A vocab larger than the model's is refused here:
+        on the card an out-of-range id in the embedding gather is a
+        device-side assert that poisons the process's CUDA context, so
+        this check is the only guard.  ``stop_eos`` defaults to on with a
+        real vocab (the llama.cpp contract) and off for byte-level ids."""
+        if tok_path is not None:
+            tok = load_gguf_tokenizer(str(tok_path))
+            if tok is None:
+                raise FrameworkError(
+                    f"tokenizer file {tok_path!r} carries no "
+                    "tokenizer.ggml.tokens vocab")
+            self.tokenizer = tok
+        elif self.bundle.tokenizer is not None:
+            self.tokenizer = self.bundle.tokenizer
+        n_tok = getattr(self.tokenizer, "n_vocab", 0)
+        if n_tok > self.cfg.vocab:
+            raise FrameworkError(
+                f"tokenizer vocab ({n_tok}) exceeds model vocab "
+                f"({self.cfg.vocab}); wrong tokenizer for this model")
+        if stop_opt is None:
+            self.stop_eos = not isinstance(self.tokenizer, ByteTokenizer)
+        else:
+            self.stop_eos = str(stop_opt).lower() not in ("0", "false", "no")
 
     def _open_draft(self, name: str, seed: int, opts: Dict[str, str]) -> None:
         """Build the speculative loop's draft (the JAX package's checks):
@@ -758,7 +794,7 @@ class BlockAllocator:
 class _ContinuousLoop:
     """Standing decode loop for ``custom=serve:continuous`` over a
     block-paged KV pool (port of the JAX package's ``_ContinuousLoop``,
-    without drain/adopt or tenant quotas).
+    without drain/adopt).
 
     **The pool.**  One thread owns the pool ``[L, n_blocks + 1, bs, Hkv,
     hd]`` (:func:`~..models.llama.init_paged_cache`; the extra block takes
@@ -776,7 +812,11 @@ class _ContinuousLoop:
     so is one whose reservation exceeds the whole pool
     (``reservation-impossible``), and one that waited at the head of the
     queue past ``admit_timeout`` (``admit-timeout``): each with a
-    ``stream_aborted`` terminator carrying ``abort_reason``.
+    ``stream_aborted`` terminator carrying ``abort_reason``.  A tenant
+    (the ``_tenant`` meta key) capped by :meth:`set_tenant_quota` is
+    skipped while its streams' logical blocks plus the prompt's would pass
+    the cap (a shared prefix is no discount), so it never holds up the
+    tenants queued behind it (``llm.serve.quota_deferred``).
 
     **Prefix sharing** (``prefix_cache``, on by default).  After its
     prefill, a prompt's full blocks are indexed by their token chain
@@ -828,6 +868,17 @@ class _ContinuousLoop:
     order.  A stream's tokens are a function of the seed, its admission
     number and its positions, whichever streams share the batch.
 
+    **Timeline and spans.**  Each slot keeps host ``time.monotonic()``
+    stamps (enqueue, admission, first token, last token): the first
+    emitted token observes ``llm.serve.ttft_ms`` (enqueue to first
+    token), each later one ``llm.serve.itl_ms``, and retirement
+    ``llm.serve.queue_ms``, ``prefill_ms`` and ``decode_ms``, all
+    tenant-labelled.  With the pipeline's ``trace_mode`` on, the loop
+    records ``serve.admit``, ``serve.prefix_hit``, ``serve.prefill_chunk``,
+    ``serve.decode`` (closed when the chunk's tokens reach the host),
+    ``serve.spec_verify``, ``serve.cow_fork`` and ``serve.reap`` spans.
+    Neither reads the card.
+
     **Cancel.**  Every stream registers its id with
     :mod:`~..utils.elastic` at submit and unregisters when it completes
     or is aborted.  A cancel (:meth:`_mark_cancel`, e.g. the query
@@ -871,6 +922,14 @@ class _ContinuousLoop:
         #: registered stream ids not yet unregistered (shutdown clears
         #: what completion and abort did not)
         self._owned_sids: set = set()
+        #: per-tenant cap on the logical KV blocks of its streams (absent:
+        #: uncapped), moved at run time by :meth:`set_tenant_quota`
+        self._tenant_quota: Dict[str, int] = {}
+        #: per-slot tenant and serving timeline (monotonic seconds:
+        #: enqueue, admit, first and last token), set at admission and
+        #: cleared at retirement
+        self._slot_tenant: list = [None] * fw.slots
+        self._slot_time: list = [None] * fw.slots
         #: set once the warm-up (one prefill chunk, one decode step) ran
         self.warmed = threading.Event()
         #: decode steps, speculative rounds and prefill chunks dispatched
@@ -915,6 +974,21 @@ class _ContinuousLoop:
             self._cancelled[sid] = (reason, deadline)
             metrics.count("llm.serve.cancelled")
         self._wake.set()
+
+    def set_tenant_quota(self, tenant: str, max_blocks: Optional[int]) -> None:
+        """Cap (or uncap, with None) a tenant's total reserved KV blocks.
+        A host value: admission enforces it from its next pass."""
+        if max_blocks is None:
+            self._tenant_quota.pop(tenant, None)
+        else:
+            self._tenant_quota[tenant] = max(0, int(max_blocks))
+        self._wake.set()
+
+    @staticmethod
+    def _span(rec, kind: str, t0_ns: int, **args) -> None:
+        if rec is not None and rec.active:
+            now = time.monotonic_ns()
+            rec.record(kind, "llm.serve", None, t0_ns, now - t0_ns, **args)
 
     def _release_sid(self, sid) -> None:
         """A stream left the loop (completed, aborted or reaped)."""
@@ -1058,12 +1132,14 @@ class _ContinuousLoop:
             """Copy-on-write fork: a private copy of shared block ``src``,
             target and draft rows, copied in place on this thread's
             stream before the prefill chunk that writes into it."""
+            t0 = time.monotonic_ns()
             new = alloc.take(1)[0]
             for p in (pool, dpool):
                 if p is not None:
                     for key in ("k", "v"):
                         p[key][:, new].copy_(p[key][:, src])
             metrics.count("llm.serve.cow_forks")
+            self._span(rec, "serve.cow_fork", t0, src=int(src), dst=int(new))
             return new
 
         def retire(s: int) -> None:
@@ -1079,6 +1155,40 @@ class _ContinuousLoop:
             slots[s] = None
             remaining[s] = 0
             sidx[s] = 0
+            tt = self._slot_time[s]
+            if tt is not None and tt["first"] is not None:
+                # the stream's phases: queued, admission to first token
+                # (prefill and the first dispatch), decoding
+                ten = self._slot_tenant[s]
+                metrics.observe_latency("llm.serve.queue_ms",
+                                        (tt["admit"] - tt["enq"]) * 1e3, tenant=ten)
+                metrics.observe_latency("llm.serve.prefill_ms",
+                                        (tt["first"] - tt["admit"]) * 1e3, tenant=ten)
+                metrics.observe_latency("llm.serve.decode_ms",
+                                        (tt["last"] - tt["first"]) * 1e3, tenant=ten)
+            self._slot_time[s] = None
+            self._slot_tenant[s] = None
+
+        def mark_emit(s: int) -> None:
+            """One emitted token's host stamp: the first observes TTFT
+            (enqueue to first token, what the client sees), later ones the
+            gap since the previous token.  A chunk's tokens reach the host
+            together, so gaps inside a chunk are ~0 and its boundary
+            carries the wait: the timeline a streaming client sees."""
+            tt = self._slot_time[s]
+            now = time.monotonic()
+            if tt["first"] is None:
+                tt["first"] = tt["last"] = now
+                metrics.observe_latency("llm.serve.ttft_ms", (now - tt["enq"]) * 1e3,
+                                        tenant=self._slot_tenant[s])
+            else:
+                metrics.observe_latency("llm.serve.itl_ms", (now - tt["last"]) * 1e3,
+                                        tenant=self._slot_tenant[s])
+                tt["last"] = now
+
+        def tenant_blocks(tenant) -> int:
+            return sum(len(slot_blocks[s]) for s in range(B)
+                       if self._slot_tenant[s] == tenant)
 
         # Warm-up before admitting real work: first-use costs (kernel
         # library loads, allocator growth, library handles) and the
@@ -1128,6 +1238,7 @@ class _ContinuousLoop:
 
         while not self._stop.is_set():
             progressed = False
+            rec = getattr(fw, "_trace_rec", None)
             # 0. the thread hand-off queue into the admission-order list
             while True:
                 try:
@@ -1161,6 +1272,7 @@ class _ContinuousLoop:
                         if sid not in self._owned_sids:
                             self._cancelled.pop(sid, None)
                         continue
+                    t0 = time.monotonic_ns()
                     nb = len(slot_blocks[s])
                     if st is not None:
                         # mid-prefill: nothing emitted yet; drop its state
@@ -1171,20 +1283,25 @@ class _ContinuousLoop:
                         (meta, emit), idx = slots[s], int(sidx[s])
                     metrics.count("llm.serve.reaped")
                     metrics.count("llm.serve.reaped_blocks", nb)
+                    self._span(rec, "serve.reap", t0, slot=s, stream_id=sid,
+                               blocks=nb, reason=reason)
                     retire(s)
                     self._abort(meta, emit, reason, idx=idx)
                     progressed = True
 
             # 1. admission: waiting prompts into free slots while a slot
             # and the stream's unshared block reservation are free.
-            # Strict FIFO; the head times out after admit_timeout.  The
-            # prefix lookup comes before the capacity check: a hit needs
-            # blocks for its unshared part only.
+            # FIFO, with two carve-outs: the head times out after
+            # admit_timeout, and a tenant over its quota is skipped
+            # (deferral scoped to the tenant).  The prefix lookup comes
+            # before the capacity check: a hit needs blocks for its
+            # unshared part only.
             waiting_sids = {e[1].get(META_STREAM_ID) for e in self._waiting}
             for k in [k for k in chain_cache if k not in waiting_sids]:
                 del chain_cache[k]
-            while self._waiting:
-                prompt, meta, emit, t_enq = self._waiting[0]
+            wi = 0
+            while wi < len(self._waiting):
+                prompt, meta, emit, t_enq = self._waiting[wi]
                 sid = meta.get(META_STREAM_ID)
                 T = prompt.shape[1]
                 n = max(1, min(fw.max_new, cfg.max_seq - T))
@@ -1195,6 +1312,21 @@ class _ContinuousLoop:
                     # no amount of retiring satisfies it: deferring would
                     # wedge the FIFO head
                     reason = "reservation-impossible"
+                overdue = (fw.admit_timeout > 0
+                           and time.monotonic() - t_enq > fw.admit_timeout)
+                tenant = meta.get(META_TENANT)
+                quota = self._tenant_quota.get(tenant) if tenant is not None else None
+                # the quota charges LOGICAL blocks: every block a stream
+                # maps, shared or not
+                logical = math.ceil((T + n) / bs)
+                if reason is None and quota is not None \
+                        and tenant_blocks(tenant) + logical > quota:
+                    if not overdue:
+                        metrics.count("llm.serve.quota_deferred")
+                        wi += 1
+                        continue
+                    reason = "admit-timeout"
+                    metrics.count("llm.serve.admit_timeouts")
                 hashes, matched = [], []
                 if reason is None and fw.prefix_cache:
                     hashes = chain_cache.get(sid)
@@ -1209,7 +1341,7 @@ class _ContinuousLoop:
                 p0 = min(s0 // C, (T - 1) // C) * C if s0 else 0
                 shared = p0 // bs
                 fork = 1 if p0 % bs else 0
-                phys = math.ceil((T + n) / bs) - shared
+                phys = logical - shared
                 # matched blocks resting in the free list count as free
                 # now, but mapping them takes them off it
                 resting = sum(1 for b in matched[:shared] if alloc.ref[b] == 0)
@@ -1218,13 +1350,12 @@ class _ContinuousLoop:
                              and slots[s] is None and s not in busy]
                 if reason is None and (not freeslots
                                        or len(alloc.free) < phys + resting):
-                    if fw.admit_timeout > 0 and \
-                            time.monotonic() - t_enq > fw.admit_timeout:
-                        reason = "admit-timeout"
-                        metrics.count("llm.serve.admit_timeouts")
-                    else:
+                    if not overdue:
                         break  # pool or slots full: defer, never overflow
-                self._waiting.pop(0)
+                    reason = "admit-timeout"
+                    metrics.count("llm.serve.admit_timeouts")
+                t_admit = time.monotonic_ns()
+                self._waiting.pop(wi)
                 progressed = True
                 if reason is not None:
                     self._abort(meta, emit, reason)
@@ -1240,9 +1371,14 @@ class _ContinuousLoop:
                 slot_blocks[s] = blocks
                 tables[s, :len(blocks)] = blocks
                 dirty = True
+                self._slot_tenant[s] = tenant
+                self._slot_time[s] = {"enq": t_enq, "admit": t_admit / 1e9,
+                                      "first": None, "last": None}
                 if shared:
                     metrics.count("llm.serve.prefix_hits")
                     metrics.count("llm.serve.prefix_hit_blocks", shared)
+                    self._span(rec, "serve.prefix_hit", t_admit, slot=s,
+                               blocks=shared, tokens=p0)
                 # chunk-multiple padding; only the suffix [p0, P) is
                 # prefilled
                 P = p0 + math.ceil((T - p0) / C) * C
@@ -1254,6 +1390,8 @@ class _ContinuousLoop:
                     "slot": s, "prompt": prompt.astype(np.int32), "T": T,
                     "P": P, "p": p0, "n": n, "meta": meta, "emit": emit,
                     "first": None, "hashes": hashes})
+                self._span(rec, "serve.admit", t_admit, slot=s, tokens=T,
+                           blocks=phys, shared=shared)
 
             # 2. chunked prefill: up to prefill_budget tokens of [1, C]
             # chunks into the admitting streams' blocks (the budget is
@@ -1263,6 +1401,7 @@ class _ContinuousLoop:
             newly_live = []
             for st in list(self._admitting):
                 while budget > 0 and st["p"] < st["P"]:
+                    t_pf = time.monotonic_ns()
                     s, p = st["slot"], st["p"]
                     final = p + C >= st["P"]
                     if dirty:
@@ -1283,6 +1422,8 @@ class _ContinuousLoop:
                     st["p"] = p + C
                     budget -= C
                     progressed = True
+                    self._span(rec, "serve.prefill_chunk", t_pf, slot=s, pos=p,
+                               final=bool(final))
                     if not final:
                         continue
                     if fw.nan_guard and not bool(torch.isfinite(logits).all()):
@@ -1320,6 +1461,7 @@ class _ContinuousLoop:
             toks_dev = None
             round_sent = False
             if live.any():
+                t_dec = time.monotonic_ns()
                 if dirty:
                     tables_dev.copy_(upload(tables, dev))
                     dirty = False
@@ -1354,12 +1496,17 @@ class _ContinuousLoop:
                 first = int(st["first"][0])
                 first_last = st["n"] == 1 or first == eos
                 self._emit_token(st["emit"], st["meta"], first, 0, first_last)
+                mark_emit(s)
                 if first_last:
                     retire(s)
 
             # 5. deliver the chunk's tokens: ONE copy to the host per chunk
             if toks_dev is not None:
                 host = toks_dev.cpu().numpy()
+                # closed here, where the chunk's tokens reach the host:
+                # the replays above only queued the work
+                self._span(rec, "serve.decode", t_dec,
+                           occupancy=int(live.sum()), chunk=fw.chunk)
                 for j in range(host.shape[1]):
                     for s in np.flatnonzero(live):
                         if remaining[s] == 0:
@@ -1369,6 +1516,7 @@ class _ContinuousLoop:
                         last = remaining[s] == 1 or tokid == eos
                         self._emit_token(emit, meta, tokid, int(sidx[s]),
                                          bool(last))
+                        mark_emit(int(s))
                         sidx[s] += 1
                         remaining[s] -= 1
                         if last:
@@ -1380,6 +1528,8 @@ class _ContinuousLoop:
             # any position attends them)
             if round_sent:
                 host = spec_out.cpu().numpy()
+                self._span(rec, "serve.spec_verify", t_dec,
+                           occupancy=int(live.sum()), k=K)
                 for s in np.flatnonzero(live):
                     s = int(s)
                     if remaining[s] == 0:
@@ -1389,12 +1539,17 @@ class _ContinuousLoop:
                     metrics.count("llm.serve.spec_accepted", acc)
                     metrics.count("llm.serve.spec_rejected", K - acc)
                     metrics.gauge("llm.serve.spec_accept_rate", acc / K)
+                    ten = self._slot_tenant[s]
+                    if ten is not None:
+                        metrics.gauge("llm.serve.spec_accept_rate", acc / K,
+                                      tenant=ten)
                     for j in range(acc + 1):
                         tokid = int(host[s, 1 + j])
                         last = remaining[s] == 1 or tokid == eos
                         self._emit_token(emit, meta, tokid, int(sidx[s]),
                                          bool(last),
                                          extra={"spec_draft": int(j < acc)})
+                        mark_emit(s)
                         sidx[s] += 1
                         remaining[s] -= 1
                         if last:

@@ -95,20 +95,78 @@ def _mat_shapes(cfg: LlamaConfig) -> Dict[str, tuple]:
             "w_down": (F_, D)}
 
 
+def _quant_mode(quant) -> str:
+    q = str(quant or "").lower()
+    if q not in ("", "int4", "int8"):
+        raise ValueError(f"unsupported quant {quant!r} (int8, int4)")
+    return q
+
+
+def _assemble(cfg: LlamaConfig, mat, lm_head, quant: str, device) -> tuple:
+    """The stacked layer dict and the lm_head leaves, filled one matrix at
+    a time: ``mat(name, layer)`` gives one ``[in, out]`` weight on
+    ``device``, ``lm_head()`` the ``[dim, vocab]`` one, each called once,
+    in this order: every ``_QUANT_MATS`` name (the members of
+    ``_INT4_GROUPS`` in turn) for layer 0, 1, ..., then the lm_head.
+    ``quant="int4"`` / ``"int8"`` quantizes each matrix as it comes, so
+    the peak is the finished tree plus one full-precision matrix.  The
+    single place the draw order of :func:`init_params` lives, for every
+    ``quant``, and the loaders' streaming path."""
+    L, dev = cfg.n_layers, torch.device(device)
+    shapes = _mat_shapes(cfg)
+    layers: Dict = {}
+    head: Dict = {}
+    if quant == "int4":
+        for gname, members in _INT4_GROUPS:
+            din = shapes[members[0]][0]
+            width = sum(shapes[m][1] for m in members)
+            packed = torch.empty((L, din // 2, width), dtype=torch.int8, device=dev)
+            scale = torch.empty((L, 1, width), dtype=torch.float32, device=dev)
+            c = 0
+            for m in members:
+                w = shapes[m][1]
+                for li in range(L):
+                    packed[li, :, c:c + w], scale[li, :, c:c + w] = \
+                        quantize_int4(mat(m, li))
+                c += w
+            layers[gname + "_p"] = packed
+            layers[gname + "_s"] = scale
+        head["lm_head_p"], head["lm_head_s"] = quantize_int4(lm_head())
+    elif quant == "int8":
+        for m in _QUANT_MATS:
+            q = torch.empty((L,) + shapes[m], dtype=torch.int8, device=dev)
+            s = torch.empty((L, 1, shapes[m][1]), dtype=torch.float32, device=dev)
+            for li in range(L):
+                q[li], s[li] = quantize_int8_mat(mat(m, li))
+            layers[m + "_q"], layers[m + "_s"] = q, s
+        head["lm_head_q"], head["lm_head_s"] = quantize_int8_mat(lm_head())
+    else:
+        for m in _QUANT_MATS:
+            w = mat(m, 0)
+            stack = torch.empty((L,) + tuple(w.shape), dtype=w.dtype, device=dev)
+            stack[0] = w
+            for li in range(1, L):
+                stack[li] = mat(m, li)
+            layers[m] = stack
+        head["lm_head"] = lm_head()
+    return layers, head
+
+
 def init_params(cfg: LlamaConfig, seed: int = 0, dtype="float32", *,
                 device, quant: str = "") -> Dict:
     """Deterministic-random params from a ``torch.Generator`` on ``device``
     (it cannot reproduce ``jax.random``; tests move JAX trees over with
     :func:`params_from_jax` instead).  Each weight is normal with std
-    ``sqrt(2 / fan_in)``, drawn at ``dtype``.
+    ``sqrt(2 / fan_in)``, drawn at ``dtype``, one matrix of one layer per
+    draw in :func:`_assemble`'s order (the embedding first).
 
-    ``quant="int4"`` draws and quantizes one matrix of one layer at a
-    time, so a full-width model never holds its full-precision tree:
-    the peak is the packed tree plus one ``dtype`` matrix.
+    ``quant="int4"`` / ``"int8"`` quantizes each matrix as it is drawn, so
+    a full-width model never holds its full-precision tree: the peak is
+    the quantized tree plus one ``dtype`` matrix.  The draws are the same
+    as unquantized, so the result equals :func:`quantize_int4_params` /
+    :func:`quantize_int8` of ``init_params(cfg, seed, dtype)`` bitwise.
     """
-    quant = str(quant or "").lower()
-    if quant not in ("", "int4"):
-        raise ValueError(f"quant {quant!r} is not yet ported (int4 only)")
+    quant = _quant_mode(quant)
     dev = torch.device(device)
     dt = torch_dtype(dtype)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
@@ -117,34 +175,17 @@ def init_params(cfg: LlamaConfig, seed: int = 0, dtype="float32", *,
         w = torch.randn(shape, generator=gen, device=dev, dtype=dt)
         return w * float(np.sqrt(2.0 / max(1, fan_in)))
 
-    L, D = cfg.n_layers, cfg.dim
     shapes = _mat_shapes(cfg)
+    L, D = cfg.n_layers, cfg.dim
     params: Dict = {"embed": normal((cfg.vocab, D), D) * 0.5,
                     "ln_out": torch.ones(D, device=dev)}
-    layers: Dict = {"ln_attn": torch.ones(L, D, device=dev),
-                    "ln_mlp": torch.ones(L, D, device=dev)}
-    if quant == "int4":
-        for gname, members in _INT4_GROUPS:
-            din = shapes[members[0]][0]
-            width = sum(shapes[m][1] for m in members)
-            packed = torch.empty((L, din // 2, width), dtype=torch.int8, device=dev)
-            scale = torch.empty((L, 1, width), dtype=torch.float32, device=dev)
-            for li in range(L):
-                c = 0
-                for m in members:
-                    w = shapes[m][1]
-                    packed[li, :, c:c + w], scale[li, :, c:c + w] = \
-                        quantize_int4(normal(shapes[m], shapes[m][0]))
-                    c += w
-            layers[gname + "_p"] = packed
-            layers[gname + "_s"] = scale
-        params["lm_head_p"], params["lm_head_s"] = quantize_int4(
-            normal((D, cfg.vocab), D))
-    else:
-        for m in _QUANT_MATS:
-            layers[m] = normal((L,) + shapes[m], shapes[m][0])
-        params["lm_head"] = normal((D, cfg.vocab), D)
+    layers, head = _assemble(
+        cfg, lambda m, li: normal(shapes[m], shapes[m][0]),
+        lambda: normal((D, cfg.vocab), D), quant, dev)
+    layers["ln_attn"] = torch.ones(L, D, device=dev)
+    layers["ln_mlp"] = torch.ones(L, D, device=dev)
     params["layers"] = layers
+    params.update(head)
     return params
 
 
@@ -184,20 +225,75 @@ def quantize_int4_params(params: Dict) -> Dict:
             "ln_out": params["ln_out"], "lm_head_p": p, "lm_head_s": s}
 
 
+#: 1 / 127 rounded to f32 (a Python float holding that f32 value)
+_INV127 = float(np.float32(1.0 / 127.0))
+
+
+def quantize_int8_mat(w):
+    """One ``[in, out]`` weight -> (int8 ``[in, out]``, f32 ``[1, out]``
+    per-output-channel scales): ``s = max(|w| over in) / 127`` (at least
+    1e-8), ``q = clip(round(w / s), -127, 127)``, as the JAX package's
+    ``_qmat_2d``.  The division by the constant is a product with its f32
+    reciprocal, as XLA compiles it there, so scales and ``q`` equal the
+    JAX package's bitwise (a scale 1 ulp apart moves ``q`` at exact
+    halves, which bf16 weights hit)."""
+    w32 = w.to(torch.float32)
+    s = torch.clamp(w32.abs().amax(dim=0, keepdim=True) * _INV127, min=1e-8)
+    q = torch.clamp(torch.round(w32 / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+def quantize_int8(params: Dict) -> Dict:
+    """Weight-only int8 with per-output-channel scales (the JAX package's
+    ``quantize_int8``): each of the seven layer mats, layer by layer, and
+    the lm_head under ``<name>_q`` / ``<name>_s``.  Norms and the
+    embedding table stay full precision.  Consumed scale after the
+    product (:func:`_mm`)."""
+    lay = params["layers"]
+    qlay: Dict = {"ln_attn": lay["ln_attn"], "ln_mlp": lay["ln_mlp"]}
+    for m in _QUANT_MATS:
+        q = [quantize_int8_mat(w) for w in lay[m]]
+        qlay[m + "_q"] = torch.stack([a for a, _ in q])
+        qlay[m + "_s"] = torch.stack([b for _, b in q])  # [L, 1, out]
+    q, s = quantize_int8_mat(params["lm_head"])
+    return {"embed": params["embed"], "layers": qlay,
+            "ln_out": params["ln_out"], "lm_head_q": q, "lm_head_s": s}
+
+
+def _apply_quant(params: Dict, opts: Dict) -> Dict:
+    """The ``custom=quant:...`` handling of a full-precision tree."""
+    quant = _quant_mode(opts.get("quant", ""))
+    if quant == "int8":
+        return quantize_int8(params)
+    if quant == "int4":
+        return quantize_int4_params(params)
+    return params
+
+
 def _mm(h, lp: Dict, key: str, dt):
-    """``h @ W`` for a layer dict that stores ``key`` full-precision or
-    nibble-packed (``key_p``/``key_s``)."""
+    """``h @ W`` for a layer dict that stores ``key`` full-precision,
+    nibble-packed (``key_p``/``key_s``) or int8 (``key_q``/``key_s``).
+
+    int8 is applied scale after the product, ``(h @ q.to(dt)) * s``, as
+    in the JAX package (exact algebra for per-output-channel scales; int8
+    values are exact in bf16).  The product is ``torch.matmul`` on a
+    ``dt`` copy of the int8 weights: XLA folds that convert into the
+    product's operand read, torch writes the copy and reads it back."""
     if key + "_p" in lp:
         B, T, D = h.shape
         y = matmul_int4(h.reshape(B * T, D).contiguous(), lp[key + "_p"],
                         lp[key + "_s"])
         return y.reshape(B, T, -1)
     if key + "_q" in lp:
-        raise ValueError("int8 weights are not yet ported (quant:int4 only)")
+        return (h @ lp[key + "_q"].to(dt)) * lp[key + "_s"].to(dt)
     return h @ lp[key].to(dt)
 
 
 def _lm_head(params: Dict, x, dt):
+    if "lm_head_q" in params:
+        # scale after the product; f32 scales promote the output to f32
+        y = x @ params["lm_head_q"].to(dt)
+        return y.to(torch.float32) * params["lm_head_s"]
     if "lm_head_p" in params:
         # f32 output: logits must not round through bf16 — near-tie greedy
         # argmax has to match the dense path's precision
@@ -527,6 +623,356 @@ def sample_token_per_slot(logits, generators: Sequence[torch.Generator],
     return drawn if live is None else torch.where(live, drawn, tok)
 
 
+# -- model files -------------------------------------------------------------
+
+#: HF linear names of the seven layer mats (``model.layers.N.<name>.weight``)
+_HF_MATS = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
+            "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
+            "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+            "w_down": "mlp.down_proj"}
+#: llama.cpp names of the same mats (``blk.N.<name>.weight``)
+_GGUF_MATS = {"wq": "attn_q", "wk": "attn_k", "wv": "attn_v",
+              "wo": "attn_output", "w_gate": "ffn_gate", "w_up": "ffn_up",
+              "w_down": "ffn_down"}
+
+
+def _resolve_param_dtype(dtype) -> torch.dtype:
+    """ONE home for the checkpoint param-dtype rule: load_checkpoint and
+    the gguf path must never drift apart here."""
+    return torch_dtype(dtype)
+
+
+def _rope_permute(w: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """ggml/Meta interleaved-pair RoPE layout -> rotate-half layout (the
+    permutation HF applies converting Meta checkpoints; :func:`_rope` is
+    rotate-half).  ``w``: [n_heads*head_dim, in_features]."""
+    out, dim2 = w.shape
+    hd = out // n_heads
+    return w.reshape(n_heads, hd // 2, 2, dim2).transpose(1, 2).reshape(out, dim2)
+
+
+def _on_device(t: torch.Tensor, device, dt, *, transpose=False,
+               heads: Optional[int] = None) -> torch.Tensor:
+    """One file tensor (a CPU view of the memmap) on ``device`` at ``dt``:
+    copied over at its file dtype, then un-permuted (``heads``) and
+    transposed there — both exact — and cast."""
+    x = t.to(device)
+    if heads is not None:
+        x = _rope_permute(x, heads)
+    if transpose:
+        x = x.t()
+    return x.to(dt).contiguous()
+
+
+def _want_shapes(cfg: LlamaConfig) -> Dict:
+    shapes = _mat_shapes(cfg)
+    want = {"embed": (cfg.vocab, cfg.dim), "lm_head": (cfg.dim, cfg.vocab)}
+    want.update({"layers." + m: (cfg.n_layers,) + shapes[m] for m in _QUANT_MATS})
+    return want
+
+
+def _checked(t: torch.Tensor, name: str, want: tuple, path: str) -> torch.Tensor:
+    """``t`` if its shape is ``want`` (a layer mat: one layer of it)."""
+    shape = tuple(t.shape)
+    if len(want) == 3:
+        shape, want = (want[0],) + shape, want
+    if shape != want:
+        raise ValueError(
+            f"{path}: {name} has shape {shape}, config wants {want} — wrong "
+            "config for this checkpoint?")
+    return t
+
+
+def _fill(cfg: LlamaConfig, path: str, layer_mat, embed, lm_head, norm,
+          quant: str, device) -> Dict:
+    """The tree from a file's tensors, one matrix at a time
+    (:func:`_assemble`): ``layer_mat(name, layer)`` and ``lm_head()`` give
+    ``[in, out]`` weights on the device at the param dtype, ``embed`` the
+    table there, ``norm(key, layer)`` an f32 norm weight."""
+    want = _want_shapes(cfg)
+    dev = torch.device(device)
+    _checked(embed, "embed", want["embed"], path)
+    layers, head = _assemble(
+        cfg, lambda m, li: _checked(layer_mat(m, li), "layers." + m,
+                                    want["layers." + m], path),
+        lambda: _checked(lm_head(), "lm_head", want["lm_head"], path),
+        quant, dev)
+    for key in ("ln_attn", "ln_mlp"):
+        layers[key] = torch.stack([norm(key, li) for li in range(cfg.n_layers)])
+    return {"embed": embed, "layers": layers, "ln_out": norm("ln_out", None),
+            **head}
+
+
+def load_checkpoint(path: str, cfg: Optional[LlamaConfig] = None,
+                    dtype="bfloat16", *, device, quant: str = ""):
+    """Fill the tree layout from a REAL checkpoint file, on ``device``.
+
+    ``path``: a ``.safetensors`` file, a HF sharded checkpoint directory /
+    ``*.safetensors.index.json``, an ``.npz`` (models/checkpoint.py), or a
+    llama.cpp ``.gguf`` (models/gguf.py — F32/F16/BF16, config from the
+    ``llama.*`` metadata keys, RoPE layout converted).  Accepts HF
+    ``model.layers.N.self_attn.q_proj.weight`` naming (weights transposed
+    from [out, in] linear layout to this module's [in, out] layout) or
+    this module's own stacked naming (``layers.wq`` etc., the npz
+    round-trip).  Per-layer tensors are stacked on the leading layer axis.
+
+    The file is streamed: each matrix goes from its memmap to ``device``
+    at its file dtype, is transposed or un-permuted there, cast to
+    ``dtype`` and, with ``quant`` ("int4", "int8"), quantized before the
+    next is read, so the peak is the finished tree plus one matrix.  The
+    result equals the JAX package's ``load_checkpoint`` (then
+    ``_apply_quant``) leaf for leaf.
+
+    ``cfg=None`` reads a HF ``config.json`` next to the checkpoint;
+    without one, dims are inferred from tensor shapes with head_dim
+    assumed 128 (the Llama convention).  Returns ``(params, cfg)``;
+    norms stay f32.
+    """
+    from . import checkpoint as ckpt
+
+    dt = _resolve_param_dtype(dtype)
+    quant = _quant_mode(quant)
+    if path.endswith(".gguf"):
+        params, cfg, _tok = _load_gguf(path, cfg, dt, device=device, quant=quant)
+        return params, cfg
+    tensors = ckpt.load_tensors(path)
+    dev = torch.device(device)
+
+    if "embed" in tensors and "layers.wq" in tensors:  # native stacked npz
+        if cfg is None:
+            cfg = _read_config_json(path) or _infer_config_native(tensors)
+        params = _fill(
+            cfg, path,
+            lambda m, li: _on_device(tensors["layers." + m][li], dev, dt),
+            _on_device(tensors["embed"], dev, dt),
+            lambda: _on_device(tensors["lm_head"], dev, dt),
+            lambda k, li: _on_device(
+                tensors["layers." + k][li] if li is not None else tensors[k],
+                dev, torch.float32),
+            quant, dev)
+        return params, cfg
+
+    if cfg is None:
+        cfg = _infer_config_hf(path, tensors)
+
+    def get(name):
+        if name not in tensors:
+            raise ckpt.CheckpointError(
+                f"{path}: missing tensor {name!r} "
+                f"(have {len(tensors)} tensors, e.g. "
+                f"{sorted(tensors)[:3]})")
+        return tensors[name]
+
+    norms = {"ln_attn": "model.layers.{}.input_layernorm.weight",
+             "ln_mlp": "model.layers.{}.post_attention_layernorm.weight",
+             "ln_out": "model.norm.weight"}
+    embed = _on_device(get("model.embed_tokens.weight"), dev, dt)
+    if "lm_head.weight" in tensors:
+        def lm_head():
+            return _on_device(get("lm_head.weight"), dev, dt, transpose=True)
+    else:  # tied embeddings
+        def lm_head():
+            return embed.t().contiguous()
+    params = _fill(
+        cfg, path,
+        lambda m, li: _on_device(get(f"model.layers.{li}.{_HF_MATS[m]}.weight"),
+                                 dev, dt, transpose=True),
+        embed, lm_head,
+        lambda k, li: _on_device(get(norms[k].format(li)), dev, torch.float32),
+        quant, dev)
+    return params, cfg
+
+
+def _load_gguf(path: str, cfg: Optional[LlamaConfig], dt, *, device,
+               quant: str = ""):
+    """llama.cpp GGUF -> (the stacked tree on ``device``, its config, the
+    file's tokenizer or None), streamed as :func:`load_checkpoint`."""
+    from . import gguf
+
+    meta, tensors = gguf.read(path)
+    dev = torch.device(device)
+
+    def get(name):
+        if name not in tensors:
+            raise gguf.GGUFError(
+                f"{path}: missing tensor {name!r} (have e.g. "
+                f"{sorted(tensors)[:3]})")
+        return tensors[name]
+
+    if cfg is None:
+        arch = str(meta.get("general.architecture", "llama"))
+
+        def m(key, default=None):
+            v = meta.get(f"{arch}.{key}", default)
+            if v is None:
+                raise gguf.GGUFError(
+                    f"{path}: metadata {arch}.{key} missing and no cfg "
+                    "given")
+            return v
+
+        vocab = get("token_embd.weight").shape[0]
+        n_heads = int(m("attention.head_count"))
+        ctx = int(m("context_length", 4096))
+        if ctx > 8192:
+            from ..core.log import logger
+
+            logger(__name__).warning(
+                "%s: clamping context_length %d to 8192 (KV-cache memory "
+                "budget); pass custom=max_seq:%d to tensor_filter to "
+                "raise it", path, ctx, ctx)
+        cfg = LlamaConfig(
+            vocab=vocab,
+            dim=int(m("embedding_length")),
+            n_layers=int(m("block_count")),
+            n_heads=n_heads,
+            n_kv_heads=int(m("attention.head_count_kv", n_heads)),
+            ffn_hidden=int(m("feed_forward_length")),
+            max_seq=min(ctx, 8192),
+            rope_theta=float(m("rope.freq_base", 10000.0)),
+            norm_eps=float(m("attention.layer_norm_rms_epsilon", 1e-5)),
+        )
+
+    heads = {"wq": cfg.n_heads, "wk": cfg.n_kv_heads}
+    norms = {"ln_attn": "blk.{}.attn_norm.weight",
+             "ln_mlp": "blk.{}.ffn_norm.weight", "ln_out": "output_norm.weight"}
+    embed = _on_device(get("token_embd.weight"), dev, dt)
+    if "output.weight" in tensors:
+        def lm_head():
+            return _on_device(get("output.weight"), dev, dt, transpose=True)
+    else:  # tied embeddings
+        def lm_head():
+            return embed.t().contiguous()
+    params = _fill(
+        cfg, path,
+        lambda mname, li: _on_device(get(f"blk.{li}.{_GGUF_MATS[mname]}.weight"),
+                                     dev, dt, transpose=True,
+                                     heads=heads.get(mname)),
+        embed, lm_head,
+        lambda k, li: _on_device(get(norms[k].format(li)), dev, torch.float32),
+        quant, dev)
+    # the vocab rode along in the SAME metadata parse
+    tok = None
+    if "tokenizer.ggml.tokens" in meta:
+        from .tokenizer import SentencePieceTokenizer
+
+        tok = SentencePieceTokenizer.from_gguf_meta(meta)
+    return params, cfg, tok
+
+
+def _read_config_json(path: str) -> Optional[LlamaConfig]:
+    """HF-style config.json next to (or inside) ``path``, if present."""
+    import json
+    import os
+
+    base = path if os.path.isdir(path) else os.path.dirname(path)
+    cfg_path = os.path.join(base, "config.json")
+    if not os.path.exists(cfg_path):
+        return None
+    with open(cfg_path) as f:
+        c = json.load(f)
+    return LlamaConfig(
+        vocab=c["vocab_size"], dim=c["hidden_size"],
+        n_layers=c["num_hidden_layers"],
+        n_heads=c["num_attention_heads"],
+        n_kv_heads=c.get("num_key_value_heads",
+                         c["num_attention_heads"]),
+        ffn_hidden=c["intermediate_size"],
+        max_seq=min(c.get("max_position_embeddings", 4096), 8192),
+        rope_theta=float(c.get("rope_theta", 10000.0)),
+        norm_eps=float(c.get("rms_norm_eps", 1e-5)),
+    )
+
+
+def _infer_config_hf(path: str, tensors: Dict) -> LlamaConfig:
+    cfg = _read_config_json(path)
+    if cfg is not None:
+        return cfg
+    # shape inference: head_dim is 128 by Llama convention
+    from . import checkpoint as ckpt
+
+    try:
+        vocab, dim = tensors["model.embed_tokens.weight"].shape
+        layer_ids = [int(k.split(".")[2]) for k in tensors
+                     if k.startswith("model.layers.")]
+        n_layers = 1 + max(layer_ids)
+        ffn = tensors["model.layers.0.mlp.gate_proj.weight"].shape[0]
+        kv_out = tensors["model.layers.0.self_attn.k_proj.weight"].shape[0]
+    except (KeyError, ValueError) as e:
+        raise ckpt.CheckpointError(
+            f"{path}: not a Llama-family checkpoint (no config.json and "
+            f"HF tensor names absent: {e}; have e.g. "
+            f"{sorted(tensors)[:3]})") from e
+    hd = 128 if dim % 128 == 0 and dim >= 128 else 64
+    return LlamaConfig(vocab=vocab, dim=dim, n_layers=n_layers,
+                       n_heads=dim // hd, n_kv_heads=kv_out // hd,
+                       ffn_hidden=ffn)
+
+
+def _infer_config_native(tensors: Dict) -> LlamaConfig:
+    L, D, qout = tensors["layers.wq"].shape
+    vocab = tensors["embed"].shape[0]
+    F_ = tensors["layers.w_gate"].shape[2]
+    kvout = tensors["layers.wk"].shape[2]
+    hd = 128 if D % 128 == 0 and D >= 128 else 64
+    if qout % hd:
+        hd = qout  # degenerate tiny models: one head
+    return LlamaConfig(vocab=vocab, dim=D, n_layers=L, n_heads=qout // hd,
+                       n_kv_heads=kvout // hd, ffn_hidden=F_)
+
+
+def hf_tensors(params: Dict, cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`load_checkpoint`'s HF mapping: an unquantized
+    stacked tree -> HF tensor names, mats as [out, in] views on the tree's
+    device (made contiguous by the writer)."""
+    lay = params["layers"]
+    out = {"model.embed_tokens.weight": params["embed"],
+           "model.norm.weight": params["ln_out"],
+           "lm_head.weight": params["lm_head"].t()}
+    for i in range(cfg.n_layers):
+        for k, name in _HF_MATS.items():
+            out[f"model.layers.{i}.{name}.weight"] = lay[k][i].t()
+        out[f"model.layers.{i}.input_layernorm.weight"] = lay["ln_attn"][i]
+        out[f"model.layers.{i}.post_attention_layernorm.weight"] = lay["ln_mlp"][i]
+    return out
+
+
+def export_hf(dirpath: str, params: Dict, cfg: LlamaConfig, shards: int = 2) -> None:
+    """Write an unquantized tree as a HF checkpoint directory: ``shards``
+    ``model-0000i-of-0000n.safetensors`` files (layers split evenly, the
+    embedding in the first, the head and final norm in the last), their
+    ``model.safetensors.index.json`` and a ``config.json``."""
+    import json
+    import os
+
+    from . import checkpoint as ckpt
+
+    tensors = hf_tensors(params, cfg)
+    per = -(-cfg.n_layers // shards)
+
+    def shard_of(name: str) -> int:
+        if name.startswith("model.layers."):
+            return int(name.split(".")[2]) // per
+        return 0 if name.startswith("model.embed") else shards - 1
+
+    names = [f"model-{i + 1:05d}-of-{shards:05d}.safetensors" for i in range(shards)]
+    weight_map = {k: names[shard_of(k)] for k in tensors}
+    os.makedirs(dirpath, exist_ok=True)
+    for i, fname in enumerate(names):
+        ckpt.write_safetensors(os.path.join(dirpath, fname),
+                               {k: v for k, v in tensors.items() if shard_of(k) == i})
+    with open(os.path.join(dirpath, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {}, "weight_map": weight_map}, f)
+    with open(os.path.join(dirpath, "config.json"), "w") as f:
+        json.dump({
+            "vocab_size": cfg.vocab, "hidden_size": cfg.dim,
+            "num_hidden_layers": cfg.n_layers,
+            "num_attention_heads": cfg.n_heads,
+            "num_key_value_heads": cfg.n_kv_heads,
+            "intermediate_size": cfg.ffn_hidden,
+            "max_position_embeddings": cfg.max_seq,
+            "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.norm_eps}, f)
+
+
 # -- zoo builders ---------------------------------------------------------
 
 def make_bundle(cfg: LlamaConfig, params: Dict, compute_dtype="bfloat16",
@@ -562,6 +1008,28 @@ def _build(preset: str, opts: Dict[str, str], device: torch.device) -> ModelBund
                          dtype=opts.get("param_dtype", "float32"),
                          device=device, quant=opts.get("quant", ""))
     return make_bundle(cfg, params, opts.get("dtype", "bfloat16"), preset)
+
+
+def build_from_checkpoint(path: str, opts: Dict[str, str], *, device) -> ModelBundle:
+    """Zoo entry for REAL weights: ``model=/path/llama.gguf`` (or
+    ``.safetensors``, a HF directory, an ``.npz``).  Same bundle contract
+    as the presets' builder, params from :func:`load_checkpoint` on
+    ``device`` (quantized while streaming with ``quant:``);
+    ``custom=param_dtype:...`` (default bfloat16) and ``max_seq:N`` apply.
+    A GGUF's embedded vocab rides along as the bundle's tokenizer."""
+    pdt = opts.get("param_dtype", "bfloat16")
+    quant = opts.get("quant", "")
+    tok = None
+    if path.endswith(".gguf"):
+        params, cfg, tok = _load_gguf(path, None, _resolve_param_dtype(pdt),
+                                      device=device, quant=_quant_mode(quant))
+    else:
+        params, cfg = load_checkpoint(path, dtype=pdt, device=device, quant=quant)
+    if "max_seq" in opts:
+        cfg = dataclasses.replace(cfg, max_seq=int(opts["max_seq"]))
+    bundle = make_bundle(cfg, params, opts.get("dtype", "bfloat16"), path)
+    bundle.tokenizer = tok
+    return bundle
 
 
 for _name in PRESETS:

@@ -7,12 +7,17 @@ the vision and audio models of BASELINE's configs #1-#4
 ``wav2vec2``).  A model is a ``ModelBundle`` (callable, params, IO specs); the zoo maps
 pipeline-string names (``model=llama2_7b``) to builder functions that
 take the filter's parsed ``custom=`` options and the device to build on.
+``model=`` also takes a Llama-family model FILE (``.gguf``,
+``.safetensors``, a ``*.safetensors.index.json`` shard index, a HF
+checkpoint directory or an ``.npz``; ``.tflite`` and ``.onnx`` are not
+yet ported) and a ``pkg.mod:attr`` import string.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
+import os
 import threading
 from typing import Callable, Dict, List, Optional
 
@@ -41,6 +46,10 @@ class ModelBundle:
     reduced_variant: Optional[Callable[[], "ModelBundle"]] = None
     #: what the reduced variant is (logged when selected)
     reduced_desc: str = ""
+    #: the text tokenizer a model file carries (a GGUF's ``tokenizer.ggml.*``
+    #: vocab, models/tokenizer.py); the llm framework prefers it to its
+    #: byte-level fallback
+    tokenizer: object = None
 
 
 _builders: Dict[str, Callable[[Dict[str, str], torch.device], ModelBundle]] = {}
@@ -75,13 +84,46 @@ def model_names() -> List[str]:
         return sorted(_builders)
 
 
+#: model-file suffixes (the JAX package's; the last two not yet ported)
+_FILE_SUFFIXES = (".safetensors", ".safetensors.index.json", ".npz", ".gguf",
+                  ".tflite", ".onnx")
+
+
 def build(name: str, opts: Optional[Dict[str, str]] = None, *,
           device) -> ModelBundle:
-    """Resolve a zoo name to a bundle built on ``device`` (required: no
-    builder of this package picks the CPU by itself)."""
+    """Resolve a model to a bundle built on ``device`` (required: no
+    builder of this package picks the CPU by itself).
+
+    Accepts zoo names, Llama-family model files and checkpoint
+    directories (``llama.build_from_checkpoint``) and ``pkg.mod:attr``
+    import strings (attr may be a bundle or a ``builder(opts, device)``)."""
     _ensure_builtin()
+    opts = dict(opts or {})
+    key = str(name)
+    dev = torch.device(device)
     with _lock:
-        b = _builders.get(str(name))
-    if b is None:
-        raise KeyError(f"unknown model {name!r}; zoo has {model_names()}")
-    return b(dict(opts or {}), torch.device(device))
+        b = _builders.get(key)
+    if b is not None:
+        return b(opts, dev)
+    is_ckpt_dir = os.path.isdir(key) and (
+        os.path.exists(os.path.join(key, "model.safetensors.index.json"))
+        or os.path.exists(os.path.join(key, "model.safetensors")))
+    if key.endswith(_FILE_SUFFIXES) or is_ckpt_dir:
+        if not os.path.exists(key):
+            raise KeyError(f"model file not found: {key}")
+        if key.endswith((".tflite", ".onnx")):
+            raise KeyError(f"{key}: {os.path.splitext(key)[1]} model files are "
+                           "not yet ported to nnstreamer_tpu_torch")
+        from . import llama
+
+        return llama.build_from_checkpoint(key, opts, device=dev)
+    if ":" in key:
+        mod_name, attr = key.split(":", 1)
+        obj = getattr(importlib.import_module(mod_name), attr)
+        if isinstance(obj, ModelBundle):
+            return obj
+        if callable(obj):
+            out = obj(opts, dev)
+            if isinstance(out, ModelBundle):
+                return out
+    raise KeyError(f"unknown model {name!r}; zoo has {model_names()}")

@@ -159,3 +159,24 @@ def test_vision_modules_import_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+#: the model-file slice's modules, each imported alone in a fresh process
+FILE_MODULES = ["models.checkpoint", "models.gguf", "models.tokenizer",
+                "models.llama", "models.zoo", "filters.llm"]
+
+
+@pytest.mark.parametrize("module", FILE_MODULES)
+def test_model_file_modules_import_without_jax(module):
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module('nnstreamer_tpu_torch.{module}')\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
+        "('jax.', 'jaxlib', 'nnstreamer_tpu.')) or m == 'nnstreamer_tpu')\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -159,8 +159,13 @@ def test_opening_without_cpu_on_a_machine_without_cuda_raises(monkeypatch):
     # speculation needs the continuous loop
     ("custom=draft:llama_tiny accelerator=true:cpu", "requires serve:continuous"),
     ("custom=tp:2 accelerator=true:cpu", "not yet ported"),
-    ("custom=quant:int8 accelerator=true:cpu", "not yet ported"),
-    ("custom=tokenizer:/tmp/x.gguf accelerator=true:cpu", "not yet ported"),
+    # quant:int8 and tokenizer: are ported (ids kept): an unknown quant
+    # raises, and so does a tokenizer file that is not there
+    pytest.param("custom=quant:int3 accelerator=true:cpu", "unsupported quant",
+                 id="custom=quant:int8 accelerator=true:cpu-not yet ported"),
+    pytest.param("custom=tokenizer:no_such_vocab.gguf accelerator=true:cpu",
+                 "no_such_vocab.gguf",
+                 id="custom=tokenizer:/tmp/x.gguf accelerator=true:cpu-not yet ported"),
 ])
 def test_unported_or_ambiguous_requests_raise(prop, match):
     with pytest.raises(Exception, match=match):
