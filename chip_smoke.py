@@ -150,14 +150,51 @@ Phases, each of which must pass:
              world" as bytes, ``stop_eos`` at its default, on) comes back as
              the vocab's pieces.  Prints load seconds, GB/s from the file,
              peak memory of each load and serve, and the phase's seconds.
-9. reference — on a small model, logits with the kernels on the card
+9. elastic — live streams moved between two pipelines A and B of the
+             continuous cell (both traced into the flight recorder's
+             ring), the continuous phase's prompts and waves pushed on A:
+             streams 3 and 0 (700 and 32 ids) drained together at the
+             first chunk boundary after 3 tokens (9 tokens; the 700-id one
+             holds 45 blocks) and adopted on B, stream 0 through a snapshot
+             file
+             (``save_stream_snapshot`` / ``load_stream_snapshot`` in
+             chiprun_out/, removed after); stream 5 held in A's queue by a
+             tenant quota of 0 and moved queued; stream 4 moved by one
+             ``Autoscaler.evaluate()`` of a ``spill`` rule (its tenant's
+             ``slo.burn_rate`` set above the band, ``spill_to=B``);
+             stream 7 (600 ids) asked for while in prefill and moved once
+             live.  Every stream's tokens, A's part then B's, bitwise equal
+             to the continuous phase's for the same prompt (or parting at
+             a near tie, ``replay_stream``'s rule), ``stream_index``
+             without a gap, the id kept; both pools whole; no capture after
+             warm-up on either pipeline; launches 32 paged per decode step,
+             32 flash per chunk, 129 int4 per step or chunk over both
+             loops, the steps' own launches by census; 5 ``elastic.drain``,
+             5 ``elastic.adopt`` and 1 ``elastic.scale`` spans.  Then one
+             sampled stream (``temperature:0.9,top_k:40``) drained after 8
+             tokens from one pipeline and adopted on another, bitwise equal
+             to the same stream undrained there (the slot's CUDA generator
+             state rides the snapshot).  Prints per move the drain and
+             adopt ms (the caller's wait, and the loop's spans), the
+             snapshot's MB, the file's write and read seconds, and tok/s
+             with the moves beside the continuous phase's.  Then the
+             fetch window: the quick-start host-fed at ``fetch_depth`` 1
+             and 4 in turns (1, 4, 4, 1, 1, 4), every run's outputs bitwise
+             equal to the first's and in order, frames/s per run and the
+             median per depth; and
+             a stage restart: ``max_stage_restarts=2``, a host custom-easy
+             stage failing once (on its third buffer; forced restartable)
+             in front of a fused transform + ``scaler`` stage on the card:
+             exactly that buffer lost, the rest right and in order, one
+             restart, the card stage captured once.
+10. reference — on a small model, logits with the kernels on the card
              agree with the plain versions on the CPU: cached prefill and
              decode, and the paged path (chunked prefill, then decode with
              a parked row, then a [2, 5] verify-shaped step of two live
              rows), in f32; then the same model in bf16 (cached prefill and
              decode, chunked paged prefill), whose flash calls take the
              tensor-core kernel.
-10. vision — the vision path, which runs no kernel of csrc/ (cuDNN
+11. vision — the vision path, which runs no kernel of csrc/ (cuDNN
              convolutions and torch ops, one captured CUDA graph per fused
              stage), batch 64, bf16, random weights from seed 0: (1) the
              README quick-start, ``appsrc max-inflight=4 ! tensor_transform
@@ -183,7 +220,7 @@ Phases, each of which must pass:
              census, and the first 33 batches' detections (valid rows,
              boxes, classes, scores) equal.  ``--profile`` adds each
              fused stage's kernels (chiprun_out/profile_vision.txt).
-11. models — the rest of BASELINE's model families in bench.py's form, no
+12. models — the rest of BASELINE's model families in bench.py's form, no
              kernel of csrc/, batch 64, random weights from seed 0, each
              behind a folded device source and fused with its transform
              and decoder into one stage captured as one CUDA graph:
@@ -2291,6 +2328,504 @@ def print_files(r):
     print(f"files: phase {r['phase_s']:.1f} s", flush=True)
 
 
+#: the elastic phase: the continuous cell on two pipelines A and B at
+#: once (both traced into the flight recorder's ring, so the moves' spans
+#: are counted), the continuous phase's prompts and waves, and live
+#: streams moved from A to B.  Streams 3 and 0 (700 and 32 ids) move
+#: live after ELASTIC_AFTER tokens, drained at one chunk boundary (the
+#: wave prefills at once while nothing decodes, so that boundary is at 9
+#: tokens: 700 + 8 positions, 45 blocks), 0 through a snapshot file; stream 5 is held in A's queue by a tenant quota of 0
+#: and moves queued; stream 7 (600 ids, 19 chunks, prefilled after 4 and
+#: 6) is asked for while in prefill and moves once live; stream 4 moves by
+#: the autoscaler's spill
+ELASTIC_LIVE = (3, 0)
+ELASTIC_FILE = 0
+ELASTIC_QUEUED = 5
+ELASTIC_PREFILL = 7
+ELASTIC_SPILL = 4
+ELASTIC_AFTER = 3
+#: the sampled move: one stream at these sampler settings, moved after
+#: ELASTIC_SAMPLED_AFTER tokens, against the same stream undrained
+ELASTIC_SAMPLED = ",temperature:0.9,top_k:40"
+ELASTIC_SAMPLED_AFTER = 8
+ELASTIC_SAMPLED_PROMPT = 1
+#: the fetch window: the quick-start host-fed at these depths, in turns
+#: (1, 4, 4, 1, ...) FETCH_PAIRS times: a host-fed rate spreads by tens of
+#: percent from run to run on a shared host, so one run each says nothing
+FETCH_DEPTHS = (1, 4)
+FETCH_PAIRS = 3
+#: the stage restart: a host stage that fails on its RESTART_FAIL_AT-th
+#: buffer (after the card stage's capture), in front of a fused card
+#: stage; RESTART_BUFFERS pushed
+RESTART_FAIL_AT = 3
+RESTART_BUFFERS = 8
+RESTART_DESC = ("appsrc name=src caps=other/tensors,dimensions=16,types=float32 ! "
+                "tensor_filter name=flaky framework=custom-easy model={model} ! "
+                "tensor_transform mode=arithmetic option=typecast:float32,add:1.0 ! "
+                "tensor_filter framework=jax model=scaler custom=scale:2.0,dims:16 {acc} ! "
+                "tensor_sink name=out")
+
+
+def pool_whole(loop):
+    """Every block of a continuous loop's pool free with every count 0,
+    every table entry the sentinel and every slot parked."""
+    return (sorted(loop._free) == list(range(loop.n_blocks))
+            and bool((loop._ref == 0).all())
+            and bool((loop._tables == loop.sentinel).all())
+            and bool((loop._pos == loop.park).all()))
+
+
+class Tokens:
+    """A sink callback that keeps each stream's buffers by ``req``."""
+
+    def __init__(self, side):
+        import threading
+
+        self.side = side
+        self.lock = threading.Lock()
+        self.by_req = {}
+
+    def __call__(self, buf):
+        with self.lock:
+            self.by_req.setdefault(buf.meta["req"], []).append(buf)
+
+    def count(self, req):
+        with self.lock:
+            return len(self.by_req.get(req, ()))
+
+    def first_meta(self, req):
+        with self.lock:
+            return self.by_req[req][0].meta
+
+
+def wait_for(cond, what, timeout=600.0):
+    t0 = time.perf_counter()
+    while not cond():
+        check(time.perf_counter() - t0 < timeout, f"timed out waiting for {what}")
+        time.sleep(0.001)
+
+
+def snapshot_mib(snap):
+    return sum(snap[k].numel() * snap[k].element_size()
+               for k in ("blocks_k", "blocks_v") if k in snap) / 2**20
+
+
+def elastic_greedy(dev, cont, base):
+    """The greedy moves and the spill (see ELASTIC_*).  Every stream's
+    tokens, A's part and B's together, must equal the continuous phase's
+    for the same prompt bitwise (or part from it at a near tie,
+    replay_stream's rule), with stream_index going on without a gap."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    import nnstreamer_tpu_torch as ntt
+    from nnstreamer_tpu_torch.core.log import Metrics
+    from nnstreamer_tpu_torch.ops import attention, int4_matmul as i4
+    from nnstreamer_tpu_torch.trainer import checkpoint
+    from nnstreamer_tpu_torch.utils import elastic, tracing
+
+    on_card = dev.type == "cuda"
+    counters = {"paged_attention": attention.PAGED_LAUNCHES,
+                "flash_attention": attention.LAUNCHES,
+                "matmul_int4": i4.LAUNCHES}
+    prompts = continuous_prompts()
+    n, first = len(prompts), len(CONT_WAVES[0])
+    ref = [s["ids"] for s in cont["streams"]]
+    tenants = [f"el{time.monotonic_ns()}.{i}" for i in range(n)]
+    t0 = time.perf_counter()
+    pa = ntt.Pipeline(base, trace_mode="ring")
+    pb = ntt.Pipeline(base, trace_mode="ring")
+    res = dict(setup_s=time.perf_counter() - t0, moves={})
+    ta, tb = Tokens("A"), Tokens("B")
+    pa.element("out").connect_new_data(ta)
+    pb.element("out").connect_new_data(tb)
+    with pa, pb:
+        fa, fb = pa.element("llm").fw, pb.element("llm").fw
+        la, lb = fa.serve_loop(), fb.serve_loop()
+        warm = (fa.census.captures, fb.census.captures)
+        census0 = [{sig: dict(t) for sig, t in fw.census.launches.items()}
+                   for fw in (fa, fb)]
+        stats0 = (dict(la.stats), dict(lb.stats))
+        for c in counters.values():
+            c.reset()
+        t_ns = time.monotonic_ns()
+
+        def push(i):
+            pa.push("src", ntt.Buffer([prompts[i]], meta={"req": i,
+                                                          "_tenant": tenants[i]}))
+
+        def record(i, how, snap, drain_ms, adopt_ms, **kw):
+            res["moves"][i] = dict(how=how, prompt_len=len(prompts[i]),
+                                   kind=snap["kind"], sidx=snap.get("sidx", 0),
+                                   blocks=-(-snap.get("pos", 0) // snap["block_size"]),
+                                   snapshot_mib=snapshot_mib(snap), drain_ms=drain_ms,
+                                   adopt_ms=adopt_ms, **kw)
+
+        def drain(sid):
+            t1 = time.perf_counter()
+            snap = pa.drain_stream(sid)
+            return snap, (time.perf_counter() - t1) * 1e3
+
+        def move(i, how, sid, via_file=False, drained=None):
+            snap, drain_ms = drained or drain(sid)
+            kw = {}
+            if via_file:
+                path = os.path.join(OUT_DIR, "elastic_snapshot.pkl")
+                t1 = time.perf_counter()
+                checkpoint.save_stream_snapshot(path, snap)
+                kw["file_write_s"] = time.perf_counter() - t1
+                kw["file_mib"] = os.path.getsize(path) / 2**20
+                t1 = time.perf_counter()
+                loaded = checkpoint.load_stream_snapshot(path)
+                kw["file_read_s"] = time.perf_counter() - t1
+                os.remove(path)
+                check(all(torch.equal(loaded[k], snap[k].cpu())
+                          for k in ("blocks_k", "blocks_v")),
+                      "the snapshot file does not give back its blocks")
+                snap = loaded
+            t1 = time.perf_counter()
+            pb.adopt_stream(snap)
+            record(i, how, snap, drain_ms, (time.perf_counter() - t1) * 1e3, **kw)
+
+        def sid_of(i, state=None):
+            for sid, info in pa.serve_streams().items():
+                if info["tenant"] == tenants[i] and state in (None, info["state"]):
+                    return sid
+            return None
+
+        t_start = time.perf_counter()
+        for i in range(first):
+            push(i)
+        wait_for(lambda: all(ta.count(i) >= ELASTIC_AFTER for i in ELASTIC_LIVE),
+                 "the live moves' tokens")
+        # both drains asked for at once, so both run at one chunk boundary:
+        # one after the other, the 45-block copy would let the 32-id
+        # stream (and its wave) finish before its own drain
+        with ThreadPoolExecutor(len(ELASTIC_LIVE)) as ex:
+            drained = {i: ex.submit(drain, ta.first_meta(i)["stream_id"])
+                       for i in ELASTIC_LIVE}
+            drained = {i: f.result() for i, f in drained.items()}
+        for i in ELASTIC_LIVE:
+            move(i, "file" if i == ELASTIC_FILE else "live", None,
+                 via_file=i == ELASTIC_FILE, drained=drained[i])
+        wait_for(lambda: all(ta.count(i) or i in ELASTIC_LIVE for i in range(first)),
+                 "the first wave's first tokens")
+        la.set_tenant_quota(tenants[ELASTIC_QUEUED], 0)
+        for i in range(first, n):
+            push(i)
+        wait_for(lambda: sid_of(ELASTIC_QUEUED, "queued") is not None,
+                 "the queued stream")
+        move(ELASTIC_QUEUED, "queued", sid_of(ELASTIC_QUEUED, "queued"))
+        wait_for(lambda: ta.count(ELASTIC_SPILL) >= ELASTIC_AFTER,
+                 f"stream {ELASTIC_SPILL}'s tokens")
+        m = Metrics()
+        m.gauge("slo.burn_rate", 9.0, tenant=tenants[ELASTIC_SPILL])
+        scaler = elastic.Autoscaler(
+            pa, {"rules": [{"tenant": tenants[ELASTIC_SPILL], "burn_above": 2.0,
+                            "burn_below": 0.5, "action": "spill",
+                            "cooldown_s": 60.0}]}, spill_to=pb, metrics=m)
+        t1 = time.perf_counter()
+        res["spill_edges"] = scaler.evaluate()
+        spill_ms = (time.perf_counter() - t1) * 1e3
+        check(res["spill_edges"] == 1,
+              f"spill: {res['spill_edges']} action edges; A's streams "
+              f"{pa.serve_streams()}, stream {ELASTIC_SPILL}'s tenant "
+              f"{tenants[ELASTIC_SPILL]}, {ta.count(ELASTIC_SPILL)} tokens")
+        res["moves"][ELASTIC_SPILL] = dict(how="spill", prompt_len=len(prompts[ELASTIC_SPILL]),
+                                           kind="live", spill_ms=spill_ms)
+        wait_for(lambda: sid_of(ELASTIC_PREFILL, "admitting") or sid_of(ELASTIC_PREFILL, "live"),
+                 f"stream {ELASTIC_PREFILL}'s admission")
+        sid7 = sid_of(ELASTIC_PREFILL)
+        state7 = pa.serve_streams()[sid7]["state"]
+        check(state7 == "admitting", f"stream {ELASTIC_PREFILL} is {state7}, not in prefill")
+        move(ELASTIC_PREFILL, "prefill", sid7)
+        res["moves"][ELASTIC_PREFILL]["state_when_asked"] = state7
+        total = n * MAX_NEW
+        wait_for(lambda: sum(ta.count(i) + tb.count(i) for i in range(n)) >= total,
+                 "every token")
+        t_end = time.perf_counter()
+        pa.eos("src")
+        pb.eos("src")
+        pa.wait(timeout=120)
+        pb.wait(timeout=120)
+        if on_card:
+            torch.cuda.synchronize()
+        res["launches"] = {k: c.value for k, c in counters.items()}
+        stats = [{k: lp.stats[k] - s0[k] for k in s0} for lp, s0 in zip((la, lb), stats0)]
+        res["stats"] = {k: stats[0][k] + stats[1][k] for k in stats[0]}
+        res["stats_by_side"] = dict(A=stats[0], B=stats[1])
+        step = {k: 0 for k in counters}
+        names = {id(c): k for k, c in counters.items()}
+        for fw, c0 in zip((fa, fb), census0):
+            for sig, t in fw.census.launches.items():
+                for c, v in t.items():
+                    step[names[id(c)]] += v - c0.get(sig, {}).get(c, 0)
+        res["step_launches"] = step
+        res["census"] = dict(A=census_of(fa.census, warm[0]), B=census_of(fb.census, warm[1]))
+        res["pool_whole"] = dict(A=pool_whole(la), B=pool_whole(lb))
+        spans = {}
+        for e in tracing.recorder.events():
+            if e.ts >= t_ns and e.kind.startswith("elastic."):
+                spans.setdefault(e.kind, []).append(e.dur / 1e6)
+        res["spans"] = {k: len(v) for k, v in spans.items()}
+        res["span_ms"] = spans
+        # streams: A's part then B's, in stream_index order
+        res["streams"] = []
+        for i in range(n):
+            a, b = ta.by_req.get(i, []), tb.by_req.get(i, [])
+            bufs = a + b
+            idx = [buf.meta["stream_index"] for buf in bufs]
+            ids = [int(buf.tensors[0][0]) for buf in bufs]
+            check(idx == list(range(MAX_NEW)),
+                  f"stream {i}: stream_index {idx[:4]}... ({len(a)} on A, {len(b)} on B)")
+            check(bool(bufs[-1].meta.get("stream_last")) and not any(
+                buf.meta.get("stream_aborted") for buf in bufs), f"stream {i}: bad end")
+            check(len({buf.meta["stream_id"] for buf in bufs}) == 1,
+                  f"stream {i}: its id changed in the move")
+            r = dict(prompt_len=len(prompts[i]), on_a=len(a), on_b=len(b),
+                     bitwise_equal=ids == ref[i])
+            if ids != ref[i]:
+                r["replayed"] = replay_stream(fb, lb, prompts[i], ids, dev, other=ref[i])
+            res["streams"].append(r)
+    res["moves"][ELASTIC_SPILL]["sidx"] = res["streams"][ELASTIC_SPILL]["on_a"]
+    check(all(res["pool_whole"].values()), f"pools after the moves: {res['pool_whole']}")
+    want_spans = {"elastic.drain": 5, "elastic.adopt": 5, "elastic.scale": 1}
+    check(res["spans"] == want_spans, f"spans {res['spans']} != {want_spans}")
+    moved = set(res["moves"])
+    check(all(res["streams"][i]["on_b"] > 0 for i in moved)
+          and all(res["streams"][i]["on_b"] == 0 for i in range(n) if i not in moved),
+          "streams not where they were moved")
+    check(res["moves"][ELASTIC_QUEUED]["kind"] == "queued"
+          and res["moves"][ELASTIC_QUEUED]["sidx"] == 0
+          and res["streams"][ELASTIC_QUEUED]["on_a"] == 0, "the queued move")
+    if on_card:
+        steps, chunks = res["stats"]["decode_steps"], res["stats"]["prefill_chunks"]
+        check_cell_launches(res, tag="elastic")
+        check(res["step_launches"] == dict(paged_attention=N_LAYERS * steps,
+                                           flash_attention=0,
+                                           matmul_int4=129 * steps),
+              f"elastic launches by captured step {res['step_launches']}")
+    res["window_s"] = t_end - t_start
+    res["aggregate_tok_s"] = n * MAX_NEW / (t_end - t_start)
+    res["bitwise_equal_streams"] = sum(s["bitwise_equal"] for s in res["streams"])
+    return res
+
+
+def elastic_sampled(dev, base):
+    """A sampled stream drained after ELASTIC_SAMPLED_AFTER tokens and
+    adopted on a second pipeline continues bitwise as the same stream
+    served undrained (each pipeline's first admission: the same seed)."""
+    import nnstreamer_tpu_torch as ntt
+    from nnstreamer_tpu_torch.ops import attention, int4_matmul as i4
+
+    desc = base.replace("stream_chunk:8", "stream_chunk:8" + ELASTIC_SAMPLED)
+    check(desc != base, "no sampler settings in the elastic phase's desc")
+    prompt = continuous_prompts()[ELASTIC_SAMPLED_PROMPT]
+    counters = {"paged_attention": attention.PAGED_LAUNCHES,
+                "flash_attention": attention.LAUNCHES,
+                "matmul_int4": i4.LAUNCHES}
+    pa, pb = ntt.Pipeline(desc), ntt.Pipeline(desc)
+    ta, tb = Tokens("A"), Tokens("B")
+    pa.element("out").connect_new_data(ta)
+    pb.element("out").connect_new_data(tb)
+    res = {}
+    with pa, pb:
+        fa, fb = pa.element("llm").fw, pb.element("llm").fw
+        la, lb = fa.serve_loop(), fb.serve_loop()
+        warm = (fa.census.captures, fb.census.captures)
+        stats0 = (dict(la.stats), dict(lb.stats))
+        for c in counters.values():
+            c.reset()
+        # the reference: B's first admission, undrained
+        pb.push("src", ntt.Buffer([prompt], meta={"req": "ref"}))
+        wait_for(lambda: tb.count("ref") >= MAX_NEW, "the sampled reference")
+        pa.push("src", ntt.Buffer([prompt], meta={"req": "moved"}))
+        wait_for(lambda: ta.count("moved") >= ELASTIC_SAMPLED_AFTER, "sampled tokens")
+        t1 = time.perf_counter()
+        snap = pa.drain_stream(ta.first_meta("moved")["stream_id"])
+        res["drain_ms"] = (time.perf_counter() - t1) * 1e3
+        check(snap["greedy"] is False and snap.get("generator") == dev.type
+              and snap.get("gen_state") is not None, "no generator state in the snapshot")
+        t1 = time.perf_counter()
+        pb.adopt_stream(snap)
+        res["adopt_ms"] = (time.perf_counter() - t1) * 1e3
+        wait_for(lambda: ta.count("moved") + tb.count("moved") >= MAX_NEW, "the moved stream")
+        pa.eos("src")
+        pb.eos("src")
+        pa.wait(timeout=120)
+        pb.wait(timeout=120)
+        res["launches"] = {k: c.value for k, c in counters.items()}
+        res["stats"] = {k: la.stats[k] - stats0[0][k] + lb.stats[k] - stats0[1][k]
+                        for k in stats0[0]}
+        res["census"] = dict(A=census_of(fa.census, warm[0]), B=census_of(fb.census, warm[1]))
+        res["pool_whole"] = dict(A=pool_whole(la), B=pool_whole(lb))
+        moved = ta.by_req["moved"] + tb.by_req.get("moved", [])
+        ref = [int(b.tensors[0][0]) for b in tb.by_req["ref"]]
+        ids = [int(b.tensors[0][0]) for b in moved]
+    res.update(sidx=snap["sidx"], snapshot_mib=snapshot_mib(snap),
+               bitwise_equal=ids == ref, distinct_tokens=len(set(ref)))
+    check([b.meta["stream_index"] for b in moved] == list(range(MAX_NEW)),
+          "sampled move: stream_index not continuous")
+    check(res["bitwise_equal"], f"sampled move: {ids} != {ref}")
+    check(all(res["pool_whole"].values()), f"sampled pools: {res['pool_whole']}")
+    if dev.type == "cuda":
+        check_cell_launches(res, tag="elastic sampled")
+    return res
+
+
+def elastic_fetch(dev, size=224, batch=None, acc="", pairs=FETCH_PAIRS):
+    """The README quick-start host-fed at each fetch depth, in turns: the
+    same frames, every run's outputs bitwise equal to the first's and in
+    order; frames/s, p50 and p99 per run, and the median per depth."""
+    import numpy as np
+
+    batch = batch or VISION_BATCH
+    rng = np.random.default_rng(3)
+    frames = [rng.integers(0, 256, (batch, size, size, 3), dtype=np.uint8)
+              for _ in range(VISION_WARM + VISION_TIMED)]
+    desc = QUICKSTART.format(size=size, batch=batch, model="mobilenet_v1",
+                             custom="", acc=acc)
+    first, runs, equal = None, [], 0
+    order = [FETCH_DEPTHS[(k + k // 2) % 2] for k in range(2 * pairs)]
+    for depth in order:
+        got, st = vision_host_fed(desc, frames, fetch_depth=depth)
+        first = got if first is None else first
+        equal += all(np.array_equal(x[0], y[0]) and np.array_equal(x[1], y[1])
+                     for x, y in zip(first, got))
+        runs.append(dict(depth=depth, frames_per_s=st["frames_per_s"],
+                         p50_ms=st["p50_ms"], p99_ms=st["p99_ms"],
+                         window_peak=st["fetch_window_peak"]))
+    check(equal == len(order), f"fetch depths: {len(order) - equal} runs differ")
+    out = dict(runs=runs, bitwise_equal_runs=equal)
+    for d in FETCH_DEPTHS:
+        mine = [r for r in runs if r["depth"] == d]
+        out[d] = {k: float(np.median([r[k] for r in mine]))
+                  for k in ("frames_per_s", "p50_ms", "p99_ms")}
+        out[d]["frames_per_s_runs"] = [r["frames_per_s"] for r in mine]
+    return out
+
+
+def elastic_restart(dev, acc=""):
+    """A card pipeline with max_stage_restarts=2: a host custom-easy stage
+    failing once on buffer RESTART_FAIL_AT (forced restartable, as the
+    JAX package's test does: the planner rightly calls a host callable
+    impure) in front of a fused transform+scaler stage on the card.
+    Exactly that buffer is lost, the rest arrive in order and right, and
+    the card stage, captured on the first buffer, captures nothing after."""
+    import numpy as np
+
+    import nnstreamer_tpu_torch as ntt
+    from nnstreamer_tpu_torch.core.log import metrics
+    from nnstreamer_tpu_torch.core.types import TensorsSpec
+    from nnstreamer_tpu_torch.filters.custom_easy import (register_custom_easy,
+                                                          unregister_custom_easy)
+
+    name = f"elastic-flaky-{time.monotonic_ns()}"
+    calls = {"n": 0}
+
+    def work(ins):
+        calls["n"] += 1
+        if calls["n"] == RESTART_FAIL_AT:
+            raise RuntimeError("injected stage fault")
+        return [np.asarray(ins[0])]
+
+    spec = TensorsSpec.from_string("16", "float32")
+    register_custom_easy(name, work, in_spec=spec, out_spec=spec)
+    restarts0 = metrics.snapshot().get("flaky.restarts", 0.0)
+    p = ntt.Pipeline(RESTART_DESC.format(model=name, acc=acc), max_stage_restarts=2)
+    try:
+        flaky = [r for r in p._unique_runners() if r.element.name == "flaky"]
+        check(len(flaky) == 1 and not flaky[0].stage.restartable,
+              "the host custom-easy stage must not be planned restartable")
+        flaky[0].stage.restartable = True
+        stage, names = vision_stage(p)
+        outs = []
+        with p:
+            for i in range(RESTART_BUFFERS):
+                p.push("src", ntt.Buffer([np.full((16,), float(i), np.float32)], pts=i))
+                if i == 0:
+                    outs.append(p.pull("out", timeout=120))
+                    captures = stage.census.captures
+            p.eos("src")
+            p.wait(timeout=120)
+            while True:
+                try:
+                    outs.append(p.pull("out", timeout=1))
+                except TimeoutError:
+                    break
+    finally:
+        unregister_custom_easy(name)
+    pts = [o.pts for o in outs]
+    lost = RESTART_FAIL_AT - 1
+    want = [i for i in range(RESTART_BUFFERS) if i != lost]
+    check(pts == want, f"stage restart: delivered {pts}, want {want}")
+    check(all(np.array_equal(np.asarray(o.tensors[0]),
+                             np.full((16,), (o.pts + 1.0) * 2.0, np.float32)) for o in outs),
+          "stage restart: wrong values")
+    restarts = metrics.snapshot().get("flaky.restarts", 0.0) - restarts0
+    check(restarts == 1, f"stage restart: {restarts} restarts")
+    check(stage.census.captures == captures == 1,
+          f"stage restart: the card stage captured {stage.census.captures} times")
+    return dict(delivered=len(outs), lost=RESTART_BUFFERS - len(outs),
+                restarts=restarts, stages=names,
+                census=dict(captures=stage.census.captures, replays=stage.census.replays))
+
+
+def phase_elastic(dev, cont, base=CONT_DESC, acc=""):
+    """Elastic serving on the card: the greedy moves and the spill, the
+    sampled move, the fetch window and a stage restart."""
+    import torch
+
+    out = {}
+    t0 = time.perf_counter()
+    out["greedy"] = elastic_greedy(dev, cont, base)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["sampled"] = elastic_sampled(dev, base)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["llm_s"] = time.perf_counter() - t0
+    out["fetch"] = elastic_fetch(dev, acc=acc)
+    out["restart"] = elastic_restart(dev, acc=acc)
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def print_elastic(r, cont):
+    g = r["greedy"]
+    for i, mv in sorted(g["moves"].items()):
+        print(f"elastic: stream {i} (prompt {mv['prompt_len']}) moved {mv['how']} "
+              f"({mv['kind']}) after {mv['sidx']} tokens"
+              + (f", {mv['blocks']} blocks, snapshot {mv['snapshot_mib']:.2f} MiB, "
+                 f"drain {mv['drain_ms']:.2f} ms, adopt {mv['adopt_ms']:.2f} ms"
+                 if "drain_ms" in mv else f", autoscaler evaluate {mv['spill_ms']:.2f} ms")
+              + (f", file write {mv['file_write_s']:.4f} s read {mv['file_read_s']:.4f} s "
+                 f"({mv['file_mib']:.2f} MiB)" if "file_write_s" in mv else ""), flush=True)
+    print(f"elastic: span ms {g['span_ms']}", flush=True)
+    print(f"elastic: {g['bitwise_equal_streams']} of {len(g['streams'])} streams bitwise "
+          f"equal to the continuous phase's; {g['aggregate_tok_s']:.2f} tok/s with the "
+          f"moves over {g['window_s']:.2f} s (the continuous phase without: "
+          f"{cont['aggregate_tok_s']:.2f}); spans {g['spans']}; decode steps "
+          f"{g['stats']['decode_steps']}, prefill chunks {g['stats']['prefill_chunks']}, "
+          f"launches {g['launches']}; pools whole {g['pool_whole']}", flush=True)
+    print(f"census: elastic {g['census']}", flush=True)
+    s = r["sampled"]
+    print(f"elastic: sampled move after {s['sidx']} tokens bitwise {s['bitwise_equal']} "
+          f"({s['distinct_tokens']} distinct tokens), drain {s['drain_ms']:.2f} ms, "
+          f"adopt {s['adopt_ms']:.2f} ms, snapshot {s['snapshot_mib']:.2f} MiB; "
+          f"census {s['census']}", flush=True)
+    f = r["fetch"]
+    print("elastic: fetch window, medians of runs in turns: " + ", ".join(
+        f"depth {d}: {f[d]['frames_per_s']:.1f} frames/s (runs "
+        f"{[round(x, 1) for x in f[d]['frames_per_s_runs']]}; p50 {f[d]['p50_ms']:.2f} ms, "
+        f"p99 {f[d]['p99_ms']:.2f} ms)" for d in FETCH_DEPTHS)
+        + f"; {f['bitwise_equal_runs']} of {len(f['runs'])} runs bitwise equal to the first",
+        flush=True)
+    print(f"elastic: stage restart {r['restart']}", flush=True)
+    print(f"elastic: phase {r['phase_s']:.1f} s (LLM part {r['llm_s']:.1f} s)", flush=True)
+
+
 def _serve_prompts():
     """phase_serve's prompts (the same generator and seed)."""
     import torch
@@ -2537,17 +3072,18 @@ def stage_profile(stage, tag, fh):
     return [(e.key[:60], e.self_device_time_total / 3e3) for e in top]
 
 
-def vision_host_fed(desc, frames, fuse=True):
-    """Push every batch of ``frames`` through an appsrc pipeline: the
-    first VISION_WARM one at a time (the capture), the rest from a pusher
-    thread while this thread pulls.  Returns (outputs, timed stats)."""
+def vision_host_fed(desc, frames, fuse=True, **pipe_kw):
+    """Push every batch of ``frames`` through an appsrc pipeline (built
+    with ``pipe_kw``): the first VISION_WARM one at a time (the capture),
+    the rest from a pusher thread while this thread pulls.  Returns
+    (outputs, timed stats, with the sink's fetch window peak)."""
     import threading
 
     import numpy as np
 
     import nnstreamer_tpu_torch as ntt
 
-    pipe = ntt.Pipeline(desc, fuse=fuse)
+    pipe = ntt.Pipeline(desc, fuse=fuse, **pipe_kw)
     outs, push_ts, e2e = [], {}, []
     with pipe:
         for f in frames[:VISION_WARM]:
@@ -2578,12 +3114,14 @@ def vision_host_fed(desc, frames, fuse=True):
             card_ms = stage_card_ms(stage)
         pipe.eos("src")
         pipe.wait(timeout=120)
+        window_peak = pipe.element("out")._win_peak
     n = len(frames) - VISION_WARM
     lat = np.sort(np.asarray(e2e))
     stats = dict(frames_per_s=n * frames[0].shape[0] / wall,
                  p50_ms=float(np.percentile(lat, 50)),
                  p99_ms=float(np.percentile(lat, 99)), stages=names,
-                 census=census, card_ms_per_batch=card_ms, stage=stage)
+                 census=census, card_ms_per_batch=card_ms, stage=stage,
+                 fetch_window_peak=window_peak)
     return [(np.asarray(o.meta["label_index"]), np.asarray(o.meta["score"]))
             for o in outs], stats
 
@@ -3413,6 +3951,10 @@ def main():
     print_files(files)
     save()
     torch.cuda.empty_cache()
+    elastic = detail["elastic"] = phase_elastic(dev, cont)
+    print_elastic(elastic, cont)
+    save()
+    torch.cuda.empty_cache()
     detail["reference"] = []
     for phase in (phase_reference, phase_reference_paged, phase_reference_bf16):
         detail["reference"].append(phase(dev))
@@ -3440,7 +3982,7 @@ def main():
     # continuous decode step at the 7B 8-slot shape (32 launches), with
     # the verify step's 32 and the draft's propose launches beside it;
     # launches are those of every LLM phase (serve, continuous, prefix,
-    # spec, files), each counted from 0 after its warm-up (the files
+    # spec, files, elastic), each counted from 0 after its warm-up (the files
     # phase's static text request from its push), by phase in
     # launches_by_phase; spec_launches, the spec phase's greedy run's
     # launches of the new shapes, counted by captured step (verify,
@@ -3462,7 +4004,8 @@ def main():
                 prefix=[prefix[k] for k in ("on", "off", "fork_on", "fork_off", "ring")],
                 spec=[spec["greedy"], *spec["sampled"], spec["accept"],
                       spec["accept_plain"]],
-                files=[files["int4"], files["int8"], files["text"]])
+                files=[files["int4"], files["int8"], files["text"]],
+                elastic=[elastic["greedy"], elastic["sampled"]])
     by_phase = {k: {ph: sum(r["launches"].get(k, 0) for r in rs)
                     for ph, rs in runs.items()}
                 for k in ("matmul_int4", "flash_attention", "paged_attention")}

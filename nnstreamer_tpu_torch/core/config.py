@@ -3,8 +3,9 @@
 Port of ``nnstreamer_tpu/core/config.py`` (reference: ``nnstreamer_conf.c``
 + ``nnstreamer.ini``), cut to the settings this package reads: the
 filter priority, queue capacity, prompt bucketing and latency switch of
-the LLM paths, and the flight recorder's mode and ring size, which the
-query front door and the runtime's trace hooks read.  Populated
+the LLM paths, the flight recorder's mode and ring size, which the
+query front door and the runtime's trace hooks read, the sinks' fetch
+window and the runtime's bound on elastic stage restarts.  Populated
 from (in priority order) :func:`set_config` > environment > the ini file
 named by ``NNS_TPU_CONF`` > defaults.
 """
@@ -23,6 +24,8 @@ _ENV_BUCKETING = "NNS_TPU_SHAPE_BUCKETING"
 _ENV_TRACE = "NNS_TPU_TRACE"
 _ENV_TRACE_RING = "NNS_TPU_TRACE_RING"
 _ENV_REDUCE_OUTPUTS = "NNS_TPU_REDUCE_OUTPUTS"
+_ENV_FETCH_DEPTH = "NNS_TPU_FETCH_DEPTH"
+_ENV_STAGE_RESTARTS = "NNS_TPU_MAX_STAGE_RESTARTS"
 
 
 @dataclasses.dataclass
@@ -47,6 +50,14 @@ class Config:
     #: to its model's reduced output (deeplab's native-stride score map)
     #: when every consumer below it admits any geometry
     reduce_outputs: bool = True
+    #: sink fetch window (``elements/sink.py``): up to this many buffers
+    #: resolve their device-to-host copy or deferred ``host_post`` on a
+    #: pool while the app pops earlier ones, in FIFO order
+    fetch_depth: int = 2
+    #: elastic stage restarts: a restartable (pure) stage whose
+    #: ``process()`` raises is re-entered in place this many times,
+    #: losing the one buffer, before the pipeline fails (0 = fail fast)
+    max_stage_restarts: int = 0
 
     @classmethod
     def load(cls) -> "Config":
@@ -71,6 +82,11 @@ class Config:
             if ini.has_option("common", "reduce_outputs"):
                 cfg.reduce_outputs = ini.getboolean("common",
                                                     "reduce_outputs")
+            if ini.has_option("common", "fetch_depth"):
+                cfg.fetch_depth = ini.getint("common", "fetch_depth")
+            if ini.has_option("common", "max_stage_restarts"):
+                cfg.max_stage_restarts = ini.getint(
+                    "common", "max_stage_restarts")
         if os.environ.get(_ENV_FW_PRIORITY):
             cfg.filter_priority = _split(os.environ[_ENV_FW_PRIORITY])
         if os.environ.get(_ENV_BUCKETING):
@@ -83,6 +99,10 @@ class Config:
         if os.environ.get(_ENV_REDUCE_OUTPUTS):
             cfg.reduce_outputs = os.environ[_ENV_REDUCE_OUTPUTS].lower() in (
                 "1", "true", "yes", "on")
+        if os.environ.get(_ENV_FETCH_DEPTH):
+            cfg.fetch_depth = int(os.environ[_ENV_FETCH_DEPTH])
+        if os.environ.get(_ENV_STAGE_RESTARTS):
+            cfg.max_stage_restarts = int(os.environ[_ENV_STAGE_RESTARTS])
         return cfg
 
 

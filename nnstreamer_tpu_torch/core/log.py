@@ -2,10 +2,10 @@
 
 Port of ``nnstreamer_tpu/core/log.py``: counters, gauges, latency
 reservoirs and histograms, each with its tenant-labelled twin, as the
-query front door, tracing and the sinks stamp them.  Trimmed, for the
-slices that read them: the occupancy histograms
-(``observe_bucketed``/``value_histograms``, the batching runner's) and
-``fraction_over`` (the SLO engine's).
+query front door, tracing and the sinks stamp them, and
+``fraction_over``, the SLO engine's share of samples over a threshold.
+Trimmed, for the slice that reads them: the occupancy histograms
+(``observe_bucketed``/``value_histograms``, the batching runner's).
 
 Also hosts the lightweight metrics registry promised by SURVEY.md §5.5:
 frames in/out, queue depths, bytes moved, per-stage latency percentiles are
@@ -198,6 +198,25 @@ class Metrics:
         r.sort()  # on the copy — never under the lock
         idx = min(len(r) - 1, max(0, math.ceil(q / 100.0 * len(r)) - 1))
         return r[idx]
+
+    def fraction_over(self, name: str, threshold_s: float,
+                      tenant: Optional[str] = None
+                      ) -> Tuple[float, int]:
+        """(fraction of recorded samples strictly above ``threshold_s``,
+        total samples) for one ``observe_latency`` series, computed from
+        the cumulative histogram — the SLO engine's bad-event source
+        (utils/slo.py).  Resolution is one bucket: samples in the bucket
+        the threshold falls into count as UNDER (optimistic by at most
+        one bucket width)."""
+        with self._lock:
+            h = (self._lhist.get((name, tenant)) if tenant is not None
+                 else self._hist.get(name))
+            if h is None or not h[2]:
+                return 0.0, 0
+            counts, n = list(h[0]), h[2]
+        j = bisect.bisect_left(LATENCY_BUCKETS, threshold_s)
+        over = sum(counts[j + 1:])
+        return over / n, n
 
     def snapshot(self) -> Dict[str, float]:
         with self._lock:

@@ -30,7 +30,7 @@ _builtins_loaded = False
 #: and of the vision and audio paths (videotestsrc, audiotestsrc,
 #: tensor_converter, tensor_transform, tensor_filter framework=jax,
 #: tensor_decoder with image_labeling, bounding_boxes, pose_estimation,
-#: image_segment and ctc).
+#: image_segment and ctc), and the custom-easy framework of the tests.
 _BUILTIN_MODULES = [
     "nnstreamer_tpu_torch.elements.source",
     "nnstreamer_tpu_torch.elements.converter",
@@ -41,6 +41,7 @@ _BUILTIN_MODULES = [
     "nnstreamer_tpu_torch.elements.query",
     "nnstreamer_tpu_torch.filters.llm",
     "nnstreamer_tpu_torch.filters.device_fw",
+    "nnstreamer_tpu_torch.filters.custom_easy",
     "nnstreamer_tpu_torch.decoders.image_labeling",
     "nnstreamer_tpu_torch.decoders.bounding_boxes",
     "nnstreamer_tpu_torch.decoders.pose",

@@ -129,6 +129,12 @@ class Element:
         """All input pads reached EOS: flush buffered state."""
         return []
 
+    def batch_capable(self) -> bool:
+        """True when this element's work is one pure device callable per
+        buffer (a pure tensor_filter): what micro-batching would vmap, and
+        what the planner marks restartable.  Default: False."""
+        return False
+
     # -- fusion ------------------------------------------------------------
     def device_fn(
         self, in_spec: TensorsSpec

@@ -11,7 +11,9 @@ so the planner fuses the filter with its neighbours.  A streaming framework (the
 filter) emits one buffer per generated token, marked with
 ``stream_index`` and, on the last one, ``stream_last``.  A continuous-
 serving framework (``serve:continuous``) takes each input into its
-standing loop and emits the tokens from the loop's thread (async emit).
+standing loop and emits the tokens from the loop's thread (async emit);
+its live streams drain off the loop and are adopted by another
+(:meth:`TensorFilter.drain_serve_stream`, :meth:`adopt_serve_stream`).
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from __future__ import annotations
 import functools
 import time
 from typing import Dict, List, Optional, Tuple
+
+import numpy as np
 
 from ..core.buffer import Buffer
 from ..core.caps import Caps
@@ -272,6 +276,40 @@ class TensorFilter(Element):
         out.meta = dict(meta)
         emit([(SRC, out)])
 
+    # -- elastic serving: drain / adopt ---------------------------------------
+    def serve_streams(self) -> Dict[int, dict]:
+        """Live, mid-prefill and queued streams of this element's
+        continuous loop (empty for any other filter)."""
+        fw = self.fw
+        if fw is None or not getattr(fw, "continuous", False):
+            return {}
+        return fw.serve_streams()
+
+    def _continuous_fw(self) -> Framework:
+        fw = self._ensure_fw()
+        if not getattr(fw, "continuous", False):
+            raise ElementError(f"{self.name}: not a continuous-serving filter")
+        return fw
+
+    def drain_serve_stream(self, stream_id: int, timeout: float = 30.0) -> dict:
+        """Take one stream off the standing loop as a host snapshot (the
+        :meth:`Pipeline.drain_stream` element hop)."""
+        return self._continuous_fw().drain_stream(stream_id, timeout)
+
+    def adopt_serve_stream(self, snapshot: dict, timeout: float = 30.0) -> int:
+        """Re-admit a drained stream into this element's loop; its
+        remaining tokens flow downstream as a local stream's do (the same
+        async emit, the loop's meta winning), and its spans follow this
+        pipeline's trace mode."""
+        fw = self._continuous_fw()
+        fw._trace_rec = getattr(self, "_trace_rec", None)
+        prompt = snapshot.get("prompt")
+        src_buf = Buffer([np.asarray(prompt, np.int32) if prompt is not None
+                          else np.zeros((1, 0), np.int32)])
+        return fw.adopt_stream(
+            snapshot, functools.partial(self._emit_serve_token, src_buf),
+            timeout)
+
     def finalize(self):
         fw = self.fw
         if fw is not None and getattr(fw, "continuous", False):
@@ -281,6 +319,15 @@ class TensorFilter(Element):
                 raise ElementError(
                     f"{self.name}: continuous serve loop failed to drain")
         return []
+
+    def batch_capable(self) -> bool:
+        """A framework with a pure callable, neither streaming nor
+        continuous, and a static output (the JAX package's batchable
+        predicate)."""
+        fw = self._ensure_fw()
+        return not (self.invoke_dynamic or fw.streaming
+                    or getattr(fw, "continuous", False)) \
+            and fw.pure_fn() is not None
 
     # -- fusion ------------------------------------------------------------
     def device_fn(self, in_spec: TensorsSpec):

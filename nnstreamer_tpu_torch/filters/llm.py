@@ -40,6 +40,8 @@ on the CUDA card unless the element sets ``accelerator=true:cpu``.
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import functools
 import hashlib
 import math
@@ -51,10 +53,11 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..core.buffer import Buffer, upload
+from ..core.buffer import Buffer, start_fetch, upload
 from ..core.config import get_config
 from ..core.log import logger, metrics
 from ..core.meta_keys import (META_ABORT_REASON, META_EMIT_T,
+                              META_ENQUEUE_NS, META_QUERY_CONN,
                               META_STREAM_ABORTED, META_STREAM_ID,
                               META_STREAM_INDEX, META_STREAM_LAST, META_TENANT)
 from ..core.registry import register_filter
@@ -64,10 +67,19 @@ from ..models.tokenizer import load_gguf_tokenizer
 from ..models.zoo import build as build_model
 from ..ops.attention import PAGED_MAX_ROWS, paged_route
 from ..pipeline.graphs import Census
+from ..trainer.checkpoint import host_tensor
 from ..utils import elastic
 from .base import Framework, FrameworkError, parse_custom_options, resolve_device
 
 log = logger(__name__)
+
+#: buffer-meta keys that must NOT ride a drain snapshot: the queue-stamp
+#: map is the source pipeline's tracer plumbing, and the query connection
+#: id routes sends on the SOURCE pipeline's server core (a stale id on the
+#: adopting side would deliver the stream's tokens to whatever client
+#: holds that id there; callers may re-stamp ``snapshot["meta"]`` before
+#: ``adopt_stream``)
+_SNAPSHOT_META_DROP = (META_ENQUEUE_NS, META_QUERY_CONN)
 
 
 def _next_bucket(t: int) -> int:
@@ -183,6 +195,12 @@ class LLMFramework(Framework):
     from ``draft_seed:N`` at ``param_dtype``, proposes ``spec_k:N``
     tokens a round, default 4, and the target verifies them in one
     ``[slots, spec_k + 1]`` step).
+
+    A continuous stream moves between loops at a chunk boundary:
+    :meth:`drain_stream` takes it off this loop as a host snapshot (its KV
+    blocks, positions, tokens, sampler state and request meta) and
+    :meth:`adopt_stream` continues it on another loop of the same model,
+    block size and compute dtype, token for token.
 
     Not ported yet, and raising: ``tp:``.
     """
@@ -375,6 +393,83 @@ class LLMFramework(Framework):
     def drain(self, timeout: float = 600.0) -> bool:
         """Block until every submitted stream has finished (EOS path)."""
         return self._serve is None or self._serve.drain(timeout)
+
+    # -- elastic serving: drain / adopt -------------------------------------
+    def serve_streams(self) -> Dict[int, Dict]:
+        """Live, mid-prefill and queued streams of this filter's loop:
+        ``stream_id -> {"state", "tenant", "slot", "blocks"}``."""
+        if self._serve is None:
+            return {}
+        return self._serve.stream_table()
+
+    def drain_stream(self, stream_id: int, timeout: float = 30.0) -> Dict:
+        """Take one live (or still queued) stream off the standing loop at
+        its next chunk boundary: its used KV blocks (copied to the host,
+        shared ones included), positions, last two tokens, request meta
+        and prompt become a snapshot, and its slot and blocks go back to
+        the pool.  A stream still in prefill is taken once it is live.
+        Greedy continuation after :meth:`adopt_stream` is bit-identical
+        to an undrained run; a sampled stream carries its slot's
+        generator state (``gen_state``, ``generator`` the device kind it
+        belongs to), so a continuation is bit-identical too."""
+        if self._serve is None:
+            raise FrameworkError("no continuous serve loop is running")
+        return self._serve.drain_stream(int(stream_id), timeout)
+
+    def snapshot_problems(self, snapshot: Dict) -> List[str]:
+        """Why ``snapshot`` cannot be adopted here (empty: adoptable).  The
+        contract: the same model geometry, compute dtype and block size;
+        slots, pool size and prefill settings may differ.  A sampled
+        snapshot's generator state belongs to one kind of generator (a CPU
+        one's MT19937 state or a CUDA one's Philox seed and offset): on a
+        filter of the other kind it is refused, never re-seeded."""
+        problems: List[str] = []
+        if not isinstance(snapshot, dict):
+            return ["snapshot must be a dict (drain_stream's return)"]
+        if snapshot.get("version") not in (1, 2):
+            problems.append(
+                f"snapshot version {snapshot.get('version')!r} "
+                "unsupported (expected 1 or 2)")
+            return problems
+        if self.draft_bundle is not None and snapshot.get("kind") == "live" \
+                and "tok_prev" not in snapshot:
+            # the speculative refresh step re-feeds the second-to-last
+            # committed token, which a pre-speculation (v1) snapshot lacks
+            problems.append(
+                "snapshot predates speculative decoding (no tok_prev); "
+                "adopt it on a loop without draft:, or re-drain from a "
+                "current pipeline")
+        if snapshot.get("cfg") != dataclasses.asdict(self.cfg):
+            problems.append("model geometry differs from the snapshot's")
+        if snapshot.get("kind") == "live":
+            if str(snapshot.get("dtype")) != str(self.dtype):
+                problems.append(
+                    f"compute dtype {snapshot.get('dtype')!r} != "
+                    f"{self.dtype!r} (KV block contents are dtype-exact)")
+            if int(snapshot.get("block_size", -1)) != self.block_size:
+                problems.append(
+                    f"block_size {snapshot.get('block_size')!r} != "
+                    f"{self.block_size} (block contents do not re-chunk)")
+            kind = snapshot.get("generator")
+            if snapshot.get("gen_state") is not None \
+                    and kind != self.device.type:
+                problems.append(
+                    f"the snapshot's sampler state is a {kind} generator's; "
+                    f"this filter draws with {self.device.type} generators")
+        return problems
+
+    def adopt_stream(self, snapshot: Dict, emit, timeout: float = 30.0) -> int:
+        """Re-admit a drained stream into this filter's standing loop
+        (started on first use, as :meth:`submit` does): its KV blocks are
+        copied into the pool, its slot state restored, and
+        ``emit(tensors, meta)`` receives the remaining tokens with
+        ``stream_index`` going on where the drained loop stopped.  Returns
+        the stream id (the snapshot's unless a live local id has it)."""
+        problems = self.snapshot_problems(snapshot)
+        if problems:
+            raise FrameworkError(
+                "cannot adopt stream snapshot: " + "; ".join(problems))
+        return self._loop().adopt_stream(snapshot, emit, timeout)
 
     def get_model_info(self):
         flex_in = TensorsSpec.from_string("1", "uint8").replace(
@@ -793,8 +888,7 @@ class BlockAllocator:
 
 class _ContinuousLoop:
     """Standing decode loop for ``custom=serve:continuous`` over a
-    block-paged KV pool (port of the JAX package's ``_ContinuousLoop``,
-    without drain/adopt).
+    block-paged KV pool (port of the JAX package's ``_ContinuousLoop``).
 
     **The pool.**  One thread owns the pool ``[L, n_blocks + 1, bs, Hkv,
     hd]`` (:func:`~..models.llama.init_paged_cache`; the extra block takes
@@ -879,6 +973,21 @@ class _ContinuousLoop:
     ``serve.spec_verify``, ``serve.cow_fork`` and ``serve.reap`` spans.
     Neither reads the card.
 
+    **Drain and adopt.**  :meth:`drain_stream` and :meth:`adopt_stream`
+    are control commands that the serve thread runs at the top of an
+    iteration, where every slot's host state is consistent and the last
+    chunk's tokens are on the host.  A drain copies a live stream's used
+    blocks (shared ones included: a snapshot never aliases the pool) to
+    the host through pinned memory and retires the slot; a queued stream
+    leaves the queue; a stream in prefill is taken once it is live.  An
+    adopt copies the blocks into freshly reserved pool blocks in place
+    (the captured steps keep their addresses; a draft pool's rows stay
+    unwritten), restores the slot's position, token and generator state,
+    and goes on.  Neither touches a captured step.  The host mirrors the
+    slot's last two tokens (``tok``, ``tok_prev``) from the tokens it
+    reads each chunk.  An adopted stream has no local enqueue stamp: the
+    timeline skips it.  Spans: ``elastic.drain``, ``elastic.adopt``.
+
     **Cancel.**  Every stream registers its id with
     :mod:`~..utils.elastic` at submit and unregisters when it completes
     or is aborted.  A cancel (:meth:`_mark_cancel`, e.g. the query
@@ -930,6 +1039,12 @@ class _ContinuousLoop:
         #: cleared at retirement
         self._slot_tenant: list = [None] * fw.slots
         self._slot_time: list = [None] * fw.slots
+        #: stream id and prompt [1, T] per live or admitting slot
+        self._slot_sid: list = [None] * fw.slots
+        self._slot_prompt: list = [None] * fw.slots
+        #: control commands (drain, adopt) for the serve thread, run at the
+        #: top of its next iteration
+        self._ctl: collections.deque = collections.deque()
         #: set once the warm-up (one prefill chunk, one decode step) ran
         self.warmed = threading.Event()
         #: decode steps, speculative rounds and prefill chunks dispatched
@@ -977,12 +1092,77 @@ class _ContinuousLoop:
 
     def set_tenant_quota(self, tenant: str, max_blocks: Optional[int]) -> None:
         """Cap (or uncap, with None) a tenant's total reserved KV blocks.
-        A host value: admission enforces it from its next pass."""
+        A host value: admission enforces it from its next pass (the
+        autoscaler's ``kv_quota`` action)."""
         if max_blocks is None:
             self._tenant_quota.pop(tenant, None)
         else:
             self._tenant_quota[tenant] = max(0, int(max_blocks))
         self._wake.set()
+
+    def pool_stats(self) -> Dict[str, int]:
+        """The allocator's accounting: total and free blocks, live streams,
+        blocks indexed by the prefix cache (many resting in the free list)
+        and blocks mapped by more than one stream.  Host values the serve
+        thread mutates: consistent at quiet points (after a drain)."""
+        free = getattr(self, "_free", None)
+        ref = getattr(self, "_ref", None)
+        return {
+            "blocks_total": self.n_blocks,
+            "blocks_free": self.n_blocks if free is None else len(free),
+            "live_streams": sum(1 for s in self._live_slots if s is not None),
+            "blocks_cached": len(getattr(self, "_block_hash", {})),
+            "blocks_shared": 0 if ref is None else int((ref > 1).sum()),
+        }
+
+    def stream_table(self) -> Dict[int, Dict]:
+        """``stream_id -> {"state", "tenant", "slot", "blocks"}`` for every
+        stream this loop holds: queued, admitting (in prefill) or live."""
+        out: Dict[int, Dict] = {}
+        for ent in list(self._waiting):
+            sid = ent[1].get(META_STREAM_ID)
+            if sid is not None:
+                out[sid] = {"state": "queued", "slot": None, "blocks": 0,
+                            "tenant": ent[1].get(META_TENANT)}
+        blocks = getattr(self, "_slot_blocks", None) or [[]] * self.fw.slots
+        for st in list(self._admitting):
+            sid = st["meta"].get(META_STREAM_ID)
+            if sid is not None:
+                out[sid] = {"state": "admitting", "slot": st["slot"],
+                            "blocks": len(blocks[st["slot"]]),
+                            "tenant": st["meta"].get(META_TENANT)}
+        for s, slot in enumerate(list(self._live_slots)):
+            sid = self._slot_sid[s]
+            if slot is None or sid is None:
+                continue
+            out[sid] = {"state": "live", "slot": s, "blocks": len(blocks[s]),
+                        "tenant": slot[0].get(META_TENANT)}
+        return out
+
+    def _ctl_call(self, cmd: Dict, timeout: float):
+        """Queue one control command and wait until the serve thread has
+        run it at a chunk boundary; returns its result or raises its
+        error."""
+        cmd["ev"] = threading.Event()
+        cmd["deadline"] = time.monotonic() + timeout
+        with self._idle_lock:
+            self.check()
+            self._idle.clear()
+            self._ctl.append(cmd)
+        self._wake.set()
+        if not cmd["ev"].wait(timeout + 1.0):
+            raise FrameworkError(
+                f"serve-loop {cmd['kind']} command timed out after {timeout}s")
+        if cmd.get("error"):
+            raise FrameworkError(cmd["error"])
+        return cmd.get("result")
+
+    def drain_stream(self, sid: int, timeout: float = 30.0) -> Dict:
+        return self._ctl_call({"kind": "drain", "sid": int(sid)}, timeout)
+
+    def adopt_stream(self, snapshot: Dict, emit, timeout: float = 30.0) -> int:
+        return self._ctl_call(
+            {"kind": "adopt", "snapshot": snapshot, "emit": emit}, timeout)
 
     @staticmethod
     def _span(rec, kind: str, t0_ns: int, **args) -> None:
@@ -1064,6 +1244,10 @@ class _ContinuousLoop:
                 self._abort(ent[1], ent[2])
             with self._idle_lock:
                 self._error = e
+                while self._ctl:
+                    cmd = self._ctl.popleft()
+                    cmd["error"] = f"continuous serve loop died: {e!r}"
+                    cmd["ev"].set()
                 while True:
                     try:
                         ent = self._pending.get_nowait()
@@ -1110,9 +1294,14 @@ class _ContinuousLoop:
         tables = np.full((B, self.max_blocks), self.sentinel, np.int32)
         alloc = BlockAllocator(self.n_blocks, bs)
         slot_blocks: list = [[] for _ in range(B)]
-        slot_sid: list = [None] * B  # stream id holding each slot
+        slot_sid = self._slot_sid  # stream id holding each slot
         remaining = np.zeros((B,), np.int64)
         sidx = np.zeros((B,), np.int64)
+        # host mirrors of each slot's last token and the one before it,
+        # from the tokens the host reads each chunk (a snapshot carries
+        # both; the card's copies are never read back for it)
+        tok_h = np.zeros((B,), np.int64)
+        tok_prev_h = np.zeros((B,), np.int64)
         slots = self._live_slots
         # published for tests and post-mortems (mutated in place)
         self._pos, self._tables = pos, tables
@@ -1120,6 +1309,7 @@ class _ContinuousLoop:
         self._ref, self._prefix_index = alloc.ref, alloc.prefix_index
         self._block_hash = alloc.block_hash
         self._pool, self._draft_pool = pool, dpool
+        self._tok_h, self._tok_prev_h = tok_h, tok_prev_h
         eos = self.fw.tokenizer.eos if fw.stop_eos else -1
         admissions = 0
         dirty = False      # host tables changed since the last upload
@@ -1168,14 +1358,18 @@ class _ContinuousLoop:
                                         (tt["last"] - tt["first"]) * 1e3, tenant=ten)
             self._slot_time[s] = None
             self._slot_tenant[s] = None
+            self._slot_prompt[s] = None
 
         def mark_emit(s: int) -> None:
             """One emitted token's host stamp: the first observes TTFT
             (enqueue to first token, what the client sees), later ones the
             gap since the previous token.  A chunk's tokens reach the host
             together, so gaps inside a chunk are ~0 and its boundary
-            carries the wait: the timeline a streaming client sees."""
+            carries the wait: the timeline a streaming client sees.  An
+            adopted stream has no local enqueue stamp and is skipped."""
             tt = self._slot_time[s]
+            if tt is None:
+                return
             now = time.monotonic()
             if tt["first"] is None:
                 tt["first"] = tt["last"] = now
@@ -1189,6 +1383,199 @@ class _ContinuousLoop:
         def tenant_blocks(tenant) -> int:
             return sum(len(slot_blocks[s]) for s in range(B)
                        if self._slot_tenant[s] == tenant)
+
+        def snapshot_base(sid: int, kind: str, meta: Dict) -> Dict:
+            return {"version": 2, "kind": kind, META_STREAM_ID: sid,
+                    "cfg": dataclasses.asdict(cfg), "dtype": fw.dtype,
+                    "block_size": bs, "greedy": not sampled,
+                    "meta": {k: v for k, v in meta.items()
+                             if k not in _SNAPSHOT_META_DROP}}
+
+        def blocks_to_host(ids: List[int]):
+            """The K and V rows of pool blocks ``ids`` as host copies (on the
+            card: gathered there, then copied into pinned memory on this
+            thread's stream, waited for here)."""
+            idx = upload(np.asarray(ids, np.int64), dev)
+            got = [pool[key].index_select(1, idx) for key in ("k", "v")]
+            if dev.type == "cuda":
+                got, done = start_fetch(got)
+                done.synchronize()
+            return got
+
+        def take_pending() -> None:
+            """The thread hand-off queue into the admission-order list."""
+            while True:
+                try:
+                    self._waiting.append(self._pending.get_nowait())
+                except queue.Empty:
+                    return
+
+        def drain_cmd(cmd: Dict, rec, deferred: list) -> bool:
+            """A drain at this chunk boundary; False when it did not run
+            (deferred or refused)."""
+            sid = cmd["sid"]
+            t0 = time.monotonic_ns()
+            take_pending()  # a stream submitted just before its drain
+            s = next((i for i in range(B)
+                      if slot_sid[i] == sid and slots[i] is not None), None)
+            wi = next((i for i, ent in enumerate(self._waiting)
+                       if ent[1].get(META_STREAM_ID) == sid), None)
+            if s is not None:
+                used = slot_blocks[s][:math.ceil(int(pos[s]) / bs)]
+                blocks_k, blocks_v = blocks_to_host(used)
+                snap = snapshot_base(sid, "live", slots[s][0])
+                snap.update(
+                    pos=int(pos[s]), remaining=int(remaining[s]),
+                    sidx=int(sidx[s]), tok=int(tok_h[s]),
+                    tok_prev=int(tok_prev_h[s]),
+                    shared_blocks=sum(1 for b in used if alloc.ref[b] > 1),
+                    prompt=self._slot_prompt[s].copy(),
+                    blocks_k=blocks_k, blocks_v=blocks_v)
+                if sampled:
+                    # the slot's generator between replays: a CPU one's
+                    # MT19937 state or a CUDA one's seed and Philox offset
+                    snap["gen_state"] = gens[s].get_state()
+                    snap["generator"] = dev.type
+                nb = len(slot_blocks[s])
+                retire(s)
+                self._span(rec, "elastic.drain", t0, stream_id=sid,
+                           state="live", blocks=nb)
+            elif wi is not None:
+                ent = self._waiting.pop(wi)
+                snap = snapshot_base(sid, "queued", ent[1])
+                snap["prompt"] = np.asarray(ent[0])
+                self._release_sid(sid)
+                self._span(rec, "elastic.drain", t0, stream_id=sid,
+                           state="queued", blocks=0)
+            elif any(st["meta"].get(META_STREAM_ID) == sid
+                     for st in self._admitting):
+                deferred.append(cmd)  # in prefill: live within a few chunks
+                return False
+            else:
+                cmd["error"] = f"unknown or already-finished stream {sid}"
+                cmd["ev"].set()
+                return False
+            cmd["result"] = snap
+            cmd["ev"].set()
+            return True
+
+        def adopt_cmd(cmd: Dict, rec) -> bool:
+            """An adopt at this chunk boundary; False when refused."""
+            nonlocal dirty, pos_dirty, admissions
+            snap = cmd["snapshot"]
+            t0 = time.monotonic_ns()
+            sid = int(snap.get(META_STREAM_ID) or 0)
+            if sid <= 0 or sid in elastic.live_stream_ids():
+                # a snapshot from another process may hold a live local id:
+                # the snapshot's id is a continuity hint only
+                sid = elastic.next_stream_id()
+            meta = dict(snap.get("meta") or {})
+            meta[META_STREAM_ID] = sid
+            prompt = np.asarray(snap["prompt"] if snap.get("prompt") is not None
+                                else np.zeros((1, 0)), np.int32).reshape(1, -1)
+            if snap.get("kind") == "queued":
+                self._owned_sids.add(sid)
+                elastic.register_stream(
+                    sid, functools.partial(self._mark_cancel, sid))
+                self._waiting.append((prompt, meta, cmd["emit"], time.monotonic()))
+                self._span(rec, "elastic.adopt", t0, stream_id=sid,
+                           state="queued", blocks=0)
+                cmd["result"] = sid
+                cmd["ev"].set()
+                return True
+            p_next, rem = int(snap["pos"]), int(snap["remaining"])
+            need_tok = p_next + rem
+            need = math.ceil(need_tok / bs)
+            n_used = math.ceil(p_next / bs)
+            src = [host_tensor(snap[f"blocks_{key}"]) for key in ("k", "v")]
+            want = (cfg.n_layers, n_used, bs, cfg.n_kv_heads, cfg.head_dim)
+            state = snap.get("gen_state") if sampled else None
+            if state is not None:
+                state = host_tensor(state).clone()
+            busy = {st["slot"] for st in self._admitting}
+            freeslots = [i for i in range(B) if slots[i] is None
+                         and remaining[i] == 0 and i not in busy]
+            if any(tuple(t.shape) != want or t.dtype != pool["k"].dtype
+                   for t in src):
+                cmd["error"] = (
+                    f"snapshot blocks {[tuple(t.shape) for t in src]} "
+                    f"{src[0].dtype}, the pool takes {want} {pool['k'].dtype}")
+            elif not freeslots:
+                cmd["error"] = "no free slot to adopt into"
+            elif need > self.max_blocks:
+                cmd["error"] = (f"stream needs {need} blocks > table span "
+                                f"{self.max_blocks}")
+            elif len(alloc.free) * bs < need_tok:
+                cmd["error"] = (f"insufficient free KV blocks "
+                                f"({len(alloc.free)} free, {need} needed)")
+            elif state is not None and (state.dtype != torch.uint8 or state.numel()
+                                        != gens[0].get_state().numel()):
+                cmd["error"] = (f"the snapshot's generator state ({state.numel()} "
+                                f"bytes) is not a {dev.type} generator's")
+            if cmd.get("error"):
+                cmd["ev"].set()
+                return False
+            s = freeslots[0]
+            blocks = alloc.take(need)
+            slot_blocks[s] = blocks
+            tables[s, :len(blocks)] = blocks
+            dirty = True
+            if n_used:
+                # into the pool in place: the captured steps (and the
+                # kernels' TMA maps) hold its address
+                idx = upload(np.asarray(blocks[:n_used], np.int64), dev)
+                for key, t in zip(("k", "v"), src):
+                    pinned = dev.type == "cuda" and t.is_pinned()
+                    pool[key].index_copy_(1, idx, t.to(dev, non_blocking=pinned))
+            tok_h[s] = int(snap["tok"])
+            tok_prev_h[s] = int(snap.get("tok_prev", 0))
+            tok[s] = int(tok_h[s])
+            if spec:
+                # the refresh step re-feeds tok_prev at pos - 1; the draft
+                # pool's rows stay unwritten (proposals degrade until the
+                # positions are rewritten, the target decides the tokens)
+                tok_prev[s] = int(tok_prev_h[s])
+            if sampled:
+                if state is not None:
+                    gens[s].set_state(state)
+                else:  # a snapshot from before sampling: a fresh seed
+                    gens[s].manual_seed(self._seed(admissions))
+                    admissions += 1
+            pos[s] = p_next
+            pos_dirty = True
+            remaining[s] = rem
+            sidx[s] = int(snap["sidx"])
+            slots[s] = (meta, cmd["emit"])
+            slot_sid[s] = sid
+            self._slot_tenant[s] = meta.get(META_TENANT)
+            self._slot_time[s] = None  # no local enqueue stamp
+            self._slot_prompt[s] = prompt
+            self._owned_sids.add(sid)
+            elastic.register_stream(sid, functools.partial(self._mark_cancel, sid))
+            self._span(rec, "elastic.adopt", t0, stream_id=sid, state="live",
+                       slot=s, blocks=len(blocks))
+            cmd["result"] = sid
+            cmd["ev"].set()
+            return True
+
+        def run_commands(rec) -> bool:
+            """The control commands queued so far; True when one ran."""
+            ran, deferred = False, []
+            while self._ctl:
+                cmd = self._ctl.popleft()
+                if time.monotonic() > cmd["deadline"]:
+                    cmd["error"] = (f"{cmd['kind']} timed out inside the "
+                                    "serve loop")
+                    cmd["ev"].set()
+                elif cmd["kind"] == "drain":
+                    ran |= drain_cmd(cmd, rec, deferred)
+                elif cmd["kind"] == "adopt":
+                    ran |= adopt_cmd(cmd, rec)
+                else:
+                    cmd["error"] = f"unknown command {cmd['kind']!r}"
+                    cmd["ev"].set()
+            self._ctl.extend(deferred)
+            return ran
 
         # Warm-up before admitting real work: first-use costs (kernel
         # library loads, allocator growth, library handles) and the
@@ -1234,17 +1621,20 @@ class _ContinuousLoop:
                                   tables_dev, live_dev, gens, fw.temperature,
                                   fw.top_k, fw.top_p), generators=generators)
         tok.cpu()  # the warm-up has run on the card
+        # the card-side tokens, for tests of the host mirrors
+        self._tok, self._tok_prev = tok, (tok_prev if spec else None)
         self.warmed.set()
 
         while not self._stop.is_set():
             progressed = False
             rec = getattr(fw, "_trace_rec", None)
             # 0. the thread hand-off queue into the admission-order list
-            while True:
-                try:
-                    self._waiting.append(self._pending.get_nowait())
-                except queue.Empty:
-                    break
+            take_pending()
+
+            # 0a. control commands (drain, adopt): here every slot's host
+            # state is consistent and the last chunk's tokens are out
+            if self._ctl:
+                progressed |= run_commands(rec)
 
             # 0b. reap cancelled streams past their grace: queued ones
             # leave the queue, mid-prefill and live ones give their slot
@@ -1362,6 +1752,7 @@ class _ContinuousLoop:
                     continue
                 s = freeslots[0]
                 slot_sid[s] = sid
+                self._slot_prompt[s] = prompt[:, :T].copy()
                 blocks = list(matched[:shared])
                 for b in blocks:
                     alloc.map_shared(b)
@@ -1437,10 +1828,11 @@ class _ContinuousLoop:
                         logits[:, 0], [gens[s]], fw.temperature,
                         fw.top_k, fw.top_p)
                     tok[s] = st["first"][0]
+                    tok_prev_h[s] = int(st["prompt"][0, st["T"] - 1])
                     if spec:
                         # the round's refresh step re-feeds the last
                         # prompt token at T - 1
-                        tok_prev[s] = int(st["prompt"][0, st["T"] - 1])
+                        tok_prev[s] = int(tok_prev_h[s])
                     if fw.prefix_cache:
                         alloc.register(st["hashes"], slot_blocks[s])
                     pos[s] = st["T"]
@@ -1493,7 +1885,7 @@ class _ContinuousLoop:
             # already computing the chunk above)
             for st in newly_live:
                 s = st["slot"]
-                first = int(st["first"][0])
+                first = tok_h[s] = int(st["first"][0])
                 first_last = st["n"] == 1 or first == eos
                 self._emit_token(st["emit"], st["meta"], first, 0, first_last)
                 mark_emit(s)
@@ -1507,6 +1899,9 @@ class _ContinuousLoop:
                 # the replays above only queued the work
                 self._span(rec, "serve.decode", t_dec,
                            occupancy=int(live.sum()), chunk=fw.chunk)
+                for s in np.flatnonzero(live):
+                    seq = [tok_h[s]] + host[s].tolist()
+                    tok_h[s], tok_prev_h[s] = seq[-1], seq[-2]
                 for j in range(host.shape[1]):
                     for s in np.flatnonzero(live):
                         if remaining[s] == 0:
@@ -1536,6 +1931,8 @@ class _ContinuousLoop:
                         continue  # retired at its first token
                     meta, emit = slots[s]
                     acc = int(host[s, 0])
+                    seq = [tok_h[s]] + host[s, 1:acc + 2].tolist()
+                    tok_h[s], tok_prev_h[s] = seq[-1], seq[-2]
                     metrics.count("llm.serve.spec_accepted", acc)
                     metrics.count("llm.serve.spec_rejected", K - acc)
                     metrics.gauge("llm.serve.spec_accept_rate", acc / K)
@@ -1562,7 +1959,7 @@ class _ContinuousLoop:
             if not progressed:
                 with self._idle_lock:
                     if self._pending.empty() and not self._waiting \
-                            and not self._admitting \
+                            and not self._admitting and not self._ctl \
                             and not (remaining > 0).any():
                         self._idle.set()
                 self._wake.wait(0.02)

@@ -1,10 +1,11 @@
 """Model zoo: named models loadable by ``tensor_filter``.
 
-Port of ``nnstreamer_tpu/models/zoo.py``, cut to the llama presets and
+Port of ``nnstreamer_tpu/models/zoo.py``, cut to the llama presets,
 the vision and audio models of BASELINE's configs #1-#4
 (``mobilenet_v1``; ``ssd_mobilenet``, ``yolov5``, ``yolov8``,
 ``yolov5s``; ``posenet``; ``deeplab_mobilenet``; ``speech_commands``,
-``wav2vec2``).  A model is a ``ModelBundle`` (callable, params, IO specs); the zoo maps
+``wav2vec2``) and the test models ``passthrough``, ``scaler`` and
+``average``.  A model is a ``ModelBundle`` (callable, params, IO specs); the zoo maps
 pipeline-string names (``model=llama2_7b``) to builder functions that
 take the filter's parsed ``custom=`` options and the device to build on.
 ``model=`` also takes a Llama-family model FILE (``.gguf``,
@@ -74,7 +75,7 @@ def _ensure_builtin():
     if not _builtin_loaded:
         _builtin_loaded = True
         for mod in ("llama", "mobilenet", "ssd", "yolo", "posenet",
-                    "segment", "audio"):
+                    "segment", "audio", "testmodels"):
             importlib.import_module(f"nnstreamer_tpu_torch.models.{mod}")
 
 

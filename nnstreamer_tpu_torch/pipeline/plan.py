@@ -26,9 +26,13 @@ their copy into fresh pinned host memory (the only bytes that cross to
 the host), any other chain clones them.  On the CPU the same callable
 runs eagerly on the same static tensors.  A capture that fails raises.
 
+A stage is ``restartable`` when its work is pure, holding nothing from
+one buffer to the next: a fused chain, or a single element whose work is
+one pure device callable (:meth:`~..elements.base.Element.batch_capable`:
+a pure tensor_filter), as the JAX package marks them.  The runtime may
+then restart it in place after a fault (``Pipeline(max_stage_restarts=)``).
 The JAX package's ingress donation and micro-batching hooks
-(``batchable``/``shardable``/``restartable``) wait for
-``pipeline/batching.py``.
+(``batchable``/``shardable``) wait for ``pipeline/batching.py``.
 """
 
 from __future__ import annotations
@@ -56,6 +60,11 @@ class Stage:
 
     element: Element
     node_ids: List[int]
+    #: pure stage whose runner may restart in place after a fault in
+    #: ``process()`` (bounded by the pipeline's ``max_stage_restarts``);
+    #: sources, sinks and elements with state across buffers (the llm
+    #: filter, async emitters) stay fail-fast
+    restartable: bool = False
 
 
 def chain_device(elements: List[Element]) -> Optional[torch.device]:
@@ -229,8 +238,13 @@ def plan_stages(graph: PipelineGraph, elements: Dict[int, Element], *,
         el = elements[node.id]
         if isinstance(el, SourceElement) and getattr(el, "device", None) is True:
             el.gen_device = source_device(graph, elements, node.id)
+    def pure(nid: int) -> bool:
+        el = elements[nid]
+        return not isinstance(el, SourceElement) and el.batch_capable()
+
     if not fuse:
-        return [Stage(elements[n.id], [n.id]) for n in order]
+        return [Stage(elements[n.id], [n.id], restartable=pure(n.id))
+                for n in order]
 
     def linear(nid: int) -> bool:
         ins = graph.in_edges(nid)
@@ -312,12 +326,12 @@ def plan_stages(graph: PipelineGraph, elements: Dict[int, Element], *,
                     continue
         grown = grow(node.id)
         if grown is None or len(grown[0]) == 1:
-            stages.append(Stage(el, [node.id]))
+            stages.append(Stage(el, [node.id], restartable=pure(node.id)))
             consumed.add(node.id)
             continue
         chain, specs = grown
         fe = FusedElement([elements[i] for i in chain], specs)
         log.info("fused %d elements into one stage: %s", len(chain), fe.name)
-        stages.append(Stage(fe, chain))
+        stages.append(Stage(fe, chain, restartable=True))
         consumed.update(chain)
     return stages

@@ -27,11 +27,21 @@ boundaries):
 * before negotiation the residency planner (``pipeline/residency.py``)
   lets a filter whose consumers all admit any geometry switch to its
   model's reduced output (``reduce_outputs``), and after planning
-  ``Pipeline.residency`` records what crosses to the host at each sink.
+  ``Pipeline.residency`` records what crosses to the host at each sink;
+* each ``tensor_sink`` resolves up to ``fetch_depth`` buffers at once
+  on a pool (its fetch window, ``elements/sink.py``);
+* a restartable stage (``Stage.restartable``: a fused chain or a pure
+  filter) whose ``process()`` raises is re-entered in place up to
+  ``max_stage_restarts`` times, losing that one buffer
+  (``<stage>.restarts``, ``<stage>.dropped``), before the pipeline fails;
+* ``slo=`` runs the per-tenant SLO engine (``utils/slo.py``) beside the
+  pipeline, over the sinks' ``<sink>.e2e_latency`` series, and
+  :meth:`Pipeline.slo_report` reads it now;
+* :meth:`Pipeline.drain_stream` / :meth:`Pipeline.adopt_stream` move a
+  live continuous-serving stream between pipelines (``filters/llm.py``).
 
-Left for later slices: ``slo=``, elastic stage restarts and the
-autoscaler, micro-batching, ingress donation and the dispatch and fetch
-windows.
+Left for later slices: micro-batching, ingress donation and the
+dispatch window.
 
 Threads, not asyncio: stages do blocking work (device dispatch, host
 copies) and release the interpreter lock inside torch.
@@ -129,6 +139,7 @@ class _Runner:
 
     def __init__(self, pipeline: "Pipeline", stage: Stage, capacity: int):
         self.pipeline = pipeline
+        self.stage = stage
         self.element = stage.element
         self.queue = _StageQueue(capacity)
         self.out_ports: Dict[str, List[_Port]] = {}
@@ -147,7 +158,13 @@ class _Runner:
         self._m_dropped = f"{name}.dropped"
         self._m_proc = f"{name}.proc"
         self._m_qwait = f"{name}.queue_wait"
-        self._m_e2e = f"{name}.e2e"
+        self._m_e2e = f"{name}.e2e_latency"
+        self._m_restarts = f"{name}.restarts"
+        #: elastic in-place restarts taken so far
+        self._restarts = 0
+        #: buffers in the hands of process() right now: what a restart
+        #: loses (counted into .dropped)
+        self._proc_n = 0
         # Flight recorder: None when trace_mode is off, so every hook
         # below is one pointer check and no meta stamp is written.  Also
         # pinned on the element, so its own spans (query admission,
@@ -201,16 +218,42 @@ class _Runner:
 
     def _run(self) -> None:
         el = self.element
-        try:
-            if isinstance(el, SourceElement):
-                self._run_source()
-            else:
-                self._run_stream()
-        except Exception as e:  # noqa: BLE001 - must not kill the process
-            log.exception("stage %s failed", el.name)
-            self.pipeline._record_error(el.name, e)
-            self._broadcast(Event.error(e))
-            self._broadcast(Event.eos())
+        while True:
+            try:
+                if isinstance(el, SourceElement):
+                    self._run_source()
+                else:
+                    self._run_stream()
+                return
+            except Exception as e:  # noqa: BLE001 - must not kill the process
+                if self._restartable(e):
+                    continue
+                log.exception("stage %s failed", el.name)
+                self.pipeline._record_error(el.name, e)
+                self._broadcast(Event.error(e))
+                self._broadcast(Event.eos())
+                return
+
+    def _restartable(self, e: Exception) -> bool:
+        """Elastic stage restart: a pure stage holds no state from one
+        buffer to the next, so re-entering its loop after a fault raised
+        inside ``process()`` (``_proc_n`` is set around exactly that) loses
+        the one buffer that raised it.  A fault while handling an event
+        (EOS, then ``finalize``) has consumed it for good and is never
+        restarted, nor is a stage past its budget (a source is never
+        restartable)."""
+        if not (self.stage.restartable and self._proc_n > 0
+                and self._restarts < self.pipeline.max_stage_restarts
+                and not self.pipeline._stopping.is_set()):
+            return False
+        self._restarts += 1
+        metrics.count(self._m_restarts)
+        metrics.count(self._m_dropped, self._proc_n)
+        self._proc_n = 0
+        log.warning("stage %s failed (%r); restarting in place (%d/%d)",
+                    self.element.name, e, self._restarts,
+                    self.pipeline.max_stage_restarts)
+        return True
 
     def _run_source(self) -> None:
         el = self.element
@@ -356,6 +399,8 @@ class _Runner:
                 continue
             metrics.count(self._m_in)
             tr = self._tr
+            # a streaming stage's process() runs as the runner emits it
+            self._proc_n = 1
             if tr is None:
                 with Timer(self._m_proc):
                     self._emit(self._invoke(el, pad, item))
@@ -375,6 +420,7 @@ class _Runner:
                     tr.record("stage", self._nm, tid, now0, dur, tenant=ten)
                 if self._is_sink:
                     self._trace_sink_delivery(item, now0 + dur)
+            self._proc_n = 0
             metrics.count(self._m_out)
 
 
@@ -397,7 +443,14 @@ class Pipeline:
     ``reduce_outputs`` lets the residency planner switch a filter to its
     model's reduced output (deeplab's native-stride map) when every
     consumer below admits any geometry; ``Pipeline.residency`` is the
-    plan.  Defaults come from :func:`get_config`.  Elements are instantiated and
+    plan.  ``fetch_depth`` is the sinks' fetch window (a sink's own
+    ``fetch-depth`` wins).  ``max_stage_restarts`` lets a restartable stage
+    (a fused chain or a pure filter) survive that many faults in
+    ``process()``, each losing its one buffer.  ``slo`` (an
+    :class:`~..utils.slo.SLOPolicy`, a policy dict or a JSON file path,
+    validated here) runs the SLO engine while the pipeline runs; it
+    reads the sinks' end-to-end series, which ``trace_mode`` feeds.
+    Defaults come from :func:`get_config`.  Elements are instantiated and
     caps negotiated at construction (which opens models); threads start
     at :meth:`start` or on entering a ``with`` block.
     """
@@ -409,7 +462,10 @@ class Pipeline:
                  quarantine=None,
                  journal_replay: bool = False,
                  fuse: bool = True,
-                 reduce_outputs: Optional[bool] = None):
+                 reduce_outputs: Optional[bool] = None,
+                 fetch_depth: Optional[int] = None,
+                 max_stage_restarts: Optional[int] = None,
+                 slo=None):
         if isinstance(graph, str):
             graph = parse_launch(graph)
         graph.validate()
@@ -419,6 +475,22 @@ class Pipeline:
         self.reduce_outputs = bool(reduce_outputs if reduce_outputs is not None
                                    else cfg.reduce_outputs)
         self.capacity = queue_capacity or cfg.queue_capacity
+        self.fetch_depth = max(1, int(
+            fetch_depth if fetch_depth is not None else cfg.fetch_depth))
+        self.max_stage_restarts = max(0, int(
+            max_stage_restarts if max_stage_restarts is not None
+            else cfg.max_stage_restarts))
+        # the slo policy is parsed HERE so that a bad one fails the
+        # construction (naming every problem), not start() with threads up
+        self._slo_policy = None
+        self._slo_engine = None
+        if slo is not None:
+            from ..utils.slo import load_policy
+
+            try:
+                self._slo_policy = load_policy(slo)
+            except (ValueError, OSError) as e:
+                raise PipelineError(str(e)) from e
         self.trace_mode = str(
             trace_mode if trace_mode is not None else cfg.trace_mode)
         if self.trace_mode not in ("off", "ring", "full"):
@@ -479,6 +551,10 @@ class Pipeline:
                                                    self.stages)
         if self.residency.fetch or self.residency.reduced_outputs:
             log.info("%s", self.residency.render())
+        # the sinks read the pipeline's fetch window width
+        for el in self.elements.values():
+            if isinstance(el, SinkElement):
+                el._fetch_depth = self.fetch_depth
         self._runners: Dict[int, _Runner] = {}
         for st in self.stages:
             r = _Runner(self, st, self.capacity)
@@ -547,10 +623,15 @@ class Pipeline:
                 f"unknown element properties (typo?): {unknown}")
         for r in self._unique_runners():
             r.thread.start()
+        if self._slo_policy is not None:
+            # per-tenant burn rate and breach gauges off the live series
+            self._slo_loop().start()
         return self
 
     def stop(self) -> None:
         self._stopping.set()
+        if self._slo_engine is not None:
+            self._slo_engine.stop()  # joins its thread
         runners = self._unique_runners()
         # Close every stage queue first: blocked getters receive _POISON
         # and blocked putters shed immediately.
@@ -601,6 +682,76 @@ class Pipeline:
                     core.tenant_admission[tenant] = "shed-all"
                 else:
                     core.tenant_admission.pop(tenant, None)
+
+    # -- SLO -----------------------------------------------------------------
+    def _slo_loop(self):
+        """The SLO engine bound to this pipeline's sinks (built once)."""
+        if self._slo_engine is None:
+            from ..utils.slo import SLOEngine, SLOPolicy
+
+            sinks = [el.name for el in self.elements.values()
+                     if isinstance(el, SinkElement)]
+            self._slo_engine = SLOEngine(self._slo_policy or SLOPolicy(),
+                                         sinks=sinks)
+        return self._slo_engine
+
+    def slo_report(self) -> dict:
+        """Per-tenant SLO verdict evaluated now off the live series:
+        p50/p99/fps against each tenant's objectives, sheds, error-budget
+        burn rate and, for a breaching tenant, the span kind that took
+        most of its time in the flight recorder.  Latency and throughput
+        need ``trace_mode`` on (the sinks' end-to-end series)."""
+        return self._slo_loop().report()
+
+    # -- elastic serving: drain / adopt ---------------------------------------
+    def serve_streams(self) -> Dict[int, dict]:
+        """Continuous-serving streams on this pipeline: ``stream_id ->
+        {"state", "tenant", "slot", "blocks", "element"}``."""
+        out: Dict[int, dict] = {}
+        for el in self.elements.values():
+            table_fn = getattr(el, "serve_streams", None)
+            if table_fn is None:
+                continue
+            for sid, info in table_fn().items():
+                out[sid] = {**info, "element": el.name}
+        return out
+
+    def drain_stream(self, stream_id: int, timeout: float = 30.0) -> dict:
+        """Take one live (or queued) continuous-serving stream off this
+        pipeline as a host snapshot (persist it with
+        ``trainer.checkpoint.save_stream_snapshot``); its slot and blocks
+        return to the pool.  :meth:`adopt_stream` on another pipeline (or
+        this one after a restart with another config) continues it, token
+        for token.  No captured step is touched (span ``elastic.drain``)."""
+        for el in self.elements.values():
+            table_fn = getattr(el, "serve_streams", None)
+            if table_fn is not None and stream_id in table_fn():
+                return el.drain_serve_stream(stream_id, timeout)
+        raise PipelineError(
+            f"no live serve stream {stream_id} on this pipeline "
+            f"(known: {sorted(self.serve_streams())})")
+
+    def adopt_stream(self, snapshot: dict, timeout: float = 30.0) -> int:
+        """Re-admit a drained stream (a :meth:`drain_stream` snapshot, or
+        one read by ``trainer.checkpoint.load_stream_snapshot``) into this
+        pipeline's continuous-serving filter; returns its stream id, and
+        its remaining tokens flow to this pipeline's sinks (span
+        ``elastic.adopt``)."""
+        last_err: Optional[Exception] = None
+        for el in self.elements.values():
+            adopt_fn = getattr(el, "adopt_serve_stream", None)
+            fw = getattr(el, "fw", None)
+            if adopt_fn is None or not getattr(fw, "continuous", False):
+                continue
+            try:
+                return adopt_fn(snapshot, timeout=timeout)
+            except Exception as e:  # noqa: BLE001 - try the other filters
+                last_err = e
+        if last_err is not None:
+            raise PipelineError(f"adopt_stream failed: {last_err}") from last_err
+        raise PipelineError(
+            "no continuous-serving filter on this pipeline to adopt into "
+            "(need tensor_filter framework=llm custom=serve:continuous)")
 
     def dump_trace(self, path: str) -> int:
         """Write the flight recorder's contents as Chrome trace-event JSON

@@ -89,7 +89,9 @@ def test_registry_is_the_ports_own():
         "videotestsrc"]
     assert ntt.registry.get("element", "tensor_query_client").__module__ \
         == "nnstreamer_tpu_torch.elements.query"
-    assert ntt.registry.names("filter") == ["jax", "llm"]
+    assert ntt.registry.names("filter") == ["custom-easy", "jax", "llm"]
+    assert ntt.registry.get("filter", "custom-easy").__module__ == \
+        "nnstreamer_tpu_torch.filters.custom_easy"
     port_llm = ntt.registry.get("filter", "llm")
     assert port_llm.__module__ == "nnstreamer_tpu_torch.filters.llm"
     assert jax_registry.get("filter", "llm").__module__ == \
