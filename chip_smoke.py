@@ -248,6 +248,36 @@ Phases, each of which must pass:
              NMS at option5=1.0 suppresses none); wav2vec2: the CTC ids
              equal the host argmax of the same logits.  ``--profile``
              writes each stage's kernels to chiprun_out/profile_models.txt.
+13. batching — micro-batching, no kernel of csrc/: the README quick-start
+             fed ONE frame per buffer (``dimensions=3:224:224:1``, 2,048
+             seeded uint8 frames, queues 64 deep, no max-inflight),
+             mobilenet_v1 224 bf16, ``batch_max`` 1 against 32, three runs
+             each in turns, streaming (a pusher thread against the pulls):
+             frames/s, p50/p99 per frame, the occupancy histogram, pad
+             waste, the census (one one-buffer step and at most one step
+             per bucket, every bucket warmed first, no capture after), the
+             card's ms per replay of each step (CUDA events) and busy share,
+             peak and reserved memory; batched against unbatched (scores within
+             ``VISION_TOL`` of the frame's largest |logit|, labels equal
+             past that top-2 gap, from a batch_max=1 run without the
+             decoder); bucket 32 rows bitwise at occupancies 17 and 32.
+             bench.py's bench_batching (scaler, 256 floats, batch_max 8
+             against 1) and bench_adaptive (a 1280-wide, 32-layer tanh MLP
+             through custom-easy on the card, bursts of 6, adaptive against
+             static: the refined ladder must hold 6) cells.  The dispatch
+             window at ``dispatch_depth`` 1, 2, 4 in turns, each run a
+             backlog (every frame queued behind a held first one, so every
+             run takes the same steps): outputs bitwise equal.  Ingress: the
+             batch-64 quick-start and the per-frame backlog with the port's
+             fresh pinned copy, with reused pinned slots (patched in), and
+             with ``donate_ingress`` off, in turns: frames/s, host µs
+             filling the static inputs, outputs bitwise equal.  The
+             per-frame cell again at a 0.5 ms interpreter switch interval;
+             one stack against one copy per row filling a bucket from card
+             rows.  The vmap fallback is off for the phase (an op with no
+             batching rule raises); the stage must be batchable, on the
+             card, and drain more than one buffer.  ``--profile`` writes
+             the bucket-32 step's kernels to chiprun_out/profile_batching.txt.
 
 Prints the card's name and power limit (nvidia-smi), a ``{"kernels": ...}``
 JSON line, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -260,6 +290,8 @@ the continuous phase's counted run (card activity only): the card's busy
 ms per decode step and idle share over that run.
 """
 
+import contextlib
+import gc
 import json
 import os
 import re
@@ -3829,6 +3861,741 @@ def print_spec(r):
           f"tok/s against {r['accept_plain']['aggregate_tok_s']:.2f}", flush=True)
 
 
+#: the batching phase: the README quick-start fed ONE frame per buffer (a
+#: camera, an app's appsrc, query clients), mobilenet_v1 224 (1001
+#: classes, bf16, seed 0), drained into bucketed steps of up to
+#: BATCHING_MAX frames; no max-inflight, so the backlog is bounded by the
+#: queues (BATCHING_QUEUE) and the drain can fill its buckets
+BATCHING_FRAMES = 2048
+BATCHING_MAX = 32
+BATCHING_RUNS = 3
+BATCHING_QUEUE = 64
+PER_FRAME = ("appsrc name=src caps=other/tensors,dimensions=3:{size}:{size}:1,"
+             "types=uint8 max-buffers={cap} ! " + NORM + " ! tensor_filter "
+             "framework=jax model=mobilenet_v1 custom=size:{size},batch:1 {acc} ! "
+             "{tail}tensor_sink name=out")
+LABELING = "tensor_decoder mode=image_labeling ! "
+WINDOW_DEPTHS = (1, 2, 4)
+#: bench.py's bench_batching cell (a backlogged small model) and its
+#: bench_adaptive cell (bursts of 6 into a 32-layer MLP of width 1280)
+SCALER_DESC = ("appsrc name=src caps=other/tensors,dimensions={dims},types=float32 ! "
+               "tensor_filter framework=jax model=scaler custom=scale:1.5,dims:{dims} "
+               "{acc} name=f ! tensor_sink name=out")
+SCALER_DIMS = 256
+SCALER_BUFFERS = 384
+ADAPTIVE_DIMS = 1280
+ADAPTIVE_LAYERS = 32
+ADAPTIVE_BURST = 6
+ADAPTIVE_BURSTS = 64
+ADAPTIVE_WARM_BURSTS = 40
+ADAPTIVE_DESC = ("appsrc name=src caps=other/tensors,dimensions={dims},types=float32 ! "
+                 "tensor_filter framework=custom-easy model={model} name=f ! "
+                 "tensor_sink name=out")
+
+
+class FillClock:
+    """Host seconds the fused stages and bucket steps spend filling their
+    static inputs (``_StaticSet.fill``, ``_BucketSet.fill``), by wrapping
+    both while the block runs."""
+
+    def __enter__(self):
+        from nnstreamer_tpu_torch.pipeline import batching, plan
+
+        self.seconds, self.calls = 0.0, 0
+        self._orig = [(plan._StaticSet, plan._StaticSet.fill),
+                      (batching._BucketSet, batching._BucketSet.fill)]
+        for cls, fill in self._orig:
+            def timed(obj, tensors, _fill=fill):
+                t0 = time.perf_counter()
+                _fill(obj, tensors)
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+
+            cls.fill = timed
+        return self
+
+    def __exit__(self, *exc):
+        for cls, fill in self._orig:
+            cls.fill = fill
+
+
+class SlotFill:
+    """The other form of the ingress copy, patched in for the donation A/B
+    (the port copies each host fill through fresh pinned memory): host
+    frames go through pinned slots reused in turn, two per static set,
+    each written again only after the copy that last read it has run."""
+
+    def __enter__(self):
+        import torch
+
+        from nnstreamer_tpu_torch.pipeline import batching, plan
+
+        self._orig = [(plan._StaticSet, plan._StaticSet.fill),
+                      (batching._BucketSet, batching._BucketSet.fill)]
+        static_fill, bucket_fill = (f for _, f in self._orig)
+
+        def take(obj):
+            if getattr(obj, "_ab_slots", None) is None:
+                obj._ab_slots = [
+                    ([torch.empty(tuple(x.shape), dtype=x.dtype, pin_memory=True)
+                      for x in obj.inputs], torch.cuda.Event()) for _ in range(2)]
+                obj._ab_next = 0
+            hs, done = obj._ab_slots[obj._ab_next]
+            done.synchronize()  # a no-op before its first record
+            return hs
+
+        def release(obj):
+            obj._ab_slots[obj._ab_next][1].record()
+            obj._ab_next = (obj._ab_next + 1) % len(obj._ab_slots)
+
+        def slot_static(obj, tensors):
+            if not obj.inputs[0].is_cuda or any(t.is_cuda for t in tensors):
+                return static_fill(obj, tensors)
+            for h, dst, src in zip(take(obj), obj.inputs, tensors):
+                h.copy_(src)
+                dst.copy_(h, non_blocking=True)
+            release(obj)
+
+        def slot_bucket(obj, rows):
+            if not obj.inputs[0].is_cuda or any(c.is_cuda for r in rows for c in r):
+                return bucket_fill(obj, rows)
+            n = len(rows)
+            hs = take(obj)
+            for t, dst in enumerate(obj.inputs):
+                torch.stack([r[t] for r in rows], out=hs[t][:n])
+                dst[:n].copy_(hs[t][:n], non_blocking=True)
+            release(obj)
+            if n < obj.bucket:
+                for dst in obj.inputs:
+                    dst[n:].copy_(dst[n - 1:n].expand_as(dst[n:]))
+
+        plan._StaticSet.fill = slot_static
+        batching._BucketSet.fill = slot_bucket
+        return self
+
+    def __exit__(self, *exc):
+        for cls, fill in self._orig:
+            cls.fill = fill
+
+
+def hold_first(el):
+    """Hold the stage's next one-buffer process() until released, so the
+    buffers pushed meanwhile queue up behind it.  (started, release)."""
+    import threading
+
+    started, release = threading.Event(), threading.Event()
+    orig = type(el).process
+
+    def held(pad, buf):
+        started.set()
+        check(release.wait(600), "held stage never released")
+        del el.process
+        return orig(el, pad, buf)
+
+    el.process = held
+    return started, release
+
+
+def warm_buckets(el, frame, batch_max, buckets=None):
+    """Capture every bucket step of a batchable stage before a timed
+    window: one process_batch per bucket of the ladder above 1 (a drain of
+    one buffer takes the one-buffer step)."""
+    import nnstreamer_tpu_torch as ntt
+    from nnstreamer_tpu_torch.elements.base import SINK
+    from nnstreamer_tpu_torch.pipeline.batching import ladder
+
+    for b in ladder(batch_max, buckets):
+        if b > 1:
+            el.process_batch(SINK, [ntt.Buffer([frame]) for _ in range(b)])
+
+
+def step_card_ms(step, reps=20):
+    """Device ms of one replay of a captured step (CUDA events around
+    ``reps`` replays queued behind a spin kernel); None off the card."""
+    import torch
+
+    if step._graph is None:
+        return None
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(2_000_000)
+    start.record()
+    for _ in range(reps):
+        step.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bucket_card_ms(stage):
+    """Card ms per replay of each step of a fused stage: 1 for the
+    one-buffer step (its one signature), b for each bucket step."""
+    out = {}
+    for st in stage._sets.values():
+        out[1] = step_card_ms(st.step)
+    if stage._batcher is not None:
+        for (b, _), st in stage._batcher._sets.items():
+            out[b] = step_card_ms(st.step)
+    return out
+
+
+def occupancy_line(name):
+    """The stage's occupancy histogram: {le bound: cumulative count}."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.core.log import metrics
+
+    h = metrics.value_histograms().get(f"{name}.batch_occupancy")
+    if h is None:
+        return {}
+    bounds, counts, _, _ = h
+    cum = np.cumsum(counts).tolist()
+    return {str(int(b)): c for b, c in zip(bounds, cum)} | {"+Inf": cum[-1]}
+
+
+def per_frame_run(dev, frames, batch_max, size=224, acc="", depth=2, donate=True,
+                  backlog=False, labels=True):
+    """The per-frame quick-start (``PER_FRAME``) over ``frames``: the first
+    frame pushed alone (the one-buffer capture), every bucket warmed, then
+    the rest timed.  Streaming (default): a pusher thread pushes as fast as
+    the queues admit while this thread pulls.  ``backlog``: the rest are
+    all queued behind a held first frame before the stage is released, so
+    the drains are 1, then ``batch_max`` at a time, then the remainder: the
+    same steps in every run.  Returns (outputs, stats)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    import nnstreamer_tpu_torch as ntt
+    from nnstreamer_tpu_torch.core.log import metrics
+
+    on_card = dev.type == "cuda"
+    cap = len(frames) + 8 if backlog else BATCHING_QUEUE
+    desc = PER_FRAME.format(size=size, cap=cap, acc=acc,
+                            tail=LABELING if labels else "")
+    base = base_reserved = 0
+    if on_card:  # earlier pipelines' graphs freed: the peak is this run's
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        base_reserved = torch.cuda.memory_reserved(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    pipe = ntt.Pipeline(desc, batch_max=batch_max, queue_capacity=cap,
+                        dispatch_depth=depth, donate_ingress=donate)
+    [st] = [s for s in pipe.stages if s.element.kind == "fused"]
+    stage = st.element
+    check(st.batchable, f"the per-frame stage {stage.name} is not batchable")
+    check(stage._ingress_put is donate, f"ingress donation planned {stage._ingress_put}")
+    outs, e2e, push_ts = [], [], {}
+    with pipe:
+        pipe.push("src", frames[0])
+        outs.append(pipe.pull("out", timeout=600))
+        check(stage.device.type == dev.type, f"the stage runs on {stage.device}")
+        if batch_max > 1:
+            warm_buckets(stage, frames[0], batch_max)
+        if on_card:
+            torch.cuda.synchronize()
+        warm = stage.census.captures
+        metrics.reset()
+        rest = frames[1:]
+        with FillClock() as fill:
+            if backlog:
+                started, release = hold_first(stage)
+                pipe.push("src", rest[0])
+                check(started.wait(600), "the held stage never started")
+                for f in rest[1:]:
+                    pipe.push("src", f)
+                runner = [r for r in pipe._unique_runners() if r.element is stage][0]
+                deadline = time.monotonic() + 600
+                while len(runner.queue._dq) < len(rest) - 1:
+                    check(time.monotonic() < deadline, "backlog never queued")
+                    time.sleep(0.001)
+                t0 = time.perf_counter()
+                release.set()
+                outs.extend(pipe.pull("out", timeout=600) for _ in rest)
+                wall = time.perf_counter() - t0
+            else:
+                def pusher():
+                    for i, f in enumerate(rest):
+                        push_ts[i] = time.perf_counter()
+                        pipe.push("src", f)
+
+                t = threading.Thread(target=pusher, daemon=True)
+                t0 = time.perf_counter()
+                t.start()
+                for i in range(len(rest)):
+                    outs.append(pipe.pull("out", timeout=600))
+                    e2e.append((time.perf_counter() - push_ts[i]) * 1e3)
+                wall = time.perf_counter() - t0
+                t.join(timeout=60)
+        snap = metrics.snapshot()
+        occupancy = occupancy_line(stage.name)
+        census = census_of(stage.census, warm)
+        card = bucket_card_ms(stage) if on_card else {}
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 1e9 if on_card else None
+        # graph pools hold their captures' memory as reserved, not allocated
+        reserved = ((torch.cuda.memory_reserved(dev) - base_reserved) / 1e9
+                    if on_card else None)
+        pipe.eos("src")
+        pipe.wait(timeout=120)
+    n = len(rest)
+    hist = metrics.value_histograms().get(f"{stage.name}.batch_occupancy")
+    drains = {}
+    if hist is not None:  # the default ladder's buckets are the histogram's
+        for b, c in zip(hist[0], hist[1]):
+            if c:
+                drains[int(b)] = c
+    else:
+        drains[1] = n
+    busy = None
+    if card and all(card.get(b) is not None for b in drains):
+        busy = sum(c * card[b] for b, c in drains.items()) / (wall * 1e3)
+    lat = np.sort(np.asarray(e2e)) if e2e else None
+    stats = dict(
+        batch_max=batch_max, depth=depth, donate=donate, backlog=backlog,
+        frames_per_s=n / wall, wall_s=wall,
+        p50_ms=None if lat is None else float(np.percentile(lat, 50)),
+        p99_ms=None if lat is None else float(np.percentile(lat, 99)),
+        occupancy=occupancy, drains=drains,
+        occupancy_max=max(drains), occupancy_mean=snap.get(
+            f"{stage.name}.batch_occupancy.mean"),
+        pad_waste=snap.get(f"{stage.name}.batch_pad_waste", 0.0),
+        census=census, card_ms_by_bucket=card, busy_share=busy, peak_mem_gb=peak,
+        reserved_gb=reserved,
+        fill_us_per_frame=fill.seconds / n * 1e6, fill_calls=fill.calls)
+    if labels:
+        res = [(int(np.asarray(o.meta["label_index"]).reshape(-1)[0]),
+                float(np.asarray(o.meta["score"]).reshape(-1)[0])) for o in outs]
+    else:
+        res = [np.asarray(o.tensors[0], np.float32).reshape(-1) for o in outs]
+    return res, stats
+
+
+def bucket_rows_bitwise(dev, frames, size, acc):
+    """Rows of one bucket at two occupancies (17 and 32, both bucket 32)
+    replay the same captured step: bitwise equal labels and scores."""
+    import numpy as np
+
+    import nnstreamer_tpu_torch as ntt
+
+    pipe = ntt.Pipeline(PER_FRAME.format(size=size, cap=BATCHING_QUEUE, acc=acc,
+                                         tail=LABELING), batch_max=BATCHING_MAX)
+    [stage] = [s.element for s in pipe.stages if s.batchable]
+    with pipe:
+        pipe.push("src", frames[0])
+        pipe.pull("out", timeout=600)
+        from nnstreamer_tpu_torch.elements.base import SINK
+
+        a = stage.process_batch(SINK, [ntt.Buffer([f]) for f in frames[:17]])
+        b = stage.process_batch(SINK, [ntt.Buffer([f]) for f in frames[:32]])
+        a = [o.resolve() for _, o in a]
+        b = [o.resolve() for _, o in b[:17]]
+        pipe.eos("src")
+        pipe.wait(timeout=120)
+    equal = sum(np.array_equal(x.meta["label_index"], y.meta["label_index"])
+                and np.array_equal(x.meta["score"], y.meta["score"])
+                for x, y in zip(a, b))
+    check(equal == 17, f"bucket 32 at occupancies 17 and 32: {equal} of 17 rows equal")
+    buckets = sorted(k[0] for k in stage._batcher._sets)
+    check(buckets == [32], f"bucket steps {buckets}")
+    return equal
+
+
+def batching_scaler(dev, acc="", n=SCALER_BUFFERS, dims=SCALER_DIMS):
+    """bench.py's bench_batching cell: appsrc ! scaler ! sink backlogged,
+    queue_capacity 64, batch_max 8 against 1 on identical input, best of
+    three windows each, in turns (8, 1, 1, 8)."""
+    import threading
+
+    import numpy as np
+
+    import nnstreamer_tpu_torch as ntt
+    from nnstreamer_tpu_torch.core.log import metrics
+
+    frames = [np.full((dims,), float(i % 7), np.float32) for i in range(8)]
+    desc = SCALER_DESC.format(dims=dims, acc=acc)
+
+    def run(bmax):
+        p = ntt.Pipeline(desc, queue_capacity=64, batch_max=bmax)
+        f = p.element("f")
+        walls = []
+        with p:
+            for i in range(64):
+                p.push("src", frames[i % 8])
+            for _ in range(64):
+                p.pull("out", timeout=120)
+            if bmax > 1:
+                warm_buckets(f, frames[0], bmax)
+            metrics.reset()
+            for _ in range(3):
+                def pusher():
+                    for i in range(n):
+                        p.push("src", frames[i % 8])
+
+                t = threading.Thread(target=pusher, daemon=True)
+                t0 = time.perf_counter()
+                t.start()
+                outs = [p.pull("out", timeout=120) for _ in range(n)]
+                walls.append(time.perf_counter() - t0)
+                t.join()
+            snap = metrics.snapshot()
+            p.eos()
+            p.wait(timeout=60)
+        check(all(np.array_equal(np.asarray(o.tensors[0]), frames[i % 8] * 1.5)
+                  for i, o in enumerate(outs)), "scaler cell: wrong values")
+        r = dict(frames_per_s=n / min(walls),
+                 occupancy_mean=snap.get("f.batch_occupancy.mean"),
+                 occupancy_p99=snap.get("f.batch_occupancy.p99"))
+        if bmax > 1:
+            [(_, br)] = f._batchers.values()
+            check(br.census.device.type == dev.type,
+                  f"scaler cell: bucket steps on {br.census.device}")
+            check(r["occupancy_p99"] and r["occupancy_p99"] > 1,
+                  "scaler cell: the runner never drained more than one buffer")
+            r["census"] = dict(captures=br.census.captures, replays=br.census.replays)
+        return r
+
+    runs = {8: [], 1: []}
+    for bmax in (8, 1, 1, 8):
+        runs[bmax].append(run(bmax))
+    best = {b: max(rs, key=lambda r: r["frames_per_s"]) for b, rs in runs.items()}
+    return dict(runs={str(b): rs for b, rs in runs.items()},
+                fps_batched=best[8]["frames_per_s"], fps_unbatched=best[1]["frames_per_s"],
+                speedup=best[8]["frames_per_s"] / best[1]["frames_per_s"],
+                occupancy_mean=best[8]["occupancy_mean"])
+
+
+def batching_adaptive(dev, burst=ADAPTIVE_BURST, bursts=ADAPTIVE_BURSTS,
+                      warm_bursts=ADAPTIVE_WARM_BURSTS, dims=ADAPTIVE_DIMS,
+                      layers=ADAPTIVE_LAYERS):
+    """bench.py's bench_adaptive cell: a custom-easy MLP (``layers`` of
+    tanh(x @ w), w from default_rng(11) as in bench.py, on ``dev``) fed
+    bursts of ``burst`` same-spec buffers, two pipelined, batch_max 8,
+    adaptive_buckets on against off; best of three windows each.  The
+    frames are pushed as tensors on ``dev`` (the bench's eight fixed
+    arrays, uploaded once)."""
+    import numpy as np
+    import torch
+
+    import nnstreamer_tpu_torch as ntt
+    from nnstreamer_tpu_torch.core.log import metrics
+    from nnstreamer_tpu_torch.core.types import TensorsSpec
+    from nnstreamer_tpu_torch.filters.custom_easy import (register_custom_easy,
+                                                          unregister_custom_easy)
+
+    w = torch.from_numpy((np.random.default_rng(11).standard_normal((dims, dims))
+                          .astype(np.float32) * (0.9 / np.sqrt(dims)))
+                         .astype(np.float32)).to(dev)
+
+    def mlp(ins):
+        x = ins[0]
+        for _ in range(layers):
+            x = torch.tanh(x @ w)
+        return [x]
+
+    name = f"chip-adaptive-mlp-{time.monotonic_ns()}"
+    spec = TensorsSpec.from_string(str(dims), "float32")
+    register_custom_easy(name, mlp, in_spec=spec, out_spec=spec, jax_traceable=True)
+    frames = [torch.full((dims,), float(i % 7) * 0.1, dtype=torch.float32, device=dev)
+              for i in range(8)]
+
+    def run(adaptive):
+        metrics.reset()
+        p = ntt.Pipeline(ADAPTIVE_DESC.format(dims=dims, model=name), queue_capacity=64,
+                         batch_max=8, adaptive_buckets=adaptive)
+        walls = []
+        with p:
+            def cycle(n):
+                k = 0
+                for _ in range(2):
+                    for _ in range(burst):
+                        p.push("src", frames[k % 8])
+                        k += 1
+                for _ in range(n - 2):
+                    for _ in range(burst):
+                        p.pull("out", timeout=300)
+                    for _ in range(burst):
+                        p.push("src", frames[k % 8])
+                        k += 1
+                for _ in range(2 * burst):
+                    p.pull("out", timeout=300)
+
+            cycle(warm_bursts)
+            waste0 = metrics.snapshot().get("f.batch_pad_waste", 0.0)
+            [(_, br)] = p.element("f")._batchers.values()
+            warm = br.census.captures
+            for _ in range(3):
+                t0 = time.perf_counter()
+                cycle(bursts)
+                walls.append(time.perf_counter() - t0)
+            snap = metrics.snapshot()
+            ladders = p.ladder_snapshot()
+            p.eos()
+            p.wait(timeout=60)
+        check(br.census.device.type == dev.type,
+              f"adaptive cell: bucket steps on {br.census.device}")
+        check(snap.get("f.batch_occupancy.p99", 0) > 1,
+              "adaptive cell: the runner never drained more than one buffer")
+        return dict(frames_per_s=bursts * burst / min(walls),
+                    pad_waste=snap.get("f.batch_pad_waste", 0.0),
+                    pad_waste_timed=snap.get("f.batch_pad_waste", 0.0) - waste0,
+                    occupancy_mean=snap.get("f.batch_occupancy.mean"),
+                    ladder=ladders.get("f"), captures=br.census.captures,
+                    captures_after_warmup=br.census.captures - warm)
+
+    try:
+        on, off = run(True), run(False)
+    finally:
+        unregister_custom_easy(name)
+    check(on["ladder"] is not None and burst in on["ladder"],
+          f"adaptive cell: the refined ladder {on['ladder']} lacks {burst}")
+    return dict(adaptive=on, static=off, speedup=on["frames_per_s"] / off["frames_per_s"])
+
+
+def fill_forms(dev, rows=BATCHING_MAX, size=224, reps=50):
+    """Host µs to fill a bucket's static input from card rows: one
+    torch.stack(out=) against one copy_ per row ([1, size, size, 3] uint8
+    rows; the card's time of each too)."""
+    import torch
+
+    col = [torch.randint(0, 256, (1, size, size, 3), dtype=torch.uint8, device=dev)
+           for _ in range(rows)]
+    dst = torch.empty((rows, 1, size, size, 3), dtype=torch.uint8, device=dev)
+
+    def stack():
+        torch.stack(col, out=dst)
+
+    def copies():
+        for i, c in enumerate(col):
+            dst[i].copy_(c)
+
+    out = {}
+    for name, fn in (("stack", stack), ("copies", copies)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+        dev_ms, _ = timed_ms(fn, lambda: None, reps=20)
+        out[name] = dict(host_us=host, card_us=dev_ms * 1e3)
+    return out
+
+
+def phase_batching(dev, size=224, frames_n=BATCHING_FRAMES, acc="",
+                   runs=BATCHING_RUNS, profile=False):
+    """Micro-batching on ``dev``: the per-frame quick-start at batch_max 1
+    against BATCHING_MAX (streaming, in turns), its bucket rows bitwise
+    across occupancies and its batched outputs against the unbatched
+    logits; bench.py's two batching cells; the dispatch window at
+    WINDOW_DEPTHS (backlog, bitwise); ingress donation on and off (the
+    batch-64 quick-start and the per-frame backlog, bitwise).  An op with
+    no batching rule raises (the vmap fallback is off) and fails the
+    phase."""
+    import numpy as np
+    import torch
+
+    from nnstreamer_tpu_torch.pipeline.batching import ladder
+
+    on_card = dev.type == "cuda"
+    torch._C._functorch._set_vmap_fallback_enabled(False)
+    out = {}
+    try:
+        rng = np.random.default_rng(5)
+        frames = [rng.integers(0, 256, (1, size, size, 3), dtype=np.uint8)
+                  for _ in range(frames_n)]
+        # 1. the slice's cell: per frame, batch_max 1 against BATCHING_MAX
+        cell = {1: [], BATCHING_MAX: []}
+        results = {}
+        for k in range(2 * runs):
+            bmax = (1, BATCHING_MAX)[(k + k // 2) % 2]
+            res, st = per_frame_run(dev, frames, bmax, size=size, acc=acc)
+            cell[bmax].append(st)
+            results.setdefault(bmax, res)
+            if bmax > 1:
+                check(st["occupancy_max"] > 1,
+                      "per-frame cell: the runner never drained more than one buffer")
+                # the one-buffer step and at most one step per bucket above 1
+                check(st["census"]["captures"] <= len(ladder(BATCHING_MAX)),
+                      f"per-frame cell: {st['census']['captures']} captures")
+        out["cell"] = {str(b): rs for b, rs in cell.items()}
+        for b, rs in cell.items():
+            out[f"median_{b}"] = {k: float(np.median([r[k] for r in rs]))
+                                  for k in ("frames_per_s", "p50_ms", "p99_ms")}
+        logits, _ = per_frame_run(dev, frames, 1, size=size, acc=acc, labels=False)
+        lg = np.stack(logits)
+        top = np.sort(lg, axis=1)
+        scale = np.abs(lg).max(axis=1)
+        held = (top[:, -1] - top[:, -2]) > VISION_TOL * scale
+        batched, unbatched = results[BATCHING_MAX], results[1]
+        score_ok = int(sum(abs(b[1] - u[1]) <= VISION_TOL * s
+                           for b, u, s in zip(batched, unbatched, scale)))
+        label_ok = sum(b[0] == u[0] for b, u, h in zip(batched, unbatched, held) if h)
+        labels_equal = sum(b[0] == u[0] for b, u in zip(batched, unbatched))
+        bitwise = sum(b == u for b, u in zip(batched, unbatched))
+        check(score_ok == len(frames),
+              f"batched scores off the unbatched ones: {len(frames) - score_ok} frames")
+        check(label_ok == int(held.sum()),
+              f"batched labels off the unbatched ones: {int(held.sum()) - label_ok} "
+              "frames past the tie gap")
+        out["against_unbatched"] = dict(
+            frames=len(frames), scores_within_tol=score_ok, held=int(held.sum()),
+            labels_equal_held=label_ok, labels_equal=labels_equal,
+            bitwise=bitwise, max_score_diff_share=float(max(
+                abs(b[1] - u[1]) / s for b, u, s in zip(batched, unbatched, scale))))
+        out["bucket_rows_bitwise"] = bucket_rows_bitwise(dev, frames, size, acc)
+        # 2-3. bench.py's two cells
+        out["scaler"] = batching_scaler(dev, acc=acc)
+        out["adaptive"] = batching_adaptive(dev)
+        # 4. the dispatch window, backlog mode (the same steps every run)
+        window = {d: [] for d in WINDOW_DEPTHS}
+        first = None
+        for d in WINDOW_DEPTHS + WINDOW_DEPTHS[::-1]:
+            res, st = per_frame_run(dev, frames, BATCHING_MAX, size=size, acc=acc,
+                                    depth=d, backlog=True)
+            first = res if first is None else first
+            st["bitwise_equal"] = res == first
+            check(res == first, f"dispatch_depth {d}: outputs differ from the first run")
+            window[d].append(st)
+        out["window"] = {str(d): rs for d, rs in window.items()}
+        # 5. ingress donation: the planned flags on and off, and the two
+        # forms of the ingress copy (the port's fresh pinned memory against
+        # reused pinned slots) in turns; every output bitwise equal
+        qs_frames = [rng.integers(0, 256, (VISION_BATCH, size, size, 3), dtype=np.uint8)
+                     for _ in range(VISION_WARM + VISION_TIMED)]
+        qs_desc = QUICKSTART.format(size=size, batch=VISION_BATCH, model="mobilenet_v1",
+                                    custom="", acc=acc)
+        donation = {"quickstart": {}, "per_frame": {}}
+        firsts = {}
+        forms = ("fresh", "slot", "slot", "fresh", "donate_off")
+        for form in forms if on_card else ("fresh", "donate_off"):
+            flag = form != "donate_off"
+            with SlotFill() if form == "slot" else contextlib.nullcontext():
+                with FillClock() as fill:
+                    res, st = vision_host_fed(qs_desc, qs_frames, donate_ingress=flag)
+                check(st["stage"]._ingress_put is flag, "quick-start donation not as asked")
+                st = {k: v for k, v in st.items() if k != "stage"}
+                st["fill_us_per_batch"] = fill.seconds / max(1, fill.calls) * 1e6
+                firsts.setdefault("qs", res)
+                st["bitwise_equal"] = all(
+                    np.array_equal(x[0], y[0]) and np.array_equal(x[1], y[1])
+                    for x, y in zip(firsts["qs"], res))
+                check(st["bitwise_equal"], f"quick-start, ingress {form}: outputs differ")
+                donation["quickstart"].setdefault(form, []).append(st)
+                res, st = per_frame_run(dev, frames, BATCHING_MAX, size=size, acc=acc,
+                                        donate=flag, backlog=True)
+                firsts.setdefault("pf", res)
+                st["bitwise_equal"] = res == firsts["pf"]
+                check(st["bitwise_equal"], f"per-frame, ingress {form}: outputs differ")
+                donation["per_frame"].setdefault(form, []).append(st)
+        out["donation"] = donation
+        # the host: the same streaming cell with the interpreter's thread
+        # switch interval at 0.5 ms instead of 5 (every stage is a thread)
+        interval = sys.getswitchinterval()
+        sys.setswitchinterval(5e-4)
+        try:
+            out["switch_interval"] = {
+                str(b): per_frame_run(dev, frames, b, size=size, acc=acc)[1]
+                for b in (1, BATCHING_MAX)}
+        finally:
+            sys.setswitchinterval(interval)
+        if on_card:
+            out["fill_forms"] = fill_forms(dev, size=size)
+            if profile:
+                out["profile"] = batching_profile(dev, frames, size)
+    finally:
+        torch._C._functorch._set_vmap_fallback_enabled(True)
+    return out
+
+
+def batching_profile(dev, frames, size):
+    """The bucket-32 step's callable (vmapped, run eagerly three times)
+    under torch.profiler: its kernels by device time, written to
+    chiprun_out/profile_batching.txt (NHWC conv kernels, no layout copy)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import nnstreamer_tpu_torch as ntt
+
+    pipe = ntt.Pipeline(PER_FRAME.format(size=size, cap=BATCHING_QUEUE, acc="",
+                                         tail=LABELING), batch_max=BATCHING_MAX)
+    [stage] = [s.element for s in pipe.stages if s.batchable]
+    with pipe:
+        pipe.push("src", frames[0])
+        pipe.pull("out", timeout=600)
+        warm_buckets(stage, frames[0], BATCHING_MAX, buckets=[BATCHING_MAX])
+        (st,) = stage._batcher._sets.values()
+        vfn = torch.func.vmap(stage.composed)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                vfn(tuple(st.inputs))
+            torch.cuda.synchronize()
+        pipe.eos("src")
+        pipe.wait(timeout=120)
+    avgs = prof.key_averages()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "profile_batching.txt"), "w") as fh:
+        fh.write(avgs.table(sort_by="self_device_time_total", row_limit=40) + "\n")
+    top = sorted(avgs, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:8]
+    return [(e.key[:70], e.self_device_time_total / 3e3) for e in top]
+
+
+def print_batching(r):
+    for b in (1, BATCHING_MAX):
+        for st in r["cell"][str(b)]:
+            busy = "not measured" if st["busy_share"] is None else f"{st['busy_share']:.3f}"
+            print(f"batching: per-frame quick-start (mobilenet_v1 224, batch 1 a buffer, "
+                  f"{BATCHING_FRAMES} frames) batch_max={b}: {st['frames_per_s']:.1f} "
+                  f"frames/s, per frame p50 {st['p50_ms']:.2f} ms, p99 {st['p99_ms']:.2f} ms, "
+                  f"busy {busy}, peak {st['peak_mem_gb'] or 0.0:.3f} GB, reserved "
+                  f"{st['reserved_gb'] or 0.0:.3f} GB, pad waste "
+                  f"{st['pad_waste']:.0f}, drains {st['drains']}", flush=True)
+        last = r["cell"][str(b)][-1]
+        print(f"batching: batch_max={b} occupancy (cumulative) {last['occupancy']}; "
+              f"card ms by bucket { {k: round(v, 4) for k, v in last['card_ms_by_bucket'].items() if v is not None} }",
+              flush=True)
+        print(f"census: batching batch_max={b} {last['census']}", flush=True)
+        print(f"batching: median batch_max={b} {r[f'median_{b}']}", flush=True)
+    print(f"batching: batched against unbatched {r['against_unbatched']}; bucket 32 rows "
+          f"at occupancies 17 and 32: {r['bucket_rows_bitwise']} of 17 bitwise", flush=True)
+    s = r["scaler"]
+    print(f"batching: bench_batching cell (scaler, dims {SCALER_DIMS}, queue 64) "
+          f"batch_max 8 {s['fps_batched']:.1f} against 1 {s['fps_unbatched']:.1f} "
+          f"buffers/s: {s['speedup']:.3f}x, occupancy mean {s['occupancy_mean']}", flush=True)
+    a = r["adaptive"]
+    print(f"batching: bench_adaptive cell (MLP {ADAPTIVE_DIMS} x {ADAPTIVE_LAYERS}, bursts "
+          f"of {ADAPTIVE_BURST}) adaptive {a['adaptive']['frames_per_s']:.1f} against "
+          f"static {a['static']['frames_per_s']:.1f} buffers/s: {a['speedup']:.3f}x; pad "
+          f"waste timed {a['adaptive']['pad_waste_timed']:.0f} against "
+          f"{a['static']['pad_waste_timed']:.0f} (all {a['adaptive']['pad_waste']:.0f} "
+          f"against {a['static']['pad_waste']:.0f}); refined ladder "
+          f"{a['adaptive']['ladder']}", flush=True)
+    for d, rs in r["window"].items():
+        print(f"batching: dispatch_depth {d} (backlog) "
+              f"{[round(x['frames_per_s'], 1) for x in rs]} frames/s, bitwise "
+              f"{[x['bitwise_equal'] for x in rs]}", flush=True)
+    for cell, d in r["donation"].items():
+        for form, rs in d.items():
+            key = "fill_us_per_batch" if cell == "quickstart" else "fill_us_per_frame"
+            print(f"batching: ingress {form} {cell} "
+                  f"{[round(x['frames_per_s'], 1) for x in rs]} frames/s, fill "
+                  f"{[round(x[key], 2) for x in rs]} host us per "
+                  f"{'batch' if cell == 'quickstart' else 'frame'}, bitwise "
+                  f"{[x['bitwise_equal'] for x in rs]}", flush=True)
+    for b, st in r["switch_interval"].items():
+        print(f"batching: switch interval 0.5 ms, batch_max={b}: "
+              f"{st['frames_per_s']:.1f} frames/s, p50 {st['p50_ms']:.2f} ms, busy "
+              f"{st['busy_share']}", flush=True)
+    if "fill_forms" in r:
+        print(f"batching: filling a bucket-32 input from card rows {r['fill_forms']}",
+              flush=True)
+    if "profile" in r:
+        print(f"profile: batching bucket 32 top kernels, ms per step {r['profile']}",
+              flush=True)
+
+
 def main():
     import torch
 
@@ -3973,6 +4740,13 @@ def main():
     models = detail["models"] = phase_models(dev, profile="--profile" in sys.argv[1:])
     print_models(models)
     print(f"models: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    save()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    batching = detail["batching"] = phase_batching(
+        dev, profile="--profile" in sys.argv[1:])
+    print_batching(batching)
+    print(f"batching: phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # one line per kernel: int4 per decoded token (129 launches at B=1),
     # with the same 129 launches at B=8 (a continuous decode step) and

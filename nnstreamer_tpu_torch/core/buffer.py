@@ -138,13 +138,28 @@ def start_fetch(tensors: Sequence[torch.Tensor]):
     return host, done
 
 
+def batch_signature(buf: Buffer) -> Tuple:
+    """Stacking key: two buffers may join one micro-batch when their
+    signatures match (tensor count, shapes, dtypes)."""
+    return tuple(
+        (tuple(t.shape), str(getattr(t, "dtype", type(t)))) for t in buf.tensors)
+
+
+def pad_rows(rows: Sequence[Any], pad_to: int) -> List[Any]:
+    """The bucket-padding policy: repeat the last row up to ``pad_to``
+    rows (valid data, so a padded step needs no mask; the pad rows'
+    outputs are dropped by :func:`split_rows`)."""
+    rows = list(rows)
+    if pad_to > len(rows):
+        rows += [rows[-1]] * (pad_to - len(rows))
+    return rows
+
+
 def stack_tensors(rows: Sequence[Sequence[Any]], pad_to: Optional[int] = None):
     """Stack per-buffer tensor rows (all the same signature) on a new
-    leading axis -> a tuple of ``[B, ...]`` tensors; ``pad_to`` repeats the
-    last row up to that many rows."""
-    rows = list(rows)
-    if pad_to is not None and pad_to > len(rows):
-        rows += [rows[-1]] * (pad_to - len(rows))
+    leading axis -> a tuple of ``[B, ...]`` tensors; ``pad_to`` applies
+    :func:`pad_rows` first."""
+    rows = pad_rows(rows, pad_to) if pad_to is not None else list(rows)
     return tuple(torch.stack([torch.as_tensor(r[t]) for r in rows])
                  for t in range(len(rows[0])))
 

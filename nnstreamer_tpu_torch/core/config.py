@@ -5,7 +5,12 @@ Port of ``nnstreamer_tpu/core/config.py`` (reference: ``nnstreamer_conf.c``
 filter priority, queue capacity, prompt bucketing and latency switch of
 the LLM paths, the flight recorder's mode and ring size, which the
 query front door and the runtime's trace hooks read, the sinks' fetch
-window and the runtime's bound on elastic stage restarts.  Populated
+window, the runtime's bound on elastic stage restarts, and the
+micro-batching knobs (``batch_max``, the bucket ladder and its adaptive
+refinement, the dispatch window, ingress donation; ``[ladders]`` holds
+warm-start ladders by stage name).  The JAX package's mesh knobs
+(``data_parallel``, ``model_parallel``) wait for the multi-device slice.
+Populated
 from (in priority order) :func:`set_config` > environment > the ini file
 named by ``NNS_TPU_CONF`` > defaults.
 """
@@ -16,7 +21,7 @@ import configparser
 import dataclasses
 import os
 import threading
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 _ENV_CONF = "NNS_TPU_CONF"
 _ENV_FW_PRIORITY = "NNS_TPU_FILTER_PRIORITY"
@@ -26,6 +31,12 @@ _ENV_TRACE_RING = "NNS_TPU_TRACE_RING"
 _ENV_REDUCE_OUTPUTS = "NNS_TPU_REDUCE_OUTPUTS"
 _ENV_FETCH_DEPTH = "NNS_TPU_FETCH_DEPTH"
 _ENV_STAGE_RESTARTS = "NNS_TPU_MAX_STAGE_RESTARTS"
+_ENV_BATCH_MAX = "NNS_TPU_BATCH_MAX"
+_ENV_ADAPTIVE = "NNS_TPU_ADAPTIVE_BUCKETS"
+_ENV_LADDERS = "NNS_TPU_BUCKET_LADDERS"
+_ENV_DISPATCH_DEPTH = "NNS_TPU_DISPATCH_DEPTH"
+_ENV_DONATE_INGRESS = "NNS_TPU_DONATE_INGRESS"
+_ENV_MAX_VARIANTS = "NNS_TPU_MAX_COMPILED_VARIANTS"
 
 
 @dataclasses.dataclass
@@ -35,6 +46,35 @@ class Config:
         default_factory=lambda: ["llm"])
     #: default queue capacity between pipeline stages (buffers)
     queue_capacity: int = 4
+    #: micro-batching (``pipeline/batching.py``): most already-queued
+    #: buffers a batchable stage drains into one bucketed dispatch
+    #: (1 = off, one buffer per dispatch)
+    batch_max: int = 1
+    #: allowed stacked batch sizes; empty = the default ladder (powers of
+    #: two), ladder-rounded above its top
+    batch_buckets: List[int] = dataclasses.field(default_factory=list)
+    #: wait (ms) for more buffers once one is in hand; 0 = drain only what
+    #: is already queued, never trading latency for occupancy
+    batch_linger_ms: float = 0.0
+    #: refine each batchable stage's ladder from the occupancies it
+    #: drains (``AdaptiveLadder``), within ``max_compiled_variants``
+    adaptive_buckets: bool = False
+    #: warm-start ladders by stage name (a ``Pipeline.ladder_snapshot()``):
+    #: ini ``[ladders]`` (``f = 1,2,4,6,8``) or env
+    #: ``NNS_TPU_BUCKET_LADDERS=f:1|2|4|6|8;g:...``
+    bucket_ladders: Dict[str, List[int]] = dataclasses.field(
+        default_factory=dict)
+    #: dispatch window of a batching stage: micro-batches dispatched but
+    #: not yet emitted downstream (1 = drain, dispatch, emit in lockstep)
+    dispatch_depth: int = 2
+    #: a fused stage that solely owns its host-fed input (an appsrc whose
+    #: only consumer it is) stages frames through a reused pinned slot
+    #: (``pipeline/plan.py``)
+    donate_ingress: bool = True
+    #: bound on the captured steps an adaptive ladder may add, split over
+    #: the batchable stages (``plan.adaptive_variant_budget``; 0 = the
+    #: base ladder plus ``ADAPTIVE_EXTRA_DEFAULT`` each)
+    max_compiled_variants: int = 0
     #: pad flexible shapes up to the next bucket (the llm filter pads
     #: prompts to power-of-two lengths)
     shape_bucketing: bool = True
@@ -73,6 +113,34 @@ class Config:
             if ini.has_option("common", "shape_bucketing"):
                 cfg.shape_bucketing = ini.getboolean("common",
                                                      "shape_bucketing")
+            if ini.has_option("common", "batch_max"):
+                cfg.batch_max = ini.getint("common", "batch_max")
+            if ini.has_option("common", "batch_buckets"):
+                cfg.batch_buckets = [
+                    int(v) for v in _split(ini.get("common", "batch_buckets"))]
+            if ini.has_option("common", "batch_linger_ms"):
+                cfg.batch_linger_ms = ini.getfloat("common",
+                                                   "batch_linger_ms")
+            if ini.has_option("common", "adaptive_buckets"):
+                cfg.adaptive_buckets = ini.getboolean("common",
+                                                      "adaptive_buckets")
+            if ini.has_section("ladders"):
+                # stage names keep their case (ladder_snapshot() exports
+                # them verbatim); configparser lowercases keys by default
+                cased = configparser.ConfigParser()
+                cased.optionxform = str
+                cased.read(path)
+                cfg.bucket_ladders = {
+                    stage: [int(v) for v in _split(sizes)]
+                    for stage, sizes in cased.items("ladders")}
+            if ini.has_option("common", "dispatch_depth"):
+                cfg.dispatch_depth = ini.getint("common", "dispatch_depth")
+            if ini.has_option("common", "donate_ingress"):
+                cfg.donate_ingress = ini.getboolean("common",
+                                                    "donate_ingress")
+            if ini.has_option("common", "max_compiled_variants"):
+                cfg.max_compiled_variants = ini.getint(
+                    "common", "max_compiled_variants")
             if ini.has_option("common", "trace_mode"):
                 cfg.trace_mode = ini.get("common",
                                          "trace_mode").strip().lower()
@@ -103,7 +171,35 @@ class Config:
             cfg.fetch_depth = int(os.environ[_ENV_FETCH_DEPTH])
         if os.environ.get(_ENV_STAGE_RESTARTS):
             cfg.max_stage_restarts = int(os.environ[_ENV_STAGE_RESTARTS])
+        if os.environ.get(_ENV_BATCH_MAX):
+            cfg.batch_max = int(os.environ[_ENV_BATCH_MAX])
+        if os.environ.get(_ENV_DISPATCH_DEPTH):
+            cfg.dispatch_depth = int(os.environ[_ENV_DISPATCH_DEPTH])
+        if os.environ.get(_ENV_MAX_VARIANTS):
+            cfg.max_compiled_variants = int(os.environ[_ENV_MAX_VARIANTS])
+        if os.environ.get(_ENV_DONATE_INGRESS):
+            cfg.donate_ingress = os.environ[_ENV_DONATE_INGRESS].lower() in (
+                "1", "true", "yes", "on")
+        if os.environ.get(_ENV_ADAPTIVE):
+            cfg.adaptive_buckets = os.environ[_ENV_ADAPTIVE].lower() in (
+                "1", "true", "yes", "on")
+        if os.environ.get(_ENV_LADDERS):
+            cfg.bucket_ladders = parse_ladders(os.environ[_ENV_LADDERS])
         return cfg
+
+
+def parse_ladders(s: str) -> Dict[str, List[int]]:
+    """``"f:1|2|4|6;g:1|2|8"`` -> ``{"f": [1, 2, 4, 6], "g": [1, 2, 8]}``:
+    the env encoding of a ladder snapshot (':' splits the stage from its
+    sizes, '|' the sizes; both survive a shell unquoted)."""
+    out: Dict[str, List[int]] = {}
+    for part in s.split(";"):
+        part = part.strip()
+        if not part:
+            continue
+        stage, _, sizes = part.partition(":")
+        out[stage.strip()] = [int(v) for v in sizes.split("|") if v.strip()]
+    return out
 
 
 def _split(s: str) -> List[str]:

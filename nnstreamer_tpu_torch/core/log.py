@@ -3,9 +3,10 @@
 Port of ``nnstreamer_tpu/core/log.py``: counters, gauges, latency
 reservoirs and histograms, each with its tenant-labelled twin, as the
 query front door, tracing and the sinks stamp them, and
-``fraction_over``, the SLO engine's share of samples over a threshold.
-Trimmed, for the slice that reads them: the occupancy histograms
-(``observe_bucketed``/``value_histograms``, the batching runner's).
+``fraction_over``, the SLO engine's share of samples over a threshold,
+and the occupancy histograms the batching runner feeds
+(``observe_bucketed``/``value_histograms``; their Prometheus text waits
+for ``utils/profiler.py``).
 
 Also hosts the lightweight metrics registry promised by SURVEY.md §5.5:
 frames in/out, queue depths, bytes moved, per-stage latency percentiles are
@@ -75,6 +76,13 @@ LATENCY_BUCKETS: Tuple[float, ...] = (
     0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025,
     0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
 
+#: histogram bucket upper bounds for occupancy distributions fed by
+#: :meth:`Metrics.observe_bucketed`: the static bucket ladder's shape
+#: (powers of two), so ``<stage>.batch_occupancy`` and the adaptive ladder
+#: (``pipeline/batching.AdaptiveLadder``) describe the same per-dispatch
+#: occupancy stream in the same units (final implicit bucket: +Inf)
+OCCUPANCY_BUCKETS: Tuple[float, ...] = (
+    1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0, 512.0)
 
 #: an admission (h2d) or materialization (d2h) wait above this is a real
 #: transport/backlog stall, not a lock hop — ONE threshold for both
@@ -92,7 +100,7 @@ class Metrics:
     #: NNS_TPU_TSAN=1 verifies live — docs/ANALYSIS.md "Threads pass")
     _GUARDED_BY = {
         "_counters": "_lock", "_gauges": "_lock", "_lat": "_lock",
-        "_hist": "_lock", "_lcounters": "_lock",
+        "_hist": "_lock", "_vhist": "_lock", "_lcounters": "_lock",
         "_lgauges": "_lock", "_llat": "_lock", "_lhist": "_lock",
     }
 
@@ -113,6 +121,9 @@ class Metrics:
         # name -> [bucket_counts(len(LATENCY_BUCKETS)+1 incl +Inf),
         #          sum, count]
         self._hist: Dict[str, list] = {}
+        # name -> [bounds, bucket_counts(len(bounds)+1 incl +Inf), sum,
+        #          count]: observe_bucketed's value histograms
+        self._vhist: Dict[str, list] = {}
         # labeled twins, keyed (name, tenant) — populated only when a
         # caller passes tenant= (docs/SERVING.md "Front door")
         self._lcounters: Dict[Tuple[str, str], float] = \
@@ -160,6 +171,32 @@ class Metrics:
         h[0][i] += 1
         h[1] += seconds
         h[2] += 1
+
+    def observe_bucketed(self, name: str, value: float,
+                         bounds: Tuple[float, ...] = OCCUPANCY_BUCKETS
+                         ) -> None:
+        """observe() + a cumulative fixed-bucket histogram with ``bounds``
+        as the explicit ``le`` labels: the occupancy twin of
+        :meth:`observe_latency`."""
+        with self._lock:
+            self._observe_locked(self._lat, name, value)
+            h = self._vhist.get(name)
+            if h is None:
+                h = self._vhist[name] = [tuple(bounds),
+                                         [0] * (len(bounds) + 1), 0.0, 0]
+            # first-writer-wins bounds: a series keeps one bucket layout
+            # for its lifetime (the Prometheus contract)
+            h[1][bisect.bisect_left(h[0], value)] += 1
+            h[2] += value
+            h[3] += 1
+
+    def value_histograms(self) -> Dict[str, Tuple[Tuple[float, ...],
+                                                  List[int], float, int]]:
+        """Copy of every bucketed value histogram: name -> (bounds,
+        per-bucket counts incl. the final +Inf bucket, sum, count)."""
+        with self._lock:
+            return {name: (h[0], list(h[1]), h[2], h[3])
+                    for name, h in self._vhist.items()}
 
     def observe_latency(self, name: str, seconds: float,
                         tenant: Optional[str] = None) -> None:
@@ -283,6 +320,7 @@ class Metrics:
             self._gauges.clear()
             self._lat.clear()
             self._hist.clear()
+            self._vhist.clear()
             self._lcounters.clear()
             self._lgauges.clear()
             self._llat.clear()

@@ -11,10 +11,11 @@ GstBaseTransform and the per-element chain functions).  An element has:
 * **fusion** — :meth:`Element.device_fn` offers the element's streaming
   math as a torch callable, which the planner composes with its
   neighbours' into one fused stage (``pipeline/plan.py``), and
-  ``host_post`` pairs it with a mapping that finishes on the host.
+  ``host_post`` pairs it with a mapping that finishes on the host;
+* **micro-batching** — :meth:`Element.process_batch` handles a batch
+  drained from the stage's queue (``pipeline/batching.py``).
 
-``process_batch`` (micro-batching) and ``place_params`` (meshes) are
-not ported yet.
+``place_params`` waits for the multi-device slice.
 """
 
 from __future__ import annotations
@@ -121,6 +122,17 @@ class Element:
         """Handle one input buffer; return downstream pushes."""
         raise NotImplementedError
 
+    def process_batch(self, pad: str, bufs: List[Buffer]) -> Out:
+        """Handle a micro-batch drained from this stage's queue in one
+        call; outputs in input order.  Default: ``process`` per buffer.
+        Device stages (a fused chain, a pure tensor_filter) override it
+        with one bucketed step.  Called only on a stage planned batchable
+        (:meth:`batch_capable`) in a pipeline with ``batch_max > 1``."""
+        outs: List = []
+        for buf in bufs:
+            outs.extend(self.process(pad, buf))
+        return outs
+
     def on_event(self, pad: str, event: Event) -> Out:
         """Non-EOS in-band events; default forwards to all out pads."""
         return [(SRC, event)]
@@ -131,8 +143,8 @@ class Element:
 
     def batch_capable(self) -> bool:
         """True when this element's work is one pure device callable per
-        buffer (a pure tensor_filter): what micro-batching would vmap, and
-        what the planner marks restartable.  Default: False."""
+        buffer (a pure tensor_filter): what micro-batching vmaps, and what
+        the planner marks batchable and restartable.  Default: False."""
         return False
 
     # -- fusion ------------------------------------------------------------

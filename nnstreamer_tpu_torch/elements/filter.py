@@ -14,6 +14,9 @@ serving framework (``serve:continuous``) takes each input into its
 standing loop and emits the tokens from the loop's thread (async emit);
 its live streams drain off the loop and are adopted by another
 (:meth:`TensorFilter.drain_serve_stream`, :meth:`adopt_serve_stream`).
+A filter with a pure callable runs a micro-batch drained from its queue
+as one bucketed step (:meth:`TensorFilter.process_batch`,
+``pipeline/batching.py``).
 """
 
 from __future__ import annotations
@@ -118,6 +121,9 @@ class TensorFilter(Element):
             str(self.props.get("input_combination", "")))
         self.output_combination = _parse_output_combination(
             str(self.props.get("output_combination", "")))
+        #: id(framework) -> (framework, BatchRunner): one entry, for the
+        #: framework now loaded (a new one drops the old bucket steps)
+        self._batchers: Dict[int, tuple] = {}
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> None:
@@ -320,14 +326,57 @@ class TensorFilter(Element):
                     f"{self.name}: continuous serve loop failed to drain")
         return []
 
+    # -- micro-batching ----------------------------------------------------
+    def _batchable_fn(self, fw):
+        """The batchability predicate, shared by the planner's probe and
+        the dispatch: the framework's pure callable when one vmapped
+        bucket step may replace N invokes, else None (a streaming or
+        continuous framework emits per request, and ``invoke-dynamic``
+        output shapes vary per buffer)."""
+        if (self.invoke_dynamic or fw.streaming
+                or getattr(fw, "continuous", False)):
+            return None
+        return fw.pure_fn()
+
     def batch_capable(self) -> bool:
-        """A framework with a pure callable, neither streaming nor
-        continuous, and a static output (the JAX package's batchable
-        predicate)."""
+        try:
+            return self._batchable_fn(self._ensure_fw()) is not None
+        except Exception:  # noqa: BLE001 - capability probe only
+            return False
+
+    def process_batch(self, pad, bufs):
+        """N same-signature buffers -> one bucketed step of the
+        framework's pure callable (``pipeline/batching.py``); each output
+        keeps its buffer's pts and meta, in order.  A framework that no
+        longer offers a callable takes the per-buffer loop.  ``.invoke``
+        is observed per buffer (the batch's time over n), so the series
+        keeps one meaning whether batching is on or off."""
+        t0 = time.perf_counter()
         fw = self._ensure_fw()
-        return not (self.invoke_dynamic or fw.streaming
-                    or getattr(fw, "continuous", False)) \
-            and fw.pure_fn() is not None
+        fn = self._batchable_fn(fw)
+        if fn is None:
+            return super().process_batch(pad, bufs)
+        # keyed by framework identity: pure_fn() is a fresh closure per
+        # call, and a reloaded framework's weights must not meet the old
+        # bucket steps
+        entry = self._batchers.get(id(fw))
+        if entry is None:
+            from ..pipeline.batching import BatchRunner
+            from ..pipeline.graphs import Census
+
+            dev = getattr(fw, "device", None)
+            entry = (fw, BatchRunner(
+                fn, getattr(self, "_batch_buckets", None), name=self.name,
+                ladder=getattr(self, "_batch_ladder", None),
+                census=Census(dev) if dev is not None else None))
+            self._batchers = {id(fw): entry}
+        rows = entry[1].run([tuple(self._select_inputs(b.tensors)) for b in bufs])
+        self._record((time.perf_counter() - t0) / len(bufs))
+        spec = (None if self.invoke_dynamic
+                else self._combined_out_spec(self._out_spec))
+        return [(SRC, b.with_tensors(
+                    self._compose_outputs(b.tensors, list(row)), spec=spec))
+                for b, row in zip(bufs, rows)]
 
     # -- fusion ------------------------------------------------------------
     def device_fn(self, in_spec: TensorsSpec):

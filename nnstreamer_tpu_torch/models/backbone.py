@@ -141,7 +141,12 @@ def make_ops(compute_dtype: torch.dtype):
         if ph[0] == ph[1] and pw[0] == pw[1]:
             return F.conv2d(x, w, stride=stride, padding=(ph[0], pw[0]),
                             groups=groups)
-        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+        # padded as NHWC, the layout's contiguous view, so the padded copy
+        # stays channels_last under torch.func.vmap too, whose pad of the
+        # NCHW view returns NCHW memory (cuDNN then loses its NHWC kernels
+        # for every conv after it); the same values and layout unbatched
+        x = F.pad(x.permute(0, 2, 3, 1),
+                  (0, 0, pw[0], pw[1], ph[0], ph[1])).permute(0, 3, 1, 2)
         return F.conv2d(x, w, stride=stride, groups=groups)
 
     def sbr(x, scale, bias):

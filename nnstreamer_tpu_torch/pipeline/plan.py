@@ -26,13 +26,24 @@ their copy into fresh pinned host memory (the only bytes that cross to
 the host), any other chain clones them.  On the CPU the same callable
 runs eagerly on the same static tensors.  A capture that fails raises.
 
-A stage is ``restartable`` when its work is pure, holding nothing from
-one buffer to the next: a fused chain, or a single element whose work is
-one pure device callable (:meth:`~..elements.base.Element.batch_capable`:
-a pure tensor_filter), as the JAX package marks them.  The runtime may
-then restart it in place after a fault (``Pipeline(max_stage_restarts=)``).
-The JAX package's ingress donation and micro-batching hooks
-(``batchable``/``shardable``) wait for ``pipeline/batching.py``.
+A stage is ``batchable`` and ``restartable`` when its work is pure,
+holding nothing from one buffer to the next: a fused chain, or a single
+element whose work is one pure device callable
+(:meth:`~..elements.base.Element.batch_capable`: a pure tensor_filter), as
+the JAX package marks them.  With ``Pipeline(batch_max > 1)`` its runner
+drains micro-batches into one bucketed step (:meth:`FusedElement.
+process_batch`, ``pipeline/batching.py``); the runtime may restart it in
+place after a fault (``Pipeline(max_stage_restarts=)``).
+
+Ingress donation (``plan_stages(donate_ingress=)``) is planned as in the
+JAX package: a fused chain fed by a host source whose only consumer it is
+owns its frames (``_donate``, ``_ingress_put``), and so does a folded
+device source (``_donate``).  On the card ownership changes no copy: a
+captured step reads its own static input either way, each host frame
+goes there through pinned memory, and staging frames through reused
+pinned slots instead of a fresh pinned copy measured no faster
+(``PERF.md``).  The JAX package's ``shardable`` waits for the
+multi-device slice.
 """
 
 from __future__ import annotations
@@ -43,7 +54,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.buffer import Buffer, start_fetch
+from ..core.buffer import Buffer, split_rows, start_fetch
 from ..core.caps import MediaType
 from ..core.log import logger
 from ..core.types import TensorsSpec
@@ -60,6 +71,9 @@ class Stage:
 
     element: Element
     node_ids: List[int]
+    #: pure device stage whose runner may drain a micro-batch from its
+    #: queue into one bucketed step (the runtime also needs batch_max > 1)
+    batchable: bool = False
     #: pure stage whose runner may restart in place after a fault in
     #: ``process()`` (bounded by the pipeline's ``max_stage_restarts``);
     #: sources, sinks and elements with state across buffers (the llm
@@ -133,9 +147,15 @@ class FusedElement(Element):
 
     kind = "fused"
 
-    def __init__(self, elements: List[Element], specs: List[TensorsSpec]):
+    def __init__(self, elements: List[Element], specs: List[TensorsSpec],
+                 donate: bool = False, ingress_put: bool = False):
         super().__init__({}, name="+".join(e.name for e in elements))
         self.chain = elements
+        #: the planner proved this stage the sole owner of its input (a
+        #: folded device source, or a host source feeding only it)
+        self._donate = donate
+        #: ... fed by a host source (ingress donation; no copy changes)
+        self._ingress_put = ingress_put
         # a tail element may pair its device_fn with a deferred host
         # mapping (image_labeling: device argmax -> host label text)
         self._host_post = getattr(elements[-1], "host_post", None)
@@ -158,12 +178,16 @@ class FusedElement(Element):
         self.device = chain_device(elements)
         self.census = Census(self.device) if self.device is not None else None
         self._sets: Dict[Tuple, _StaticSet] = {}
+        self._batcher = None
+
+    def _place(self, first: torch.Tensor) -> None:
+        if self.census is None:  # no filter: run where the input lies
+            self.device = first.device
+            self.census = Census(self.device)
 
     def process(self, pad: str, buf: Buffer):
         tensors = [_as_tensor(t) for t in buf.tensors]
-        if self.census is None:  # no filter: run where the input lies
-            self.device = tensors[0].device
-            self.census = Census(self.device)
+        self._place(tensors[0])
         sig = _signature(tensors)
         st = self._sets.get(sig)
         if st is None:
@@ -175,24 +199,55 @@ class FusedElement(Element):
         st.step.replay()
         return [(SRC, self._finish(buf, st.outputs))]
 
-    def _finish(self, buf: Buffer, out) -> Buffer:
-        """The replay's outputs as a buffer of its own: copied out of the
-        static outputs the next replay overwrites.  A tail's ``host_post``
-        stays deferred, its inputs on their way to pinned host memory."""
-        spec = self._out_spec
-        if spec is not None and len(out) and tuple(out[0].shape) != spec[0].shape:
-            spec = None  # a truncated tail batch: the buffer derives its own
-        done = None
+    def _copy_out(self, out):
+        """The replay's outputs copied out of the static outputs the next
+        replay overwrites -> (tensors, the fetch's event or None): a
+        tail's ``host_post`` inputs on their way to pinned host memory,
+        any other outputs cloned."""
         if self._host_post is not None and self.device.type == "cuda":
-            tensors, done = start_fetch(out)
-        else:
-            tensors = [t.clone() for t in out]
+            return start_fetch(out)
+        return [t.clone() for t in out], None
+
+    def _finish(self, buf: Buffer, out) -> Buffer:
+        """The replay's outputs as a buffer of its own; a tail's
+        ``host_post`` stays deferred."""
+        tensors, done = self._copy_out(out)
+        return self._wrap(buf, tensors, done)
+
+    def _wrap(self, buf: Buffer, tensors, done) -> Buffer:
+        spec = self._out_spec
+        if (spec is not None and len(tensors)
+                and tuple(tensors[0].shape) != spec[0].shape):
+            spec = None  # a truncated tail batch: the buffer derives its own
         new = buf.with_tensors(tensors, spec=spec)
         if self._host_post is not None:
             new.meta["_host_post"] = self._host_post
             if done is not None:
                 new.meta["_d2h_done"] = done
         return new
+
+    # -- micro-batching ----------------------------------------------------
+    def batch_capable(self) -> bool:
+        return True
+
+    def process_batch(self, pad: str, bufs):
+        """N same-signature buffers -> one replay of their bucket's
+        vmapped step (``pipeline/batching.py``, through this stage's
+        census); the real rows' outputs are copied out once per tensor
+        (one fetch for a ``host_post`` tail) and each buffer gets its row,
+        its own pts and meta, in order."""
+        if self._batcher is None:
+            from .batching import BatchRunner
+
+            self._place(_as_tensor(bufs[0].tensors[0]))
+            self._batcher = BatchRunner(
+                self.composed, getattr(self, "_batch_buckets", None),
+                name=self.name, ladder=getattr(self, "_batch_ladder", None),
+                census=self.census)
+        out = self._batcher.dispatch([b.tensors for b in bufs])
+        tensors, done = self._copy_out(out)
+        return [(SRC, self._wrap(buf, row, done))
+                for buf, row in zip(bufs, split_rows(tensors, len(bufs)))]
 
     def finalize(self):
         outs = []
@@ -229,22 +284,54 @@ class FusedSourceElement(SourceElement):
         return list(self.source.finalize()) + list(self.fused.finalize())
 
 
+#: minted buckets an adaptive ladder may add per stage when no
+#: ``max_compiled_variants`` budget is set (uncapped would leave the
+#: census open)
+ADAPTIVE_EXTRA_DEFAULT = 4
+
+
+def adaptive_variant_budget(base_len: int, n_batchable: int,
+                            max_compiled_variants: int) -> int:
+    """Most ladder entries (base + minted) ONE adaptive stage may capture:
+    ``max_compiled_variants`` split evenly over the batchable stages,
+    never below the base ladder (refinement may be squeezed out, the
+    census may not); unset, the base ladder plus
+    :data:`ADAPTIVE_EXTRA_DEFAULT`."""
+    if max_compiled_variants > 0:
+        return max(base_len, max_compiled_variants // max(1, n_batchable))
+    return base_len + ADAPTIVE_EXTRA_DEFAULT
+
+
+def _element_batchable(el: Element) -> bool:
+    """Can this single element's runner drain micro-batches?  A source
+    has no input queue; the probe never vetoes planning by raising."""
+    if isinstance(el, SourceElement):
+        return False
+    try:
+        return bool(el.batch_capable())
+    except Exception:  # noqa: BLE001 - capability probe only
+        return False
+
+
 def plan_stages(graph: PipelineGraph, elements: Dict[int, Element], *,
-                fuse: bool = True) -> List[Stage]:
+                fuse: bool = True, donate_ingress: bool = False) -> List[Stage]:
     """Partition the graph into stages in topological order; with
-    ``fuse``, linear device chains become one stage each."""
+    ``fuse``, linear device chains become one stage each.
+    ``donate_ingress`` lets a fused chain fed by a host source (not a
+    ``device=true`` source, which folds instead) that has the chain as
+    its only consumer own its ingress (``FusedElement._ingress_put``)."""
     order = graph.topo_order()
     for node in order:
         el = elements[node.id]
         if isinstance(el, SourceElement) and getattr(el, "device", None) is True:
             el.gen_device = source_device(graph, elements, node.id)
-    def pure(nid: int) -> bool:
-        el = elements[nid]
-        return not isinstance(el, SourceElement) and el.batch_capable()
+
+    def single(nid: int) -> Stage:
+        b = _element_batchable(elements[nid])
+        return Stage(elements[nid], [nid], batchable=b, restartable=b)
 
     if not fuse:
-        return [Stage(elements[n.id], [n.id], restartable=pure(n.id))
-                for n in order]
+        return [single(n.id) for n in order]
 
     def linear(nid: int) -> bool:
         ins = graph.in_edges(nid)
@@ -318,7 +405,8 @@ def plan_stages(graph: PipelineGraph, elements: Dict[int, Element], *,
                 if grown is not None:
                     chain, specs = grown
                     fs = FusedSourceElement(
-                        el, FusedElement([elements[i] for i in chain], specs))
+                        el, FusedElement([elements[i] for i in chain], specs,
+                                         donate=True))
                     log.info("fused device source into one stage: %s", fs.name)
                     stages.append(Stage(fs, [node.id] + chain))
                     consumed.add(node.id)
@@ -326,12 +414,25 @@ def plan_stages(graph: PipelineGraph, elements: Dict[int, Element], *,
                     continue
         grown = grow(node.id)
         if grown is None or len(grown[0]) == 1:
-            stages.append(Stage(el, [node.id], restartable=pure(node.id)))
+            stages.append(single(node.id))
             consumed.add(node.id)
             continue
         chain, specs = grown
-        fe = FusedElement([elements[i] for i in chain], specs)
+        donate = False
+        if donate_ingress:
+            ins = graph.in_edges(chain[0])
+            if len(ins) == 1:
+                # sole ownership: a host source whose only consumer is
+                # this chain (a device=true source folded above instead)
+                feeder = elements[ins[0].src]
+                donate = (isinstance(feeder, SourceElement)
+                          and getattr(feeder, "device", None) is not True
+                          and len(graph.out_edges(ins[0].src)) == 1)
+        fe = FusedElement([elements[i] for i in chain], specs,
+                          donate=donate, ingress_put=donate)
+        if donate:
+            log.info("ingress donation enabled for fused stage %s", fe.name)
         log.info("fused %d elements into one stage: %s", len(chain), fe.name)
-        stages.append(Stage(fe, chain, restartable=True))
+        stages.append(Stage(fe, chain, batchable=True, restartable=True))
         consumed.update(chain)
     return stages

@@ -38,10 +38,16 @@ boundaries):
   pipeline, over the sinks' ``<sink>.e2e_latency`` series, and
   :meth:`Pipeline.slo_report` reads it now;
 * :meth:`Pipeline.drain_stream` / :meth:`Pipeline.adopt_stream` move a
-  live continuous-serving stream between pipelines (``filters/llm.py``).
-
-Left for later slices: micro-batching, ingress donation and the
-dispatch window.
+  live continuous-serving stream between pipelines (``filters/llm.py``);
+* with ``batch_max > 1`` a batchable stage's runner drains up to that
+  many already-queued buffers of one signature (``batch_linger_ms``
+  waits for stragglers) and runs them as one bucketed step
+  (``pipeline/batching.py``; ``<stage>.batch_occupancy``), and holds up
+  to ``dispatch_depth`` dispatched micro-batches before emitting the
+  oldest (its dispatch window), which events, poison terminators, stop
+  and a restart flush first;
+* ``donate_ingress`` lets the planner hand a host source's frames to the
+  only fused chain it feeds (``pipeline/plan.py``).
 
 Threads, not asyncio: stages do blocking work (device dispatch, host
 copies) and release the interpreter lock inside torch.
@@ -54,7 +60,7 @@ import threading
 import time
 from typing import Deque, Dict, List, Optional, Tuple, Union
 
-from ..core.buffer import Buffer, Event
+from ..core.buffer import Buffer, Event, batch_signature
 from ..core.caps import Caps
 from ..core.config import get_config
 from ..core.log import Timer, logger, metrics
@@ -66,7 +72,8 @@ from ..utils.armor import META_POISON as _META_POISON
 from .graph import PipelineGraph
 from .parser import parse as parse_launch
 from . import residency as _residency
-from .plan import Stage, plan_stages
+from .batching import AdaptiveLadder, ladder
+from .plan import Stage, adaptive_variant_budget, plan_stages
 
 log = logger(__name__)
 
@@ -106,13 +113,25 @@ class _StageQueue:
             self._not_empty.notify()
             return True
 
-    def get(self):
-        """Block until an item arrives; ``(None, _POISON)`` once closed."""
+    def get(self, timeout: Optional[float] = None):
+        """Block until an item arrives; ``(None, _POISON)`` once closed;
+        None after ``timeout`` seconds (the batch linger's wait)."""
         with self._lock:
             while not self._dq:
                 if self._closed:
                     return (None, _POISON)
-                self._not_empty.wait()
+                if not self._not_empty.wait(timeout=timeout):
+                    return None
+            item = self._dq.popleft()
+            self._not_full.notify()
+            return item
+
+    def get_nowait(self):
+        """Non-blocking get; None when empty (the drain's opportunistic
+        take)."""
+        with self._lock:
+            if not self._dq:
+                return None
             item = self._dq.popleft()
             self._not_full.notify()
             return item
@@ -152,7 +171,32 @@ class _Runner:
             self.element._async_emit = self._emit
         self.in_pads: List[str] = []
         self._eos_pads: set = set()
+        # Micro-batching: only stages the planner marked batchable drain
+        # more than one buffer; batch_max=1 keeps the one-buffer path.
+        self.batch_max = pipeline.batch_max if stage.batchable else 1
+        self.batch_linger_s = pipeline.batch_linger_ms / 1e3
+        if stage.batchable:
+            # the element builds its BatchRunner at its first batch and
+            # reads the pipeline's ladder from these
+            self.element._batch_buckets = pipeline.batch_buckets
+            if pipeline.adaptive_buckets and self.batch_max > 1:
+                self.element._batch_ladder = AdaptiveLadder(
+                    ladder(self.batch_max, pipeline.batch_buckets),
+                    budget=pipeline._ladder_budget,
+                    warm=pipeline.bucket_ladders.get(self.element.name),
+                    name=self.element.name)
+        # The dispatch window: a batching stage holds this many dispatched
+        # micro-batches before emitting the oldest, so the next drain
+        # overlaps the previous one's work on the card; FIFO emission.
+        self.dispatch_depth = (max(1, pipeline.dispatch_depth)
+                               if self.batch_max > 1 else 1)
+        self._inflight: Deque[Tuple[list, int, int]] = collections.deque()
+        #: the item a drain popped but could not batch (an event, another
+        #: pad or signature): handled next, and kept across a restart, or
+        #: a restarted stage would lose the EOS it carried
+        self._carry = None
         name = self._nm = self.element.name
+        self._m_occupancy = f"{name}.batch_occupancy"
         self._m_in = f"{name}.in"
         self._m_out = f"{name}.out"
         self._m_dropped = f"{name}.dropped"
@@ -230,6 +274,9 @@ class _Runner:
                     continue
                 log.exception("stage %s failed", el.name)
                 self.pipeline._record_error(el.name, e)
+                # batches dispatched before the failing one are whole:
+                # deliver them before the error, as depth 1 would have
+                self._flush_inflight_logged()
                 self._broadcast(Event.error(e))
                 self._broadcast(Event.eos())
                 return
@@ -253,7 +300,16 @@ class _Runner:
         log.warning("stage %s failed (%r); restarting in place (%d/%d)",
                     self.element.name, e, self._restarts,
                     self.pipeline.max_stage_restarts)
+        # the window's batches were dispatched before the fault: deliver
+        # them first, so order holds
+        self._flush_inflight_logged()
         return True
+
+    def _flush_inflight_logged(self) -> None:
+        try:
+            self._flush_inflight()
+        except Exception:  # noqa: BLE001 - the caller must go on
+            log.exception("in-flight flush failed for %s", self.element.name)
 
     def _run_source(self) -> None:
         el = self.element
@@ -306,11 +362,33 @@ class _Runner:
         try:
             yield from el.process(pad, buf)
         except Exception as e:  # noqa: BLE001 - the quarantine contract
-            from ..utils import armor as _armor_mod
+            yield self._poison(armor, buf, e)
 
-            metrics.count(f"{self._nm}.poisoned")
-            armor.quarantine(buf, error=e, stage=self._nm)
-            yield SRC, _armor_mod.poison_terminator(buf, e)
+    def _poison(self, armor, buf: Buffer, err: BaseException):
+        from ..utils import armor as _armor_mod
+
+        metrics.count(f"{self._nm}.poisoned")
+        armor.quarantine(buf, error=err, stage=self._nm)
+        return SRC, _armor_mod.poison_terminator(buf, err)
+
+    def _invoke_batch(self, el, pad: str, batch: List[Buffer]) -> list:
+        """``process_batch``, armored like :meth:`_invoke`: a failed
+        micro-batch is re-run one buffer at a time (a batchable stage is
+        pure), so only the buffers that fail become poison terminators and
+        the innocent rows that shared the dispatch are answered."""
+        armor = self.pipeline._armor
+        try:
+            return list(el.process_batch(pad, batch))
+        except Exception:  # noqa: BLE001 - the quarantine contract
+            if armor is None:
+                raise
+            outs = []
+            for b in batch:
+                try:
+                    outs.extend(el.process(pad, b))
+                except Exception as e:  # noqa: BLE001 - the real pill
+                    outs.append(self._poison(armor, b, e))
+            return outs
 
     # -- tracing helpers ---------------------------------------------------
     def _trace_queue_wait(self, buf: Buffer, end_ns: int) -> Optional[int]:
@@ -371,13 +449,154 @@ class _Runner:
             self._tr.record("e2e", self._nm, tid, ts0, end_ns - ts0,
                             tenant=ten)
 
+    # -- micro-batching and the dispatch window ----------------------------
+    def _drain_batch(self, pad: str, first: Buffer):
+        """Take up to batch_max - 1 more already-queued buffers of the same
+        pad and signature; wait for stragglers only up to
+        ``batch_linger_ms``.  Returns (batch, carry): ``carry`` is the
+        first item that could not join (an event, another pad or
+        signature), handled after the batch so stream order holds."""
+        batch = [first]
+        sig = batch_signature(first)
+        deadline = None
+        while len(batch) < self.batch_max:
+            nxt = self.queue.get_nowait()
+            if nxt is None:
+                if self.batch_linger_s <= 0.0:
+                    break
+                if deadline is None:
+                    deadline = time.monotonic() + self.batch_linger_s
+                remaining = deadline - time.monotonic()
+                if remaining <= 0.0:
+                    break
+                nxt = self.queue.get(timeout=remaining)
+                if nxt is None:
+                    break
+            npad, nitem = nxt
+            if (nitem is _POISON or isinstance(nitem, Event)
+                    or npad != pad or batch_signature(nitem) != sig):
+                return batch, nxt
+            batch.append(nitem)
+        return batch, None
+
+    def _run_batch(self, pad: str, item: Buffer) -> None:
+        """One drained micro-batch: a bucketed step for n > 1, the
+        one-buffer path for n == 1; ``.proc`` per buffer (the batch's time
+        over n), so the series keeps one meaning with batching on or off."""
+        el, tr = self.element, self._tr
+        tdr0 = time.monotonic_ns() if tr is not None else 0
+        batch, self._carry = self._drain_batch(pad, item)
+        n = len(batch)
+        metrics.count(self._m_in, n)
+        metrics.observe_bucketed(self._m_occupancy, float(n))
+        t0 = time.perf_counter()
+        self._proc_n = n
+        outs = (self._invoke_batch(el, pad, batch) if n > 1
+                else list(self._invoke(el, pad, batch[0])))
+        self._proc_n = 0
+        dt = time.perf_counter() - t0
+        metrics.observe_latency(self._m_proc, dt / n)
+        if tr is not None:
+            self._trace_batch(batch, outs, tdr0, dt)
+        if self.dispatch_depth > 1:
+            # the runner loops back to drain the next batch while this
+            # one runs on the card; emission (which may block on a full
+            # queue downstream) waits until the window is full
+            self._inflight.append(
+                (outs, n, time.monotonic_ns() if tr is not None else 0))
+            while len(self._inflight) >= self.dispatch_depth:
+                self._emit_oldest_inflight()
+        else:
+            self._emit(outs)
+            metrics.count(self._m_out, n)
+
+    def _emit_oldest_inflight(self) -> None:
+        outs, n, t_disp = self._inflight.popleft()
+        if self._tr is not None and t_disp:
+            first = next((o for _, o in outs if isinstance(o, Buffer)), None)
+            tid = ten = None
+            if first is not None:
+                tid = first.meta.get(tracing.META_TRACE_ID)
+                ten = first.meta.get(tracing.META_TENANT)
+            args = {"rows": n}
+            if ten is not None:
+                args["tenant"] = ten
+            self._tr.record("inflight", self._nm, tid, t_disp,
+                            time.monotonic_ns() - t_disp, **args)
+        self._emit(outs)
+        metrics.count(self._m_out, n)
+
+    def _flush_inflight(self) -> None:
+        while self._inflight:
+            self._emit_oldest_inflight()
+
+    def _trace_batch(self, batch: List[Buffer], outs: list, tdr0: int,
+                     dt: float) -> None:
+        """Spans of one micro-batch: each member's queue wait, the batch
+        formation window (first buffer in hand -> dispatch) and the stage
+        span LINKING every member's trace id (``per_row_ns`` amortizes the
+        one dispatch over its rows); each member's tenant gets the
+        per-row time in its ``.proc`` twin."""
+        tr = self._tr
+        tids = [self._trace_queue_wait(b, tdr0) for b in batch]
+        n = len(batch)
+        dur = int(dt * 1e9)
+        disp0 = time.monotonic_ns() - dur
+        tens = [b.meta.get(tracing.META_TENANT) for b in batch]
+        for ten in tens:
+            if ten is not None:
+                metrics.observe_latency_labeled(self._m_proc, dt / n, ten)
+        if n > 1:
+            extra = ({"tenants": tens} if any(t is not None for t in tens)
+                     else {})
+            tr.record("batch", self._nm, tids[0], tdr0, max(0, disp0 - tdr0),
+                      trace_ids=tids, rows=n, **extra)
+            tr.record("stage", self._nm, tids[0], disp0, dur, trace_ids=tids,
+                      rows=n, per_row_ns=dur // n, **extra)
+        elif tens[0] is None:
+            tr.record("stage", self._nm, tids[0], disp0, dur)
+        else:
+            tr.record("stage", self._nm, tids[0], disp0, dur, tenant=tens[0])
+        # back-fill trace meta onto outputs built from scratch: row by row
+        # when one output per input (the batch contract), else the first's
+        aligned = len(outs) == n
+        for i, (_, o) in enumerate(outs):
+            if isinstance(o, Buffer):
+                src = batch[i] if aligned else batch[0]
+                if tracing.META_TRACE_ID not in o.meta:
+                    o.meta[tracing.META_TRACE_ID] = \
+                        src.meta.get(tracing.META_TRACE_ID)
+                if (tracing.META_INGRESS_NS not in o.meta
+                        and tracing.META_INGRESS_NS in src.meta):
+                    o.meta[tracing.META_INGRESS_NS] = \
+                        src.meta[tracing.META_INGRESS_NS]
+
     def _run_stream(self) -> None:
         el = self.element
+        batching = self.batch_max > 1
         while True:
-            pad, item = self.queue.get()
+            if self._carry is not None:
+                pad, item = self._carry
+                self._carry = None
+            else:
+                nxt = None
+                if self._inflight:
+                    # keep batches in flight only while more work is
+                    # already queued: before blocking, emit what is held,
+                    # or an idle stream pays the window as latency
+                    nxt = self.queue.get_nowait()
+                    if nxt is None:
+                        self._flush_inflight()
+                if nxt is None:
+                    nxt = self.queue.get()
+                pad, item = nxt
             if item is _POISON:
+                self._flush_inflight()
                 return
             if isinstance(item, Event):
+                # an event is an ordering fence: what was dispatched
+                # before it is emitted before it is handled
+                self._flush_inflight()
                 if item.kind == "eos":
                     self._eos_pads.add(pad)
                     if self._eos_pads >= set(self.in_pads):
@@ -393,9 +612,13 @@ class _Runner:
             if not self._is_sink and item.meta.get(_META_POISON):
                 # a poison terminator is an ANSWER riding to the sink,
                 # never work: forward it untouched
+                self._flush_inflight()
                 metrics.count(self._m_in)
                 self._emit([(SRC, item)])
                 metrics.count(self._m_out)
+                continue
+            if batching:
+                self._run_batch(pad, item)
                 continue
             metrics.count(self._m_in)
             tr = self._tr
@@ -450,6 +673,14 @@ class Pipeline:
     :class:`~..utils.slo.SLOPolicy`, a policy dict or a JSON file path,
     validated here) runs the SLO engine while the pipeline runs; it
     reads the sinks' end-to-end series, which ``trace_mode`` feeds.
+    ``batch_max`` lets a batchable stage drain up to that many queued
+    buffers into one bucketed step (``batch_buckets`` the ladder,
+    ``batch_linger_ms`` a wait for stragglers, ``adaptive_buckets`` its
+    online refinement, ``bucket_ladders`` warm-start ladders by stage
+    name, read back with :meth:`ladder_snapshot`); ``dispatch_depth`` is
+    a batching stage's dispatch window; ``donate_ingress`` lets a fused
+    chain own the frames of the host source that feeds only it
+    (``pipeline/plan.py``).
     Defaults come from :func:`get_config`.  Elements are instantiated and
     caps negotiated at construction (which opens models); threads start
     at :meth:`start` or on entering a ``with`` block.
@@ -465,7 +696,14 @@ class Pipeline:
                  reduce_outputs: Optional[bool] = None,
                  fetch_depth: Optional[int] = None,
                  max_stage_restarts: Optional[int] = None,
-                 slo=None):
+                 slo=None,
+                 batch_max: Optional[int] = None,
+                 batch_buckets: Optional[List[int]] = None,
+                 batch_linger_ms: Optional[float] = None,
+                 adaptive_buckets: Optional[bool] = None,
+                 bucket_ladders: Optional[Dict[str, List[int]]] = None,
+                 dispatch_depth: Optional[int] = None,
+                 donate_ingress: Optional[bool] = None):
         if isinstance(graph, str):
             graph = parse_launch(graph)
         graph.validate()
@@ -480,6 +718,26 @@ class Pipeline:
         self.max_stage_restarts = max(0, int(
             max_stage_restarts if max_stage_restarts is not None
             else cfg.max_stage_restarts))
+        self.batch_max = max(
+            1, batch_max if batch_max is not None else cfg.batch_max)
+        self.batch_buckets = list(
+            batch_buckets if batch_buckets is not None else cfg.batch_buckets
+        ) or None
+        self.batch_linger_ms = float(
+            batch_linger_ms if batch_linger_ms is not None
+            else cfg.batch_linger_ms)
+        self.adaptive_buckets = bool(
+            adaptive_buckets if adaptive_buckets is not None
+            else cfg.adaptive_buckets)
+        self.bucket_ladders: Dict[str, List[int]] = dict(
+            bucket_ladders if bucket_ladders is not None
+            else cfg.bucket_ladders)
+        self.dispatch_depth = max(1, int(
+            dispatch_depth if dispatch_depth is not None
+            else cfg.dispatch_depth))
+        self.donate_ingress = bool(
+            donate_ingress if donate_ingress is not None
+            else cfg.donate_ingress)
         # the slo policy is parsed HERE so that a bad one fails the
         # construction (naming every problem), not start() with threads up
         self._slo_policy = None
@@ -545,8 +803,15 @@ class Pipeline:
 
         # 4. plan stages (the fusion pass), the residency plan, and one
         # runner per stage
-        self.stages: List[Stage] = plan_stages(graph, self.elements,
-                                               fuse=self.fuse)
+        self.stages: List[Stage] = plan_stages(
+            graph, self.elements, fuse=self.fuse,
+            donate_ingress=self.donate_ingress)
+        # an adaptive ladder's budget: max_compiled_variants split over the
+        # batchable stages (plan.adaptive_variant_budget)
+        self._ladder_budget = adaptive_variant_budget(
+            len(ladder(self.batch_max, self.batch_buckets)),
+            sum(1 for s in self.stages if s.batchable),
+            cfg.max_compiled_variants)
         self.residency = _residency.plan_residency(graph, self.elements,
                                                    self.stages)
         if self.residency.fetch or self.residency.reduced_outputs:
@@ -752,6 +1017,19 @@ class Pipeline:
         raise PipelineError(
             "no continuous-serving filter on this pipeline to adopt into "
             "(need tensor_filter framework=llm custom=serve:continuous)")
+
+    def ladder_snapshot(self) -> Dict[str, List[int]]:
+        """Every adaptive stage's current bucket ladder (base + minted) by
+        stage name: feed it back through ``Pipeline(bucket_ladders=...)``
+        (``Config.bucket_ladders``, ini ``[ladders]``,
+        ``NNS_TPU_BUCKET_LADDERS``) to capture the refined ladder at
+        warm-up.  Empty when ``adaptive_buckets`` is off."""
+        out: Dict[str, List[int]] = {}
+        for r in self._unique_runners():
+            lad = getattr(r.element, "_batch_ladder", None)
+            if lad is not None:
+                out[r.element.name] = lad.export()
+        return out
 
     def dump_trace(self, path: str) -> int:
         """Write the flight recorder's contents as Chrome trace-event JSON

@@ -4,7 +4,8 @@ CPU: up to ``fetch_depth`` buffers resolve on a pool while pop() returns
 them in FIFO order; EOS and stage errors deliver what was admitted
 before them; the ``fetch.window`` span and ``<sink>.fetch_window`` gauge.
 Outputs are compared with the JAX pipeline's on the same inputs (f32
-scaling: exact)."""
+scaling: exact).  Ingress donation: the planner's ownership flags equal
+the JAX package's, and outputs are bitwise equal with it on and off."""
 
 import random
 import time
@@ -257,3 +258,70 @@ def test_test_models_equal_jax(model, custom, shape, fuse):
     for got, want in zip(*outs):
         assert got.shape == want.shape and got.dtype == want.dtype
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 if model == "average" else 0)
+
+
+# -- ingress donation ----------------------------------------------------------------
+
+def _fused_stages(p):
+    return [s.element for s in p.stages if s.element.kind == "fused"]
+
+
+def test_ingress_donation_planned_and_bit_identical():
+    frames = _frames(6, seed=4)
+    outs = {}
+    for flag in (True, False):
+        p = ntt.Pipeline(PORT_DESC, donate_ingress=flag, batch_max=4)
+        jp = nt.Pipeline(DESC.format(acc=""), donate_ingress=flag)
+        [fused], [jfused] = _fused_stages(p), _fused_stages(jp)
+        assert fused._ingress_put is flag and fused._donate is flag
+        assert (fused._ingress_put, fused._donate) == (jfused._ingress_put,
+                                                       jfused._donate)
+        outs[flag], _ = _run(ntt, PORT_DESC, frames, donate_ingress=flag)
+    want, _ = _run(nt, DESC.format(acc=""), frames)
+    for a, b, w in zip(outs[True], outs[False], want):
+        assert bytes(np.asarray(a.tensors[0])) == bytes(np.asarray(b.tensors[0]))
+        assert np.array_equal(np.asarray(a.tensors[0]), np.asarray(w.tensors[0]))
+
+
+def test_donation_off_by_config(monkeypatch):
+    monkeypatch.setattr(get_config(), "donate_ingress", False)
+    [fused] = _fused_stages(ntt.Pipeline(PORT_DESC))
+    assert not fused._ingress_put
+
+
+def test_device_source_fold_keeps_plain_donation():
+    """The folded device source owns its frames (``_donate``) without the
+    host ingress path, as in the JAX package."""
+    desc = ("videotestsrc device=true batch=2 num-buffers=4 width=16 height=16 "
+            "name=src ! tensor_transform mode=arithmetic option=typecast:float32,"
+            "div:255.0 ! tensor_filter framework=jax model=scaler "
+            "custom=scale:2.0,dims:3:16:16:2 {acc}! tensor_sink name=out")
+    p = ntt.Pipeline(desc.format(acc="accelerator=true:cpu "), donate_ingress=True)
+    jp = nt.Pipeline(desc.format(acc=""), donate_ingress=True)
+    folded = [s.element for s in p.stages if getattr(s.element, "fused", None)]
+    jfolded = [s.element for s in jp.stages if getattr(s.element, "fused", None)]
+    assert folded and jfolded
+    assert folded[0].fused._donate and not folded[0].fused._ingress_put
+    assert (folded[0].fused._donate, folded[0].fused._ingress_put) == \
+        (jfolded[0].fused._donate, jfolded[0].fused._ingress_put)
+    assert not any(s.batchable for s in p.stages)
+
+
+def test_donation_vetoed_without_sole_consumer():
+    """A host source with a second consumer (the port has no tee yet: the
+    graph is built by hand) does not hand its frames to the chain."""
+    from nnstreamer_tpu_torch.pipeline.plan import plan_stages
+
+    p = ntt.Pipeline(PORT_DESC, donate_ingress=True)
+    [fused] = _fused_stages(p)
+    assert fused._ingress_put
+    graph = p.graph
+    src = graph.nodes[p.stages[0].node_ids[0]]
+    extra = graph.add("tensor_sink", {"name": "devnull"})
+    graph.link(src, extra)
+    elements = dict(p.elements)
+    elements[extra.id] = TensorSink({}, name="devnull")
+    stages = plan_stages(graph, elements, donate_ingress=True)
+    [vetoed] = [s.element for s in stages if s.element.kind == "fused"]
+    assert not vetoed._ingress_put and not vetoed._donate
+    assert [s.batchable for s in stages if s.element.kind == "fused"] == [True]

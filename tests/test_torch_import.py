@@ -163,9 +163,11 @@ def test_vision_modules_import_without_jax():
     assert out.stdout.strip() == "ok"
 
 
-#: the model-file slice's modules, each imported alone in a fresh process
+#: the model-file slice's modules and the micro-batching slice's, each
+#: imported alone in a fresh process
 FILE_MODULES = ["models.checkpoint", "models.gguf", "models.tokenizer",
-                "models.llama", "models.zoo", "filters.llm"]
+                "models.llama", "models.zoo", "filters.llm",
+                "pipeline.batching"]
 
 
 @pytest.mark.parametrize("module", FILE_MODULES)
