@@ -279,6 +279,34 @@ Phases, each of which must pass:
              card, and drain more than one buffer.  ``--profile`` writes
              the bucket-32 step's kernels to chiprun_out/profile_batching.txt.
 
+14. camera — the port's camera slice, no kernel of csrc/: raw 320x320 RGB
+             frames as a camera delivers them (1-D uint8, 307,200 bytes:
+             seeded noise with a moving box) pushed into ``appsrc
+             max-inflight=8 ! tensor_converter ! tee``, one branch
+             normalised into ssd_mobilenet 320 (91 classes, bf16, batch 1,
+             one captured fused stage on the card) and a second tee, whose
+             branches decode ``tensor_region`` (top 4) into
+             ``tensor_crop``'s info pad and round-trip the detector's
+             tensors through ``flexbuf``; the frame reaches ``tensor_crop``'s
+             raw pad from the first tee (``CAMERA``).  Three timed runs of
+             512 frames, pushed from a thread: frames/s, push-to-crop p50 and
+             p99, the card's busy share (the stage's replay ms, CUDA events,
+             times the frames over the wall time), the census (no capture
+             after the warm-up), peak memory, ``crop.dropped`` (must stay 0).
+             Every frame of every run: its crops are numpy slices of the
+             frame pushed at the regions the tensor_region branch produced,
+             which equal the host recompute from the wire's tensors; on a
+             fourth, checked run the wire's tensors are bitwise the
+             detector's.  The detector's stage must be on the card and its
+             tee'd input not donated.  Then ``videotestsrc device=true
+             pattern=random`` folded into the quick-start stage twice: two
+             frames differ, the rerun draws bitwise the same frames, nothing
+             captured after the first batch.
+
+``--yolo-bucket <tree> ...`` instead times yolov5s 640's bucket-8 step
+(one replay, CUDA events) with the port of each given tree (a ``git
+archive`` of a commit), the trees in the order given, one process each.
+
 Prints the card's name and power limit (nvidia-smi), a ``{"kernels": ...}``
 JSON line, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
 card, outside a checkout, or when any phase fails it exits non-zero and
@@ -4596,9 +4624,352 @@ def print_batching(r):
               flush=True)
 
 
+CAMERA_FRAMES = 512
+CAMERA_RUNS = 3
+CAMERA_INFLIGHT = 8
+CAMERA_REGIONS = 4
+CAMERA_WARM = 4
+#: the slice's pipeline: raw RGB bytes from a camera through detection;
+#: one tee feeds the frame and the detector's top regions into
+#: tensor_crop, another round-trips the detector's tensors through the
+#: wire format
+CAMERA = ("appsrc name=cam caps=video/x-raw,format=RGB,width={size},height={size},"
+          f"framerate=30/1 max-inflight={CAMERA_INFLIGHT} ! tensor_converter ! tee name=t "
+          "t. ! " + NORM + " ! tensor_filter framework=jax model={model} "
+          "custom=size:{size},classes:91,batch:1{custom} {acc} ! tee name=d "
+          "d. ! tensor_decoder name=region mode=tensor_region option1={size}:{size} "
+          f"option2={CAMERA_REGIONS} ! crop.sink_1 "
+          "d. ! tensor_decoder mode=flexbuf ! tensor_converter mode=flexbuf ! "
+          "tensor_sink name=wire "
+          "t. ! crop.sink_0 "
+          "tensor_crop name=crop ! tensor_sink name=crops")
+#: batches of the folded random source, and frames per batch (the vision
+#: phase's quick-start batch, whose captured shape that phase has run)
+CAMERA_RANDOM_BATCHES = 3
+CAMERA_RANDOM_BATCH = VISION_BATCH
+
+
+def camera_frames(n, size, seed):
+    """``n`` frames as a camera delivers them, each one 1-D uint8 array of
+    ``size * size * 3`` bytes (320 * 3 = 960 bytes a row: no stride
+    padding): seeded noise with a box moving across it."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    frames = rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8)
+    box = max(1, size // 4)
+    for i in range(n):
+        x, y = (i * 7) % (size - box), (i * 3) % (size - box)
+        frames[i, y:y + box, x:x + box] = (255, 64, 0)
+    return [f.reshape(-1) for f in frames]
+
+
+def crop_slices(frame, regions):
+    """What tensor_crop must emit for ``regions`` of an (H, W, C) frame:
+    numpy slices, each region clipped to the frame."""
+    import numpy as np
+
+    h, w = frame.shape[:2]
+    out = []
+    for x, y, cw, ch in np.asarray(regions, np.int64).reshape(-1, 4):
+        x0, y0 = int(np.clip(x, 0, w)), int(np.clip(y, 0, h))
+        x1, y1 = int(np.clip(x + cw, 0, w)), int(np.clip(y + ch, 0, h))
+        out.append(frame[y0:y1, x0:x1])
+    return out
+
+
+def tap_regions(pipe):
+    """Record, by pts, the regions the tensor_region branch produces."""
+    import numpy as np
+
+    regions = {}
+    dec = pipe.element("region").decoder
+    decode = dec.decode
+
+    def tap(tensors, buf):
+        out = decode(tensors, buf)
+        regions[buf.pts] = np.asarray(out.tensors[0]).copy()
+        return out
+
+    dec.decode = tap
+    return regions
+
+
+def tap_detector(stage):
+    """Record, by pts, the fused stage's outputs on the host (a copy per
+    frame, waiting for the card: the checked run only)."""
+    dets = {}
+    finish = stage._finish
+
+    def tap(buf, out):
+        new = finish(buf, out)
+        dets[buf.pts] = [t.cpu() for t in new.tensors]
+        return new
+
+    stage._finish = tap
+    return dets
+
+
+def camera_run(pipe, frames, pts0):
+    """Push ``frames`` (pts ``pts0 + i``) from a thread while this thread
+    pulls each frame's crops and wire buffer in order -> (crops, wires,
+    push-to-crop ms per frame, wall seconds)."""
+    import threading
+
+    import nnstreamer_tpu_torch as ntt
+
+    push_ts = {}
+
+    def pusher():
+        for i, f in enumerate(frames):
+            push_ts[i] = time.perf_counter()
+            pipe.push("cam", ntt.Buffer([f], pts=pts0 + i))
+
+    crops, wires, lat = [], [], []
+    t = threading.Thread(target=pusher, daemon=True)
+    t0 = time.perf_counter()
+    t.start()
+    for i in range(len(frames)):
+        crops.append(pipe.pull("crops", timeout=600))
+        lat.append((time.perf_counter() - push_ts[i]) * 1e3)
+        wires.append(pipe.pull("wire", timeout=600))
+    wall = time.perf_counter() - t0
+    t.join(timeout=60)
+    check(not t.is_alive(), "the camera pusher never finished")
+    return crops, wires, lat, wall
+
+
+def camera_check(frames, size, pts0, crops, wires, regions, dets):
+    """Every frame of a run: its crops are numpy slices of the frame pushed
+    at the regions the tensor_region branch produced, those regions equal
+    the host recompute from the wire's detector tensors, and (``dets``)
+    the wire's tensors are bitwise the detector's.  -> frames checked."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.decoders.direct_video import regions as host_regions
+
+    for i, (f, c, w) in enumerate(zip(frames, crops, wires)):
+        pts = pts0 + i
+        check(c.pts == pts and w.pts == pts, f"frame {pts} out of order")
+        boxes, scores = (np.asarray(t, np.float32) for t in w.tensors)
+        want = host_regions(boxes, scores, CAMERA_REGIONS, size, size)
+        if regions is not None:
+            check(np.array_equal(regions[pts], want),
+                  f"frame {pts}: tensor_region {regions[pts].tolist()} against the "
+                  f"host recompute {want.tolist()}")
+        frame = f.reshape(size, size, 3)
+        got = [np.asarray(t) for t in c.tensors]
+        sl = crop_slices(frame, want)
+        check(len(got) == len(sl) and all(
+            g.shape == s.shape and np.array_equal(g, s) for g, s in zip(got, sl)),
+            f"frame {pts}: a crop is not the slice of its own frame")
+        if dets:
+            check(all(np.asarray(a).shape == tuple(b.shape)
+                      and np.asarray(a).tobytes() == b.numpy().tobytes()
+                      for a, b in zip(w.tensors, dets[pts])),
+                  f"frame {pts}: the wire's tensors are not the detector's")
+    return len(frames)
+
+
+def camera_random(dev, size, acc, batches=CAMERA_RANDOM_BATCHES,
+                  batch=CAMERA_RANDOM_BATCH):
+    """``videotestsrc device=true pattern=random`` folded into the
+    quick-start stage, twice with the same settings: the frames each run
+    drew (recorded at the source), two of them differ, the second run's
+    are bitwise the first's, and nothing is captured after the first
+    batch."""
+    import numpy as np
+    import torch
+
+    import nnstreamer_tpu_torch as ntt
+
+    desc = QUICKSTART_SRC.format(batch=batch, frames=batches * batch, size=size,
+                                 acc=acc).replace("name=src", "pattern=random name=src")
+    runs = []
+    for _ in range(2):
+        pipe = ntt.Pipeline(desc)
+        stage, _names = vision_stage(pipe)
+        src = [s.element for s in pipe.stages if s.element.kind == "fused"][0].source
+        drawn = []
+        make = src.device_batch
+
+        def tap(i0, n, device, _make=make, _drawn=drawn):
+            out = _make(i0, n, device)
+            _drawn.append(out.cpu())
+            return out
+
+        src.device_batch = tap
+        with pipe:
+            labels = [np.asarray(pipe.pull("out", timeout=600).meta["label_index"])]
+            warm = stage.census.captures
+            labels += [np.asarray(pipe.pull("out", timeout=600).meta["label_index"])
+                       for _ in range(batches - 1)]
+            census = census_of(stage.census, warm)
+            pipe.wait(timeout=120)
+        check(stage.device.type == dev.type, f"the random-source stage runs on {stage.device}")
+        runs.append((torch.cat(drawn), labels, census))
+    (a, la, census), (b, lb, _) = runs
+    check(a.shape == (batches * batch, size, size, 3) and a.dtype == torch.uint8,
+          f"random frames {tuple(a.shape)} {a.dtype}")
+    differ = not torch.equal(a[0], a[1]) and not torch.equal(a[0], a[batch])
+    check(differ, "two random frames are equal")
+    same = torch.equal(a, b) and all(np.array_equal(x, y) for x, y in zip(la, lb))
+    check(same, "a second random-source pipeline drew other frames")
+    return dict(frames=int(a.shape[0]), frames_differ=differ, rerun_bitwise=same,
+                census=census, mean=float(a.float().mean()))
+
+
+def phase_camera(dev, size=320, frames_n=CAMERA_FRAMES, runs=CAMERA_RUNS, acc="",
+                 custom="", model="ssd_mobilenet", random_size=224):
+    """The slice's camera pipeline (``CAMERA``) at ``size``: ``runs`` timed
+    runs of ``frames_n`` seeded frames, then a checked run of the same
+    frames with the detector tapped, every frame of every run checked
+    (``camera_check``); then the folded random source."""
+    import numpy as np
+    import torch
+
+    import nnstreamer_tpu_torch as ntt
+    from nnstreamer_tpu_torch.core.log import metrics
+
+    on_card = dev.type == "cuda"
+    frames = camera_frames(frames_n, size, seed=0)
+    warm = camera_frames(CAMERA_WARM, size, seed=1)
+    base = 0
+    if on_card:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    pipe = ntt.Pipeline(CAMERA.format(size=size, model=model, custom=custom, acc=acc))
+    stage, names = vision_stage(pipe)
+    check(not stage._donate and not stage._ingress_put,
+          "the detector's frames came through a tee and must not be donated")
+    out = dict(size=size, frames=frames_n, stages=names, runs=[])
+    regions = tap_regions(pipe)
+    with pipe:
+        crops, wires, _, _ = camera_run(pipe, warm, pts0=-len(warm))
+        check(stage.device.type == dev.type, f"the detector's stage runs on {stage.device}")
+        checked = camera_check(warm, size, -len(warm), crops, wires, regions, None)
+        warm_captures = stage.census.captures
+        for r in range(runs):
+            metrics.reset()
+            crops, wires, lat, wall = camera_run(pipe, frames, pts0=r * frames_n)
+            snap = metrics.snapshot()
+            check(snap.get("crop.dropped", 0) == 0 and snap.get("crop.out") == frames_n,
+                  f"the crop collation dropped frames: {snap.get('crop.dropped')}")
+            checked += camera_check(frames, size, r * frames_n, crops, wires, regions, None)
+            lat = np.sort(np.asarray(lat))
+            # each stage's mean ms a buffer (``<stage>.proc``: process,
+            # and for all but the collator its emit, which may wait on a
+            # full queue below)
+            proc = {n: round(snap[f"{n}.proc.mean"] * 1e3, 4) for n in names
+                    if f"{n}.proc.mean" in snap}
+            out["runs"].append(dict(frames_per_s=frames_n / wall, wall_s=wall,
+                                    p50_ms=float(np.percentile(lat, 50)),
+                                    p99_ms=float(np.percentile(lat, 99)),
+                                    crops=sum(len(c.tensors) for c in crops),
+                                    stage_ms=proc))
+        dets = tap_detector(stage)
+        crops, wires, _, _ = camera_run(pipe, frames, pts0=runs * frames_n)
+        checked += camera_check(frames, size, runs * frames_n, crops, wires, regions, dets)
+        out["census"] = census_of(stage.census, warm_captures)
+        out["card_ms"] = stage_card_ms(stage)
+        out["peak_mem_gb"] = ((torch.cuda.max_memory_allocated(dev) - base) / 1e9
+                              if on_card else None)
+        pipe.eos("cam")
+        pipe.wait(timeout=120)
+    out["checked_frames"] = checked
+    out["dropped"] = metrics.snapshot().get("crop.dropped", 0)
+    for r in out["runs"]:
+        r["busy_share"] = (None if out["card_ms"] is None
+                           else frames_n * out["card_ms"] / (r["wall_s"] * 1e3))
+    out["random"] = camera_random(dev, random_size, acc)
+    return out
+
+
+def print_camera(c):
+    for i, r in enumerate(c["runs"]):
+        busy = ("not measured" if r["busy_share"] is None
+                else f"{r['busy_share']:.3f}")
+        print(f"camera: run {i} ssd_mobilenet {c['size']} per frame, raw RGB bytes "
+              f"through tee/tensor_region/tensor_crop and the flexbuf round trip: "
+              f"{r['frames_per_s']:.1f} frames/s over {c['frames']} frames, push to "
+              f"crop p50 {r['p50_ms']:.2f} ms p99 {r['p99_ms']:.2f} ms, busy share "
+              f"{busy}, {r['crops']} crops", flush=True)
+        print(f"camera: run {i} mean ms a buffer by stage {r['stage_ms']}", flush=True)
+    card = "not measured" if c["card_ms"] is None else f"{c['card_ms']:.3f} ms"
+    peak = "not measured" if c["peak_mem_gb"] is None else f"{c['peak_mem_gb']:.3f} GB"
+    print(f"camera: stages {c['stages']}; detector step {card} on the card per frame; "
+          f"peak {peak}; crop.dropped {c['dropped']}; {c['checked_frames']} frames "
+          f"checked (crops are slices of their own frame, regions equal the host "
+          f"recompute, the wire's tensors bitwise the detector's on the last run)",
+          flush=True)
+    print(f"census: camera {c['census']}", flush=True)
+    print(f"camera: random device source {c['random']}", flush=True)
+
+
+YOLO_BUCKET = 8
+YOLO_BUCKET_DESC = ("appsrc name=src caps=other/tensors,dimensions=3:{size}:{size}:1,"
+                    "types=uint8 ! " + DIV + " ! tensor_filter framework=jax model=yolov5s "
+                    "custom=size:{size},batch:1 {acc} ! tensor_sink name=out")
+
+
+def yolo_bucket_ms(dev, size=640, bucket=YOLO_BUCKET, acc="", times=5):
+    """yolov5s' per-frame fused stage driven straight into its
+    bucket-``bucket`` vmapped step (seeded frames, no threads): the step's
+    card ms per replay (``step_card_ms``), ``times`` readings, and its
+    first row's outputs' checksum."""
+    import numpy as np
+
+    import nnstreamer_tpu_torch as ntt
+    from nnstreamer_tpu_torch.elements.base import SINK
+
+    pipe = ntt.Pipeline(YOLO_BUCKET_DESC.format(size=size, acc=acc), batch_max=bucket)
+    [stage] = [s.element for s in pipe.stages if s.element.kind == "fused"]
+    rng = np.random.default_rng(0)
+    bufs = [ntt.Buffer([rng.integers(0, 256, (1, size, size, 3), dtype=np.uint8)])
+            for _ in range(bucket)]
+    outs = stage.process_batch(SINK, bufs)
+    [st] = stage._batcher._sets.values()
+    ms = [step_card_ms(st.step) for _ in range(times)] if dev.type == "cuda" else []
+    first = np.asarray(outs[0][1].to_host().tensors[0], np.float64)
+    return dict(ms=ms, checksum=float(np.abs(first).sum()), package=ntt.__file__)
+
+
+def yolo_bucket_trees(trees):
+    """One process per tree, in the order given: that tree's port at
+    yolov5s' bucket-8 step."""
+    rows = []
+    for tree in trees:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--yolo-bucket-one", os.path.abspath(tree)],
+                             capture_output=True, text=True, timeout=900)
+        check(out.returncode == 0, f"{tree}: {out.stderr[-4000:]}")
+        row = json.loads(out.stdout.strip().splitlines()[-1])
+        print(f"yolo bucket: {tree} bucket {YOLO_BUCKET} step {row['ms']} ms "
+              f"(checksum {row['checksum']:.6f}, {row['package']})", flush=True)
+        rows.append(dict(tree=tree, **row))
+    return rows
+
+
+def yolo_bucket_one(tree):
+    sys.path.insert(0, tree)
+    import torch
+
+    check(torch.cuda.is_available(), "no CUDA device available")
+    torch.backends.cudnn.allow_tf32 = False
+    row = yolo_bucket_ms(torch.device("cuda", 0))
+    check(row["package"].startswith(tree), f"imported {row['package']}, not {tree}'s port")
+    print(json.dumps(row))
+    return 0
+
+
 def main():
     import torch
 
+    if "--yolo-bucket-one" in sys.argv[1:]:
+        return yolo_bucket_one(sys.argv[sys.argv.index("--yolo-bucket-one") + 1])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -4608,6 +4979,13 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = card_line()
+    if "--yolo-bucket" in sys.argv[1:]:
+        print(card)
+        os.makedirs(OUT_DIR, exist_ok=True)
+        rows = yolo_bucket_trees(sys.argv[sys.argv.index("--yolo-bucket") + 1:])
+        with open(os.path.join(OUT_DIR, "yolo_bucket.json"), "w") as fh:
+            json.dump(dict(card=card, rows=rows), fh, indent=1)
+        return 0
     bw, peak = RATES["pcie" if "pcie" in card.lower() else "sxm"]
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     detail = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
@@ -4747,6 +5125,12 @@ def main():
         dev, profile="--profile" in sys.argv[1:])
     print_batching(batching)
     print(f"batching: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    save()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    camera = detail["camera"] = phase_camera(dev)
+    print_camera(camera)
+    print(f"camera: phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # one line per kernel: int4 per decoded token (129 launches at B=1),
     # with the same 129 launches at B=8 (a continuous decode step) and

@@ -17,8 +17,10 @@ runtime does so at a sink's pull or callback, or before a host element.
 
 from __future__ import annotations
 
+import concurrent.futures as _cf
 import dataclasses
 import itertools
+import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -27,6 +29,8 @@ import torch
 from .types import TensorsSpec
 
 _seq = itertools.count()
+#: guards the per-buffer fetch futures of :meth:`Buffer.fetched`
+_fetch_lock = threading.Lock()
 
 
 def _on_card(x) -> bool:
@@ -106,6 +110,28 @@ class Buffer:
         if "_host_post" in self.meta:
             return self.resolve()
         return self._on_host()
+
+    def fetched(self) -> "Buffer":
+        """This buffer with its card tensors copied to the host as CPU
+        torch tensors (bf16 stays bf16), fetched ONCE per buffer object
+        however many consumers ask: a tee hands one buffer to every
+        branch, and two host decoders below it share one copy.  A buffer
+        with nothing on the card is returned as it is."""
+        if not any(_on_card(t) for t in self.tensors):
+            return self
+        with _fetch_lock:
+            fut = self.__dict__.get("_fetch")
+            owner = fut is None
+            if owner:
+                fut = self.__dict__["_fetch"] = _cf.Future()
+        if owner:
+            try:
+                fut.set_result(self.with_tensors(
+                    [t.cpu() if _on_card(t) else t for t in self.tensors],
+                    spec=self.spec))
+            except BaseException as e:  # noqa: BLE001 - every waiter sees it
+                fut.set_exception(e)
+        return fut.result()
 
     def to_device(self, device) -> "Buffer":
         """Move every tensor onto ``device`` (numpy payloads become torch

@@ -17,6 +17,7 @@ from typing import Dict, Iterable, List, Optional, Tuple
 KIND_ELEMENT = "element"
 KIND_FILTER = "filter"
 KIND_DECODER = "decoder"
+KIND_CONVERTER = "converter"
 
 _registry: Dict[Tuple[str, str], type] = {}
 _aliases: Dict[Tuple[str, str], str] = {}
@@ -26,17 +27,23 @@ _builtins_loaded = False
 #: Modules imported lazily on first lookup; each registers its plugins at
 #: import time.  The port carries the elements of the LLM stream paths
 #: (appsrc ! tensor_filter framework=llm ! tensor_sink), of the query
-#: front door in front of them (tensor_query_serversrc/serversink/client)
-#: and of the vision and audio paths (videotestsrc, audiotestsrc,
+#: front door in front of them (tensor_query_serversrc/serversink/client),
+#: of the vision and audio paths (videotestsrc, audiotestsrc,
 #: tensor_converter, tensor_transform, tensor_filter framework=jax,
 #: tensor_decoder with image_labeling, bounding_boxes, pose_estimation,
-#: image_segment and ctc), and the custom-easy framework of the tests.
+#: image_segment and ctc), the routing elements (tee, tensor_mux,
+#: tensor_demux, tensor_merge, tensor_split, join, tensor_crop,
+#: fakesink), the serialisation converters and decoders (flatbuf,
+#: flexbuf, protobuf, python3, octet_stream), direct_video and
+#: tensor_region, and the custom-easy framework of the tests.
 _BUILTIN_MODULES = [
     "nnstreamer_tpu_torch.elements.source",
     "nnstreamer_tpu_torch.elements.converter",
     "nnstreamer_tpu_torch.elements.transform",
     "nnstreamer_tpu_torch.elements.filter",
     "nnstreamer_tpu_torch.elements.decoder",
+    "nnstreamer_tpu_torch.elements.routing",
+    "nnstreamer_tpu_torch.elements.crop",
     "nnstreamer_tpu_torch.elements.sink",
     "nnstreamer_tpu_torch.elements.query",
     "nnstreamer_tpu_torch.filters.llm",
@@ -46,7 +53,10 @@ _BUILTIN_MODULES = [
     "nnstreamer_tpu_torch.decoders.bounding_boxes",
     "nnstreamer_tpu_torch.decoders.pose",
     "nnstreamer_tpu_torch.decoders.image_segment",
+    "nnstreamer_tpu_torch.decoders.direct_video",
+    "nnstreamer_tpu_torch.decoders.serialize",
     "nnstreamer_tpu_torch.decoders.ctc",
+    "nnstreamer_tpu_torch.converters.serialize",
 ]
 
 
@@ -73,6 +83,10 @@ def register_filter(name: str, cls=None, **kw):
 
 def register_decoder(name: str, cls=None, **kw):
     return register(KIND_DECODER, name, cls, **kw)
+
+
+def register_converter(name: str, cls=None, **kw):
+    return register(KIND_CONVERTER, name, cls, **kw)
 
 
 def _ensure_builtins():

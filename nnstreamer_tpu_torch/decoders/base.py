@@ -54,6 +54,11 @@ class Decoder:
     # the final payload.
     host_post = None
 
+    #: True for a decoder that reads every tensor on the host: the
+    #: element hands it the buffer's one shared fetch
+    #: (:meth:`~..core.buffer.Buffer.fetched`)
+    host_decode = False
+
     #: residency planner opt-in: True when this decoder's output contract
     #: holds whatever geometry the model above emits (a native-stride
     #: score map instead of the full-resolution one).  A decoder that makes

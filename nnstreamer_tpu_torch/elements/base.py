@@ -13,7 +13,10 @@ GstBaseTransform and the per-element chain functions).  An element has:
   neighbours' into one fused stage (``pipeline/plan.py``), and
   ``host_post`` pairs it with a mapping that finishes on the host;
 * **micro-batching** — :meth:`Element.process_batch` handles a batch
-  drained from the stage's queue (``pipeline/batching.py``).
+  drained from the stage's queue (``pipeline/batching.py``);
+* **collation** — an element with ``sync_policy = "all"`` and more than
+  one sink pad gets one buffer per pad at a time in
+  :meth:`Element.process_group` (the runtime pairs them).
 
 ``place_params`` waits for the multi-device slice.
 """
@@ -85,6 +88,10 @@ class Element:
 
     #: registered kind name, set by subclass
     kind: str = "element"
+    #: multi-input collation: "all" waits for a buffer on every connected
+    #: sink pad and hands the group to :meth:`process_group` (mux, merge,
+    #: crop: slowest-pad sync); "any" processes buffers as they arrive
+    sync_policy: str = "any"
 
     def __init__(self, props: Optional[Dict[str, object]] = None, name: Optional[str] = None):
         self.props: Dict[str, object] = _TrackedProps(props or {})
@@ -132,6 +139,11 @@ class Element:
         for buf in bufs:
             outs.extend(self.process(pad, buf))
         return outs
+
+    def process_group(self, bufs: Dict[str, Buffer]) -> Out:
+        """Handle one collated group, a buffer per sink pad
+        (``sync_policy == "all"``)."""
+        raise NotImplementedError
 
     def on_event(self, pad: str, event: Event) -> Out:
         """Non-EOS in-band events; default forwards to all out pads."""

@@ -3,7 +3,9 @@
 Port of ``nnstreamer_tpu/elements/decoder.py`` (reference:
 ``gsttensor_decoder.c``): ``other/tensors`` -> media via the decoder
 sub-plugin named by ``mode=`` (``image_labeling``, ``bounding_boxes``,
-``pose_estimation``, ``image_segment``, ``ctc``).
+``pose_estimation``, ``image_segment``, ``ctc``, ``direct_video``,
+``tensor_region``, ``flatbuf``, ``flexbuf``, ``protobuf``,
+``octet_stream``).
 The sub-plugin's device half and deferred host mapping are the element's
 :meth:`~TensorDecoder.device_fn` and ``host_post``, so a decoder fuses
 into the stage in front of it.
@@ -38,7 +40,11 @@ class TensorDecoder(Element):
     def process(self, pad, buf):
         # Tensors go to the decoder as they are (card tensors from an
         # unfused filter): a decoder that prefilters on the device
-        # (bounding_boxes top-k) fetches only what it needs.
+        # (bounding_boxes top-k) fetches only what it needs; a decoder
+        # that reads everything on the host gets the buffer's one fetch,
+        # shared with the other branches of a tee above it.
+        if getattr(self.decoder, "host_decode", False):
+            buf = buf.fetched()
         out = self.decoder.decode(list(buf.tensors), buf)
         # a decoder may un-batch one buffer into several (bounding_boxes
         # on batched streams emits one video frame per batch row)

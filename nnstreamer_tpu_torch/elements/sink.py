@@ -1,7 +1,9 @@
 """Sink elements.
 
-Port of the ``tensor_sink`` of ``nnstreamer_tpu/elements/sink.py``
-(reference: gsttensor_sink.c, an appsink-like terminal).  ``pop()``
+Port of the ``tensor_sink`` and ``fakesink`` of
+``nnstreamer_tpu/elements/sink.py`` (reference: gsttensor_sink.c, an
+appsink-like terminal; GStreamer's fakesink, which discards and counts);
+``filesink`` and the sink's ``try_pop`` / ``depth`` are not ported yet.  ``pop()``
 returns host numpy arrays by default (one device-to-host copy at the
 pipeline edge), or the tensors as they arrived with ``to_host=false``.
 A buffer's appsrc ``max-inflight`` credit is released when the app takes
@@ -303,3 +305,43 @@ class TensorSink(SinkElement):
             # resolve and stay poppable
             pool.shutdown(wait=False)
         super().stop()
+
+
+def _wait_ready(buf: Buffer) -> None:
+    """Block until the card work behind ``buf`` has finished: its pending
+    host copy, else the devices its tensors lie on."""
+    done = buf.meta.get("_d2h_done")
+    if done is not None:
+        done.synchronize()
+        return
+    for dev in {t.device for t in buf.tensors
+                if isinstance(t, torch.Tensor) and t.is_cuda}:
+        torch.cuda.synchronize(dev)
+
+
+@register_element("fakesink")
+class FakeSink(SinkElement):
+    """Discard everything, but count it (``<name>.frames``, per tenant
+    when the buffer carries one).  A buffer is delivered when the work
+    that made it has finished on the card, so its appsrc ``max-inflight``
+    credit is released then: a fakesink measures the pipeline, not a
+    queue of launches."""
+
+    kind = "fakesink"
+    #: residency planner: discarded payloads admit any geometry
+    admits_reduced_payload = True
+
+    def __init__(self, props=None, name=None):
+        super().__init__(props, name)
+        self.count = 0
+        self.sync = bool(self.props.get("sync", False))
+        self.last: Optional[Buffer] = None
+
+    def process(self, pad, buf):
+        _wait_ready(buf)
+        _release_credit(buf)
+        self.count += 1
+        self.last = buf
+        metrics.count(f"{self.name}.frames",
+                      tenant=buf.meta.get(META_TENANT))
+        return []

@@ -6,7 +6,9 @@ with its end-to-end admission bound (``max-inflight``) and tenant stamp
 (``tenant``), and the deterministic video and audio sources.  Sources
 produce host buffers, and the stage that consumes them moves payloads to
 the device; ``videotestsrc device=true`` and ``audiotestsrc device=true``
-generate their batches on the device itself.  ``filesrc`` is not ported
+generate their batches on the device itself.  A camera's raw frames
+reach the pipeline through ``appsrc`` as bytes that ``tensor_converter``
+unpacks; ``v4l2src``, ``filesrc`` and ``tensor_src_iio`` are not ported
 yet.
 """
 
@@ -28,7 +30,7 @@ from ..core.log import metrics as _metrics
 from ..core.meta_keys import META_TENANT
 from ..core.registry import register_element
 from ..core.types import TensorsSpec, parse_fraction
-from .base import ElementError, SourceElement
+from .base import SourceElement
 
 
 class _InflightCredit:
@@ -158,9 +160,12 @@ class VideoTestSrc(SourceElement):
     batch is truncated to it.  It generates on the device of the filter
     below it, folded into a fused stage or not (the planner sets
     ``gen_device``), and with no filter below it on the card, raising
-    without one.  ``pattern=random`` with ``device=true``
-    draws from ``jax.random`` in the JAX package, which torch cannot
-    reproduce: it raises "not yet ported".
+    without one.  ``pattern=random`` with ``device=true`` draws each
+    frame from a ``torch.Generator`` on the generating device seeded with
+    the frame's index, so a rerun gives the same frames and no two frames
+    share a seed.  These frames are the port's own: the JAX package draws
+    them from ``jax.random``, whose bits torch cannot reproduce, and a CPU
+    generator's bits are not the card's either.
     """
 
     kind = "videotestsrc"
@@ -178,10 +183,9 @@ class VideoTestSrc(SourceElement):
         #: where a device batch is generated: the planner sets the device of
         #: the filter below (None: the card)
         self.gen_device: Optional[torch.device] = None
-        if self.device and self.pattern == "random":
-            raise ElementError(
-                "videotestsrc device=true pattern=random is not yet ported "
-                "(the JAX package draws it from jax.random)")
+        #: ``pattern=random`` on the device: one generator, reseeded per
+        #: frame
+        self._gen: Optional[torch.Generator] = None
 
     def configure(self, in_caps, out_pads):
         if self.device:
@@ -226,12 +230,22 @@ class VideoTestSrc(SourceElement):
 
     def device_batch(self, i0: int, n: int, device) -> torch.Tensor:
         """Frames ``i0 .. i0 + n - 1`` as one ``[n, H, W, C]`` uint8 tensor
-        made on ``device``: the host frames' integer arithmetic, batched."""
+        made on ``device``: the host frames' integer arithmetic, batched
+        (``pattern=random``: the port's own per-frame draws, see the class)."""
         h, w, c = self.height, self.width, video_bpp(self.format)
         if self.pattern == "black":
             return torch.zeros((n, h, w, c), dtype=torch.uint8, device=device)
         if self.pattern == "white":
             return torch.full((n, h, w, c), 255, dtype=torch.uint8, device=device)
+        if self.pattern == "random":
+            dev = torch.device(device)
+            if self._gen is None or self._gen.device != dev:
+                self._gen = torch.Generator(device=dev)
+            out = torch.empty((n, h, w, c), dtype=torch.uint8, device=dev)
+            for k in range(n):
+                self._gen.manual_seed(i0 + k)
+                out[k].random_(0, 256, generator=self._gen)
+            return out
         idx = torch.arange(i0, i0 + n, device=device)[:, None, None]
         yy = torch.arange(h, device=device)[None, :, None]
         xx = torch.arange(w, device=device)[None, None, :]

@@ -93,13 +93,39 @@ def num_predictions_v8(size: int) -> int:
     return sum(fm_size(size, s) ** 2 for s in (8, 16, 32))
 
 
+# The layout helpers below move data on the NHWC view of an NCHW-view
+# tensor, the layout's contiguous view, so the result stays channels_last
+# under torch.func.vmap too: there a pad, a channel concat or a repeat of
+# the NCHW view returns NCHW memory, and cuDNN loses its NHWC kernels for
+# every conv after it.  Unbatched they give the same values.
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def _cat_channels(xs) -> torch.Tensor:
+    """Concatenate NCHW views along C."""
+    return _nchw(torch.cat([_nhwc(x) for x in xs], -1))
+
+
+def _up2(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2x upsampling of an NCHW view."""
+    return _nchw(_nhwc(x).repeat_interleave(2, dim=1).repeat_interleave(2, dim=2))
+
+
 def _maxpool_same(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
     """XLA's ``reduce_window(max, SAME)``: pad with -inf (the odd pixel
     after), then pool."""
     ph = same_pads(x.shape[2], k, stride)
     pw = same_pads(x.shape[3], k, stride)
     if any(ph + pw):
-        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
+        x = _nchw(F.pad(_nhwc(x), (0, 0, pw[0], pw[1], ph[0], ph[1]),
+                        value=float("-inf")))
     return F.max_pool2d(x, k, stride)
 
 
@@ -349,14 +375,10 @@ def apply_v5s(params, x, *, classes: int, size: int, tables,
         for bp in p["m"]:
             b = conv(conv(a, bp["a"]), bp["b"])
             a = a + b if shortcut else b
-        # the NHWC channel axis is dim 1 of the NCHW view
-        return conv(torch.cat([a, conv(x, p["cv2"])], 1), p["cv3"])
+        return conv(_cat_channels([a, conv(x, p["cv2"])]), p["cv3"])
 
     def maxpool5(x):
         return _maxpool_same(x, 5, 1)
-
-    def up2(x):
-        return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
 
     h = conv(nhwc_to_internal(x, cdt), params["stem"], 2)  # stride 2
     h = conv(h, params["down1"], 2)                       # stride 4
@@ -370,17 +392,17 @@ def apply_v5s(params, x, *, classes: int, size: int, tables,
     a = conv(h, params["sppf_cv1"])                       # SPPF
     m1 = maxpool5(a)
     m2 = maxpool5(m1)
-    p5 = conv(torch.cat([a, m1, m2, maxpool5(m2)], 1), params["sppf_cv2"])
+    p5 = conv(_cat_channels([a, m1, m2, maxpool5(m2)]), params["sppf_cv2"])
 
     # PANet: top-down
     lat5 = conv(p5, params["h_lat5"])
-    f4 = c3(torch.cat([up2(lat5), p4], 1), params["h_c3_4"], shortcut=False)
+    f4 = c3(_cat_channels([_up2(lat5), p4]), params["h_c3_4"], shortcut=False)
     lat4 = conv(f4, params["h_lat4"])
-    o3 = c3(torch.cat([up2(lat4), p3], 1), params["h_c3_3"], shortcut=False)
+    o3 = c3(_cat_channels([_up2(lat4), p3]), params["h_c3_3"], shortcut=False)
     # bottom-up
-    o4 = c3(torch.cat([conv(o3, params["h_down3"], 2), lat4], 1),
+    o4 = c3(_cat_channels([conv(o3, params["h_down3"], 2), lat4]),
             params["h_c3_4b"], shortcut=False)
-    o5 = c3(torch.cat([conv(o4, params["h_down4"], 2), lat5], 1),
+    o5 = c3(_cat_channels([conv(o4, params["h_down4"], 2), lat5]),
             params["h_c3_5b"], shortcut=False)
 
     raws = []

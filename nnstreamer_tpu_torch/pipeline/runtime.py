@@ -47,7 +47,24 @@ boundaries):
   oldest (its dispatch window), which events, poison terminators, stop
   and a restart flush first;
 * ``donate_ingress`` lets the planner hand a host source's frames to the
-  only fused chain it feeds (``pipeline/plan.py``).
+  only fused chain it feeds (``pipeline/plan.py``);
+* a stage whose element has ``sync_policy="all"`` and more than one sink
+  pad (``tensor_mux``, ``tensor_merge``, ``tensor_crop``) collates: its
+  runner keeps each pad's buffers pending and hands the element one per
+  pad (``process_group``), in arrival order per pad; a pad at EOS pairs
+  what it still has pending, then what the other pads hold is dropped
+  (``<stage>.dropped``); such a stage never batches, and its stage span
+  links every member's trace id; appsrc ``max-inflight`` bounds how far
+  one pad runs ahead of another;
+* with ``trace_mode`` on, a sampler thread sets ``<stage>.queue_depth``
+  (plain and per tenant), ``<stage>.inflight_window`` and
+  ``<sink>.staleness_s`` every 0.1 s (:meth:`Pipeline.sample_queues`),
+  and a sink's deliveries set ``<sink>.watermark_pts``.
+
+Not ported yet (ROADMAP Queue A): the sources that read a device node or
+a file (``v4l2src``, ``filesrc``, ``tensor_src_iio``) and the
+device-resident ``tensor_aggregator``, the next slice; the JAX package's
+mesh and sharded batching, the xray registry and ``swap_params``.
 
 Threads, not asyncio: stages do blocking work (device dispatch, host
 copies) and release the interpreter lock inside torch.
@@ -144,6 +161,25 @@ class _StageQueue:
             self._not_empty.notify_all()
             self._not_full.notify_all()
 
+    def qsize(self) -> int:
+        with self._lock:
+            return len(self._dq)
+
+    def tenant_depths(self) -> Dict[str, int]:
+        """Queued buffers per tenant (``meta['_tenant']``): the sampler's
+        per-tenant ``queue_depth``.  Cold path: counts a snapshot of the
+        queue taken under the lock."""
+        with self._lock:
+            items = list(self._dq)
+        depths: Dict[str, int] = {}
+        for it in items:
+            buf = it[1] if isinstance(it, tuple) and len(it) == 2 else None
+            if isinstance(buf, Buffer):
+                ten = buf.meta.get(tracing.META_TENANT)
+                if ten is not None:
+                    depths[ten] = depths.get(ten, 0) + 1
+        return depths
+
 
 class _Port:
     """Destination of an edge: a stage's runner + the pad name inside it."""
@@ -171,6 +207,11 @@ class _Runner:
             self.element._async_emit = self._emit
         self.in_pads: List[str] = []
         self._eos_pads: set = set()
+        #: a collating stage's (``sync_policy="all"``) buffers per pad,
+        #: waiting for one on every pad; ``_pending_peak`` is the longest
+        #: any pad's list has been
+        self._pending: Dict[str, List[Buffer]] = {}
+        self._pending_peak = 0
         # Micro-batching: only stages the planner marked batchable drain
         # more than one buffer; batch_max=1 keeps the one-buffer path.
         self.batch_max = pipeline.batch_max if stage.batchable else 1
@@ -218,6 +259,11 @@ class _Runner:
         self._is_sink = isinstance(self.element, SinkElement)
         # the one consumer that resolves a deferred host mapping itself
         self._lazy_post = isinstance(self.element, TensorSink)
+        # the sampler's state (traced runs): the last delivery at a sink
+        # (staleness), the highest pts delivered, tenants with a gauge
+        self._last_sink_ns = 0
+        self._max_pts = None
+        self._gauge_tenants: set = set()
 
     def connect(self, out_pad: str, port: _Port) -> None:
         self.out_ports.setdefault(out_pad, []).append(port)
@@ -435,7 +481,14 @@ class _Runner:
 
     def _trace_sink_delivery(self, buf: Buffer, end_ns: int) -> None:
         """End-to-end span (ingress -> sink delivery) of one buffer, split
-        per tenant when it carries one."""
+        per tenant when it carries one, and the sink's staleness and
+        ``watermark_pts`` state (a high-water mark: a tee or mux fan-in
+        can deliver pts out of order)."""
+        self._last_sink_ns = end_ns
+        if buf.pts is not None and (self._max_pts is None
+                                    or buf.pts > self._max_pts):
+            self._max_pts = buf.pts
+            metrics.gauge(f"{self._nm}.watermark_pts", float(buf.pts))
         ts0 = buf.meta.get(tracing.META_INGRESS_NS)
         if ts0 is None or end_ns < ts0:
             return
@@ -573,7 +626,10 @@ class _Runner:
 
     def _run_stream(self) -> None:
         el = self.element
-        batching = self.batch_max > 1
+        # a collating stage waits for one buffer on every pad and never
+        # batches
+        all_policy = el.sync_policy == "all" and len(self.in_pads) > 1
+        batching = self.batch_max > 1 and not all_policy
         while True:
             if self._carry is not None:
                 pad, item = self._carry
@@ -599,6 +655,8 @@ class _Runner:
                 self._flush_inflight()
                 if item.kind == "eos":
                     self._eos_pads.add(pad)
+                    if all_policy:
+                        self._try_groups()
                     if self._eos_pads >= set(self.in_pads):
                         self._emit(el.finalize())
                         self._broadcast(Event.eos())
@@ -609,13 +667,22 @@ class _Runner:
                     continue
                 self._emit(el.on_event(pad, item))
                 continue
-            if not self._is_sink and item.meta.get(_META_POISON):
+            if (not self._is_sink and not all_policy
+                    and item.meta.get(_META_POISON)):
                 # a poison terminator is an ANSWER riding to the sink,
-                # never work: forward it untouched
+                # never work: forward it untouched (a collator pairs it
+                # instead, or the other pads' streams would shift by one)
                 self._flush_inflight()
                 metrics.count(self._m_in)
                 self._emit([(SRC, item)])
                 metrics.count(self._m_out)
+                continue
+            if all_policy:
+                metrics.count(self._m_in)
+                queued = self._pending.setdefault(pad, [])
+                queued.append(item)
+                self._pending_peak = max(self._pending_peak, len(queued))
+                self._try_groups()
                 continue
             if batching:
                 self._run_batch(pad, item)
@@ -644,6 +711,47 @@ class _Runner:
                 if self._is_sink:
                     self._trace_sink_delivery(item, now0 + dur)
             self._proc_n = 0
+            metrics.count(self._m_out)
+
+    def _try_groups(self) -> None:
+        """Collate one buffer per pad (slowest-pad sync, the reference's
+        tensor_mux ``sync-mode=slowest``) into ``process_group``.  A pad
+        keeps pairing from its pending list after its EOS; once a pad is
+        at EOS with nothing pending no group can form again, and what the
+        other pads hold is dropped (counted in ``.dropped``): a partial
+        group would break the element's negotiated caps."""
+        el = self.element
+        while True:
+            if any(p in self._eos_pads and not self._pending.get(p)
+                   for p in self.in_pads):
+                n = sum(len(v) for v in self._pending.values())
+                if n:
+                    metrics.count(self._m_dropped, n)
+                    self._pending.clear()
+                return
+            if not all(self._pending.get(p) for p in self.in_pads):
+                return
+            group = {p: self._pending[p].pop(0) for p in self.in_pads}
+            tr = self._tr
+            if tr is None:
+                with Timer(self._m_proc):
+                    outs = list(el.process_group(group))
+                self._emit(outs)
+            else:
+                members = list(group.values())
+                now0 = time.monotonic_ns()
+                tids = [self._trace_queue_wait(b, now0) for b in members]
+                t0 = time.perf_counter()
+                outs = el.process_group(group)
+                dt = time.perf_counter() - t0
+                metrics.observe_latency(self._m_proc, dt)
+                dur = int(dt * 1e9)
+                # the collation span links every member's trace id
+                tr.record("stage", self._nm, tids[0], now0, dur,
+                          trace_ids=tids)
+                if self._is_sink:
+                    self._trace_sink_delivery(members[0], now0 + dur)
+                self._emit(self._propagate_trace(members[0], outs))
             metrics.count(self._m_out)
 
 
@@ -888,6 +996,12 @@ class Pipeline:
                 f"unknown element properties (typo?): {unknown}")
         for r in self._unique_runners():
             r.thread.start()
+        if self.trace_mode != "off":
+            # the queue-depth, dispatch-window and staleness gauges,
+            # sampled off the streaming threads until stop()
+            self._sampler = threading.Thread(
+                target=self._sample_loop, name="nns-sampler", daemon=True)
+            self._sampler.start()
         if self._slo_policy is not None:
             # per-tenant burn rate and breach gauges off the live series
             self._slo_loop().start()
@@ -910,6 +1024,11 @@ class Pipeline:
                 el.stop()
             except Exception:  # noqa: BLE001 - stop the rest regardless
                 log.exception("stop() failed for %s", el.name)
+        # the sampler ends on _stopping; joined, so that no thread of
+        # this pipeline outlives stop()
+        sampler = getattr(self, "_sampler", None)
+        if sampler is not None and sampler.is_alive():
+            sampler.join(timeout=2.0)
 
     def wait(self, timeout: Optional[float] = None) -> None:
         """Block until every stage thread finished (sources EOS'd and all
@@ -1030,6 +1149,37 @@ class Pipeline:
             if lad is not None:
                 out[r.element.name] = lad.export()
         return out
+
+    def sample_queues(self) -> None:
+        """One sampler tick: per stage ``<stage>.queue_depth`` (plain and
+        per tenant; a tenant seen before and absent now is zeroed, so an
+        idle tenant reads 0, not its last backlog) and, for a stage with a
+        dispatch window, ``<stage>.inflight_window``; per sink
+        ``<sink>.staleness_s``, the seconds since its last delivery.
+        Public, so an app can sample on its own cadence."""
+        now = time.monotonic_ns()
+        for r in self._unique_runners():
+            metrics.gauge(f"{r._nm}.queue_depth", float(r.queue.qsize()))
+            depths = r.queue.tenant_depths()
+            for ten in r._gauge_tenants.difference(depths):
+                metrics.gauge(f"{r._nm}.queue_depth", 0.0, tenant=ten)
+            for ten, depth in depths.items():
+                metrics.gauge(f"{r._nm}.queue_depth", float(depth),
+                              tenant=ten)
+            r._gauge_tenants.update(depths)
+            if r.dispatch_depth > 1:
+                metrics.gauge(f"{r._nm}.inflight_window",
+                              float(len(r._inflight)))
+            if r._is_sink and r._last_sink_ns:
+                metrics.gauge(f"{r._nm}.staleness_s",
+                              (now - r._last_sink_ns) / 1e9)
+
+    def _sample_loop(self, period_s: float = 0.1) -> None:
+        while not self._stopping.wait(period_s):
+            try:
+                self.sample_queues()
+            except Exception:  # noqa: BLE001 - the sampler must not die
+                log.exception("queue sampler tick failed")
 
     def dump_trace(self, path: str) -> int:
         """Write the flight recorder's contents as Chrome trace-event JSON

@@ -147,11 +147,22 @@ def test_converter_audio_matches_the_jax_package(fmt, channels, fpt):
 
 
 def test_converter_text_and_modes_stay_unported():
-    with pytest.raises(Exception, match="not yet ported"):
-        ntt.Pipeline("appsrc name=src caps=text/x-raw ! tensor_converter ! "
+    """Named for when text input and ``mode=`` raised "not yet ported";
+    both are ported now (``tests/test_torch_converter.py`` and
+    ``test_torch_serialize.py`` hold them against the JAX package): a
+    text pipeline converts, ``mode=flatbuf`` builds, and an unknown mode
+    still raises."""
+    p = ntt.Pipeline("appsrc name=src caps=text/x-raw ! tensor_converter ! "
                      "tensor_sink name=out")
-    with pytest.raises(Exception, match="not yet ported"):
-        ntt.Pipeline("appsrc name=src ! tensor_converter mode=flatbuf ! "
+    with p:
+        p.push("src", "abc")
+        assert np.asarray(p.pull("out", timeout=30).tensors[0]).tobytes() == b"abc"
+        p.eos()
+        p.wait(timeout=30)
+    ntt.Pipeline("appsrc name=src ! tensor_converter mode=flatbuf ! "
+                 "tensor_sink name=out")
+    with pytest.raises(Exception, match="unknown converter sub-plugin"):
+        ntt.Pipeline("appsrc name=src ! tensor_converter mode=nosuch ! "
                      "tensor_sink name=out")
 
 

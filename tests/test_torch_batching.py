@@ -829,3 +829,55 @@ def test_every_fused_model_chain_vmaps(name):
                 assert torch.allclose(b[i], r, rtol=TOL, atol=TOL * float(r.abs().max()))
             else:
                 assert torch.equal(b[i], r)
+
+
+def test_vmapped_yolov5s_feeds_every_conv_channels_last(monkeypatch):
+    """yolov5s' SAME max-pool pad, its channel concats and its 2x
+    upsampling move data on the NHWC view, so under torch.func.vmap, and
+    unbatched alike, every one of its convs reads channels_last memory
+    (on the NCHW view each of them returned NCHW memory under vmap); the
+    vmapped rows equal the per-row calls within ``TOL``, and the
+    unbatched output is bitwise the one the NCHW-view forms give."""
+    from torch._C._functorch import get_unwrapped, is_batchedtensor
+    from torch.nn import functional as F
+
+    from nnstreamer_tpu_torch.models import yolo as tyolo
+
+    b = tzoo.build("yolov5s", {"size": "64", "classes": "5", "batch": "1", "width": "0.25",
+                               "dtype": "float32"}, device="cpu")
+    fn = functools.partial(b.apply_fn, b.params)
+    seen = []
+    conv = F.conv2d
+
+    def spy(x, w, *a, **k):
+        if is_batchedtensor(x):
+            phys = get_unwrapped(x).flatten(0, 1)
+            seen.append(("vmap", phys.is_contiguous(memory_format=torch.channels_last)))
+        else:
+            seen.append(("row", x.is_contiguous(memory_format=torch.channels_last)))
+        return conv(x, w, *a, **k)
+
+    monkeypatch.setattr(F, "conv2d", spy)
+    x = torch.from_numpy(np.random.default_rng(5).random((3, 1, 64, 64, 3), dtype=np.float32))
+    batched = torch.func.vmap(fn)(x)
+    rows = [fn(x[i]) for i in range(3)]
+    n_conv = len(seen) // 4  # one vmapped call and three rows
+    assert n_conv == 60 and {k for k, _ in seen} == {"vmap", "row"}
+    assert all(ok for _, ok in seen), [i for i, (_, ok) in enumerate(seen) if not ok]
+    for i, r in enumerate(rows):
+        assert torch.allclose(batched[i], r, rtol=TOL, atol=TOL)
+    monkeypatch.setattr(F, "conv2d", conv)
+
+    def pool_nchw(t, k, stride):
+        ph = tyolo.same_pads(t.shape[2], k, stride)
+        pw = tyolo.same_pads(t.shape[3], k, stride)
+        if any(ph + pw):
+            t = F.pad(t, (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
+        return F.max_pool2d(t, k, stride)
+
+    monkeypatch.setattr(tyolo, "_maxpool_same", pool_nchw)
+    monkeypatch.setattr(tyolo, "_cat_channels", lambda ts: torch.cat(ts, 1))
+    monkeypatch.setattr(tyolo, "_up2", lambda t: t.repeat_interleave(2, dim=2)
+                        .repeat_interleave(2, dim=3))
+    for i, r in enumerate(rows):
+        assert torch.equal(fn(x[i]), r)

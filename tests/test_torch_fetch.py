@@ -307,21 +307,52 @@ def test_device_source_fold_keeps_plain_donation():
     assert not any(s.batchable for s in p.stages)
 
 
-def test_donation_vetoed_without_sole_consumer():
-    """A host source with a second consumer (the port has no tee yet: the
-    graph is built by hand) does not hand its frames to the chain."""
+TEE_DESC = (f"appsrc name=src caps=other/tensors,dimensions={DIMS},types=float32 ! "
+            "tee name=t t. ! tensor_transform mode=arithmetic option=typecast:float32,"
+            f"add:1.0 ! tensor_filter framework=jax model=scaler custom=scale:2.0,dims:{DIMS} "
+            "{acc} name=f ! tensor_sink name=out t. ! fakesink name=devnull")
+
+
+@pytest.mark.parametrize("graph", ["hand-built", "tee"])
+def test_donation_vetoed_without_sole_consumer(graph):
+    """A host source with a second consumer does not hand its frames to
+    the chain: a graph given a second sink by hand, and the JAX package's
+    own case (``tests/test_fetch.py``), a source feeding a tee with a
+    ``fakesink`` on its other branch, whose chain then runs as before and
+    whose frames stay untouched."""
     from nnstreamer_tpu_torch.pipeline.plan import plan_stages
 
-    p = ntt.Pipeline(PORT_DESC, donate_ingress=True)
+    if graph == "hand-built":
+        p = ntt.Pipeline(PORT_DESC, donate_ingress=True)
+        [fused] = _fused_stages(p)
+        assert fused._ingress_put
+        graph = p.graph
+        src = graph.nodes[p.stages[0].node_ids[0]]
+        extra = graph.add("tensor_sink", {"name": "devnull"})
+        graph.link(src, extra)
+        elements = dict(p.elements)
+        elements[extra.id] = TensorSink({}, name="devnull")
+        stages = plan_stages(graph, elements, donate_ingress=True)
+        [vetoed] = [s.element for s in stages if s.element.kind == "fused"]
+        assert not vetoed._ingress_put and not vetoed._donate
+        assert [s.batchable for s in stages if s.element.kind == "fused"] == [True]
+        return
+    jp = nt.Pipeline(TEE_DESC.format(acc=""), donate_ingress=True)
+    p = ntt.Pipeline(TEE_DESC.format(acc="accelerator=true:cpu"), donate_ingress=True)
     [fused] = _fused_stages(p)
-    assert fused._ingress_put
-    graph = p.graph
-    src = graph.nodes[p.stages[0].node_ids[0]]
-    extra = graph.add("tensor_sink", {"name": "devnull"})
-    graph.link(src, extra)
-    elements = dict(p.elements)
-    elements[extra.id] = TensorSink({}, name="devnull")
-    stages = plan_stages(graph, elements, donate_ingress=True)
-    [vetoed] = [s.element for s in stages if s.element.kind == "fused"]
-    assert not vetoed._ingress_put and not vetoed._donate
-    assert [s.batchable for s in stages if s.element.kind == "fused"] == [True]
+    [jfused] = _fused_stages(jp)
+    assert (fused._donate, fused._ingress_put) == (jfused._donate, jfused._ingress_put) \
+        == (False, False)
+    frames = _frames(6, seed=3)
+    kept = [x.copy() for x in frames]
+    want, _ = _run(nt, DESC.format(acc=""), frames)
+    with p:
+        for i, x in enumerate(frames):
+            p.push("src", ntt.Buffer([x], pts=i))
+        outs = [p.pull("out", timeout=60) for _ in frames]
+        p.eos()
+        p.wait(timeout=60)
+    assert p.element("devnull").count == len(frames)
+    for x, k, o, w in zip(frames, kept, outs, want):
+        assert np.array_equal(x, k)
+        assert np.array_equal(np.asarray(o.tensors[0]), np.asarray(w.tensors[0]))

@@ -83,10 +83,15 @@ def test_registry_is_the_ports_own():
     from nnstreamer_tpu.core import registry as jax_registry
 
     assert ntt.registry.names("element") == [
-        "appsrc", "audiotestsrc", "tensor_converter", "tensor_decoder",
-        "tensor_filter", "tensor_query_client", "tensor_query_serversink",
-        "tensor_query_serversrc", "tensor_sink", "tensor_transform",
-        "videotestsrc"]
+        "appsrc", "audiotestsrc", "fakesink", "join", "tee", "tensor_converter",
+        "tensor_crop", "tensor_decoder", "tensor_demux", "tensor_filter",
+        "tensor_merge", "tensor_mux", "tensor_query_client",
+        "tensor_query_serversink", "tensor_query_serversrc", "tensor_sink",
+        "tensor_split", "tensor_transform", "videotestsrc"]
+    assert ntt.registry.get("element", "tee").__module__ == \
+        "nnstreamer_tpu_torch.elements.routing"
+    assert ntt.registry.names("converter") == ["flatbuf", "flexbuf", "protobuf",
+                                               "python3"]
     assert ntt.registry.get("element", "tensor_query_client").__module__ \
         == "nnstreamer_tpu_torch.elements.query"
     assert ntt.registry.names("filter") == ["custom-easy", "jax", "llm"]
@@ -102,8 +107,9 @@ def test_registry_is_the_ports_own():
         "nnstreamer_tpu_torch.filters.device_fw"
     assert ntt.registry.lookup("filter", "torch") is None
     assert ntt.registry.names("decoder") == [
-        "bounding_boxes", "ctc", "image_labeling", "image_segment",
-        "pose_estimation"]
+        "bounding_boxes", "ctc", "direct_video", "flatbuf", "flexbuf",
+        "image_labeling", "image_segment", "octet_stream", "pose_estimation",
+        "protobuf", "tensor_region"]
     assert jax_registry.get("decoder", "image_labeling").__module__ == \
         "nnstreamer_tpu.decoders.image_labeling"
 
@@ -177,6 +183,29 @@ def test_model_file_modules_import_without_jax(module):
         f"importlib.import_module('nnstreamer_tpu_torch.{module}')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib', 'nnstreamer_tpu.')) or m == 'nnstreamer_tpu')\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+#: the camera slice's modules, each imported alone in a fresh process
+CAMERA_MODULES = ["converters.serialize", "decoders.serialize",
+                  "decoders.direct_video", "elements.routing", "elements.crop",
+                  "elements.converter"]
+
+
+@pytest.mark.parametrize("module", CAMERA_MODULES)
+def test_camera_modules_import_without_jax(module):
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module('nnstreamer_tpu_torch.{module}')\n"
+        "assert 'jax' not in sys.modules\n"
+        "bad = sorted(m for m in sys.modules if m.startswith('nnstreamer_tpu.') "
+        "or m == 'nnstreamer_tpu')\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))

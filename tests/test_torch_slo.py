@@ -6,6 +6,7 @@ they are counts and ratios of counts; percentiles are samples).  The
 sink's end-to-end series carries the JAX package's name,
 ``<sink>.e2e_latency``, which the engine reads."""
 
+import threading
 import time
 
 import numpy as np
@@ -90,6 +91,126 @@ def test_sink_series_names_equal_jax():
     assert "out.e2e_latency" in sink_series(metrics)[0]
     assert ("out.e2e_latency", "acme") in sink_series(metrics)[1]
     assert metrics.labeled_histograms()[("out.e2e_latency", "acme")][2] == 3
+
+
+# -- the queue sampler (Queue C 1) ---------------------------------------------------
+
+GAUGE_KINDS = (".queue_depth", ".inflight_window", ".staleness_s", ".watermark_pts")
+
+
+def _sampler_gauges(m):
+    return ({n for n in m.gauges() if n.endswith(GAUGE_KINDS)},
+            {k: v for k, v in m.labeled_gauges().items() if k[0].endswith(GAUGE_KINDS)})
+
+
+def _tenanted(pkg, tr, i, tenant):
+    b = pkg.Buffer([np.full((16,), float(i), np.float32)], pts=i)
+    if tenant is not None:
+        b.meta[tr.META_TENANT] = tenant
+    return b
+
+
+@pytest.mark.parametrize("tenants", [("a", "a", "b", None), ("b", None, None, "a", "a", "a")])
+def test_queue_depth_gauges_per_tenant_equal_jax(tenants):
+    """The same queue contents in each package's filter stage, sampled
+    twice: the plain and per-tenant ``f.queue_depth`` gauges are equal,
+    and a tenant that has left the queue reads 0 on the second tick."""
+    got = {}
+    for name, pkg, m, tr, desc in (("jax", nt, jmetrics, jtracing, JAX_DESC),
+                                   ("port", ntt, metrics, tracing, PORT_DESC)):
+        kw = {"data_parallel": 1} if pkg is nt else {}
+        p = pkg.Pipeline(desc, trace_mode="ring", batch_max=4, dispatch_depth=2,
+                         queue_capacity=16, **kw)
+        [runner] = [r for r in {id(r): r for r in p._runners.values()}.values()
+                    if r.element.name == "f"]
+        for i, ten in enumerate(tenants):
+            runner.queue.put(("sink", _tenanted(pkg, tr, i, ten)))
+        p.sample_queues()
+        first = _sampler_gauges(m)
+        while runner.queue.get_nowait() is not None:
+            pass
+        runner.queue.put(("sink", _tenanted(pkg, tr, 9, "a")))
+        p.sample_queues()
+        got[name] = (first, _sampler_gauges(m))
+        p.stop()
+    assert got["port"] == got["jax"]
+    first, second = got["port"]
+    assert first[1][("f.queue_depth", "a")] == tenants.count("a")
+    assert second[1][("f.queue_depth", "b")] == 0.0  # idle: zeroed
+    assert second[1][("f.queue_depth", "a")] == 1.0
+    assert "f.inflight_window" in first[0]
+
+
+def _gate(el, gate):
+    """Hold ``el``'s work until ``gate`` is set (both packages' runners
+    call process or process_batch)."""
+    for meth in ("process", "process_batch"):
+        real = getattr(el, meth)
+
+        def held(*a, _real=real, **k):
+            gate.wait(30)
+            return _real(*a, **k)
+
+        setattr(el, meth, held)
+
+
+def test_traced_run_samples_the_same_gauges_as_jax():
+    """One traced pipeline with two tenants and a dispatch window of 2
+    through each package, the filter held while 8 frames queue: each
+    tick's per-tenant depths are the queue's own, the sampler thread runs
+    and stop() joins it, and after the drain the gauge names and the
+    per-tenant depths (an idle tenant zeroed) are equal to the JAX
+    package's."""
+    got = {}
+    for name, pkg, m, tr, desc in (("jax", nt, jmetrics, jtracing, JAX_DESC),
+                                   ("port", ntt, metrics, tracing, PORT_DESC)):
+        kw = {"data_parallel": 1} if pkg is nt else {}
+        p = pkg.Pipeline(desc, trace_mode="ring", batch_max=4, dispatch_depth=2,
+                         queue_capacity=16, **kw)
+        [runner] = [r for r in {id(r): r for r in p._runners.values()}.values()
+                    if r.element.name == "f"]
+        gate = threading.Event()
+        _gate(p.element("f"), gate)
+        with p:
+            for i in range(8):
+                p.push("src", _tenanted(pkg, tr, i, "ab"[i % 2]))
+            deadline = time.monotonic() + 30
+            while (runner.queue.qsize() + runner._proc_n != 8
+                   and time.monotonic() < deadline):
+                time.sleep(0.01)
+            p.sample_queues()
+            queued = runner.queue.tenant_depths()
+            held = {k[1]: v for k, v in m.labeled_gauges().items() if k[0] == "f.queue_depth"}
+            assert held == {t: float(n) for t, n in queued.items()}
+            assert set(held) == {"a", "b"}
+            gate.set()
+            outs = [p.pull("out", timeout=60) for _ in range(8)]
+            deadline = time.monotonic() + 30
+            while runner.queue.qsize() and time.monotonic() < deadline:
+                time.sleep(0.01)
+            p.sample_queues()
+            got[name] = _sampler_gauges(m)
+            sampler = p._sampler
+            assert sampler.is_alive()
+            p.eos()
+            p.wait(timeout=60)
+        assert not sampler.is_alive()
+        assert [float(o.tensors[0][0]) for o in outs] == [2.0 * i for i in range(8)]
+    assert got["port"][0] == got["jax"][0]
+    assert {"f.queue_depth", "f.inflight_window", "out.staleness_s",
+            "out.watermark_pts"} <= got["port"][0]
+    assert metrics.gauges()["out.watermark_pts"] == 7.0
+    assert got["port"][1] == got["jax"][1] == {("f.queue_depth", "a"): 0.0,
+                                               ("f.queue_depth", "b"): 0.0}
+
+
+def test_untraced_pipeline_starts_no_sampler():
+    p = ntt.Pipeline(PORT_DESC)
+    with p:
+        p.eos()
+        p.wait(timeout=30)
+    assert getattr(p, "_sampler", None) is None
+    assert not {n for n in metrics.gauges() if n.endswith(GAUGE_KINDS)}
 
 
 # -- fraction_over -------------------------------------------------------------------

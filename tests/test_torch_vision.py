@@ -30,7 +30,6 @@ from nnstreamer_tpu_torch.core.buffer import Buffer
 from nnstreamer_tpu_torch.core.types import TensorsSpec
 from nnstreamer_tpu_torch.decoders import bounding_boxes as tbb
 from nnstreamer_tpu_torch.decoders.image_labeling import ImageLabeling
-from nnstreamer_tpu_torch.elements.base import ElementError
 from nnstreamer_tpu_torch.elements.source import VideoTestSrc
 from nnstreamer_tpu_torch.elements.transform import TensorTransform
 from nnstreamer_tpu_torch.models import backbone as tbk, mobilenet as tmob, ssd as tssd
@@ -424,6 +423,13 @@ def test_videotestsrc_device_generate_truncates_the_tail_batch():
 
 
 def test_videotestsrc_device_random_raises_not_yet_ported():
-    with pytest.raises(ElementError, match="not yet ported"):
-        VideoTestSrc({"device": True, "pattern": "random"})
+    """Named for when ``device=true pattern=random`` raised; it is ported
+    now, and draws the port's own frames: uint8 in [0, 256) of the batch's
+    shape, NOT the JAX package's ``jax.random`` bits (torch cannot
+    reproduce them), while the host pattern stays bitwise."""
+    props = {"device": True, "pattern": "random", "width": 8, "height": 6, "batch": 2}
+    got = VideoTestSrc(dict(props)).device_batch(0, 2, "cpu").numpy()
+    want = np.asarray(JaxVideoTestSrc(dict(props))._device_batch_fn()(0))
+    assert got.shape == want.shape == (2, 6, 8, 3) and got.dtype == want.dtype
+    assert got.tobytes() != want.tobytes()
     VideoTestSrc({"device": False, "pattern": "random"})  # the host pattern ports
