@@ -302,6 +302,43 @@ Phases, each of which must pass:
              pattern=random`` folded into the quick-start stage twice: two
              frames differ, the rerun draws bitwise the same frames, nothing
              captured after the first batch.
+15. asr    — windowed streaming ASR, no kernel of csrc/: the JAX package's
+             ``examples/asr_streaming_window.py`` string (``ASR``):
+             ``audiotestsrc device=true`` 4,000-sample chunks into
+             ``tensor_aggregator`` 16,000-sample windows at 75% overlap, into
+             speech_commands at full width (64 mels, float32), once with
+             the card-resident ring (``device=true``) and once with the host
+             carry.  A checked run of each: the first 32 windows (tapped at
+             the aggregator) and their scores bitwise between the carries,
+             the ring allocated once and its edge counted resident.  Three
+             timed runs of 512 windows, the carries in turns: windows/s
+             between the first and last window at the sink, every score
+             bitwise between the carries; the filter's card ms a window
+             (its eager forward, CUDA events behind a 10 ms spin) and busy
+             share.  The aggregator alone on card tensors: 100 chunks under
+             ``torch.cuda.set_sync_debug_mode("error")`` (nothing may
+             synchronize), one ring allocation, every window a storage of
+             its own and bitwise its chunks.
+16. v4l2   — the FIFO camera, no kernel of csrc/: a writer thread writes
+             seeded 640x480 RGB frames (a moving box) into a FIFO under a
+             temporary directory; ``v4l2src ! tee``, one branch through
+             ``videoscale`` (bilinear, 320), ``tensor_converter``, the
+             normalisation, ssd_mobilenet 320 (91 classes, bf16) and
+             ``bounding_boxes option3=0.0 option4=640:480`` into the
+             compositor's overlay pad, the other through ``queue`` to its
+             base pad (``V4L2``).  A checked run of 512 frames (every group
+             the compositor blends: its base is the camera's frame of that
+             pts, the output is that frame where the overlay is clear and
+             the overlay where it is opaque), then two timed runs: frames/s,
+             write-to-sink p50 and p99, ``<stage>.proc`` by stage; every
+             frame in order, the writer joined, EOS.  A run whose writer
+             stalls 2 s after 16 frames is stopped during the stall and must
+             stop within 10 s.  128 frames replayed through ``filesrc
+             blocksize=<frame> ! tensor_converter ! filesink``, the bytes
+             equal.  On card tensors, against the same elements on host
+             copies: ``tensor_if`` (``TENSOR_AVERAGE_VALUE`` and
+             ``META_VALUE``), a ``tensor_sparse_enc`` / ``_dec`` round trip
+             (float32 and bf16, wire bytes equal) and a bf16 ``filesink``.
 
 ``--yolo-bucket <tree> ...`` instead times yolov5s 640's bucket-8 step
 (one replay, CUDA events) with the port of each given tree (a ``git
@@ -4909,6 +4946,527 @@ def print_camera(c):
     print(f"camera: random device source {c['random']}", flush=True)
 
 
+#: windowed streaming ASR (the JAX package's examples/asr_streaming_window.py):
+#: 4,000-sample chunks into 16,000-sample windows at 75% overlap, into
+#: speech_commands at full width (64 mels, float32); ``{mode}`` is
+#: ``device=true `` (the card-resident ring) or empty (the host carry)
+ASR = ("audiotestsrc device=true num-buffers={chunks} samplesperbuffer=4000 rate=16000 "
+       "freq=880 name=src ! tensor_aggregator frames_in=4000 frames_out=16000 "
+       "frames_flush=4000 frames_dim=0 {mode}name=agg ! tensor_filter framework=jax "
+       "model=speech_commands custom=dtype:float32 {acc} name=f ! tensor_sink name=out")
+ASR_WINDOWS = 512
+ASR_RUNS = 3
+#: windows (and their scores) held bitwise between the two carries
+ASR_CHECKED = 32
+#: buffers the aggregator takes alone under the sync-debug trap
+ASR_GATE_BUFFERS = 100
+ASR_MODES = (("ring", "device=true "), ("host", ""))
+
+
+def asr_run(mode, windows, acc, tap=False):
+    """One run of ``ASR`` -> a dict: the scores, the windows tapped at the
+    aggregator as host copies (or None), windows/s between the first and
+    the last window at the sink, wall s from start, ``<stage>.proc`` by
+    stage, and the pipeline."""
+    import numpy as np
+
+    import nnstreamer_tpu_torch as ntt
+    from nnstreamer_tpu_torch.core.buffer import _to_numpy
+    from nnstreamer_tpu_torch.core.log import metrics
+
+    pipe = ntt.Pipeline(ASR.format(chunks=windows + 3, mode=mode, acc=acc))
+    agg = pipe.element("agg")
+    seen = None
+    if tap:
+        seen = []
+        process = agg.process
+
+        def tapped(pad, buf, _process=process):
+            outs = _process(pad, buf)
+            seen.extend(_to_numpy(b.tensors[0]).copy() for _, b in outs)
+            return outs
+
+        agg.process = tapped
+    scores, stamps = [], []
+    metrics.reset()
+    t0 = time.perf_counter()
+    with pipe:
+        for _ in range(windows):
+            scores.append(np.asarray(pipe.pull("out", timeout=600).tensors[0]))
+            stamps.append(time.perf_counter())
+        pipe.wait(timeout=120)
+    snap = metrics.snapshot()
+    names = [st.element.name for st in pipe.stages]
+    return dict(scores=scores, windows=seen, pipe=pipe, wall_s=stamps[-1] - t0,
+                windows_per_s=(windows - 1) / (stamps[-1] - stamps[0]),
+                stage_ms={n: round(snap[f"{n}.proc.mean"] * 1e3, 4) for n in names
+                          if f"{n}.proc.mean" in snap})
+
+
+def asr_card_ms(pipe, dev, reps=20):
+    """Device ms of the filter's step on one window (its eager forward,
+    CUDA events; a 10 ms spin kernel ahead of each start event so the
+    host has enqueued the whole forward before the card reaches it);
+    None off the card."""
+    import torch
+
+    if dev.type != "cuda":
+        return None
+    fw = pipe.element("f")._ensure_fw()
+    win = torch.randn(1, 16000, device=dev)
+    for _ in range(2):
+        fw.invoke([win])
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    for i in range(reps):
+        torch.cuda._sleep(20_000_000)
+        starts[i].record()
+        fw.invoke([win])
+        ends[i].record()
+    torch.cuda.synchronize()
+    times = sorted(s.elapsed_time(e) for s, e in zip(starts, ends))
+    return times[len(times) // 2]
+
+
+def asr_ring_gate(dev, buffers=ASR_GATE_BUFFERS):
+    """The aggregator alone, ``device=true``, on card tensors: ``buffers``
+    chunks appended under ``torch.cuda.set_sync_debug_mode("error")`` (a
+    synchronizing call raises), one ring allocation, every window a
+    storage of its own and bitwise the concatenation of its chunks."""
+    import torch
+
+    from nnstreamer_tpu_torch.core.buffer import Buffer
+    from nnstreamer_tpu_torch.elements.aggregator import TensorAggregator
+
+    agg = TensorAggregator(dict(frames_in=4000, frames_out=16000, frames_flush=4000,
+                                frames_dim=0, device="true"), name="agg")
+    agg.ring_device = dev
+    agg.configure({}, ["src"])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    chunks = [torch.randn(1, 4000, device=dev, generator=gen) for _ in range(buffers)]
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        wins = [b.tensors[0] for x in chunks
+                for _, b in agg.process("sink", Buffer([x]))]
+    finally:
+        if dev.type == "cuda":
+            torch.cuda.set_sync_debug_mode(0)
+    check(len(wins) == buffers - 3, f"{len(wins)} windows from {buffers} chunks")
+    check(agg.ring_allocations == 1, f"{agg.ring_allocations} ring allocations")
+    ring = agg._rings.untyped_storage().data_ptr()
+    ptrs = {w.untyped_storage().data_ptr() for w in wins}
+    check(ring not in ptrs and len(ptrs) == len(wins),
+          "a window shares storage with the ring or another window")
+    same = all(torch.equal(w, torch.cat(chunks[i:i + 4], dim=1))
+               for i, w in enumerate(wins))
+    check(same, "a ring window is not the concatenation of its chunks")
+    return dict(buffers=buffers, windows=len(wins), ring_allocations=agg.ring_allocations,
+                ring_shape=list(agg._rings.shape), sync_debug=dev.type == "cuda")
+
+
+def phase_asr(dev, windows=ASR_WINDOWS, runs=ASR_RUNS, acc="", checked=ASR_CHECKED):
+    """Windowed streaming ASR with the device ring against the host carry:
+    a checked run of each (the first ``checked`` windows tapped at the
+    aggregator, windows and scores bitwise between the carries), then
+    ``runs`` timed runs of ``windows`` windows each, the carries in turns
+    (every score bitwise between them too); the filter's card ms per
+    window and busy share; the aggregator alone under the sync trap."""
+    import numpy as np
+
+    on_card = dev.type == "cuda"
+    out = dict(windows=windows, runs={k: [] for k, _ in ASR_MODES})
+    ref = {}
+    for key, mode in ASR_MODES:
+        r = asr_run(mode, checked, acc, tap=True)
+        pipe = r["pipe"]
+        agg = pipe.element("agg")
+        if key == "ring":
+            check(agg.ring_allocations == 1, f"ring allocations {agg.ring_allocations}")
+            check(agg.ring_device is not None and agg.ring_device.type == dev.type,
+                  f"the ring sits on {agg.ring_device}")
+            check(pipe.residency.resident_edges >= 1,
+                  "the aggregator's edge does not count resident")
+        ref[key] = (r["scores"], r["windows"])
+    (s_ring, w_ring), (s_host, w_host) = ref["ring"], ref["host"]
+    check(len(w_ring) == len(w_host) == checked, "tapped windows missing")
+    wins_equal = all(a.tobytes() == b.tobytes() for a, b in zip(w_ring, w_host))
+    scores_equal = all(a.tobytes() == b.tobytes() for a, b in zip(s_ring, s_host))
+    check(wins_equal, "ring windows differ from the host carry's")
+    check(scores_equal, "ring scores differ from the host carry's")
+    check(all(s.shape == (1, 12) and np.isfinite(s).all() for s in s_ring),
+          "speech_commands scores not finite or of the wrong shape")
+    out.update(checked=checked, windows_bitwise=wins_equal, scores_bitwise=scores_equal)
+    card_ms = None
+    for _ in range(runs):
+        timed = {}
+        for key, mode in ASR_MODES:
+            r = asr_run(mode, windows, acc)
+            if card_ms is None:
+                card_ms = asr_card_ms(r["pipe"], dev)
+            timed[key] = r["scores"]
+            rate = r["windows_per_s"]
+            out["runs"][key].append(dict(
+                windows_per_s=rate, wall_s=r["wall_s"], stage_ms=r["stage_ms"],
+                busy_share=None if card_ms is None else rate * card_ms / 1e3))
+        check(all(a.tobytes() == b.tobytes() for a, b in zip(timed["ring"], timed["host"])),
+              "a timed run's ring scores differ from the host carry's")
+    out["card_ms"] = card_ms
+    out["all_scores_bitwise"] = True
+    out["gate"] = asr_ring_gate(dev)
+    out["on_card"] = on_card
+    return out
+
+
+def print_asr(a):
+    card = "not measured" if a["card_ms"] is None else f"{a['card_ms']:.3f} ms"
+    for key, _ in ASR_MODES:
+        for i, r in enumerate(a["runs"][key]):
+            busy = ("not measured" if r["busy_share"] is None
+                    else f"{r['busy_share']:.3f}")
+            print(f"asr: run {i} {key} carry, speech_commands f32, 4000-sample chunks into "
+                  f"16000-sample windows: {r['windows_per_s']:.1f} windows/s over "
+                  f"{a['windows']} windows ({r['wall_s']:.2f} s from start), busy share "
+                  f"{busy}; mean ms a buffer by stage {r['stage_ms']}", flush=True)
+    print(f"asr: filter step {card} on the card a window; first {a['checked']} windows "
+          f"and scores bitwise between the carries {a['windows_bitwise']} / "
+          f"{a['scores_bitwise']}, every timed score bitwise {a['all_scores_bitwise']}",
+          flush=True)
+    print(f"asr: the aggregator alone {a['gate']}", flush=True)
+
+
+#: the FIFO camera: 640x480 RGB frames from a writer thread, through the
+#: stock detection pipeline (``v4l2src ! tee``, one branch scaled to the
+#: detector's 320 px and decoded into a 640x480 RGBA overlay, the other
+#: queued to the compositor's base pad)
+V4L2_W, V4L2_H = 640, 480
+V4L2_FRAMES = 512
+V4L2_RUNS = 2
+#: the stall run: frames written before the writer stalls, and the stall
+V4L2_STALL_AFTER = 16
+V4L2_STALL_S = 2.0
+#: frames replayed through filesrc ! tensor_converter ! filesink
+V4L2_REPLAY = 128
+V4L2 = ("v4l2src device={fifo} width={w} height={h} format=RGB num-buffers={n} "
+        "name=camsrc ! tee name=cam "
+        "cam. ! videoscale width={size} height={size} method=bilinear ! tensor_converter ! "
+        + NORM + " ! tensor_filter framework=jax model=ssd_mobilenet "
+        "custom=size:{size},classes:91{custom} {acc} ! tensor_decoder mode=bounding_boxes "
+        "option3=0.0 option4={w}:{h} ! comp.sink_1 "
+        "cam. ! queue ! comp.sink_0 "
+        "compositor name=comp ! tensor_sink name=out")
+
+
+class CameraFrames:
+    """The FIFO camera's frames, ``[h, w, 3]`` uint8: one seeded noise frame
+    with a box moving across it (frame ``i`` made again on demand)."""
+
+    def __init__(self, w=V4L2_W, h=V4L2_H, seed=0):
+        import numpy as np
+
+        self.w, self.h = w, h
+        self.base = np.random.default_rng(seed).integers(0, 256, (h, w, 3), dtype=np.uint8)
+
+    def __call__(self, i):
+        f = self.base.copy()
+        box = self.h // 4
+        x, y = (i * 7) % (self.w - box), (i * 3) % (self.h - box)
+        f[y:y + box, x:x + box] = (255, 64, 0)
+        return f
+
+
+class FifoCamera:
+    """A camera played by a writer thread: ``n`` frames written into a new
+    FIFO at ``path``, the time each write ended kept; with ``stall_after``
+    the writer pauses ``stall_s`` before frame ``stall_after``.  A reader
+    that closes early ends the writer (a broken pipe)."""
+
+    def __init__(self, path, frames, n, stall_after=None, stall_s=0.0):
+        import threading
+
+        self.path, self.frame, self.n = path, frames, n
+        self.stall_after, self.stall_s = stall_after, stall_s
+        self.written = {}
+        self.error = None
+        self.done = threading.Event()
+        os.mkfifo(path)
+        self.thread = threading.Thread(target=self._write, daemon=True)
+
+    def start(self):
+        self.thread.start()
+        return self
+
+    def _write(self):
+        import errno
+
+        try:
+            deadline = time.monotonic() + 60
+            while True:  # no reader yet: ENXIO; the pipeline opens it at start
+                try:
+                    fd = os.open(self.path, os.O_WRONLY | os.O_NONBLOCK)
+                    break
+                except OSError as e:
+                    if e.errno != errno.ENXIO or time.monotonic() > deadline:
+                        raise
+                    time.sleep(0.01)
+            os.set_blocking(fd, True)
+            try:
+                for i in range(self.n):
+                    if i == self.stall_after:
+                        time.sleep(self.stall_s)
+                    os.write(fd, self.frame(i).tobytes())
+                    self.written[i] = time.perf_counter()
+            finally:
+                os.close(fd)
+        except BrokenPipeError:
+            pass  # the reader closed (a pipeline stopped mid-stream)
+        except Exception as e:  # noqa: BLE001 - reported by join()
+            self.error = e
+        finally:
+            self.done.set()
+
+    def join(self, timeout=60):
+        self.thread.join(timeout=timeout)
+        check(not self.thread.is_alive(), "the FIFO writer thread never finished")
+        check(self.error is None, f"the FIFO writer failed: {self.error!r}")
+
+
+def tap_compositor(pipe, cam, frame_ns):
+    """Check every group the compositor blends: the base is the camera's
+    frame of that pts, and the output is the frame where the overlay is
+    transparent and the overlay where it is opaque -> per-frame results."""
+    import numpy as np
+
+    comp = pipe.element("comp")
+    real = comp.process_group
+    res = []
+
+    def tapped(bufs):
+        outs = real(bufs)
+        base = np.asarray(bufs["sink_0"].tensors[0])
+        ov = np.asarray(bufs["sink_1"].tensors[0])
+        out = np.asarray(outs[0][1].tensors[0])
+        i = int(bufs["sink_0"].pts) // frame_ns
+        alpha = ov[..., 3]
+        res.append(dict(
+            base=np.array_equal(base, cam.frame(i)),
+            clear=np.array_equal(out[alpha == 0], base[alpha == 0]),
+            opaque=np.array_equal(out[alpha == 255], ov[..., :3][alpha == 255]),
+            overlay_px=int((alpha > 0).sum())))
+        return outs
+
+    comp.process_group = tapped
+    return res
+
+
+def v4l2_run(tmp, tag, n, size, acc, custom, stall_after=None, stop_after=None,
+             tap=False):
+    """One run of ``V4L2`` over a FIFO camera of ``n`` frames -> a dict:
+    frames/s, write-to-sink p50/p99, ``<stage>.proc`` by stage, the frames
+    checked; with ``stop_after`` the pipeline is stopped after that many
+    frames, while the writer stalls, and the stop's seconds are kept."""
+    import numpy as np
+
+    import nnstreamer_tpu_torch as ntt
+    from nnstreamer_tpu_torch.core.log import metrics
+
+    fifo = os.path.join(tmp, f"cam_{tag}")
+    cam = FifoCamera(fifo, CameraFrames(), n, stall_after=stall_after,
+                     stall_s=V4L2_STALL_S if stall_after is not None else 0.0)
+    pipe = ntt.Pipeline(V4L2.format(fifo=fifo, w=V4L2_W, h=V4L2_H, n=n, size=size,
+                                    acc=acc, custom=custom))
+    names = [s.element.name for s in pipe.stages]
+    frame_ns = int(1e9 / 30)
+    groups = tap_compositor(pipe, cam, frame_ns) if tap else None
+    metrics.reset()
+    out = dict(frames=n, stages=names)
+    lat, stamps = [], []
+    want = n if stop_after is None else stop_after
+    pipe.start()
+    cam.start()
+    try:
+        t0 = time.perf_counter()
+        for i in range(want):
+            b = pipe.pull("out", timeout=600)
+            stamps.append(time.perf_counter())
+            check(b.pts == i * frame_ns, f"frame {i} arrived as pts {b.pts}")
+            x = np.asarray(b.tensors[0])
+            check(x.shape == (V4L2_H, V4L2_W, 3) and x.dtype == np.uint8,
+                  f"frame {i}: composited {x.shape} {x.dtype}")
+            check("detections" in b.meta, f"frame {i} carries no detections")
+            lat.append((stamps[-1] - cam.written[i]) * 1e3)
+        if stop_after is None:
+            pipe.wait(timeout=120)  # EOS: num-buffers reached
+            out["wall_s"] = stamps[-1] - t0
+            out["frames_per_s"] = (n - 1) / (stamps[-1] - stamps[0])
+        else:
+            check(not cam.done.is_set() and len(cam.written) == stall_after,
+                  "the writer was not stalled when the stop came")
+            t1 = time.perf_counter()
+            pipe.stop()
+            out["stop_s"] = time.perf_counter() - t1
+            check(out["stop_s"] < 10.0, f"stop took {out['stop_s']:.2f} s with the "
+                  "writer stalled")
+            check(all(not r.thread.is_alive() for r in pipe._unique_runners()),
+                  "a stage thread outlived stop()")
+    finally:
+        pipe.stop()
+        cam.join(timeout=60)
+        os.unlink(fifo)
+    snap = metrics.snapshot()
+    out["stage_ms"] = {nm: round(snap[f"{nm}.proc.mean"] * 1e3, 4) for nm in names
+                       if f"{nm}.proc.mean" in snap}
+    lat = np.sort(np.asarray(lat))
+    out["p50_ms"] = float(np.percentile(lat, 50))
+    out["p99_ms"] = float(np.percentile(lat, 99))
+    out["checked_frames"] = want
+    if groups is not None:
+        check(len(groups) == want, f"{len(groups)} groups composited for {want} frames")
+        for k in ("base", "clear", "opaque"):
+            check(all(g[k] for g in groups), f"a composited frame fails its {k} check")
+        check(sum(g["overlay_px"] > 0 for g in groups) > 0, "no overlay was drawn")
+        out["overlay_px_mean"] = float(np.mean([g["overlay_px"] for g in groups]))
+    fused = [s.element for s in pipe.stages if s.element.kind == "fused"]
+    check(len(fused) == 1, f"expected one fused stage, got {names}")
+    out["device"] = str(fused[0].device)
+    return out
+
+
+def v4l2_replay(tmp, n=V4L2_REPLAY):
+    """``n`` of the camera's frames in a file, replayed through
+    ``filesrc blocksize=<frame> ! tensor_converter ! filesink``: the
+    output file must hold the same bytes."""
+    import nnstreamer_tpu_torch as ntt
+
+    cam_path, out_path = os.path.join(tmp, "frames.raw"), os.path.join(tmp, "replay.raw")
+    frames = CameraFrames()
+    with open(cam_path, "wb") as f:
+        for i in range(n):
+            f.write(frames(i).tobytes())
+    frame = V4L2_W * V4L2_H * 3
+    pipe = ntt.Pipeline(
+        f"filesrc location={cam_path} blocksize={frame} ! tensor_converter "
+        f"input-dim=3:{V4L2_W}:{V4L2_H}:1 input-type=uint8 ! filesink location={out_path}")
+    t0 = time.perf_counter()
+    with pipe:
+        pipe.wait(timeout=300)
+    wall = time.perf_counter() - t0
+    with open(cam_path, "rb") as a, open(out_path, "rb") as b:
+        same = a.read() == b.read()
+    check(same, "the filesink replay's bytes differ from the frames'")
+    size = os.path.getsize(out_path)
+    os.unlink(cam_path)
+    os.unlink(out_path)
+    return dict(frames=n, bytes=size, bitwise=same, wall_s=wall)
+
+
+def card_elements(dev):
+    """tensor_if, the sparse codec and a bf16 filesink on card tensors,
+    each against the same element on host copies of the same tensors."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nnstreamer_tpu_torch.core.buffer import Buffer
+    from nnstreamer_tpu_torch.elements.cond import TensorIf
+    from nnstreamer_tpu_torch.elements.sink import FileSink, raw_bytes
+    from nnstreamer_tpu_torch.elements.sparse import TensorSparseDec, TensorSparseEnc
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    xs = [torch.randn(64, 128, device=dev, generator=gen) + 0.05 * k for k in range(-4, 5)]
+    out = {}
+    for value, opt in (("TENSOR_AVERAGE_VALUE", "0"), ("META_VALUE", "flag")):
+        decide = {}
+        for where in ("card", "host"):
+            el = TensorIf(dict(compared_value=value, compared_value_option=opt,
+                               operator="GT", supplied_value="0"))
+            el.configure({}, ["src"])
+            picks = []
+            for k, x in enumerate(xs):
+                b = Buffer([x if where == "card" else x.cpu().numpy()], pts=k)
+                b.meta["flag"] = k - 4
+                picks.append([o.pts for _, o in el.process("sink", b)])
+            decide[where] = picks
+        check(decide["card"] == decide["host"], f"tensor_if {value}: card against host")
+        check(0 < sum(map(len, decide["card"])) < len(xs), f"tensor_if {value} is constant")
+        out[value] = sum(map(len, decide["card"]))
+    sparse = [torch.where(torch.rand(32, 48, device=dev, generator=gen) < 0.1,
+                          torch.randn(32, 48, device=dev, generator=gen),
+                          torch.zeros((), device=dev)).to(dt)
+              for dt in (torch.float32, torch.bfloat16)]
+    enc, dec = TensorSparseEnc({}), TensorSparseDec({})
+    enc.configure({}, ["src"])
+    dec.configure({}, ["src"])
+    [(_, blobs)] = enc.process("sink", Buffer(list(sparse)))
+    [(_, hblobs)] = enc.process("sink", Buffer([t.cpu() for t in sparse]))
+    check(all(a.tobytes() == b.tobytes() for a, b in zip(blobs.tensors, hblobs.tensors)),
+          "sparse wire bytes of card tensors differ from the host copies'")
+    [(_, back)] = dec.process("sink", blobs)
+    check(all(raw_bytes(a) == raw_bytes(b) for a, b in zip(back.tensors, sparse)),
+          "the sparse round trip of card tensors changed them")
+    out["sparse_bytes"] = [int(b.nbytes) for b in blobs.tensors]
+    bf = torch.randn(3, 257, device=dev, generator=gen).to(torch.bfloat16)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bf16.bin")
+        fs = FileSink({"location": path})
+        fs.start()
+        fs.process("sink", Buffer([bf, bf[:, ::3]]))
+        fs.stop()
+        with open(path, "rb") as f:
+            got = f.read()
+    host = bf.cpu()
+    want = (host.view(torch.int16).numpy().tobytes()
+            + host[:, ::3].contiguous().view(torch.int16).numpy().tobytes())
+    check(got == want, "the bf16 filesink's bytes differ from the host's")
+    out["bf16_filesink_bytes"] = len(got)
+    return out
+
+
+def phase_v4l2(dev, size=320, frames_n=V4L2_FRAMES, runs=V4L2_RUNS, acc="", custom="",
+               replay_n=V4L2_REPLAY):
+    """The FIFO camera through the stock detection pipeline: a checked run
+    (every composited group checked in a tap), ``runs`` timed runs, a run
+    stopped while the writer stalls, the filesrc replay, and the stream
+    elements on card tensors."""
+    import tempfile
+
+    out = dict(size=size, runs=[])
+    with tempfile.TemporaryDirectory(prefix="nnstpu_cam_") as tmp:
+        out["checked"] = v4l2_run(tmp, "checked", frames_n, size, acc, custom, tap=True)
+        check(out["checked"]["device"].startswith(dev.type),
+              f"the detector runs on {out['checked']['device']}")
+        for r in range(runs):
+            out["runs"].append(v4l2_run(tmp, f"run{r}", frames_n, size, acc, custom))
+        out["stall"] = v4l2_run(tmp, "stall", frames_n, size, acc, custom,
+                                stall_after=V4L2_STALL_AFTER, stop_after=V4L2_STALL_AFTER)
+        out["replay"] = v4l2_replay(tmp, replay_n)
+    out["elements"] = card_elements(dev)
+    return out
+
+
+def print_v4l2(v):
+    c = v["checked"]
+    print(f"v4l2: stages {c['stages']}; detector on {c['device']}; checked run "
+          f"{c['checked_frames']} frames in order, each base the camera's frame and the "
+          f"overlay composited onto it (mean {c['overlay_px_mean']:.0f} overlay px)",
+          flush=True)
+    for i, r in enumerate([c] + v["runs"]):
+        what = "checked" if i == 0 else f"run {i - 1}"
+        print(f"v4l2: {what} FIFO camera {V4L2_W}x{V4L2_H} RGB -> videoscale "
+              f"{v['size']} -> ssd_mobilenet -> overlay -> compositor: "
+              f"{r['frames_per_s']:.1f} frames/s over {r['frames']} frames, write to sink "
+              f"p50 {r['p50_ms']:.2f} ms p99 {r['p99_ms']:.2f} ms", flush=True)
+        print(f"v4l2: {what} mean ms a buffer by stage {r['stage_ms']}", flush=True)
+    s = v["stall"]
+    print(f"v4l2: writer stalled {V4L2_STALL_S:.0f} s after {V4L2_STALL_AFTER} frames: "
+          f"{s['checked_frames']} frames in order, stop in {s['stop_s']:.3f} s, writer "
+          f"joined", flush=True)
+    print(f"v4l2: filesrc replay {v['replay']}", flush=True)
+    print(f"v4l2: stream elements on card tensors {v['elements']}", flush=True)
+
+
 YOLO_BUCKET = 8
 YOLO_BUCKET_DESC = ("appsrc name=src caps=other/tensors,dimensions=3:{size}:{size}:1,"
                     "types=uint8 ! " + DIV + " ! tensor_filter framework=jax model=yolov5s "
@@ -5131,6 +5689,18 @@ def main():
     camera = detail["camera"] = phase_camera(dev)
     print_camera(camera)
     print(f"camera: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    save()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    asr = detail["asr"] = phase_asr(dev)
+    print_asr(asr)
+    print(f"asr: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    save()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    v4l2 = detail["v4l2"] = phase_v4l2(dev)
+    print_v4l2(v4l2)
+    print(f"v4l2: phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # one line per kernel: int4 per decoded token (129 launches at B=1),
     # with the same 129 launches at B=8 (a continuous decode step) and

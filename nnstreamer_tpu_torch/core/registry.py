@@ -35,7 +35,11 @@ _builtins_loaded = False
 #: tensor_demux, tensor_merge, tensor_split, join, tensor_crop,
 #: fakesink), the serialisation converters and decoders (flatbuf,
 #: flexbuf, protobuf, python3, octet_stream), direct_video and
-#: tensor_region, and the custom-easy framework of the tests.
+#: tensor_region, the file and sensor sources (filesrc, tensor_src_iio,
+#: v4l2src), filesink, tensor_aggregator, the GStreamer base elements
+#: (queue, compositor, videoconvert, videoscale), tensor_if,
+#: tensor_rateadjust, tensor_reposink/reposrc, tensor_sparse_enc/dec,
+#: tensor_debug, and the custom-easy framework of the tests.
 _BUILTIN_MODULES = [
     "nnstreamer_tpu_torch.elements.source",
     "nnstreamer_tpu_torch.elements.converter",
@@ -46,6 +50,13 @@ _BUILTIN_MODULES = [
     "nnstreamer_tpu_torch.elements.crop",
     "nnstreamer_tpu_torch.elements.sink",
     "nnstreamer_tpu_torch.elements.query",
+    "nnstreamer_tpu_torch.elements.aggregator",
+    "nnstreamer_tpu_torch.elements.video",
+    "nnstreamer_tpu_torch.elements.cond",
+    "nnstreamer_tpu_torch.elements.rate",
+    "nnstreamer_tpu_torch.elements.repo",
+    "nnstreamer_tpu_torch.elements.sparse",
+    "nnstreamer_tpu_torch.elements.debug",
     "nnstreamer_tpu_torch.filters.llm",
     "nnstreamer_tpu_torch.filters.device_fw",
     "nnstreamer_tpu_torch.filters.custom_easy",

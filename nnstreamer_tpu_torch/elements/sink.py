@@ -1,14 +1,14 @@
 """Sink elements.
 
-Port of the ``tensor_sink`` and ``fakesink`` of
-``nnstreamer_tpu/elements/sink.py`` (reference: gsttensor_sink.c, an
-appsink-like terminal; GStreamer's fakesink, which discards and counts);
-``filesink`` and the sink's ``try_pop`` / ``depth`` are not ported yet.  ``pop()``
-returns host numpy arrays by default (one device-to-host copy at the
-pipeline edge), or the tensors as they arrived with ``to_host=false``.
+Port of ``nnstreamer_tpu/elements/sink.py`` (reference: gsttensor_sink.c,
+an appsink-like terminal; GStreamer's fakesink, which discards and
+counts, and filesink, which writes raw bytes).  ``pop()`` returns host
+numpy arrays by default (one device-to-host copy at the pipeline edge),
+or the tensors as they arrived with ``to_host=false``; ``try_pop()`` is
+the app's non-blocking poll and ``depth`` the count of buffers waiting.
 A buffer's appsrc ``max-inflight`` credit is released when the app takes
-it (pop or callback), when a ``drop=true`` sink discards it, or when its
-resolution failed.
+it (pop, try_pop or callback), when a ``drop=true`` sink discards it,
+when its resolution failed, or when a filesink has written it.
 
 The fetch window (``fetch-depth`` prop > the pipeline's ``fetch_depth`` >
 the config's): a buffer bound for ``pop()`` is materialized on a pool of
@@ -30,6 +30,7 @@ import queue as _queue
 import time as _time
 from typing import Callable, List, Optional
 
+import numpy as np
 import torch
 
 from ..core.buffer import Buffer, start_fetch
@@ -242,6 +243,29 @@ class TensorSink(SinkElement):
         _release_credit(out)  # delivered: the admission slot frees
         return out
 
+    def try_pop(self) -> Optional[Buffer]:
+        """Non-blocking poll: None while no buffer is ready.  A buffer
+        whose fetch is still resolving is parked (the pull API has one
+        consumer) and returned by the next pop or try_pop once done."""
+        item = self._parked
+        if item is None:
+            try:
+                item = self._q.get_nowait()
+            except _queue.Empty:
+                return None
+        if isinstance(item, _cf.Future) and not item.done():
+            self._parked = item
+            return None
+        self._parked = None
+        out = self._materialize(item, 30.0)
+        _release_credit(out)
+        return out
+
+    @property
+    def depth(self) -> int:
+        """Buffers waiting in the pull queue (a parked one not counted)."""
+        return self._q.qsize()
+
     def _materialize(self, item, timeout: float) -> Buffer:
         tracer = getattr(self, "_trace_rec", None)
         if tracer is None:
@@ -344,4 +368,42 @@ class FakeSink(SinkElement):
         self.last = buf
         metrics.count(f"{self.name}.frames",
                       tenant=buf.meta.get(META_TENANT))
+        return []
+
+
+def raw_bytes(t) -> bytes:
+    """A tensor's raw bytes in C order: a bf16 tensor as its ``uint16``
+    bits, which are the bytes ``ml_dtypes``' bf16 writes."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        return t.cpu().contiguous().numpy().tobytes()
+    return np.asarray(t).tobytes()
+
+
+@register_element("filesink")
+class FileSink(SinkElement):
+    """Write each buffer's tensors' raw bytes to ``location`` (reference:
+    filesink in the SSAT golden tests); card tensors are fetched here."""
+
+    kind = "filesink"
+
+    def __init__(self, props=None, name=None):
+        super().__init__(props, name)
+        self.location = str(self.props.get("location", "out.bin"))
+        self._f = None
+
+    def start(self):
+        self._f = open(self.location, "wb")
+
+    def stop(self):
+        if self._f:
+            self._f.close()
+            self._f = None
+
+    def process(self, pad, buf):
+        for t in buf.resolve().tensors:
+            self._f.write(raw_bytes(t))
+        _release_credit(buf)  # bytes on disk: delivered
         return []

@@ -6,16 +6,26 @@ with its end-to-end admission bound (``max-inflight``) and tenant stamp
 (``tenant``), and the deterministic video and audio sources.  Sources
 produce host buffers, and the stage that consumes them moves payloads to
 the device; ``videotestsrc device=true`` and ``audiotestsrc device=true``
-generate their batches on the device itself.  A camera's raw frames
-reach the pipeline through ``appsrc`` as bytes that ``tensor_converter``
-unpacks; ``v4l2src``, ``filesrc`` and ``tensor_src_iio`` are not ported
-yet.
+generate their batches on the device itself.
+
+The file and sensor sources: ``filesrc`` (a file's bytes), ``tensor_src_iio``
+(interleaved sensor scans from a file, a FIFO, a TCP stream, a sampler or
+the built-in pseudo-sensor) and ``v4l2src`` (raw camera frames from a
+regular file or a FIFO).  Their readers poll the pipeline's stop event
+between reads, so a stalled producer never blocks shutdown.
+``v4l2src``'s character-device backend (the ioctl/mmap capture ring of
+the JAX package's native library) is not ported: ``io-mode=native``, or a
+character device under ``io-mode=auto``, raises.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import queue as _queue
+import select
+import socket
+import stat
 import threading
 import time as _time
 from typing import Iterator, Optional, Union
@@ -30,7 +40,7 @@ from ..core.log import metrics as _metrics
 from ..core.meta_keys import META_TENANT
 from ..core.registry import register_element
 from ..core.types import TensorsSpec, parse_fraction
-from .base import SourceElement
+from .base import ElementError, SourceElement
 
 
 class _InflightCredit:
@@ -375,3 +385,323 @@ class AudioTestSrc(SourceElement):
             pts = int(1e9 * t0 / self.sample_rate)
             t0 += self.spb
             yield Buffer([frame], pts=pts)
+
+
+@register_element("filesrc")
+class FileSrc(SourceElement):
+    """A file's bytes as ``application/octet-stream``.
+
+    Props: ``location``, ``blocksize`` (0 = the whole file in one buffer).
+    """
+
+    kind = "filesrc"
+
+    def __init__(self, props=None, name=None):
+        super().__init__(props, name)
+        self.location = str(self.props.get("location", ""))
+        self.blocksize = int(self.props.get("blocksize", 0))
+
+    def configure(self, in_caps, out_pads):
+        caps = Caps.new(MediaType.OCTET)
+        self.out_caps = {p: caps for p in out_pads}
+        return self.out_caps
+
+    def generate(self):
+        with open(self.location, "rb") as f:
+            data = f.read()
+        if self.blocksize <= 0:
+            yield Buffer([np.frombuffer(data, np.uint8)])
+            return
+        for off in range(0, len(data), self.blocksize):
+            yield Buffer([np.frombuffer(data[off:off + self.blocksize], np.uint8)])
+
+
+class _RawReader:
+    """Reads whole records from a file or FIFO opened ``O_NONBLOCK``:
+    ``select`` with a 0.2 s poll, the stop event checked between reads,
+    and a FIFO's EOF before its first writer ignored (a FIFO with no
+    writer yet reads as EOF)."""
+
+    def __init__(self, owner: str, path: str):
+        try:
+            self.fd = os.open(path, os.O_RDONLY | os.O_NONBLOCK)
+            self.is_fifo = stat.S_ISFIFO(os.fstat(self.fd).st_mode)
+        except OSError as e:
+            raise ElementError(f"{owner}: cannot open device {path!r}: {e}") from e
+        self.saw_data = False
+
+    def read(self, need: int, stop: threading.Event) -> Optional[bytes]:
+        """``need`` bytes, or None at EOF (a short tail is dropped), on a
+        read error or at stop."""
+        parts, got = [], 0
+        while got < need:
+            if stop.is_set():
+                return None
+            r, _, _ = select.select([self.fd], [], [], 0.2)
+            if not r:
+                continue
+            try:
+                chunk = os.read(self.fd, need - got)
+            except BlockingIOError:
+                continue
+            except OSError:
+                return None
+            if chunk == b"":
+                if self.is_fifo and not self.saw_data:
+                    if stop.wait(0.05):
+                        return None
+                    continue
+                return None
+            self.saw_data = True
+            parts.append(chunk)
+            got += len(chunk)
+        return b"".join(parts)
+
+    def close(self) -> None:
+        try:
+            os.close(self.fd)
+        except OSError:
+            pass
+
+
+#: IIO scan-element wire formats: name -> numpy dtype
+_IIO_FORMATS = {
+    "s16le": np.dtype("<i2"), "u16le": np.dtype("<u2"),
+    "s32le": np.dtype("<i4"), "u32le": np.dtype("<u4"),
+    "s8": np.dtype("i1"), "u8": np.dtype("u1"),
+    "f32le": np.dtype("<f4"), "f64le": np.dtype("<f8"),
+}
+
+
+@register_element("tensor_src_iio")
+class TensorSrcIIO(SourceElement):
+    """Industrial-I/O sensor source (reference: ``gsttensor_srciio.c``),
+    the JAX package's ``tensor_src_iio``: buffered scans of interleaved
+    per-channel raw samples, each emitted as a ``[capacity, channels]``
+    float32 host tensor of ``(raw + offset) * scale``.
+
+    * ``device=<path>``: a file or FIFO of interleaved raw records;
+      ``device=tcp://host:port``: the same records over a socket.
+    * ``scan-format`` (default ``s16le``, one of :data:`_IIO_FORMATS`),
+      ``channels``, ``scale`` (default 1), ``offset`` (default 0).
+    * ``buffer-capacity`` samples a buffer; a short tail scan is dropped.
+    * ``trigger=data`` (default) emits as soon as a scan is read;
+      ``trigger=timer`` paces emission at ``frequency`` Hz.
+    * With no ``device``, a ``sampler`` callable (``i -> [channels]``) or
+      the built-in deterministic pseudo-sensor makes the samples.
+    * ``num-buffers`` (default 16; -1 = unbounded).
+    """
+
+    kind = "tensor_src_iio"
+
+    def __init__(self, props=None, name=None):
+        super().__init__(props, name)
+        self.frequency = float(self.props.get("frequency", 100.0))
+        self.capacity = int(self.props.get("buffer_capacity", 16))
+        self.channels = int(self.props.get("channels", 3))
+        self.num_buffers = int(self.props.get("num_buffers", 16))
+        self.sampler = self.props.get("sampler")
+        self.device = str(self.props.get("device", "") or "")
+        fmt = str(self.props.get("scan_format", "s16le")).lower()
+        if fmt not in _IIO_FORMATS:
+            raise ElementError(
+                f"{self.name}: unknown scan-format {fmt!r} "
+                f"(one of {sorted(_IIO_FORMATS)})")
+        self.scan_dtype = _IIO_FORMATS[fmt]
+        self.scale = float(self.props.get("scale", 1.0))
+        self.offset = float(self.props.get("offset", 0.0))
+        self.trigger = str(self.props.get("trigger", "data")).lower()
+        if self.trigger not in ("data", "timer"):
+            raise ElementError(
+                f"{self.name}: trigger must be data|timer, got {self.trigger!r}")
+        self._reader: Optional[_RawReader] = None
+        self._sock = None
+
+    def configure(self, in_caps, out_pads):
+        spec = TensorsSpec.from_string(f"{self.channels}:{self.capacity}", "float32")
+        caps = Caps.tensors(spec)
+        self.out_caps = {p: caps for p in out_pads}
+        return self.out_caps
+
+    def start(self) -> None:
+        if not self.device:
+            return
+        if self.device.startswith("tcp://"):
+
+            host, port = self.device[6:].rsplit(":", 1)
+            try:
+                sock = socket.create_connection((host, int(port)), timeout=5.0)
+            except OSError as e:
+                raise ElementError(
+                    f"{self.name}: cannot reach sensor stream {self.device}: {e}"
+                ) from e
+            # a short timeout: the reader checks the stop event between
+            # recv()s, so a paused sender never blocks shutdown
+            sock.settimeout(0.2)
+            self._sock = sock
+        else:
+            self._reader = _RawReader(self.name, self.device)
+
+    def stop(self) -> None:
+        if self._reader is not None:
+            self._reader.close()
+            self._reader = None
+        if self._sock is not None:
+            try:
+                self._sock.close()
+            except OSError:
+                pass
+            self._sock = None
+
+    def _recv(self, need: int, stop: threading.Event) -> Optional[bytes]:
+        parts, got = [], 0
+        while got < need:
+            if stop.is_set():
+                return None
+            try:
+                chunk = self._sock.recv(need - got)
+            except socket.timeout:
+                continue
+            except OSError:
+                return None
+            if not chunk:
+                return None  # the sender closed
+            parts.append(chunk)
+            got += len(chunk)
+        return b"".join(parts)
+
+    def _read_scan(self, stop: threading.Event) -> Optional[np.ndarray]:
+        """One full scan, ``[capacity, channels]`` float32, or None at
+        EOF, on a short tail or at stop."""
+        need = self.capacity * self.channels * self.scan_dtype.itemsize
+        data = (self._reader.read(need, stop) if self._reader is not None
+                else self._recv(need, stop))
+        if data is None:
+            return None
+        raw = np.frombuffer(data, self.scan_dtype).astype(np.float32)
+        raw = raw.reshape(self.capacity, self.channels)
+        return (raw + np.float32(self.offset)) * np.float32(self.scale)
+
+    def generate(self):
+        stop = getattr(self, "_stop_event", None) or threading.Event()
+        num = self.num_buffers if self.num_buffers >= 0 else 1 << 62
+        period = (self.capacity / self.frequency) if self.frequency > 0 else 0.0
+        next_t = _time.monotonic()
+        if self.device:
+            for i in range(num):
+                if stop.is_set():
+                    return
+                scan = self._read_scan(stop)
+                if scan is None:
+                    return  # the sensor stream ended: EOS
+                if self.trigger == "timer":
+                    next_t += period
+                    delay = next_t - _time.monotonic()
+                    if delay > 0 and stop.wait(delay):
+                        return
+                pts = int(1e9 * i * self.capacity / max(self.frequency, 1e-9))
+                yield Buffer([scan], pts=pts)
+            return
+        i = 0
+        for _ in range(num):
+            rows = []
+            for _ in range(self.capacity):
+                if callable(self.sampler):
+                    rows.append(np.asarray(self.sampler(i), np.float32))
+                else:  # the deterministic pseudo-sensor
+                    rows.append(np.sin(np.arange(self.channels)
+                                       + i / self.frequency).astype(np.float32))
+                i += 1
+            yield Buffer([np.stack(rows)])
+
+
+#: v4l2src format name -> (fourcc, bytes per pixel)
+_V4L2_FORMATS = {"RGB": ("RGB3", 3), "BGR": ("BGR3", 3),
+                 "GRAY8": ("GREY", 1), "YUY2": ("YUYV", 2)}
+
+
+@register_element("v4l2src")
+class V4L2Src(SourceElement):
+    """Camera capture, the ``v4l2src`` of the north-star pipeline
+    (``v4l2src ! tensor_converter ! tensor_filter ! ...``), on its raw
+    backend: a regular file or a FIFO of raw frames of ``width * height *
+    bpp`` bytes each, read with ``tensor_src_iio``'s polling discipline.
+    A short tail frame at EOF is dropped.
+
+    Props: ``device`` (default ``/dev/video0``), ``width`` / ``height`` /
+    ``format`` (RGB, BGR, GRAY8, YUY2; the caps are fixed at
+    construction), ``num-buffers``, ``framerate``, ``io-mode`` (``auto``
+    | ``native`` | ``raw``), ``n-bufs`` (accepted; the native ring's
+    depth).  Emits
+    host frames ``[H, W, bpp]`` uint8 with ``pts = i * frame_ns``.
+
+    The character-device backend (a V4L2 node through the JAX package's
+    native ioctl/mmap ring) is not ported: ``io-mode=native``, or a
+    character device under ``io-mode=auto``, raises at start.
+    """
+
+    kind = "v4l2src"
+
+    def __init__(self, props=None, name=None):
+        super().__init__(props, name)
+        self.device = str(self.props.get("device", "/dev/video0"))
+        self.width = int(self.props.get("width", 640))
+        self.height = int(self.props.get("height", 480))
+        self.format = str(self.props.get("format", "RGB")).upper()
+        if self.format not in _V4L2_FORMATS:
+            raise ElementError(
+                f"{self.name}: format must be one of "
+                f"{sorted(_V4L2_FORMATS)}, got {self.format!r}")
+        self.num_buffers = int(self.props.get("num_buffers", -1))
+        self.rate = parse_fraction(self.props.get("framerate", (30, 1)))
+        self.io_mode = str(self.props.get("io_mode", "auto")).lower()
+        if self.io_mode not in ("auto", "native", "raw"):
+            raise ElementError(
+                f"{self.name}: io-mode must be auto|native|raw, got {self.io_mode!r}")
+        self.props.get("n_bufs")  # the native ring's depth: accepted, unused
+        self._reader: Optional[_RawReader] = None
+
+    def configure(self, in_caps, out_pads):
+        caps = Caps.new(MediaType.VIDEO, format=self.format, width=self.width,
+                        height=self.height, framerate=self.rate)
+        self.out_caps = {p: caps for p in out_pads}
+        return self.out_caps
+
+    def _frame_bytes(self) -> int:
+        return self.width * self.height * _V4L2_FORMATS[self.format][1]
+
+    def start(self) -> None:
+        try:
+            st = os.stat(self.device)
+        except OSError as e:
+            raise ElementError(
+                f"{self.name}: cannot stat device {self.device!r}: {e}") from e
+        if self.io_mode == "native" or (self.io_mode == "auto"
+                                        and stat.S_ISCHR(st.st_mode)):
+            raise ElementError(
+                f"{self.name}: the V4L2 character-device backend (io-mode="
+                f"native, or a character device under io-mode=auto: "
+                f"{self.device!r}) is not ported; feed raw frames from a file "
+                "or a FIFO with io-mode=raw")
+        self._reader = _RawReader(self.name, self.device)
+
+    def stop(self) -> None:
+        if self._reader is not None:
+            self._reader.close()
+            self._reader = None
+
+    def generate(self):
+        stop = getattr(self, "_stop_event", None) or threading.Event()
+        num = self.num_buffers if self.num_buffers >= 0 else 1 << 62
+        frame_ns = int(1e9 * self.rate[1] / max(1, self.rate[0]))
+        bpp = _V4L2_FORMATS[self.format][1]
+        need = self._frame_bytes()
+        for i in range(num):
+            if stop.is_set():
+                return
+            data = self._reader.read(need, stop)
+            if data is None:
+                return  # EOF, or stop
+            raw = np.frombuffer(data, np.uint8)
+            yield Buffer([raw.reshape(self.height, self.width, bpp)],
+                         pts=i * frame_ns)

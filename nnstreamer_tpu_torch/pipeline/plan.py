@@ -95,10 +95,11 @@ def chain_device(elements: List[Element]) -> Optional[torch.device]:
 
 def source_device(graph: PipelineGraph, elements: Dict[int, Element],
                   nid: int) -> Optional[torch.device]:
-    """Where the device source ``nid`` generates, folded or not: on the
-    device of the first element below it bound to one (its filter's
-    ``accelerator=``), found through single edges; None when there is
-    none, and the source then takes the card (raising without one)."""
+    """Where the device source ``nid`` generates, folded or not (or where
+    a ``device=true`` aggregator keeps its ring): on the device of the
+    first element below it bound to one (its filter's ``accelerator=``),
+    found through single edges; None when there is none, and the source
+    then takes the card (raising without one)."""
     while True:
         outs = graph.out_edges(nid)
         if len(outs) != 1:
@@ -323,8 +324,12 @@ def plan_stages(graph: PipelineGraph, elements: Dict[int, Element], *,
     order = graph.topo_order()
     for node in order:
         el = elements[node.id]
-        if isinstance(el, SourceElement) and getattr(el, "device", None) is True:
+        if getattr(el, "device", None) is not True:
+            continue
+        if isinstance(el, SourceElement):
             el.gen_device = source_device(graph, elements, node.id)
+        elif hasattr(el, "ring_device"):  # tensor_aggregator device=true
+            el.ring_device = source_device(graph, elements, node.id)
 
     def single(nid: int) -> Stage:
         b = _element_batchable(elements[nid])

@@ -83,11 +83,16 @@ def test_registry_is_the_ports_own():
     from nnstreamer_tpu.core import registry as jax_registry
 
     assert ntt.registry.names("element") == [
-        "appsrc", "audiotestsrc", "fakesink", "join", "tee", "tensor_converter",
-        "tensor_crop", "tensor_decoder", "tensor_demux", "tensor_filter",
-        "tensor_merge", "tensor_mux", "tensor_query_client",
-        "tensor_query_serversink", "tensor_query_serversrc", "tensor_sink",
-        "tensor_split", "tensor_transform", "videotestsrc"]
+        "appsrc", "audiotestsrc", "compositor", "fakesink", "filesink", "filesrc",
+        "join", "queue", "tee", "tensor_aggregator", "tensor_converter",
+        "tensor_crop", "tensor_debug", "tensor_decoder", "tensor_demux",
+        "tensor_filter", "tensor_if", "tensor_merge", "tensor_mux",
+        "tensor_query_client", "tensor_query_serversink", "tensor_query_serversrc",
+        "tensor_rateadjust", "tensor_reposink", "tensor_reposrc", "tensor_sink",
+        "tensor_sparse_dec", "tensor_sparse_enc", "tensor_split", "tensor_src_iio",
+        "tensor_transform", "v4l2src", "videoconvert", "videoscale", "videotestsrc"]
+    assert ntt.registry.get("element", "tensor_aggregator").__module__ == \
+        "nnstreamer_tpu_torch.elements.aggregator"
     assert ntt.registry.get("element", "tee").__module__ == \
         "nnstreamer_tpu_torch.elements.routing"
     assert ntt.registry.names("converter") == ["flatbuf", "flexbuf", "protobuf",
@@ -200,6 +205,30 @@ CAMERA_MODULES = ["converters.serialize", "decoders.serialize",
 
 @pytest.mark.parametrize("module", CAMERA_MODULES)
 def test_camera_modules_import_without_jax(module):
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module('nnstreamer_tpu_torch.{module}')\n"
+        "assert 'jax' not in sys.modules\n"
+        "bad = sorted(m for m in sys.modules if m.startswith('nnstreamer_tpu.') "
+        "or m == 'nnstreamer_tpu')\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+#: the sensor, file-replay and stream-element slice's modules, each
+#: imported alone in a fresh process
+STREAM_MODULES = ["elements.source", "elements.sink", "elements.aggregator",
+                  "elements.video", "elements.cond", "elements.rate", "elements.repo",
+                  "elements.sparse", "elements.debug"]
+
+
+@pytest.mark.parametrize("module", STREAM_MODULES)
+def test_stream_modules_import_without_jax(module):
     code = (
         "import importlib, sys\n"
         f"importlib.import_module('nnstreamer_tpu_torch.{module}')\n"
