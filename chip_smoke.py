@@ -123,30 +123,33 @@ Phases, each of which must pass:
              prefill twin through flash at D = 32, its propose steps
              through paged at G = 2, D = 32).  Launches per round and
              chunk, the propose and verify steps one census signature
-             each and no capture after the warm-up, no decode step; every
-             stream replayed at the verify shape (each token its step's
-             argmax) and at the decode shape against the continuous
-             phase's tokens (equal, or apart first at a near tie of
-             ``SPEC_TIE``), the logits spread between the two shapes, the
+             each and no capture after the warm-up, no decode step; two
+             streams (``SPEC_REPLAYED``: each wave's shortest prompt)
+             replayed at the verify shape (each token its step's argmax)
+             and at the decode shape against the continuous phase's
+             tokens (equal, or apart first at a near tie of
+             ``SPEC_TIE``), and in f32 at both shapes, the logits spread
+             between the shapes, the
              accept rate, rounds, target dispatches per token and tok/s
              beside the continuous phase's, and the round's captured steps
              timed against the decode step.  A sampled run
              (``temperature:0.8,seed:1``) twice, bitwise, one sampled
              signature each; the accept path at llama_small f32 with a
              same-weights draft (accept rate, streams equal to no draft).
-8. files   — a model FILE at llama2_7b's full width: the seed-0 bf16
-             tree (what the zoo's ``quant:int4`` draws and quantizes) is
-             written as a 13.5 GB BF16 GGUF with an embedded SentencePiece
-             vocab (32,000 pieces) and as a 2-layer HF checkpoint directory
-             (two shards, index, config.json; loaded back bitwise), under
-             build/files/ (removed after; the depth is cut when disk or host
-             memory is short).  The GGUF serves the continuous cell's
+8. files   — a model FILE at llama2_7b's full width and ``FILES_LAYERS``
+             (8) layers, on every machine: the seed-0 bf16 tree (what the
+             zoo's ``quant:int4`` draws and quantizes) is written as a
+             3.6 GB BF16 GGUF with an embedded SentencePiece vocab (32,000
+             pieces) and as a 2-layer HF checkpoint directory (two shards,
+             index, config.json; loaded back bitwise), under build/files/
+             (removed after).  The GGUF serves the continuous cell's
              traffic (``model=<file>``, ``stop_eos:0``) with ``quant:int4``
-             (8 streams bitwise equal to the continuous phase's, launches
-             per step and chunk) and ``quant:int8`` (two streams against
-             teacher-forced ``forward_paged``; no int4 launch); the
+             (8 streams bitwise equal to the zoo model's at that depth,
+             launches per step and chunk) and ``quant:int8`` (two streams
+             against teacher-forced ``forward_paged``; no int4 launch); the
              captured decode step of int8, int4 and bf16 weights is timed
-             (CUDA events over replays); one static text request ("hello
+             at the full 32 layers on the zoo's model (CUDA events over
+             replays); one static text request ("hello
              world" as bytes, ``stop_eos`` at its default, on) comes back as
              the vocab's pieces.  Prints load seconds, GB/s from the file,
              peak memory of each load and serve, and the phase's seconds.
@@ -249,9 +252,9 @@ Phases, each of which must pass:
              equal the host argmax of the same logits.  ``--profile``
              writes each stage's kernels to chiprun_out/profile_models.txt.
 13. batching — micro-batching, no kernel of csrc/: the README quick-start
-             fed ONE frame per buffer (``dimensions=3:224:224:1``, 2,048
+             fed ONE frame per buffer (``dimensions=3:224:224:1``, 1,024
              seeded uint8 frames, queues 64 deep, no max-inflight),
-             mobilenet_v1 224 bf16, ``batch_max`` 1 against 32, three runs
+             mobilenet_v1 224 bf16, ``batch_max`` 1 against 32, two runs
              each in turns, streaming (a pusher thread against the pulls):
              frames/s, p50/p99 per frame, the occupancy histogram, pad
              waste, the census (one one-buffer step and at most one step
@@ -288,15 +291,15 @@ Phases, each of which must pass:
              branches decode ``tensor_region`` (top 4) into
              ``tensor_crop``'s info pad and round-trip the detector's
              tensors through ``flexbuf``; the frame reaches ``tensor_crop``'s
-             raw pad from the first tee (``CAMERA``).  Three timed runs of
-             512 frames, pushed from a thread: frames/s, push-to-crop p50 and
+             raw pad from the first tee (``CAMERA``).  Two timed runs of
+             256 frames, pushed from a thread: frames/s, push-to-crop p50 and
              p99, the card's busy share (the stage's replay ms, CUDA events,
              times the frames over the wall time), the census (no capture
              after the warm-up), peak memory, ``crop.dropped`` (must stay 0).
              Every frame of every run: its crops are numpy slices of the
              frame pushed at the regions the tensor_region branch produced,
              which equal the host recompute from the wire's tensors; on a
-             fourth, checked run the wire's tensors are bitwise the
+             third, checked run the wire's tensors are bitwise the
              detector's.  The detector's stage must be on the card and its
              tee'd input not donated.  Then ``videotestsrc device=true
              pattern=random`` folded into the quick-start stage twice: two
@@ -310,8 +313,8 @@ Phases, each of which must pass:
              the card-resident ring (``device=true``) and once with the host
              carry.  A checked run of each: the first 32 windows (tapped at
              the aggregator) and their scores bitwise between the carries,
-             the ring allocated once and its edge counted resident.  Three
-             timed runs of 512 windows, the carries in turns: windows/s
+             the ring allocated once and its edge counted resident.  Two
+             timed runs of 256 windows, the carries in turns: windows/s
              between the first and last window at the sink, every score
              bitwise between the carries; the filter's card ms a window
              (its eager forward, CUDA events behind a 10 ms spin) and busy
@@ -326,10 +329,10 @@ Phases, each of which must pass:
              normalisation, ssd_mobilenet 320 (91 classes, bf16) and
              ``bounding_boxes option3=0.0 option4=640:480`` into the
              compositor's overlay pad, the other through ``queue`` to its
-             base pad (``V4L2``).  A checked run of 512 frames (every group
+             base pad (``V4L2``).  A checked run of 192 frames (every group
              the compositor blends: its base is the camera's frame of that
              pts, the output is that frame where the overlay is clear and
-             the overlay where it is opaque), then two timed runs: frames/s,
+             the overlay where it is opaque), then one timed run: frames/s,
              write-to-sink p50 and p99, ``<stage>.proc`` by stage; every
              frame in order, the writer joined, EOS.  A run whose writer
              stalls 2 s after 16 frames is stopped during the stall and must
@@ -339,6 +342,42 @@ Phases, each of which must pass:
              copies: ``tensor_if`` (``TENSOR_AVERAGE_VALUE`` and
              ``META_VALUE``), a ``tensor_sparse_enc`` / ``_dec`` round trip
              (float32 and bf16, wire bytes equal) and a bf16 ``filesink``.
+17. transport — remote offload, no kernel of csrc/.  Remote detection:
+             raw 320x320 RGB frames (the camera phase's) from ``appsrc`` into
+             ``edgesink port=0``; a second pipeline ``edgesrc !
+             tensor_converter ! tensor_transform ! tensor_filter`` on
+             ssd_mobilenet 320 bf16, its ``bounding_boxes`` decode on the
+             card, into ``mqttsink`` to this package's broker; a third
+             ``mqttsrc ! tensor_sink`` (``REMOTE_*``).  At most
+             ``TRANSPORT_WINDOW`` frames in flight (no queue on the way can
+             drop).  A checked run of 256 frames, every frame's detections
+             bitwise equal to the same frames through one local pipeline,
+             then two timed runs, held so after the timing: frames/s,
+             push-to-receive p50 and p99,
+             ``<stage>.proc`` by stage, the detector's card ms and busy
+             share, the census (no capture after the warm-up).  shm across
+             two processes: this script run with ``--shm-producer`` puts
+             128 frames on the card, normalises them to bf16 there and into
+             ``shmsink`` (a segment named after this process's pid);
+             ``shmsrc`` here feeds mobilenet_v1 224; every logit bitwise
+             equal to a local run, the producer exited 0 (waited for, and
+             killed in a ``finally``), its segment gone.  datarepo: 64
+             seeded frames through ``datareposink``, replayed by
+             ``datareposrc is-shuffle=true epochs=2`` into mobilenet_v1:
+             the recomputed order, every logit bitwise.  Frameworks:
+             ``framework=pytorch`` with a user ``nn.Module`` over
+             mobilenet_v1's weights and with its TorchScript trace (a file),
+             both on the card, against the fused stage of the zoo model
+             (within ``VISION_TOL``); ``SingleShot`` of the zoo model bitwise
+             equal to the pipeline.  gRPC: with ``grpcio``, a bf16 round
+             trip bitwise; without it, the elements' clear error.  Prints
+             which happened.
+
+Each phase prints ``phase: <name> <seconds> s`` when it ends and runs
+under its deadline (``PHASE_DEADLINE_S``: past it faulthandler prints
+every thread's stack and the run exits non-zero); no wait of the script
+is longer than ``WAIT_S``.  ``total: <seconds> s`` comes before the
+``{"kernels": ...}`` line; the run's budget is ``BUDGET_S`` (400 s).
 
 ``--yolo-bucket <tree> ...`` instead times yolov5s 640's bucket-8 step
 (one replay, CUDA events) with the port of each given tree (a ``git
@@ -356,6 +395,8 @@ ms per decode step and idle share over that run.
 """
 
 import contextlib
+import faulthandler
+import functools
 import gc
 import json
 import os
@@ -370,6 +411,51 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 #: published H100 rates (NVIDIA data sheet, dense): device memory bytes/s
 #: and bf16 tensor-core flop/s, for the SXM part and the PCIe part
 RATES = {"sxm": (3.35e12, 989e12), "pcie": (2.0e12, 756e12)}
+
+#: the longest any one wait of this script may take (a pull, a join, an
+#: event, a child process): a stuck wait fails within it, with its stack
+WAIT_S = 60
+#: each phase's deadline in seconds: about 2.5 times its time in the
+#: slower of two H100 runs (PERF.md section 4; the host-bound phases ran
+#: up to 1.46 times slower in one run than in the other), and at least
+#: 30 s; past it faulthandler prints every thread's stack and the process
+#: exits non-zero.  Their sum (970 s) stays under the 1,200 s the run is
+#: given, so a hang anywhere ends the run inside it
+PHASE_DEADLINE_S = dict(
+    build=70, kernels=60, serve=30, continuous=55, query=50, prefix=70, spec=150,
+    files=65, elastic=60, reference=30, vision=35, models=40, batching=90,
+    camera=30, asr=30, v4l2=50, transport=55)
+#: the run's budget, every phase and the kernel build included
+BUDGET_S = 400
+
+
+class PhaseClock:
+    """Times each phase of the run under its deadline: ``with
+    phase("name"):`` arms ``faulthandler`` for ``PHASE_DEADLINE_S[name]``
+    seconds, and prints ``phase: name <seconds> s`` when the phase ends;
+    ``total()`` prints ``total:``, the seconds since the clock was made,
+    against ``BUDGET_S``."""
+
+    def __init__(self):
+        self.start = time.perf_counter()
+        self.seconds = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        t0 = time.perf_counter()
+        faulthandler.dump_traceback_later(PHASE_DEADLINE_S[name], exit=True)
+        try:
+            yield
+        finally:
+            faulthandler.cancel_dump_traceback_later()
+        self.seconds[name] = s = time.perf_counter() - t0
+        print(f"phase: {name} {s:.1f} s", flush=True)
+
+    def total(self):
+        s = time.perf_counter() - self.start
+        print(f"total: {s:.1f} s (budget {BUDGET_S} s)", flush=True)
+        return s
+
 
 #: int4 mats: name -> (packed rows Din/2, out F, launches per decoded
 #: token of llama2_7b, output dtype name).  The five llama2_7b mats, the
@@ -601,7 +687,7 @@ def sass_counts(name, ops):
 
     out = subprocess.run([kernels.toolkit_program("cuobjdump"), "-sass",
                           str(kernels.library_path(name))],
-                         capture_output=True, text=True, timeout=300)
+                         capture_output=True, text=True, timeout=WAIT_S)
     check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
     return {op: out.stdout.count(op) for op in ops}
 
@@ -1067,7 +1153,7 @@ def phase_serve(dev, profile=False):
         pipe.push("src", prompt)
         outs, stamps = [], []
         for _ in range(MAX_NEW):
-            outs.append(pipe.pull("out", timeout=600))
+            outs.append(pipe.pull("out", timeout=WAIT_S))
             stamps.append(time.perf_counter())
         for i, buf in enumerate(outs):
             ids = buf.tensors[0]
@@ -1103,7 +1189,7 @@ def phase_serve(dev, profile=False):
         prof = profile_request(run, prompts[1]) if profile else None
         census_line = census_of(census, warm_captures)
         pipe.eos("src")
-        pipe.wait(timeout=120)
+        pipe.wait(timeout=WAIT_S)
     for r in requests:
         bucket = min(_next_bucket(r["prompt_len"]), 1023)
         want_int4 = 129 * (MAX_NEW - 1) + (129 if bucket <= 32 else 0)
@@ -1392,7 +1478,7 @@ class QueryClient:
 
         self.pipe = ntt.Pipeline(
             f"appsrc name=src ! tensor_query_client port={port} "
-            "timeout=600 ! tensor_sink name=out")
+            f"timeout={WAIT_S} ! tensor_sink name=out")
         self.bufs, self.arrived = [], []
         self.first = threading.Event()
         self.thread = None
@@ -1416,7 +1502,7 @@ class QueryClient:
     def _pull(self, n):
         try:
             for _ in range(n):
-                buf = self.pipe.pull("out", timeout=600)
+                buf = self.pipe.pull("out", timeout=WAIT_S)
                 self.bufs.append(buf)
                 self.arrived.append(buf.meta["_arrive_t"])
                 self.first.set()
@@ -1425,14 +1511,14 @@ class QueryClient:
             self.first.set()
 
     def join(self):
-        self.thread.join(timeout=900)
+        self.thread.join(timeout=WAIT_S)
         check(self.error is None, f"query client failed: {self.error!r}")
         check(not self.thread.is_alive(), "query client did not finish")
         return self.bufs
 
     def close(self):
         self.pipe.eos("src")
-        self.pipe.wait(timeout=120)
+        self.pipe.wait(timeout=WAIT_S)
         self.pipe.stop()
 
 
@@ -1480,7 +1566,7 @@ def phase_query(dev, serve, cont):
         for i in range(first):
             clients[i].push(prompts[i], MAX_NEW)
         for i in range(first):
-            check(clients[i].first.wait(600), f"query stream {i}: no first token")
+            check(clients[i].first.wait(WAIT_S), f"query stream {i}: no first token")
         for i in range(first, n_streams):
             clients[i].push(prompts[i], MAX_NEW)
         got = [c.join() for c in clients]
@@ -1695,7 +1781,7 @@ def serve_traffic(desc, prompts, groups, max_new, dev, inside=None, around=None,
                             if dev.type == "cuda" else None)
 
     def pull_one():
-        buf = pipe.pull("out", timeout=600)
+        buf = pipe.pull("out", timeout=WAIT_S)
         r = buf.meta["req"]
         got[r].append(buf)
         first_at.setdefault(r, time.perf_counter())
@@ -1732,7 +1818,7 @@ def serve_traffic(desc, prompts, groups, max_new, dev, inside=None, around=None,
                 pull_one()
             t_end = time.perf_counter()
             pipe.eos("src")
-            pipe.wait(timeout=120)  # the loop has drained: nothing in flight
+            pipe.wait(timeout=WAIT_S)  # the loop has drained: nothing in flight
             if dev.type == "cuda":
                 torch.cuda.synchronize()
             res["drained_s"] = time.perf_counter() - t_start
@@ -1930,6 +2016,11 @@ SPEC_TIE = BF16_REF_TOL
 #: the decode shape's (llama2_7b int4, random weights, on an H100: each
 #: 8.5-11.8% of max |logit| at its worst step, PERF.md section 6)
 SPEC_F32_RATIO = 1.3
+#: the streams replayed outside the loop, each at the verify and at the
+#: decode shape, and in f32 at both: each wave's shortest prompt (the
+#: replays are eager and host-bound, and a long prompt's prefill chunks
+#: cost the most of them)
+SPEC_REPLAYED = (0, 4)
 #: the accept path: llama_small at f32 (params and compute), no quant, its
 #: draft the same preset from the same seed, so the same weights
 ACCEPT_DESC = ("appsrc name=src ! tensor_filter name=llm framework=llm "
@@ -2054,13 +2145,15 @@ def spec_round_ms(fw, dev):
     return times
 
 
-def phase_spec(dev, cont, base=CONT_DESC, accept_desc=ACCEPT_DESC):
+def phase_spec(dev, cont, base=CONT_DESC, accept_desc=ACCEPT_DESC,
+               replayed_streams=SPEC_REPLAYED):
     """Speculative decoding at llama2_7b int4 with the llama_tiny draft, on
     the continuous cell's prompts and waves: greedy tokens held against
     the continuous phase's (``cont``) by the near-tie rule, the accept
     rate, rounds, target dispatches per token and tok/s beside the
     continuous cell's; a sampled run twice, bitwise; the accept path at
-    llama_small with a same-weights draft."""
+    llama_small with a same-weights draft.  ``replayed_streams`` are
+    replayed outside the loop, in bf16 and in f32."""
     import torch
 
     prompts = continuous_prompts()
@@ -2073,7 +2166,8 @@ def phase_spec(dev, cont, base=CONT_DESC, accept_desc=ACCEPT_DESC):
     def rule(fw, loop, res):
         models.update({m: f"dim{c.dim}_layers{c.n_layers}"
                        for m, c in (("target", fw.cfg), ("draft", fw.draft_cfg))})
-        for i, ids in enumerate(res["ids"]):
+        for i in replayed_streams:
+            ids = res["ids"][i]
             # the loop's own arithmetic: each stream replayed at the verify
             # shape (a row's result does not depend on the other rows), so
             # only a gap at rounding level is a near tie
@@ -2205,6 +2299,30 @@ FILES_TEXT_NEW = 16
 #: bytes the phase leaves free on the disk and in host memory (the GGUF
 #: is read three times and should stay in the page cache)
 FILES_SPARE = 4e9
+#: the GGUF's depth, the same on every machine: 3.6 GB at llama2_7b's full
+#: width; its streams are held against the zoo model at that depth, and
+#: the decode step is timed at the full 32 layers
+FILES_LAYERS = 8
+
+
+def full_step_ms(dev, quant, base=CONT_DESC):
+    """The continuous cell's captured decode step (``decode_step_ms``) on
+    the zoo's model at full depth with ``quant`` weights ("int4", "int8"
+    or "" for bf16)."""
+    import torch
+
+    import nnstreamer_tpu_torch as ntt
+
+    pipe = ntt.Pipeline(base.replace("quant:int4,", f"quant:{quant}," if quant else ""))
+    with pipe:
+        fw = pipe.element("llm").fw
+        fw.serve_loop()
+        ms = decode_step_ms(fw, dev) if dev.type == "cuda" else None
+        pipe.eos("src")
+        pipe.wait(timeout=WAIT_S)
+    del pipe, fw
+    torch.cuda.empty_cache()
+    return ms
 
 
 def files_desc(path, quant, base=CONT_DESC):
@@ -2217,11 +2335,11 @@ def files_desc(path, quant, base=CONT_DESC):
     return desc.replace("quant:int4,", f"quant:{quant}," if quant else "")
 
 
-def files_layers(cfg, root):
-    """How many of ``cfg``'s layers the GGUF can hold: the whole model
-    unless the disk under ``root`` (GGUF and HF directory) or the host's
-    available memory (the GGUF in the page cache) is short.  Returns
-    (layers, bytes per layer, fixed bytes, free disk, available memory)."""
+def files_room(cfg, root, layers):
+    """Check that the disk under ``root`` holds the GGUF of ``layers`` of
+    ``cfg``'s layers and the HF directory, and that host memory holds the
+    GGUF (it is read three times and should stay in the page cache).
+    Returns (free disk, available memory)."""
     import shutil
 
     from nnstreamer_tpu_torch.models import llama
@@ -2232,13 +2350,12 @@ def files_layers(cfg, root):
     with open("/proc/meminfo") as fh:
         mem = next(int(line.split()[1]) * 1024 for line in fh
                    if line.startswith("MemAvailable:"))
-    hf = fixed + FILES_HF_LAYERS * shapes
-    budget = min(disk - hf, mem) - FILES_SPARE
-    layers = min(cfg.n_layers, int((budget - fixed) // shapes))
-    check(layers >= FILES_HF_LAYERS,
+    gguf_b = fixed + layers * shapes
+    check(disk - fixed - FILES_HF_LAYERS * shapes - gguf_b >= FILES_SPARE
+          and mem - gguf_b >= FILES_SPARE,
           f"files: {disk / 1e9:.1f} GB of disk and {mem / 1e9:.1f} GB of host memory "
-          f"hold {layers} layers")
-    return layers, shapes, fixed, disk, mem
+          f"do not hold a {layers}-layer GGUF of {gguf_b / 1e9:.1f} GB")
+    return disk, mem
 
 
 def phase_files(dev, cont, base=CONT_DESC, cfg=None):
@@ -2271,7 +2388,8 @@ def phase_files(dev, cont, base=CONT_DESC, cfg=None):
     try:
         cfg = cfg or dataclasses.replace(llama.PRESETS["llama2_7b"], max_seq=1024)
         full = cfg.n_layers
-        layers, per_layer, fixed, disk, mem = files_layers(cfg, tmp)
+        layers = min(full, FILES_LAYERS)
+        disk, mem = files_room(cfg, tmp, layers)
         cfg = dataclasses.replace(cfg, n_layers=layers)
         out.update(layers=layers, disk_free_gb=disk / 1e9, mem_available_gb=mem / 1e9)
         pad = cfg.vocab - tokenizer.toy_vocab(FILES_MERGES).n_vocab
@@ -2312,18 +2430,17 @@ def phase_files(dev, cont, base=CONT_DESC, cfg=None):
             prompts, groups, MAX_NEW, dev)["ids"]
         lens = [len(p) for p in prompts]
 
-        def timed_step(fw, loop, res):
-            res["step_ms"] = decode_step_ms(fw, dev)
+        def tokenizer_of(fw, loop, res):
             res["file_tokenizer"] = (type(fw.tokenizer).__name__, fw.tokenizer.n_vocab,
                                      fw.stop_eos)
 
         def replayed(fw, loop, res):
             res["replayed"] = {i: dict(prompt_len=lens[i], **replay_stream(
                 fw, loop, prompts[i], res["ids"][i], dev)) for i in CONT_CHECKED}
-            timed_step(fw, loop, res)
+            tokenizer_of(fw, loop, res)
 
         runs = {}
-        for quant, inside in (("int4", timed_step), ("int8", replayed)):
+        for quant, inside in (("int4", tokenizer_of), ("int8", replayed)):
             r = runs[quant] = serve_traffic(files_desc(path, quant, base), prompts,
                                             groups, MAX_NEW, dev, inside=inside)
             check(r["file_tokenizer"] == ("SentencePieceTokenizer", cfg.vocab, False),
@@ -2344,15 +2461,19 @@ def phase_files(dev, cont, base=CONT_DESC, cfg=None):
         bf16 = dict(setup_s=time.perf_counter() - t0,
                     setup_peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
         with pipe:
-            fw = pipe.element("llm").fw
-            fw.serve_loop()
-            bf16["step_ms"] = decode_step_ms(fw, dev)
+            pipe.element("llm").fw.serve_loop()
             pipe.eos("src")
-            pipe.wait(timeout=120)
+            pipe.wait(timeout=WAIT_S)
         bf16["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         bf16["load_gb_s"] = out["gguf_gb"] / bf16["setup_s"]
         out["bf16"] = bf16
+        del pipe
         torch.cuda.empty_cache()
+
+        # the captured decode step by weight type at the model's full depth
+        # (the zoo's llama2_7b: the same shapes, kernels and weight types)
+        out["step_ms"] = {name: full_step_ms(dev, q, base) for name, q in (
+            ("int8", "int8"), ("int4", "int4"), ("bf16", ""))}
 
         # one static text request through the file's own vocab
         desc = re.sub(r"max_new:\d+,serve:continuous,slots:8,", f"max_new:{FILES_TEXT_NEW},",
@@ -2370,13 +2491,13 @@ def phase_files(dev, cont, base=CONT_DESC, cfg=None):
                   f"files text: prompt ids {text['prompt_ids']}")
             f0, q0 = attention.LAUNCHES.value, i4.LAUNCHES.value
             pipe.push("src", prompt)
-            bufs = [pipe.pull("out", timeout=600)]
+            bufs = [pipe.pull("out", timeout=WAIT_S)]
             while not bufs[-1].meta.get("stream_last"):
-                bufs.append(pipe.pull("out", timeout=600))
+                bufs.append(pipe.pull("out", timeout=WAIT_S))
             text["launches"] = {"flash_attention": attention.LAUNCHES.value - f0,
                                 "matmul_int4": i4.LAUNCHES.value - q0}
             pipe.eos("src")
-            pipe.wait(timeout=120)
+            pipe.wait(timeout=WAIT_S)
         text["ids"] = [int(b.tensors[0][0]) for b in bufs]
         pieces = [bytes(np.asarray(b.tensors[1])) for b in bufs]
         check(len(bufs) <= FILES_TEXT_NEW
@@ -2407,13 +2528,15 @@ def print_files(r):
                  f"tok/s in {x['window_s']:.2f} s" if "window_s" in x else
                  f", peak {x['peak_mem_gb']:.2f} GB")
         print(f"files: {q} load {x['setup_s']:.2f} s ({x['load_gb_s']:.2f} GB/s from "
-              f"the file), load peak {x['setup_peak_gb']:.2f} GB{serve}; captured "
-              f"decode step {x['step_ms']:.3f} ms", flush=True)
-    print(f"files: decode step ms int8 {r['int8']['step_ms']:.3f} / int4 "
-          f"{r['int4']['step_ms']:.3f} / bf16 {r['bf16']['step_ms']:.3f} "
-          f"(int8 / bf16 {r['int8']['step_ms'] / r['bf16']['step_ms']:.3f})", flush=True)
+              f"the file), load peak {x['setup_peak_gb']:.2f} GB{serve}", flush=True)
+    s = r["step_ms"]
+    if s["int8"] is not None:
+        print(f"files: decode step ms at {N_LAYERS} layers int8 {s['int8']:.3f} / int4 "
+              f"{s['int4']:.3f} / bf16 {s['bf16']:.3f} (int8 / bf16 "
+              f"{s['int8'] / s['bf16']:.3f})", flush=True)
     print(f"files: int4 from the GGUF: {r['int4_streams_equal']} of "
-          f"{len(r['int4']['ids'])} streams bitwise equal to the continuous phase's; "
+          f"{len(r['int4']['ids'])} streams bitwise equal to the zoo model's at "
+          f"{r['layers']} layers; "
           f"int8 tokens against forward_paged {r['int8']['replayed']}", flush=True)
     for q in ("int4", "int8"):
         print(f"files: {q} loop timeline {r[q]['timeline']}; launches "
@@ -2495,7 +2618,7 @@ class Tokens:
             return self.by_req[req][0].meta
 
 
-def wait_for(cond, what, timeout=600.0):
+def wait_for(cond, what, timeout=WAIT_S):
     t0 = time.perf_counter()
     while not cond():
         check(time.perf_counter() - t0 < timeout, f"timed out waiting for {what}")
@@ -2602,7 +2725,7 @@ def elastic_greedy(dev, cont, base):
         with ThreadPoolExecutor(len(ELASTIC_LIVE)) as ex:
             drained = {i: ex.submit(drain, ta.first_meta(i)["stream_id"])
                        for i in ELASTIC_LIVE}
-            drained = {i: f.result() for i, f in drained.items()}
+            drained = {i: f.result(timeout=WAIT_S) for i, f in drained.items()}
         for i in ELASTIC_LIVE:
             move(i, "file" if i == ELASTIC_FILE else "live", None,
                  via_file=i == ELASTIC_FILE, drained=drained[i])
@@ -2644,8 +2767,8 @@ def elastic_greedy(dev, cont, base):
         t_end = time.perf_counter()
         pa.eos("src")
         pb.eos("src")
-        pa.wait(timeout=120)
-        pb.wait(timeout=120)
+        pa.wait(timeout=WAIT_S)
+        pb.wait(timeout=WAIT_S)
         if on_card:
             torch.cuda.synchronize()
         res["launches"] = {k: c.value for k, c in counters.items()}
@@ -2750,8 +2873,8 @@ def elastic_sampled(dev, base):
         wait_for(lambda: ta.count("moved") + tb.count("moved") >= MAX_NEW, "the moved stream")
         pa.eos("src")
         pb.eos("src")
-        pa.wait(timeout=120)
-        pb.wait(timeout=120)
+        pa.wait(timeout=WAIT_S)
+        pb.wait(timeout=WAIT_S)
         res["launches"] = {k: c.value for k, c in counters.items()}
         res["stats"] = {k: la.stats[k] - stats0[0][k] + lb.stats[k] - stats0[1][k]
                         for k in stats0[0]}
@@ -2842,10 +2965,10 @@ def elastic_restart(dev, acc=""):
             for i in range(RESTART_BUFFERS):
                 p.push("src", ntt.Buffer([np.full((16,), float(i), np.float32)], pts=i))
                 if i == 0:
-                    outs.append(p.pull("out", timeout=120))
+                    outs.append(p.pull("out", timeout=WAIT_S))
                     captures = stage.census.captures
             p.eos("src")
-            p.wait(timeout=120)
+            p.wait(timeout=WAIT_S)
             while True:
                 try:
                     outs.append(p.pull("out", timeout=1))
@@ -3185,7 +3308,7 @@ def vision_host_fed(desc, frames, fuse=True, **pipe_kw):
     with pipe:
         for f in frames[:VISION_WARM]:
             pipe.push("src", f)
-            outs.append(pipe.pull("out", timeout=600))
+            outs.append(pipe.pull("out", timeout=WAIT_S))
         stage = names = None
         if fuse:
             stage, names = vision_stage(pipe)
@@ -3201,7 +3324,7 @@ def vision_host_fed(desc, frames, fuse=True, **pipe_kw):
         t0 = time.perf_counter()
         t.start()
         for i in range(len(frames) - VISION_WARM):
-            outs.append(pipe.pull("out", timeout=600))
+            outs.append(pipe.pull("out", timeout=WAIT_S))
             e2e.append((time.perf_counter() - push_ts[i]) * 1e3)
         wall = time.perf_counter() - t0
         t.join(timeout=60)
@@ -3210,7 +3333,7 @@ def vision_host_fed(desc, frames, fuse=True, **pipe_kw):
             census = census_of(stage.census, warm_captures)
             card_ms = stage_card_ms(stage)
         pipe.eos("src")
-        pipe.wait(timeout=120)
+        pipe.wait(timeout=WAIT_S)
         window_peak = pipe.element("out")._win_peak
     n = len(frames) - VISION_WARM
     lat = np.sort(np.asarray(e2e))
@@ -3234,19 +3357,19 @@ def vision_pulled(desc, n, keep, batch):
     outs = []
     with pipe:
         for _ in range(VISION_WARM):
-            outs.append(pipe.pull("out", timeout=600))
+            outs.append(pipe.pull("out", timeout=WAIT_S))
         stage, names = vision_stage(pipe)
         warm_captures = stage.census.captures
         t0 = time.perf_counter()
         for _ in range(n - VISION_WARM):
-            buf = pipe.pull("out", timeout=600)
+            buf = pipe.pull("out", timeout=WAIT_S)
             if len(outs) < keep:
                 outs.append(buf)
         wall = time.perf_counter() - t0
         frames = (n - VISION_WARM) * batch
         census = census_of(stage.census, warm_captures)
         card_ms = stage_card_ms(stage)
-        pipe.wait(timeout=120)
+        pipe.wait(timeout=WAIT_S)
     return outs, dict(frames_per_s=frames / wall, stages=names, census=census,
                       card_ms_per_batch=card_ms, stage=stage)
 
@@ -3306,7 +3429,7 @@ def phase_vision(dev, size=224, det_size=320, batch=VISION_BATCH, acc="",
         "dtype:float32 accelerator=true:cpu ! tensor_sink name=out")
     with ref:
         ref.push("src", frames[0])
-        logits = np.asarray(ref.pull("out", timeout=600).tensors[0])
+        logits = np.asarray(ref.pull("out", timeout=WAIT_S).tensors[0])
         ref.eos("src")
         ref.wait(timeout=60)
     top = np.sort(logits, axis=1)
@@ -3341,7 +3464,7 @@ def phase_vision(dev, size=224, det_size=320, batch=VISION_BATCH, acc="",
     for fuse in (True, False):
         pipe = ntt.Pipeline(tail, fuse=fuse)
         with pipe:
-            pipe.wait(timeout=300)
+            pipe.wait(timeout=WAIT_S)
             late.append([(np.atleast_1d(b.meta["label_index"]),
                           np.atleast_1d(b.meta["score"]))
                          for b in (pipe.pull("out", timeout=60) for _ in range(3))])
@@ -3577,7 +3700,7 @@ def _pulled(desc, n, fuse=True):
 
     pipe = ntt.Pipeline(desc, fuse=fuse)
     with pipe:
-        bufs = [pipe.pull("out", timeout=600) for _ in range(n)]
+        bufs = [pipe.pull("out", timeout=WAIT_S) for _ in range(n)]
     return [([np.asarray(t) for t in b.tensors], b.meta) for b in bufs]
 
 
@@ -3891,7 +4014,8 @@ def print_spec(r):
     diffs = [v.get("first_difference") for v in r["replayed"].values()]
     print(f"spec: greedy tokens by the near-tie rule (share {SPEC_TIE}): "
           f"{r['streams_equal_to_plain']} of {len(g['ids'])} streams equal to the "
-          f"continuous cell's, first differences at {diffs}; near ties "
+          f"continuous cell's; streams {list(r['replayed'])} replayed: first "
+          f"differences at {diffs}; near ties "
           f"{[v['near_ties'] for v in r['replayed'].values()]}", flush=True)
     print(f"spec: the same streams replayed at the [8, {SPEC_K + 1}] verify shape "
           f"{r['verify_replayed']}", flush=True)
@@ -3931,9 +4055,9 @@ def print_spec(r):
 #: classes, bf16, seed 0), drained into bucketed steps of up to
 #: BATCHING_MAX frames; no max-inflight, so the backlog is bounded by the
 #: queues (BATCHING_QUEUE) and the drain can fill its buckets
-BATCHING_FRAMES = 2048
+BATCHING_FRAMES = 1024
 BATCHING_MAX = 32
-BATCHING_RUNS = 3
+BATCHING_RUNS = 2
 BATCHING_QUEUE = 64
 PER_FRAME = ("appsrc name=src caps=other/tensors,dimensions=3:{size}:{size}:1,"
              "types=uint8 max-buffers={cap} ! " + NORM + " ! tensor_filter "
@@ -4053,7 +4177,7 @@ def hold_first(el):
 
     def held(pad, buf):
         started.set()
-        check(release.wait(600), "held stage never released")
+        check(release.wait(WAIT_S), "held stage never released")
         del el.process
         return orig(el, pad, buf)
 
@@ -4155,7 +4279,7 @@ def per_frame_run(dev, frames, batch_max, size=224, acc="", depth=2, donate=True
     outs, e2e, push_ts = [], [], {}
     with pipe:
         pipe.push("src", frames[0])
-        outs.append(pipe.pull("out", timeout=600))
+        outs.append(pipe.pull("out", timeout=WAIT_S))
         check(stage.device.type == dev.type, f"the stage runs on {stage.device}")
         if batch_max > 1:
             warm_buckets(stage, frames[0], batch_max)
@@ -4168,17 +4292,17 @@ def per_frame_run(dev, frames, batch_max, size=224, acc="", depth=2, donate=True
             if backlog:
                 started, release = hold_first(stage)
                 pipe.push("src", rest[0])
-                check(started.wait(600), "the held stage never started")
+                check(started.wait(WAIT_S), "the held stage never started")
                 for f in rest[1:]:
                     pipe.push("src", f)
                 runner = [r for r in pipe._unique_runners() if r.element is stage][0]
-                deadline = time.monotonic() + 600
+                deadline = time.monotonic() + WAIT_S
                 while len(runner.queue._dq) < len(rest) - 1:
                     check(time.monotonic() < deadline, "backlog never queued")
                     time.sleep(0.001)
                 t0 = time.perf_counter()
                 release.set()
-                outs.extend(pipe.pull("out", timeout=600) for _ in rest)
+                outs.extend(pipe.pull("out", timeout=WAIT_S) for _ in rest)
                 wall = time.perf_counter() - t0
             else:
                 def pusher():
@@ -4190,7 +4314,7 @@ def per_frame_run(dev, frames, batch_max, size=224, acc="", depth=2, donate=True
                 t0 = time.perf_counter()
                 t.start()
                 for i in range(len(rest)):
-                    outs.append(pipe.pull("out", timeout=600))
+                    outs.append(pipe.pull("out", timeout=WAIT_S))
                     e2e.append((time.perf_counter() - push_ts[i]) * 1e3)
                 wall = time.perf_counter() - t0
                 t.join(timeout=60)
@@ -4203,7 +4327,7 @@ def per_frame_run(dev, frames, batch_max, size=224, acc="", depth=2, donate=True
         reserved = ((torch.cuda.memory_reserved(dev) - base_reserved) / 1e9
                     if on_card else None)
         pipe.eos("src")
-        pipe.wait(timeout=120)
+        pipe.wait(timeout=WAIT_S)
     n = len(rest)
     hist = metrics.value_histograms().get(f"{stage.name}.batch_occupancy")
     drains = {}
@@ -4249,7 +4373,7 @@ def bucket_rows_bitwise(dev, frames, size, acc):
     [stage] = [s.element for s in pipe.stages if s.batchable]
     with pipe:
         pipe.push("src", frames[0])
-        pipe.pull("out", timeout=600)
+        pipe.pull("out", timeout=WAIT_S)
         from nnstreamer_tpu_torch.elements.base import SINK
 
         a = stage.process_batch(SINK, [ntt.Buffer([f]) for f in frames[:17]])
@@ -4257,7 +4381,7 @@ def bucket_rows_bitwise(dev, frames, size, acc):
         a = [o.resolve() for _, o in a]
         b = [o.resolve() for _, o in b[:17]]
         pipe.eos("src")
-        pipe.wait(timeout=120)
+        pipe.wait(timeout=WAIT_S)
     equal = sum(np.array_equal(x.meta["label_index"], y.meta["label_index"])
                 and np.array_equal(x.meta["score"], y.meta["score"])
                 for x, y in zip(a, b))
@@ -4289,7 +4413,7 @@ def batching_scaler(dev, acc="", n=SCALER_BUFFERS, dims=SCALER_DIMS):
             for i in range(64):
                 p.push("src", frames[i % 8])
             for _ in range(64):
-                p.pull("out", timeout=120)
+                p.pull("out", timeout=WAIT_S)
             if bmax > 1:
                 warm_buckets(f, frames[0], bmax)
             metrics.reset()
@@ -4301,9 +4425,10 @@ def batching_scaler(dev, acc="", n=SCALER_BUFFERS, dims=SCALER_DIMS):
                 t = threading.Thread(target=pusher, daemon=True)
                 t0 = time.perf_counter()
                 t.start()
-                outs = [p.pull("out", timeout=120) for _ in range(n)]
+                outs = [p.pull("out", timeout=WAIT_S) for _ in range(n)]
                 walls.append(time.perf_counter() - t0)
-                t.join()
+                t.join(timeout=WAIT_S)
+                check(not t.is_alive(), "the pusher never finished")
             snap = metrics.snapshot()
             p.eos()
             p.wait(timeout=60)
@@ -4379,12 +4504,12 @@ def batching_adaptive(dev, burst=ADAPTIVE_BURST, bursts=ADAPTIVE_BURSTS,
                         k += 1
                 for _ in range(n - 2):
                     for _ in range(burst):
-                        p.pull("out", timeout=300)
+                        p.pull("out", timeout=WAIT_S)
                     for _ in range(burst):
                         p.push("src", frames[k % 8])
                         k += 1
                 for _ in range(2 * burst):
-                    p.pull("out", timeout=300)
+                    p.pull("out", timeout=WAIT_S)
 
             cycle(warm_bursts)
             waste0 = metrics.snapshot().get("f.batch_pad_waste", 0.0)
@@ -4589,7 +4714,7 @@ def batching_profile(dev, frames, size):
     [stage] = [s.element for s in pipe.stages if s.batchable]
     with pipe:
         pipe.push("src", frames[0])
-        pipe.pull("out", timeout=600)
+        pipe.pull("out", timeout=WAIT_S)
         warm_buckets(stage, frames[0], BATCHING_MAX, buckets=[BATCHING_MAX])
         (st,) = stage._batcher._sets.values()
         vfn = torch.func.vmap(stage.composed)
@@ -4598,7 +4723,7 @@ def batching_profile(dev, frames, size):
                 vfn(tuple(st.inputs))
             torch.cuda.synchronize()
         pipe.eos("src")
-        pipe.wait(timeout=120)
+        pipe.wait(timeout=WAIT_S)
     avgs = prof.key_averages()
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "profile_batching.txt"), "w") as fh:
@@ -4661,8 +4786,8 @@ def print_batching(r):
               flush=True)
 
 
-CAMERA_FRAMES = 512
-CAMERA_RUNS = 3
+CAMERA_FRAMES = 256
+CAMERA_RUNS = 2
 CAMERA_INFLIGHT = 8
 CAMERA_REGIONS = 4
 CAMERA_WARM = 4
@@ -4767,9 +4892,9 @@ def camera_run(pipe, frames, pts0):
     t0 = time.perf_counter()
     t.start()
     for i in range(len(frames)):
-        crops.append(pipe.pull("crops", timeout=600))
+        crops.append(pipe.pull("crops", timeout=WAIT_S))
         lat.append((time.perf_counter() - push_ts[i]) * 1e3)
-        wires.append(pipe.pull("wire", timeout=600))
+        wires.append(pipe.pull("wire", timeout=WAIT_S))
     wall = time.perf_counter() - t0
     t.join(timeout=60)
     check(not t.is_alive(), "the camera pusher never finished")
@@ -4837,12 +4962,12 @@ def camera_random(dev, size, acc, batches=CAMERA_RANDOM_BATCHES,
 
         src.device_batch = tap
         with pipe:
-            labels = [np.asarray(pipe.pull("out", timeout=600).meta["label_index"])]
+            labels = [np.asarray(pipe.pull("out", timeout=WAIT_S).meta["label_index"])]
             warm = stage.census.captures
-            labels += [np.asarray(pipe.pull("out", timeout=600).meta["label_index"])
+            labels += [np.asarray(pipe.pull("out", timeout=WAIT_S).meta["label_index"])
                        for _ in range(batches - 1)]
             census = census_of(stage.census, warm)
-            pipe.wait(timeout=120)
+            pipe.wait(timeout=WAIT_S)
         check(stage.device.type == dev.type, f"the random-source stage runs on {stage.device}")
         runs.append((torch.cat(drawn), labels, census))
     (a, la, census), (b, lb, _) = runs
@@ -4915,7 +5040,7 @@ def phase_camera(dev, size=320, frames_n=CAMERA_FRAMES, runs=CAMERA_RUNS, acc=""
         out["peak_mem_gb"] = ((torch.cuda.max_memory_allocated(dev) - base) / 1e9
                               if on_card else None)
         pipe.eos("cam")
-        pipe.wait(timeout=120)
+        pipe.wait(timeout=WAIT_S)
     out["checked_frames"] = checked
     out["dropped"] = metrics.snapshot().get("crop.dropped", 0)
     for r in out["runs"]:
@@ -4954,8 +5079,8 @@ ASR = ("audiotestsrc device=true num-buffers={chunks} samplesperbuffer=4000 rate
        "freq=880 name=src ! tensor_aggregator frames_in=4000 frames_out=16000 "
        "frames_flush=4000 frames_dim=0 {mode}name=agg ! tensor_filter framework=jax "
        "model=speech_commands custom=dtype:float32 {acc} name=f ! tensor_sink name=out")
-ASR_WINDOWS = 512
-ASR_RUNS = 3
+ASR_WINDOWS = 256
+ASR_RUNS = 2
 #: windows (and their scores) held bitwise between the two carries
 ASR_CHECKED = 32
 #: buffers the aggregator takes alone under the sync-debug trap
@@ -4992,9 +5117,9 @@ def asr_run(mode, windows, acc, tap=False):
     t0 = time.perf_counter()
     with pipe:
         for _ in range(windows):
-            scores.append(np.asarray(pipe.pull("out", timeout=600).tensors[0]))
+            scores.append(np.asarray(pipe.pull("out", timeout=WAIT_S).tensors[0]))
             stamps.append(time.perf_counter())
-        pipe.wait(timeout=120)
+        pipe.wait(timeout=WAIT_S)
     snap = metrics.snapshot()
     names = [st.element.name for st in pipe.stages]
     return dict(scores=scores, windows=seen, pipe=pipe, wall_s=stamps[-1] - t0,
@@ -5141,8 +5266,8 @@ def print_asr(a):
 #: detector's 320 px and decoded into a 640x480 RGBA overlay, the other
 #: queued to the compositor's base pad)
 V4L2_W, V4L2_H = 640, 480
-V4L2_FRAMES = 512
-V4L2_RUNS = 2
+V4L2_FRAMES = 192
+V4L2_RUNS = 1
 #: the stall run: frames written before the writer stalls, and the stall
 V4L2_STALL_AFTER = 16
 V4L2_STALL_S = 2.0
@@ -5288,7 +5413,7 @@ def v4l2_run(tmp, tag, n, size, acc, custom, stall_after=None, stop_after=None,
     try:
         t0 = time.perf_counter()
         for i in range(want):
-            b = pipe.pull("out", timeout=600)
+            b = pipe.pull("out", timeout=WAIT_S)
             stamps.append(time.perf_counter())
             check(b.pts == i * frame_ns, f"frame {i} arrived as pts {b.pts}")
             x = np.asarray(b.tensors[0])
@@ -5297,7 +5422,7 @@ def v4l2_run(tmp, tag, n, size, acc, custom, stall_after=None, stop_after=None,
             check("detections" in b.meta, f"frame {i} carries no detections")
             lat.append((stamps[-1] - cam.written[i]) * 1e3)
         if stop_after is None:
-            pipe.wait(timeout=120)  # EOS: num-buffers reached
+            pipe.wait(timeout=WAIT_S)  # EOS: num-buffers reached
             out["wall_s"] = stamps[-1] - t0
             out["frames_per_s"] = (n - 1) / (stamps[-1] - stamps[0])
         else:
@@ -5350,7 +5475,7 @@ def v4l2_replay(tmp, n=V4L2_REPLAY):
         f"input-dim=3:{V4L2_W}:{V4L2_H}:1 input-type=uint8 ! filesink location={out_path}")
     t0 = time.perf_counter()
     with pipe:
-        pipe.wait(timeout=300)
+        pipe.wait(timeout=WAIT_S)
     wall = time.perf_counter() - t0
     with open(cam_path, "rb") as a, open(out_path, "rb") as b:
         same = a.read() == b.read()
@@ -5467,6 +5592,484 @@ def print_v4l2(v):
     print(f"v4l2: stream elements on card tensors {v['elements']}", flush=True)
 
 
+#: where the transport phase writes its datarepo set and TorchScript file
+#: (removed after)
+FILES_DIR = os.path.join(ROOT, "build", "files")
+#: the transport phase: frames of each remote run, timed runs, frames in
+#: flight between the pusher and the far end (well under every queue on
+#: the way: edgesink's and the broker's 64 per subscriber, the shm ring's
+#: 8 slots), warm-up frames
+TRANSPORT_FRAMES = 256
+TRANSPORT_RUNS = 2
+TRANSPORT_WINDOW = 8
+TRANSPORT_WARM = 4
+#: shm frames from the producer process, datarepo samples and epochs,
+#: frames through the framework and SingleShot checks
+SHM_FRAMES = 128
+REPO_SAMPLES = 64
+REPO_EPOCHS = 2
+FW_FRAMES = 16
+#: the remote detection cell: raw RGB frames published by edgesink, a
+#: second pipeline subscribing with edgesrc and publishing the decoded
+#: detections to the broker, a third subscribing with mqttsrc
+REMOTE_CAPS = "video/x-raw,format=RGB,width={size},height={size},framerate=30/1"
+REMOTE_DET = ("tensor_converter ! " + NORM + " ! tensor_filter framework=jax "
+              "model=ssd_mobilenet custom=size:{size},classes:91,batch:1{custom} {acc} ! "
+              "tensor_decoder mode=bounding_boxes option1=ssd option3=0.5 "
+              "option4={size}:{size} option6=16 option7=device option9=tensors")
+REMOTE_PUB = "appsrc name=cam caps=" + REMOTE_CAPS + " ! edgesink name=pub port=0 topic=cam"
+REMOTE_MID = ("edgesrc name=rx port={port} topic=cam ! " + REMOTE_CAPS + " ! "
+              + REMOTE_DET + " ! mqttsink name=tx port={broker} topic=det")
+REMOTE_SUB = "mqttsrc name=sub port={broker} topic=det ! tensor_sink name=out"
+REMOTE_LOCAL = ("appsrc name=cam caps=" + REMOTE_CAPS + " ! " + REMOTE_DET
+                + " ! tensor_sink name=out")
+#: the shm cell: the producer process normalises frames to bf16 where they
+#: lie (on the card) into shmsink; here shmsrc feeds mobilenet_v1
+SHM_PRODUCER = ("appsrc name=src caps=other/tensors,dimensions=3:{size}:{size}:1,"
+                "types=uint8 ! " + NORM + " ! tensor_transform mode=typecast "
+                "option=bfloat16 ! shmsink socket-path={name} buffers=8")
+MOBILENET = ("tensor_transform mode=typecast option=float32 ! tensor_filter "
+             "framework=jax model=mobilenet_v1 custom=size:{size},batch:1{custom} {acc} "
+             "! tensor_sink name=out")
+SHM_CONSUMER = ("shmsrc socket-path={name} num-buffers={n} connect-timeout={wait} ! "
+                "other/tensors,dimensions=3:{size}:{size}:1,types=bfloat16 ! " + MOBILENET)
+SHM_LOCAL = SHM_PRODUCER.split(" ! shmsink")[0] + " ! " + MOBILENET
+REPO_SINK = ("appsrc name=src caps=other/tensors,dimensions=3:{size}:{size}:1,types=uint8 "
+             "! datareposink location={data} json={meta}")
+REPO_SRC = ("datareposrc location={data} json={meta} epochs={epochs} is-shuffle=true "
+            "shuffle-seed={seed} ! " + NORM + " ! " + MOBILENET)
+REPO_LOCAL = ("appsrc name=src caps=other/tensors,dimensions=3:{size}:{size}:1,types=uint8 "
+              "! " + NORM + " ! " + MOBILENET)
+FW_FUSED = ("appsrc name=src caps=other/tensors,dimensions=3:{size}:{size}:1,types=float32 "
+            "! tensor_filter name=f framework=jax model=mobilenet_v1 "
+            "custom=size:{size},batch:1{custom} {acc} ! tensor_sink name=out")
+FW_TORCH = ("appsrc name=src caps=other/tensors,dimensions=3:{size}:{size}:1,types=float32 "
+            "! tensor_filter name=f framework=pytorch model={model} {acc} "
+            "! tensor_sink name=out")
+
+
+def tensor_bytes(t):
+    """(shape, dtype name, bytes) of a numpy array or a torch tensor."""
+    import numpy as np
+    import torch
+
+    if isinstance(t, torch.Tensor):
+        h = t.detach().cpu().contiguous()
+        raw = (h.view(torch.int16) if h.dtype == torch.bfloat16 else h).numpy()
+        return tuple(h.shape), str(h.dtype).replace("torch.", ""), raw.tobytes()
+    a = np.ascontiguousarray(t)
+    return a.shape, a.dtype.name, a.tobytes()
+
+
+def same_tensors(a, b):
+    return len(a) == len(b) and all(tensor_bytes(x) == tensor_bytes(y)
+                                    for x, y in zip(a, b))
+
+
+def windowed_run(push, pull, frames, pts0, window=TRANSPORT_WINDOW):
+    """Push ``frames`` (pts ``pts0 + i``) from a thread, at most ``window``
+    ahead of what this thread has pulled, and pull each in order ->
+    (buffers, push-to-pull ms per frame, wall seconds).  ``push(buf)``,
+    ``pull() -> buf``."""
+    import threading
+
+    import nnstreamer_tpu_torch as ntt
+
+    credits = threading.Semaphore(window)
+    push_ts, failed = {}, []
+
+    def pusher():
+        try:
+            for i, f in enumerate(frames):
+                if not credits.acquire(timeout=WAIT_S):
+                    raise TimeoutError(f"frame {pts0 + i}: no credit in {WAIT_S} s")
+                push_ts[i] = time.perf_counter()
+                push(ntt.Buffer([f], pts=pts0 + i))
+        except BaseException as e:  # noqa: BLE001 - reported by the puller
+            failed.append(e)
+
+    outs, lat = [], []
+    t = threading.Thread(target=pusher, daemon=True)
+    t0 = time.perf_counter()
+    t.start()
+    for i in range(len(frames)):
+        check(not failed, f"the pusher failed: {failed[:1]}")
+        buf = pull()
+        lat.append((time.perf_counter() - push_ts[i]) * 1e3)
+        check(buf.pts == pts0 + i, f"frame {pts0 + i}: got pts {buf.pts}")
+        outs.append(buf)
+        credits.release()
+    wall = time.perf_counter() - t0
+    t.join(timeout=WAIT_S)
+    check(not t.is_alive() and not failed, f"the pusher never finished: {failed[:1]}")
+    return outs, lat, wall
+
+
+def transport_remote(dev, size, frames_n, runs, acc, custom):
+    """The remote detection cell: edgesink -> edgesrc -> detector ->
+    mqttsink -> broker -> mqttsrc, every checked frame's detections
+    bitwise equal to the same frames through a local pipeline."""
+    import numpy as np
+
+    import nnstreamer_tpu_torch as ntt
+    from nnstreamer_tpu_torch.core.log import metrics
+    from nnstreamer_tpu_torch.utils.broker import MqttLiteBroker
+
+    frames = camera_frames(frames_n, size, seed=0)
+    warm = camera_frames(TRANSPORT_WARM, size, seed=1)
+    fmt = dict(size=size, acc=acc, custom=custom)
+    local = ntt.Pipeline(REMOTE_LOCAL.format(**fmt))
+    with local:
+        run = functools.partial(windowed_run, lambda b: local.push("cam", b),
+                                lambda: local.pull("out", timeout=WAIT_S))
+        run(warm, pts0=0)
+        want, _, _ = run(frames, pts0=len(warm))
+        local.eos("cam")
+        local.wait(timeout=WAIT_S)
+    out = dict(size=size, frames=frames_n, runs=[])
+    with MqttLiteBroker() as broker, ntt.Pipeline(REMOTE_PUB.format(**fmt)) as pub:
+        edge = pub.element("pub")
+        mid = ntt.Pipeline(REMOTE_MID.format(port=edge.bound_port, broker=broker.port,
+                                             **fmt))
+        sub = ntt.Pipeline(REMOTE_SUB.format(broker=broker.port))
+        stage, names = vision_stage(mid)
+        with mid, sub:
+            wait_for(lambda: edge._subs, "edgesrc to subscribe")
+            wait_for(lambda: broker.subscriber_count("det"), "mqttsrc to subscribe")
+            run = functools.partial(windowed_run, lambda b: pub.push("cam", b),
+                                    lambda: sub.pull("out", timeout=WAIT_S))
+            run(warm, pts0=0)
+            check(stage.device.type == dev.type, f"the detector runs on {stage.device}")
+            warm_captures = stage.census.captures
+            def bitwise(got):
+                n = sum(same_tensors(g.tensors, w.tensors) for g, w in zip(got, want))
+                check(n == frames_n, f"remote detection: {n} of {frames_n} frames "
+                      "bitwise equal to the local pipeline's")
+                return n
+
+            got, _, _ = run(frames, pts0=len(warm))
+            out["checked_frames"] = bitwise(got)
+            out["outputs"] = [tensor_bytes(t)[:2] for t in got[0].tensors]
+            for r in range(runs):
+                metrics.reset()
+                got, lat, wall = run(frames, pts0=len(warm) + (r + 1) * frames_n)
+                snap = metrics.snapshot()
+                check(snap.get("pub.dropped", 0) == 0, "edgesink dropped frames")
+                out["checked_frames"] += bitwise(got)  # after the timing
+                lat = np.sort(np.asarray(lat))
+                out["runs"].append(dict(
+                    frames_per_s=frames_n / wall, wall_s=wall,
+                    p50_ms=float(np.percentile(lat, 50)),
+                    p99_ms=float(np.percentile(lat, 99)),
+                    stage_ms={n: round(snap[f"{n}.proc.mean"] * 1e3, 4)
+                              for p in (pub, mid, sub) for n in
+                              (s.element.name for s in p.stages)
+                              if f"{n}.proc.mean" in snap}))
+            out["census"] = census_of(stage.census, warm_captures)
+            out["card_ms"] = stage_card_ms(stage)
+            out["stages"] = names
+            pub.eos("cam")
+            mid.wait(timeout=WAIT_S)
+    for r in out["runs"]:
+        r["busy_share"] = (None if out["card_ms"] is None
+                           else frames_n * out["card_ms"] / (r["wall_s"] * 1e3))
+    return out
+
+
+def shm_producer(name, frames_n, size, device):
+    """The shm cell's producer process: ``frames_n`` seeded frames, put on
+    ``device`` and normalised to bf16 there, into ``shmsink``.  It exits
+    within the transport phase's deadline, whatever becomes of the
+    consumer."""
+    import torch
+
+    import nnstreamer_tpu_torch as ntt
+
+    faulthandler.dump_traceback_later(PHASE_DEADLINE_S["transport"], exit=True)
+
+    dev = torch.device(device)
+    pipe = ntt.Pipeline(SHM_PRODUCER.format(size=size, name=name))
+    with pipe:
+        for i, f in enumerate(camera_frames(frames_n, size, seed=2)):
+            x = torch.from_numpy(f.reshape(1, size, size, 3)).to(dev)
+            pipe.push("src", ntt.Buffer([x], pts=i))
+        pipe.eos("src")
+        pipe.wait(timeout=WAIT_S)
+        stage = next(s.element for s in pipe.stages if s.element.kind == "fused")
+        print(f"shm producer: {frames_n} frames, stage {stage.name} on {stage.device}",
+              flush=True)
+    return 0
+
+
+def transport_shm(dev, size, frames_n, acc, custom):
+    """The shm cell across two processes: a producer process (this
+    script, ``--shm-producer``) fills the ring; ``shmsrc`` here feeds
+    mobilenet_v1.  Every logit bitwise equal to the local pipeline's;
+    the producer exited cleanly and its segment is gone."""
+    import numpy as np
+    import torch
+
+    import nnstreamer_tpu_torch as ntt
+
+    name = f"/nnstpu_smoke_{os.getpid()}"
+    fmt = dict(size=size, acc=acc, custom=custom)
+    local = ntt.Pipeline(SHM_LOCAL.format(**fmt))
+    with local:
+        for i, f in enumerate(camera_frames(frames_n, size, seed=2)):
+            local.push("src", ntt.Buffer([torch.from_numpy(
+                f.reshape(1, size, size, 3)).to(dev)], pts=i))
+        want = [local.pull("out", timeout=WAIT_S) for _ in range(frames_n)]
+        local.eos("src")
+        local.wait(timeout=WAIT_S)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--shm-producer",
+                             name, str(frames_n), str(size), str(dev)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        pipe = ntt.Pipeline(SHM_CONSUMER.format(name=name, n=frames_n, wait=WAIT_S, **fmt))
+        stage, _ = vision_stage(pipe)
+        with pipe:
+            got = [pipe.pull("out", timeout=WAIT_S) for _ in range(frames_n)]
+            pipe.wait(timeout=WAIT_S)
+        wall = time.perf_counter() - t0
+        stdout, stderr = proc.communicate(timeout=WAIT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=WAIT_S)
+    check(proc.returncode == 0, f"the shm producer exited {proc.returncode}: "
+          f"{stderr[-2000:]}")
+    check(stage.device.type == dev.type, f"the shm consumer runs on {stage.device}")
+    bitwise = sum(g.pts == w.pts and np.array_equal(np.asarray(g.tensors[0]),
+                                                     np.asarray(w.tensors[0]))
+                  for g, w in zip(got, want))
+    check(bitwise == frames_n, f"shm: {bitwise} of {frames_n} logits bitwise equal")
+    gone = not os.path.exists("/dev/shm/" + name.lstrip("/"))
+    check(gone, f"the producer left its segment {name}")
+    return dict(frames=frames_n, size=size, bitwise=bitwise, segment_gone=gone,
+                frames_per_s=frames_n / wall, wall_s=wall,
+                producer=stdout.strip().splitlines()[-1])
+
+
+def transport_repo(dev, size, n, epochs, acc, custom, seed=3):
+    """datareposink writes ``n`` seeded frames; datareposrc replays them
+    shuffled for ``epochs`` epochs through mobilenet_v1: each epoch in
+    the order ``(seed, epoch)`` gives, every logit bitwise equal to the
+    same frame's through a local pipeline."""
+    import numpy as np
+
+    import nnstreamer_tpu_torch as ntt
+
+    frames = [f.reshape(1, size, size, 3) for f in camera_frames(n, size, seed=4)]
+    os.makedirs(FILES_DIR, exist_ok=True)
+    data = os.path.join(FILES_DIR, "smoke_repo.bin")
+    meta = os.path.join(FILES_DIR, "smoke_repo.json")
+    fmt = dict(size=size, acc=acc, custom=custom, data=data, meta=meta)
+    try:
+        t0 = time.perf_counter()
+        with ntt.Pipeline(REPO_SINK.format(**fmt)) as sink:
+            for f in frames:
+                sink.push("src", f)
+            sink.eos("src")
+            sink.wait(timeout=WAIT_S)
+        write_s = time.perf_counter() - t0
+        check(os.path.getsize(data) == n * frames[0].nbytes, "datareposink's file size")
+        with ntt.Pipeline(REPO_LOCAL.format(**fmt)) as local:
+            want = []
+            for f in frames:
+                local.push("src", f)
+                want.append(np.asarray(local.pull("out", timeout=WAIT_S).tensors[0]))
+            local.eos("src")
+            local.wait(timeout=WAIT_S)
+        t0 = time.perf_counter()
+        src = ntt.Pipeline(REPO_SRC.format(epochs=epochs, seed=seed, **fmt))
+        stage, _ = vision_stage(src)
+        with src:
+            got = [src.pull("out", timeout=WAIT_S) for _ in range(n * epochs)]
+            src.wait(timeout=WAIT_S)
+        infer_s = time.perf_counter() - t0
+    finally:
+        for path in (data, meta):
+            if os.path.exists(path):
+                os.remove(path)
+    order = []
+    for epoch in range(epochs):
+        idx = list(range(n))
+        np.random.default_rng((seed, epoch)).shuffle(idx)
+        order += [(epoch, i) for i in idx]
+    check([(b.meta["epoch"], b.meta["sample_index"]) for b in got] == order,
+          "datareposrc's order is not the recomputed shuffle")
+    firsts = [[i for e, i in order if e == k] for k in range(min(epochs, 2))]
+    check(len(firsts) < 2 or firsts[0] != firsts[1], "two epochs replayed in the same order")
+    bitwise = sum(np.array_equal(np.asarray(b.tensors[0]), want[i])
+                  for b, (_, i) in zip(got, order))
+    check(bitwise == n * epochs, f"datarepo: {bitwise} of {n * epochs} logits bitwise")
+    check(stage.device.type == dev.type, f"the datarepo stage runs on {stage.device}")
+    return dict(samples=n, epochs=epochs, size=size, bitwise=bitwise,
+                write_samples_per_s=n / write_s, infer_samples_per_s=n * epochs / infer_s)
+
+
+def transport_frameworks(dev, size, n, acc, custom):
+    """``framework=pytorch`` with a user ``nn.Module`` and with its
+    TorchScript trace (a file), both on ``dev``, against the same
+    weights in the fused stage of ``framework=jax model=mobilenet_v1``;
+    ``SingleShot`` of that model bitwise equal to the pipeline."""
+    import numpy as np
+    import torch
+
+    import nnstreamer_tpu_torch as ntt
+    from nnstreamer_tpu_torch.filters.base import parse_custom_options
+    from nnstreamer_tpu_torch.filters.torch_fw import register_torch_module
+    from nnstreamer_tpu_torch.models import zoo
+
+    rng = np.random.default_rng(5)
+    xs = [rng.uniform(-1, 1, (1, size, size, 3)).astype(np.float32) for _ in range(n)]
+    opts = f"size:{size},batch:1{custom}"
+    bundle = zoo.build("mobilenet_v1", parse_custom_options(opts), device=dev)
+
+    class Net(torch.nn.Module):
+        def forward(self, x):
+            return bundle.apply_fn(bundle.params, x)
+
+    def run(desc):
+        pipe = ntt.Pipeline(desc)
+        with pipe:
+            outs = []
+            for x in xs:
+                pipe.push("src", x)
+                outs.append(np.asarray(pipe.pull("out", timeout=WAIT_S).tensors[0]))
+            el = pipe.element("f")
+            pipe.eos("src")
+            pipe.wait(timeout=WAIT_S)
+        return outs, el.device
+
+    fmt = dict(size=size, acc=acc, custom=custom)
+    fused, fused_dev = run(FW_FUSED.format(**fmt))
+    register_torch_module("smoke_mobilenet", Net())
+    t0 = time.perf_counter()
+    module, module_dev = run(FW_TORCH.format(model="smoke_mobilenet", **fmt))
+    module_s = time.perf_counter() - t0
+    os.makedirs(FILES_DIR, exist_ok=True)
+    path = os.path.join(FILES_DIR, "smoke_mobilenet.pt")
+    try:
+        with torch.no_grad():
+            torch.jit.trace(Net(), torch.from_numpy(xs[0]).to(dev)).save(path)
+        traced, traced_dev = run(FW_TORCH.format(model=path, **fmt))
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    with ntt.SingleShot(framework="jax", model="mobilenet_v1", custom=opts,
+                        accelerator=acc.split("=", 1)[1] if acc else "") as shot:
+        single = [shot.invoke(x)[0] for x in xs]
+
+    def err(a, b):
+        return max(float(np.abs(x - y).max() / max(np.abs(y).max(), 1e-30))
+                   for x, y in zip(a, b))
+
+    out = dict(frames=n, size=size, devices=sorted({str(d) for d in (
+                   fused_dev, module_dev, traced_dev)}),
+               module_vs_fused=err(module, fused), traced_vs_module=err(traced, module),
+               module_bitwise=all(np.array_equal(a, b) for a, b in zip(module, fused)),
+               singleshot_bitwise=all(np.array_equal(a, b) for a, b in zip(single, fused)),
+               module_ms=module_s * 1e3 / n)
+    check(out["devices"] == [str(dev)], f"the frameworks ran on {out['devices']}")
+    check(out["module_vs_fused"] <= VISION_TOL and out["traced_vs_module"] <= VISION_TOL,
+          f"framework=pytorch against the fused stage: {out}")
+    check(out["singleshot_bitwise"], "SingleShot differs from the pipeline")
+    return out
+
+
+def transport_grpc(dev, n=4):
+    """A bf16 round trip over gRPC (tensor_sink_grpc -> tensor_src_grpc),
+    bitwise; without grpcio, the elements' clear error at construction."""
+    import torch
+
+    import nnstreamer_tpu_torch as ntt
+
+    try:
+        import grpc  # noqa: F401
+    except ImportError:
+        try:
+            ntt.Pipeline("tensor_src_grpc port=0 ! tensor_sink name=out")
+        except Exception as e:  # noqa: BLE001 - the error is the result
+            check("grpcio is not installed" in str(e), f"gRPC without grpcio: {e!r}")
+            return dict(grpc=False, error=str(e).splitlines()[0][:160])
+        check(False, "tensor_src_grpc constructed without grpcio")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    xs = [torch.randn(1, 224, 224, 3, generator=gen, device=dev).to(torch.bfloat16)
+          for _ in range(n)]
+    src = ntt.Pipeline(f"tensor_src_grpc name=rx host=127.0.0.1 port=0 num-buffers={n} "
+                       "! tensor_sink name=out to-host=false")
+    with src:
+        port = src.element("rx").bound_port
+        with ntt.Pipeline(f"appsrc name=src ! tensor_sink_grpc host=127.0.0.1 "
+                          f"port={port}") as snd:
+            for x in xs:
+                snd.push("src", x)
+            got = [src.pull("out", timeout=WAIT_S) for _ in range(n)]
+            snd.eos("src")
+            snd.wait(timeout=WAIT_S)
+        src.wait(timeout=WAIT_S)
+    bitwise = sum(same_tensors(b.tensors, [x]) for b, x in zip(got, xs))
+    check(bitwise == n, f"gRPC bf16: {bitwise} of {n} bitwise")
+    return dict(grpc=True, port=port, bitwise=bitwise, dtype="bfloat16")
+
+
+def phase_transport(dev, size=320, frames_n=TRANSPORT_FRAMES, runs=TRANSPORT_RUNS,
+                    small=224, shm_n=SHM_FRAMES, repo_n=REPO_SAMPLES, fw_n=FW_FRAMES,
+                    acc="", custom=""):
+    """The slice's path: remote detection, shm across two processes,
+    datarepo replay, the torch framework and SingleShot, gRPC."""
+    out = {}
+    for key, fn in (
+            ("remote", lambda: transport_remote(dev, size, frames_n, runs, acc, custom)),
+            ("shm", lambda: transport_shm(dev, small, shm_n, acc, custom)),
+            ("repo", lambda: transport_repo(dev, small, repo_n, REPO_EPOCHS, acc, custom)),
+            ("torch", lambda: transport_frameworks(dev, small, fw_n, acc, custom)),
+            ("grpc", lambda: transport_grpc(dev))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        out[key]["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def print_transport(t):
+    r = t["remote"]
+    for i, x in enumerate(r["runs"]):
+        busy = "not measured" if x["busy_share"] is None else f"{x['busy_share']:.3f}"
+        print(f"transport: remote run {i} ssd_mobilenet {r['size']} over edge and MQTT: "
+              f"{x['frames_per_s']:.1f} frames/s over {r['frames']} frames, push to "
+              f"receive p50 {x['p50_ms']:.2f} ms p99 {x['p99_ms']:.2f} ms, busy share "
+              f"{busy}", flush=True)
+        print(f"transport: remote run {i} mean ms a buffer by stage {x['stage_ms']}",
+              flush=True)
+    card = "not measured" if r["card_ms"] is None else f"{r['card_ms']:.3f} ms"
+    print(f"transport: remote {r['checked_frames']} frames (the checked and timed runs) "
+          f"bitwise equal to the local pipeline's; detector {card} a frame on the card; outputs "
+          f"{r['outputs']}; stages {r['stages']}", flush=True)
+    print(f"census: transport {r['census']}", flush=True)
+    s = t["shm"]
+    print(f"transport: shm {s['frames']} frames {s['size']} px across two processes, "
+          f"{s['bitwise']} logits bitwise, segment gone {s['segment_gone']}, "
+          f"{s['frames_per_s']:.1f} frames/s with the producer's start-up; "
+          f"{s['producer']}", flush=True)
+    d = t["repo"]
+    print(f"transport: datarepo {d['samples']} samples x {d['epochs']} shuffled epochs, "
+          f"{d['bitwise']} logits bitwise; write {d['write_samples_per_s']:.1f} "
+          f"samples/s, replay {d['infer_samples_per_s']:.1f} samples/s", flush=True)
+    f = t["torch"]
+    print(f"transport: framework=pytorch on {f['devices']}: module against the fused "
+          f"stage {f['module_vs_fused']:.3g} (bitwise {f['module_bitwise']}), "
+          f"TorchScript against the module {f['traced_vs_module']:.3g}, "
+          f"{f['module_ms']:.2f} ms a frame; SingleShot bitwise {f['singleshot_bitwise']}",
+          flush=True)
+    g = t["grpc"]
+    print(f"transport: gRPC {'bf16 round trip ' + str(g['bitwise']) + ' bitwise' if g['grpc'] else 'not installed: ' + g['error']}",
+          flush=True)
+    print("transport: parts " + ", ".join(f"{k} {v['phase_s']:.1f} s"
+                                          for k, v in t.items()), flush=True)
+
+
 YOLO_BUCKET = 8
 YOLO_BUCKET_DESC = ("appsrc name=src caps=other/tensors,dimensions=3:{size}:{size}:1,"
                     "types=uint8 ! " + DIV + " ! tensor_filter framework=jax model=yolov5s "
@@ -5502,7 +6105,7 @@ def yolo_bucket_trees(trees):
     for tree in trees:
         out = subprocess.run([sys.executable, os.path.abspath(__file__),
                               "--yolo-bucket-one", os.path.abspath(tree)],
-                             capture_output=True, text=True, timeout=900)
+                             capture_output=True, text=True, timeout=WAIT_S)
         check(out.returncode == 0, f"{tree}: {out.stderr[-4000:]}")
         row = json.loads(out.stdout.strip().splitlines()[-1])
         print(f"yolo bucket: {tree} bucket {YOLO_BUCKET} step {row['ms']} ms "
@@ -5528,6 +6131,9 @@ def main():
 
     if "--yolo-bucket-one" in sys.argv[1:]:
         return yolo_bucket_one(sys.argv[sys.argv.index("--yolo-bucket-one") + 1])
+    if "--shm-producer" in sys.argv[1:]:
+        name, frames_n, size, device = sys.argv[sys.argv.index("--shm-producer") + 1:][:4]
+        return shm_producer(name, int(frames_n), int(size), device)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -5553,154 +6159,170 @@ def main():
         with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
             json.dump(detail, fh, indent=1)
 
-    t0 = time.perf_counter()
-    detail["build_s"] = kernels.build()
-    print(f"build: {detail['build_s']:.1f} s ({time.perf_counter() - t0:.1f} s wall)",
-          flush=True)
-    os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "kernel_build.log"), "w") as fh:
-        for name in kernels.SOURCES:
-            fh.write(f"== {name}\n{kernels.build_report(name)}\n")
-    evidence = detail["build_evidence"] = phase_build_evidence()
-    print(f"build: flash SASS {evidence['sass']}, bf16 kernels (D = 128, 64, 32) "
-          f"{evidence['bf16_kernels']}", flush=True)
-    print(f"build: int4 SASS {evidence['int4_sass']}, bf16 kernels (N = 8, 16, 32) "
-          f"{evidence['int4_bf16_kernels']}", flush=True)
-    print(f"build: paged SASS {evidence['paged_sass']}, bf16 split kernels "
-          f"(D = 32, 64, 128) {evidence['paged_bf16_kernels']}", flush=True)
+    phase = PhaseClock()
+    profile = "--profile" in sys.argv[1:]
+    with phase("build"):
+        detail["build_s"] = kernels.build()
+        print(f"build: {detail['build_s']:.1f} s", flush=True)
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "kernel_build.log"), "w") as fh:
+            for name in kernels.SOURCES:
+                fh.write(f"== {name}\n{kernels.build_report(name)}\n")
+        evidence = detail["build_evidence"] = phase_build_evidence()
+        print(f"build: flash SASS {evidence['sass']}, bf16 kernels (D = 128, 64, 32) "
+              f"{evidence['bf16_kernels']}", flush=True)
+        print(f"build: int4 SASS {evidence['int4_sass']}, bf16 kernels (N = 8, 16, 32) "
+              f"{evidence['int4_bf16_kernels']}", flush=True)
+        print(f"build: paged SASS {evidence['paged_sass']}, bf16 split kernels "
+              f"(D = 32, 64, 128) {evidence['paged_bf16_kernels']}", flush=True)
 
-    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    rows, streams = phase_kernels(dev, bw, peak, flush_buf.zero_)
-    del flush_buf
-    detail.update(kernels=rows, int4_two_streams=streams)
-    save()
-    torch.cuda.empty_cache()
+    with phase("kernels"):
+        flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+        rows, streams = phase_kernels(dev, bw, peak, flush_buf.zero_)
+        del flush_buf
+        detail.update(kernels=rows, int4_two_streams=streams)
+        save()
+        torch.cuda.empty_cache()
 
-    torch.cuda.reset_peak_memory_stats(dev)
-    serve = detail["serve"] = phase_serve(dev, profile="--profile" in sys.argv[1:])
-    if serve["profile"]:
-        pr = serve["profile"]
-        print(f"profile: request {pr['wall_ms']:.1f} ms, device busy "
-              f"{pr['device_busy_ms']:.1f} ms, idle share "
-              f"{pr['device_idle_share']:.3f}; top {pr['top_device_ms']}", flush=True)
-    for r in serve["requests"]:
-        print(f"serve: prompt {r['prompt_len']} (prefill rows {r['prefill_rows']}) "
-              f"ttft at sink {r['ttft_ms']:.1f} ms, prefill {r['prefill_ms']:.1f} ms, "
-              f"decode {r['decode_tok_s']:.2f} tok/s, request {r['request_s']:.2f} s, "
-              f"flash x{r['flash_launches']}, int4 x{r['int4_launches']}",
+    with phase("serve"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        serve = detail["serve"] = phase_serve(dev, profile=profile)
+        if serve["profile"]:
+            pr = serve["profile"]
+            print(f"profile: request {pr['wall_ms']:.1f} ms, device busy "
+                  f"{pr['device_busy_ms']:.1f} ms, idle share "
+                  f"{pr['device_idle_share']:.3f}; top {pr['top_device_ms']}", flush=True)
+        for r in serve["requests"]:
+            print(f"serve: prompt {r['prompt_len']} (prefill rows {r['prefill_rows']}) "
+                  f"ttft at sink {r['ttft_ms']:.1f} ms, prefill {r['prefill_ms']:.1f} ms, "
+                  f"decode {r['decode_tok_s']:.2f} tok/s, request {r['request_s']:.2f} s, "
+                  f"flash x{r['flash_launches']}, int4 x{r['int4_launches']}",
+                  flush=True)
+        print(f"census: static {serve['census']}", flush=True)
+        torch.cuda.empty_cache()
+
+    with phase("continuous"):
+        cont = detail["continuous"] = phase_continuous(dev, profile=profile)
+        for r in cont["streams"]:
+            print(f"continuous: prompt {r['prompt_len']}"
+                  f"{' (late)' if r['late_joiner'] else ''} ttft at sink "
+                  f"{r['ttft_ms']:.1f} ms (in the loop {r['loop_ttft_ms']:.1f}), decode "
+                  f"{r['decode_tok_s']:.2f} tok/s", flush=True)
+        print(f"continuous: loop timeline (ms) {cont['timeline']}", flush=True)
+        print(f"continuous: {cont['aggregate_tok_s']:.2f} tok/s over "
+              f"{cont['window_s']:.2f} s, {cont['decode_steps']} decode steps, "
+              f"{cont['prefill_chunks']} prefill chunks, launches {cont['launches']}, "
+              f"peak {cont['peak_mem_gb']:.2f} GB, warm-up {cont['warmup_s']:.1f} s",
               flush=True)
-    print(f"census: static {serve['census']}", flush=True)
-    torch.cuda.empty_cache()
-    cont = detail["continuous"] = phase_continuous(
-        dev, profile="--profile" in sys.argv[1:])
-    for r in cont["streams"]:
-        print(f"continuous: prompt {r['prompt_len']}"
-              f"{' (late)' if r['late_joiner'] else ''} ttft at sink "
-              f"{r['ttft_ms']:.1f} ms (in the loop {r['loop_ttft_ms']:.1f}), decode "
-              f"{r['decode_tok_s']:.2f} tok/s", flush=True)
-    print(f"continuous: loop timeline (ms) {cont['timeline']}", flush=True)
-    print(f"continuous: {cont['aggregate_tok_s']:.2f} tok/s over "
-          f"{cont['window_s']:.2f} s, {cont['decode_steps']} decode steps, "
-          f"{cont['prefill_chunks']} prefill chunks, launches {cont['launches']}, "
-          f"peak {cont['peak_mem_gb']:.2f} GB, warm-up {cont['warmup_s']:.1f} s",
-          flush=True)
-    print(f"continuous: tokens against forward_paged {cont['replayed']}", flush=True)
-    print(f"census: continuous {cont['census']}", flush=True)
-    print(f"continuous: host {cont['host_us_per_step']:.1f} us per decode step "
-          f"(issuing it){'' if cont['busy'] is None else ', traced: ' + str(cont['busy'])}",
-          flush=True)
-    for name, r in cont["graph_vs_eager"].items():
-        print(f"census: graph against eager at the 7B 8-slot step, {name}, "
-              f"{r['steps']} steps: tokens {r['tokens_equal']}, positions {r['positions_equal']}, pool "
-              f"{r['pool_equal']}; replay {r['graph_ms']:.3f} ms on the card, "
-              f"{r['graph_host_ms'] * 1e3:.1f} us host; eager {r['eager_ms']:.3f} ms, "
-              f"{r['eager_host_ms'] * 1e3:.1f} us host", flush=True)
-    torch.cuda.empty_cache()
-    query = detail["query"] = phase_query(dev, serve, cont)
-    for r in query["streams"]:
-        print(f"query: prompt {r['prompt_len']}"
-              f"{' (late)' if r['late_joiner'] else ''} first token at the client "
-              f"{r['ttft_ms']:.1f} ms, decode {r['decode_tok_s']:.2f} tok/s",
+        print(f"continuous: tokens against forward_paged {cont['replayed']}", flush=True)
+        print(f"census: continuous {cont['census']}", flush=True)
+        print(f"continuous: host {cont['host_us_per_step']:.1f} us per decode step "
+              f"(issuing it){'' if cont['busy'] is None else ', traced: ' + str(cont['busy'])}",
               flush=True)
-    print(f"query: {query['aggregate_tok_s']:.2f} tok/s over the wire in "
-          f"{query['window_s']:.2f} s (in process: {cont['aggregate_tok_s']:.2f} "
-          f"in {cont['window_s']:.2f} s); wire per token p50 "
-          f"{query['wire_ms_p50']:.3f} ms, p99 {query['wire_ms_p99']:.3f} ms; host "
-          f"{query['host_us_per_step']:.1f} us per decode step (in process "
-          f"{cont['host_us_per_step']:.1f}); {query['decode_steps']} decode steps, "
-          f"{query['prefill_chunks']} prefill chunks, launches {query['launches']}",
-          flush=True)
-    print(f"query: {query['bitwise_equal_streams']} of {len(query['streams'])} "
-          f"streams bitwise equal to the in-process run's; tokens against "
-          f"forward_paged {query['replayed']}", flush=True)
-    print(f"census: query {query['census']}", flush=True)
-    print(f"query: dead client {query['dead_client']}; static over the wire "
-          f"{query['static_over_wire']}", flush=True)
-    save()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    prefix = detail["prefix"] = phase_prefix(dev)
-    print_prefix(prefix)
-    print(f"prefix: phase {time.perf_counter() - t0:.1f} s", flush=True)
-    save()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    spec = detail["spec"] = phase_spec(dev, cont)
-    print_spec(spec)
-    print(f"spec: phase {time.perf_counter() - t0:.1f} s", flush=True)
-    save()
-    torch.cuda.empty_cache()
-    files = detail["files"] = phase_files(dev, cont)
-    print_files(files)
-    save()
-    torch.cuda.empty_cache()
-    elastic = detail["elastic"] = phase_elastic(dev, cont)
-    print_elastic(elastic, cont)
-    save()
-    torch.cuda.empty_cache()
-    detail["reference"] = []
-    for phase in (phase_reference, phase_reference_paged, phase_reference_bf16):
-        detail["reference"].append(phase(dev))
-        print(f"reference: {detail['reference'][-1]}", flush=True)
-    save()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    vision = detail["vision"] = phase_vision(
-        dev, profile="--profile" in sys.argv[1:])
-    vision["phase_s"] = time.perf_counter() - t0
-    print_vision(vision)
-    print(f"vision: phase {vision['phase_s']:.1f} s", flush=True)
-    save()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    models = detail["models"] = phase_models(dev, profile="--profile" in sys.argv[1:])
-    print_models(models)
-    print(f"models: phase {time.perf_counter() - t0:.1f} s", flush=True)
-    save()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    batching = detail["batching"] = phase_batching(
-        dev, profile="--profile" in sys.argv[1:])
-    print_batching(batching)
-    print(f"batching: phase {time.perf_counter() - t0:.1f} s", flush=True)
-    save()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    camera = detail["camera"] = phase_camera(dev)
-    print_camera(camera)
-    print(f"camera: phase {time.perf_counter() - t0:.1f} s", flush=True)
-    save()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    asr = detail["asr"] = phase_asr(dev)
-    print_asr(asr)
-    print(f"asr: phase {time.perf_counter() - t0:.1f} s", flush=True)
-    save()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    v4l2 = detail["v4l2"] = phase_v4l2(dev)
-    print_v4l2(v4l2)
-    print(f"v4l2: phase {time.perf_counter() - t0:.1f} s", flush=True)
+        for name, r in cont["graph_vs_eager"].items():
+            print(f"census: graph against eager at the 7B 8-slot step, {name}, "
+                  f"{r['steps']} steps: tokens {r['tokens_equal']}, positions "
+                  f"{r['positions_equal']}, pool {r['pool_equal']}; replay "
+                  f"{r['graph_ms']:.3f} ms on the card, "
+                  f"{r['graph_host_ms'] * 1e3:.1f} us host; eager {r['eager_ms']:.3f} ms, "
+                  f"{r['eager_host_ms'] * 1e3:.1f} us host", flush=True)
+        torch.cuda.empty_cache()
+
+    with phase("query"):
+        query = detail["query"] = phase_query(dev, serve, cont)
+        for r in query["streams"]:
+            print(f"query: prompt {r['prompt_len']}"
+                  f"{' (late)' if r['late_joiner'] else ''} first token at the client "
+                  f"{r['ttft_ms']:.1f} ms, decode {r['decode_tok_s']:.2f} tok/s",
+                  flush=True)
+        print(f"query: {query['aggregate_tok_s']:.2f} tok/s over the wire in "
+              f"{query['window_s']:.2f} s (in process: {cont['aggregate_tok_s']:.2f} "
+              f"in {cont['window_s']:.2f} s); wire per token p50 "
+              f"{query['wire_ms_p50']:.3f} ms, p99 {query['wire_ms_p99']:.3f} ms; host "
+              f"{query['host_us_per_step']:.1f} us per decode step (in process "
+              f"{cont['host_us_per_step']:.1f}); {query['decode_steps']} decode steps, "
+              f"{query['prefill_chunks']} prefill chunks, launches {query['launches']}",
+              flush=True)
+        print(f"query: {query['bitwise_equal_streams']} of {len(query['streams'])} "
+              f"streams bitwise equal to the in-process run's; tokens against "
+              f"forward_paged {query['replayed']}", flush=True)
+        print(f"census: query {query['census']}", flush=True)
+        print(f"query: dead client {query['dead_client']}; static over the wire "
+              f"{query['static_over_wire']}", flush=True)
+        save()
+        torch.cuda.empty_cache()
+
+    with phase("prefix"):
+        prefix = detail["prefix"] = phase_prefix(dev)
+        print_prefix(prefix)
+        save()
+        torch.cuda.empty_cache()
+
+    with phase("spec"):
+        spec = detail["spec"] = phase_spec(dev, cont)
+        print_spec(spec)
+        save()
+        torch.cuda.empty_cache()
+
+    with phase("files"):
+        files = detail["files"] = phase_files(dev, cont)
+        print_files(files)
+        save()
+        torch.cuda.empty_cache()
+
+    with phase("elastic"):
+        elastic = detail["elastic"] = phase_elastic(dev, cont)
+        print_elastic(elastic, cont)
+        save()
+        torch.cuda.empty_cache()
+
+    with phase("reference"):
+        detail["reference"] = []
+        for ref in (phase_reference, phase_reference_paged, phase_reference_bf16):
+            detail["reference"].append(ref(dev))
+            print(f"reference: {detail['reference'][-1]}", flush=True)
+        save()
+        torch.cuda.empty_cache()
+
+    with phase("vision"):
+        vision = detail["vision"] = phase_vision(dev, profile=profile)
+        print_vision(vision)
+        save()
+        torch.cuda.empty_cache()
+
+    with phase("models"):
+        detail["models"] = phase_models(dev, profile=profile)
+        print_models(detail["models"])
+        save()
+        torch.cuda.empty_cache()
+
+    with phase("batching"):
+        detail["batching"] = phase_batching(dev, profile=profile)
+        print_batching(detail["batching"])
+        save()
+        torch.cuda.empty_cache()
+
+    with phase("camera"):
+        detail["camera"] = phase_camera(dev)
+        print_camera(detail["camera"])
+        save()
+        torch.cuda.empty_cache()
+
+    with phase("asr"):
+        detail["asr"] = phase_asr(dev)
+        print_asr(detail["asr"])
+        save()
+        torch.cuda.empty_cache()
+
+    with phase("v4l2"):
+        detail["v4l2"] = phase_v4l2(dev)
+        print_v4l2(detail["v4l2"])
+        save()
+        torch.cuda.empty_cache()
+
+    with phase("transport"):
+        detail["transport"] = phase_transport(dev)
+        print_transport(detail["transport"])
 
     # one line per kernel: int4 per decoded token (129 launches at B=1),
     # with the same 129 launches at B=8 (a continuous decode step) and
@@ -5781,7 +6403,9 @@ def main():
              spec_launches=spec_shapes["paged_attention"]),
     ]
     detail["summary"] = summary
+    detail["phase_s"] = phase.seconds
     save()
+    phase.total()
     print(card)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

@@ -45,5 +45,6 @@ from .pipeline.parser import ParseError  # noqa: F401
 from .pipeline.parser import parse as parse_launch  # noqa: F401
 from .pipeline.graph import PipelineGraph  # noqa: F401
 from .pipeline.runtime import Pipeline, PipelineError  # noqa: F401
+from .elements.filter import SingleShot  # noqa: F401
 
 __version__ = "0.1.0"

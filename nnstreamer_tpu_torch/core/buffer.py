@@ -43,6 +43,15 @@ def _to_numpy(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def host_value(x):
+    """``x`` on the host as a numpy array; a bf16 tensor, which numpy
+    cannot hold, as a CPU torch tensor."""
+    if not isinstance(x, torch.Tensor):
+        return np.asarray(x)
+    x = x.detach().cpu()
+    return x if x.dtype == torch.bfloat16 else x.numpy()
+
+
 @dataclasses.dataclass
 class Buffer:
     """One pipeline buffer: a tuple of tensors + timing + metadata.

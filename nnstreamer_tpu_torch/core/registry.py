@@ -39,7 +39,10 @@ _builtins_loaded = False
 #: v4l2src), filesink, tensor_aggregator, the GStreamer base elements
 #: (queue, compositor, videoconvert, videoscale), tensor_if,
 #: tensor_rateadjust, tensor_reposink/reposrc, tensor_sparse_enc/dec,
-#: tensor_debug, and the custom-easy framework of the tests.
+#: tensor_debug, the remote transports (edgesink/edgesrc, mqttsink/mqttsrc,
+#: tensor_sink_grpc/tensor_src_grpc, shmsink/shmsrc), datareposink/src,
+#: the python3, torch/pytorch, onnxruntime and tflite frameworks, and the
+#: custom-easy framework of the tests.
 _BUILTIN_MODULES = [
     "nnstreamer_tpu_torch.elements.source",
     "nnstreamer_tpu_torch.elements.converter",
@@ -57,9 +60,17 @@ _BUILTIN_MODULES = [
     "nnstreamer_tpu_torch.elements.repo",
     "nnstreamer_tpu_torch.elements.sparse",
     "nnstreamer_tpu_torch.elements.debug",
+    "nnstreamer_tpu_torch.elements.edge",
+    "nnstreamer_tpu_torch.elements.mqtt",
+    "nnstreamer_tpu_torch.elements.grpc_io",
+    "nnstreamer_tpu_torch.elements.shm",
+    "nnstreamer_tpu_torch.elements.datarepo",
     "nnstreamer_tpu_torch.filters.llm",
     "nnstreamer_tpu_torch.filters.device_fw",
     "nnstreamer_tpu_torch.filters.custom_easy",
+    "nnstreamer_tpu_torch.filters.python3",
+    "nnstreamer_tpu_torch.filters.torch_fw",
+    "nnstreamer_tpu_torch.filters.gated",
     "nnstreamer_tpu_torch.decoders.image_labeling",
     "nnstreamer_tpu_torch.decoders.bounding_boxes",
     "nnstreamer_tpu_torch.decoders.pose",

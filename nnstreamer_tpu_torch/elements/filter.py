@@ -16,18 +16,21 @@ its live streams drain off the loop and are adopted by another
 (:meth:`TensorFilter.drain_serve_stream`, :meth:`adopt_serve_stream`).
 A filter with a pure callable runs a micro-batch drained from its queue
 as one bucketed step (:meth:`TensorFilter.process_batch`,
-``pipeline/batching.py``).
+``pipeline/batching.py``).  :meth:`TensorFilter.reload_model` swaps the
+model in place; :class:`SingleShot` invokes a framework without a
+pipeline.
 """
 
 from __future__ import annotations
 
 import functools
+import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..core.buffer import Buffer
+from ..core.buffer import Buffer, host_value
 from ..core.caps import Caps
 from ..core.config import get_config
 from ..core.log import logger, metrics
@@ -108,6 +111,7 @@ class TensorFilter(Element):
         self.fw: Optional[Framework] = None
         self.invoke_dynamic = bool(self.props.get("invoke_dynamic", False))
         self.latency_report = bool(self.props.get("latency", get_config().enable_latency))
+        self._in_spec: Optional[TensorsSpec] = None
         self._out_spec: Optional[TensorsSpec] = None
         self._up_spec: Optional[TensorsSpec] = None
         self._async_emit = None
@@ -124,6 +128,10 @@ class TensorFilter(Element):
         #: id(framework) -> (framework, BatchRunner): one entry, for the
         #: framework now loaded (a new one drops the old bucket steps)
         self._batchers: Dict[int, tuple] = {}
+        #: moving average of the seconds per invoke (``latency`` prop)
+        self._lat_ema: Optional[float] = None
+        #: held across a host invoke and around reload_model's swap
+        self._fw_lock = threading.Lock()
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> None:
@@ -190,6 +198,7 @@ class TensorFilter(Element):
                 )
         if fw_in is not None:
             fw.set_input_spec(fw_in)
+        self._in_spec = fw_in
         self._out_spec = fw_out
         final_out = self._combined_out_spec(fw_out)
         fmt = TensorFormat.FLEXIBLE if self.invoke_dynamic else TensorFormat.STATIC
@@ -247,7 +256,11 @@ class TensorFilter(Element):
         if fw.streaming:
             return self._stream(fw, buf)
         t0 = time.perf_counter()
-        outs = fw.invoke(self._select_inputs(buf.tensors))
+        with self._fw_lock:
+            # held across the invoke so that reload_model cannot close the
+            # framework under an in-flight call; a reload may have swapped
+            # it since the peek above
+            outs = self._ensure_fw().invoke(self._select_inputs(buf.tensors))
         self._record(time.perf_counter() - t0)
         final = self._compose_outputs(buf.tensors, list(outs))
         spec = (None if self.invoke_dynamic
@@ -416,3 +429,86 @@ class TensorFilter(Element):
     def _record(self, dt: float) -> None:
         if self.latency_report:
             metrics.observe_latency(f"{self.name}.invoke", dt)
+            self._lat_ema = dt if self._lat_ema is None else 0.9 * self._lat_ema + 0.1 * dt
+
+    # -- model reload (reference: tensor_filter_common.c ReloadModel) ------
+    def reload_model(self, model: Optional[object] = None) -> None:
+        """Swap the model without rebuilding the pipeline.
+
+        Builds a fresh framework from the element's props (``model``
+        overridden when given), checks that the new model's I/O spec still
+        matches what was negotiated, then swaps it in; an invoke in flight
+        finishes on the old framework.  A filter already captured into a
+        FUSED stage keeps running the captured program (the planner traced
+        it at plan time): the reload applies to the element's own invoke
+        path, as in the reference."""
+        props = dict(self.props)
+        if model is not None:
+            props["model"] = model
+        new_fw = _load_framework(props)
+        new_in, new_out = new_fw.get_model_info()
+        for have, new, what in ((self._in_spec, new_in, "input"),
+                                (self._out_spec, new_out, "output")):
+            if have is not None and new is not None and not have.is_flexible:
+                if len(have) != len(new) or not all(
+                        a.is_compatible(b) for a, b in zip(have, new)):
+                    new_fw.close()
+                    raise ElementError(
+                        f"{self.name}: reload {what} spec {new} does not "
+                        f"match negotiated {have}")
+        if new_in is not None:
+            new_fw.set_input_spec(self._in_spec or new_in)
+        with self._fw_lock:
+            old, self.fw = self.fw, new_fw
+            # a streaming framework may still be decoding on the old
+            # instance: dropping the reference frees it when that ends
+            if old is not None and not old.streaming:
+                old.close()
+        if model is not None:
+            self.props["model"] = model
+        log.info("%s: model reloaded (%s)", self.name, props.get("model"))
+
+    # -- introspection (reference: latency/throughput read-only props) -----
+    @property
+    def latency(self) -> Optional[float]:
+        """Moving-average seconds per invoke (recorded with ``latency=1``)."""
+        return self._lat_ema
+
+    @property
+    def throughput(self) -> Optional[float]:
+        return (1.0 / self._lat_ema) if self._lat_ema else None
+
+
+class SingleShot:
+    """Invoke a filter without a pipeline.
+
+    Reference analog: ``gsttensor_filter_single.c``, the basis of the ML
+    C-API's ``ml_single_open``/``ml_single_invoke``.  The framework runs
+    where its ``accelerator=`` says, the card by default; outputs come
+    back as host numpy arrays (bf16 as CPU torch tensors).
+
+    >>> s = SingleShot(framework="jax", model="mobilenet_v1")
+    >>> out = s.invoke(np.zeros((1, 224, 224, 3), np.float32))
+    """
+
+    def __init__(self, framework: str = "auto", model: object = "", **props):
+        p = dict(props)
+        p["framework"] = framework
+        p["model"] = model
+        self.fw = _load_framework(p)
+        self.in_spec, self.out_spec = self.fw.get_model_info()
+
+    def invoke(self, *arrays) -> List:
+        if len(arrays) == 1 and isinstance(arrays[0], (list, tuple)):
+            arrays = tuple(arrays[0])
+        outs = self.fw.invoke(list(arrays))
+        return [host_value(o) for o in outs]
+
+    def close(self) -> None:
+        self.fw.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

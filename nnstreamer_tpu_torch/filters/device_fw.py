@@ -4,8 +4,8 @@ The counterpart of ``nnstreamer_tpu/filters/jax_fw.py``.  It is
 registered as ``jax`` (with the JAX package's aliases) so that the JAX
 package's pipeline strings (``tensor_filter framework=jax
 model=mobilenet_v1 ...``) run here as written; the names ``torch`` and
-``pytorch`` stay free for the counterpart of the JAX package's
-``filters/torch_fw.py``, a host-CPU TorchScript filter.
+``pytorch`` belong to ``filters/torch_fw.py``, which runs a user's
+``nn.Module`` or TorchScript file.
 
 * The model is a zoo bundle built on the filter's device
   (:func:`~.base.resolve_device`: the card unless ``accelerator=true:cpu``;

@@ -83,14 +83,17 @@ def test_registry_is_the_ports_own():
     from nnstreamer_tpu.core import registry as jax_registry
 
     assert ntt.registry.names("element") == [
-        "appsrc", "audiotestsrc", "compositor", "fakesink", "filesink", "filesrc",
-        "join", "queue", "tee", "tensor_aggregator", "tensor_converter",
+        "appsrc", "audiotestsrc", "compositor", "datareposink", "datareposrc",
+        "edgesink", "edgesrc", "fakesink", "filesink", "filesrc", "join",
+        "mqttsink", "mqttsrc", "queue", "shmsink", "shmsrc", "tee",
+        "tensor_aggregator", "tensor_converter",
         "tensor_crop", "tensor_debug", "tensor_decoder", "tensor_demux",
         "tensor_filter", "tensor_if", "tensor_merge", "tensor_mux",
         "tensor_query_client", "tensor_query_serversink", "tensor_query_serversrc",
         "tensor_rateadjust", "tensor_reposink", "tensor_reposrc", "tensor_sink",
-        "tensor_sparse_dec", "tensor_sparse_enc", "tensor_split", "tensor_src_iio",
-        "tensor_transform", "v4l2src", "videoconvert", "videoscale", "videotestsrc"]
+        "tensor_sink_grpc", "tensor_sparse_dec", "tensor_sparse_enc", "tensor_split",
+        "tensor_src_grpc", "tensor_src_iio", "tensor_transform", "v4l2src",
+        "videoconvert", "videoscale", "videotestsrc"]
     assert ntt.registry.get("element", "tensor_aggregator").__module__ == \
         "nnstreamer_tpu_torch.elements.aggregator"
     assert ntt.registry.get("element", "tee").__module__ == \
@@ -99,7 +102,9 @@ def test_registry_is_the_ports_own():
                                                "python3"]
     assert ntt.registry.get("element", "tensor_query_client").__module__ \
         == "nnstreamer_tpu_torch.elements.query"
-    assert ntt.registry.names("filter") == ["custom-easy", "jax", "llm"]
+    assert ntt.registry.names("filter") == [
+        "custom-easy", "jax", "llm", "onnx", "onnxruntime", "python3", "pytorch",
+        "tensorflow-lite", "tensorflow1-lite", "tensorflow2-lite", "torch"]
     assert ntt.registry.get("filter", "custom-easy").__module__ == \
         "nnstreamer_tpu_torch.filters.custom_easy"
     port_llm = ntt.registry.get("filter", "llm")
@@ -107,10 +112,16 @@ def test_registry_is_the_ports_own():
     assert jax_registry.get("filter", "llm").__module__ == \
         "nnstreamer_tpu.filters.llm"
     # framework=jax runs the JAX package's strings on the port's device
-    # framework; torch/pytorch stay free for a TorchScript counterpart
+    # framework; torch/pytorch are the user-module framework
     assert ntt.registry.get("filter", "jax").__module__ == \
         "nnstreamer_tpu_torch.filters.device_fw"
-    assert ntt.registry.lookup("filter", "torch") is None
+    for name in ("torch", "pytorch"):
+        assert ntt.registry.get("filter", name).__module__ == \
+            "nnstreamer_tpu_torch.filters.torch_fw"
+    assert ntt.registry.get("filter", "python").__module__ == \
+        "nnstreamer_tpu_torch.filters.python3"
+    assert ntt.registry.get("element", "shmsrc").__module__ == \
+        "nnstreamer_tpu_torch.elements.shm"
     assert ntt.registry.names("decoder") == [
         "bounding_boxes", "ctc", "direct_video", "flatbuf", "flexbuf",
         "image_labeling", "image_segment", "octet_stream", "pose_estimation",
@@ -242,3 +253,32 @@ def test_stream_modules_import_without_jax(module):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+#: the remote-offload slice's modules, each imported alone in a fresh
+#: process
+TRANSPORT_MODULES = ["utils.watchdog", "elements.edge", "utils.broker", "elements.mqtt",
+                     "elements.grpc_io", "elements.shm", "elements.datarepo",
+                     "filters.python3", "filters.torch_fw", "filters.gated"]
+
+
+@pytest.mark.parametrize("module", TRANSPORT_MODULES)
+def test_transport_modules_import_without_jax(module):
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module('nnstreamer_tpu_torch.{module}')\n"
+        "assert 'jax' not in sys.modules\n"
+        "bad = sorted(m for m in sys.modules if m.startswith('nnstreamer_tpu.') "
+        "or m == 'nnstreamer_tpu')\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_the_smoke_script_imports_neither_jax_nor_the_jax_package():
+    for mod in _imported_modules(REPO / "chip_smoke.py"):
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "nnstreamer_tpu"), mod
