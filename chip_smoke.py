@@ -13,7 +13,7 @@ Phases, each of which must pass:
              tensor-core (HGMMA) instructions and asynchronous copies (TMA:
              UTMALDG; for int4 UTMALDG or UBLKCP), the paged library's
              mma.sync (HMMA) and UTMALDG, and ptxas must report no spill
-             for any of their bf16 kernels.
+             for any of their bf16 kernels nor for the int8 conv kernels.
 2. kernels — hold each kernel against its plain PyTorch version on the
              card, at the shapes the main path gives it and a few more, and
              time kernel, plain version, one PyTorch library call computing
@@ -123,8 +123,8 @@ Phases, each of which must pass:
              prefill twin through flash at D = 32, its propose steps
              through paged at G = 2, D = 32).  Launches per round and
              chunk, the propose and verify steps one census signature
-             each and no capture after the warm-up, no decode step; two
-             streams (``SPEC_REPLAYED``: each wave's shortest prompt)
+             each and no capture after the warm-up, no decode step; one
+             stream (``SPEC_REPLAYED``: the first wave's shortest prompt)
              replayed at the verify shape (each token its step's argmax)
              and at the decode shape against the continuous phase's
              tokens (equal, or apart first at a near tie of
@@ -252,7 +252,7 @@ Phases, each of which must pass:
              equal the host argmax of the same logits.  ``--profile``
              writes each stage's kernels to chiprun_out/profile_models.txt.
 13. batching — micro-batching, no kernel of csrc/: the README quick-start
-             fed ONE frame per buffer (``dimensions=3:224:224:1``, 1,024
+             fed ONE frame per buffer (``dimensions=3:224:224:1``, 512
              seeded uint8 frames, queues 64 deep, no max-inflight),
              mobilenet_v1 224 bf16, ``batch_max`` 1 against 32, two runs
              each in turns, streaming (a pusher thread against the pulls):
@@ -372,6 +372,32 @@ Phases, each of which must pass:
              equal to the pipeline.  gRPC: with ``grpcio``, a bf16 round
              trip bitwise; without it, the elements' clear error.  Prints
              which happened.
+18. modelfiles — model files on the card (``MF_*``).  (a) ``int8_conv``
+             against its plain version (a float64 conv of the integers),
+             bitwise, at every distinct layer shape of a fully-quantized
+             MobileNet-v1 224 at batch 64: kernel, plain and, where it
+             takes the shape, ``torch._int_mm`` ms (median of 20, L2
+             flushed), launches per forward, the bound (bytes over 3.35
+             TB/s, operations over 1,979 int8 TOPS); one CONV_2D with uint8
+             weights and per-axis zero points (the box sum through the
+             kernel with a ones weight) bitwise against the CPU.  (b)
+             BASELINE's config #1 in its stock form: bench.py's quantized
+             file (its draws, scales and bytes) written with the port's
+             ``tflite_build``, through bench.py's pipeline (``videotestsrc
+             device=true`` ! caps pin ! ``tensor_filter`` ! dequantizing
+             ``tensor_transform`` ! ``image_labeling``), one captured fused
+             stage, no capture after the warm-up, every replay 28
+             ``int8_conv`` launches; frames/s, card ms a batch, busy share,
+             peak memory; the first ``MF_CHECKED`` frames' uint8 logits
+             bitwise equal to the port's plain path on the CPU, and every
+             op's integer output of an eager card call too.  (c) The float
+             twin (the same draws dequantized) through the same pipeline
+             with the float scale, within ``MF_FLOAT_TOL`` of the CPU at
+             f32.  (d) A MobileNet-v1 ``nn.Module`` exported by torch's own
+             exporter (``dynamo=False``, the onnxscript post-step patched
+             out wherever this torch keeps it) through ``tensor_filter`` on
+             the card, within ``MF_ONNX_TOL`` of the module run eagerly on
+             the card.
 
 Each phase prints ``phase: <name> <seconds> s`` when it ends and runs
 under its deadline (``PHASE_DEADLINE_S``: past it faulthandler prints
@@ -419,12 +445,12 @@ WAIT_S = 60
 #: slower of two H100 runs (PERF.md section 4; the host-bound phases ran
 #: up to 1.46 times slower in one run than in the other), and at least
 #: 30 s; past it faulthandler prints every thread's stack and the process
-#: exits non-zero.  Their sum (970 s) stays under the 1,200 s the run is
+#: exits non-zero.  Their sum (1,010 s) stays under the 1,200 s the run is
 #: given, so a hang anywhere ends the run inside it
 PHASE_DEADLINE_S = dict(
     build=70, kernels=60, serve=30, continuous=55, query=50, prefix=70, spec=150,
     files=65, elastic=60, reference=30, vision=35, models=40, batching=90,
-    camera=30, asr=30, v4l2=50, transport=55)
+    camera=30, asr=30, v4l2=50, transport=55, modelfiles=40)
 #: the run's budget, every phase and the kernel build included
 BUDGET_S = 400
 
@@ -718,6 +744,14 @@ def phase_build_evidence():
     check(int4_sass["HGMMA"] > 0, "int4 library: no HGMMA (wgmma) instruction in its SASS")
     check(int4_sass["UTMALDG"] + int4_sass["UBLKCP"] > 0,
           "int4 library: no asynchronous copy (UTMALDG or UBLKCP) in its SASS")
+    from nnstreamer_tpu_torch.ops import kernels
+
+    int8_kernels = {k: e for k, e in ptxas_entries(kernels.build_report("int8_conv")).items()
+                    if "int8_conv" in k}
+    check(len(int8_kernels) == 3, f"int8 conv library: ptxas reported {sorted(int8_kernels)}")
+    for k, e in int8_kernels.items():
+        check(e.get("spill_stores") == 0 and e.get("spill_loads") == 0,
+              f"int8 conv kernel spills: {k} {e}")
     paged_sass = sass_counts("paged_attention", ("HMMA", "UTMALDG"))
     check(paged_sass["HMMA"] > 0, "paged library: no HMMA (mma.sync) instruction in its SASS")
     check(paged_sass["UTMALDG"] > 0, "paged library: no UTMALDG (TMA load) instruction in its SASS")
@@ -725,7 +759,8 @@ def phase_build_evidence():
                 int4_sass=int4_sass,
                 int4_bf16_kernels=bf16_kernels("int4_matmul", "int4_bf16_kernel"),
                 paged_sass=paged_sass,
-                paged_bf16_kernels=bf16_kernels("paged_attention", "paged_split_bf16"))
+                paged_bf16_kernels=bf16_kernels("paged_attention", "paged_split_bf16"),
+                int8_kernels=sorted(int8_kernels.values(), key=str))
 
 
 def print_row(r):
@@ -2017,10 +2052,10 @@ SPEC_TIE = BF16_REF_TOL
 #: 8.5-11.8% of max |logit| at its worst step, PERF.md section 6)
 SPEC_F32_RATIO = 1.3
 #: the streams replayed outside the loop, each at the verify and at the
-#: decode shape, and in f32 at both: each wave's shortest prompt (the
+#: decode shape, and in f32 at both: the first wave's shortest prompt (the
 #: replays are eager and host-bound, and a long prompt's prefill chunks
-#: cost the most of them)
-SPEC_REPLAYED = (0, 4)
+#: cost the most of them; one stream since the modelfiles phase came)
+SPEC_REPLAYED = (0,)
 #: the accept path: llama_small at f32 (params and compute), no quant, its
 #: draft the same preset from the same seed, so the same weights
 ACCEPT_DESC = ("appsrc name=src ! tensor_filter name=llm framework=llm "
@@ -4055,7 +4090,7 @@ def print_spec(r):
 #: classes, bf16, seed 0), drained into bucketed steps of up to
 #: BATCHING_MAX frames; no max-inflight, so the backlog is bounded by the
 #: queues (BATCHING_QUEUE) and the drain can fill its buckets
-BATCHING_FRAMES = 1024
+BATCHING_FRAMES = 512
 BATCHING_MAX = 32
 BATCHING_RUNS = 2
 BATCHING_QUEUE = 64
@@ -6070,6 +6105,579 @@ def print_transport(t):
                                           for k, v in t.items()), flush=True)
 
 
+#: the modelfiles phase: BASELINE's config #1 in its stock form, a
+#: fully-quantized MobileNet-v1 224 .tflite (bench.py's file: seed 42,
+#: uint8 activations at 0.05 / 128, int8 per-axis weights, int32 biases,
+#: 1001 classes) at batch 64
+MF_SIZE = 224
+MF_CLASSES = 1001
+MF_BATCH = 64
+MF_ACT = (0.05, 128)
+MF_BLOCKS = ((64, 1), (128, 2), (128, 1), (256, 2), (256, 1), (512, 2), (512, 1),
+             (512, 1), (512, 1), (512, 1), (512, 1), (1024, 2), (1024, 1))
+#: batches timed after the warm-up (the quantized cell; the float twin half)
+MF_TIMED = 40
+#: frames of the first batch held bitwise against the CPU's plain path
+MF_CHECKED = 16
+#: the float twin on the card against the CPU at f32 (TF32 off): a logit
+#: may differ by this share of the frame's largest |logit| (28 layers of
+#: sums in another order: cuDNN's against the CPU's)
+MF_FLOAT_TOL = 1e-4
+#: the .onnx MobileNet on the card against its exporting module, run
+#: eagerly on the card: a probability may differ by this share of the
+#: frame's largest (the exporter folds each BatchNorm into its conv, and
+#: the port runs the convs channels_last: other sums, other roundings)
+MF_ONNX_TOL = 1e-3
+MF_ONNX_BATCH = 16
+MF_ONNX_BATCHES = 3
+#: int8 tensor-core peak, dense (NVIDIA data sheet): SXM and PCIe parts
+INT8_RATES = {"sxm": 1979e12, "pcie": 1513e12}
+#: the shapes of the forward named in the phase's lines (the first conv,
+#: the first depthwise, a 512 -> 512 pointwise at 14, the FC)
+MF_NAMED = ("conv 3->32 k3 s2 @224", "dw 32 k3 s1 @112", "pw 512->512 @14",
+            "fc 1024->1001")
+MF_QUANT = ("videotestsrc device=true batch={batch} num-buffers={frames} width={size} "
+            "height={size} name=src ! other/tensors,num_tensors=1,"
+            "dimensions=3:{size}:{size}:{batch},types=uint8,format=static ! "
+            "tensor_filter framework=jax model={model} name=f {acc} ! "
+            "tensor_transform mode=arithmetic option=typecast:float32,add:-128.0,mul:0.1 "
+            "name=deq ! tensor_decoder mode=image_labeling ! "
+            "tensor_sink name=out max-buffers=4")
+MF_FLOAT_NORM = "tensor_transform mode=arithmetic option=typecast:float32,add:-128.0,mul:0.05"
+MF_FLOAT = ("videotestsrc device=true batch={batch} num-buffers={frames} width={size} "
+            "height={size} name=src ! " + MF_FLOAT_NORM + " ! "
+            "tensor_filter framework=jax model={model} name=f {acc} ! "
+            "tensor_decoder mode=image_labeling ! tensor_sink name=out max-buffers=4")
+
+
+def mobilenet_layers(size=MF_SIZE, classes=MF_CLASSES):
+    """The integer layers of the MobileNet-v1 file, in order: (label,
+    kind, input edge, cin, cout, kernel, stride), kind ``conv``, ``dw`` or
+    ``fc``."""
+    out = [(f"conv 3->32 k3 s2 @{size}", "conv", size, 3, 32, 3, 2)]
+    hw, cin = -(-size // 2), 32
+    for cout, stride in MF_BLOCKS:
+        out.append((f"dw {cin} k3 s{stride} @{hw}", "dw", hw, cin, cin, 3, stride))
+        hw = -(-hw // stride)
+        out.append((f"pw {cin}->{cout} @{hw}", "conv", hw, cin, cout, 1, 1))
+        cin = cout
+    out.append((f"fc {cin}->{classes}", "fc", 1, cin, classes, 1, 1))
+    return out
+
+
+def mobilenet_tflite(size=MF_SIZE, classes=MF_CLASSES, batch=MF_BATCH, quantized=True):
+    """bench.py's fully-quantized MobileNet-v1 file (``_quant_mobilenet_file``,
+    the same draws from seed 42, names, scales and bytes), written with the
+    port's ``tflite_build``.  ``quantized=False``: its float twin, the same
+    topology over the same int8 draws dequantized (float32 weights, zero
+    biases, float32 input and logits)."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.models import tflite_build
+
+    rng = np.random.default_rng(42)
+    s_act, z_act = MF_ACT
+    m = tflite_build.ModelWriter()
+    act = (np.uint8, dict(quant_scale=[s_act], quant_zero_point=[z_act])) if quantized \
+        else (np.float32, {})
+    x = m.add_input([batch, size, size, 3], dtype=act[0], **act[1])
+
+    def qconv(h, cin, cout, k, stride, hw, dw=False):
+        if dw:
+            w = rng.integers(-127, 128, (1, k, k, cin)).astype(np.int8)
+            ax, nscale = 3, cin
+            kind, fan = "DEPTHWISE_CONV_2D", k * k
+        else:
+            w = rng.integers(-127, 128, (cout, k, k, cin)).astype(np.int8)
+            ax, nscale = 0, cout
+            kind, fan = "CONV_2D", k * k * cin
+        sw = [2.0 / (127.0 * np.sqrt(fan))] * nscale
+        nb = cout if not dw else cin
+        if quantized:
+            wi = m.add_const(w, f"w{hw}_{cin}_{cout}", quant_scale=sw,
+                             quant_zero_point=[0] * nscale, quant_axis=ax)
+            bi = m.add_const(np.zeros((nb,), np.int32), f"b{hw}_{cin}_{cout}",
+                             quant_scale=[s_act * sw[0]] * nscale,
+                             quant_zero_point=[0] * nscale, quant_axis=0)
+        else:
+            wi = m.add_const(w.astype(np.float32) * np.float32(sw[0]), f"w{hw}_{cin}_{cout}")
+            bi = m.add_const(np.zeros((nb,), np.float32), f"b{hw}_{cin}_{cout}")
+        oh = -(-hw // stride)
+        return m.add_op(kind, [h, wi, bi], [batch, oh, oh, nb], out_dtype=act[0],
+                        options={"padding": "SAME", "stride": (stride, stride),
+                                 "act": "relu6"}, **act[1]), oh
+
+    h, hw = qconv(x, 3, 32, 3, 2, size)
+    cin = 32
+    for cout, stride in MF_BLOCKS:
+        h, hw = qconv(h, cin, cin, 3, stride, hw, dw=True)
+        h, hw = qconv(h, cin, cout, 1, 1, hw)
+        cin = cout
+    axes = m.add_const(np.asarray([1, 2], np.int32), "mean_axes")
+    h = m.add_op("MEAN", [h, axes], [batch, cin], out_dtype=act[0],
+                 options={"keep_dims": False}, **act[1])
+    fw = rng.integers(-127, 128, (classes, cin)).astype(np.int8)
+    s_fc = 2.0 / (127.0 * np.sqrt(cin))
+    if quantized:
+        fwi = m.add_const(fw, "fcw", quant_scale=[s_fc], quant_zero_point=[0])
+        fbi = m.add_const(np.zeros((classes,), np.int32), "fcb",
+                          quant_scale=[s_act * 2.0 / (127.0 * np.sqrt(cin))],
+                          quant_zero_point=[0])
+        y = m.add_op("FULLY_CONNECTED", [h, fwi, fbi], [batch, classes],
+                     out_dtype=np.uint8, options={"act": None},
+                     quant_scale=[0.1], quant_zero_point=[128])
+    else:
+        fwi = m.add_const(fw.astype(np.float32) * np.float32(s_fc), "fcw")
+        fbi = m.add_const(np.zeros((classes,), np.float32), "fcb")
+        y = m.add_op("FULLY_CONNECTED", [h, fwi, fbi], [batch, classes],
+                     options={"act": None})
+    return m.finish(outputs=[y])
+
+
+def int8_layer_inputs(dev, gen, kind, hw, cin, cout, k, stride, batch, zp=False):
+    """Seeded int8 operands of one layer at its real widths: the padded
+    input [B, Hp, Wp, Cin] (SAME at ``stride``; an FC's [B, 1, 1, K]) and
+    the kernel [O, k, k, Cin/groups] -> (x, w, stride, groups)."""
+    import torch
+
+    from nnstreamer_tpu_torch.models.tflite import _same_pads
+
+    if kind == "fc":
+        shape, w_shape, groups = (batch, 1, 1, cin), (cout, 1, 1, cin), 1
+    else:
+        (pt, pb), (pl, pr) = _same_pads((hw, hw), (k, k), (stride, stride), (1, 1))
+        shape = (batch, hw + pt + pb, hw + pl + pr, cin)
+        groups = cin if kind == "dw" else 1
+        w_shape = (cout, k, k, cin // groups)
+    x = torch.randint(-128, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+    w = torch.randint(-127, 128, w_shape, generator=gen, device=dev, dtype=torch.int8)
+    return x, w, stride, groups
+
+
+def int8_conv_rows(dev, flush, bw, peak_int8, size=MF_SIZE, batch=MF_BATCH,
+                   classes=MF_CLASSES):
+    """``int8_conv`` against its plain version, bitwise, at each distinct
+    layer shape of the forward, with its device ms (median of 20, L2
+    flushed), the plain version's, ``torch._int_mm``'s where it takes the
+    shape (the 1x1 convs and the FC as [B*H*W, Cin] x [Cin, O]), its
+    launches per forward and its bound."""
+    import torch
+
+    from nnstreamer_tpu_torch.ops import int8_conv as i8
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    layers = mobilenet_layers(size, classes)
+    rows = {}
+    for label, kind, hw, cin, cout, k, stride in layers:
+        if label in rows:
+            rows[label]["per_forward"] += 1
+            continue
+        x, w, s, groups = int8_layer_inputs(dev, gen, kind, hw, cin, cout, k, stride, batch)
+        got = i8.int8_conv(x, w, s, 1, groups)
+        want = i8.int8_conv_reference(x, w, s, 1, groups)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        check(err == 0, f"int8_conv {label}: max |kernel - plain| {err}")
+        ms, _ = timed_ms(lambda: i8.int8_conv(x, w, s, 1, groups), flush)
+        plain_ms, _ = timed_ms(lambda: i8.int8_conv_reference(x, w, s, 1, groups), flush)
+        lib_ms = lib_why = None
+        if k == 1 and groups == 1:
+            a = x.reshape(-1, cin)
+            b = w.reshape(cout, cin).t()
+            try:
+                lib = torch._int_mm(a, b)
+                torch.cuda.synchronize()
+                check(torch.equal(lib.reshape(got.shape), got),
+                      f"torch._int_mm differs from int8_conv at {label}")
+                lib_ms, _ = timed_ms(lambda: torch._int_mm(a, b), flush)
+            except RuntimeError as e:
+                lib_why = str(e).splitlines()[0][:160]
+        nbytes = x.numel() + w.numel() + got.numel() * 4
+        ops = 2 * got.numel() * w.shape[1] * w.shape[2] * w.shape[3]
+        rows[label] = dict(
+            label=label, kind=kind, route=i8.int8_conv_route(cin, groups),
+            x=list(x.shape), w=list(w.shape), stride=s, groups=groups,
+            per_forward=1, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            library_ms=lib_ms, library_refused=lib_why,
+            bound_ms=max(nbytes / bw, ops / peak_int8) * 1e3,
+            bound_by="bytes" if nbytes / bw > ops / peak_int8 else "operations",
+            bytes=nbytes, ops=ops)
+        del x, w, got, want
+    return list(rows.values())
+
+
+def int8_zero_point_case(dev, tmpdir, hw=14, cin=512, cout=512, batch=MF_BATCH):
+    """One CONV_2D with uint8 weights and per-axis zero points drawn in
+    100..155 (so the box sum ``sum_x`` runs through the kernel with a ones
+    weight), a file of its own: its uint8 output on the card against the
+    CPU's plain path, bitwise, and the kernel's launches per call (2)."""
+    import numpy as np
+    import torch
+
+    from nnstreamer_tpu_torch.models import tflite, tflite_build
+    from nnstreamer_tpu_torch.ops import int8_conv as i8
+
+    rng = np.random.default_rng(3)
+    s_in, z_in = MF_ACT
+    sw = rng.uniform(0.001, 0.003, cout).astype(np.float32)
+    wzp = rng.integers(100, 156, cout)
+    m = tflite_build.ModelWriter()
+    x = m.add_input([batch, hw, hw, cin], dtype=np.uint8, quant_scale=[s_in],
+                    quant_zero_point=[z_in])
+    wi = m.add_const(rng.integers(0, 256, (cout, 3, 3, cin)).astype(np.uint8), "w",
+                     quant_scale=list(sw), quant_zero_point=list(wzp), quant_axis=0)
+    bi = m.add_const(rng.integers(-2000, 2000, (cout,)).astype(np.int32), "b",
+                     quant_scale=list(s_in * sw), quant_zero_point=[0] * cout, quant_axis=0)
+    y = m.add_op("CONV_2D", [x, wi, bi], [batch, hw, hw, cout], out_dtype=np.uint8,
+                 options={"stride": (1, 1), "padding": "SAME", "act": "relu6"},
+                 quant_scale=[0.05], quant_zero_point=[128])
+    path = os.path.join(tmpdir, "conv_zero_points.tflite")
+    with open(path, "wb") as fh:
+        fh.write(m.finish(outputs=[y]))
+    xq = rng.integers(0, 256, (batch, hw, hw, cin), dtype=np.uint8)
+    card = tflite.load_bundle(path, device=dev)
+    cpu = tflite.load_bundle(path, device="cpu")
+    before = i8.LAUNCHES.value
+    got = card.apply_fn(card.params, torch.from_numpy(xq).to(dev)).cpu()
+    launches = i8.LAUNCHES.value - before
+    want = cpu.apply_fn(cpu.params, torch.from_numpy(xq))
+    differ = int((got != want).sum())
+    check(differ == 0, f"zero-point conv: {differ} outputs differ from the CPU's")
+    check(dev.type != "cuda" or launches == 2,
+          f"zero-point conv: {launches} int8_conv launches, want 2 (conv and box sum)")
+    return dict(shape=f"conv {cin}->{cout} k3 @{hw}, uint8 weights, per-axis zero points",
+                launches=launches, differ=differ, outputs=int(got.numel()))
+
+
+def mobilenet_v1_module(classes=MF_CLASSES):
+    """A MobileNet-v1 ``nn.Module`` (NCHW): conv-BatchNorm-ReLU6 stem,
+    13 depthwise-separable blocks, global average pool, a Linear head and
+    a softmax; seeded weights and non-trivial BatchNorm statistics."""
+    import torch
+    from torch import nn
+
+    torch.manual_seed(0)
+
+    def cbr(cin, cout, k, stride, groups=1):
+        return [nn.Conv2d(cin, cout, k, stride, k // 2, groups=groups, bias=False),
+                nn.BatchNorm2d(cout), nn.ReLU6()]
+
+    layers = cbr(3, 32, 3, 2)
+    cin = 32
+    for cout, stride in MF_BLOCKS:
+        layers += cbr(cin, cin, 3, stride, groups=cin) + cbr(cin, cout, 1, 1)
+        cin = cout
+    m = nn.Sequential(*layers, nn.AdaptiveAvgPool2d(1), nn.Flatten(),
+                      nn.Linear(cin, classes), nn.Softmax(dim=1))
+    for mod in m.modules():
+        if isinstance(mod, nn.BatchNorm2d):
+            mod.running_mean.uniform_(-0.1, 0.1)
+            mod.running_var.uniform_(0.5, 1.5)
+    return m.eval()
+
+
+@contextlib.contextmanager
+def onnx_exporter():
+    """Inside the block, torch's TorchScript ONNX exporter skips its
+    optional onnxscript post-step (it wants the ``onnx`` package, which
+    neither machine has; the serialized ModelProto is complete without
+    it), wherever this torch keeps it: the module is found by walking
+    ``torch.onnx``, never skipped.  Yields the module's name."""
+    import importlib
+    import pkgutil
+
+    import torch.onnx
+
+    for info in pkgutil.walk_packages(torch.onnx.__path__, "torch.onnx."):
+        if not info.name.endswith("onnx_proto_utils"):
+            continue
+        mod = importlib.import_module(info.name)
+        if hasattr(mod, "_add_onnxscript_fn"):
+            orig = mod._add_onnxscript_fn
+            mod._add_onnxscript_fn = lambda model_bytes, custom: model_bytes
+            try:
+                yield info.name
+            finally:
+                mod._add_onnxscript_fn = orig
+            return
+    raise RuntimeError("torch's ONNX exporter: no onnx_proto_utils._add_onnxscript_fn "
+                       "found under torch.onnx")
+
+
+def int_taps(bundle, x):
+    """An integer bundle called eagerly on ``x``, every op's output kept
+    (on the host) -> (outputs in graph order, the logits)."""
+    from nnstreamer_tpu_torch.models import tflite
+
+    taps, run = [], tflite._run_op_int
+
+    def tap(*args, **kw):
+        y = run(*args, **kw)
+        taps.append(y.cpu())
+        return y
+
+    tflite._run_op_int = tap
+    try:
+        y = bundle.apply_fn(bundle.params, x).cpu()
+    finally:
+        tflite._run_op_int = run
+    return taps, y
+
+
+def phase_modelfiles(dev, size=MF_SIZE, batch=MF_BATCH, classes=MF_CLASSES, acc="",
+                     timed=MF_TIMED, checked=MF_CHECKED, onnx_batch=MF_ONNX_BATCH,
+                     onnx_batches=MF_ONNX_BATCHES, kernel_rows=True, files_dir=None,
+                     profile=False):
+    """The model-file path on ``dev``: (a) ``int8_conv`` against its plain
+    version at the forward's shapes (card only), (b) the fully-quantized
+    MobileNet-v1 through bench.py's pipeline, (c) its float twin, (d) an
+    .onnx MobileNet-v1 exported by torch (``acc``: the filters'
+    accelerator= property, empty on the card).  The files go under
+    ``files_dir`` (default ``build/files/``), removed after.  ``profile``
+    writes the quantized stage's kernels to
+    chiprun_out/profile_modelfiles.txt."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import nnstreamer_tpu_torch as ntt
+    from nnstreamer_tpu_torch.elements.source import VideoTestSrc
+    from nnstreamer_tpu_torch.models import tflite
+    from nnstreamer_tpu_torch.ops import int8_conv as i8
+
+    on_card = dev.type == "cuda"
+    out = dict(size=size, batch=batch, classes=classes)
+    tmpdir = os.path.join(files_dir or os.path.join(ROOT, "build", "files"), "modelfiles")
+    os.makedirs(tmpdir, exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        if on_card and kernel_rows:
+            flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+            card = card_line().lower()
+            bw, _ = RATES["pcie" if "pcie" in card else "sxm"]
+            out["int8_conv"] = int8_conv_rows(
+                dev, flush_buf.zero_, bw, INT8_RATES["pcie" if "pcie" in card else "sxm"],
+                size, batch, classes)
+            del flush_buf
+            torch.cuda.empty_cache()
+        out["zero_point_case"] = int8_zero_point_case(dev, tmpdir, batch=batch)
+        out["kernels_s"] = time.perf_counter() - t0
+
+        # (b) the quantized file through the stock pipeline
+        t0 = time.perf_counter()
+        qpath = os.path.join(tmpdir, f"mobilenet_v1_{size}_quant.tflite")
+        with open(qpath, "wb") as fh:
+            fh.write(mobilenet_tflite(size, classes, batch, quantized=True))
+        out["write_s"] = time.perf_counter() - t0
+        per_forward = sum(1 for _ in mobilenet_layers(size, classes))
+        n = VISION_WARM + timed
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        i8.LAUNCHES.reset()
+        outs, q = vision_pulled(MF_QUANT.format(batch=batch, frames=n * batch, size=size,
+                                                model=qpath, acc=acc), n, 1, batch)
+        launches = i8.LAUNCHES.value
+        if on_card:
+            q["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+            q["card_busy_share"] = q["card_ms_per_batch"] * q["frames_per_s"] / batch / 1e3
+        stage = q.pop("stage")
+        if profile and on_card:
+            os.makedirs(OUT_DIR, exist_ok=True)
+            with open(os.path.join(OUT_DIR, "profile_modelfiles.txt"), "w") as fh:
+                q["top_kernels_ms"] = stage_profile(stage, "quantized mobilenet_v1", fh)
+        check(len(q["stages"]) == 2 and q["stages"][0].startswith("src+")
+              and "+f+deq+" in q["stages"][0],
+              f"the quantized cell is not one fused stage: {q['stages']}")
+        replays = stage.census.replays
+        q["launches"] = launches
+        q["launches_per_forward"] = per_forward
+        check(not on_card or launches == per_forward * replays,
+              f"int8_conv launches {launches} != {per_forward} x {replays} replays")
+        check(not on_card or launches > 0, "the quantized cell launched no int8_conv")
+        out["quant"] = q
+
+        # its uint8 logits on the card against the CPU's plain path, bitwise
+        src = VideoTestSrc({"width": size, "height": size})
+        frames = src.device_batch(0, batch, "cpu")
+        chk = ntt.Pipeline(
+            f"videotestsrc device=true batch={batch} num-buffers={batch} width={size} "
+            f"height={size} name=src ! other/tensors,num_tensors=1,"
+            f"dimensions=3:{size}:{size}:{batch},types=uint8,format=static ! "
+            f"tensor_filter framework=jax model={qpath} {acc} ! tensor_sink name=out")
+        with chk:
+            card_logits = torch.as_tensor(np.asarray(chk.pull("out", timeout=WAIT_S)
+                                                     .tensors[0]))
+            chk.wait(timeout=WAIT_S)
+        t1 = time.perf_counter()
+        cpu_taps, cpu_logits = int_taps(tflite.load_bundle(qpath, device="cpu"),
+                                        frames[:checked])
+        out["cpu_plain_s"] = time.perf_counter() - t1
+        card_taps, _ = int_taps(tflite.load_bundle(qpath, device=dev),
+                                frames[:checked].to(dev))
+        check(card_logits.dtype == torch.uint8 and tuple(card_logits.shape) == (batch, classes),
+              f"quantized logits {card_logits.dtype} {tuple(card_logits.shape)}")
+        differ = int((card_logits[:checked] != cpu_logits).sum())
+        labels = np.asarray(outs[0].meta["label_index"])[:checked]
+        want_labels = cpu_logits.to(torch.int32).argmax(dim=1).numpy()
+        # every op's integer output too, eagerly on the card against the CPU
+        taps_differ = [int((a.cpu() != b).sum()) for a, b in zip(card_taps, cpu_taps)]
+        out["quant_check"] = dict(
+            frames=checked, logits=int(cpu_logits.numel()), differ=differ,
+            distinct_logits=int(torch.unique(cpu_logits).numel()),
+            labels_equal=int((labels == want_labels).sum()),
+            ops=len(cpu_taps), op_outputs=sum(int(t.numel()) for t in cpu_taps),
+            op_outputs_differ=sum(taps_differ),
+            distinct_by_op=[int(torch.unique(t).numel()) for t in cpu_taps])
+        check(differ == 0, f"quantized logits: {differ} of {cpu_logits.numel()} differ "
+                           "from the CPU's plain path")
+        check(sum(taps_differ) == 0, f"quantized op outputs differ from the CPU's: "
+                                     f"{taps_differ}")
+        check(bool((labels == want_labels).all()),
+              "the stock pipeline's labels differ from the CPU logits' argmax")
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # (c) the float twin, through the same pipeline with the float scale
+        fpath = os.path.join(tmpdir, f"mobilenet_v1_{size}_float.tflite")
+        with open(fpath, "wb") as fh:
+            fh.write(mobilenet_tflite(size, classes, batch, quantized=False))
+        nf = VISION_WARM + max(1, timed // 2)
+        _, f = vision_pulled(MF_FLOAT.format(batch=batch, frames=nf * batch, size=size,
+                                             model=fpath, acc=acc), nf, 0, batch)
+        f.pop("stage")
+        if on_card:
+            f["card_busy_share"] = f["card_ms_per_batch"] * f["frames_per_s"] / batch / 1e3
+        chk = ntt.Pipeline(
+            f"videotestsrc device=true batch={batch} num-buffers={batch} width={size} "
+            f"height={size} name=src ! {MF_FLOAT_NORM} ! tensor_filter framework=jax "
+            f"model={fpath} {acc} ! tensor_sink name=out")
+        with chk:
+            card_f = torch.as_tensor(np.asarray(chk.pull("out", timeout=WAIT_S).tensors[0]))
+            chk.wait(timeout=WAIT_S)
+        cpu = tflite.load_bundle(fpath, device="cpu")
+        want_f = cpu.apply_fn(cpu.params, (frames[:checked].to(torch.float32) - 128.0) * 0.05)
+        err = ((card_f[:checked] - want_f).abs().amax(dim=1)
+               / want_f.abs().amax(dim=1)).max().item()
+        f["cpu_check"] = dict(frames=checked, max_err_share=err, tol_share=MF_FLOAT_TOL)
+        check(err <= MF_FLOAT_TOL, f"float twin against the CPU: {err} > {MF_FLOAT_TOL}")
+        out["float"] = f
+        del cpu
+
+        # (d) an .onnx MobileNet-v1 exported by torch's own exporter
+        t1 = time.perf_counter()
+        module = mobilenet_v1_module(classes)
+        opath = os.path.join(tmpdir, "mobilenet_v1.onnx")
+        xs = [torch.from_numpy(np.random.default_rng(i).standard_normal(
+            (onnx_batch, 3, size, size)).astype(np.float32)) for i in range(onnx_batches)]
+        with onnx_exporter() as out["onnx_exporter"], torch.no_grad():
+            torch.onnx.export(module, xs[0], opath, opset_version=13, dynamo=False)
+        export_s = time.perf_counter() - t1
+        module = module.to(dev)
+        pipe = ntt.Pipeline(
+            f"appsrc name=src caps=other/tensors,num_tensors=1,"
+            f"dimensions={size}:{size}:3:{onnx_batch},types=float32 ! "
+            f"tensor_filter framework=jax model={opath} {acc} ! tensor_sink name=out")
+        errs = []
+        with pipe:
+            for x in xs:
+                pipe.push("src", x.numpy())
+                got = torch.as_tensor(np.asarray(pipe.pull("out", timeout=WAIT_S).tensors[0]))
+                with torch.no_grad():
+                    want = module(x.to(dev)).cpu()
+                errs.append(((got - want).abs().amax(dim=1)
+                             / want.abs().amax(dim=1)).max().item())
+            pipe.eos("src")
+            pipe.wait(timeout=WAIT_S)
+        out["onnx"] = dict(batch=onnx_batch, batches=onnx_batches, max_err_share=max(errs),
+                           tol_share=MF_ONNX_TOL, export_s=export_s,
+                           file_mb=os.path.getsize(opath) / 2**20)
+        check(max(errs) <= MF_ONNX_TOL,
+              f".onnx MobileNet against its module: {max(errs)} > {MF_ONNX_TOL}")
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    return out
+
+
+def int8_summary(mf):
+    """The ``kernels`` line's int8_conv entry, per forward of the
+    quantized MobileNet-v1 at batch 64: each shape's ms, plain ms and
+    bound times its launches per forward, summed; launches from the
+    quantized cell's run (counted from 0 just before it)."""
+    rows = mf["int8_conv"]
+
+    def per_forward(key, only=None):
+        return sum(r[key] * r["per_forward"] for r in rows if only is None or only(r))
+
+    by = {b: per_forward("bound_ms", lambda r, b=b: r["bound_by"] == b)
+          for b in ("bytes", "operations")}
+    one_by_one = [r for r in rows if r["library_ms"] is not None]
+    return dict(
+        name="int8_conv", route="cuda", source="nnstreamer_tpu_torch/csrc/int8_conv.cu",
+        replaces="nnstreamer_tpu/models/tflite.py:685",
+        replaces_note="XLA's integer conv and dot (tflite.py:685, :742), no Pallas kernel",
+        launches=mf["quant"]["launches"], max_abs_err=max(r["max_abs_err"] for r in rows),
+        ms=per_forward("ms"), plain_ms=per_forward("plain_ms"),
+        bound_ms=per_forward("bound_ms"), bound_by=max(by, key=by.get),
+        library_ms=None, per="forward of mobilenet_v1 224 at batch 64 (28 launches)",
+        int_mm_ms_1x1=sum(r["library_ms"] * r["per_forward"] for r in one_by_one),
+        kernel_ms_1x1=sum(r["ms"] * r["per_forward"] for r in one_by_one),
+        per_shape={r["label"]: {k: r[k] for k in ("ms", "plain_ms", "library_ms",
+                                                  "bound_ms", "bound_by", "per_forward")}
+                   for r in rows})
+
+
+def print_modelfiles(mf):
+    for r in mf.get("int8_conv", []):
+        lib = (f"{r['library_ms']:.4f}" if r["library_ms"] is not None
+               else "n/a" if r["library_refused"] is None
+               else "refused (" + r["library_refused"] + ")")
+        print(f"modelfiles: int8_conv {r['label']} ({r['route']}) x {r['x']} w {r['w']} "
+              f"launches/forward {r['per_forward']} ms={r['ms']:.4f} plain={r['plain_ms']:.4f} "
+              f"int_mm={lib} bound={r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"bitwise={r['max_abs_err'] == 0}"
+              f"{' [named]' if r['label'] in MF_NAMED else ''}", flush=True)
+    z = mf["zero_point_case"]
+    print(f"modelfiles: int8_conv {z['shape']}: {z['launches']} launches a call, "
+          f"{z['differ']} of {z['outputs']} outputs differ from the CPU's", flush=True)
+    q = mf["quant"]
+    busy = ("not measured" if q.get("card_busy_share") is None
+            else f"{q['card_busy_share']:.3f}")
+    card_ms = ("not measured" if q.get("card_ms_per_batch") is None
+               else f"{q['card_ms_per_batch']:.3f} ms")
+    print(f"modelfiles: mobilenet_v1 {mf['size']} quantized .tflite (integer execution, "
+          f"batch {mf['batch']}) {q['frames_per_s']:.1f} frames/s, card {card_ms} a batch, "
+          f"busy {busy}, peak {q.get('peak_mem_gb', 0.0):.2f} GB, int8_conv launches "
+          f"{q['launches']} ({q['launches_per_forward']} a forward); stages {q['stages']}",
+          flush=True)
+    print(f"census: modelfiles quant {q['census']}", flush=True)
+    if "top_kernels_ms" in q:
+        print(f"profile: modelfiles quantized top kernels, ms per batch "
+              f"{q['top_kernels_ms']}", flush=True)
+    c = mf["quant_check"]
+    print(f"modelfiles: quantized logits of {c['frames']} frames against the CPU's plain "
+          f"path: {c['differ']} of {c['logits']} differ ({c['distinct_logits']} distinct "
+          f"values); labels equal {c['labels_equal']}; the {c['ops']} ops' outputs, eager "
+          f"on the card: {c['op_outputs_differ']} of {c['op_outputs']} differ (distinct "
+          f"values by op {c['distinct_by_op']}); CPU {mf['cpu_plain_s']:.1f} s", flush=True)
+    f = mf["float"]
+    busy = ("not measured" if f.get("card_busy_share") is None
+            else f"{f['card_busy_share']:.3f}")
+    card_ms = ("not measured" if f.get("card_ms_per_batch") is None
+               else f"{f['card_ms_per_batch']:.3f} ms")
+    print(f"modelfiles: float twin .tflite {f['frames_per_s']:.1f} frames/s, card {card_ms} "
+          f"a batch, busy {busy}; against the CPU {f['cpu_check']}; stages {f['stages']}",
+          flush=True)
+    print(f"census: modelfiles float {f['census']}", flush=True)
+    o = mf["onnx"]
+    print(f"modelfiles: .onnx mobilenet_v1 ({o['file_mb']:.1f} MiB, exported in "
+          f"{o['export_s']:.1f} s by {mf['onnx_exporter']}) against its module on the card: "
+          f"max share {o['max_err_share']:.3g} (tol {o['tol_share']}) over {o['batches']} "
+          f"batches of {o['batch']}", flush=True)
+    print(f"modelfiles: parts kernels {mf['kernels_s']:.1f} s, file write {mf['write_s']:.1f} s",
+          flush=True)
+
+
 YOLO_BUCKET = 8
 YOLO_BUCKET_DESC = ("appsrc name=src caps=other/tensors,dimensions=3:{size}:{size}:1,"
                     "types=uint8 ! " + DIV + " ! tensor_filter framework=jax model=yolov5s "
@@ -6175,6 +6783,8 @@ def main():
               f"{evidence['int4_bf16_kernels']}", flush=True)
         print(f"build: paged SASS {evidence['paged_sass']}, bf16 split kernels "
               f"(D = 32, 64, 128) {evidence['paged_bf16_kernels']}", flush=True)
+        print(f"build: int8 conv kernels (direct 32/64-bit index, gemm) "
+              f"{evidence['int8_kernels']}", flush=True)
 
     with phase("kernels"):
         flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
@@ -6323,6 +6933,12 @@ def main():
     with phase("transport"):
         detail["transport"] = phase_transport(dev)
         print_transport(detail["transport"])
+        save()
+        torch.cuda.empty_cache()
+
+    with phase("modelfiles"):
+        mf = detail["modelfiles"] = phase_modelfiles(dev, profile=profile)
+        print_modelfiles(mf)
 
     # one line per kernel: int4 per decoded token (129 launches at B=1),
     # with the same 129 launches at B=8 (a continuous decode step) and
@@ -6401,6 +7017,7 @@ def main():
                                                           "library_ms")},
              launches_by_phase=by_phase["paged_attention"],
              spec_launches=spec_shapes["paged_attention"]),
+        int8_summary(mf),
     ]
     detail["summary"] = summary
     detail["phase_s"] = phase.seconds

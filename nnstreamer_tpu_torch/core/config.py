@@ -2,7 +2,8 @@
 
 Port of ``nnstreamer_tpu/core/config.py`` (reference: ``nnstreamer_conf.c``
 + ``nnstreamer.ini``), cut to the settings this package reads: the
-filter priority, queue capacity, prompt bucketing and latency switch of
+user's plugin modules (``NNS_TPU_PLUGINS``, ``[common] plugin_modules``,
+which the registry imports), the filter priority, queue capacity, prompt bucketing and latency switch of
 the LLM paths, the flight recorder's mode and ring size, which the
 query front door and the runtime's trace hooks read, the sinks' fetch
 window, the runtime's bound on elastic stage restarts, and the
@@ -24,6 +25,7 @@ import threading
 from typing import Dict, List, Optional
 
 _ENV_CONF = "NNS_TPU_CONF"
+_ENV_PLUGINS = "NNS_TPU_PLUGINS"
 _ENV_FW_PRIORITY = "NNS_TPU_FILTER_PRIORITY"
 _ENV_BUCKETING = "NNS_TPU_SHAPE_BUCKETING"
 _ENV_TRACE = "NNS_TPU_TRACE"
@@ -41,6 +43,9 @@ _ENV_MAX_VARIANTS = "NNS_TPU_MAX_COMPILED_VARIANTS"
 
 @dataclasses.dataclass
 class Config:
+    #: extra plugin modules the registry imports at its first lookup
+    #: (comma or colon separated in the env and the ini file)
+    plugin_modules: List[str] = dataclasses.field(default_factory=list)
     #: framework priority for tensor_filter framework=auto
     filter_priority: List[str] = dataclasses.field(
         default_factory=lambda: ["llm"])
@@ -106,6 +111,8 @@ class Config:
         if path and os.path.exists(path):
             ini = configparser.ConfigParser()
             ini.read(path)
+            if ini.has_option("common", "plugin_modules"):
+                cfg.plugin_modules = _split(ini.get("common", "plugin_modules"))
             if ini.has_option("filter", "priority"):
                 cfg.filter_priority = _split(ini.get("filter", "priority"))
             if ini.has_option("common", "queue_capacity"):
@@ -155,6 +162,8 @@ class Config:
             if ini.has_option("common", "max_stage_restarts"):
                 cfg.max_stage_restarts = ini.getint(
                     "common", "max_stage_restarts")
+        if os.environ.get(_ENV_PLUGINS):
+            cfg.plugin_modules = _split(os.environ[_ENV_PLUGINS])
         if os.environ.get(_ENV_FW_PRIORITY):
             cfg.filter_priority = _split(os.environ[_ENV_FW_PRIORITY])
         if os.environ.get(_ENV_BUCKETING):

@@ -4,8 +4,11 @@ Port of ``nnstreamer_tpu/core/registry.py`` (reference:
 ``nnstreamer_subplugin.c`` name->vtable hash plus GStreamer's element
 factory).  Sub-plugins are Python classes registered under a (kind, name)
 key via decorators; the built-in modules are imported lazily on first
-lookup.  This registry is the port's own: registering here never touches
-the JAX package's registry.
+lookup, and after them the user's plugin modules that the config lists
+(``NNS_TPU_PLUGINS=pkg.mod:pkg2.mod2``, the JAX package's variable, or
+``[common] plugin_modules``): an absent one is skipped, one that exists
+and fails to import raises.  This registry is the port's own: registering
+here never touches the JAX package's registry.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from __future__ import annotations
 import importlib
 import threading
 from typing import Dict, Iterable, List, Optional, Tuple
+
+from .log import logger
 
 KIND_ELEMENT = "element"
 KIND_FILTER = "filter"
@@ -23,6 +28,7 @@ _registry: Dict[Tuple[str, str], type] = {}
 _aliases: Dict[Tuple[str, str], str] = {}
 _lock = threading.RLock()
 _builtins_loaded = False
+log = logger(__name__)
 
 #: Modules imported lazily on first lookup; each registers its plugins at
 #: import time.  The port carries the elements of the LLM stream paths
@@ -119,8 +125,18 @@ def _ensure_builtins():
         if _builtins_loaded:
             return
         _builtins_loaded = True  # set first: modules may look things up
-        for mod in _BUILTIN_MODULES:
-            importlib.import_module(mod)
+        from .config import get_config
+
+        for mod in _BUILTIN_MODULES + get_config().plugin_modules:
+            try:
+                importlib.import_module(mod)
+            except ImportError as e:
+                # the module itself absent (optional, not installed): fine;
+                # a module that exists and fails to import is a real bug
+                # whose elements would silently vanish: raise
+                if e.name != mod:
+                    raise
+                log.debug("plugin module %s absent: %s", mod, e)
 
 
 def lookup(kind: str, name: str) -> Optional[type]:

@@ -8,10 +8,11 @@ the vision and audio models of BASELINE's configs #1-#4
 ``average``.  A model is a ``ModelBundle`` (callable, params, IO specs); the zoo maps
 pipeline-string names (``model=llama2_7b``) to builder functions that
 take the filter's parsed ``custom=`` options and the device to build on.
-``model=`` also takes a Llama-family model FILE (``.gguf``,
-``.safetensors``, a ``*.safetensors.index.json`` shard index, a HF
-checkpoint directory or an ``.npz``; ``.tflite`` and ``.onnx`` are not
-yet ported) and a ``pkg.mod:attr`` import string.
+``model=`` also takes a model FILE: a ``.tflite`` (``models/tflite.py``)
+or ``.onnx`` (``models/onnx.py``) graph, or a Llama-family checkpoint
+(``.gguf``, ``.safetensors``, a ``*.safetensors.index.json`` shard
+index, a HF checkpoint directory or an ``.npz``), each built on the
+filter's device; and a ``pkg.mod:attr`` import string.
 """
 
 from __future__ import annotations
@@ -85,7 +86,7 @@ def model_names() -> List[str]:
         return sorted(_builders)
 
 
-#: model-file suffixes (the JAX package's; the last two not yet ported)
+#: model-file suffixes (the JAX package's)
 _FILE_SUFFIXES = (".safetensors", ".safetensors.index.json", ".npz", ".gguf",
                   ".tflite", ".onnx")
 
@@ -95,8 +96,9 @@ def build(name: str, opts: Optional[Dict[str, str]] = None, *,
     """Resolve a model to a bundle built on ``device`` (required: no
     builder of this package picks the CPU by itself).
 
-    Accepts zoo names, Llama-family model files and checkpoint
-    directories (``llama.build_from_checkpoint``) and ``pkg.mod:attr``
+    Accepts zoo names, ``.tflite`` and ``.onnx`` graphs, Llama-family
+    model files and checkpoint directories (``llama.build_from_checkpoint``)
+    and ``pkg.mod:attr``
     import strings (attr may be a bundle or a ``builder(opts, device)``)."""
     _ensure_builtin()
     opts = dict(opts or {})
@@ -112,9 +114,14 @@ def build(name: str, opts: Optional[Dict[str, str]] = None, *,
     if key.endswith(_FILE_SUFFIXES) or is_ckpt_dir:
         if not os.path.exists(key):
             raise KeyError(f"model file not found: {key}")
-        if key.endswith((".tflite", ".onnx")):
-            raise KeyError(f"{key}: {os.path.splitext(key)[1]} model files are "
-                           "not yet ported to nnstreamer_tpu_torch")
+        if key.endswith(".tflite"):
+            from . import tflite
+
+            return tflite.load_bundle(key, opts, device=dev)
+        if key.endswith(".onnx"):
+            from . import onnx
+
+            return onnx.load_bundle(key, opts, device=dev)
         from . import llama
 
         return llama.build_from_checkpoint(key, opts, device=dev)

@@ -27,7 +27,7 @@ from typing import Callable, Dict, Iterable, Iterator
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("int4_matmul", "flash_attention", "paged_attention")
+SOURCES = ("int4_matmul", "flash_attention", "paged_attention", "int8_conv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -279,10 +279,18 @@ def test_eos_inside_a_decode_chunk(files, reference):
 # -- zoo names --------------------------------------------------------------------
 
 def test_tflite_and_onnx_not_yet_ported(files):
-    for suffix in (".tflite", ".onnx"):
+    """Named for when the zoo refused both suffixes; since the graph files
+    were ported it hands them to their own parsers, which refuse a file
+    that is not one of theirs (``tests/test_torch_tflite.py`` and
+    ``test_torch_onnx.py`` run real ones)."""
+    from nnstreamer_tpu_torch.models import onnx as tonnx
+    from nnstreamer_tpu_torch.models import tflite as ttflite
+
+    for suffix, err, match in ((".tflite", ttflite.TFLiteError, "flatbuffer"),
+                               (".onnx", tonnx.ONNXError, "varint")):
         p = files["dir"] / f"m{suffix}"
         p.write_bytes(b"\x00")
-        with pytest.raises(KeyError, match="not yet ported"):
+        with pytest.raises(err, match=match):
             tzoo.build(str(p), {}, device="cpu")
     with pytest.raises(KeyError, match="model file not found"):
         tzoo.build(str(files["dir"] / "absent.gguf"), {}, device="cpu")
