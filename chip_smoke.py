@@ -13,7 +13,9 @@ Phases, each of which must pass:
              tensor-core (HGMMA) instructions and asynchronous copies (TMA:
              UTMALDG; for int4 UTMALDG or UBLKCP), the paged library's
              mma.sync (HMMA) and UTMALDG, and ptxas must report no spill
-             for any of their bf16 kernels nor for the int8 conv kernels.
+             for any of their bf16 kernels nor for the int8 conv kernels,
+             whose library must hold mma.sync s8 (IMMA) and cp.async
+             (LDGSTS).
 2. kernels — hold each kernel against its plain PyTorch version on the
              card, at the shapes the main path gives it and a few more, and
              time kernel, plain version, one PyTorch library call computing
@@ -373,14 +375,25 @@ Phases, each of which must pass:
              trip bitwise; without it, the elements' clear error.  Prints
              which happened.
 18. modelfiles — model files on the card (``MF_*``).  (a) ``int8_conv``
-             against its plain version (a float64 conv of the integers),
-             bitwise, at every distinct layer shape of a fully-quantized
-             MobileNet-v1 224 at batch 64: kernel, plain and, where it
-             takes the shape, ``torch._int_mm`` ms (median of 20, L2
-             flushed), launches per forward, the bound (bytes over 3.35
-             TB/s, operations over 1,979 int8 TOPS); one CONV_2D with uint8
-             weights and per-axis zero points (the box sum through the
-             kernel with a ones weight) bitwise against the CPU.  (b)
+             at every distinct layer shape of a fully-quantized MobileNet-v1
+             224 at batch 64, and at two 24-channel shapes it lacks
+             (``MF_EXTRA_SHAPES``), on seeded operands in one of ``MF_FORMS``
+             (uint8 or int8 in and out, no activation, relu or relu6, input
+             zero points off 128 and 0): the fused entry (one launch, the
+             unpadded activation's bytes to the next activation's) bitwise
+             against its plain version with constants that spread the
+             outputs over their range, ``int8_conv``'s int32 sums (the same
+             entry) bitwise against a float64 conv of the integers; fused,
+             plain and yardstick ms (median of 20, L2 flushed: ``torch._int_mm`` for
+             the 1x1 layers and the FC, its N padded to 1008; float32 cuDNN,
+             TF32 off, channels_last, for the first conv and the depthwise
+             layers, each checked bitwise first), launches per forward, the
+             bound (bytes over 3.35 TB/s, operations over 1,979 int8 TOPS);
+             eight edge cases bitwise (ragged M and N, the GEMM's window
+             path, both over 12 or 24 channels too, a depthwise multiplier, the dense kernel on int8, a 1001-wide
+             FC); one CONV_2D with uint8 weights and per-axis zero points
+             (the box sum, then the fused conv reading it) bitwise against
+             the CPU.  (b)
              BASELINE's config #1 in its stock form: bench.py's quantized
              file (its draws, scales and bytes) written with the port's
              ``tflite_build``, through bench.py's pipeline (``videotestsrc
@@ -390,7 +403,10 @@ Phases, each of which must pass:
              ``int8_conv`` launches; frames/s, card ms a batch, busy share,
              peak memory; the first ``MF_CHECKED`` frames' uint8 logits
              bitwise equal to the port's plain path on the CPU, and every
-             op's integer output of an eager card call too.  (c) The float
+             op's integer output of an eager card call too; one eager
+             forward under torch.profiler, whose conv layers must be 28
+             ``int8_conv`` kernels with nothing between the first 27 (no
+             int32 sum leaves a kernel).  (c) The float
              twin (the same draws dequantized) through the same pipeline
              with the float scale, within ``MF_FLOAT_TOL`` of the CPU at
              f32.  (d) A MobileNet-v1 ``nn.Module`` exported by torch's own
@@ -460,16 +476,19 @@ class PhaseClock:
     phase("name"):`` arms ``faulthandler`` for ``PHASE_DEADLINE_S[name]``
     seconds, and prints ``phase: name <seconds> s`` when the phase ends;
     ``total()`` prints ``total:``, the seconds since the clock was made,
-    against ``BUDGET_S``."""
+    against ``BUDGET_S``.  ``slack`` multiplies every deadline: the
+    deadlines fit the plain run, and ``--profile``'s tracing (one phase's
+    ``key_averages`` alone can take longer than its deadline) gets 4."""
 
-    def __init__(self):
+    def __init__(self, slack=1):
         self.start = time.perf_counter()
         self.seconds = {}
+        self.slack = slack
 
     @contextlib.contextmanager
     def __call__(self, name):
         t0 = time.perf_counter()
-        faulthandler.dump_traceback_later(PHASE_DEADLINE_S[name], exit=True)
+        faulthandler.dump_traceback_later(PHASE_DEADLINE_S[name] * self.slack, exit=True)
         try:
             yield
         finally:
@@ -748,10 +767,13 @@ def phase_build_evidence():
 
     int8_kernels = {k: e for k, e in ptxas_entries(kernels.build_report("int8_conv")).items()
                     if "int8_conv" in k}
-    check(len(int8_kernels) == 3, f"int8 conv library: ptxas reported {sorted(int8_kernels)}")
+    check(len(int8_kernels) == 16, f"int8 conv library: ptxas reported {sorted(int8_kernels)}")
     for k, e in int8_kernels.items():
         check(e.get("spill_stores") == 0 and e.get("spill_loads") == 0,
               f"int8 conv kernel spills: {k} {e}")
+    int8_sass = sass_counts("int8_conv", ("IMMA", "LDGSTS", "LDSM"))
+    check(int8_sass["IMMA"] > 0, "int8 conv library: no IMMA (mma.sync s8) in its SASS")
+    check(int8_sass["LDGSTS"] > 0, "int8 conv library: no LDGSTS (cp.async) in its SASS")
     paged_sass = sass_counts("paged_attention", ("HMMA", "UTMALDG"))
     check(paged_sass["HMMA"] > 0, "paged library: no HMMA (mma.sync) instruction in its SASS")
     check(paged_sass["UTMALDG"] > 0, "paged library: no UTMALDG (TMA load) instruction in its SASS")
@@ -760,7 +782,7 @@ def phase_build_evidence():
                 int4_bf16_kernels=bf16_kernels("int4_matmul", "int4_bf16_kernel"),
                 paged_sass=paged_sass,
                 paged_bf16_kernels=bf16_kernels("paged_attention", "paged_split_bf16"),
-                int8_kernels=sorted(int8_kernels.values(), key=str))
+                int8_sass=int8_sass, int8_kernels=sorted(int8_kernels.values(), key=str))
 
 
 def print_row(r):
@@ -6234,76 +6256,275 @@ def mobilenet_tflite(size=MF_SIZE, classes=MF_CLASSES, batch=MF_BATCH, quantized
     return m.finish(outputs=[y])
 
 
-def int8_layer_inputs(dev, gen, kind, hw, cin, cout, k, stride, batch, zp=False):
-    """Seeded int8 operands of one layer at its real widths: the padded
-    input [B, Hp, Wp, Cin] (SAME at ``stride``; an FC's [B, 1, 1, K]) and
-    the kernel [O, k, k, Cin/groups] -> (x, w, stride, groups)."""
+#: the fused rows' forms, taken in turn by layer shape: (input dtype,
+#: output dtype, fused activation); every one comes up in the forward
+MF_FORMS = (("uint8", "uint8", "none"), ("uint8", "uint8", "relu6"),
+            ("int8", "int8", "relu"), ("uint8", "int8", "none"),
+            ("int8", "uint8", "relu6"))
+
+
+def int8_layer_case(dev, gen, i, kind, hw, cin, cout, k, stride, batch):
+    """Seeded operands of one layer at its real widths, in the ``i``-th of
+    ``MF_FORMS``: the raw unpadded activation ``x`` [B, hw, hw, Cin] (an
+    FC's [B, 1, 1, K]) in that dtype, its zero point (never 128 for uint8,
+    never 0 for int8: the pad value and the correction are not 0), the
+    kernel [O, k, k, Cin/groups], the SAME pads; and the padded int8 input
+    ``x8p`` of ``int8_conv``'s int32 sums."""
     import torch
+    import torch.nn.functional as F
 
     from nnstreamer_tpu_torch.models.tflite import _same_pads
 
+    x_dt, out_dt, act = MF_FORMS[i % len(MF_FORMS)]
     if kind == "fc":
-        shape, w_shape, groups = (batch, 1, 1, cin), (cout, 1, 1, cin), 1
+        shape, w_shape, groups, pads = (batch, 1, 1, cin), (cout, 1, 1, cin), 1, ((0, 0), (0, 0))
     else:
-        (pt, pb), (pl, pr) = _same_pads((hw, hw), (k, k), (stride, stride), (1, 1))
-        shape = (batch, hw + pt + pb, hw + pl + pr, cin)
+        pads = _same_pads((hw, hw), (k, k), (stride, stride), (1, 1))
+        shape = (batch, hw, hw, cin)
         groups = cin if kind == "dw" else 1
         w_shape = (cout, k, k, cin // groups)
-    x = torch.randint(-128, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+    if x_dt == "uint8":
+        x = torch.randint(0, 256, shape, generator=gen, device=dev, dtype=torch.uint8)
+        zp_in = 90 + 5 * (i % 8)
+        pad8 = zp_in - 128
+        x8 = (x ^ 128).view(torch.int8)
+    else:
+        x = torch.randint(-128, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+        zp_in = pad8 = -37 + 5 * (i % 8)
+        x8 = x
     w = torch.randint(-127, 128, w_shape, generator=gen, device=dev, dtype=torch.int8)
-    return x, w, stride, groups
+    (pt, pb), (pl, pr) = pads
+    x8p = F.pad(x8, (0, 0, pl, pr, pt, pb), value=pad8).contiguous() if pt + pb + pl + pr \
+        else x8.contiguous()
+    return dict(x=x, w=w, x8p=x8p, stride=stride, groups=groups, pads=pads, pad8=pad8,
+                zp_in=zp_in, out_dtype=getattr(torch, out_dt), act=act, form=(x_dt, out_dt, act))
+
+
+def int8_requant_consts(acc, rng, out_dtype, act):
+    """Per-channel constants that spread a layer's requantized outputs
+    over the whole output range: ``cb`` drawn within two of the channel's
+    standard deviations (never 0), ``mult`` so that three of them span the
+    range (times 0.7 .. 1.4; every other channel's rounded to a power of
+    two, so that many products are exact halves), an odd output zero point
+    off the middle (a half rounded after adding it would land elsewhere),
+    and the fused activation's clamp.  bench.py's weights decay to one
+    value, so they would not show a fault of the epilogue."""
+    import numpy as np
+    import torch
+
+    O = acc.shape[-1]
+    std = acc.to(torch.float64).reshape(-1, O).std(0).cpu().numpy() + 1.0
+    info = np.iinfo(np.uint8 if out_dtype == torch.uint8 else np.int8)
+    zp = int(info.min) + 61 + 2 * int(rng.integers(0, 15))
+    lo, hi = int(info.min), int(info.max)
+    if act in ("relu", "relu6"):
+        lo = zp
+    if act == "relu6":
+        hi = min(hi, zp + 150)
+    cb = rng.integers(-2 * std, 2 * std + 1).astype(np.int64)
+    cb[cb == 0] = 1
+    mult = rng.uniform(0.7, 1.4, O) * (hi - lo) / (3 * std)
+    mult[::2] = 2.0 ** np.round(np.log2(mult[::2]))
+    mult = mult.astype(np.float32)
+    dev = acc.device
+    return dict(cb=torch.from_numpy(cb.astype(np.int32)).to(dev),
+                mult=torch.from_numpy(mult).to(dev), zp=zp, lo=lo, hi=hi)
+
+
+def int8_library(c, acc, kind, k, flush):
+    """The yardstick of one layer, checked bitwise against the int32 sums
+    ``acc`` first and then timed: ``torch._int_mm`` for a 1x1 conv and the
+    FC (its N padded to a multiple of 8 with zero rows), float32 cuDNN
+    (TF32 off, channels_last, exact here: |acc| < 2^24) on the padded
+    integers for the first conv and the depthwise layers.  Returns (name,
+    ms), or (name, None) with the refusal."""
+    import torch
+    import torch.nn.functional as F
+
+    x8p, w, s, groups = c["x8p"], c["w"], c["stride"], c["groups"]
+    O = w.shape[0]
+    if k == 1 and groups == 1:
+        a = x8p.reshape(-1, w.shape[-1])
+        n8 = -(-O // 8) * 8
+        wb = w.reshape(O, -1)
+        if n8 != O:
+            wb = torch.cat([wb, wb.new_zeros((n8 - O, wb.shape[1]))])
+        b = wb.t()
+        name = "torch._int_mm" + (f" (N padded to {n8})" if n8 != O else "")
+        try:
+            got = torch._int_mm(a, b)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            return name, None, str(e).splitlines()[0][:160]
+        check(torch.equal(got[:, :O].reshape(acc.shape), acc),
+              f"{name} differs from the int32 sums")
+        return name, timed_ms(lambda: torch._int_mm(a, b), flush)[0], None
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        xf = x8p.to(torch.float32).permute(0, 3, 1, 2)  # channels_last views
+        wf = w.to(torch.float32).permute(0, 3, 1, 2)
+        fn = lambda: F.conv2d(xf, wf, stride=s, groups=groups)  # noqa: E731
+        got = fn()
+        torch.cuda.synchronize()
+        check(torch.equal(got.permute(0, 2, 3, 1), acc.to(torch.float32)),
+              "cuDNN's float32 conv differs from the int32 sums")
+        return "F.conv2d f32 cuDNN", timed_ms(fn, flush)[0], None
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+#: layer shapes that MobileNet-v1 lacks, timed beside its own (0 launches
+#: a forward): MobileNet-v2's 24-channel bottleneck feeds a 1x1 expansion,
+#: and a 3x3 conv over 24 channels; 24 is not a multiple of 16, so both take
+#: the GEMM's 4-byte copies
+MF_EXTRA_SHAPES = (("pw 24->144 @56", "conv", 56, 24, 144, 1, 1),
+                   ("conv 24->48 k3 s1 @56", "conv", 56, 24, 48, 3, 1))
 
 
 def int8_conv_rows(dev, flush, bw, peak_int8, size=MF_SIZE, batch=MF_BATCH,
                    classes=MF_CLASSES):
-    """``int8_conv`` against its plain version, bitwise, at each distinct
-    layer shape of the forward, with its device ms (median of 20, L2
-    flushed), the plain version's, ``torch._int_mm``'s where it takes the
-    shape (the 1x1 convs and the FC as [B*H*W, Cin] x [Cin, O]), its
-    launches per forward and its bound."""
+    """``int8_conv`` at each distinct layer shape of the forward, and at
+    ``MF_EXTRA_SHAPES``, on seeded operands in one of ``MF_FORMS``: the
+    fused entry's output against its plain version, bitwise, with
+    constants that spread it over the output range; ``int8_conv``'s int32
+    sums (the same entry, int32 out) against ``int8_conv_reference``,
+    bitwise; device ms (median of 20, L2 flushed) of the fused kernel, its
+    plain version and the yardstick (``int8_library``); launches per
+    forward; the bound (each input byte read once, one byte written an
+    output)."""
+    import numpy as np
     import torch
 
     from nnstreamer_tpu_torch.ops import int8_conv as i8
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    layers = mobilenet_layers(size, classes)
+    rng = np.random.default_rng(0)
     rows = {}
-    for label, kind, hw, cin, cout, k, stride in layers:
+    extra = [(label, 0, shape) for label, *shape in MF_EXTRA_SHAPES]
+    for label, per_forward, (kind, hw, cin, cout, k, stride) in [
+            (label, 1, shape) for label, *shape in mobilenet_layers(size, classes)] + extra:
         if label in rows:
-            rows[label]["per_forward"] += 1
+            rows[label]["per_forward"] += per_forward
             continue
-        x, w, s, groups = int8_layer_inputs(dev, gen, kind, hw, cin, cout, k, stride, batch)
-        got = i8.int8_conv(x, w, s, 1, groups)
-        want = i8.int8_conv_reference(x, w, s, 1, groups)
+        c = int8_layer_case(dev, gen, len(rows), kind, hw, cin, cout, k, stride, batch)
+        x, w, s, groups = c["x"], c["w"], c["stride"], c["groups"]
+        acc = i8.int8_conv(c["x8p"], w, s, 1, groups)
+        want_acc = i8.int8_conv_reference(c["x8p"], w, s, 1, groups)
         torch.cuda.synchronize()
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        check(err == 0, f"int8_conv {label}: max |kernel - plain| {err}")
-        ms, _ = timed_ms(lambda: i8.int8_conv(x, w, s, 1, groups), flush)
-        plain_ms, _ = timed_ms(lambda: i8.int8_conv_reference(x, w, s, 1, groups), flush)
-        lib_ms = lib_why = None
-        if k == 1 and groups == 1:
-            a = x.reshape(-1, cin)
-            b = w.reshape(cout, cin).t()
-            try:
-                lib = torch._int_mm(a, b)
-                torch.cuda.synchronize()
-                check(torch.equal(lib.reshape(got.shape), got),
-                      f"torch._int_mm differs from int8_conv at {label}")
-                lib_ms, _ = timed_ms(lambda: torch._int_mm(a, b), flush)
-            except RuntimeError as e:
-                lib_why = str(e).splitlines()[0][:160]
-        nbytes = x.numel() + w.numel() + got.numel() * 4
+        acc_err = int((acc.to(torch.int64) - want_acc.to(torch.int64)).abs().max())
+        check(acc_err == 0, f"int8_conv {label}: max |kernel - plain| {acc_err}")
+        q = int8_requant_consts(want_acc, rng, c["out_dtype"], c["act"])
+        args = (x, w, q["cb"], q["mult"], s, 1, groups, c["pads"], c["pad8"], q["zp"],
+                q["lo"], q["hi"], c["out_dtype"])
+        got = i8.int8_conv_requant(*args)
+        want = i8.int8_conv_requant_reference(*args)
+        torch.cuda.synchronize()
+        differ = int((got != want).sum())
+        distinct = int(torch.unique(want).numel())
+        span = q["hi"] - q["lo"] + 1
+        check(differ == 0, f"int8_conv_requant {label}: {differ} of {got.numel()} outputs "
+                           "differ from the plain version")
+        check(distinct * 2 >= span and int(want.min()) == q["lo"] and int(want.max()) == q["hi"],
+              f"int8_conv_requant {label}: outputs take {distinct} of {span} values")
+        ms, _ = timed_ms(lambda: i8.int8_conv_requant(*args), flush)
+        plain_ms, _ = timed_ms(lambda: i8.int8_conv_requant_reference(*args), flush)
+        lib_name, lib_ms, lib_why = int8_library(c, want_acc, kind, k, flush)
         ops = 2 * got.numel() * w.shape[1] * w.shape[2] * w.shape[3]
+        nbytes = x.numel() + w.numel() + got.numel() + 8 * w.shape[0]
         rows[label] = dict(
-            label=label, kind=kind, route=i8.int8_conv_route(cin, groups),
+            label=label, kind=kind, form=c["form"], zp_in=c["zp_in"],
+            kernel=i8.int8_conv_kernel(cin, cout, groups, k, k, stride),
             x=list(x.shape), w=list(w.shape), stride=s, groups=groups,
-            per_forward=1, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            library_ms=lib_ms, library_refused=lib_why,
+            per_forward=per_forward, max_abs_err=differ, int32_max_abs_err=acc_err,
+            distinct=distinct, span=span, ms=ms, plain_ms=plain_ms,
+            library=lib_name, library_ms=lib_ms, library_refused=lib_why,
             bound_ms=max(nbytes / bw, ops / peak_int8) * 1e3,
             bound_by="bytes" if nbytes / bw > ops / peak_int8 else "operations",
             bytes=nbytes, ops=ops)
-        del x, w, got, want
+        del c, x, w, got, want, acc, want_acc
     return list(rows.values())
+
+
+def int8_edge_cases(dev):
+    """The fused entry against its plain version, bitwise, where the
+    forward does not go: a ragged M and a ragged N (byte stores) on the
+    GEMM, a 3x3 conv and a strided 1x1 on the GEMM's window path (pads
+    through the pad word), the same over 12 and 24 channels (the GEMM's
+    4-byte copies), a depthwise multiplier of 2 and 12 channels (the
+    direct kernel), the dense kernel on int8 with pads on every side, an
+    FC of 1001 outputs over 40 rows -> [(case, kernel, outputs)]."""
+    import numpy as np
+    import torch
+
+    from nnstreamer_tpu_torch.models.tflite import _same_pads
+    from nnstreamer_tpu_torch.ops import int8_conv as i8
+
+    cases = (  # name, B, H, W, Cin, O, k, stride, groups, x dtype, out dtype, act
+        ("ragged M and N 1x1", 3, 13, 11, 48, 40, 1, 1, 1, "uint8", "uint8", "none"),
+        ("3x3 conv, 32 channels", 2, 9, 10, 32, 64, 3, 1, 1, "int8", "uint8", "relu6"),
+        ("1x1 stride 2", 2, 15, 15, 64, 96, 1, 2, 1, "uint8", "int8", "relu"),
+        ("ragged 1x1, 12 channels", 3, 13, 11, 12, 40, 1, 1, 1, "uint8", "uint8", "none"),
+        ("3x3 s2 conv, 24 channels", 2, 9, 10, 24, 72, 3, 2, 1, "int8", "uint8", "relu"),
+        ("depthwise x2", 2, 10, 9, 12, 24, 3, 2, 12, "uint8", "uint8", "none"),
+        ("dense int8 in", 2, 17, 16, 3, 16, 3, 1, 1, "int8", "int8", "none"),
+        ("fc 1001 x 40", 40, 1, 1, 256, 1001, 1, 1, 1, "uint8", "uint8", "none"),
+    )
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rng = np.random.default_rng(7)
+    out = []
+    for name, B, H, W, cin, O, k, s, groups, x_dt, out_dt, act in cases:
+        if x_dt == "uint8":
+            x = torch.randint(0, 256, (B, H, W, cin), generator=gen, device=dev,
+                              dtype=torch.uint8)
+            pad8 = 97 - 128
+        else:
+            x = torch.randint(-128, 128, (B, H, W, cin), generator=gen, device=dev,
+                              dtype=torch.int8)
+            pad8 = -11
+        w = torch.randint(-127, 128, (O, k, k, cin // groups), generator=gen, device=dev,
+                          dtype=torch.int8)
+        pads = _same_pads((H, W), (k, k), (s, s), (1, 1))
+        ref = i8.int8_conv_requant_reference(
+            x, w, None, torch.ones(O, device=dev), s, 1, groups, pads, pad8, 0,
+            -(2 ** 31), 2 ** 31 - 1, torch.float64)
+        q = int8_requant_consts(ref, rng, getattr(torch, out_dt), act)
+        args = (x, w, q["cb"], q["mult"], s, 1, groups, pads, pad8, q["zp"], q["lo"], q["hi"],
+                getattr(torch, out_dt))
+        got = i8.int8_conv_requant(*args)
+        want = i8.int8_conv_requant_reference(*args)
+        differ = int((got != want).sum())
+        check(differ == 0, f"int8_conv_requant {name}: {differ} of {got.numel()} differ")
+        out.append((name, i8.int8_conv_kernel(cin, O, groups, k, k, s), int(got.numel())))
+    return out
+
+
+def int_forward_kernels(bundle, x, tries=3):
+    """The card kernels of one eager forward of an integer bundle, in
+    launch order (torch.profiler), and the ``int8_conv`` launches the
+    wrapper counted in it.  A trace that holds fewer ``int8_conv`` kernels
+    than were launched lost events (seen after many earlier profiler
+    sessions in one process) and is taken again, ``tries`` times at most."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.ops import int8_conv as i8
+
+    bundle.apply_fn(bundle.params, x)
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        before = i8.LAUNCHES.value
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            bundle.apply_fn(bundle.params, x)
+            torch.cuda.synchronize()
+        launched = i8.LAUNCHES.value - before
+        kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+        kern.sort(key=lambda e: e.time_range.start)
+        names = [e.name for e in kern]
+        if sum("int8_conv" in n for n in names) >= launched:
+            break
+    return names, launched
 
 
 def int8_zero_point_case(dev, tmpdir, hw=14, cin=512, cout=512, batch=MF_BATCH):
@@ -6344,7 +6565,8 @@ def int8_zero_point_case(dev, tmpdir, hw=14, cin=512, cout=512, batch=MF_BATCH):
     differ = int((got != want).sum())
     check(differ == 0, f"zero-point conv: {differ} outputs differ from the CPU's")
     check(dev.type != "cuda" or launches == 2,
-          f"zero-point conv: {launches} int8_conv launches, want 2 (conv and box sum)")
+          f"zero-point conv: {launches} int8_conv launches, want 2 (the box sum, then the "
+          "fused conv reading it)")
     return dict(shape=f"conv {cin}->{cout} k3 @{hw}, uint8 weights, per-axis zero points",
                 launches=launches, differ=differ, outputs=int(got.numel()))
 
@@ -6461,11 +6683,12 @@ def phase_modelfiles(dev, size=MF_SIZE, batch=MF_BATCH, classes=MF_CLASSES, acc=
                 size, batch, classes)
             del flush_buf
             torch.cuda.empty_cache()
+            out["edge_cases"] = int8_edge_cases(dev)
         out["zero_point_case"] = int8_zero_point_case(dev, tmpdir, batch=batch)
         out["kernels_s"] = time.perf_counter() - t0
 
         # (b) the quantized file through the stock pipeline
-        t0 = time.perf_counter()
+        t0 = parts = time.perf_counter()
         qpath = os.path.join(tmpdir, f"mobilenet_v1_{size}_quant.tflite")
         with open(qpath, "wb") as fh:
             fh.write(mobilenet_tflite(size, classes, batch, quantized=True))
@@ -6496,6 +6719,7 @@ def phase_modelfiles(dev, size=MF_SIZE, batch=MF_BATCH, classes=MF_CLASSES, acc=
               f"int8_conv launches {launches} != {per_forward} x {replays} replays")
         check(not on_card or launches > 0, "the quantized cell launched no int8_conv")
         out["quant"] = q
+        out["quant_s"], parts = time.perf_counter() - parts, time.perf_counter()
 
         # its uint8 logits on the card against the CPU's plain path, bitwise
         src = VideoTestSrc({"width": size, "height": size})
@@ -6513,8 +6737,22 @@ def phase_modelfiles(dev, size=MF_SIZE, batch=MF_BATCH, classes=MF_CLASSES, acc=
         cpu_taps, cpu_logits = int_taps(tflite.load_bundle(qpath, device="cpu"),
                                         frames[:checked])
         out["cpu_plain_s"] = time.perf_counter() - t1
-        card_taps, _ = int_taps(tflite.load_bundle(qpath, device=dev),
-                                frames[:checked].to(dev))
+        card_bundle = tflite.load_bundle(qpath, device=dev)
+        card_taps, _ = int_taps(card_bundle, frames[:checked].to(dev))
+        if on_card:
+            # one eager forward's kernels: the conv layers are one fused
+            # launch each, nothing between them (no int32 sum leaves a kernel)
+            names, launched = int_forward_kernels(card_bundle, frames.to(dev))
+            at = [i for i, n in enumerate(names) if "int8_conv" in n]
+            run = at[:per_forward - 1]
+            out["forward_kernels"] = dict(
+                kernels=len(names), int8_conv=len(at), launched=launched,
+                others=sorted({n[:60] for n in names if "int8_conv" not in n}))
+            check(launched == len(at) == per_forward
+                  and run == list(range(run[0], run[0] + len(run))),
+                  f"the eager forward's kernels: int8_conv at {at} of {len(names)}, "
+                  f"{launched} launched")
+        del card_bundle
         check(card_logits.dtype == torch.uint8 and tuple(card_logits.shape) == (batch, classes),
               f"quantized logits {card_logits.dtype} {tuple(card_logits.shape)}")
         differ = int((card_logits[:checked] != cpu_logits).sum())
@@ -6537,6 +6775,7 @@ def phase_modelfiles(dev, size=MF_SIZE, batch=MF_BATCH, classes=MF_CLASSES, acc=
               "the stock pipeline's labels differ from the CPU logits' argmax")
         if on_card:
             torch.cuda.empty_cache()
+        out["check_s"], parts = time.perf_counter() - parts, time.perf_counter()
 
         # (c) the float twin, through the same pipeline with the float scale
         fpath = os.path.join(tmpdir, f"mobilenet_v1_{size}_float.tflite")
@@ -6563,6 +6802,7 @@ def phase_modelfiles(dev, size=MF_SIZE, batch=MF_BATCH, classes=MF_CLASSES, acc=
         check(err <= MF_FLOAT_TOL, f"float twin against the CPU: {err} > {MF_FLOAT_TOL}")
         out["float"] = f
         del cpu
+        out["float_s"] = time.perf_counter() - parts
 
         # (d) an .onnx MobileNet-v1 exported by torch's own exporter
         t1 = time.perf_counter()
@@ -6589,7 +6829,8 @@ def phase_modelfiles(dev, size=MF_SIZE, batch=MF_BATCH, classes=MF_CLASSES, acc=
                              / want.abs().amax(dim=1)).max().item())
             pipe.eos("src")
             pipe.wait(timeout=WAIT_S)
-        out["onnx"] = dict(batch=onnx_batch, batches=onnx_batches, max_err_share=max(errs),
+        out["onnx"] = dict(onnx_s=time.perf_counter() - t1, batch=onnx_batch,
+                           batches=onnx_batches, max_err_share=max(errs),
                            tol_share=MF_ONNX_TOL, export_s=export_s,
                            file_mb=os.path.getsize(opath) / 2**20)
         check(max(errs) <= MF_ONNX_TOL,
@@ -6601,9 +6842,10 @@ def phase_modelfiles(dev, size=MF_SIZE, batch=MF_BATCH, classes=MF_CLASSES, acc=
 
 def int8_summary(mf):
     """The ``kernels`` line's int8_conv entry, per forward of the
-    quantized MobileNet-v1 at batch 64: each shape's ms, plain ms and
-    bound times its launches per forward, summed; launches from the
-    quantized cell's run (counted from 0 just before it)."""
+    quantized MobileNet-v1 at batch 64: each shape's fused ms, plain ms,
+    bound and yardstick times its launches per forward, summed;
+    launches from the quantized cell's run (counted from 0
+    just before it); and whether each shape meets its yardstick."""
     rows = mf["int8_conv"]
 
     def per_forward(key, only=None):
@@ -6611,18 +6853,25 @@ def int8_summary(mf):
 
     by = {b: per_forward("bound_ms", lambda r, b=b: r["bound_by"] == b)
           for b in ("bytes", "operations")}
-    one_by_one = [r for r in rows if r["library_ms"] is not None]
+    gemm = [r for r in rows if r["library"].startswith("torch._int_mm")]
+    timed = [r for r in rows if r["library_ms"] is not None]
     return dict(
         name="int8_conv", route="cuda", source="nnstreamer_tpu_torch/csrc/int8_conv.cu",
         replaces="nnstreamer_tpu/models/tflite.py:685",
-        replaces_note="XLA's integer conv and dot (tflite.py:685, :742), no Pallas kernel",
-        launches=mf["quant"]["launches"], max_abs_err=max(r["max_abs_err"] for r in rows),
+        replaces_note="XLA's integer conv and dot and _requant_acc (tflite.py:685, :742, "
+                      ":628), no Pallas kernel",
+        launches=mf.get("quant", {}).get("launches"),
+        max_abs_err=max(r["max_abs_err"] for r in rows),
         ms=per_forward("ms"), plain_ms=per_forward("plain_ms"),
         bound_ms=per_forward("bound_ms"), bound_by=max(by, key=by.get),
-        library_ms=None, per="forward of mobilenet_v1 224 at batch 64 (28 launches)",
-        int_mm_ms_1x1=sum(r["library_ms"] * r["per_forward"] for r in one_by_one),
-        kernel_ms_1x1=sum(r["ms"] * r["per_forward"] for r in one_by_one),
-        per_shape={r["label"]: {k: r[k] for k in ("ms", "plain_ms", "library_ms",
+        library_ms=(per_forward("library_ms") if len(timed) == len(rows) else None),
+        library="torch._int_mm (1x1, FC) + F.conv2d f32 cuDNN (first conv, depthwise)",
+        per="forward of mobilenet_v1 224 at batch 64 (28 launches)",
+        int_mm_ms_1x1=sum(r["library_ms"] * r["per_forward"] for r in gemm
+                          if r["library_ms"] is not None),
+        kernel_ms_1x1=sum(r["ms"] * r["per_forward"] for r in gemm),
+        slower_than_library=[r["label"] for r in timed if r["ms"] > r["library_ms"]],
+        per_shape={r["label"]: {k: r[k] for k in ("kernel", "ms", "plain_ms", "library_ms",
                                                   "bound_ms", "bound_by", "per_forward")}
                    for r in rows})
 
@@ -6630,13 +6879,29 @@ def int8_summary(mf):
 def print_modelfiles(mf):
     for r in mf.get("int8_conv", []):
         lib = (f"{r['library_ms']:.4f}" if r["library_ms"] is not None
-               else "n/a" if r["library_refused"] is None
                else "refused (" + r["library_refused"] + ")")
-        print(f"modelfiles: int8_conv {r['label']} ({r['route']}) x {r['x']} w {r['w']} "
-              f"launches/forward {r['per_forward']} ms={r['ms']:.4f} plain={r['plain_ms']:.4f} "
-              f"int_mm={lib} bound={r['bound_ms']:.4f} ({r['bound_by']}) "
-              f"bitwise={r['max_abs_err'] == 0}"
+        print(f"modelfiles: int8_conv {r['label']} ({r['kernel']}, {'/'.join(r['form'])}, "
+              f"zp {r['zp_in']}) x {r['x']} w {r['w']} launches/forward {r['per_forward']} "
+              f"ms={r['ms']:.4f} plain={r['plain_ms']:.4f} "
+              f"{r['library']}={lib} bound={r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"bitwise={r['max_abs_err'] == 0} "
+              f"int32_bitwise={r['int32_max_abs_err'] == 0} values {r['distinct']}/{r['span']}"
               f"{' [named]' if r['label'] in MF_NAMED else ''}", flush=True)
+    if "int8_conv" in mf:
+        s = int8_summary(mf)
+        print(f"modelfiles: int8_conv a forward: fused {s['ms']:.4f} ms, bound "
+              f"{s['bound_ms']:.4f} ({s['bound_by']}), plain {s['plain_ms']:.4f}, library "
+              f"{s['library_ms']}; 1x1 layers and FC {s['kernel_ms_1x1']:.4f} "
+              f"against torch._int_mm's {s['int_mm_ms_1x1']:.4f}; slower than the "
+              f"yardstick: {s['slower_than_library'] or 'none'}", flush=True)
+    for name, kernel, n in mf.get("edge_cases", []):
+        print(f"modelfiles: int8_conv_requant {name} ({kernel}): {n} outputs bitwise",
+              flush=True)
+    if "forward_kernels" in mf:
+        fk = mf["forward_kernels"]
+        print(f"modelfiles: one eager forward: {fk['kernels']} kernels, {fk['int8_conv']} "
+              f"int8_conv in an unbroken run of the conv layers; the others {fk['others']}",
+              flush=True)
     z = mf["zero_point_case"]
     print(f"modelfiles: int8_conv {z['shape']}: {z['launches']} launches a call, "
           f"{z['differ']} of {z['outputs']} outputs differ from the CPU's", flush=True)
@@ -6674,8 +6939,9 @@ def print_modelfiles(mf):
           f"{o['export_s']:.1f} s by {mf['onnx_exporter']}) against its module on the card: "
           f"max share {o['max_err_share']:.3g} (tol {o['tol_share']}) over {o['batches']} "
           f"batches of {o['batch']}", flush=True)
-    print(f"modelfiles: parts kernels {mf['kernels_s']:.1f} s, file write {mf['write_s']:.1f} s",
-          flush=True)
+    print(f"modelfiles: parts kernels {mf['kernels_s']:.1f} s, file write {mf['write_s']:.1f} s, "
+          f"quantized cell {mf['quant_s']:.1f} s, its checks {mf['check_s']:.1f} s, float twin "
+          f"{mf['float_s']:.1f} s, .onnx {mf['onnx']['onnx_s']:.1f} s", flush=True)
 
 
 YOLO_BUCKET = 8
@@ -6767,8 +7033,8 @@ def main():
         with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
             json.dump(detail, fh, indent=1)
 
-    phase = PhaseClock()
     profile = "--profile" in sys.argv[1:]
+    phase = PhaseClock(slack=4 if profile else 1)
     with phase("build"):
         detail["build_s"] = kernels.build()
         print(f"build: {detail['build_s']:.1f} s", flush=True)
@@ -6783,8 +7049,8 @@ def main():
               f"{evidence['int4_bf16_kernels']}", flush=True)
         print(f"build: paged SASS {evidence['paged_sass']}, bf16 split kernels "
               f"(D = 32, 64, 128) {evidence['paged_bf16_kernels']}", flush=True)
-        print(f"build: int8 conv kernels (direct 32/64-bit index, gemm) "
-              f"{evidence['int8_kernels']}", flush=True)
+        print(f"build: int8 conv SASS {evidence['int8_sass']}, kernels (gemm x 12, "
+              f"depthwise x 2, dense, direct) {evidence['int8_kernels']}", flush=True)
 
     with phase("kernels"):
         flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)

@@ -610,7 +610,10 @@ def _run_op(op: _Op, get, const, attrs_name: str):
 # int8 kernel over a ones weight (run only where w_zp != 0).  The int32
 # accumulator requantizes per op through an f32 multiplier (per axis
 # where the file says so) with the fused activation as a clamp in the
-# quantized domain.  Light ops run dequant -> f32 -> requant.
+# quantized domain.  On the card the shift, the pad, the sums, the
+# corrections and the requantization are one kernel launch a layer
+# (``ops/int8_conv.py`` ``int8_conv_requant``).  Light ops run dequant ->
+# f32 -> requant.
 
 
 def _deq_t(x, q):
@@ -640,14 +643,6 @@ def _act_qrange(act: int, dt, scale: float, zp: int, what: str):
     if name == "relu6":
         hi = min(hi, int(round(6.0 / scale)) + zp)
     return lo, hi
-
-
-def _to_i8(x, zp: int):
-    """Shift a uint8 activation into int8 (zp adjusted by -128); int8
-    passes through."""
-    if x.dtype == torch.uint8:
-        return (x ^ 128).view(torch.int8), zp - 128
-    return x, zp
 
 
 def _int_route(op: _Op, g: TFLiteGraph) -> str:
@@ -681,9 +676,10 @@ def _out_q(op: _Op, g: TFLiteGraph, name: str, pos: int = 0):
 def _prepare_conv(op: _Op, g: TFLiteGraph, name: str, device) -> Dict:
     """The device constants and static geometry of one integer CONV_2D,
     DEPTHWISE_CONV_2D or FULLY_CONNECTED, made once at open: the int8
-    kernel in OHWI, the zero-point correction per output channel, the
-    ones kernel of the box sum (only where a weight zero point is not 0),
-    the int32 bias and the f32 multiplier."""
+    kernel in OHWI, ``cb`` (the zero-point correction plus the int32 bias,
+    per output channel, folded in int32 as XLA's adds wrap), the f32
+    multiplier, and where a weight zero point is not 0 that zero point per
+    channel and the ones kernel of the box sum."""
     k, a = op.kind, op.attrs
     xi, wi = op.inputs[0], op.inputs[1]
     xs, xz, _ = g.quant[xi]
@@ -714,6 +710,9 @@ def _prepare_conv(op: _Op, g: TFLiteGraph, name: str, device) -> Dict:
     wz_vec = (np.broadcast_to(wz8, (O,)) if wz8.size > 1
               else np.full((O,), int(wz8.ravel()[0])))
     corr = (-xz8 * sum_w + K * xz8 * wz_vec).astype(np.int32)
+    bias = None
+    if len(op.inputs) > 2 and op.inputs[2] >= 0:
+        bias = _raw_const(g, op.inputs[2], f"{name}: {k} bias").astype(np.int32)
     oq = _out_q(op, g, name)
     mult = (float(xs[0]) * ws.astype(np.float32) / float(oq[0][0][0]))
     mult = np.broadcast_to(mult, (O,)).astype(np.float32)
@@ -721,56 +720,48 @@ def _prepare_conv(op: _Op, g: TFLiteGraph, name: str, device) -> Dict:
                          name)
 
     prep = dict(
-        w8=to_device(ohwi.astype(np.int8), device), corr=to_device(corr, device),
-        mult=to_device(mult, device), bias=None, wz=None, ones=None,
-        static=dict(fc=fc, dw=dw, groups=groups, K=cg, xz8=xz8,
+        w8=to_device(ohwi.astype(np.int8), device),
+        cb=to_device(fold_cb(corr, bias), device),
+        mult=to_device(mult, device), wz=None, ones=None,
+        static=dict(fc=fc, groups=groups, K=cg, xz8=xz8,
                     strides=(1, 1) if fc else tuple(a["strides"]),
                     dilation=(1, 1) if fc else tuple(a["dilation"]),
                     padding="VALID" if fc else a["padding"],
-                    kh=kh, kw=kw, rep=O // cin if dw else 1,
-                    zp=float(oq[0][1][0]), lo=lo, hi=hi,
+                    kh=kh, kw=kw, zp=int(oq[0][1][0]), lo=lo, hi=hi,
                     dtype=torch_dtype(oq[1])))
     if np.any(wz_vec != 0):
         prep["wz"] = to_device(wz_vec.astype(np.int32), device)
         prep["ones"] = to_device(np.ones((cin, kh, kw, 1) if dw else (1, kh, kw, cg),
                                          np.int8), device)
-    if len(op.inputs) > 2 and op.inputs[2] >= 0:
-        bias = _raw_const(g, op.inputs[2], f"{name}: {k} bias")
-        prep["bias"] = to_device(bias.astype(np.int32), device)
     return prep
 
 
+def fold_cb(corr: np.ndarray, bias: Optional[np.ndarray]) -> np.ndarray:
+    """``corr + bias`` per output channel as int32, wrapping as the JAX
+    package's int32 adds do (``acc + corr``, then ``+ bias``: the order of
+    wrapping adds does not change their sum)."""
+    cb = corr.astype(np.int64)
+    if bias is not None:
+        cb = cb + bias.astype(np.int32).astype(np.int64)
+    return cb.astype(np.int32)
+
+
 def _run_conv_int(x, prep):
-    """One integer CONV_2D / DEPTHWISE_CONV_2D / FULLY_CONNECTED on the
-    device: int8 sums through the int8 kernel, the corrections, the bias
-    and the requantization."""
+    """One integer CONV_2D / DEPTHWISE_CONV_2D / FULLY_CONNECTED: one call
+    of the fused kernel (``int8_conv_requant``), from the activation's
+    bytes to the next activation's."""
     st = prep["static"]
-    x8, _ = _to_i8(x, 0)
     if st["fc"]:
-        x8p = x8.reshape(-1, 1, 1, st["K"])
-    else:
-        if st["padding"] == "SAME":
-            (pt, pb), (pl, pr) = _same_pads(x8.shape[1:3], (st["kh"], st["kw"]),
-                                            st["strides"], st["dilation"])
-        else:
-            pt = pb = pl = pr = 0
-        x8p = (F.pad(x8, (0, 0, pl, pr, pt, pb), value=st["xz8"])
-               if pt or pb or pl or pr else x8)
-    x8p = x8p.contiguous()
-    acc = i8.int8_conv(x8p, prep["w8"], st["strides"], st["dilation"], st["groups"])
-    acc = acc + prep["corr"]
-    if prep["wz"] is not None:
-        sum_x = i8.int8_conv(x8p, prep["ones"], st["strides"], st["dilation"],
-                             st["groups"])
-        if st["rep"] > 1:
-            sum_x = sum_x.repeat_interleave(st["rep"], dim=-1)
-        acc = acc - prep["wz"] * sum_x
-    if st["fc"]:
-        acc = acc.reshape(acc.shape[0], -1)
-    if prep["bias"] is not None:
-        acc = acc + prep["bias"]
-    y = torch.round(acc.to(torch.float32) * prep["mult"]) + st["zp"]
-    return torch.clamp(y, st["lo"], st["hi"]).to(st["dtype"])
+        x = x.reshape(-1, 1, 1, st["K"])
+    pads = ((0, 0), (0, 0))
+    if st["padding"] == "SAME":
+        pads = _same_pads(x.shape[1:3], (st["kh"], st["kw"]), st["strides"],
+                          st["dilation"])
+    y = i8.int8_conv_requant(
+        x.contiguous(), prep["w8"], prep["cb"], prep["mult"], st["strides"],
+        st["dilation"], st["groups"], pads, st["xz8"], st["zp"], st["lo"], st["hi"],
+        st["dtype"], prep["wz"], prep["ones"])
+    return y.reshape(y.shape[0], -1) if st["fc"] else y
 
 
 def _run_op_int(op: _Op, route: str, geti, getf, const, g: TFLiteGraph,

@@ -18,6 +18,7 @@ version) and no float conv runs."""
 import os
 import re
 import tempfile
+import types
 
 import jax
 import numpy as np
@@ -371,9 +372,9 @@ class TestInt8ConvPlain:
         np.testing.assert_array_equal(got.numpy().reshape(1, 2), want)
 
     def test_routes_and_refusals(self):
-        assert i8.int8_conv_route(32, 1) == "gemm"
-        assert i8.int8_conv_route(3, 1) == "direct"
-        assert i8.int8_conv_route(32, 32) == "direct"
+        assert i8.int8_conv_kernel(32, 64, 1, 1, 1) == "gemm"
+        assert i8.int8_conv_kernel(3, 96, 1, 3, 3, 2) == "direct"
+        assert i8.int8_conv_kernel(32, 32, 32, 3, 3) == "depthwise"
         x = torch.zeros((1, 4, 4, 4), dtype=torch.int8)
         with pytest.raises(ValueError, match="int8"):
             i8.int8_conv(x.float(), torch.zeros((2, 1, 1, 4), dtype=torch.int8))
@@ -386,22 +387,20 @@ class TestInt8ConvPlain:
                                                    device="meta"))
 
     def test_c_signature_matches_the_binding(self):
-        """The ctypes binding declares one argument per parameter of the C
-        entry in csrc/int8_conv.cu (checked here: no compiler on the CPU)."""
+        """The ctypes binding declares one argument per parameter of every
+        launching C entry in csrc/int8_conv.cu (checked here: no compiler
+        on the CPU).  There is one: ``int8_conv``'s int32 sums and
+        ``int8_conv_requant`` both launch through it."""
         src = open(os.path.join(REPO, "nnstreamer_tpu_torch", "csrc", "int8_conv.cu")).read()
-        params = re.search(r'extern "C" int nns_int8_conv\(([^)]*)\)', src).group(1)
-        kinds = ["p" if "*" in a else "i" for a in params.split(",")]
-
-        class Fn:
-            pass
-
-        class Lib:
-            nns_int8_conv = Fn()
-
-        i8._declare(Lib)
-        declared = ["p" if t is __import__("ctypes").c_void_p else "i"
-                    for t in Lib.nns_int8_conv.argtypes]
-        assert declared == kinds
+        entries = dict(re.findall(r'extern "C" int (nns_\w+)\(([^)]*)\)', src))
+        assert list(entries) == ["nns_int8_conv_requant"]
+        lib = types.SimpleNamespace(**{name: types.SimpleNamespace() for name in entries})
+        i8._declare(lib)
+        for name, params in entries.items():
+            kinds = ["p" if "*" in a else "i" for a in params.split(",")]
+            declared = ["p" if t is __import__("ctypes").c_void_p else "i"
+                        for t in getattr(lib, name).argtypes]
+            assert declared == kinds, name
 
 
 def test_modelfiles_phase_rehearsal(tmp_path):
