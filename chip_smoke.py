@@ -256,8 +256,8 @@ Phases, each of which must pass:
 13. batching — micro-batching, no kernel of csrc/: the README quick-start
              fed ONE frame per buffer (``dimensions=3:224:224:1``, 512
              seeded uint8 frames, queues 64 deep, no max-inflight),
-             mobilenet_v1 224 bf16, ``batch_max`` 1 against 32, two runs
-             each in turns, streaming (a pusher thread against the pulls):
+             mobilenet_v1 224 bf16, ``batch_max`` 1 against 32, one run
+             each (``BATCHING_RUNS``), streaming (a pusher thread against the pulls):
              frames/s, p50/p99 per frame, the occupancy histogram, pad
              waste, the census (one one-buffer step and at most one step
              per bucket, every bucket warmed first, no capture after), the
@@ -270,12 +270,12 @@ Phases, each of which must pass:
              against 1) and bench_adaptive (a 1280-wide, 32-layer tanh MLP
              through custom-easy on the card, bursts of 6, adaptive against
              static: the refined ladder must hold 6) cells.  The dispatch
-             window at ``dispatch_depth`` 1, 2, 4 in turns, each run a
+             window at ``dispatch_depth`` 1, 2, 4, one run each, each a
              backlog (every frame queued behind a held first one, so every
              run takes the same steps): outputs bitwise equal.  Ingress: the
              batch-64 quick-start and the per-frame backlog with the port's
              fresh pinned copy, with reused pinned slots (patched in), and
-             with ``donate_ingress`` off, in turns: frames/s, host µs
+             with ``donate_ingress`` off, one run each: frames/s, host µs
              filling the static inputs, outputs bitwise equal.  The
              per-frame cell again at a 0.5 ms interpreter switch interval;
              one stack against one copy per row filling a bucket from card
@@ -331,7 +331,7 @@ Phases, each of which must pass:
              normalisation, ssd_mobilenet 320 (91 classes, bf16) and
              ``bounding_boxes option3=0.0 option4=640:480`` into the
              compositor's overlay pad, the other through ``queue`` to its
-             base pad (``V4L2``).  A checked run of 192 frames (every group
+             base pad (``V4L2``).  A checked run of 128 frames (every group
              the compositor blends: its base is the camera's frame of that
              pts, the output is that frame where the overlay is clear and
              the overlay where it is opaque), then one timed run: frames/s,
@@ -414,6 +414,40 @@ Phases, each of which must pass:
              out wherever this torch keeps it) through ``tensor_filter`` on
              the card, within ``MF_ONNX_TOL`` of the module run eagerly on
              the card.
+19. capi   — the C side (``CAPI_*``): the build phase compiled the
+             port's ``libnnstpu`` and ``libnnstpu_capi`` (g++, beside the
+             nvcc builds), the ``.so`` filter ``examples/torch_channel_swap.cc``
+             (a BGR <-> RGB swap of uint8 frames) and the C program
+             ``examples/torch_capi_classify.c`` against the C API.  The
+             program runs in a child process (waited for at most ``WAIT_S``,
+             killed in a ``finally``) that embeds the interpreter: the
+             single-shot surface on mobilenet_v1 224 bf16 at batch 64 (the
+             header's own example), on BASELINE's config #1 (the modelfiles
+             phase's quantized file, every conv on ``int8_conv``) and on its
+             first ``CAPI_CHECK_BLOCKS`` blocks (the same draws cut short,
+             whose logits spread where the full file's are all the zero
+             point), and on the ``.so``; then the pipeline surface,
+             ``appsrc ! tensor_filter framework=custom ! tensor_filter
+             framework=jax model=<.tflite> ! tensor_transform`` (bench.py's
+             dequantization; with the filter one captured card stage)
+             ``! tensor_sink``, ``CAPI_WARM``
+             batches and ``CAPI_TIMED`` timed ones of 64 frames with up to
+             ``CAPI_WINDOW`` in flight, and the cut file's pipeline for two
+             batches.  Its inputs come from a counter hash that
+             ``capi_bytes`` makes again here.  Checks: the quantized outputs
+             (both files, single-shot and pipeline) and the ``.so``'s
+             bitwise against the same models, pipelines and a numpy channel
+             flip run in this process; the bf16 logits within
+             ``VISION_TOL`` of this process's ``SingleShot`` (how many are
+             bitwise is printed); the child holds the card's device nodes;
+             the in-process pipeline's card stage runs on ``cuda`` and
+             captures nothing after its first batch; the timed pipeline
+             once more through ``capi.py`` from Python (bytes in and out),
+             bitwise.
+             Prints the C side's frames/s against this process's run of
+             the same pipeline and the modelfiles cell, its single-invoke
+             ms and its start-up seconds, with the card's name and power
+             limit.
 
 Each phase prints ``phase: <name> <seconds> s`` when it ends and runs
 under its deadline (``PHASE_DEADLINE_S``: past it faulthandler prints
@@ -436,6 +470,7 @@ the continuous phase's counted run (card activity only): the card's busy
 ms per decode step and idle share over that run.
 """
 
+import concurrent.futures
 import contextlib
 import faulthandler
 import functools
@@ -461,12 +496,12 @@ WAIT_S = 60
 #: slower of two H100 runs (PERF.md section 4; the host-bound phases ran
 #: up to 1.46 times slower in one run than in the other), and at least
 #: 30 s; past it faulthandler prints every thread's stack and the process
-#: exits non-zero.  Their sum (1,010 s) stays under the 1,200 s the run is
+#: exits non-zero.  Their sum (1,080 s) stays under the 1,200 s the run is
 #: given, so a hang anywhere ends the run inside it
 PHASE_DEADLINE_S = dict(
     build=70, kernels=60, serve=30, continuous=55, query=50, prefix=70, spec=150,
     files=65, elastic=60, reference=30, vision=35, models=40, batching=90,
-    camera=30, asr=30, v4l2=50, transport=55, modelfiles=40)
+    camera=30, asr=30, v4l2=50, transport=55, modelfiles=40, capi=70)
 #: the run's budget, every phase and the kernel build included
 BUDGET_S = 400
 
@@ -4114,7 +4149,7 @@ def print_spec(r):
 #: queues (BATCHING_QUEUE) and the drain can fill its buckets
 BATCHING_FRAMES = 512
 BATCHING_MAX = 32
-BATCHING_RUNS = 2
+BATCHING_RUNS = 1
 BATCHING_QUEUE = 64
 PER_FRAME = ("appsrc name=src caps=other/tensors,dimensions=3:{size}:{size}:1,"
              "types=uint8 max-buffers={cap} ! " + NORM + " ! tensor_filter "
@@ -4634,7 +4669,7 @@ def fill_forms(dev, rows=BATCHING_MAX, size=224, reps=50):
 def phase_batching(dev, size=224, frames_n=BATCHING_FRAMES, acc="",
                    runs=BATCHING_RUNS, profile=False):
     """Micro-batching on ``dev``: the per-frame quick-start at batch_max 1
-    against BATCHING_MAX (streaming, in turns), its bucket rows bitwise
+    against BATCHING_MAX (streaming, ``runs`` each, in turns), its bucket rows bitwise
     across occupancies and its batched outputs against the unbatched
     logits; bench.py's two batching cells; the dispatch window at
     WINDOW_DEPTHS (backlog, bitwise); ingress donation on and off (the
@@ -4699,7 +4734,7 @@ def phase_batching(dev, size=224, frames_n=BATCHING_FRAMES, acc="",
         # 4. the dispatch window, backlog mode (the same steps every run)
         window = {d: [] for d in WINDOW_DEPTHS}
         first = None
-        for d in WINDOW_DEPTHS + WINDOW_DEPTHS[::-1]:
+        for d in WINDOW_DEPTHS:
             res, st = per_frame_run(dev, frames, BATCHING_MAX, size=size, acc=acc,
                                     depth=d, backlog=True)
             first = res if first is None else first
@@ -4709,14 +4744,14 @@ def phase_batching(dev, size=224, frames_n=BATCHING_FRAMES, acc="",
         out["window"] = {str(d): rs for d, rs in window.items()}
         # 5. ingress donation: the planned flags on and off, and the two
         # forms of the ingress copy (the port's fresh pinned memory against
-        # reused pinned slots) in turns; every output bitwise equal
+        # reused pinned slots), one run each; every output bitwise equal
         qs_frames = [rng.integers(0, 256, (VISION_BATCH, size, size, 3), dtype=np.uint8)
                      for _ in range(VISION_WARM + VISION_TIMED)]
         qs_desc = QUICKSTART.format(size=size, batch=VISION_BATCH, model="mobilenet_v1",
                                     custom="", acc=acc)
         donation = {"quickstart": {}, "per_frame": {}}
         firsts = {}
-        forms = ("fresh", "slot", "slot", "fresh", "donate_off")
+        forms = ("fresh", "slot", "donate_off")
         for form in forms if on_card else ("fresh", "donate_off"):
             flag = form != "donate_off"
             with SlotFill() if form == "slot" else contextlib.nullcontext():
@@ -5323,7 +5358,7 @@ def print_asr(a):
 #: detector's 320 px and decoded into a 640x480 RGBA overlay, the other
 #: queued to the compositor's base pad)
 V4L2_W, V4L2_H = 640, 480
-V4L2_FRAMES = 192
+V4L2_FRAMES = 128
 V4L2_RUNS = 1
 #: the stall run: frames written before the writer stalls, and the stall
 V4L2_STALL_AFTER = 16
@@ -6187,12 +6222,15 @@ def mobilenet_layers(size=MF_SIZE, classes=MF_CLASSES):
     return out
 
 
-def mobilenet_tflite(size=MF_SIZE, classes=MF_CLASSES, batch=MF_BATCH, quantized=True):
+def mobilenet_tflite(size=MF_SIZE, classes=MF_CLASSES, batch=MF_BATCH, quantized=True,
+                     blocks=MF_BLOCKS):
     """bench.py's fully-quantized MobileNet-v1 file (``_quant_mobilenet_file``,
     the same draws from seed 42, names, scales and bytes), written with the
     port's ``tflite_build``.  ``quantized=False``: its float twin, the same
     topology over the same int8 draws dequantized (float32 weights, zero
-    biases, float32 input and logits)."""
+    biases, float32 input and logits).  ``blocks``: the depthwise-separable
+    blocks, ``MF_BLOCKS`` or its first few (the same draws for the layers
+    kept; the FC's come next)."""
     import numpy as np
 
     from nnstreamer_tpu_torch.models import tflite_build
@@ -6231,7 +6269,7 @@ def mobilenet_tflite(size=MF_SIZE, classes=MF_CLASSES, batch=MF_BATCH, quantized
 
     h, hw = qconv(x, 3, 32, 3, 2, size)
     cin = 32
-    for cout, stride in MF_BLOCKS:
+    for cout, stride in blocks:
         h, hw = qconv(h, cin, cin, 3, stride, hw, dw=True)
         h, hw = qconv(h, cin, cout, 1, 1, hw)
         cin = cout
@@ -6944,6 +6982,238 @@ def print_modelfiles(mf):
           f"{mf['float_s']:.1f} s, .onnx {mf['onnx']['onnx_s']:.1f} s", flush=True)
 
 
+#: the capi phase: the C program's single-shot calls of each card model
+#: (the first timed alone), the pipeline's warm-up batches, its timed
+#: batches, the batches in flight while timed, and the blocks of the cut
+#: file whose logits spread
+CAPI_INVOKES = 6
+CAPI_WARM = 2
+CAPI_TIMED = 8
+CAPI_WINDOW = 4
+CAPI_CHECK_BLOCKS = 4
+#: the sources the build phase compiles for it
+CAPI_FILTER = os.path.join(ROOT, "examples", "torch_channel_swap.cc")
+CAPI_PROGRAM = os.path.join(ROOT, "examples", "torch_capi_classify.c")
+#: the C program's pipeline, written the same way there
+CAPI_PIPE = ("appsrc name=src caps=other/tensors,num_tensors=1,"
+             "dimensions=3:{size}:{size}:{batch},types=uint8 ! tensor_filter "
+             "framework=custom model={so} custom=size:{size},batch:{batch} ! "
+             "tensor_filter framework=jax model={model}{acc} ! tensor_transform "
+             "mode=arithmetic option=typecast:float32,add:-128.0,mul:0.1 ! "
+             "tensor_sink name=out")
+
+
+def build_native():
+    """The port's native libraries, then the capi phase's filter and
+    program (which links ``libnnstpu_capi``): (seconds, filter path,
+    program path)."""
+    from nnstreamer_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.build()
+    jobs = [native.filter_job(CAPI_FILTER), native.program_job(CAPI_PROGRAM)]
+    native.compile_all(jobs)
+    return time.perf_counter() - t0, str(jobs[0][0]), str(jobs[1][0])
+
+
+def capi_bytes(seed, first, n):
+    """Bytes ``first .. first + n`` of the C program's input stream
+    ``seed`` (its ``frame_byte``: a counter hash in uint32 arithmetic)."""
+    import numpy as np
+
+    i = np.arange(first, first + n, dtype=np.uint64).astype(np.uint32)
+    h = (i * np.uint32(2654435761)) ^ np.uint32((seed * 0x9E3779B9) & 0xFFFFFFFF)
+    h ^= h >> np.uint32(16)
+    h *= np.uint32(0x85EBCA6B)
+    h ^= h >> np.uint32(13)
+    h *= np.uint32(0xC2B2AE35)
+    h ^= h >> np.uint32(16)
+    return (h & np.uint32(0xFF)).astype(np.uint8)
+
+
+def windowed_pipeline(push, pull, n, warm, window):
+    """The C program's pipeline loop: ``push(b)`` for batch ``b`` of
+    ``n``, ``pull()`` an output; ``warm`` batches one at a time, then the
+    rest with up to ``window`` in flight; (outputs, seconds of the timed
+    part)."""
+    outs, t0 = [], time.perf_counter()
+    for b in range(n):
+        if b == warm:
+            t0 = time.perf_counter()
+        push(b)
+        while len(outs) <= b and (b < warm or b - len(outs) + 1 >= window or b == n - 1):
+            outs.append(pull())
+    return outs, time.perf_counter() - t0
+
+
+def phase_capi(dev, so, program, size=MF_SIZE, batch=MF_BATCH, invokes=CAPI_INVOKES,
+               warm=CAPI_WARM, timed=CAPI_TIMED, window=CAPI_WINDOW, files_dir=None):
+    """The C side on ``dev``: the C program ``program`` (with the filter
+    ``so``) in a child process, then the same models, inputs and
+    pipelines in this process, outputs compared.  On the CPU the program
+    leaves out its single-shot card models and its pipelines name
+    ``accelerator=true:cpu``.  The files have ``MF_CLASSES`` classes, as
+    the program's output size assumes."""
+    import shutil
+
+    import numpy as np
+
+    import nnstreamer_tpu_torch as ntt
+    from nnstreamer_tpu_torch import capi, native
+
+    on_card = dev.type == "cuda"
+    acc = "" if on_card else " accelerator=true:cpu"
+    tmpdir = os.path.join(files_dir or os.path.join(ROOT, "build", "files"), "capi")
+    outdir = os.path.join(tmpdir, "out")
+    os.makedirs(outdir, exist_ok=True)
+    out = dict(size=size, batch=batch, invokes=invokes, warm=warm, timed=timed,
+               window=window)
+    try:
+        model = os.path.join(tmpdir, "mobilenet_v1_quant.tflite")
+        check_model = os.path.join(tmpdir, f"mobilenet_v1_quant_{CAPI_CHECK_BLOCKS}.tflite")
+        with open(model, "wb") as fh:
+            fh.write(mobilenet_tflite(size, MF_CLASSES, batch))
+        with open(check_model, "wb") as fh:
+            fh.write(mobilenet_tflite(size, MF_CLASSES, batch,
+                                      blocks=MF_BLOCKS[:CAPI_CHECK_BLOCKS]))
+        args = [program, outdir, str(size), str(batch), so, model, check_model,
+                "card" if on_card else "cpu", str(invokes), str(warm), str(timed),
+                str(window)]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(args, env=native.program_env(), stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        try:
+            stdout, stderr = proc.communicate(timeout=WAIT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=WAIT_S)
+        out["child_s"] = time.perf_counter() - t0
+        check(proc.returncode == 0, f"the C program exited {proc.returncode}: "
+                                    f"{stdout[-1000:]} {stderr[-3000:]}")
+        last = stdout.strip().splitlines()[-1].split()
+        check(last[0] == "capi-c-result", f"the C program's last line: {last}")
+        c = out["c"] = {k: float(v) for k, v in (kv.split("=") for kv in last[1:])}
+        out["c_lines"] = [ln for ln in stdout.splitlines() if ln.startswith("capi-c:")]
+        if on_card:
+            check(c["card_handles"] > 0, "the C program holds no handle on the card")
+
+        def saved(tag, dtype, shape):
+            return np.fromfile(os.path.join(outdir, f"{tag}.bin"), dtype).reshape(shape)
+
+        frame = batch * size * size * 3
+        xq = capi_bytes(2, 0, frame).reshape(batch, size, size, 3)
+        # single shot: the same models and inputs in this process
+        if on_card:
+            xf = ((capi_bytes(1, 0, frame).astype(np.float32) - np.float32(128))
+                  * np.float32(0.0078125)).reshape(batch, size, size, 3)
+            with ntt.SingleShot(framework="jax", model="mobilenet_v1",
+                                custom=f"size:{size},batch:{batch}") as s:
+                want = s.invoke(xf)[0]
+            got = saved("bf16", np.float32, want.shape)
+            err = float((np.abs(got - want).max(axis=1)
+                         / np.abs(want).max(axis=1)).max())
+            out["bf16"] = dict(max_err_share=err, tol_share=VISION_TOL,
+                               bitwise_frames=int((got == want).all(axis=1).sum()),
+                               frames=batch)
+            check(np.isfinite(got).all() and err <= VISION_TOL,
+                  f"C-side bf16 mobilenet_v1 against this process: {err} > {VISION_TOL}")
+            for tag, path in (("quant", model), ("check", check_model)):
+                with ntt.SingleShot(framework="jax", model=path) as s:
+                    want = s.invoke(xq)[0]
+                got = saved(tag, np.uint8, want.shape)
+                out[tag] = dict(differ=int((got != want).sum()), outputs=int(want.size),
+                                distinct=int(np.unique(want).size))
+                check(out[tag]["differ"] == 0, f"C-side {tag} .tflite: "
+                                               f"{out[tag]['differ']} outputs differ")
+        got = saved("swap", np.uint8, xq.shape)
+        out["swap"] = dict(differ=int((got != xq[..., ::-1]).sum()), outputs=int(xq.size))
+        check(out["swap"]["differ"] == 0, "the C side's .so output is not the channel flip")
+
+        # the pipelines: the same description and frames in this process
+        frames = [capi_bytes(3, b * frame, frame).reshape(batch, size, size, 3)
+                  for b in range(warm + timed)]
+        for tag, path, n, w, win in (("pipe", model, warm + timed, warm, window),
+                                     ("pipe_check", check_model, 2, 0, 1)):
+            pipe = ntt.Pipeline(CAPI_PIPE.format(size=size, batch=batch, so=so, model=path,
+                                                 acc=acc))
+            stage, names = vision_stage(pipe)
+            check(stage.device.type == dev.type, f"the card stage runs on {stage.device}")
+            with pipe:
+                want, secs = windowed_pipeline(
+                    lambda b: pipe.push("src", frames[b]),
+                    lambda: np.asarray(pipe.pull("out", timeout=WAIT_S).tensors[0]), n, w, win)
+                pipe.eos("src")
+                pipe.wait(timeout=WAIT_S)
+            got = saved(tag, np.float32, (n, batch, MF_CLASSES))
+            out[tag] = dict(stages=names, device=str(stage.device), batches=n,
+                            census=census_of(stage.census, len(stage.census.signatures)),
+                            differ=int(sum((g != x).sum() for g, x in zip(got, want))),
+                            distinct=int(np.unique(np.stack(want)).size),
+                            frames_per_s=(n - w) * batch / secs)
+            check(out[tag]["differ"] == 0, f"C-side {tag}: {out[tag]['differ']} outputs "
+                                           "differ from this process's run")
+            check(out[tag]["census"]["captures_after_warmup"] == 0,
+                  f"{tag}: the card stage captured after its first batch")
+        # the timed pipeline once more through the C API's Python half (bytes
+        # in and out, as the C program hands them over): the bridge's cost
+        # without the C program and its interpreter lock hand-offs
+        blobs = [f.tobytes() for f in frames]
+        h = capi.pipeline_open(CAPI_PIPE.format(size=size, batch=batch, so=so, model=model,
+                                                acc=acc))
+        try:
+            bridged, secs = windowed_pipeline(
+                lambda b: capi.pipeline_push(h, "src", [blobs[b]]),
+                lambda: capi.pipeline_pull(h, "out", WAIT_S)[0][0], warm + timed, warm,
+                window)
+            capi.pipeline_eos(h, "src")
+        finally:
+            capi.pipeline_close(h)
+        got = saved("pipe", np.float32, (warm + timed, batch * MF_CLASSES))
+        out["bridge"] = dict(frames_per_s=timed * batch / secs,
+                             differ=int(sum((np.frombuffer(x, np.float32) != g).sum()
+                                            for x, g in zip(bridged, got))))
+        check(out["bridge"]["differ"] == 0, "the bridge's outputs differ from the C side's")
+        check(out["pipe_check"]["distinct"] > 1, "the cut file's logits do not spread")
+        out["c_frames_per_s"] = c["pipe_frames"] / c["pipe_s"]
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    return out
+
+
+def print_capi(r, mf_fps, card):
+    c = r["c"]
+    for line in r["c_lines"]:
+        print(f"capi: {line[len('capi-c: '):]}", flush=True)
+    if "bf16" in r:
+        b, q, k = r["bf16"], r["quant"], r["check"]
+        print(f"capi: single-shot mobilenet_v1 {r['size']} bf16 batch {r['batch']} from C: "
+              f"open {c['bf16_open_s']:.2f} s, first invoke {c['bf16_first_ms']:.1f} ms, then "
+              f"{c['bf16_ms']:.2f} ms an invoke; against this process's SingleShot max share "
+              f"{b['max_err_share']:.3g} (tol {b['tol_share']}), {b['bitwise_frames']} of "
+              f"{b['frames']} frames bitwise", flush=True)
+        print(f"capi: single-shot quantized .tflite from C: open {c['quant_open_s']:.2f} s, "
+              f"first invoke {c['quant_first_ms']:.1f} ms, then {c['quant_ms']:.2f} ms; "
+              f"{q['differ']} of {q['outputs']} outputs differ ({q['distinct']} distinct); "
+              f"its first {CAPI_CHECK_BLOCKS} blocks: {k['differ']} of {k['outputs']} differ "
+              f"({k['distinct']} distinct)", flush=True)
+    p, k = r["pipe"], r["pipe_check"]
+    print(f"capi: pipeline from C {r['c_frames_per_s']:.1f} frames/s over "
+          f"{int(c['pipe_frames'])} frames ({r['window']} batches of {r['batch']} in flight, "
+          f"after {r['warm']} warm-up); the same pipeline in process "
+          f"{p['frames_per_s']:.1f} frames/s, and through the C API's Python half "
+          f"{r['bridge']['frames_per_s']:.1f}; C inside push {c['push_s']:.3f} s, pull "
+          f"{c['pull_s']:.3f} s of {c['pipe_s']:.3f}; {p['differ']} outputs differ, cut file "
+          f"{k['differ']} ({k['distinct']} distinct); stages {p['stages']} on {p['device']}, "
+          f"census {p['census']}; "
+          f".so {r['swap']['differ']} of {r['swap']['outputs']} bytes differ", flush=True)
+    print(f"capi: C client {r['c_frames_per_s']:.1f} frames/s (modelfiles cell "
+          f"{mf_fps if mf_fps is None else round(mf_fps, 1)} frames/s), single invoke "
+          f"{c['quant_ms']:.2f} ms quantized / {c['bf16_ms']:.2f} ms bf16, start-up "
+          f"{c['init_s']:.2f} s embed + import torch + {c['bf16_open_s']:.2f} s first open "
+          f"(CUDA context, weights), child {r['child_s']:.1f} s; card {card}", flush=True)
+
+
 YOLO_BUCKET = 8
 YOLO_BUCKET_DESC = ("appsrc name=src caps=other/tensors,dimensions=3:{size}:{size}:1,"
                     "types=uint8 ! " + DIV + " ! tensor_filter framework=jax model=yolov5s "
@@ -7036,8 +7306,16 @@ def main():
     profile = "--profile" in sys.argv[1:]
     phase = PhaseClock(slack=4 if profile else 1)
     with phase("build"):
-        detail["build_s"] = kernels.build()
-        print(f"build: {detail['build_s']:.1f} s", flush=True)
+        # g++ (the native libraries, then the capi phase's filter and
+        # program) beside nvcc, all started together
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            native_build = pool.submit(build_native)
+            detail["build_s"] = kernels.build()
+            detail["native_build_s"], capi_so, capi_program = native_build.result(
+                timeout=PHASE_DEADLINE_S["build"])
+        print(f"build: {detail['build_s']:.1f} s; g++ (libnnstpu, libnnstpu_capi, "
+              f"the capi filter and program) {detail['native_build_s']:.1f} s beside it",
+              flush=True)
         os.makedirs(OUT_DIR, exist_ok=True)
         with open(os.path.join(OUT_DIR, "kernel_build.log"), "w") as fh:
             for name in kernels.SOURCES:
@@ -7205,6 +7483,12 @@ def main():
     with phase("modelfiles"):
         mf = detail["modelfiles"] = phase_modelfiles(dev, profile=profile)
         print_modelfiles(mf)
+        save()
+        torch.cuda.empty_cache()
+
+    with phase("capi"):
+        detail["capi"] = phase_capi(dev, capi_so, capi_program)
+        print_capi(detail["capi"], mf["quant"]["frames_per_s"], card)
 
     # one line per kernel: int4 per decoded token (129 launches at B=1),
     # with the same 129 launches at B=8 (a continuous decode step) and

@@ -9,7 +9,9 @@ query front door and the runtime's trace hooks read, the sinks' fetch
 window, the runtime's bound on elastic stage restarts, and the
 micro-batching knobs (``batch_max``, the bucket ladder and its adaptive
 refinement, the dispatch window, ingress donation; ``[ladders]`` holds
-warm-start ladders by stage name).  The JAX package's mesh knobs
+warm-start ladders by stage name), and each framework's free-form options
+(the ini's ``[filter-<name>]`` sections, ``framework_options``, parsed as
+the JAX package parses them; like it, nothing else reads them).  The JAX package's mesh knobs
 (``data_parallel``, ``model_parallel``) wait for the multi-device slice.
 Populated
 from (in priority order) :func:`set_config` > environment > the ini file
@@ -103,6 +105,10 @@ class Config:
     #: ``process()`` raises is re-entered in place this many times,
     #: losing the one buffer, before the pipeline fails (0 = fail fast)
     max_stage_restarts: int = 0
+    #: free-form options by framework name: the ini's ``[filter-<name>]``
+    #: sections (``[filter-jax]`` -> ``framework_options["jax"]``)
+    framework_options: Dict[str, Dict[str, str]] = dataclasses.field(
+        default_factory=dict)
 
     @classmethod
     def load(cls) -> "Config":
@@ -162,6 +168,9 @@ class Config:
             if ini.has_option("common", "max_stage_restarts"):
                 cfg.max_stage_restarts = ini.getint(
                     "common", "max_stage_restarts")
+            for sec in ini.sections():
+                if sec.startswith("filter-"):
+                    cfg.framework_options[sec[len("filter-"):]] = dict(ini.items(sec))
         if os.environ.get(_ENV_PLUGINS):
             cfg.plugin_modules = _split(os.environ[_ENV_PLUGINS])
         if os.environ.get(_ENV_FW_PRIORITY):

@@ -47,8 +47,9 @@ log = logger(__name__)
 #: tensor_rateadjust, tensor_reposink/reposrc, tensor_sparse_enc/dec,
 #: tensor_debug, the remote transports (edgesink/edgesrc, mqttsink/mqttsrc,
 #: tensor_sink_grpc/tensor_src_grpc, shmsink/shmsrc), datareposink/src,
-#: the python3, torch/pytorch, onnxruntime and tflite frameworks, and the
-#: custom-easy framework of the tests.
+#: the python3, torch/pytorch, onnxruntime and tflite frameworks, the
+#: loadable .so filters (custom, custom-so, cpp), and the custom-easy
+#: framework of the tests.
 _BUILTIN_MODULES = [
     "nnstreamer_tpu_torch.elements.source",
     "nnstreamer_tpu_torch.elements.converter",
@@ -74,6 +75,7 @@ _BUILTIN_MODULES = [
     "nnstreamer_tpu_torch.filters.llm",
     "nnstreamer_tpu_torch.filters.device_fw",
     "nnstreamer_tpu_torch.filters.custom_easy",
+    "nnstreamer_tpu_torch.filters.custom_so",
     "nnstreamer_tpu_torch.filters.python3",
     "nnstreamer_tpu_torch.filters.torch_fw",
     "nnstreamer_tpu_torch.filters.gated",

@@ -103,8 +103,11 @@ def test_registry_is_the_ports_own():
     assert ntt.registry.get("element", "tensor_query_client").__module__ \
         == "nnstreamer_tpu_torch.elements.query"
     assert ntt.registry.names("filter") == [
-        "custom-easy", "jax", "llm", "onnx", "onnxruntime", "python3", "pytorch",
-        "tensorflow-lite", "tensorflow1-lite", "tensorflow2-lite", "torch"]
+        "custom", "custom-easy", "jax", "llm", "onnx", "onnxruntime", "python3",
+        "pytorch", "tensorflow-lite", "tensorflow1-lite", "tensorflow2-lite", "torch"]
+    for name in ("custom", "custom-so", "cpp"):
+        assert ntt.registry.get("filter", name).__module__ == \
+            "nnstreamer_tpu_torch.filters.custom_so"
     assert ntt.registry.get("filter", "custom-easy").__module__ == \
         "nnstreamer_tpu_torch.filters.custom_easy"
     port_llm = ntt.registry.get("filter", "llm")
@@ -264,6 +267,27 @@ TRANSPORT_MODULES = ["utils.watchdog", "elements.edge", "utils.broker", "element
 
 @pytest.mark.parametrize("module", TRANSPORT_MODULES)
 def test_transport_modules_import_without_jax(module):
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module('nnstreamer_tpu_torch.{module}')\n"
+        "assert 'jax' not in sys.modules\n"
+        "bad = sorted(m for m in sys.modules if m.startswith('nnstreamer_tpu.') "
+        "or m == 'nnstreamer_tpu')\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+#: the C side's modules, each imported alone in a fresh process
+C_SIDE_MODULES = ["capi", "native", "filters.custom_so"]
+
+
+@pytest.mark.parametrize("module", C_SIDE_MODULES)
+def test_c_side_modules_import_without_jax(module):
     code = (
         "import importlib, sys\n"
         f"importlib.import_module('nnstreamer_tpu_torch.{module}')\n"
