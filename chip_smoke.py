@@ -496,12 +496,13 @@ WAIT_S = 60
 #: slower of two H100 runs (PERF.md section 4; the host-bound phases ran
 #: up to 1.46 times slower in one run than in the other), and at least
 #: 30 s; past it faulthandler prints every thread's stack and the process
-#: exits non-zero.  Their sum (1,080 s) stays under the 1,200 s the run is
-#: given, so a hang anywhere ends the run inside it
+#: exits non-zero.  Their sum (1,155 s) stays under the 1,200 s the run is
+#: given, so a hang anywhere ends the run inside it.  learn's is 4.4 times
+#: its slower call: its first step loads cuDNN's backward kernels
 PHASE_DEADLINE_S = dict(
-    build=70, kernels=60, serve=30, continuous=55, query=50, prefix=70, spec=150,
+    build=70, kernels=60, serve=30, continuous=70, query=50, prefix=70, spec=150,
     files=65, elastic=60, reference=30, vision=35, models=40, batching=90,
-    camera=30, asr=30, v4l2=50, transport=55, modelfiles=40, capi=70)
+    camera=30, asr=30, v4l2=50, transport=55, modelfiles=40, capi=70, learn=60)
 #: the run's budget, every phase and the kernel build included
 BUDGET_S = 400
 
@@ -1311,7 +1312,7 @@ def census_of(census, warm_captures):
 
 
 def replay_stream(fw, loop, prompt, ids, dev, tie_share=None, other=None,
-                  width=1, keep_rows=False, dtype=None):
+                  width=1, keep_rows=False, dtype=None, params=None):
     """Hold a greedy stream the loop served against ``llama.forward_paged``
     driven step by step outside the loop, on the card, at the loop's
     shapes: the prompt in chunks of ``prefill_chunk`` on one row, then
@@ -1329,7 +1330,8 @@ def replay_stream(fw, loop, prompt, ids, dev, tie_share=None, other=None,
     the counts: tokens compared, equal to the
     argmax, near ties, the least top-1/top-2 gap and the largest |logit|
     (and the index of the first difference from ``other``, None if none;
-    the logits rows themselves with ``keep_rows``)."""
+    the logits rows themselves with ``keep_rows``).  ``params``: another
+    tree of the model's (default the filter's own)."""
     tie_share = CONT_TIE if tie_share is None else tie_share
     dtype = fw.dtype if dtype is None else dtype
     import numpy as np
@@ -1337,8 +1339,8 @@ def replay_stream(fw, loop, prompt, ids, dev, tie_share=None, other=None,
 
     from nnstreamer_tpu_torch.models import llama
 
-    cfg, params, C, bs, B = fw.cfg, fw.bundle.params, fw.prefill_chunk, \
-        fw.block_size, fw.slots
+    cfg, C, bs, B = fw.cfg, fw.prefill_chunk, fw.block_size, fw.slots
+    params = fw.bundle.params if params is None else params
     T = len(prompt)
     P = -(-T // C) * C
     n_blocks = -(-(P + len(ids) + width - 1) // bs)
@@ -1509,6 +1511,8 @@ def phase_continuous(dev, profile=False):
             fw, loop, prompts[i], res["ids"][i], dev)) for i in CONT_CHECKED}
         flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
         out["graph_vs_eager"] = graph_vs_eager(fw, loop, dev, flush_buf.zero_)
+        del flush_buf
+        out["swaps"] = continuous_swaps(fw, loop, dev, prompts[CONT_CHECKED[0]])
 
     r = serve_traffic(CONT_DESC, prompts, groups, MAX_NEW, dev, inside=inside,
                       around=traced)
@@ -1542,8 +1546,94 @@ def phase_continuous(dev, profile=False):
                 step_launches=r["step_launches"], eager_launches=r["eager_launches"],
                 host_us_per_step=stats["decode_host_s"] / steps * 1e6,
                 census=r["census"], busy=busy, graph_vs_eager=out["graph_vs_eager"],
+                swaps=out["swaps"],
                 n_blocks=r["n_blocks"], peak_mem_gb=r["peak_mem_gb"],
                 replayed=out["replayed"], timeline=r["timeline"])
+
+
+class StreamIds:
+    """An emit target for ``fw.submit``: a stream's token ids, ``done`` at
+    its last."""
+
+    def __init__(self):
+        import threading
+
+        self.ids = []
+        self.done = threading.Event()
+
+    def __call__(self, tensors, meta):
+        self.ids.append(int(tensors[0][0]))
+        if meta.get("stream_last"):
+            self.done.set()
+
+
+#: the tokens of the stream served after the swap to tree B held against
+#: an eager forward over B
+CONT_SWAP_REPLAYED = 8
+
+
+def continuous_swaps(fw, loop, dev, prompt):
+    """Weight swaps into the live continuous loop (llama2_7b int4), with no
+    second load of its tree.  A no-op swap of a clone of tree A keeps the
+    next greedy stream of ``prompt`` bitwise the one served before it; a
+    swap to tree B (llama2_7b's init at seed 1, built on the card) serves a
+    stream whose first ``CONT_SWAP_REPLAYED`` tokens are each the argmax,
+    or a ``CONT_TIE`` near tie, of an eager ``forward_paged`` over B's own
+    tensors (the int4 and paged kernels outside the loop; the first from
+    the prefill, the rest from the loop's captured decode steps), and whose
+    prefill and first-step logits
+    differ from A's; a swap back to A serves the first stream again,
+    bitwise.  The captured steps read the new weights through the maps
+    they baked: no swap recaptures a step.  Returns the swap ms, B's build
+    seconds and the replay's counts."""
+    import numpy as np
+    import torch
+
+    from nnstreamer_tpu_torch.filters.base import tree_map
+    from nnstreamer_tpu_torch.models import llama
+
+    def stream():
+        got = StreamIds()
+        fw.submit([np.asarray(prompt, np.int32)], {}, got)
+        check(got.done.wait(WAIT_S), "a stream after a swap did not finish")
+        return got.ids
+
+    def swap(tree, version):
+        t0 = time.perf_counter()
+        check(fw.swap_params(tree) == version, f"swap {version}: param version")
+        return (time.perf_counter() - t0) * 1e3
+
+    captures = fw.census.captures
+    base = stream()
+    tree_a = tree_map(lambda t: t.clone(), fw.bundle.params)
+    out = dict(noop_swap_ms=swap(tree_a, loop.param_version + 1))
+    check(stream() == base, "a no-op swap changed the greedy stream")
+    t0 = time.perf_counter()
+    tree_b = llama.init_params(fw.cfg, seed=1, dtype="bfloat16", device=dev,
+                               quant="int4")
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    out["tree_b_s"] = time.perf_counter() - t0
+    out["swap_ms"] = swap(tree_b, loop.param_version + 1)
+    ids_b = stream()
+    check(ids_b != base, "the stream after the swap to B is A's")
+    rep = replay_stream(fw, loop, prompt, ids_b[:CONT_SWAP_REPLAYED], dev, params=tree_b,
+                        keep_rows=True)
+    rows_b = rep.pop("rows")
+    rows_a = replay_stream(fw, loop, prompt, base[:2], dev, params=tree_a,
+                           keep_rows=True)["rows"]
+    out["first_step_diff_from_a"] = [(b - a).abs().max().item()
+                                     for a, b in zip(rows_a, rows_b)]
+    check(all(d > 0 for d in out["first_step_diff_from_a"]),
+          "B's prefill or first-step logits equal A's")
+    out["b_against_eager"] = rep
+    out["swap_back_ms"] = swap(tree_a, loop.param_version + 1)
+    check(stream() == base, "the swap back to A does not give A's stream")
+    check(fw.census.captures == captures,
+          f"swaps recaptured: {fw.census.captures - captures} captures")
+    out["captures"] = fw.census.captures
+    out["param_version"] = loop.param_version
+    return out
 
 
 def query_server(desc_custom, sid):
@@ -2097,6 +2187,9 @@ def phase_prefix(dev, base=CONT_DESC):
 SPEC_K = 3
 SPEC_OPTS = f",draft:llama_tiny,spec_k:{SPEC_K},draft_seed:7"
 SPEC_SAMPLED = ",temperature:0.8,seed:1"
+#: the sampled runs serve the first wave only (four streams; all eight
+#: until PR 23, which cut them to pay for its learn phase)
+SPEC_SAMPLED_WAVE = len(CONT_WAVES[0])
 #: speculative greedy tokens against plain greedy ones: the [8, 4] verify
 #: and the [8, 1] decode step are two bf16 evaluations that round in
 #: different places (other int4 and paged launch plans), so a step is a
@@ -2346,7 +2439,9 @@ def phase_spec(dev, cont, base=CONT_DESC, accept_desc=ACCEPT_DESC,
     flags = [f[1:] for f in greedy["spec_draft"]]
     check(all(set(f) <= {0, 1} for f in flags), "spec_draft missing on a round token")
     sampled = [serve_traffic(desc.replace("stream_chunk:8", "stream_chunk:8" + SPEC_SAMPLED),
-                             prompts, groups, MAX_NEW, dev) for _ in range(2)]
+                             prompts[:SPEC_SAMPLED_WAVE],
+                             [(list(range(SPEC_SAMPLED_WAVE)), "first")], MAX_NEW, dev)
+               for _ in range(2)]
     check(sampled[0]["ids"] == sampled[1]["ids"], "sampled speculation: two runs differ")
     for r in sampled:
         check(r["census"]["signatures"] == [x.replace("False", "True") for x in sigs],
@@ -4130,7 +4225,7 @@ def print_spec(r):
           f"({t['round_per_decode_step']:.3f}x)", flush=True)
     print(f"census: spec {g['census']}", flush=True)
     s0, s1 = r["sampled"]
-    print(f"spec: sampled (temperature 0.8, seed 1) two runs bitwise "
+    print(f"spec: sampled (temperature 0.8, seed 1, the first wave) two runs bitwise "
           f"{r['sampled_bitwise']}, {s0['aggregate_tok_s']:.2f} / "
           f"{s1['aggregate_tok_s']:.2f} tok/s, accept rate "
           f"{s0['serve_counters'].get('llm.serve.spec_accepted', 0) / max(1, s0['serve_counters'].get('llm.serve.spec_accepted', 0) + s0['serve_counters'].get('llm.serve.spec_rejected', 0)):.4f}, "
@@ -7214,6 +7309,281 @@ def print_capi(r, mf_fps, card):
           f"(CUDA context, weights), child {r['child_s']:.1f} s; card {card}", flush=True)
 
 
+#: the learn phase: mobilenet_v1 at full width (224 x 224, 1001 classes,
+#: bf16 compute over float32 master parameters) trained with Adam through a
+#: window of 32 samples on the card.  The straight run trains two epochs of
+#: 64 training and 16 validation samples, then 20 samples more, which train
+#: at EOS as a partial window (a masked replay of the same captured step);
+#: the dataset holds the 80 samples of an epoch twice, then the 20, so the
+#: resume run replays epoch 2 alone
+LEARN_BATCH = 32
+LEARN_TRAIN, LEARN_VALID, LEARN_TAIL = 64, 16, 20
+LEARN_LR = 1e-3
+LEARN_TIMED = 20
+#: a captured replay against an eager call of the same step function from
+#: the same state: the same kernels in the same order, so bitwise
+LEARN_STEP_TOL = 0.0
+LEARN_DESC = ("datareposrc location={data} json={meta}{window} ! "
+              "tensor_trainer framework=jax model=mobilenet_v1 name=learn "
+              "{model}optimizer=adam learning-rate={lr} batch-size={batch} "
+              "num-training-samples={train} num-validation-samples={valid} "
+              "epochs={epochs} checkpoint-every=1 model-save-path={save}{load} {acc}! "
+              "tensor_sink name=stats")
+#: train-while-serve: one stream tee'd into a serving filter (unfused,
+#: batch_max 1) and a trainer that copies its parameters into it after
+#: each epoch of one window
+LEARN_SERVE = ("appsrc name=in ! other/tensors,dimensions=3:{size}:{size}:1.1,"
+               "types=float32.int32 ! tee name=t "
+               "t. ! tensor_filter framework=jax model=mobilenet_v1 name=serve "
+               "input-combination=0 {custom}{acc}! tensor_sink name=out "
+               "t. ! tensor_trainer framework=jax model=mobilenet_v1 name=learn "
+               "{model}optimizer=adam learning-rate={lr} batch-size={batch} "
+               "num-training-samples={batch} epochs=2 swap-to=serve {acc}! "
+               "tensor_sink name=stats")
+
+
+def learn_tensors(tr):
+    """A trainer's parameters and optimizer state tensors, in leaf order."""
+    return [t for p in tr._leaves
+            for t in [p] + [tr._opt.state[p][k] for k in sorted(tr._opt.state[p])]]
+
+
+def calls_ms(fn, reps):
+    """Median device ms of ``fn`` from CUDA events around each call (an
+    eager call's includes the card's waits for the host)."""
+    import torch
+
+    fn()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(reps)]
+    for start, end in pairs:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    times = sorted(a.elapsed_time(b) for a, b in pairs)
+    return times[len(times) // 2]
+
+
+def learn_step_check(dev, props, xs, ys, timed):
+    """A trainer driven directly: its first window's step is the capture's
+    warm-up; from the state before the second window, the first replay and
+    an eager call of the same step function must give the same parameters
+    and Adam moments (``LEARN_STEP_TOL``).  On the card the replay and the
+    eager step are then timed."""
+    import torch
+
+    from nnstreamer_tpu_torch.trainer.subplugin import Trainer
+
+    tr = Trainer()
+    tr.open(dict(props))
+    bs = tr.batch_size
+    for i in range(bs):
+        tr.push_data([xs[i]], [ys[i]], False)
+    before = [t.detach().clone() for t in learn_tensors(tr)]
+    for i in range(bs, 2 * bs):
+        tr.push_data([xs[i]], [ys[i]], False)
+    replayed = [t.detach().clone() for t in learn_tensors(tr)]
+    with torch.no_grad():
+        for t, v in zip(learn_tensors(tr), before):
+            t.copy_(v)
+    tr._step_fn()
+    eager = learn_tensors(tr)
+    diff = max((a.float() - b.float()).abs().max().item() for a, b in zip(replayed, eager))
+    check(diff <= LEARN_STEP_TOL, f"the first replay is {diff} from an eager step")
+    check(tr.compile_counts() == {"step": 1}, f"census {tr.compile_counts()}")
+    out = dict(replay_vs_eager_max_abs=diff,
+               bitwise=all(torch.equal(a, b) for a, b in zip(replayed, eager)))
+    if dev.type == "cuda":
+        out["step_ms"] = calls_ms(tr._step.replay, timed)
+        out["eager_step_ms"] = calls_ms(tr._step_fn, max(2, timed // 2))
+    tr.close()
+    return out
+
+
+def learn_serve(dev, fmt, frames, labels):
+    """Train-while-serve: a no-op swap (the trainer's initial tree, the
+    filter's own draws) leaves the served logits bitwise; after each of the
+    trainer's two epochs its swap has landed, and the probe's served logits
+    equal bitwise those of a fresh bundle built from the trainer's exported
+    tree, and differ from the epoch before."""
+    import numpy as np
+    import torch
+
+    import nnstreamer_tpu_torch as ntt
+    from nnstreamer_tpu_torch.filters.base import tree_map
+    from nnstreamer_tpu_torch.models import mobilenet
+
+    def host(t):
+        return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+    size, batch = fmt["size"], fmt["batch"]
+    probe = frames[0].reshape(1, size, size, 3)
+    label = np.asarray([0], np.int32)
+    pipe = ntt.Pipeline(LEARN_SERVE.format(**fmt))
+    check(any(r.element is pipe.element("serve") for r in pipe._unique_runners()),
+          "the serving filter is fused")
+    served, fresh = [], []
+    with pipe:
+        tr = pipe.element("learn").trainer
+
+        def serve_probe():
+            pipe.push("in", [probe, label])
+            served.append(host(pipe.pull("out", timeout=WAIT_S).tensors[0]))
+
+        serve_probe()
+        check(pipe.swap_params("serve", tr.export_params()) == 1, "no-op swap version")
+        serve_probe()
+        check(np.array_equal(served[0], served[1]), "a no-op swap changed the served logits")
+        fed = 2  # the probes the tee gave the trainer
+        for epoch in range(2):
+            n = batch - fed
+            for i in range(n):
+                pipe.push("in", [frames[i].reshape(1, size, size, 3), labels[i]])
+            stats = host(pipe.pull("stats", timeout=WAIT_S).tensors[0])
+            check(np.isfinite(stats[0]), f"train-while-serve epoch {epoch}: loss {stats[0]}")
+            for _ in range(n):
+                pipe.pull("out", timeout=WAIT_S)
+            serve_probe()
+            fed = 1
+            tree = tree_map(lambda t: t.detach(), tr.export_params())
+            bundle = mobilenet.build_bundle(tree, fmt["opts"], "fresh")
+            with torch.no_grad():
+                want = bundle.apply_fn(bundle.params, torch.from_numpy(probe).to(dev))
+            fresh.append(host(want))
+            check(np.array_equal(served[-1], fresh[-1]),
+                  f"epoch {epoch}: the served logits are not the fresh bundle's")
+            check(not np.array_equal(served[-1], served[-2]),
+                  f"epoch {epoch}: the swap did not change the served logits")
+        pipe.eos("in")
+        pipe.wait(timeout=WAIT_S)
+        version = pipe.element("serve")._param_version
+    check(version == 3, f"served param version {version}, want 3 (a no-op and 2 epochs)")
+    return dict(swaps=version, probes_bitwise=len(served), epochs=2)
+
+
+def phase_learn(dev, size=224, classes=1001, batch=LEARN_BATCH, n_train=LEARN_TRAIN,
+                n_valid=LEARN_VALID, tail=LEARN_TAIL, acc="", model_opts=None,
+                files_dir=FILES_DIR, timed=LEARN_TIMED):
+    """Training on the card through ``datareposrc ! tensor_trainer``: the
+    straight run (two epochs, then the partial window at EOS, checkpoints
+    after each epoch), every loss finite, the census one step and one eval
+    capture; the resume run (a new trainer from the checkpoint after epoch 1
+    trains epoch 2 again) bitwise the straight run's checkpoint after epoch
+    2 (params, Adam moments, step); the first replay against an eager step
+    (``learn_step_check``); train-while-serve (``learn_serve``).
+    ``model_opts`` (e.g. ``{"width": "0.25", "dtype": "float32"}``) cut the
+    model for a rehearsal on the CPU."""
+    import numpy as np
+    import torch
+
+    import nnstreamer_tpu_torch as ntt
+    from nnstreamer_tpu_torch.filters.base import tree_flatten
+    from nnstreamer_tpu_torch.trainer.checkpoint import load_checkpoint
+    from nnstreamer_tpu_torch.trainer.subplugin import TRAINER_PROGRAMS
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    opts = dict(model_opts or {}, size=str(size), classes=str(classes))
+    epoch = n_train + n_valid
+    rng = np.random.default_rng(5)
+    frames = rng.standard_normal((epoch + tail, size, size, 3), dtype=np.float32)
+    labels = rng.integers(0, classes, (epoch + tail, 1)).astype(np.int32)
+    records = list(range(epoch)) * 2 + list(range(epoch, epoch + tail))
+    os.makedirs(files_dir, exist_ok=True)
+    data = os.path.join(files_dir, "learn.bin")
+    meta = os.path.join(files_dir, "learn.json")
+    ck = os.path.join(files_dir, "learn.ckpt")
+    fmt = dict(data=data, meta=meta, lr=LEARN_LR, batch=batch, train=n_train,
+               valid=n_valid, acc=f"{acc} " if acc else "", size=size, opts=opts,
+               model="".join(f"{k}={v} " for k, v in opts.items()),
+               custom="custom=" + ",".join(f"{k}:{v}" for k, v in opts.items()) + " ")
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        with ntt.Pipeline(f"appsrc name=src ! datareposink location={data} "
+                          f"json={meta}") as sink:
+            for i in records:
+                sink.push("src", [frames[i], labels[i]])
+            sink.eos("src")
+            sink.wait(timeout=WAIT_S)
+        out["write_s"] = time.perf_counter() - t0
+
+        # the straight run
+        t0 = time.perf_counter()
+        pipe = ntt.Pipeline(LEARN_DESC.format(window="", epochs=3, save=ck, load="", **fmt))
+        with pipe:
+            tr = pipe.element("learn").trainer
+            stats, at = [], []
+            for _ in range(3):
+                stats.append(pipe.pull("stats", timeout=WAIT_S).tensors[0].tolist())
+                at.append(time.perf_counter())
+            pipe.wait(timeout=WAIT_S)
+            census = dict(tr.compile_counts(), captures=tr.census.captures,
+                          replays=tr.census.replays, steps=tr.step)
+        out["straight_s"] = time.perf_counter() - t0
+        per_epoch = -(-n_train // batch)
+        steps = 2 * per_epoch + -(-tail // batch)
+        evals = 2 * -(-n_valid // batch)
+        check(census == dict(step=1, eval=1, captures=TRAINER_PROGRAMS,
+                             replays=steps - 1 + evals - 1, steps=steps),
+              f"learn census {census}")
+        check(all(np.isfinite(s[0]) and np.isfinite(s[1]) for s in stats)
+              and all(np.isfinite(s[2]) for s in stats[:2]), f"learn stats {stats}")
+        out.update(stats=stats, census=census, first_epoch_s=at[0] - t0,
+                   samples_per_s=epoch / (at[1] - at[0]))
+
+        # the resume run: epoch 2 again from the checkpoint after epoch 1
+        resumed = f"{ck}.resumed"
+        pipe = ntt.Pipeline(LEARN_DESC.format(
+            window=f" start-sample-index={epoch} stop-sample-index={2 * epoch - 1}",
+            epochs=1, save=resumed, load=f" model-load-path={ck}.step{per_epoch}", **fmt))
+        with pipe:
+            pipe.pull("stats", timeout=WAIT_S)
+            pipe.wait(timeout=WAIT_S)
+        a = load_checkpoint(f"{ck}.step{2 * per_epoch}")
+        b = load_checkpoint(resumed)
+        la, lb = (tree_flatten(x[:2])[0] for x in (a, b))
+        same = a[2] == b[2] and len(la) == len(lb) and all(
+            np.array_equal(np.asarray(x), np.asarray(y)) for x, y in zip(la, lb))
+        check(same, "the resumed epoch 2 is not the straight run's, bitwise")
+        out["resume_bitwise"] = same
+
+        xs = frames.reshape(-1, size, size, 3)
+        out["step_check"] = learn_step_check(
+            dev, dict(opts, model="mobilenet_v1", optimizer="adam", learning_rate=LEARN_LR,
+                      batch_size=batch, accelerator=acc.split("=", 1)[1] if acc else ""),
+            xs, labels, timed)
+        out["serve"] = learn_serve(dev, fmt, frames, labels)
+    finally:
+        for f in os.listdir(files_dir):
+            if f.startswith("learn."):
+                os.remove(os.path.join(files_dir, f))
+    if dev.type == "cuda":
+        out["step_samples_per_s"] = batch / out["step_check"]["step_ms"] * 1e3
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
+
+
+def print_learn(r):
+    sc = r["step_check"]
+    print(f"learn: mobilenet_v1 224, Adam, batch {LEARN_BATCH}: stats (train loss, acc, "
+          f"valid loss, acc) by epoch {[[round(v, 4) for v in s] for s in r['stats']]}; "
+          f"census {r['census']}; resume bitwise {r['resume_bitwise']}; first replay "
+          f"against an eager step: max abs {sc['replay_vs_eager_max_abs']}, bitwise "
+          f"{sc['bitwise']}", flush=True)
+    if "step_ms" in sc:
+        print(f"learn: captured step {sc['step_ms']:.3f} ms, eager step "
+              f"{sc['eager_step_ms']:.3f} ms (CUDA events, median); "
+              f"{r['step_samples_per_s']:.1f} samples/s in the step, "
+              f"{r['samples_per_s']:.1f} samples/s over epoch 2 (samples in, a "
+              f"validation pass and two checkpoints included); peak "
+              f"{r['peak_mem_gb']:.2f} GB; dataset written in {r['write_s']:.1f} s, "
+              f"straight run {r['straight_s']:.1f} s (its first epoch, the first "
+              f"backward's kernel loads included, {r['first_epoch_s']:.1f} s)", flush=True)
+    print(f"learn: train-while-serve {r['serve']}", flush=True)
+
+
 YOLO_BUCKET = 8
 YOLO_BUCKET_DESC = ("appsrc name=src caps=other/tensors,dimensions=3:{size}:{size}:1,"
                     "types=uint8 ! " + DIV + " ! tensor_filter framework=jax model=yolov5s "
@@ -7369,6 +7739,13 @@ def main():
               f"peak {cont['peak_mem_gb']:.2f} GB, warm-up {cont['warmup_s']:.1f} s",
               flush=True)
         print(f"continuous: tokens against forward_paged {cont['replayed']}", flush=True)
+        sw = cont["swaps"]
+        print(f"continuous: swaps (no-op {sw['noop_swap_ms']:.1f} ms, to B "
+              f"{sw['swap_ms']:.1f} ms, back {sw['swap_back_ms']:.1f} ms; B built in "
+              f"{sw['tree_b_s']:.1f} s): no-op and back bitwise, B's stream against "
+              f"an eager forward over B {sw['b_against_eager']}, logits from A's by "
+              f"{sw['first_step_diff_from_a']}, captures {sw['captures']}, version "
+              f"{sw['param_version']}", flush=True)
         print(f"census: continuous {cont['census']}", flush=True)
         print(f"continuous: host {cont['host_us_per_step']:.1f} us per decode step "
               f"(issuing it){'' if cont['busy'] is None else ', traced: ' + str(cont['busy'])}",
@@ -7489,6 +7866,12 @@ def main():
     with phase("capi"):
         detail["capi"] = phase_capi(dev, capi_so, capi_program)
         print_capi(detail["capi"], mf["quant"]["frames_per_s"], card)
+        save()
+        torch.cuda.empty_cache()
+
+    with phase("learn"):
+        detail["learn"] = phase_learn(dev)
+        print_learn(detail["learn"])
 
     # one line per kernel: int4 per decoded token (129 launches at B=1),
     # with the same 129 launches at B=8 (a continuous decode step) and

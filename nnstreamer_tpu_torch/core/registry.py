@@ -23,6 +23,7 @@ KIND_ELEMENT = "element"
 KIND_FILTER = "filter"
 KIND_DECODER = "decoder"
 KIND_CONVERTER = "converter"
+KIND_TRAINER = "trainer"
 
 _registry: Dict[Tuple[str, str], type] = {}
 _aliases: Dict[Tuple[str, str], str] = {}
@@ -47,9 +48,10 @@ log = logger(__name__)
 #: tensor_rateadjust, tensor_reposink/reposrc, tensor_sparse_enc/dec,
 #: tensor_debug, the remote transports (edgesink/edgesrc, mqttsink/mqttsrc,
 #: tensor_sink_grpc/tensor_src_grpc, shmsink/shmsrc), datareposink/src,
-#: the python3, torch/pytorch, onnxruntime and tflite frameworks, the
-#: loadable .so filters (custom, custom-so, cpp), and the custom-easy
-#: framework of the tests.
+#: tensor_trainer with its trainer sub-plugin (``jax``), the python3,
+#: torch/pytorch, onnxruntime and tflite frameworks, the loadable .so
+#: filters (custom, custom-so, cpp), and the custom-easy framework of the
+#: tests.
 _BUILTIN_MODULES = [
     "nnstreamer_tpu_torch.elements.source",
     "nnstreamer_tpu_torch.elements.converter",
@@ -72,6 +74,7 @@ _BUILTIN_MODULES = [
     "nnstreamer_tpu_torch.elements.grpc_io",
     "nnstreamer_tpu_torch.elements.shm",
     "nnstreamer_tpu_torch.elements.datarepo",
+    "nnstreamer_tpu_torch.elements.trainer",
     "nnstreamer_tpu_torch.filters.llm",
     "nnstreamer_tpu_torch.filters.device_fw",
     "nnstreamer_tpu_torch.filters.custom_easy",
@@ -79,6 +82,7 @@ _BUILTIN_MODULES = [
     "nnstreamer_tpu_torch.filters.python3",
     "nnstreamer_tpu_torch.filters.torch_fw",
     "nnstreamer_tpu_torch.filters.gated",
+    "nnstreamer_tpu_torch.trainer.subplugin",
     "nnstreamer_tpu_torch.decoders.image_labeling",
     "nnstreamer_tpu_torch.decoders.bounding_boxes",
     "nnstreamer_tpu_torch.decoders.pose",
@@ -117,6 +121,10 @@ def register_decoder(name: str, cls=None, **kw):
 
 def register_converter(name: str, cls=None, **kw):
     return register(KIND_CONVERTER, name, cls, **kw)
+
+
+def register_trainer(name: str, cls=None, **kw):
+    return register(KIND_TRAINER, name, cls, **kw)
 
 
 def _ensure_builtins():

@@ -17,7 +17,8 @@ its live streams drain off the loop and are adopted by another
 A filter with a pure callable runs a micro-batch drained from its queue
 as one bucketed step (:meth:`TensorFilter.process_batch`,
 ``pipeline/batching.py``).  :meth:`TensorFilter.reload_model` swaps the
-model in place; :class:`SingleShot` invokes a framework without a
+model in place, :meth:`TensorFilter.swap_params` only its weights
+(train-while-serve); :class:`SingleShot` invokes a framework without a
 pipeline.
 """
 
@@ -130,8 +131,11 @@ class TensorFilter(Element):
         self._batchers: Dict[int, tuple] = {}
         #: moving average of the seconds per invoke (``latency`` prop)
         self._lat_ema: Optional[float] = None
-        #: held across a host invoke and around reload_model's swap
+        #: held across a host invoke and around reload_model's and
+        #: swap_params' swaps
         self._fw_lock = threading.Lock()
+        #: swaps that landed (the ``<name>.param_version`` gauge)
+        self._param_version = 0
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> None:
@@ -356,6 +360,32 @@ class TensorFilter(Element):
             return self._batchable_fn(self._ensure_fw()) is not None
         except Exception:  # noqa: BLE001 - capability probe only
             return False
+
+    # -- train-while-serve: param hot-swap ------------------------------------
+    def swap_params(self, tree) -> int:
+        """Hot-swap the live model weights by value: delegates to the
+        framework's ``swap_params`` under ``_fw_lock``, so the swap lands
+        between invokes (a continuous framework further defers to its own
+        chunk boundary).  Bumps and returns the stage's param version
+        (``<name>.param_version`` gauge, ``<name>.param_swaps``,
+        ``learn.swap`` span).  Raises while the stage holds micro-batch
+        bucket steps: they close over the weights they were built with."""
+        t0 = time.monotonic_ns()
+        with self._fw_lock:
+            if self._batchers:
+                raise FrameworkError(
+                    f"{self.name}: micro-batched dispatch captures "
+                    "params at build time — hot-swap needs batch_max=1")
+            self._ensure_fw().swap_params(tree)
+            self._param_version += 1
+            version = self._param_version
+        metrics.count(f"{self.name}.param_swaps")
+        metrics.gauge(f"{self.name}.param_version", float(version))
+        rec = getattr(self, "_trace_rec", None)
+        if rec is not None and rec.active:
+            rec.record("learn.swap", self.name, None, t0,
+                       time.monotonic_ns() - t0, version=version)
+        return version
 
     def process_batch(self, pad, bufs):
         """N same-signature buffers -> one bucketed step of the

@@ -13,11 +13,14 @@ Contract:
   runs it on meta tensors (shapes and dtypes only, no data, no device).
 * Streaming frameworks set ``streaming = True`` and implement
   ``invoke_stream``, a generator of output lists.
+* :meth:`Framework.swap_params` replaces the live weights by value
+  (train-while-serve); :func:`place_swapped_params` is the walk every
+  framework's swap shares.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -90,6 +93,98 @@ class Framework:
         if not isinstance(out, (tuple, list)):
             out = (out,)
         return list(out)
+
+    # -- train-while-serve: param hot-swap ----------------------------------
+    def swap_params(self, tree) -> Optional[int]:
+        """Replace the live weights with ``tree``'s values, in place (see
+        :func:`place_swapped_params`): the same structure and per-leaf
+        shapes, so every captured step goes on reading the same tensors.
+        Raises :class:`FrameworkError` when this framework cannot swap or
+        the tree does not match."""
+        raise FrameworkError(
+            f"{self.name} framework does not support param hot-swap")
+
+
+def tree_flatten(tree) -> Tuple[List[Any], Any]:
+    """(leaves, structure) of a parameter tree: dicts (in sorted key order,
+    as ``jax.tree_util`` flattens them), lists and tuples; anything else is
+    a leaf.  Two trees of one shape have equal structures."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        parts = [tree_flatten(tree[k]) for k in keys]
+        return ([x for leaves, _ in parts for x in leaves],
+                ("dict", tuple(keys), tuple(s for _, s in parts)))
+    if isinstance(tree, (list, tuple)):
+        parts = [tree_flatten(v) for v in tree]
+        return ([x for leaves, _ in parts for x in leaves],
+                (type(tree).__name__, tuple(s for _, s in parts)))
+    return [tree], "*"
+
+
+def tree_map(fn: Callable, tree):
+    """``tree`` with ``fn`` applied to every leaf; containers keep their
+    type."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def place_swapped_params(current, tree, master_dtype: Optional[torch.dtype] = None):
+    """Copy ``tree``'s values into the LIVE parameter tree ``current`` (the
+    one walk every :meth:`Framework.swap_params` shares) and return it.
+
+    The structure and every leaf's shape and dtype must match, or a
+    :class:`FrameworkError` names the first leaf that differs (nothing is
+    copied then).  ``master_dtype`` (float32) may also stand for a live
+    floating leaf of another dtype: the copy rounds to it, as the serving
+    bundle's own cast of its float32 tree did.  New leaves are torch
+    tensors on any device or numpy arrays.
+
+    The JAX package binds a fresh buffer per leaf.  Here every live tensor
+    keeps its storage: a captured step reads its weights at fixed
+    addresses (the int4 and paged kernels bake TMA maps into the graph),
+    so a rebound tree would leave it serving the old weights without an
+    error.  The copy never aliases ``tree``, so a trainer stepping its own
+    tensors later cannot change what is served.  On the card the device is
+    synchronised before the copy (every step queued on any stream has read
+    the old weights) and after it (no step, on any stream, reads a
+    half-written one)."""
+    from ..trainer.checkpoint import host_tensor
+
+    cur_leaves, cur_def = tree_flatten(current)
+    new_leaves, new_def = tree_flatten(tree)
+    if cur_def != new_def:
+        raise FrameworkError(
+            f"swap_params tree structure mismatch: got {new_def}, "
+            f"serving {cur_def}")
+    pairs = []
+    for i, (c, n) in enumerate(zip(cur_leaves, new_leaves)):
+        if not isinstance(c, torch.Tensor):
+            raise FrameworkError(
+                f"swap_params leaf {i}: the serving leaf is a "
+                f"{type(c).__name__}, not a tensor that can be copied into")
+        n = n if isinstance(n, torch.Tensor) else host_tensor(n)
+        dtype_ok = n.dtype == c.dtype or (
+            master_dtype is not None and n.dtype == master_dtype
+            and c.is_floating_point())
+        if tuple(n.shape) != tuple(c.shape) or not dtype_ok:
+            raise FrameworkError(
+                f"swap_params leaf {i} mismatch: got {list(n.shape)}"
+                f"{str(n.dtype)[6:]}, serving {list(c.shape)}"
+                f"{str(c.dtype)[6:]} — hot-swap is a value move, "
+                "shapes/dtypes are frozen")
+        pairs.append((c, n))
+    cards = {c.device for c, _ in pairs if c.is_cuda}
+    with torch.no_grad():
+        for d in cards:
+            torch.cuda.synchronize(d)
+        for c, n in pairs:
+            c.copy_(n)
+        for d in cards:
+            torch.cuda.synchronize(d)
+    return current
 
 
 def parse_custom_options(custom: str) -> Dict[str, str]:

@@ -18,9 +18,10 @@ model=mobilenet_v1 ...``) run here as written; the names ``torch`` and
 
 * :meth:`DeviceFramework.select_reduced_output` swaps in the bundle's
   reduced output variant for the residency planner (its params shared).
+* :meth:`DeviceFramework.swap_params` copies a new float32 tree into the
+  live params (train-while-serve).
 
-Not ported yet: the ``mesh=data:N`` batch sharding (the mesh slice) and
-``swap_params`` (with train-while-serve).
+Not ported yet: the ``mesh=data:N`` batch sharding (the mesh slice).
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ import torch
 from ..core.buffer import upload
 from ..core.registry import register_filter
 from ..models.zoo import ModelBundle, build as build_model
-from .base import Framework, FrameworkError, parse_custom_options, resolve_device
+from .base import (Framework, FrameworkError, parse_custom_options,
+                   place_swapped_params, resolve_device)
 
 
 @register_filter("jax", aliases=("tpu-xla", "xla", "pjrt"))
@@ -72,6 +74,21 @@ class DeviceFramework(Framework):
             return None
         self.bundle = b.reduced_variant()
         return b.reduced_desc or "reduced output"
+
+    def swap_params(self, tree) -> None:
+        """Hot-swap the live weights (train-while-serve).  ``tree`` is the
+        model's float32 tree, as ``init_params`` gives it and a trainer
+        exports it; each leaf is copied into the live prepared one, which
+        rounds it to the compute dtype in the live layout (channels_last
+        kernels), as ``open``'s cast did (``models/backbone.py``
+        ``prepare``).  The structure and the shapes must match (a
+        ``FrameworkError`` names the first leaf that differs).  The live
+        tensors keep their storage, so a stage that captured them reads the
+        new values.  Callers serialise against in-flight invokes (the
+        element holds ``_fw_lock``)."""
+        if self.bundle is None:
+            raise FrameworkError("framework is not open")
+        place_swapped_params(self.bundle.params, tree, master_dtype=torch.float32)
 
     def invoke(self, inputs) -> List:
         arrays = tuple(x if isinstance(x, torch.Tensor) and x.device == self.device

@@ -69,7 +69,8 @@ from ..ops.attention import PAGED_MAX_ROWS, paged_route
 from ..pipeline.graphs import Census
 from ..trainer.checkpoint import host_tensor
 from ..utils import elastic
-from .base import Framework, FrameworkError, parse_custom_options, resolve_device
+from .base import (Framework, FrameworkError, parse_custom_options,
+                   place_swapped_params, resolve_device)
 
 log = logger(__name__)
 
@@ -202,6 +203,10 @@ class LLMFramework(Framework):
     :meth:`adopt_stream` continues it on another loop of the same model,
     block size and compute dtype, token for token.
 
+    :meth:`swap_params` copies a new tree into the live weights
+    (train-while-serve): between static requests, or at the loop's next
+    chunk boundary.
+
     Not ported yet, and raising: ``tp:``.
     """
 
@@ -229,6 +234,11 @@ class LLMFramework(Framework):
         #: idle static decode sets, at most one per batch size
         self._free_sets: Dict[int, _StaticDecode] = {}
         self._sets_lock = threading.Lock()
+        #: static requests in flight, and whether a swap waits for them to
+        #: end (new requests wait for the swap)
+        self._requests = 0
+        self._swapping = False
+        self._requests_cv = threading.Condition()
 
     def open(self, props: Dict[str, object]) -> None:
         super().open(props)
@@ -471,6 +481,38 @@ class LLMFramework(Framework):
                 "cannot adopt stream snapshot: " + "; ".join(problems))
         return self._loop().adopt_stream(snapshot, emit, timeout)
 
+    # -- train-while-serve: param hot-swap ----------------------------------
+    def swap_params(self, tree, timeout: float = 30.0) -> Optional[int]:
+        """Copy ``tree`` (the structure, shapes and dtypes of
+        ``bundle.params``) into the live weights.  Every captured step
+        reads those tensors at fixed addresses (the int4 and paged kernels
+        bake TMA maps into the graphs), so they are written in place,
+        never rebound.  With a standing serve loop the copy is a control
+        command run at its next chunk boundary, like drain and adopt, and
+        the loop's new param version is returned.  Otherwise it waits
+        until no static request is in flight (new ones wait for it) and
+        returns None: a static request never sees half its weights
+        swapped, and each decode set's captured step reads the new ones."""
+        if self.bundle is None:
+            raise FrameworkError("framework is not open")
+        if self._serve is not None:
+            return self._serve.swap_params(tree, timeout)
+        with self._requests_cv:
+            if not self._requests_cv.wait_for(lambda: not self._swapping, timeout):
+                raise FrameworkError(f"swap_params: another swap ran past {timeout} s")
+            self._swapping = True
+            try:
+                if not self._requests_cv.wait_for(
+                        lambda: self._requests == 0, timeout):
+                    raise FrameworkError(
+                        f"swap_params: static requests still running after "
+                        f"{timeout} s")
+                place_swapped_params(self.bundle.params, tree)
+            finally:
+                self._swapping = False
+                self._requests_cv.notify_all()
+        return None
+
     def get_model_info(self):
         flex_in = TensorsSpec.from_string("1", "uint8").replace(
             format=TensorFormat.FLEXIBLE)
@@ -519,11 +561,19 @@ class LLMFramework(Framework):
         if T >= cfg.max_seq:
             raise FrameworkError(f"prompt length {T} >= max_seq {cfg.max_seq}")
         t0 = time.perf_counter()
-        dec = self._take_decode(B)
+        with self._requests_cv:
+            self._requests_cv.wait_for(lambda: not self._swapping)
+            self._requests += 1
         try:
-            yield from self._decode(dec, prompt, t0)
+            dec = self._take_decode(B)
+            try:
+                yield from self._decode(dec, prompt, t0)
+            finally:
+                self._give_back(dec)
         finally:
-            self._give_back(dec)
+            with self._requests_cv:
+                self._requests -= 1
+                self._requests_cv.notify_all()
 
     def _decode(self, dec: "_StaticDecode", prompt: np.ndarray,
                 t0: float) -> Iterator[np.ndarray]:
@@ -988,6 +1038,12 @@ class _ContinuousLoop:
     reads each chunk.  An adopted stream has no local enqueue stamp: the
     timeline skips it.  Spans: ``elastic.drain``, ``elastic.adopt``.
 
+    **Swap.**  :meth:`swap_params` is a third control command: the new
+    weights are copied into the tensors every step reads, the prefix index
+    (K/V of the old weights) is dropped, and ``param_version`` goes up
+    (``llm.serve.param_swaps``, the ``llm.serve.param_version`` gauge, a
+    ``learn.swap`` span).  No step is recaptured.
+
     **Cancel.**  Every stream registers its id with
     :mod:`~..utils.elastic` at submit and unregisters when it completes
     or is aborted.  A cancel (:meth:`_mark_cancel`, e.g. the query
@@ -1047,6 +1103,8 @@ class _ContinuousLoop:
         self._ctl: collections.deque = collections.deque()
         #: set once the warm-up (one prefill chunk, one decode step) ran
         self.warmed = threading.Event()
+        #: weight swaps that landed (``llm.serve.param_version``)
+        self.param_version = 0
         #: decode steps, speculative rounds and prefill chunks dispatched
         #: since the warm-up, and the host seconds spent issuing the decode
         #: steps or rounds (a replay waits there while the card's launch
@@ -1163,6 +1221,11 @@ class _ContinuousLoop:
     def adopt_stream(self, snapshot: Dict, emit, timeout: float = 30.0) -> int:
         return self._ctl_call(
             {"kind": "adopt", "snapshot": snapshot, "emit": emit}, timeout)
+
+    def swap_params(self, tree, timeout: float = 30.0) -> int:
+        """Queue a param hot-swap, run at the next chunk boundary; returns
+        the loop's new param version."""
+        return self._ctl_call({"kind": "swap", "tree": tree}, timeout)
 
     @staticmethod
     def _span(rec, kind: str, t0_ns: int, **args) -> None:
@@ -1558,6 +1621,28 @@ class _ContinuousLoop:
             cmd["ev"].set()
             return True
 
+        def swap_cmd(cmd: Dict, rec) -> bool:
+            """Copy the new weights into the tensors every step reads (the
+            same addresses: nothing is recaptured).  The prefix index goes:
+            its blocks hold K/V of the old weights (blocks live streams
+            hold stay theirs).  A tree that does not match changes
+            nothing."""
+            t0 = time.monotonic_ns()
+            try:
+                place_swapped_params(params, cmd["tree"])
+            except Exception as e:  # noqa: BLE001 - the caller's error
+                cmd["error"] = str(e)
+            else:
+                alloc.prefix_index.clear()
+                alloc.block_hash.clear()
+                self.param_version += 1
+                metrics.count("llm.serve.param_swaps")
+                metrics.gauge("llm.serve.param_version", float(self.param_version))
+                self._span(rec, "learn.swap", t0, version=self.param_version)
+                cmd["result"] = self.param_version
+            cmd["ev"].set()
+            return True
+
         def run_commands(rec) -> bool:
             """The control commands queued so far; True when one ran."""
             ran, deferred = False, []
@@ -1571,6 +1656,8 @@ class _ContinuousLoop:
                     ran |= drain_cmd(cmd, rec, deferred)
                 elif cmd["kind"] == "adopt":
                     ran |= adopt_cmd(cmd, rec)
+                elif cmd["kind"] == "swap":
+                    ran |= swap_cmd(cmd, rec)
                 else:
                     cmd["error"] = f"unknown command {cmd['kind']!r}"
                     cmd["ev"].set()

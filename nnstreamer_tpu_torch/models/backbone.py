@@ -129,6 +129,36 @@ def nhwc_to_internal(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.to(dtype).permute(0, 3, 1, 2)
 
 
+class _Relu6(torch.autograd.Function):
+    """``clamp(x, 0, 6)`` with the JAX package's derivative: ``jnp.clip`` is
+    a max and a min, each of which splits a tie, so its derivative is 1/2
+    at exactly 0 and 6 (``torch.clamp``'s is 1).  Activations sit exactly
+    at 0 wherever a depthwise conv sees only the zeros of the ReLU6 before
+    it, so the trainer's gradients differ from the JAX trainer's by whole
+    units there without it."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.clamp(x, 0.0, 6.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        inside = ((x > 0) & (x < 6)).to(g.dtype)
+        edge = ((x == 0) | (x == 6)).to(g.dtype)
+        return g * (inside + 0.5 * edge)
+
+
+def relu6(x: torch.Tensor) -> torch.Tensor:
+    """``clamp(x, 0, 6)``; differentiated as ``jnp.clip`` is when autograd
+    records (:class:`_Relu6`), one plain ``clamp`` otherwise (serving,
+    fused stages, vmapped bucket steps)."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _Relu6.apply(x)
+    return torch.clamp(x, 0.0, 6.0)
+
+
 def make_ops(compute_dtype: torch.dtype):
     """Apply-time helpers closed over the compute dtype:
     (conv2d, scale_bias_relu6, sep_block), on NCHW-view tensors."""
@@ -151,7 +181,7 @@ def make_ops(compute_dtype: torch.dtype):
 
     def sbr(x, scale, bias):
         x = x * scale.to(cdt).view(1, -1, 1, 1) + bias.to(cdt).view(1, -1, 1, 1)
-        return torch.clamp(x, 0.0, 6.0)
+        return relu6(x)
 
     def sep(x, p, stride):
         x = conv2d(x, p["dw"], stride, groups=x.shape[1])

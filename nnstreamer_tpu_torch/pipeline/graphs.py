@@ -22,16 +22,51 @@ the path the card takes.
 Launch counts stay honest: the kernel launches of the warm-up and the
 capture are held back (:func:`~..ops.kernels.held_launches`), and each
 replay adds what the capture recorded.
+
+Python's cyclic collector is held off while a stream captures
+(:func:`collector_paused`).  A captured step sits in reference cycles
+(its set and its step function refer to each other), so only a
+collection frees it, and a collection can start at any allocation of the
+capturing thread: destroying a graph is not permitted while a stream
+captures, and the attempt invalidates the capture (a cuDNN call of the
+step then fails with ``CUDNN_STATUS_INTERNAL_ERROR``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import threading
 from typing import Callable, Dict, Hashable, Sequence
 
 import torch
 
 from ..ops import kernels
+
+
+_gc_lock = threading.Lock()
+_gc_holds = 0
+_gc_was_enabled = False
+
+
+@contextlib.contextmanager
+def collector_paused():
+    """Python's cyclic collector disabled for the block (it is process-wide:
+    counted across threads that capture at once, and re-enabled, if it was
+    on, when the last of them leaves)."""
+    global _gc_holds, _gc_was_enabled
+    with _gc_lock:
+        if _gc_holds == 0:
+            _gc_was_enabled = gc.isenabled()
+            gc.disable()
+        _gc_holds += 1
+    try:
+        yield
+    finally:
+        with _gc_lock:
+            _gc_holds -= 1
+            if _gc_holds == 0 and _gc_was_enabled:
+                gc.enable()
 
 
 class Step:
@@ -107,7 +142,9 @@ class Census:
         with torch.cuda.stream(stream):
             with kernels.held_launches():
                 fn()
-            with kernels.held_launches() as launches:
+            with kernels.held_launches() as launches, collector_paused():
+                # torch.cuda.graph collects once on entry, before the
+                # capture begins; none may run inside it
                 with torch.cuda.graph(graph, stream=stream,
                                       capture_error_mode="thread_local"):
                     fn()

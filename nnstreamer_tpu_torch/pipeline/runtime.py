@@ -39,6 +39,9 @@ boundaries):
   :meth:`Pipeline.slo_report` reads it now;
 * :meth:`Pipeline.drain_stream` / :meth:`Pipeline.adopt_stream` move a
   live continuous-serving stream between pipelines (``filters/llm.py``);
+* :meth:`Pipeline.swap_params` copies new weights (a tree or a trainer
+  checkpoint) into a live serving stage, and a ``tensor_trainer
+  swap-to=<stage>`` calls it after every epoch (train-while-serve);
 * with ``batch_max > 1`` a batchable stage's runner drains up to that
   many already-queued buffers of one signature (``batch_linger_ms``
   waits for stragglers) and runs them as one bucketed step
@@ -898,6 +901,9 @@ class Pipeline:
             # armor + journal attach: journaled serversrcs honour the
             # pipeline-level replay flag
             el._armor = self._armor
+            # a tensor_trainer with swap-to=<stage> copies its parameters
+            # into that serving stage after each epoch through this
+            el._swap_cb = self.swap_params
             if self._journal_replay:
                 el._journal_replay = True
 
@@ -1136,6 +1142,56 @@ class Pipeline:
         raise PipelineError(
             "no continuous-serving filter on this pipeline to adopt into "
             "(need tensor_filter framework=llm custom=serve:continuous)")
+
+    def swap_params(self, stage: str, tree_or_ckpt) -> int:
+        """Hot-swap new weights into the LIVE serving stage ``stage``:
+        ``tree_or_ckpt`` is a parameter tree (a trainer's
+        ``export_params()``) or a trainer checkpoint's path
+        (``trainer/checkpoint.py``).  The values are copied into the stage's
+        live tensors at a dispatch boundary (``TensorFilter.swap_params``;
+        an llm loop at its next chunk boundary): nothing is recaptured, a
+        no-op swap is bitwise, a real one serves the new weights from the
+        next dispatch.  Returns the stage's param version.
+
+        Raises :class:`PipelineError` for a stage that cannot swap: one
+        FUSED into a chain (its captured program closes over the weights
+        the planner traced: run the serving filter unfused, ``fuse=False``
+        or between host elements), a MICRO-BATCHED one (its bucket steps
+        close over them too: ``batch_max=1``), or a framework without
+        swappable parameters."""
+        el = self.element(stage)
+        nid = next((k for k, v in self.elements.items() if v is el), None)
+        runner = self._runners.get(nid) if nid is not None else None
+        if runner is not None and runner.element is not el:
+            raise PipelineError(
+                f"stage {stage!r} is fused into {runner.element.name!r} — "
+                "the fused program captures params at build time, so a "
+                "swap would silently not take; keep hot-swappable "
+                "serving filters unfused (fuse=False, or a graph where "
+                "the filter is not part of a linear device chain)")
+        if runner is not None and runner.batch_max > 1 \
+                and runner.stage.batchable:
+            raise PipelineError(
+                f"stage {stage!r} runs micro-batched (batch_max="
+                f"{runner.batch_max}) — bucketed dispatch captures "
+                "params at build time, so a swap would silently not "
+                "take; run the hot-swappable serving stage with "
+                "batch_max=1 (or an llm serve:continuous stage, whose "
+                "loop swaps at chunk boundaries)")
+        swap = getattr(el, "swap_params", None)
+        if swap is None:
+            raise PipelineError(
+                f"element {stage!r} ({getattr(el, 'kind', '?')}) has no "
+                "swappable parameters")
+        tree = tree_or_ckpt
+        if isinstance(tree_or_ckpt, str):
+            from ..trainer.checkpoint import load_checkpoint
+
+            tree, _opt, _step = load_checkpoint(tree_or_ckpt)
+        try:
+            return int(swap(tree))
+        except Exception as e:  # noqa: BLE001 - typed to the caller
+            raise PipelineError(f"swap_params({stage!r}) failed: {e}") from e
 
     def ladder_snapshot(self) -> Dict[str, List[int]]:
         """Every adaptive stage's current bucket ladder (base + minted) by

@@ -331,3 +331,37 @@ def test_closing_the_filter_frees_its_decode_sets_and_weights():
         assert sets[0]() is None and embed() is None
     finally:
         gc.enable()
+
+
+def test_collector_paused_across_overlapping_captures():
+    """A capture holds Python's cyclic collector off (a collection inside it
+    could destroy an older step's graph, which invalidates the capture);
+    two threads capturing at once keep it off until the last one leaves,
+    and it comes back only if it was on."""
+    from nnstreamer_tpu_torch.pipeline.graphs import collector_paused
+
+    assert gc.isenabled()
+    first_in, second_out = threading.Event(), threading.Event()
+    seen = []
+
+    def other():
+        with collector_paused():
+            first_in.wait(10)
+            seen.append(gc.isenabled())
+        second_out.set()
+
+    t = threading.Thread(target=other)
+    with collector_paused():
+        t.start()
+        first_in.set()
+        assert second_out.wait(10)
+        seen.append(gc.isenabled())
+    t.join(10)
+    assert seen == [False, False] and gc.isenabled()
+    gc.disable()
+    try:
+        with collector_paused():
+            pass
+        assert not gc.isenabled()
+    finally:
+        gc.enable()

@@ -92,8 +92,11 @@ def test_registry_is_the_ports_own():
         "tensor_query_client", "tensor_query_serversink", "tensor_query_serversrc",
         "tensor_rateadjust", "tensor_reposink", "tensor_reposrc", "tensor_sink",
         "tensor_sink_grpc", "tensor_sparse_dec", "tensor_sparse_enc", "tensor_split",
-        "tensor_src_grpc", "tensor_src_iio", "tensor_transform", "v4l2src",
-        "videoconvert", "videoscale", "videotestsrc"]
+        "tensor_src_grpc", "tensor_src_iio", "tensor_trainer", "tensor_transform",
+        "v4l2src", "videoconvert", "videoscale", "videotestsrc"]
+    assert ntt.registry.names("trainer") == ["jax"]
+    assert ntt.registry.get("trainer", "jax").__module__ == \
+        "nnstreamer_tpu_torch.trainer.subplugin"
     assert ntt.registry.get("element", "tensor_aggregator").__module__ == \
         "nnstreamer_tpu_torch.elements.aggregator"
     assert ntt.registry.get("element", "tee").__module__ == \
