@@ -27,6 +27,11 @@ mode=image_labeling|bounding_boxes``, each such chain fused into one
 stage that runs as a captured CUDA graph (``Pipeline(fuse=True)``, the
 default).  Filters run on the CUDA card unless ``accelerator=true:cpu``
 is set on the tensor_filter.
+
+``analyze(desc, deep=True)`` lints a pipeline without running it (the
+deep pass on meta tensors predicts its census and device memory), and
+``Pipeline(desc, xray=True)`` then holds the running pipeline to that
+prediction (``Pipeline.explain()``).
 """
 
 from .core.types import (  # noqa: F401
@@ -46,5 +51,6 @@ from .pipeline.parser import parse as parse_launch  # noqa: F401
 from .pipeline.graph import PipelineGraph  # noqa: F401
 from .pipeline.runtime import Pipeline, PipelineError  # noqa: F401
 from .elements.filter import SingleShot  # noqa: F401
+from .analysis import PipelineLintError, analyze  # noqa: F401
 
 __version__ = "0.1.0"

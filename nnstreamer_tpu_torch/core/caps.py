@@ -134,6 +134,57 @@ class Caps:
         return f"{self.media.value}" + (f",{fs}" if fs else "")
 
 
+def intersect_template(caps: Caps, templates) -> Optional[Caps]:
+    """Intersect ``caps`` against a pad template: one :class:`Caps` or a
+    tuple of alternatives.  Returns the first non-empty intersection, or
+    None when every alternative is incompatible: the negotiation primitive
+    the static analyzer (``analysis/capsflow.py``) runs over every edge of
+    a parsed graph without building an element."""
+    if isinstance(templates, Caps):
+        templates = (templates,)
+    for t in templates:
+        got = caps.intersect(t)
+        if got is not None:
+            return got
+    return None
+
+
+def _explain_spec_mismatch(a: TensorsSpec, b: TensorsSpec) -> str:
+    from .types import dims_to_string, dtype_name
+
+    if a.format != b.format:
+        return f"tensor format {a.format.value} ⊄ {b.format.value}"
+    if len(a) != len(b):
+        return f"num_tensors {len(a)} ⊄ {len(b)}"
+    for i, (sa, sb) in enumerate(zip(a.specs, b.specs)):
+        at = f"[{i}]" if len(a) > 1 else ""
+        if sa.dtype != sb.dtype:
+            return f"dtype{at} {dtype_name(sa.dtype)} ⊄ {dtype_name(sb.dtype)}"
+        if not sa.is_compatible(sb):
+            return (f"dims{at} {dims_to_string(sa.dims)} ⊄ "
+                    f"{dims_to_string(sb.dims)}")
+    return "incompatible tensor specs"
+
+
+def explain_mismatch(a: Caps, b: Caps) -> str:
+    """Field-level reason two caps do not intersect (diagnostic text): the
+    first offending field in the order :meth:`Caps.intersect` walks them
+    (``dtype uint8 ⊄ float32``, ``media video/x-raw ⊄ other/tensors``)."""
+    if a.media != b.media:
+        if {a.media, b.media} != {MediaType.TENSORS, MediaType.FLEX_TENSORS}:
+            return f"media {a.media.value} ⊄ {b.media.value}"
+    fa, fb = a.dict, b.dict
+    for key in sorted(set(fa) | set(fb)):
+        va, vb = fa.get(key, ANY), fb.get(key, ANY)
+        if isinstance(va, TensorsSpec) and isinstance(vb, TensorsSpec):
+            if not va.is_compatible(vb):
+                return _explain_spec_mismatch(va, vb)
+            continue
+        if _intersect_value(va, vb) is _NO:
+            return f"{key} {va} ⊄ {vb}"
+    return "incompatible caps"
+
+
 class _No:
     pass
 

@@ -9,7 +9,10 @@ query front door and the runtime's trace hooks read, the sinks' fetch
 window, the runtime's bound on elastic stage restarts, and the
 micro-batching knobs (``batch_max``, the bucket ladder and its adaptive
 refinement, the dispatch window, ingress donation; ``[ladders]`` holds
-warm-start ladders by stage name), and each framework's free-form options
+warm-start ladders by stage name), the deep pass's budgets and link
+pricing (``hbm_budget_bytes``, ``link_d2h_mbps``, ``link_fetch_rtt_ms``),
+xray's switch, ledger tolerance and peak (``xray``,
+``xray_hbm_tolerance``, ``peak_tflops``), and each framework's free-form options
 (the ini's ``[filter-<name>]`` sections, ``framework_options``, parsed as
 the JAX package parses them; like it, nothing else reads them).  The JAX package's mesh knobs
 (``data_parallel``, ``model_parallel``) wait for the multi-device slice.
@@ -41,6 +44,19 @@ _ENV_LADDERS = "NNS_TPU_BUCKET_LADDERS"
 _ENV_DISPATCH_DEPTH = "NNS_TPU_DISPATCH_DEPTH"
 _ENV_DONATE_INGRESS = "NNS_TPU_DONATE_INGRESS"
 _ENV_MAX_VARIANTS = "NNS_TPU_MAX_COMPILED_VARIANTS"
+_ENV_HBM_BUDGET = "NNS_TPU_HBM_BUDGET"
+_ENV_LINK_D2H_MBPS = "NNS_TPU_LINK_D2H_MBPS"
+_ENV_LINK_RTT_MS = "NNS_TPU_LINK_RTT_MS"
+_ENV_XRAY = "NNS_TPU_XRAY"
+_ENV_XRAY_HBM_TOL = "NNS_TPU_XRAY_HBM_TOLERANCE"
+_ENV_PEAK_TFLOPS = "NNS_TPU_PEAK_TFLOPS"
+
+#: the card's device-to-host rate into pinned memory, MB/s, the default of
+#: ``link_d2h_mbps``: H100 80GB HBM3 at a 700.00 W limit, the median of
+#: five 256 MiB copies timed with CUDA events (``chip_smoke.py``'s ``xray``
+#: phase, which measures it again on every run: 54,723.1 and 54,959.7 in
+#: two full runs, 42,286.4 on one machine)
+H100_D2H_MBPS = 54959.7
 
 
 @dataclasses.dataclass
@@ -105,6 +121,27 @@ class Config:
     #: ``process()`` raises is re-entered in place this many times,
     #: losing the one buffer, before the pipeline fails (0 = fail fast)
     max_stage_restarts: int = 0
+    #: device-to-host link rate in MB/s: the deep pass (``analysis/
+    #: tracecheck.py``) prices each sink edge's planned fetch bytes in
+    #: milliseconds and flags ``fetch-bound`` pipelines (0 = never priced)
+    link_d2h_mbps: float = H100_D2H_MBPS
+    #: small-fetch roundtrip (ms) shown beside the bandwidth term in the
+    #: deep pass's fetch report; not part of the ``fetch-bound`` decision
+    link_fetch_rtt_ms: float = 0.0
+    #: deep-pass budget: the estimated device-memory high-water mark a
+    #: pipeline may plan for before ``hbm-budget`` warns (0 = no budget)
+    hbm_budget_bytes: int = 0
+    #: predicted-against-actual reconciliation (``utils/xray.py``): every
+    #: captured step registers with the program census, its replays are
+    #: timed with CUDA events, and the memory ledger is held against the
+    #: deep pass's estimate.  False: no hook runs (one pointer check)
+    xray: bool = False
+    #: memory-ledger tolerance: a category past this factor of its
+    #: estimate (above the 1 MiB floor) warns once and fails explain()
+    xray_hbm_tolerance: float = 2.0
+    #: peak dense TFLOP/s of the device for the MFU gauges (0: the table
+    #: in ``utils/xray.py``, by device name)
+    peak_tflops: float = 0.0
     #: free-form options by framework name: the ini's ``[filter-<name>]``
     #: sections (``[filter-jax]`` -> ``framework_options["jax"]``)
     framework_options: Dict[str, Dict[str, str]] = dataclasses.field(
@@ -168,6 +205,14 @@ class Config:
             if ini.has_option("common", "max_stage_restarts"):
                 cfg.max_stage_restarts = ini.getint(
                     "common", "max_stage_restarts")
+            for key in ("link_d2h_mbps", "link_fetch_rtt_ms",
+                        "xray_hbm_tolerance", "peak_tflops"):
+                if ini.has_option("common", key):
+                    setattr(cfg, key, ini.getfloat("common", key))
+            if ini.has_option("common", "hbm_budget_bytes"):
+                cfg.hbm_budget_bytes = ini.getint("common", "hbm_budget_bytes")
+            if ini.has_option("common", "xray"):
+                cfg.xray = ini.getboolean("common", "xray")
             for sec in ini.sections():
                 if sec.startswith("filter-"):
                     cfg.framework_options[sec[len("filter-"):]] = dict(ini.items(sec))
@@ -201,6 +246,19 @@ class Config:
         if os.environ.get(_ENV_ADAPTIVE):
             cfg.adaptive_buckets = os.environ[_ENV_ADAPTIVE].lower() in (
                 "1", "true", "yes", "on")
+        if os.environ.get(_ENV_HBM_BUDGET):
+            cfg.hbm_budget_bytes = int(os.environ[_ENV_HBM_BUDGET])
+        if os.environ.get(_ENV_LINK_D2H_MBPS):
+            cfg.link_d2h_mbps = float(os.environ[_ENV_LINK_D2H_MBPS])
+        if os.environ.get(_ENV_LINK_RTT_MS):
+            cfg.link_fetch_rtt_ms = float(os.environ[_ENV_LINK_RTT_MS])
+        if os.environ.get(_ENV_XRAY):
+            cfg.xray = os.environ[_ENV_XRAY].lower() in (
+                "1", "true", "yes", "on")
+        if os.environ.get(_ENV_XRAY_HBM_TOL):
+            cfg.xray_hbm_tolerance = float(os.environ[_ENV_XRAY_HBM_TOL])
+        if os.environ.get(_ENV_PEAK_TFLOPS):
+            cfg.peak_tflops = float(os.environ[_ENV_PEAK_TFLOPS])
         if os.environ.get(_ENV_LADDERS):
             cfg.bucket_ladders = parse_ladders(os.environ[_ENV_LADDERS])
         return cfg

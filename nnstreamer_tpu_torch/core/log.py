@@ -5,8 +5,8 @@ reservoirs and histograms, each with its tenant-labelled twin, as the
 query front door, tracing and the sinks stamp them, and
 ``fraction_over``, the SLO engine's share of samples over a threshold,
 and the occupancy histograms the batching runner feeds
-(``observe_bucketed``/``value_histograms``; their Prometheus text waits
-for ``utils/profiler.py``).
+(``observe_bucketed``/``value_histograms``, which
+``utils/profiler.metrics_text`` renders as Prometheus histograms).
 
 Also hosts the lightweight metrics registry promised by SURVEY.md §5.5:
 frames in/out, queue depths, bytes moved, per-stage latency percentiles are

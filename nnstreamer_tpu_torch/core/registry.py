@@ -171,3 +171,11 @@ def names(kind: str) -> List[str]:
     _ensure_builtins()
     with _lock:
         return sorted(n for k, n in _registry if k == kind)
+
+
+def aliases_of(kind: str, name: str) -> List[str]:
+    """Registered aliases resolving to ``(kind, name)`` (introspection)."""
+    _ensure_builtins()
+    with _lock:
+        return sorted(alias for (k, alias), target in _aliases.items()
+                      if k == kind and target == name)

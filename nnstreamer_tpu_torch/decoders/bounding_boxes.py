@@ -289,14 +289,19 @@ class BoundingBoxes(Decoder):
                     return None
             k = min(4 * self.max_detections, n)
             scale_np = np.asarray(self.box_scale, np.float32)
+            scale_vals = [float(v) for v in scale_np.reshape(-1)]
+            scale_shape = scale_np.shape
             scales = {}
 
             def topk(arrays):
-                # option8's scale goes to the input's device on the first
-                # (eager warm-up) call: a capture cannot copy from the host
+                # option8's scale is made on the input's device on the
+                # first (eager warm-up) call, by fills: a capture cannot
+                # copy from the host
                 dev = arrays[0].device
                 if dev not in scales:
-                    scales[dev] = torch.from_numpy(scale_np).to(dev)
+                    scales[dev] = torch.stack([
+                        torch.full((), v, dtype=torch.float32, device=dev)
+                        for v in scale_vals]).reshape(scale_shape)
                 return _yolo_topk(arrays[0], k, v8, scales[dev])
 
         if self.nms_mode == "host":

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from ..core.buffer import Buffer, upload
-from ..core.caps import Caps
+from ..core.caps import Caps, MediaType
 from ..core.registry import register_element
 from ..core.types import TensorSpec, TensorsSpec
 from .base import Element, ElementError, SRC
@@ -60,6 +60,7 @@ def _host(x):
 @register_element("tensor_aggregator")
 class TensorAggregator(Element):
     kind = "tensor_aggregator"
+    PAD_TEMPLATES = {"sink": Caps.new(MediaType.TENSORS)}
 
     def __init__(self, props=None, name=None):
         super().__init__(props, name)

@@ -18,6 +18,11 @@ GstBaseTransform and the per-element chain functions).  An element has:
   one sink pad gets one buffer per pad at a time in
   :meth:`Element.process_group` (the runtime pairs them).
 
+* **abstract execution** — :meth:`Element.abstract_invoke` runs the device
+  callable on meta tensors and :meth:`Element.param_bytes` reports the
+  weights it keeps, for the deep analyzer (``analysis/tracecheck.py``);
+  ``PAD_TEMPLATES`` are the caps its sink pads admit, read offline.
+
 ``place_params`` waits for the multi-device slice.
 """
 
@@ -39,6 +44,16 @@ SINK = "sink"
 
 class ElementError(RuntimeError):
     pass
+
+
+def meta_inputs(specs) -> Tuple:
+    """One meta tensor per spec (shape and dtype, no storage)."""
+    import torch
+
+    from ..core.types import dtype_name
+
+    return tuple(torch.empty(s.shape, dtype=getattr(torch, dtype_name(s.dtype)),
+                             device="meta") for s in specs)
 
 
 class _TrackedProps(dict):
@@ -92,6 +107,30 @@ class Element:
     #: sink pad and hands the group to :meth:`process_group` (mux, merge,
     #: crop: slowest-pad sync); "any" processes buffers as they arrive
     sync_policy: str = "any"
+    #: class-level flags the static analyzer reads without instantiating
+    is_source = False
+    is_sink = False
+    #: sink pad templates: pad name (or ``sink_%u`` request pattern) -> Caps
+    #: the pad admits; pads not listed take ANY (``analysis/capsflow.py``
+    #: intersects every edge's caps with them, offline)
+    PAD_TEMPLATES: Dict[str, object] = {}
+
+    @classmethod
+    def pad_template(cls, pad: str):
+        """The template for ``pad``: exact name, then the ``%u`` request-pad
+        pattern (``sink_3`` -> ``sink_%u``), then the always-pad
+        (``sink``/``src``), then ANY."""
+        t = cls.PAD_TEMPLATES.get(pad)
+        if t is not None:
+            return t
+        base, sep, idx = pad.rpartition("_")
+        if sep and idx.isdigit():
+            t = cls.PAD_TEMPLATES.get(f"{base}_%u")
+            if t is None:
+                t = cls.PAD_TEMPLATES.get(base)
+            if t is not None:
+                return t
+        return Caps.any()
 
     def __init__(self, props: Optional[Dict[str, object]] = None, name: Optional[str] = None):
         self.props: Dict[str, object] = _TrackedProps(props or {})
@@ -175,12 +214,39 @@ class Element:
     #: stage's (small) outputs; None => the device outputs are the payload
     host_post = None
 
+    # -- abstract execution (lint --deep) -----------------------------------
+    def abstract_invoke(
+        self, in_spec: TensorsSpec
+    ) -> Optional[Tuple[List, Optional[TensorsSpec]]]:
+        """Run :meth:`device_fn`'s callable on meta tensors built from
+        ``in_spec``: shapes and dtypes only, no data and no device work.
+        Returns ``(output meta tensors, declared out spec)``, or None when
+        the element has no device path for this spec.  Errors propagate
+        (``.item()`` on a meta tensor, a data-dependent shape): the deep
+        analyzer (``analysis/tracecheck.py``) reports them."""
+        df = self.device_fn(in_spec)
+        if df is None:
+            return None
+        fn, declared = df
+        out = fn(meta_inputs(in_spec))
+        if not isinstance(out, (tuple, list)):
+            out = (out,)
+        return list(out), declared
+
+    def param_bytes(self) -> int:
+        """Bytes of device-resident parameters this element keeps for the
+        pipeline's life (model weights), for the deep analyzer's estimate
+        and xray's ledger.  Default: none."""
+        return 0
+
     def __repr__(self):  # pragma: no cover
         return f"<{type(self).__name__} {self.name!r}>"
 
 
 class SourceElement(Element):
     """Element with no input pads; drives the pipeline (GstBaseSrc)."""
+
+    is_source = True
 
     def generate(self) -> Iterator[Union[Buffer, Event]]:
         """Yield buffers; return to signal EOS."""
@@ -189,3 +255,5 @@ class SourceElement(Element):
 
 class SinkElement(Element):
     """Terminal element (GstBaseSink / tensor_sink)."""
+
+    is_sink = True

@@ -13,7 +13,7 @@ into the stage in front of it.
 
 from __future__ import annotations
 
-from ..core.caps import Caps
+from ..core.caps import Caps, MediaType
 from ..core.registry import KIND_DECODER, get as registry_get, register_element
 from .base import Element, ElementError, SRC
 
@@ -21,6 +21,7 @@ from .base import Element, ElementError, SRC
 @register_element("tensor_decoder")
 class TensorDecoder(Element):
     kind = "tensor_decoder"
+    PAD_TEMPLATES = {"sink": Caps.new(MediaType.TENSORS)}
 
     def __init__(self, props=None, name=None):
         super().__init__(props, name)

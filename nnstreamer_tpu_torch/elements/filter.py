@@ -3,7 +3,8 @@
 Port of ``nnstreamer_tpu/elements/filter.py`` (reference:
 ``gsttensor_filter.c`` + ``tensor_filter_common.c``): framework selection
 (``auto`` walks the configured priority list), model load at READY,
-input/output specs from the framework, per-invoke latency,
+input/output specs from the framework (``input=`` / ``output=`` with
+``inputtype=`` / ``outputtype=`` override them), per-invoke latency,
 ``invoke-dynamic`` flexible output and ``input-combination`` /
 ``output-combination`` remapping.  A framework with a pure torch
 callable (``framework=jax``) offers it as :meth:`TensorFilter.device_fn`,
@@ -32,7 +33,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..core.buffer import Buffer, host_value
-from ..core.caps import Caps
+from ..core.caps import Caps, MediaType
 from ..core.config import get_config
 from ..core.log import logger, metrics
 from ..core.meta_keys import META_STREAM_INDEX, META_STREAM_LAST
@@ -103,6 +104,7 @@ class TensorFilter(Element):
     latency), ``input-combination`` / ``output-combination``."""
 
     kind = "tensor_filter"
+    PAD_TEMPLATES = {"sink": Caps.new(MediaType.TENSORS)}
     #: set at negotiation for a continuous-serving framework: the runner
     #: then injects ``_async_emit``
     wants_async_emit = False
@@ -126,6 +128,9 @@ class TensorFilter(Element):
             str(self.props.get("input_combination", "")))
         self.output_combination = _parse_output_combination(
             str(self.props.get("output_combination", "")))
+        # read now: inputtype/outputtype are legal without input/output dims
+        self.props.get("inputtype")
+        self.props.get("outputtype")
         #: id(framework) -> (framework, BatchRunner): one entry, for the
         #: framework now loaded (a new one drops the old bucket steps)
         self._batchers: Dict[int, tuple] = {}
@@ -147,6 +152,12 @@ class TensorFilter(Element):
         # the pipeline's armor (Pipeline(quarantine=...)), through which the
         # llm serve loop's nan_guard quarantines a poisoned prompt
         self.fw._armor = getattr(self, "_armor", None)
+        # xray: the framework's captured steps count under this element's
+        # name (None = off: the framework never learns xray exists)
+        xr = getattr(self, "_xray", None)
+        if xr is not None and getattr(self.fw, "_xray", None) is not xr:
+            self.fw.attach_xray(xr, self.name,
+                                rec=lambda: getattr(self, "_trace_rec", None))
         return self.fw
 
     def stop(self) -> None:
@@ -177,6 +188,13 @@ class TensorFilter(Element):
                 log.info("%s: residency planner selected reduced output: %s",
                          self.name, desc)
         fw_in, fw_out = fw.get_model_info()
+        # explicit props override / fill in what the framework does not know
+        if self.props.get("input"):
+            fw_in = TensorsSpec.from_string(
+                str(self.props["input"]), str(self.props.get("inputtype", "float32")))
+        if self.props.get("output"):
+            fw_out = TensorsSpec.from_string(
+                str(self.props["output"]), str(self.props.get("outputtype", "float32")))
         src = next(iter(in_caps.values()), Caps.any())
         up_spec = self._up_spec = src.spec
         # input-combination selects which upstream tensors feed the model:
@@ -408,10 +426,14 @@ class TensorFilter(Element):
             from ..pipeline.graphs import Census
 
             dev = getattr(fw, "device", None)
+            census = Census(dev) if dev is not None else None
+            xr = getattr(self, "_xray", None)
+            if xr is not None and census is not None:
+                census.attach_xray(xr, self.name,
+                                   lambda: getattr(self, "_trace_rec", None))
             entry = (fw, BatchRunner(
                 fn, getattr(self, "_batch_buckets", None), name=self.name,
-                ladder=getattr(self, "_batch_ladder", None),
-                census=Census(dev) if dev is not None else None))
+                ladder=getattr(self, "_batch_ladder", None), census=census))
             self._batchers = {id(fw): entry}
         rows = entry[1].run([tuple(self._select_inputs(b.tensors)) for b in bufs])
         self._record((time.perf_counter() - t0) / len(bufs))
@@ -455,6 +477,42 @@ class TensorFilter(Element):
                 (arrays if tag == "i" else outs)[i] for tag, i in combo_out)
 
         return wrapped, combined
+
+    # -- abstract execution (lint --deep) -----------------------------------
+    def abstract_invoke(self, in_spec: TensorsSpec):
+        """The model core through the framework's ``abstract_invoke`` (on
+        meta tensors), with the input/output combinations applied to the
+        meta lists as :meth:`device_fn` applies them."""
+        fw = self._ensure_fw()
+        if self.invoke_dynamic or fw.streaming or getattr(fw, "continuous", False):
+            return None  # per-buffer or asynchronous shapes: nothing static
+        specs = list(in_spec)
+        model_in = ([specs[i] for i in self.input_combination]
+                    if self.input_combination is not None else specs)
+        model_out = fw.abstract_invoke(model_in)
+        if model_out is None:
+            return None
+        if self.output_combination is None:
+            outs = list(model_out)
+        else:
+            from .base import meta_inputs
+
+            ins = meta_inputs(specs)
+            outs = [(ins if tag == "i" else list(model_out))[i]
+                    for tag, i in self.output_combination]
+        out_spec = self._out_spec
+        if out_spec is None:
+            _, out_spec = fw.get_model_info()
+        declared = (self._combined_out_spec(out_spec)
+                    if out_spec is not None else None)
+        return outs, declared
+
+    def param_bytes(self) -> int:
+        """The framework's resident weights (0 when it reports none)."""
+        try:
+            return int(self._ensure_fw().param_bytes())
+        except Exception:  # noqa: BLE001 - accounting probe only
+            return 0
 
     def _record(self, dt: float) -> None:
         if self.latency_report:

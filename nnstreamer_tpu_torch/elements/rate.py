@@ -12,7 +12,7 @@ from __future__ import annotations
 from typing import Optional
 
 from ..core.buffer import Buffer
-from ..core.caps import Caps
+from ..core.caps import Caps, MediaType
 from ..core.registry import register_element
 from ..core.types import parse_fraction
 from .base import Element, SRC
@@ -21,6 +21,7 @@ from .base import Element, SRC
 @register_element("tensor_rateadjust", aliases=("tensor_rate",))
 class TensorRateAdjust(Element):
     kind = "tensor_rateadjust"
+    PAD_TEMPLATES = {"sink": Caps.new(MediaType.TENSORS)}
 
     def __init__(self, props=None, name=None):
         super().__init__(props, name)

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..core.buffer import Buffer
-from ..core.caps import Caps
+from ..core.caps import Caps, MediaType
 from ..core.log import logger, metrics
 from ..core.registry import register_element
 from ..core.types import TensorSpec, TensorsSpec
@@ -177,6 +177,7 @@ class TensorMux(_SyncModes, Element):
     order.  Props: ``sync-mode``, ``sync-option`` (:class:`_SyncModes`)."""
 
     kind = "tensor_mux"
+    PAD_TEMPLATES = {"sink_%u": Caps.new(MediaType.TENSORS)}
     sync_policy = "all"
 
     def __init__(self, props=None, name=None):
@@ -218,6 +219,7 @@ class TensorDemux(Element):
     instead (absent or invalid: ``src_0``)."""
 
     kind = "tensor_demux"
+    PAD_TEMPLATES = {"sink": Caps.new(MediaType.TENSORS)}
 
     def __init__(self, props=None, name=None):
         super().__init__(props, name)
@@ -277,6 +279,7 @@ class TensorMerge(_SyncModes, Element):
     ``sync-mode`` / ``sync-option`` (:class:`_SyncModes`)."""
 
     kind = "tensor_merge"
+    PAD_TEMPLATES = {"sink_%u": Caps.new(MediaType.TENSORS)}
     sync_policy = "all"
 
     def __init__(self, props=None, name=None):
@@ -320,6 +323,7 @@ class TensorSplit(Element):
     Every segment needs a linked pad.  The segments are views."""
 
     kind = "tensor_split"
+    PAD_TEMPLATES = {"sink": Caps.new(MediaType.TENSORS)}
 
     def __init__(self, props=None, name=None):
         super().__init__(props, name)

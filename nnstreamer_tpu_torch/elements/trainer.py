@@ -96,10 +96,24 @@ class TensorTrainer(Element):
         cls = registry_get(KIND_TRAINER, self.fw_name)
         self.trainer = cls()
         self.trainer.open(self.props)
+        xr = getattr(self, "_xray", None)
+        attach = getattr(self.trainer, "attach_xray", None)
+        if xr is not None and attach is not None:
+            # xray: the update step and the eval count under <name>.learn
+            attach(xr, self.name, rec=lambda: getattr(self, "_trace_rec", None))
 
     def stop(self) -> None:
         if self.trainer is not None:
             self.trainer.close()
+
+    # -- xray's ledger -------------------------------------------------------
+    def param_bytes(self) -> int:
+        fn = getattr(self.trainer, "param_nbytes", None)
+        return int(fn()) if fn is not None else 0
+
+    def train_state_bytes(self) -> int:
+        fn = getattr(self.trainer, "train_state_bytes", None)
+        return int(fn()) if fn is not None else 0
 
     def configure(self, in_caps, out_pads):
         self.in_caps = dict(in_caps)

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.buffer import Buffer, _to_numpy
-from ..core.caps import Caps
+from ..core.caps import Caps, MediaType
 from ..core.registry import register_element
 from ..core.types import (TensorSpec, TensorsSpec, dtype_from_name,
                           dtype_name, numpy_dtype)
@@ -276,6 +276,7 @@ def _parse_arith(option: str) -> List[_ArithOp]:
 @register_element("tensor_transform")
 class TensorTransform(Element):
     kind = "tensor_transform"
+    PAD_TEMPLATES = {"sink": Caps.new(MediaType.TENSORS)}
 
     def __init__(self, props=None, name=None):
         super().__init__(props, name)

@@ -222,6 +222,7 @@ class Compositor(Element):
     """
 
     kind = "compositor"
+    PAD_TEMPLATES = {"sink_%u": Caps.new(MediaType.VIDEO)}
     sync_policy = "all"
 
     def __init__(self, props=None, name=None):
@@ -308,6 +309,7 @@ class VideoConvert(Element):
     """
 
     kind = "videoconvert"
+    PAD_TEMPLATES = {"sink": Caps.new(MediaType.VIDEO)}
 
     def __init__(self, props=None, name=None):
         super().__init__(props, name)
@@ -370,6 +372,7 @@ class VideoScale(Element):
     """
 
     kind = "videoscale"
+    PAD_TEMPLATES = {"sink": Caps.new(MediaType.VIDEO)}
 
     def __init__(self, props=None, name=None):
         super().__init__(props, name)

@@ -13,6 +13,9 @@ Contract:
   runs it on meta tensors (shapes and dtypes only, no data, no device).
 * Streaming frameworks set ``streaming = True`` and implement
   ``invoke_stream``, a generator of output lists.
+* :meth:`Framework.param_bytes` reports the resident weights and
+  :meth:`Framework.attach_xray` hands over xray's registry; inside
+  :func:`abstract_build` a framework builds on the meta device.
 * :meth:`Framework.swap_params` replaces the live weights by value
   (train-while-serve); :func:`place_swapped_params` is the walk every
   framework's swap shares.
@@ -20,6 +23,8 @@ Contract:
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -94,6 +99,26 @@ class Framework:
             out = (out,)
         return list(out)
 
+    def param_bytes(self) -> int:
+        """Bytes of model parameters resident on the device while the
+        pipeline runs (0 = none or unknown): the deep pass's estimate and
+        xray's measured ledger both read it."""
+        return 0
+
+    # -- xray (utils/xray.py) ------------------------------------------------
+    def attach_xray(self, registry, stage: str, rec=None) -> None:
+        """Hand the framework the pipeline's program registry: ``stage`` is
+        the name its captured steps are counted under, ``rec`` the flight
+        recorder for the device track.  Frameworks with a census attach it
+        here (the llm filter's serve loop installs its expectations).
+        Never called with xray off."""
+        self._xray = registry
+        self._xray_stage = stage
+        self._xray_rec = rec
+        census = getattr(self, "census", None)
+        if census is not None:
+            census.attach_xray(registry, stage, rec)
+
     # -- train-while-serve: param hot-swap ----------------------------------
     def swap_params(self, tree) -> Optional[int]:
         """Replace the live weights with ``tree``'s values, in place (see
@@ -119,6 +144,15 @@ def tree_flatten(tree) -> Tuple[List[Any], Any]:
         return ([x for leaves, _ in parts for x in leaves],
                 (type(tree).__name__, tuple(s for _, s in parts)))
     return [tree], "*"
+
+
+def tree_param_bytes(tree) -> int:
+    """Total bytes of a parameter tree's tensor leaves (meta leaves count
+    their shape times their itemsize): the one walk the frameworks'
+    ``param_bytes`` and xray's ledger share."""
+    leaves, _ = tree_flatten(tree)
+    return sum(t.numel() * t.element_size() for t in leaves
+               if isinstance(t, torch.Tensor))
 
 
 def tree_map(fn: Callable, tree):
@@ -216,6 +250,22 @@ def parse_accelerator(acc: str) -> List[str]:
     return []
 
 
+_abstract = threading.local()
+
+
+@contextlib.contextmanager
+def abstract_build():
+    """Frameworks opened on this thread inside the block build on the meta
+    device (:func:`resolve_device` gives ``meta``): shapes and dtypes, no
+    storage, so the deep analyzer prices a model without allocating it."""
+    prev = getattr(_abstract, "on", False)
+    _abstract.on = True
+    try:
+        yield
+    finally:
+        _abstract.on = prev
+
+
 def resolve_device(acc: str) -> torch.device:
     """The device a filter runs on, from its ``accelerator=`` property.
 
@@ -229,6 +279,11 @@ def resolve_device(acc: str) -> torch.device:
             f"accelerator={acc!r} lists {devs}: name exactly one device "
             "(true:gpu or true:cpu); a preference list is not supported")
     dev = devs[0] if devs else "gpu"
+    if dev not in ("gpu", "cuda", "cpu"):
+        raise FrameworkError(
+            f"accelerator={acc!r}: unknown device {dev!r} (gpu, cuda, cpu)")
+    if getattr(_abstract, "on", False):
+        return torch.device("meta")
     if dev == "cpu":
         return torch.device("cpu")
     if dev not in ("gpu", "cuda"):

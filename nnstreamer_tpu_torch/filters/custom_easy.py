@@ -20,8 +20,8 @@ API::
 
 ``jax_traceable`` keeps the JAX package's name: here it declares the
 callable a pure ``tensors -> tensors`` torch function that a fused stage
-may capture.  The JAX package's ``param_bytes`` (its deep analyzer's
-estimate) has no reader in this package and is left out.
+may capture.  ``param_bytes`` declares the weight bytes the callable
+closes over, for the deep analyzer's estimate and xray's ledger.
 """
 
 from __future__ import annotations
@@ -33,9 +33,9 @@ from ..core.registry import register_filter
 from ..core.types import TensorsSpec
 from .base import Framework, FrameworkError
 
-#: name -> (fn, in_spec, out_spec, traceable)
+#: name -> (fn, in_spec, out_spec, traceable, param_bytes)
 _models: Dict[str, Tuple[Callable, Optional[TensorsSpec],
-                         Optional[TensorsSpec], bool]] = {}
+                         Optional[TensorsSpec], bool, int]] = {}
 _lock = threading.Lock()
 
 
@@ -45,10 +45,14 @@ def register_custom_easy(
     in_spec: Optional[TensorsSpec] = None,
     out_spec: Optional[TensorsSpec] = None,
     jax_traceable: bool = False,
+    param_bytes: int = 0,
 ) -> None:
-    """Register ``fn(list_of_arrays) -> list_of_arrays`` as model ``name``."""
+    """Register ``fn(list_of_arrays) -> list_of_arrays`` as model ``name``;
+    ``param_bytes`` declares the device-resident weight bytes it closes
+    over (0 = none or unknown)."""
     with _lock:
-        _models[name] = (fn, in_spec, out_spec, bool(jax_traceable))
+        _models[name] = (fn, in_spec, out_spec, bool(jax_traceable),
+                         int(param_bytes))
 
 
 def unregister_custom_easy(name: str) -> bool:
@@ -66,6 +70,7 @@ class CustomEasyFramework(Framework):
         self._in: Optional[TensorsSpec] = None
         self._out: Optional[TensorsSpec] = None
         self._traceable = False
+        self._param_bytes = 0
 
     def open(self, props):
         super().open(props)
@@ -78,7 +83,8 @@ class CustomEasyFramework(Framework):
                     model, None, None, False
                 return
             raise FrameworkError(f"no custom-easy model registered as {str(model)!r}")
-        self._fn, self._in, self._out, self._traceable = entry
+        (self._fn, self._in, self._out, self._traceable,
+         self._param_bytes) = entry
 
     def get_model_info(self):
         return self._in, self._out
@@ -86,6 +92,9 @@ class CustomEasyFramework(Framework):
     def set_input_spec(self, spec: TensorsSpec) -> None:
         if self._in is None:
             self._in = spec
+
+    def param_bytes(self) -> int:
+        return self._param_bytes
 
     def invoke(self, inputs):
         return list(self._fn(list(inputs)))

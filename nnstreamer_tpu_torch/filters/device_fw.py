@@ -20,6 +20,9 @@ model=mobilenet_v1 ...``) run here as written; the names ``torch`` and
   reduced output variant for the residency planner (its params shared).
 * :meth:`DeviceFramework.swap_params` copies a new float32 tree into the
   live params (train-while-serve).
+* :meth:`DeviceFramework.param_bytes` counts the live tree; opened inside
+  :func:`~.base.abstract_build` the bundle is built on the meta device,
+  and ``abstract_invoke`` runs ``pure_fn`` there on meta inputs.
 
 Not ported yet: the ``mesh=data:N`` batch sharding (the mesh slice).
 """
@@ -89,6 +92,13 @@ class DeviceFramework(Framework):
         if self.bundle is None:
             raise FrameworkError("framework is not open")
         place_swapped_params(self.bundle.params, tree, master_dtype=torch.float32)
+
+    def param_bytes(self) -> int:
+        if self.bundle is None:
+            return 0
+        from .base import tree_param_bytes
+
+        return tree_param_bytes(self.bundle.params)
 
     def invoke(self, inputs) -> List:
         arrays = tuple(x if isinstance(x, torch.Tensor) and x.device == self.device

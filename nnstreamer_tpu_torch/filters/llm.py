@@ -115,14 +115,23 @@ class ByteTokenizer:
 _NOT_PORTED = ("tp",)
 
 
+#: captured steps of the continuous loop for its life: the ``[slots]``-row
+#: paged decode step; with a draft, the propose and the verify step in its
+#: place.  The JAX package's census has 3 / 5 programs: its prefill step
+#: and slot-token setter are programs there, while here the prefill chunks
+#: run eagerly (ROADMAP Queue B 2) and a slot's token goes in by a copy.
+SERVE_PROGRAMS = 1
+SPEC_SERVE_PROGRAMS = 2
+
+
 def serving_plan(cfg, *, slots: int, block_size: int = 16,
                  kv_blocks: int = 0, prefill_chunk: int = 32,
                  dtype: str = "bfloat16", draft_cfg=None,
-                 spec_k: int = 4) -> Dict[str, int]:
+                 spec_k: int = 4, temperature: float = 0.0) -> Dict[str, int]:
     """Static sizing of the paged-KV serving state, without building
-    anything (the JAX package's ``serving_plan``: the same integers under
-    the same names, less those that price the JAX package's own programs
-    and PRNG keys):
+    anything: the one home of the arithmetic the loop and the deep lint
+    (``analysis/tracecheck.py``) share, the JAX package's ``serving_plan``
+    with the same integers under the same names, but ``programs``:
 
     * ``max_blocks`` — block-table width per slot.  Prefill pads prompts
       to ``prefill_chunk`` multiples, so the table spans the largest
@@ -137,6 +146,16 @@ def serving_plan(cfg, *, slots: int, block_size: int = 16,
     * ``pool_bytes`` / ``draft_pool_bytes`` — the ``n_blocks`` blocks of
       the target's pool and of the draft's (same blocks and tables at the
       draft's layers and heads; 0 without a draft), k + v.
+    * ``decode_bytes_per_ctx_token`` — K + V bytes the paged kernel reads
+      per live context position and decode step, every layer, at
+      ``n_kv_heads`` (the kernel reads a block once per query-head group);
+      ``kv_groups`` — ``n_heads // n_kv_heads``.
+    * ``prng_state_bytes`` — the per-slot sampler keys (a Philox key, two
+      uint32, per slot) when ``temperature > 0``; 0 for greedy loops.
+    * ``programs`` — the loop's captured steps: :data:`SERVE_PROGRAMS`, or
+      :data:`SPEC_SERVE_PROGRAMS` with a draft (the JAX package's 3 / 5
+      count its prefill step and token setter, which are not captured
+      steps here).
     """
     bs = max(1, int(block_size))
     C = max(1, int(prefill_chunk))
@@ -153,6 +172,14 @@ def serving_plan(cfg, *, slots: int, block_size: int = 16,
         "draft_pool_bytes": (
             llama.paged_cache_bytes(draft_cfg, n_blocks, bs, dtype=dtype)
             if draft_cfg is not None else 0),
+        "decode_bytes_per_ctx_token": (
+            2 * cfg.n_layers * cfg.n_kv_heads * (cfg.dim // cfg.n_heads)
+            * (2 if str(dtype) in ("bfloat16", "float16") else 4)),
+        "kv_groups": cfg.n_heads // cfg.n_kv_heads,
+        "prng_state_bytes": (int(slots) * 2 * 4
+                             if float(temperature) > 0.0 else 0),
+        "programs": (SPEC_SERVE_PROGRAMS if draft_cfg is not None
+                     else SERVE_PROGRAMS),
     }
 
 
@@ -512,6 +539,38 @@ class LLMFramework(Framework):
                 self._swapping = False
                 self._requests_cv.notify_all()
         return None
+
+    def param_bytes(self) -> int:
+        """Live parameter bytes, the draft's included (int4 leaves count
+        their packed bytes): the deep pass's estimate and xray's ledger."""
+        from .base import tree_param_bytes
+
+        total = 0
+        for b in (self.bundle, self.draft_bundle):
+            if b is not None and b.params is not None:
+                total += tree_param_bytes(b.params)
+        return total
+
+    def attach_xray(self, registry, stage: str, rec=None) -> None:
+        """xray: the continuous loop's captured steps count under
+        ``<stage>.serve`` against ``serving_plan()["programs"]`` (one
+        expectation per step kind), its eager prefill chunks are noted;
+        the static path's steps, one per batch size, register unbounded
+        under ``stage``."""
+        self._xray, self._xray_stage, self._xray_rec = registry, stage, rec
+        if self.census is None:
+            return
+        if self.continuous:
+            serve = f"{stage}.serve"
+            kinds = (("propose", "verify") if self.draft_bundle is not None
+                     else ("continuous",))
+            for kind in kinds:
+                registry.expect(serve, kind, budget=1,
+                                note="serving_plan captured step")
+            registry.note_eager(serve, "prefill chunks (uncaptured)")
+            self.census.attach_xray(registry, serve, rec)
+        else:
+            self.census.attach_xray(registry, stage, rec)
 
     def get_model_info(self):
         flex_in = TensorsSpec.from_string("1", "uint8").replace(
@@ -1060,9 +1119,14 @@ class _ContinuousLoop:
         plan = serving_plan(fw.cfg, slots=fw.slots, block_size=fw.block_size,
                             kv_blocks=fw.kv_blocks,
                             prefill_chunk=fw.prefill_chunk, dtype=fw.dtype,
-                            draft_cfg=fw.draft_cfg, spec_k=fw.spec_k)
+                            draft_cfg=fw.draft_cfg, spec_k=fw.spec_k,
+                            temperature=fw.temperature)
         self.max_blocks = plan["max_blocks"]
         self.n_blocks = plan["n_blocks"]
+        #: xray's ledger: the pools' bytes once allocated, the sampler keys
+        self._pool_nbytes = 0
+        self._prng_nbytes = plan["prng_state_bytes"]
+        self._kv_per_pos = plan["decode_bytes_per_ctx_token"]
         self.sentinel = self.n_blocks  # unallocated table entry
         self.park = self.max_blocks * fw.block_size  # idle-slot position
         self._pending: "queue.Queue" = queue.Queue()
@@ -1372,6 +1436,10 @@ class _ContinuousLoop:
         self._ref, self._prefix_index = alloc.ref, alloc.prefix_index
         self._block_hash = alloc.block_hash
         self._pool, self._draft_pool = pool, dpool
+        self._pool_nbytes = sum(
+            t.numel() * t.element_size() for p_ in (pool, dpool) if p_
+            for t in (p_.values() if isinstance(p_, dict) else p_)
+            if isinstance(t, torch.Tensor))
         self._tok_h, self._tok_prev_h = tok_h, tok_prev_h
         eos = self.fw.tokenizer.eos if fw.stop_eos else -1
         admissions = 0
@@ -1959,9 +2027,19 @@ class _ContinuousLoop:
                     live_dev.copy_(upload(live, dev))
                     t_host = time.perf_counter()
                     steps = []
+                    ctx = pos[live] + 1  # positions each live row attends
                     for _ in range(fw.chunk):
                         decode.replay()
                         steps.append(tok.clone())
+                        if decode.track is not None:
+                            # xray: the live contexts' K/V rows (block-
+                            # rounded) and their attention FLOPs
+                            blocks = -(-ctx // bs)
+                            decode.add_work(
+                                4.0 * cfg.n_heads * cfg.head_dim
+                                * cfg.n_layers * float(ctx.sum()),
+                                float(blocks.sum()) * bs * self._kv_per_pos)
+                            ctx = ctx + 1
                     toks_dev = torch.stack(steps, dim=1)
                     self.stats["decode_steps"] += fw.chunk
                     pos[live] += fw.chunk

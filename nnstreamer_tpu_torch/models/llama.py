@@ -991,13 +991,42 @@ def make_bundle(cfg: LlamaConfig, params: Dict, compute_dtype="bfloat16",
                        out_spec=out_spec, name=name, config=cfg)
 
 
-def resolve_config(preset: str, opts: Dict[str, str]) -> LlamaConfig:
-    """Preset + ``custom=`` geometry overrides."""
+def resolve_config(preset: str, opts: Dict[str, str]) -> Optional[LlamaConfig]:
+    """Preset + ``custom=`` geometry overrides, without building weights (the
+    deep lint prices a serving pool through it); None for a model that is
+    not a preset (a file's config lives in the file, which a static pass
+    does not open)."""
+    if preset not in PRESETS:
+        return None
     overrides = {f: int(opts[f]) for f in
                  ("vocab", "dim", "n_layers", "n_heads", "n_kv_heads",
                   "ffn_hidden", "max_seq") if f in opts}
     cfg = PRESETS[preset]
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def param_bytes_estimate(cfg: LlamaConfig, quant: str = "",
+                         param_dtype: str = "float32") -> int:
+    """The parameter tree's bytes by arithmetic, no weights built (the JAX
+    package's figure): the seven layer matrices and the lm_head at the
+    quant width (int8: 1 byte and f32 scales, int4: half a byte and f32
+    scales, else the param dtype's), embed at the param dtype, norms at
+    the param dtype's float32 (the JAX package keeps them f32)."""
+    L, D, H, Hkv, F = (cfg.n_layers, cfg.dim, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.ffn_hidden)
+    hd = cfg.head_dim
+    big = L * (D * H * hd + 2 * D * Hkv * hd + H * hd * D + 2 * D * F + F * D)
+    head = D * cfg.vocab
+    out_channels = L * (H * hd + 2 * Hkv * hd + D + 2 * F + D)
+    itemsize = 2 if str(param_dtype) in ("bfloat16", "float16") else 4
+    q = str(quant).lower()
+    if q == "int8":
+        mats, scales = big + head, 4 * (out_channels + cfg.vocab)
+    elif q == "int4":
+        mats, scales = (big + head) // 2, 4 * (out_channels + cfg.vocab)
+    else:
+        mats, scales = (big + head) * itemsize, 0
+    return mats + scales + cfg.vocab * D * itemsize + 4 * (2 * L * D + D)
 
 
 def _build(preset: str, opts: Dict[str, str], device: torch.device) -> ModelBundle:

@@ -24,6 +24,7 @@ import threading
 from typing import Callable, Dict, List, Optional
 
 import torch
+from torch.overrides import TorchFunctionMode
 
 from ..core.types import TensorsSpec
 
@@ -91,6 +92,39 @@ _FILE_SUFFIXES = (".safetensors", ".safetensors.index.json", ".npz", ".gguf",
                   ".tflite", ".onnx")
 
 
+class _MetaBuild(TorchFunctionMode):
+    """Everything a builder makes lands on the meta device: factory calls
+    and ``Tensor.to`` get ``device="meta"``, numpy arrays taken in become
+    meta tensors.  A builder's own CPU generators still draw (on meta, a
+    draw is a shape), so a model of any size is built without storage."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if func in _constructors():
+            kwargs["device"] = "meta"
+        elif func in (torch.Tensor.to, torch.Tensor.cuda):
+            args = tuple("meta" if isinstance(a, (torch.device, str)) else a
+                         for a in args)
+            if "device" in kwargs:
+                kwargs["device"] = "meta"
+            kwargs.pop("non_blocking", None)
+            if func is torch.Tensor.cuda:
+                return args[0]
+        elif func is torch.Tensor.pin_memory:
+            return args[0]
+        out = func(*args, **kwargs)
+        if func in (torch.from_numpy, torch.as_tensor) and \
+                isinstance(out, torch.Tensor):
+            out = out.to("meta")
+        return out
+
+
+def _constructors():
+    from torch.utils._device import _device_constructors
+
+    return _device_constructors()
+
+
 def build(name: str, opts: Optional[Dict[str, str]] = None, *,
           device) -> ModelBundle:
     """Resolve a model to a bundle built on ``device`` (required: no
@@ -99,11 +133,15 @@ def build(name: str, opts: Optional[Dict[str, str]] = None, *,
     Accepts zoo names, ``.tflite`` and ``.onnx`` graphs, Llama-family
     model files and checkpoint directories (``llama.build_from_checkpoint``)
     and ``pkg.mod:attr``
-    import strings (attr may be a bundle or a ``builder(opts, device)``)."""
+    import strings (attr may be a bundle or a ``builder(opts, device)``).
+    ``device="meta"`` builds the model abstractly (:class:`_MetaBuild`)."""
     _ensure_builtin()
     opts = dict(opts or {})
     key = str(name)
     dev = torch.device(device)
+    if dev.type == "meta":  # abstract: built on the CPU's path, no storage
+        with _MetaBuild():
+            return build(name, opts, device="cpu")
     with _lock:
         b = _builders.get(key)
     if b is not None:

@@ -24,7 +24,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from . import kernels
+from . import cost, kernels
 
 #: launches of the flash CUDA kernel (added where it launches, nowhere else)
 LAUNCHES = kernels.LaunchCount()
@@ -107,13 +107,28 @@ def flash_attention(q, k, v, *, causal: bool = False,
                     scale: Optional[float] = None):
     """Blockwise attention for [B, Sq, H, D] q and [B, Skv, Hkv, D] k/v.
 
-    CPU tensors take :func:`attention_reference`.  CUDA tensors launch a
+    CPU tensors take :func:`attention_reference`, meta tensors (abstract
+    execution) an empty output of q's shape and dtype.  CUDA tensors launch a
     kernel of ``csrc/flash_attention.cu``, chosen by dtype alone: bf16
     launches the tensor-core kernel (wgmma, K/V tiles by TMA), f32 the
     CUDA-core kernel (wgmma takes no f32 operands).  Both take any Sq and
     Skv and D in {32, 64, 128}, and both count in :data:`LAUNCHES`; any
     other device, dtype, head dim or layout raises.
     """
+    with cost.paused():
+        out = _flash_attention(q, k, v, causal, scale)
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    if causal:  # (query, key) pairs under the back-aligned causal mask
+        pairs = sum(min(skv, max(0, i + skv - sq + 1)) for i in range(sq))
+    else:
+        pairs = sq * skv
+    cost.report(4.0 * b * h * d * pairs,
+                (2 * q.numel() + 2 * k.numel()) * q.element_size())
+    return out
+
+
+def _flash_attention(q, k, v, causal, scale):
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"want q [B,Sq,H,D] and k/v [B,Skv,Hkv,D], got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -122,6 +137,8 @@ def flash_attention(q, k, v, *, causal: bool = False,
     if k.shape[0] != b or k.shape[3] != d or h % hkv:
         raise ValueError(f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
     scale_v = (d ** -0.5) if scale is None else float(scale)
+    if q.device.type == "meta":  # shapes only: abstract execution
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         return attention_reference(q, k, v, causal=causal, scale=scale_v)
     if q.device.type != "cuda":
@@ -277,7 +294,8 @@ def paged_attention(q, k_pool, v_pool, block_tables, context_lens, *,
     """Attention over a block-paged KV pool (continuous LLM serving).
 
     Shapes as in :func:`paged_attention_reference`.  CPU tensors take the
-    plain version.  CUDA tensors go where :func:`paged_route` says:
+    plain version, meta tensors (abstract execution) an empty output of
+    q's shape and dtype.  CUDA tensors go where :func:`paged_route` says:
 
     * ``"kernel"`` (T == 1, or B > 1 with G * T <= 64) launches
       ``csrc/paged_attention.cu`` under :func:`paged_plan`: each row reads
@@ -296,6 +314,17 @@ def paged_attention(q, k_pool, v_pool, block_tables, context_lens, *,
     tensor maps), and (as the launch's CUDA error) a table wider than 4096
     entries.
     """
+    with cost.paused():
+        out = _paged_attention(q, k_pool, v_pool, block_tables, context_lens, scale)
+    # the data-independent part: q and out, the lengths and the tables; the
+    # live context's K/V rows depend on the lengths on the card, so the
+    # caller that knows them adds them per step (``Step.add_work``)
+    cost.report(0.0, 2 * q.numel() * q.element_size() + 4 * q.shape[0]
+                + 4 * block_tables.numel())
+    return out
+
+
+def _paged_attention(q, k_pool, v_pool, block_tables, context_lens, scale):
     if q.dim() != 4 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
         raise ValueError(f"want q [B,T,H,D] and pools [n_blocks,bs,Hkv,D], got "
                          f"{tuple(q.shape)}, {tuple(k_pool.shape)}, "
@@ -310,6 +339,8 @@ def paged_attention(q, k_pool, v_pool, block_tables, context_lens, *,
                          f"[B] for B={b}, got {tuple(block_tables.shape)}, "
                          f"{tuple(context_lens.shape)}")
     scale_v = (d ** -0.5) if scale is None else float(scale)
+    if q.device.type == "meta":  # shapes only: abstract execution
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_pool, v_pool, block_tables,
                                          context_lens, scale=scale_v)

@@ -23,7 +23,7 @@ from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
-from . import kernels
+from . import cost, kernels
 
 #: Kernel rows bound: the JAX package routes B > 32 rows to its plain
 #: path (int4_matmul.py:58); the port makes the same choice by row count.
@@ -175,12 +175,23 @@ def matmul_int4(h, packed, scale, *, out_dtype=None):
 
     h: [B, Din] f32/bf16; packed: [Din/2, F] int8 (:func:`pack_int4`
     layout); scale: [1, F] f32.  CPU tensors take
-    :func:`matmul_int4_reference`.  CUDA tensors go where
+    :func:`matmul_int4_reference`, meta tensors (abstract execution) give
+    an empty output of the shape and dtype.  CUDA tensors go where
     :func:`int4_route` says: for B <= 32 rows, bf16 activations launch
     the tensor-core kernel (under :func:`int4_plan`) and f32 ones the
     CUDA-core kernel; above 32 rows the reference.  Any other device, or
     a dtype, shape or layout the kernels do not take, raises.
     """
+    with cost.paused():
+        out = _matmul_int4(h, packed, scale, out_dtype)
+    B, F = out.shape
+    cost.report(2.0 * B * h.shape[1] * F,
+                h.numel() * h.element_size() + packed.numel() + scale.numel() * 4
+                + out.numel() * out.element_size())
+    return out
+
+
+def _matmul_int4(h, packed, scale, out_dtype):
     if h.dim() != 2 or packed.dim() != 2:
         raise ValueError(f"want h [B, Din] and packed [Din/2, F], got "
                          f"{tuple(h.shape)} and {tuple(packed.shape)}")
@@ -191,6 +202,8 @@ def matmul_int4(h, packed, scale, *, out_dtype=None):
     if tuple(scale.shape) != (1, F):
         raise ValueError(f"scale shape {tuple(scale.shape)} != (1, {F})")
     odt = out_dtype or h.dtype
+    if h.device.type == "meta":  # shapes only: abstract execution
+        return torch.empty((B, F), dtype=odt, device="meta")
     if h.device.type == "cpu":
         return matmul_int4_reference(h, packed, scale, out_dtype=odt)
     if h.device.type != "cuda":

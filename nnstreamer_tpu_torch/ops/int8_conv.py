@@ -41,7 +41,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import kernels
+from . import cost, kernels
 
 #: launches of the CUDA kernels (added where one launches, nowhere else)
 LAUNCHES = kernels.LaunchCount()
@@ -174,11 +174,16 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, stride=1, dilation=1,
                          f"{tuple(x.shape)}")
     if x.dtype != torch.int8 or w.dtype != torch.int8:
         raise ValueError(f"int8_conv: want int8 x and w, got {x.dtype} and {w.dtype}")
-    if x.device.type == "cpu":
-        return int8_conv_reference(x, w, stride, dilation, groups)
-    _check_card("int8_conv", x, w, aligned=False)
-    out = torch.empty((B, oh, ow, O), dtype=torch.int32, device=x.device)
-    _launch("int8_conv", x, w, out, stride, dilation, groups)
+    cost.report(2 * B * oh * ow * O * kh * kw * cg,
+                x.numel() + w.numel() + 4 * B * oh * ow * O)
+    with cost.paused():
+        if x.device.type == "meta":  # shapes only: abstract execution
+            return torch.empty((B, oh, ow, O), dtype=torch.int32, device="meta")
+        if x.device.type == "cpu":
+            return int8_conv_reference(x, w, stride, dilation, groups)
+        _check_card("int8_conv", x, w, aligned=False)
+        out = torch.empty((B, oh, ow, O), dtype=torch.int32, device=x.device)
+        _launch("int8_conv", x, w, out, stride, dilation, groups)
     return out
 
 
@@ -249,16 +254,22 @@ def int8_conv_requant(x: torch.Tensor, w: torch.Tensor, cb: Optional[torch.Tenso
     if min(pt, pb, pl, pr) < 0 or oh <= 0 or ow <= 0:
         raise ValueError(f"int8_conv_requant: pads {pads} and the window do not fit "
                          f"{tuple(x.shape)}")
-    if x.device.type == "cpu":
-        return int8_conv_requant_reference(x, w, cb, mult, stride, dilation, groups, pads,
-                                           pad8, zp, lo, hi, out_dtype, wz, ones)
-    _check_card("int8_conv_requant", x, w, cb, mult, wz, ones, aligned=False)
-    sum_x = None
-    if wz is not None:  # the box sum of the window, over the ones weight
-        sum_x = torch.empty((B, oh, ow, ones.shape[0]), dtype=torch.int32, device=x.device)
-        _launch("int8_conv_requant", x, ones, sum_x, stride, dilation, ones.shape[0], pads,
-                pad8)
-    out = torch.empty((B, oh, ow, O), dtype=out_dtype, device=x.device)
-    _launch("int8_conv_requant", x, w, out, stride, dilation, groups, pads, pad8, cb, mult,
-            wz, sum_x, zp, lo, hi)
+    cost.report(2 * B * oh * ow * O * kh * kw * cg,
+                x.numel() + w.numel() + B * oh * ow * O + 8 * O)
+    with cost.paused():
+        if x.device.type == "meta":  # shapes only: abstract execution
+            return torch.empty((B, oh, ow, O), dtype=out_dtype, device="meta")
+        if x.device.type == "cpu":
+            return int8_conv_requant_reference(x, w, cb, mult, stride, dilation, groups,
+                                               pads, pad8, zp, lo, hi, out_dtype, wz, ones)
+        _check_card("int8_conv_requant", x, w, cb, mult, wz, ones, aligned=False)
+        sum_x = None
+        if wz is not None:  # the box sum of the window, over the ones weight
+            sum_x = torch.empty((B, oh, ow, ones.shape[0]), dtype=torch.int32,
+                                device=x.device)
+            _launch("int8_conv_requant", x, ones, sum_x, stride, dilation,
+                    ones.shape[0], pads, pad8)
+        out = torch.empty((B, oh, ow, O), dtype=out_dtype, device=x.device)
+        _launch("int8_conv_requant", x, w, out, stride, dilation, groups, pads, pad8, cb,
+                mult, wz, sum_x, zp, lo, hi)
     return out

@@ -23,11 +23,13 @@ pure per-buffer callable ``tuple(tensors) -> tuple(tensors)``:
 :class:`AdaptiveLadder` refines a stage's ladder online from the
 occupancies it drains (mint, budget, warm start, ``align``, ``export``).
 
+With xray on, each bucket step registers as ``(stage, "batch")`` with its
+bucket as the trigger batch dim (the runtime expects the ladder), and a
+padded dispatch adds the pad rows' share of the step's FLOPs to
+``<stage>.pad_waste_flops``.
+
 Left out: the sharded mode (``_run_sharded``, ``_build_sharded``,
-``shard_bucket_for``: the multi-device slice), the xray pad-FLOPs
-counter and census expectations (``pad_waste_flops``: analysis and
-observability), and the ``swap_params`` guard against bucket steps that
-hold old weights (training).
+``shard_bucket_for``: the multi-device slice).
 """
 
 from __future__ import annotations
@@ -209,7 +211,7 @@ class _BucketSet:
         def step():
             self.outputs = vfn(tuple(self.inputs))
 
-        self.step = runner.census.capture(key, step)
+        self.step = runner.census.capture(key, step, kind="batch", rows=bucket)
 
     def fill(self, rows) -> None:
         n = len(rows)
@@ -249,6 +251,7 @@ class BatchRunner:
         self.census = census
         self._sets: Dict[Tuple, _BucketSet] = {}
         self._pad_metric = f"{name}.batch_pad_waste" if name else None
+        self._waste_flops_metric = f"{name}.pad_waste_flops" if name else None
 
     def dispatch(self, rows: List[Sequence]) -> Tuple[torch.Tensor, ...]:
         """Run per-buffer input rows as one replay of their bucket's step;
@@ -271,6 +274,12 @@ class BatchRunner:
         st.step.replay()
         if bucket > n and self._pad_metric:
             metrics.count(self._pad_metric, bucket - n)
+            tr = st.step.track
+            if tr is not None and tr.flops and self._waste_flops_metric:
+                # xray: the pad rows priced in FLOPs, the bucket step's
+                # count split per row
+                metrics.count(self._waste_flops_metric,
+                              tr.flops * (bucket - n) / bucket)
         return tuple(o[:n] for o in st.outputs)
 
     def run(self, rows: List[Sequence]) -> List[Tuple]:

@@ -23,6 +23,11 @@ Launch counts stay honest: the kernel launches of the warm-up and the
 capture are held back (:func:`~..ops.kernels.held_launches`), and each
 replay adds what the capture recorded.
 
+With xray on (:meth:`Census.attach_xray`), every capture registers with
+xray's program registry, counted with its warm-up's FLOPs and bytes, and
+each replay records a pair of CUDA events on the step's stream around
+``graph.replay()`` (``utils/xray.py``); with it off nothing of that runs.
+
 Python's cyclic collector is held off while a stream captures
 (:func:`collector_paused`).  A captured step sits in reference cycles
 (its set and its step function refer to each other), so only a
@@ -37,7 +42,8 @@ from __future__ import annotations
 import contextlib
 import gc
 import threading
-from typing import Callable, Dict, Hashable, Sequence
+import time
+from typing import Callable, Dict, Hashable, Optional, Sequence
 
 import torch
 
@@ -74,26 +80,47 @@ class Step:
 
     def __init__(self, census: "Census", signature: Hashable,
                  fn: Callable[[], None], graph=None, stream=None,
-                 launches: Dict[kernels.LaunchCount, int] = None):
+                 launches: Dict[kernels.LaunchCount, int] = None,
+                 track=None):
         self.census = census
         self.signature = signature
         self._fn = fn
         self._graph = graph
         self._stream = stream
         self._launches = launches or {}
+        #: xray's tracker of this step (``utils/xray.py``), None with xray off
+        self.track = track
 
     def replay(self) -> None:
+        tr = self.track
         if self._graph is None:
-            self._fn()
+            if tr is None:
+                self._fn()
+            else:
+                t0 = time.perf_counter_ns()
+                self._fn()
+                tr.add_time(time.perf_counter_ns() - t0)
         else:
             caller = torch.cuda.current_stream(self._stream.device)
             self._stream.wait_stream(caller)
             with torch.cuda.stream(self._stream):
-                self._graph.replay()
+                if tr is None:
+                    self._graph.replay()
+                else:  # events around the replay, outside the capture
+                    pair = tr.begin(self._stream)
+                    self._graph.replay()
+                    tr.end(pair, self._stream)
             caller.wait_stream(self._stream)
             for counter, n in self._launches.items():
                 counter.add(n)
         self.census._replayed(self.signature, self._launches)
+
+    def add_work(self, flops: float, nbytes: float) -> None:
+        """Data-dependent work of one replay that the warm-up's count could
+        not see (the paged KV rows of the live contexts); no-op without
+        xray."""
+        if self.track is not None:
+            self.track.add_work(flops, nbytes)
 
 
 class Census:
@@ -112,27 +139,59 @@ class Census:
         self.replays = 0
         self.launches: Dict[Hashable, Dict[kernels.LaunchCount, int]] = {}
         self._lock = threading.Lock()
+        #: xray (``utils/xray.py``): (registry, stage, recorder) or None
+        self._xray = None
+
+    def attach_xray(self, registry, stage: str, rec=None) -> None:
+        """Register every later capture with xray's ``registry`` under
+        ``stage`` and time its step's replays."""
+        self._xray = (registry, stage, rec)
 
     def capture(self, signature: Hashable, fn: Callable[[], None],
-                generators: Sequence[torch.Generator] = ()) -> Step:
+                generators: Sequence[torch.Generator] = (), *,
+                kind: Optional[str] = None, rows: Optional[int] = None) -> Step:
         """Warm ``fn`` up and capture it under ``signature``.  ``fn`` takes
         no arguments and touches only tensors that outlive the step: it
         runs once here (its effects on those tensors and generators
         happen), then once per :meth:`Step.replay`.  ``generators`` are
         the generators it draws from; their state advances on every
-        replay as it would in an eager call."""
+        replay as it would in an eager call.  With xray attached the
+        capture registers under ``(stage, kind)`` (``kind``: the
+        signature's leading name, else ``stage``; ``rows``: the bucket a
+        batch step was captured for), with the warm-up's FLOPs and bytes
+        (``ops/cost.py``)."""
+        xr = self._xray
+        counted = []
+        warm = fn
+        if xr is not None:
+            from ..ops import cost
+
+            def warm():
+                with cost.counting() as c:
+                    fn()
+                counted.append(c)
+        t0 = time.perf_counter()
         if self.device.type == "cuda":
-            step = self._capture_cuda(signature, fn, generators)
+            step = self._capture_cuda(signature, fn, generators, warm)
         else:
             with kernels.held_launches():
-                fn()
+                warm()
             step = Step(self, signature, fn)
+        if xr is not None:
+            registry, stage, rec = xr
+            if kind is None:
+                kind = (signature[0] if isinstance(signature, tuple) and signature
+                        and isinstance(signature[0], str) else "stage")
+            c = counted[0]
+            step.track = registry.register(
+                stage, kind, signature, compile_s=time.perf_counter() - t0,
+                flops=c.flops, bytes_=c.bytes, rows=rows, rec=rec)
         with self._lock:
             self.signatures.add(signature)
             self.captures += 1
         return step
 
-    def _capture_cuda(self, signature, fn, generators) -> Step:
+    def _capture_cuda(self, signature, fn, generators, warm) -> Step:
         caller = torch.cuda.current_stream(self.device)
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(caller)
@@ -141,7 +200,7 @@ class Census:
             graph.register_generator_state(gen)
         with torch.cuda.stream(stream):
             with kernels.held_launches():
-                fn()
+                warm()
             with kernels.held_launches() as launches, collector_paused():
                 # torch.cuda.graph collects once on entry, before the
                 # capture begins; none may run inside it

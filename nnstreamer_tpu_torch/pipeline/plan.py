@@ -133,7 +133,7 @@ class _StaticSet:
         def step():
             self.outputs = composed(tuple(self.inputs))
 
-        self.step = fused.census.capture(signature, step)
+        self.step = fused.census.capture(signature, step, kind="stage")
 
     def fill(self, tensors) -> None:
         for dst, src in zip(self.inputs, tensors):
@@ -185,6 +185,11 @@ class FusedElement(Element):
         if self.census is None:  # no filter: run where the input lies
             self.device = first.device
             self.census = Census(self.device)
+        xr = getattr(self, "_xray", None)
+        if xr is not None and self.census._xray is None:
+            # xray: this stage's captures count under its name
+            self.census.attach_xray(xr, self.name,
+                                    lambda: getattr(self, "_trace_rec", None))
 
     def process(self, pad: str, buf: Buffer):
         tensors = [_as_tensor(t) for t in buf.tensors]

@@ -2,7 +2,7 @@
 
 Port of ``nnstreamer_tpu/pipeline/residency.py``.  Tensors stay on the
 device between the elements of a pipeline; the boundary that costs is
-the copy to the host at a sink.  Two parts:
+the copy to the host at a sink.  Three parts:
 
 * **Reduced-output selection** (:func:`mark_reduced_admissible`): when a
   model offers a reduced output variant (``ModelBundle.reduced_variant``:
@@ -17,11 +17,11 @@ the copy to the host at a sink.  Two parts:
   outputs when its tail pairs ``device_fn`` with a deferred ``host_post``
   (argmax, top-k, NMS already on the device), or the negotiated spec's
   bytes otherwise; edges between device stages stay on the device.
-
-Left out: the JAX package's pricing (``fetch_ms``, ``compute_floor_ms``,
-``HBM_GBPS``), which turns planned bytes into milliseconds for its deep
-lint (``analysis/tracecheck.py``, not ported); its constants describe
-another device.
+* **Pricing** (:func:`fetch_ms`, :func:`compute_floor_ms`): the
+  arithmetic the deep lint (``analysis/tracecheck.py``) turns planned
+  fetch bytes into milliseconds with, against the card's memory rate
+  :data:`HBM_GBPS`, to flag ``fetch-bound`` pipelines before a card is
+  touched.
 """
 
 from __future__ import annotations
@@ -30,6 +30,29 @@ import dataclasses
 from typing import Dict, List, Optional
 
 from ..elements.base import Element, SinkElement, SourceElement
+
+
+#: the card's memory rate (GB/s) behind the static compute floor: a device
+#: stage cannot finish a buffer faster than streaming its params and
+#: activations through memory once.  H100 SXM (80GB HBM3): 3,350 GB/s,
+#: NVIDIA's data sheet, the rate ``PERF.md`` §6's bounds use (H100 80GB
+#: HBM3, 700.00 W).  A floor: ``fetch-bound`` fires only when the planned
+#: copy to the host takes longer than even this bound on compute.
+HBM_GBPS = 3350.0
+
+
+def fetch_ms(nbytes: int, d2h_mbps: float, rtt_ms: float = 0.0) -> float:
+    """Planned device-to-host milliseconds for one buffer on a link of
+    ``d2h_mbps`` MB/s: the bandwidth term plus one small-fetch roundtrip."""
+    if d2h_mbps <= 0:
+        return 0.0
+    return nbytes / (d2h_mbps * 1e6) * 1e3 + max(0.0, rtt_ms)
+
+
+def compute_floor_ms(touched_bytes: int) -> float:
+    """Roofline lower bound on a device stage's time a buffer: the bytes it
+    must stream through memory (params + activations) at :data:`HBM_GBPS`."""
+    return touched_bytes / (HBM_GBPS * 1e9) * 1e3
 
 
 @dataclasses.dataclass
@@ -44,6 +67,10 @@ class FetchEdge:
     #: device reduction's small outputs), "reduced output" (the planner's
     #: reduced model output), or None (the negotiated spec crosses)
     reduced: Optional[str] = None
+    #: priced by the deep lint: link milliseconds a buffer (bandwidth term)
+    d2h_ms: float = 0.0
+    #: ... against the producing stages' compute floor
+    compute_floor_ms: float = 0.0
 
 
 @dataclasses.dataclass

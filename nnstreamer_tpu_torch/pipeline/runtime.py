@@ -64,10 +64,17 @@ boundaries):
   ``<sink>.staleness_s`` every 0.1 s (:meth:`Pipeline.sample_queues`),
   and a sink's deliveries set ``<sink>.watermark_pts``.
 
-Not ported yet (ROADMAP Queue A): the sources that read a device node or
-a file (``v4l2src``, ``filesrc``, ``tensor_src_iio``) and the
-device-resident ``tensor_aggregator``, the next slice; the JAX package's
-mesh and sharded batching, the xray registry and ``swap_params``.
+* ``validate=True`` runs the static analyzer (``analysis/``) before the
+  pipeline is built and raises :class:`~..analysis.PipelineLintError`
+  with every error; ``validate="deep"`` adds the deep pass;
+* with ``xray`` on, every captured step registers with xray's census
+  against the predicted budgets, replays are timed with CUDA events, a
+  reconciler thread holds the memory ledger to the deep lint's estimate,
+  and :meth:`Pipeline.explain` reports predicted against actual
+  (``utils/xray.py``).
+
+Not ported yet (ROADMAP Queue A 6): the JAX package's mesh and sharded
+batching.
 
 Threads, not asyncio: stages do blocking work (device dispatch, host
 copies) and release the interpreter lock inside torch.
@@ -259,6 +266,15 @@ class _Runner:
         # replies) follow THIS pipeline's trace mode.
         self._tr = tracing.recorder if pipeline.trace_mode != "off" else None
         self.element._trace_rec = self._tr
+        # xray's registry (None = off): the element's census, its bucket
+        # steps and its framework read it when they capture.  A folded
+        # device source wraps a FusedElement outside pipeline.elements:
+        # both handles go to it too.
+        self.element._xray = pipeline._xray_reg
+        fused_inner = getattr(self.element, "fused", None)
+        if fused_inner is not None:
+            fused_inner._xray = pipeline._xray_reg
+            fused_inner._trace_rec = self._tr
         self._is_sink = isinstance(self.element, SinkElement)
         # the one consumer that resolves a deferred host mapping itself
         self._lazy_post = isinstance(self.element, TensorSink)
@@ -791,7 +807,9 @@ class Pipeline:
     name, read back with :meth:`ladder_snapshot`); ``dispatch_depth`` is
     a batching stage's dispatch window; ``donate_ingress`` lets a fused
     chain own the frames of the host source that feeds only it
-    (``pipeline/plan.py``).
+    (``pipeline/plan.py``).  ``xray`` switches on predicted-against-actual
+    reconciliation (``utils/xray.py``, :meth:`explain`); ``validate``
+    (True or ``"deep"``) runs the static analyzer first.
     Defaults come from :func:`get_config`.  Elements are instantiated and
     caps negotiated at construction (which opens models); threads start
     at :meth:`start` or on entering a ``with`` block.
@@ -814,11 +832,41 @@ class Pipeline:
                  adaptive_buckets: Optional[bool] = None,
                  bucket_ladders: Optional[Dict[str, List[int]]] = None,
                  dispatch_depth: Optional[int] = None,
-                 donate_ingress: Optional[bool] = None):
+                 donate_ingress: Optional[bool] = None,
+                 xray: Optional[bool] = None,
+                 validate: Union[bool, str] = False):
+        if validate:
+            # lint before strict validation: the analyzer reports every
+            # problem at once where parse/validate stop at the first
+            from ..analysis import analyze
+
+            deep = validate == "deep"
+            kw = dict(queue_capacity=queue_capacity, deep=deep)
+            if deep:  # the deep pass budgets with THIS pipeline's knobs
+                kw.update(batch_max=batch_max, batch_buckets=batch_buckets,
+                          adaptive_buckets=adaptive_buckets,
+                          dispatch_depth=dispatch_depth)
+            if isinstance(graph, str):
+                source = graph
+                graph = parse_launch(graph, validate=False)
+                report = analyze(graph, **kw)
+                report.source = source
+                report.raise_if_errors()
+            else:
+                analyze(graph, **kw).raise_if_errors()
         if isinstance(graph, str):
             graph = parse_launch(graph)
         graph.validate()
         cfg = get_config()
+        # xray (utils/xray.py): captures register with the process-wide
+        # program census, replays are timed, the memory ledger is held
+        # against the deep lint.  Off: elements hold None.
+        self.xray = bool(xray if xray is not None else cfg.xray)
+        self._xray_reg = None
+        if self.xray:
+            from ..utils import xray as _xray_mod
+
+            self._xray_reg = _xray_mod.registry
         self.graph = graph
         self.fuse = bool(fuse)
         self.reduce_outputs = bool(reduce_outputs if reduce_outputs is not None
@@ -1000,6 +1048,14 @@ class Pipeline:
             self._dead = True
             raise PipelineError(
                 f"unknown element properties (typo?): {unknown}")
+        if self._xray_reg is not None:
+            # the predicted census, before any streaming thread captures,
+            # and the deep lint's memory estimate (the reconciler reads it
+            # cached, so the lint never competes with the serving threads)
+            from ..utils import xray as _xray_mod
+
+            self._install_xray_expectations()
+            _xray_mod.predicted_hbm(self)
         for r in self._unique_runners():
             r.thread.start()
         if self.trace_mode != "off":
@@ -1011,12 +1067,60 @@ class Pipeline:
         if self._slo_policy is not None:
             # per-tenant burn rate and breach gauges off the live series
             self._slo_loop().start()
+        if self._xray_reg is not None:
+            # predicted against actual: the gauges and the ledger, on the
+            # SLO engine's cadence; stopped and joined by stop()
+            from ..utils.xray import XrayReconciler
+
+            self._xray_recon = XrayReconciler(self)
+            self._xray_recon.start()
         return self
+
+    def _install_xray_expectations(self) -> None:
+        """The predicted census of every stage that captures, with the
+        deep lint's arithmetic: the bucket ladder (or the adaptive budget)
+        for a batching stage, two single-buffer steps for a fused stage
+        (its static signature and a truncated tail's).  A lone element
+        outside the batching path runs eagerly and is noted so.  The llm
+        loop and the trainer install their own when their framework
+        attaches (``serving_plan``, ``TRAINER_PROGRAMS``)."""
+        reg = self._xray_reg
+        for r in self._unique_runners():
+            el = r.element
+            target = getattr(el, "fused", el)  # a folded source's chain
+            nm = target.name
+            if r.stage.batchable and r.batch_max > 1:
+                if getattr(el, "_batch_ladder", None) is not None:
+                    reg.expect(nm, "batch", budget=self._ladder_budget,
+                               note="adaptive ladder budget")
+                else:
+                    allow = set(ladder(r.batch_max, self.batch_buckets))
+                    reg.expect(nm, "batch", budget=len(allow), allow=allow,
+                               note="static bucket ladder")
+            if getattr(target, "kind", "") == "fused":
+                reg.expect(nm, "stage", budget=2,
+                           note="single-buffer step (+ tail shape)")
+            elif r.stage.batchable and r.batch_max == 1:
+                # a lone pure filter: its invoke runs eagerly
+                reg.note_eager(nm, "invoke (uncaptured single stage)")
+
+    def explain(self) -> dict:
+        """The predicted-against-actual report (``utils/xray.explain``):
+        plan, residency, census against the deep lint's budgets, the
+        memory ledger by category, per-stage device time.  Call it before
+        :meth:`stop` for the live ledger; JSON-serializable.  Works with
+        xray off (census and device time stay empty)."""
+        from ..utils import xray as _xray_mod
+
+        return _xray_mod.explain(self)
 
     def stop(self) -> None:
         self._stopping.set()
         if self._slo_engine is not None:
             self._slo_engine.stop()  # joins its thread
+        recon = getattr(self, "_xray_recon", None)
+        if recon is not None:
+            recon.stop()  # joins its thread
         runners = self._unique_runners()
         # Close every stage queue first: blocked getters receive _POISON
         # and blocked putters shed immediately.

@@ -31,8 +31,11 @@ framework=jax model=mlp:4:16:3 ...``) run as written.
   fails raises: nothing reverts to eager steps on the card.  On the CPU
   the same step runs eagerly, as every census does there.
 
-Not ported yet: ``mesh=`` (raises; ROADMAP Queue A 6), ``attach_xray``
-and ``train_plan`` (Queue A 5).
+:func:`train_plan` prices a trainer without allocating it (the deep
+lint's ``train_state``), and :meth:`Trainer.attach_xray` counts its two
+captures under xray.
+
+Not ported yet: ``mesh=`` (raises; ROADMAP Queue A 6).
 """
 
 from __future__ import annotations
@@ -167,6 +170,71 @@ def _make_optimizer(opt: str, lr: float, leaves, capturable: bool):
     if opt == "momentum":
         return torch.optim.SGD(leaves, lr=lr, momentum=0.9)
     return torch.optim.Adam(leaves, lr=lr, capturable=capturable)
+
+
+def train_plan(props: Dict[str, object]) -> Optional[Dict[str, object]]:
+    """Static plan of one trainer stage, without allocating it: the deep
+    lint's pricing of its training state (``analysis/tracecheck.py``) and
+    the arithmetic :meth:`Trainer.train_state_bytes` measures.  The JAX
+    package's ``train_plan`` with the same keys::
+
+        {"param_bytes", "opt_bytes", "grad_bytes", "window_bytes",
+         "programs", "batch_size", "pspecs", "params"}
+
+    The model is built on the meta device (``zoo.build(device="meta")``);
+    ``opt_bytes`` is the optimizer's per-parameter state as
+    ``torch.optim`` keeps it (Adam: two float32 moments and a step count
+    per leaf, on the card when capturable; momentum: one buffer; sgd:
+    none); ``grad_bytes`` the gradient tree the captured step zeroes in
+    place; ``window_bytes`` the card-resident window, ``batch_size`` rows
+    of input plus an int32 class id (the input again for ``mse``).  None
+    when the model cannot be resolved statically."""
+    model = str(props.get("model", props.get("model_config", "mlp:4:16:3")))
+    bs = int(props.get("batch_size", props.get("batch-size", 16)))
+    opt = str(props.get("optimizer", "adam"))
+    if model.startswith("mlp:"):
+        try:
+            sizes = [int(v) for v in model.split(":")[1:]]
+        except ValueError:
+            return None
+        if len(sizes) < 2:
+            return None
+        shapes = []
+        for fi, fo in zip(sizes[:-1], sizes[1:]):
+            shapes += [(fi, fo), (fo,)]
+        leaves = [torch.empty(sh, dtype=torch.float32, device="meta")
+                  for sh in shapes]
+        in_bytes = sizes[0] * 4
+    else:
+        from ..models import zoo
+
+        try:
+            opts = {k: str(v) for k, v in props.items()
+                    if k in ("classes", "width", "size", "seed")}
+            bundle = zoo.build(model, {**opts, "dtype": "float32"},
+                               device="meta")
+        except Exception:  # noqa: BLE001 - unpriceable, caller diagnoses
+            return None
+        leaves = [t for t in tree_flatten(bundle.params)[0]
+                  if isinstance(t, torch.Tensor)]
+        in_bytes = (int(bundle.in_spec.nbytes)
+                    if bundle.in_spec is not None else 0)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    slots = len(_OPT_SLOTS.get(opt if opt in ("sgd", "momentum") else "adam"))
+    # Adam keeps exp_avg, exp_avg_sq and a float32 step count per leaf
+    steps = 4 * len(leaves) if slots == 2 else 0
+    label_bytes = in_bytes if str(props.get("loss", "softmax_ce")) == "mse" \
+        else 4
+    return {
+        "param_bytes": param_bytes,
+        "opt_bytes": slots * param_bytes + steps,
+        "grad_bytes": param_bytes,
+        "window_bytes": bs * (in_bytes + label_bytes),
+        "programs": TRAINER_PROGRAMS,
+        "batch_size": bs,
+        "pspecs": None,
+        "params": None,
+    }
 
 
 def _torch_dtype(np_dtype) -> torch.dtype:
@@ -501,6 +569,15 @@ class Trainer(TrainerSubplugin):
             self._dispatch_step(self._load_window(train[off:off + bs]))
 
     # -- accounting --------------------------------------------------------
+    def attach_xray(self, registry, stage: str, rec=None) -> None:
+        """xray: the update step and the eval, one capture each
+        (:data:`TRAINER_PROGRAMS`), count under ``<stage>.learn``."""
+        learn = f"{stage}.learn"
+        for kind in ("step", "eval"):
+            registry.expect(learn, kind, budget=1,
+                            note="train_plan captured step")
+        self.census.attach_xray(registry, learn, rec)
+
     def param_nbytes(self) -> int:
         return sum(p.nbytes for p in self._leaves) if self.params is not None else 0
 

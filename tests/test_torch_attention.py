@@ -61,8 +61,11 @@ def test_wrapper_takes_the_plain_version_on_cpu_only():
     torch.testing.assert_close(
         got, port.attention_reference(tq, tk, tv, causal=True), rtol=0, atol=0)
     assert port.LAUNCHES.value == before
-    with pytest.raises(ValueError, match="no kernel for device"):
-        port.flash_attention(tq.to("meta"), tk.to("meta"), tv.to("meta"))
+    # meta tensors (abstract execution): q's shape and dtype, no launch
+    meta = port.flash_attention(tq.to("meta"), tk.to("meta"), tv.to("meta"),
+                                causal=True)
+    assert meta.device.type == "meta" and port.LAUNCHES.value == before
+    assert (meta.shape, meta.dtype) == (got.shape, got.dtype)
 
 
 def test_wrapper_rejects_mismatched_heads():
@@ -154,8 +157,13 @@ def test_route_rejects_what_no_kernel_takes(case, match):
 
 
 def test_wrapper_rejects_meta_device_for_every_dtype():
+    """Meta tensors take no kernel and compute nothing (abstract
+    execution): at every dtype the wrapper gives q's shape and dtype on
+    meta, and still rejects mismatched shapes there."""
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = (torch.from_numpy(a).to(dtype).to("meta")
                    for a in _qkv(1, 16, 16, 4, 2, 64))
-        with pytest.raises(ValueError, match="no kernel for device"):
-            port.flash_attention(q, k, v, causal=True)
+        out = port.flash_attention(q, k, v, causal=True)
+        assert out.device.type == "meta" and (out.shape, out.dtype) == (q.shape, dtype)
+        with pytest.raises(ValueError, match="do not match"):
+            port.flash_attention(q, k[:, :, :, :32], v[:, :, :, :32])

@@ -197,9 +197,13 @@ def test_serving_plan_integers_equal_jax(preset, kw):
             presets[draft], vocab=cfg.vocab, max_seq=cfg.max_seq))
     want = jax_plan(cfgs["jax"][0], draft_cfg=cfgs["jax"][1], **kw)
     got = tllm.serving_plan(cfgs["port"][0], draft_cfg=cfgs["port"][1], **kw)
-    keys = ("max_blocks", "n_blocks", "pool_bytes", "draft_pool_bytes")
-    assert {k: got[k] for k in keys} == {k: want[k] for k in keys}
-    assert set(got) == set(keys)
+    # every integer of the JAX package's plan, but ``programs``: the port
+    # captures the decode step (with a draft: propose and verify), where
+    # the JAX package also counts its prefill step and token setter
+    assert set(got) == set(want)
+    assert {k: v for k, v in got.items() if k != "programs"} == \
+        {k: v for k, v in want.items() if k != "programs"}
+    assert got["programs"] == (tllm.SPEC_SERVE_PROGRAMS if draft else tllm.SERVE_PROGRAMS)
 
 
 # -- the pipeline against the JAX pipeline -------------------------------------

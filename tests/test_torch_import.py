@@ -309,3 +309,35 @@ def test_c_side_modules_import_without_jax(module):
 def test_the_smoke_script_imports_neither_jax_nor_the_jax_package():
     for mod in _imported_modules(REPO / "chip_smoke.py"):
         assert mod.split(".")[0] not in ("jax", "jaxlib", "nnstreamer_tpu"), mod
+
+
+def test_analysis_xray_and_tools_run_without_jax():
+    """The analyzer (its deep pass pricing llama2_7b int4 on meta), xray on
+    a running pipeline, the profiler's scrape and the lint and doctor CLIs
+    all run in a fresh process that never imports jax."""
+    code = (
+        "import contextlib, io, sys\n"
+        "import numpy as np\n"
+        "import nnstreamer_tpu_torch as ntt\n"
+        "from nnstreamer_tpu_torch.tools import doctor, lint\n"
+        "from nnstreamer_tpu_torch.utils.profiler import metrics_text\n"
+        "r = ntt.analyze('appsrc ! tensor_filter framework=llm model=llama2_7b "
+        "custom=quant:int4,serve:continuous invoke-dynamic=true ! tensor_sink', "
+        "deep=True)\n"
+        "assert r.ok and r.resources.stages[0].param_bytes > 3e9, r.render()\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    assert lint.main(['--dogfood']) == 0\n"
+        "    assert doctor.main(['--cpu', '--frames', '16', '--gate']) == 0\n"
+        "from nnstreamer_tpu_torch.utils.xray import registry\n"
+        "registry.publish()\n"
+        "assert 'nnstpu_f_compiles' in metrics_text()\n"
+        "assert 'nnstpu_xray_census_drift 0' in metrics_text()\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
+        "('jax.', 'jaxlib', 'nnstreamer_tpu.')) or m == 'nnstreamer_tpu')\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -95,9 +95,15 @@ def test_wrapper_takes_the_plain_version_on_cpu_only():
     want = port.matmul_int4_reference(_t(h), _t(packed), _t(s))
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert port.LAUNCHES.value == before
-    meta = torch.empty((4, 256), device="meta")
-    with pytest.raises(ValueError, match="no kernel for device"):
-        port.matmul_int4(meta, _t(packed).to("meta"), _t(s).to("meta"))
+    # meta tensors (abstract execution): the CPU route's shape and dtype,
+    # no data, no launch; the shape checks hold on meta too
+    meta = port.matmul_int4(_t(h).to("meta"), _t(packed).to("meta"),
+                            _t(s).to("meta"), out_dtype=torch.float32)
+    assert meta.device.type == "meta" and port.LAUNCHES.value == before
+    assert (meta.shape, meta.dtype) == (got.shape, got.dtype)
+    with pytest.raises(ValueError, match="scale shape"):
+        port.matmul_int4(_t(h).to("meta"), _t(packed).to("meta"),
+                         _t(s)[:, :8].to("meta"))
 
 
 @pytest.mark.parametrize("shapes,match", [

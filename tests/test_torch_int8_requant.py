@@ -260,9 +260,14 @@ class TestFusedEntry:
             i8.int8_conv_requant(x, torch.zeros((4, 1, 1, 3), dtype=torch.int8), cb, mult)
         with pytest.raises(ValueError, match="pads"):
             i8.int8_conv_requant(x, torch.zeros((4, 5, 5, 8), dtype=torch.int8), cb, mult)
+        # meta tensors (abstract execution) give the CPU route's shape and
+        # dtype, no data, no launch
         meta = [t.to("meta") for t in (x, w, cb, mult)]
-        with pytest.raises(ValueError, match="no kernel"):
-            i8.int8_conv_requant(*meta)
+        before = i8.LAUNCHES.value
+        got = i8.int8_conv_requant(*meta)
+        want = i8.int8_conv_requant(x, w, cb, mult)
+        assert got.device.type == "meta" and i8.LAUNCHES.value == before
+        assert (got.shape, got.dtype) == (want.shape, want.dtype)
 
     def test_plain_version_is_the_int32_route_requantized(self):
         """The plain version's sums are ``int8_conv_reference`` over the

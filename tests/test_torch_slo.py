@@ -154,13 +154,20 @@ def _gate(el, gate):
         setattr(el, meth, held)
 
 
-def test_traced_run_samples_the_same_gauges_as_jax():
+def test_traced_run_samples_the_same_gauges_as_jax(monkeypatch):
     """One traced pipeline with two tenants and a dispatch window of 2
     through each package, the filter held while 8 frames queue: each
     tick's per-tenant depths are the queue's own, the sampler thread runs
     and stop() joins it, and after the drain the gauge names and the
     per-tenant depths (an idle tenant zeroed) are equal to the JAX
-    package's."""
+    package's.  The sampler's ticks are the test's own calls: its thread
+    runs with a period longer than the test, so no timer tick can catch
+    a queue (the ``out`` sink's) between two states in one package and
+    not in the other."""
+    for pkg in (nt, ntt):
+        loop = pkg.Pipeline._sample_loop
+        monkeypatch.setattr(pkg.Pipeline, "_sample_loop",
+                            lambda self, period_s=3600.0, _loop=loop: _loop(self, period_s))
     got = {}
     for name, pkg, m, tr, desc in (("jax", nt, jmetrics, jtracing, JAX_DESC),
                                    ("port", ntt, metrics, tracing, PORT_DESC)):
@@ -185,8 +192,10 @@ def test_traced_run_samples_the_same_gauges_as_jax():
             assert set(held) == {"a", "b"}
             gate.set()
             outs = [p.pull("out", timeout=60) for _ in range(8)]
+            # every stage's queue drained (the sink's too) before the tick
+            runners = list({id(r): r for r in p._runners.values()}.values())
             deadline = time.monotonic() + 30
-            while runner.queue.qsize() and time.monotonic() < deadline:
+            while any(r.queue.qsize() for r in runners) and time.monotonic() < deadline:
                 time.sleep(0.01)
             p.sample_queues()
             got[name] = _sampler_gauges(m)
