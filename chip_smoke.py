@@ -454,7 +454,7 @@ Phases, each of which must pass:
 21. xray   — analysis and observability, run right after ``continuous``
              (``phase_xray``): ``analyze(CONT_DESC, deep=True)`` with
              ``torch.cuda.memory_allocated()`` unchanged across it; the
-             continuous cell's first wave again with ``xray=True`` and
+             continuous cell's first streams again with ``xray=True`` and
              ``explain()`` holding census drift 0 and every memory
              category within ``xray_hbm_tolerance``, the decode step's
              device time from CUDA events with its FLOPs within 2% of the
@@ -465,6 +465,23 @@ Phases, each of which must pass:
              ``pad_waste_flops``); ``doctor --gate``; one ``metrics_text()``
              scrape whose ``batch_occupancy`` histogram parses; the pinned
              device-to-host rate (``link_d2h_mbps``'s default).
+22. weave  — the front door across two processes, right after ``query``
+             on its live server (traced in a ring): ``WEAVE_STREAMS`` of
+             the query phase's prompts sent by ``appsrc !
+             tensor_query_client tenant=weave ! tensor_sink`` in a child
+             process under ``NNS_TPU_TSAN=1`` (``phase_weave``): its
+             tokens bitwise the query phase's in-process clients', its
+             ``locks.report()`` clean, the two rings merged by ``python
+             -m nnstreamer_tpu_torch.tools.trace merge`` (byte for byte
+             the merge made in process, which ``trace validate`` and
+             ``summary`` read: two processes with their own epochs,
+             aligned, an arrow each way per request, every ``query.send``
+             before its server ``ingress`` within the carried
+             uncertainty), and ``tools.slo report --url`` against this
+             process's ``/metrics``: exit 0 met, 1 breached, estimates at
+             or above the exact quantiles.  ``weave:`` lines: the merge's
+             rings, spans and arrows, the largest clock uncertainty, the
+             tokens/s the child received.
 
 Each phase prints ``phase: <name> <seconds> s`` when it ends and runs
 under its deadline (``PHASE_DEADLINE_S``: past it faulthandler prints
@@ -514,13 +531,14 @@ WAIT_S = 60
 #: up to 1.46 times slower in one run than in the other), and at least
 #: 30 s; past it faulthandler prints every thread's stack and the process
 #: exits non-zero.  Their sum (1,200 s) is the 1,200 s the run is given,
-#: so a hang anywhere ends the run inside it.  learn's is 4.4 times its
-#: slower call: its first step loads cuDNN's backward kernels; spec's is
-#: 2.9 times its slower call, which paid for xray's
+#: so a hang anywhere ends the run inside it.  learn's is 2.9 times its
+#: slower call: its first step loads cuDNN's backward kernels; weave's is
+#: 2.4 times its slower call
 PHASE_DEADLINE_S = dict(
-    build=70, kernels=60, serve=30, continuous=70, xray=75, query=50, prefix=70,
-    spec=120, files=65, elastic=60, reference=30, vision=35, models=40, batching=90,
-    camera=30, asr=30, v4l2=50, transport=55, modelfiles=40, capi=70, learn=60)
+    build=70, kernels=60, serve=30, continuous=70, xray=75, query=50, weave=60,
+    prefix=70, spec=100, files=65, elastic=60, reference=30, vision=35, models=40,
+    batching=75, camera=30, asr=30, v4l2=35, transport=55, modelfiles=40, capi=70,
+    learn=50)
 #: the run's budget, every phase and the kernel build included
 BUDGET_S = 400
 
@@ -1654,15 +1672,16 @@ def continuous_swaps(fw, loop, dev, prompt):
     return out
 
 
-def query_server(desc_custom, sid):
-    """A query server around the llm filter (named ``llm``)."""
+def query_server(desc_custom, sid, trace_mode=None, model="llama2_7b", acc=""):
+    """A query server around the llm filter (named ``llm``; its sink is
+    ``ssink``)."""
     import nnstreamer_tpu_torch as ntt
 
     return ntt.Pipeline(
         f"tensor_query_serversrc name=ssrc port=0 id={sid} ! "
-        "tensor_filter name=llm framework=llm model=llama2_7b "
-        f"custom={desc_custom} invoke-dynamic=true ! "
-        f"tensor_query_serversink id={sid}")
+        f"tensor_filter name=llm framework=llm model={model} "
+        f"custom={desc_custom} invoke-dynamic=true {acc} ! "
+        f"tensor_query_serversink name=ssink id={sid}", trace_mode=trace_mode)
 
 
 class QueryClient:
@@ -1722,6 +1741,9 @@ class QueryClient:
         self.pipe.stop()
 
 
+#: the xray phase's LLM traffic: the continuous phase's first streams,
+#: served with xray off, then on
+XRAY_STREAMS = 2
 #: the xray phase's quick-start through the batching runner: frames pushed
 #: in one burst, and the batch_max of its bucket ladder
 XRAY_FRAMES = 61
@@ -1825,7 +1847,8 @@ def phase_xray(dev, cont):
     1. Prediction: ``analyze(CONT_DESC, deep=True)`` on the card's config,
        with ``torch.cuda.memory_allocated()`` the same before and after.
     2. Reconciliation: ``CONT_DESC`` served with ``xray=True`` (the
-       continuous phase's first wave: four streams of ``MAX_NEW`` tokens);
+       continuous phase's first ``XRAY_STREAMS`` streams of ``MAX_NEW``
+       tokens);
        ``explain()`` must show census drift 0 (the loop's one captured
        step, as predicted), every memory category within
        ``xray_hbm_tolerance``; the decode step's device time from CUDA
@@ -1864,9 +1887,9 @@ def phase_xray(dev, cont):
     out["predicted"] = dict(by_category=res.by_category(), programs=res.compiled_variants,
                             hbm_estimate=res.hbm_estimate, lint_s=lint_s,
                             memory_allocated=[before, after])
-    # 2. the reconciliation, on the continuous phase's first wave (four
-    # streams; the late joiners are cut to keep the run inside its budget)
-    prompts = continuous_prompts()[:len(CONT_WAVES[0])]
+    # 2. the reconciliation, on the continuous phase's first streams (the
+    # rest are cut to keep the run inside its budget)
+    prompts = continuous_prompts()[:XRAY_STREAMS]
     groups = [(list(range(len(prompts))), "first")]
     # the same traffic with xray off, just before: the overhead's pair
     off = serve_traffic(CONT_DESC, prompts, groups, MAX_NEW, dev)
@@ -1974,7 +1997,10 @@ def phase_query(dev, serve, cont):
     ``tensor_query_serversrc ! tensor_filter ! tensor_query_serversink``
     to eight client pipelines over loopback TCP.  Then, un-timed, a client
     that disconnects mid-stream (reaped once, pool free) and one static
-    request over the wire (bitwise equal to ``phase_serve``'s)."""
+    request over the wire (bitwise equal to ``phase_serve``'s).  The
+    continuous server runs with ``trace_mode="ring"`` and is returned
+    still serving, ``(result, server)``: the ``weave`` phase drives it
+    from another process and stops it."""
     import math
     import statistics
 
@@ -1993,10 +2019,11 @@ def phase_query(dev, serve, cont):
                for n in lens]
     n_streams, first = len(prompts), len(CONT_WAVES[0])
     t0 = time.perf_counter()
-    srv = query_server(QUERY_CUSTOM, 71)
+    srv = query_server(QUERY_CUSTOM, 71, trace_mode="ring")
     setup_s = time.perf_counter() - t0
     out = dict(setup_s=setup_s)
-    with srv:
+    srv.start()
+    try:
         port = srv.element("ssrc").bound_port
         el = srv.element("llm")
         fw = el.fw
@@ -2115,27 +2142,324 @@ def phase_query(dev, serve, cont):
         check(reaped == 1, f"dead client: llm.serve.reaped rose by {reaped}, not 1")
         check(emitted < MAX_NEW, f"dead client: the doomed stream emitted {emitted}")
         check(all(pool_ok.values()), f"dead client: pool not free: {pool_ok}")
-    del srv, el, fw, loop
-    torch.cuda.empty_cache()
+    except BaseException:
+        srv.stop()
+        raise
+    live = srv
+    del el, fw, loop
 
     # un-timed: the static path over the wire, phase_serve's options
-    srv = query_server(f"quant:int4,param_dtype:bfloat16,max_seq:1024,"
-                       f"max_new:{MAX_NEW},stream_chunk:64", 72)
-    with srv:
-        c = QueryClient(srv.element("ssrc").bound_port).start()
-        prompt = next(p for p in _serve_prompts() if len(p) == 32)
-        c.push(prompt, MAX_NEW)
-        bufs = c.join()
-        c.close()
-    ids = [int(b.tensors[0][0]) for b in bufs]
-    want = next(r["ids"] for r in serve["requests"] if r["prompt_len"] == 32)
-    check([b.meta.get("stream_index") for b in bufs] == list(range(MAX_NEW))
-          and bufs[-1].meta.get("stream_last"), "static over the wire: stream not whole")
-    check(ids == want, "static over the wire: tokens differ from phase_serve's")
-    out["static_over_wire"] = dict(tokens=len(ids), equal_to_serve=True)
+    try:
+        srv = query_server(f"quant:int4,param_dtype:bfloat16,max_seq:1024,"
+                           f"max_new:{MAX_NEW},stream_chunk:64", 72)
+        with srv:
+            c = QueryClient(srv.element("ssrc").bound_port).start()
+            prompt = next(p for p in _serve_prompts() if len(p) == 32)
+            c.push(prompt, MAX_NEW)
+            bufs = c.join()
+            c.close()
+        ids = [int(b.tensors[0][0]) for b in bufs]
+        want = next(r["ids"] for r in serve["requests"] if r["prompt_len"] == 32)
+        check([b.meta.get("stream_index") for b in bufs] == list(range(MAX_NEW))
+              and bufs[-1].meta.get("stream_last"), "static over the wire: stream not whole")
+        check(ids == want, "static over the wire: tokens differ from phase_serve's")
+        out["static_over_wire"] = dict(tokens=len(ids), equal_to_serve=True)
+    except BaseException:
+        live.stop()
+        raise
     del srv
     torch.cuda.empty_cache()
+    return out, live
+
+
+#: the weave phase's streams: the query phase's prompts of 32, 200, 64
+#: and 128 ids (``continuous_prompts()``), which its in-process clients
+#: sent to the same server; the child sends them one after another
+WEAVE_STREAMS = (0, 1, 4, 5)
+WEAVE_TENANT = "weave"
+#: the SLO objectives the weave phase's report is held to: met (ten
+#: minutes at p50 and p99) and breached (p99 under one microsecond)
+WEAVE_MET = dict(p50_ms=600000.0, p99_ms=600000.0)
+WEAVE_BREACHED = dict(p99_ms=0.001)
+
+
+def weave_client(port, prompts_path, ring_path, new):
+    """The weave phase's child process (``--weave-client``): ``appsrc !
+    tensor_query_client tenant=weave ! tensor_sink`` traced in a ring,
+    each prompt sent after the last one's stream ended; dumps its ring to
+    ``ring_path`` and prints its tokens and ``locks.report()`` as one
+    JSON line.  It needs no card: the caller hides it."""
+    import numpy as np
+
+    import nnstreamer_tpu_torch as ntt
+    from nnstreamer_tpu_torch.utils import locks, tracing
+
+    with open(prompts_path) as fh:
+        prompts = [np.asarray(p, np.int32) for p in json.load(fh)]
+    pipe = ntt.Pipeline(
+        f"appsrc name=src ! tensor_query_client port={port} timeout={WAIT_S} "
+        f"tenant={WEAVE_TENANT} ! tensor_sink name=out", trace_mode="ring")
+    streams = []
+    with pipe:
+        t0 = time.monotonic()
+        for prompt in prompts:
+            pipe.push("src", prompt)
+            bufs = [pipe.pull("out", timeout=WAIT_S) for _ in range(new)]
+            check([b.meta.get("stream_index") for b in bufs] == list(range(new))
+                  and bufs[-1].meta.get("stream_last")
+                  and not any(b.meta.get("stream_aborted") for b in bufs),
+                  "weave client: a stream is not whole")
+            streams.append([int(b.tensors[0][0]) for b in bufs])
+        window = time.monotonic() - t0
+        pipe.eos("src")
+        pipe.wait(timeout=WAIT_S)
+    spans = tracing.dump_ring(ring_path, proc="client")
+    print(json.dumps(dict(streams=streams, window_s=window, spans=spans,
+                          epoch=tracing.trace_epoch(), tsan=locks.report())))
+    return 0
+
+
+def cli_env():
+    """The environment of the CLI children: the checkout on the path, and
+    no proxy between a scrape and ``127.0.0.1``."""
+    env = {k: v for k, v in os.environ.items()
+           if k.lower() not in ("http_proxy", "https_proxy", "all_proxy")}
+    env["NO_PROXY"] = env["no_proxy"] = "127.0.0.1,localhost"
+    env["PYTHONPATH"] = os.pathsep.join(
+        [ROOT] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    return env
+
+
+def run_children(argvs, env):
+    """Run each argv as a child process, all at once; ``[(rc, stdout,
+    stderr)]`` in order.  Each is waited for at most ``WAIT_S`` and killed
+    if it outlives the wait."""
+    procs = [subprocess.Popen(a, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=env, cwd=ROOT) for a in argvs]
+    out = []
+    try:
+        for p in procs:
+            so, se = p.communicate(timeout=WAIT_S)
+            out.append((p.returncode, so, se))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=WAIT_S)
     return out
+
+
+def phase_weave(dev, srv, prompts, ref, files_dir=None):
+    """The front door across two processes: ``srv`` (a query server built
+    with ``trace_mode="ring"`` around the llm filter ``llm``, its sink
+    ``ssink``, still serving) answers ``prompts`` from a client in a
+    child process (``weave_client``, under ``NNS_TPU_TSAN=1``).  ``ref``
+    holds the streams an in-process client got for the same prompts from
+    the same server.  Checked: the child's streams bitwise equal to
+    ``ref``; its tsan report clean; its ring and this process's merged
+    by ``tools.trace merge`` (byte for byte the same merge made here,
+    which ``tools.trace validate`` and ``summary`` read: valid, aligned,
+    two processes with their own epochs, an arrow each way per request,
+    every ``query.send`` before its server ``ingress`` within the carried
+    uncertainty); and ``tools.slo report --url``
+    against this process's ``/metrics``: exit 0 for an objective met, 1
+    for one breached, each estimate at or above the exact quantile read
+    in process."""
+    import shutil
+
+    from nnstreamer_tpu_torch.core.log import metrics
+    from nnstreamer_tpu_torch.ops import attention, int4_matmul as i4
+    from nnstreamer_tpu_torch.utils import profiler, tracing
+
+    counters = {"paged_attention": attention.PAGED_LAUNCHES,
+                "flash_attention": attention.LAUNCHES,
+                "matmul_int4": i4.LAUNCHES}
+    port = srv.element("ssrc").bound_port
+    fw = srv.element("llm").fw
+    new = len(ref[0])
+    # every path this phase writes carries this process's pid
+    work = os.path.join(files_dir or OUT_DIR, f"weave-{os.getpid()}")
+    os.makedirs(work, exist_ok=True)
+    paths = {k: os.path.join(work, k) for k in (
+        "prompts.json", "server.ring", "client.ring", "merged.json", "cli_merged.json",
+        "met.json", "breached.json")}
+    with open(paths["prompts.json"], "w") as fh:
+        json.dump([p.tolist() for p in prompts], fh)
+    for name, objective in (("met.json", WEAVE_MET), ("breached.json", WEAVE_BREACHED)):
+        with open(paths[name], "w") as fh:
+            json.dump(dict(tenants=[dict(tenant=WEAVE_TENANT, **objective)],
+                           sinks=["ssink"]), fh)
+    out, parts = {}, {}
+
+    # the child: its own process, trace epoch and clock
+    check(fw.drain(WAIT_S), "weave: the serve loop is busy")
+    tracing.recorder.clear()
+    env = cli_env()
+    env.update(NNS_TPU_TSAN="1", CUDA_VISIBLE_DEVICES="")
+    env.pop("NNS_TPU_TSAN_RAISE", None)
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    [(rc, so, se)] = run_children(
+        [[sys.executable, os.path.abspath(__file__), "--weave-client", str(port),
+          paths["prompts.json"], paths["client.ring"], str(new)]], env)
+    parts["child"] = time.perf_counter() - t0
+    check(rc == 0, f"weave client exited {rc}: {se[-4000:]}")
+    child = json.loads(so.strip().splitlines()[-1])
+    check(fw.drain(WAIT_S), "weave: the serve loop did not drain after the child")
+    out["launches"] = {k: c.value for k, c in counters.items()}
+    check(dev.type != "cuda" or all(v > 0 for v in out["launches"].values()),
+          f"weave: a kernel of the path was not launched: {out['launches']}")
+    check(child["streams"] == ref,
+          "weave: the child's streams differ from the in-process client's")
+    tsan = child["tsan"]
+    check(tsan["enabled"] and tsan["acquisitions"] > 0
+          and "StageQueue._lock" in tsan["locks"],
+          f"weave: the child's tsan did not engage: {tsan}")
+    check(not tsan["inversions"] and not tsan["guard_violations"],
+          f"weave: the child's tsan report is not clean: {tsan}")
+    out.update(streams=len(ref), tokens=sum(map(len, ref)),
+               tok_s=sum(map(len, ref)) / child["window_s"],
+               window_s=child["window_s"], client_spans=child["spans"],
+               tsan=dict(acquisitions=tsan["acquisitions"], edges=tsan["edges"],
+                         locks=tsan["locks"], inversions=0, guard_violations=0))
+    out["server_spans"] = tracing.dump_ring(paths["server.ring"], proc="server")
+
+    # the CLIs, each its own process, all at once: ``trace merge`` of the
+    # two rings, ``validate`` and ``summary`` of the same merge made here
+    # (the merge's bytes are then held equal to it), and the two SLO
+    # reports against this process's /metrics
+    merged, _stats = tracing.merge_ring_files([paths["server.ring"], paths["client.ring"]])
+    with open(paths["merged.json"], "w") as fh:
+        json.dump(merged, fh)
+    msrv = profiler.start_metrics_server(0)
+    try:
+        trace_cli = [sys.executable, "-m", "nnstreamer_tpu_torch.tools.trace"]
+        slo_cli = [sys.executable, "-m", "nnstreamer_tpu_torch.tools.slo", "report"]
+        url = f"http://127.0.0.1:{msrv.server_port}/metrics"
+        t0 = time.perf_counter()
+        ((rc, so, se), (v_rc, v_so, v_se), (s_rc, s_so, s_se), (m_rc, m_so, m_se),
+         (b_rc, b_so, b_se)) = run_children(
+            [trace_cli + ["merge", paths["server.ring"], paths["client.ring"],
+                          "--out", paths["cli_merged.json"]],
+             trace_cli + ["validate", paths["merged.json"]],
+             trace_cli + ["summary", paths["merged.json"]],
+             slo_cli + [paths["met.json"], "--url", url, "--interval", "0.5", "--json"],
+             slo_cli + [paths["breached.json"], "--url", url, "--interval", "0.5"]],
+            cli_env())
+        parts["clis"] = time.perf_counter() - t0
+    finally:
+        profiler.stop_metrics_server(msrv)
+    check(rc == 0, f"weave: trace merge exited {rc}: {so}{se[-4000:]}")
+    out["merge_line"] = so.strip()
+    with open(paths["merged.json"], "rb") as fh, open(paths["cli_merged.json"], "rb") as gh:
+        check(fh.read() == gh.read(),
+              "weave: trace merge wrote other bytes than the same merge in process")
+    check(v_rc == 0 and v_so.startswith("OK:"),
+          f"weave: trace validate exited {v_rc}: {v_so}{v_se[-4000:]}")
+    check(s_rc == 0 and s_so.split()[:2] == ["stage", "kind"],
+          f"weave: trace summary exited {s_rc}: {s_so[:2000]}{s_se[-4000:]}")
+    out["summary_rows"] = len(s_so.strip().splitlines()) - 1
+    check(m_rc == 0, f"weave: slo report of a met objective exited {m_rc}: "
+          f"{m_so}{m_se[-4000:]}")
+    check(b_rc == 1 and "BREACH" in b_so,
+          f"weave: slo report of a breached objective exited {b_rc}: {b_so}{b_se[-4000:]}")
+    est = json.loads(m_so)["tenants"][WEAVE_TENANT]
+    exact = {q: metrics.percentile("ssink.e2e_latency", q, tenant=WEAVE_TENANT) * 1e3
+             for q in (50, 99)}
+    check(est["requests"] > 0 and est["p50_ms"] >= exact[50] and est["p99_ms"] >= exact[99],
+          f"weave: slo estimates {est} below the exact quantiles {exact}")
+    out["slo"] = dict(requests=est["requests"], p50_ms=est["p50_ms"], p99_ms=est["p99_ms"],
+                      exact_p50_ms=exact[50], exact_p99_ms=exact[99], met_rc=m_rc,
+                      breached_rc=b_rc)
+
+    # the merged trace
+    out["merged"] = weave_merged_checks(merged, child["epoch"], tracing.trace_epoch(),
+                                        len(prompts))
+    rings, spans, arrows = map(int, re.search(
+        r"(\d+) rings, (\d+) spans, (\d+) cross-wire arrows", out["merge_line"]).groups())
+    check(rings == 2 and spans == out["server_spans"] + out["client_spans"]
+          and arrows == out["merged"]["arrows"],
+          f"weave: merge printed {out['merge_line']!r}")
+    out["merged"].update(rings=rings, spans=spans)
+    out["parts_s"] = parts
+    shutil.rmtree(work)
+    return out
+
+
+def print_weave(w):
+    """The weave phase's lines."""
+    m, slo = w["merged"], w["slo"]
+    print(f"weave: merge {m['rings']} rings, {m['spans']} spans, {m['arrows']} "
+          f"cross-wire arrows ({m['requests']} requests, an arrow each way), "
+          f"aligned offsets {m['aligned_offset_ns']} ns", flush=True)
+    print(f"weave: largest clock uncertainty {m['max_uncertainty_us']:.1f} us", flush=True)
+    print(f"weave: the child received {w['tokens']} tokens in {w['window_s']:.2f} s, "
+          f"{w['tok_s']:.2f} tok/s ({w['streams']} streams one after another, bitwise "
+          f"equal to the in-process clients' of the query phase); "
+          f"its tsan {w['tsan']}; launches {w['launches']}; parts (s) {w['parts_s']}",
+          flush=True)
+    print(f"weave: slo report p50 {slo['p50_ms']} ms (exact {slo['exact_p50_ms']:.3f}), "
+          f"p99 {slo['p99_ms']} ms (exact {slo['exact_p99_ms']:.3f}) over "
+          f"{slo['requests']} tokens; met exit {slo['met_rc']}, breached exit "
+          f"{slo['breached_rc']}; summary {w['summary_rows']} rows", flush=True)
+
+
+def weave_merged_checks(merged, client_epoch, server_epoch, requests):
+    """The merged trace of one server and one client ring: two processes
+    with their own epochs, both aligned; for each of the client's
+    ``requests`` requests an arrow client -> server and one server ->
+    client, and its ``query.send`` no later than the server's adopted
+    ``ingress`` plus the arrow's uncertainty.  Returns the counts."""
+    evs = merged["traceEvents"]
+    align = merged["otherData"]["weave"]
+    check(len(align) == 2 and all(a["aligned"] for a in align),
+          f"weave: merged trace not aligned: {align}")
+    check({a["epoch"] for a in align} == {client_epoch, server_epoch}
+          and client_epoch != server_epoch, f"weave: epochs {align}")
+    pids = {e["args"]["name"].split(" epoch=")[0]: e["pid"] for e in evs
+            if e.get("ph") == "M" and e["name"] == "process_name"}
+    check(sorted(pids) == ["client", "server"] and len(set(pids.values())) == 2,
+          f"weave: processes {pids}")
+    cpid, spid = pids["client"], pids["server"]
+    tids = {e["pid"]: set() for e in evs if e.get("ph") in ("X", "i")}
+    for e in evs:
+        if e.get("ph") in ("X", "i") and "trace_id" in e.get("args", {}):
+            tids[e["pid"]].add(e["args"]["trace_id"])
+    minted = {pid: {t for t in tids.get(pid, ()) if t >> 32 == ep}
+              for pid, ep in ((cpid, client_epoch), (spid, server_epoch))}
+    check(minted[cpid] and not (minted[cpid] & minted[spid]),
+          "weave: the processes' trace ids overlap")
+    sends = {e["args"]["trace_id"]: e for e in evs
+             if e.get("name") == "query.send" and e["pid"] == cpid}
+    check(len(sends) == requests, f"weave: {len(sends)} client query.send spans, "
+          f"not {requests}")
+    starts = {e["id"]: e for e in evs if e.get("ph") == "s"}
+    finishes = {e["id"]: e for e in evs if e.get("ph") == "f"}
+    check(set(starts) == set(finishes), "weave: unpaired flow events")
+    ways = {}
+    for i, st in starts.items():
+        ways.setdefault(st["args"]["trace_id"], set()).add((st["pid"], finishes[i]["pid"]))
+    worst_us = 0.0
+    for tid, send in sends.items():
+        check(ways.get(tid, set()) >= {(cpid, spid), (spid, cpid)},
+              f"weave: request {tid:#x} lacks an arrow each way: {ways.get(tid)}")
+        ingress = [e for e in evs if e.get("name") == "ingress" and e["pid"] == spid
+                   and e.get("args", {}).get("trace_id") == tid]
+        unc_us = max(st["args"]["uncertainty_ns"] for st in starts.values()
+                     if st["args"]["trace_id"] == tid) / 1e3
+        worst_us = max(worst_us, unc_us)
+        check(ingress and send["ts"] <= min(e["ts"] for e in ingress) + unc_us,
+              f"weave: request {tid:#x}: query.send at {send['ts']} us after the "
+              f"server's ingress {[e['ts'] for e in ingress]} beyond {unc_us} us")
+    client = [a for a in align if a["epoch"] == client_epoch][0]
+    check(abs(client["offset_ns"]) <= client["uncertainty_ns"],
+          f"weave: both processes read this host's one monotonic clock, but the "
+          f"client's offset {client['offset_ns']} ns exceeds its uncertainty "
+          f"{client['uncertainty_ns']} ns")
+    return dict(events=len(evs), arrows=len(starts), requests=requests,
+                max_uncertainty_us=worst_us,
+                aligned_offset_ns={a["proc"]: a["offset_ns"] for a in align})
 
 
 class EagerLaunches:
@@ -2466,9 +2790,8 @@ def phase_prefix(dev, base=CONT_DESC):
 SPEC_K = 3
 SPEC_OPTS = f",draft:llama_tiny,spec_k:{SPEC_K},draft_seed:7"
 SPEC_SAMPLED = ",temperature:0.8,seed:1"
-#: the sampled runs serve the first wave only (four streams; all eight
-#: until PR 23, which cut them to pay for its learn phase)
-SPEC_SAMPLED_WAVE = len(CONT_WAVES[0])
+#: the sampled runs serve the first wave's first streams
+SPEC_SAMPLED_WAVE = 2
 #: speculative greedy tokens against plain greedy ones: the [8, 4] verify
 #: and the [8, 1] decode step are two bf16 evaluations that round in
 #: different places (other int4 and paged launch plans), so a step is a
@@ -2765,10 +3088,10 @@ FILES_TEXT_NEW = 16
 #: bytes the phase leaves free on the disk and in host memory (the GGUF
 #: is read three times and should stay in the page cache)
 FILES_SPARE = 4e9
-#: the GGUF's depth, the same on every machine: 3.6 GB at llama2_7b's full
+#: the GGUF's depth, the same on every machine: 1.9 GB at llama2_7b's full
 #: width; its streams are held against the zoo model at that depth, and
 #: the decode step is timed at the full 32 layers
-FILES_LAYERS = 8
+FILES_LAYERS = 4
 
 
 def full_step_ms(dev, quant, base=CONT_DESC):
@@ -3039,7 +3362,7 @@ ELASTIC_SAMPLED_PROMPT = 1
 #: (1, 4, 4, 1, ...) FETCH_PAIRS times: a host-fed rate spreads by tens of
 #: percent from run to run on a shared host, so one run each says nothing
 FETCH_DEPTHS = (1, 4)
-FETCH_PAIRS = 3
+FETCH_PAIRS = 2
 #: the stage restart: a host stage that fails on its RESTART_FAIL_AT-th
 #: buffer (after the card stage's capture), in front of a fused card
 #: stage; RESTART_BUFFERS pushed
@@ -3118,7 +3441,10 @@ def elastic_greedy(dev, cont, base):
     prompts = continuous_prompts()
     n, first = len(prompts), len(CONT_WAVES[0])
     ref = [s["ids"] for s in cont["streams"]]
-    tenants = [f"el{time.monotonic_ns()}.{i}" for i in range(n)]
+    # the first wave shares one tenant, so that one quota holds it back
+    tag = f"el{time.monotonic_ns()}"
+    wave = f"{tag}.wave"
+    tenants = [wave] * first + [f"{tag}.{i}" for i in range(first, n)]
     t0 = time.perf_counter()
     pa = ntt.Pipeline(base, trace_mode="ring")
     pb = ntt.Pipeline(base, trace_mode="ring")
@@ -3180,9 +3506,20 @@ def elastic_greedy(dev, cont, base):
                     return sid
             return None
 
-        t_start = time.perf_counter()
+        # the first wave waits at quota 0 until all of it is queued, then
+        # comes in at once: admitted in one pass, it is prefilled with the
+        # budget waived and decodes in step, as the live moves assume.  Let
+        # in as it arrives, the 32-id stream would decode while the others
+        # take one prefill chunk a step, and end before the 700-id stream
+        # had its first tokens
+        la.set_tenant_quota(wave, 0)
         for i in range(first):
             push(i)
+        wait_for(lambda: sum(info["tenant"] == wave and info["state"] == "queued"
+                             for info in pa.serve_streams().values()) == first,
+                 "the first wave in the queue")
+        t_start = time.perf_counter()
+        la.set_tenant_quota(wave, None)
         wait_for(lambda: all(ta.count(i) >= ELASTIC_AFTER for i in ELASTIC_LIVE),
                  "the live moves' tokens")
         # both drains asked for at once, so both run at one chunk boundary:
@@ -4066,7 +4403,7 @@ def print_vision(v):
 #: full resolution pinned by upsample:1), speech_commands and wav2vec2 +
 #: CTC (1 s windows of 16,000 samples, float32 as bench.py runs them)
 MODELS_BATCH = 64
-MODELS_TIMED = 50
+MODELS_TIMED = 25
 #: batches compared: fused against fuse=False, and in the cells' own checks
 MODELS_CMP = 3
 DIV = "tensor_transform mode=arithmetic option=typecast:float32,div:255.0"
@@ -4505,8 +4842,8 @@ def print_spec(r):
           f"({t['round_per_decode_step']:.3f}x)", flush=True)
     print(f"census: spec {g['census']}", flush=True)
     s0, s1 = r["sampled"]
-    print(f"spec: sampled (temperature 0.8, seed 1, the first wave) two runs bitwise "
-          f"{r['sampled_bitwise']}, {s0['aggregate_tok_s']:.2f} / "
+    print(f"spec: sampled (temperature 0.8, seed 1, the first wave's first "
+          f"{SPEC_SAMPLED_WAVE} streams) two runs bitwise {r['sampled_bitwise']}, {s0['aggregate_tok_s']:.2f} / "
           f"{s1['aggregate_tok_s']:.2f} tok/s, accept rate "
           f"{s0['serve_counters'].get('llm.serve.spec_accepted', 0) / max(1, s0['serve_counters'].get('llm.serve.spec_accepted', 0) + s0['serve_counters'].get('llm.serve.spec_rejected', 0)):.4f}, "
           f"census {s0['census']}", flush=True)
@@ -4522,7 +4859,7 @@ def print_spec(r):
 #: classes, bf16, seed 0), drained into bucketed steps of up to
 #: BATCHING_MAX frames; no max-inflight, so the backlog is bounded by the
 #: queues (BATCHING_QUEUE) and the drain can fill its buckets
-BATCHING_FRAMES = 512
+BATCHING_FRAMES = 256
 BATCHING_MAX = 32
 BATCHING_RUNS = 1
 BATCHING_QUEUE = 64
@@ -5253,7 +5590,7 @@ def print_batching(r):
               flush=True)
 
 
-CAMERA_FRAMES = 256
+CAMERA_FRAMES = 128
 CAMERA_RUNS = 1
 CAMERA_INFLIGHT = 8
 CAMERA_REGIONS = 4
@@ -5546,7 +5883,7 @@ ASR = ("audiotestsrc device=true num-buffers={chunks} samplesperbuffer=4000 rate
        "freq=880 name=src ! tensor_aggregator frames_in=4000 frames_out=16000 "
        "frames_flush=4000 frames_dim=0 {mode}name=agg ! tensor_filter framework=jax "
        "model=speech_commands custom=dtype:float32 {acc} name=f ! tensor_sink name=out")
-ASR_WINDOWS = 256
+ASR_WINDOWS = 128
 ASR_RUNS = 2
 #: windows (and their scores) held bitwise between the two carries
 ASR_CHECKED = 32
@@ -5733,13 +6070,13 @@ def print_asr(a):
 #: detector's 320 px and decoded into a 640x480 RGBA overlay, the other
 #: queued to the compositor's base pad)
 V4L2_W, V4L2_H = 640, 480
-V4L2_FRAMES = 128
+V4L2_FRAMES = 64
 V4L2_RUNS = 1
 #: the stall run: frames written before the writer stalls, and the stall
 V4L2_STALL_AFTER = 16
 V4L2_STALL_S = 2.0
 #: frames replayed through filesrc ! tensor_converter ! filesink
-V4L2_REPLAY = 128
+V4L2_REPLAY = 64
 V4L2 = ("v4l2src device={fifo} width={w} height={h} format=RGB num-buffers={n} "
         "name=camsrc ! tee name=cam "
         "cam. ! videoscale width={size} height={size} method=bilinear ! tensor_converter ! "
@@ -6066,7 +6403,7 @@ FILES_DIR = os.path.join(ROOT, "build", "files")
 #: flight between the pusher and the far end (well under every queue on
 #: the way: edgesink's and the broker's 64 per subscriber, the shm ring's
 #: 8 slots), warm-up frames
-TRANSPORT_FRAMES = 256
+TRANSPORT_FRAMES = 128
 TRANSPORT_RUNS = 1
 TRANSPORT_WINDOW = 8
 TRANSPORT_WARM = 4
@@ -6548,7 +6885,7 @@ MF_ACT = (0.05, 128)
 MF_BLOCKS = ((64, 1), (128, 2), (128, 1), (256, 2), (256, 1), (512, 2), (512, 1),
              (512, 1), (512, 1), (512, 1), (512, 1), (1024, 2), (1024, 1))
 #: batches timed after the warm-up (the quantized cell; the float twin half)
-MF_TIMED = 40
+MF_TIMED = 20
 #: frames of the first batch held bitwise against the CPU's plain path
 MF_CHECKED = 16
 #: the float twin on the card against the CPU at f32 (TF32 off): a logit
@@ -7925,6 +8262,9 @@ def main():
 
     if "--yolo-bucket-one" in sys.argv[1:]:
         return yolo_bucket_one(sys.argv[sys.argv.index("--yolo-bucket-one") + 1])
+    if "--weave-client" in sys.argv[1:]:
+        port, prompts, ring, new = sys.argv[sys.argv.index("--weave-client") + 1:][:4]
+        return weave_client(int(port), prompts, ring, int(new))
     if "--shm-producer" in sys.argv[1:]:
         name, frames_n, size, device = sys.argv[sys.argv.index("--shm-producer") + 1:][:4]
         return shm_producer(name, int(frames_n), int(size), device)
@@ -8046,7 +8386,8 @@ def main():
         torch.cuda.empty_cache()
 
     with phase("query"):
-        query = detail["query"] = phase_query(dev, serve, cont)
+        query, live = phase_query(dev, serve, cont)
+        detail["query"] = query
         for r in query["streams"]:
             print(f"query: prompt {r['prompt_len']}"
                   f"{' (late)' if r['late_joiner'] else ''} first token at the client "
@@ -8066,6 +8407,18 @@ def main():
         print(f"census: query {query['census']}", flush=True)
         print(f"query: dead client {query['dead_client']}; static over the wire "
               f"{query['static_over_wire']}", flush=True)
+        save()
+
+    with phase("weave"):
+        try:
+            prompts = continuous_prompts()
+            weave = detail["weave"] = phase_weave(
+                dev, live, [prompts[i] for i in WEAVE_STREAMS],
+                [query["streams"][i]["ids"] for i in WEAVE_STREAMS])
+        finally:
+            live.stop()
+            del live
+        print_weave(weave)
         save()
         torch.cuda.empty_cache()
 
@@ -8185,7 +8538,7 @@ def main():
     paged_rows = [r for r in rows if r["kernel"] == "paged_attention"
                   and r["route"] == "kernel"]
     pg = [r for r in paged_rows if r["shape"]["name"] == "7b"][0]
-    runs = dict(serve=[serve], continuous=[cont],
+    runs = dict(serve=[serve], continuous=[cont], weave=[weave],
                 prefix=[prefix[k] for k in ("on", "off", "fork_on", "fork_off", "ring")],
                 spec=[spec["greedy"], *spec["sampled"], spec["accept"],
                       spec["accept_plain"]],

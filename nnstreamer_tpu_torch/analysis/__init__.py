@@ -25,8 +25,10 @@ Entry points::
     nt.Pipeline(desc, validate=True)   # raises PipelineLintError on errors
     python -m nnstreamer_tpu_torch.tools.lint "<pipeline>"   # CLI
 
-Waits for the next slice: the JAX package's ``concurrency``, ``protocol``
-and ``statemachine`` passes (``lint --threads`` / ``--proto``).
+Package-level passes, over the port's own source rather than one
+pipeline: :mod:`.concurrency` (``lint --threads``), and :mod:`.protocol`
+with the :mod:`.statemachine` model checker (``lint --proto``, or
+``analyze(desc, proto=True)``).
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ def analyze(
     caps: bool = True,
     topology: bool = True,
     purity: bool = True,
+    proto: bool = False,
     queue_capacity: Optional[int] = None,
     deep: bool = False,
     batch_max: Optional[int] = None,
@@ -74,7 +77,13 @@ def analyze(
     allocated.  The remaining keyword knobs parameterize its resource
     model and default to the global Config; ``data_parallel`` or
     ``model_parallel`` above 1 raise
-    :class:`~.tracecheck.MultiDeviceNotPorted` (ROADMAP Queue A 6)."""
+    :class:`~.tracecheck.MultiDeviceNotPorted` (ROADMAP Queue A 6).
+
+    ``proto=True`` adds the protocol pass's findings over the port's
+    serving protocol modules (:func:`.protocol.lint_package`: the
+    alphabet, handler totality, the unanswered-path proof and the
+    model-vs-code drift gate) — a property of the package, not of this
+    pipeline."""
     if deep:
         from .tracecheck import _one_card
 
@@ -118,6 +127,14 @@ def analyze(
         from .purity import lint_graph
 
         run("purity", lambda: lint_graph(graph))
+    if proto:
+        from . import protocol as _protocol
+
+        def _run_proto():
+            reports, _stats = _protocol.lint_package()
+            return [d for rep in reports for d in rep]
+
+        run("protocol", _run_proto)
     if deep:
         from .tracecheck import deep_check
 

@@ -179,7 +179,7 @@ class ShmRing:
     def _peek_owner(store, name: str) -> int:
         try:
             seg, buf = store.open(name)
-        except OSError:
+        except (OSError, ValueError):  # gone, or not sized yet
             return 0
         try:
             if len(buf) < _HDR.size:
@@ -193,7 +193,13 @@ class ShmRing:
     @classmethod
     def open(cls, name: str, backing: str = "posix") -> "ShmRing":
         store = _store(backing)
-        seg, buf = store.open(name)
+        try:
+            seg, buf = store.open(name)
+        except ValueError:
+            # the producer's segment exists but is not sized yet (opened
+            # between its shm_open and ftruncate): nothing to map, so the
+            # ring is not ready, the same as a header without its magic
+            raise OSError(f"shm ring {name!r} is not ready (producer not up?)") from None
         ok = len(buf) >= _HDR.size
         if ok:
             magic, nslots, slot_bytes = _HDR.unpack_from(buf, 0)[:3]

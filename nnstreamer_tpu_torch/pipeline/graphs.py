@@ -48,6 +48,7 @@ from typing import Callable, Dict, Hashable, Optional, Sequence
 import torch
 
 from ..ops import kernels
+from ..utils import locks
 
 
 _gc_lock = threading.Lock()
@@ -130,7 +131,12 @@ class Census:
     the number of captures (a signature captured again, for a second set
     of static buffers or after its set was dropped, counts again) and
     ``replays`` the replays of all of them; ``launches`` holds, by
-    signature, the kernel launches its replays added to each counter."""
+    signature, the kernel launches its replays added to each counter.
+    Its lock comes from ``utils/locks.py`` (tracked under
+    ``NNS_TPU_TSAN=1``)."""
+
+    _GUARDED_BY = {"signatures": "_lock", "captures": "_lock",
+                   "replays": "_lock", "launches": "_lock"}
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -138,7 +144,7 @@ class Census:
         self.captures = 0
         self.replays = 0
         self.launches: Dict[Hashable, Dict[kernels.LaunchCount, int]] = {}
-        self._lock = threading.Lock()
+        self._lock = locks.make_lock("Census._lock")
         #: xray (``utils/xray.py``): (registry, stage, recorder) or None
         self._xray = None
 

@@ -94,7 +94,7 @@ from ..core.log import Timer, logger, metrics
 from ..core.registry import KIND_ELEMENT, get as registry_get
 from ..elements.base import Element, SinkElement, SourceElement, SRC
 from ..elements.sink import TensorSink
-from ..utils import tracing
+from ..utils import locks, tracing
 from ..utils.armor import META_POISON as _META_POISON
 from .graph import PipelineGraph
 from .parser import parse as parse_launch
@@ -116,14 +116,24 @@ class PipelineError(RuntimeError):
 class _StageQueue:
     """Bounded stage input queue with stop-aware blocking: putters and
     getters block on two condition variables over one lock, and
-    :meth:`close` wakes every waiter at once."""
+    :meth:`close` wakes every waiter at once.
+
+    The lock and conditions come from ``utils/locks.py`` under the JAX
+    package's names: plain ``threading`` objects unless ``NNS_TPU_TSAN=1``,
+    tracked ones (order graph, guard checks) under it."""
+
+    #: lock discipline: ``lint --threads`` checks it statically,
+    #: ``NNS_TPU_TSAN=1`` live
+    _GUARDED_BY = {"_dq": "_lock", "_closed": "_lock"}
 
     def __init__(self, capacity: int):
         self._dq: Deque = collections.deque()
         self._cap = max(1, capacity)
-        self._lock = threading.Lock()
-        self._not_empty = threading.Condition(self._lock)
-        self._not_full = threading.Condition(self._lock)
+        self._lock = locks.make_lock("StageQueue._lock")
+        self._not_empty = locks.make_condition(self._lock,
+                                               name="StageQueue._not_empty")
+        self._not_full = locks.make_condition(self._lock,
+                                              name="StageQueue._not_full")
         self._closed = False
 
     def put(self, item) -> bool:

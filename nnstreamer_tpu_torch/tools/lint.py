@@ -7,6 +7,10 @@ Port of ``nnstreamer_tpu/tools/lint.py``:
     python -m nnstreamer_tpu_torch.tools.lint --dogfood              # lint OUR device_fns
     python -m nnstreamer_tpu_torch.tools.lint --examples             # examples/torch_*.py
     python -m nnstreamer_tpu_torch.tools.lint --deep "<pipeline>"    # + abstract execution
+    python -m nnstreamer_tpu_torch.tools.lint --threads --strict \
+        --baseline tools/torch_tsan_baseline.txt                     # lock discipline
+    python -m nnstreamer_tpu_torch.tools.lint --proto --strict \
+        --baseline tools/torch_proto_baseline.txt                    # serving protocols
 
 Exit codes: 0 clean/ok, 1 errors (or warnings with --strict), 2 usage.
 
@@ -16,8 +20,12 @@ locations and source carets.  Nothing runs on a device: ``--deep`` runs
 each stage on meta tensors with its model built on meta (shapes only)
 and prints the per-pipeline resource report; with ``--dogfood`` it also
 runs the bundled zoo families on meta at full width, ``llama2_7b``
-included.  ``--threads`` and ``--proto`` (the JAX package's concurrency
-and protocol passes) wait for the next slice: they exit 2 naming it.
+included.  ``--threads`` runs the concurrency pass over the port's tree
+(``_GUARDED_BY`` discipline, the lock-order graph, thread lifecycle,
+bare condition waits) and ``--proto`` the protocol pass (the message
+alphabet against ``core/meta_keys.py``, handler totality, the
+unanswered-path proof, the model checker's drift gate); with
+``--files``, over those files instead.
 """
 
 from __future__ import annotations
@@ -255,6 +263,85 @@ def dogfood(*, strict: bool, baseline: Optional[set] = None,
     return 1 if fails else 0
 
 
+def _lint_package_pass(module, tag: str, summary, *, strict: bool,
+                       verbose: bool, baseline: Optional[set],
+                       collected: Optional[List[str]],
+                       files: Optional[List[str]]) -> int:
+    """Run one package-level pass (``module.lint_package`` or, with
+    ``files``, ``module.lint_paths``), fail on diagnostics that are new
+    against ``baseline`` (errors always, warnings under ``strict``) and
+    print ``<tag>: <summary(stats)>; <counts>``."""
+    if files:
+        reports, stats = module.lint_paths(files)
+    else:
+        reports, stats = module.lint_package()
+    rc = 0
+    accepted = n_err = n_warn = n_new = 0
+    for rep in reports:
+        keys = [module.baseline_key(d) for d in rep]
+        if collected is not None:
+            collected.extend(keys)
+        fails = []
+        for d, k in zip(rep.diagnostics, keys):
+            n_err += 1 if d.severity == "error" else 0
+            n_warn += 1 if d.severity == "warning" else 0
+            if baseline is not None and k in baseline:
+                accepted += 1
+                continue
+            if d.severity == "error" or strict:
+                fails.append(d)
+        if fails:
+            rc = 1
+            n_new += len(fails)
+            sub = type(rep)(rep.source)
+            sub.extend(fails)
+            print(sub.render())
+        elif verbose and rep.diagnostics:
+            print(rep.render())
+    print(f"{tag}: {summary(stats)}; {n_err} error(s), {n_warn} warning(s), "
+          f"{n_new} new"
+          + (f", {accepted} baseline-accepted" if accepted else ""))
+    return rc
+
+
+def lint_threads(*, strict: bool, verbose: bool,
+                 baseline: Optional[set] = None,
+                 collected: Optional[List[str]] = None,
+                 files: Optional[List[str]] = None) -> int:
+    """nns-tsan static side: the concurrency passes (guarded-by,
+    lock-order graph, thread lifecycle, bare condition waits) over the
+    port's package (or ``files``)."""
+    from ..analysis import concurrency
+
+    return _lint_package_pass(
+        concurrency, "threads",
+        lambda st: (f"{st['files']} file(s), {st['threaded']} threaded "
+                    f"module(s), {st['guarded_classes']} guarded class(es), "
+                    f"{st['locks']} lock(s), {st['edges']} order edge(s)"),
+        strict=strict, verbose=verbose, baseline=baseline,
+        collected=collected, files=files)
+
+
+def lint_proto(*, strict: bool, verbose: bool,
+               baseline: Optional[set] = None,
+               collected: Optional[List[str]] = None,
+               files: Optional[List[str]] = None) -> int:
+    """nns-proto: the message-alphabet and handler-totality lint and the
+    model-vs-code drift gate over the port's serving protocol modules.
+    With ``files``, lints those files (no drift gate: the gate is a
+    claim about the whole surface)."""
+    from ..analysis import protocol
+
+    return _lint_package_pass(
+        protocol, "proto",
+        lambda st: (f"{st['files']} file(s), {st['keys']} meta key(s), "
+                    f"{st['kinds']} control kind(s), {st['handlers']} "
+                    f"handler(s) ({st['proven']} proven), {st['models']} "
+                    "model(s)"),
+        strict=strict, verbose=verbose, baseline=baseline,
+        collected=collected, files=files)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="nnstreamer_tpu_torch.tools.lint",
@@ -274,9 +361,16 @@ def main(argv=None) -> int:
     ap.add_argument("--dogfood", action="store_true",
                     help="lint nnstreamer_tpu_torch's own device_fns")
     ap.add_argument("--threads", action="store_true",
-                    help="not ported yet: the concurrency pass")
+                    help="nns-tsan static side: lock discipline "
+                         "(_GUARDED_BY), lock-order graph, thread "
+                         "lifecycle, bare condition waits over the "
+                         "package; with --files, over those files")
     ap.add_argument("--proto", action="store_true",
-                    help="not ported yet: the protocol pass")
+                    help="nns-proto: message-alphabet and "
+                         "handler-totality lint, unanswered-path proof "
+                         "and model-vs-code drift gate over the serving "
+                         "protocol modules; with --files, over those "
+                         "files")
     ap.add_argument("--deep", action="store_true",
                     help="also run every device stage on meta tensors "
                          "(shape/dtype contract checks, static memory "
@@ -297,15 +391,8 @@ def main(argv=None) -> int:
                     help="also print clean results")
     args = ap.parse_args(argv)
 
-    if args.threads or args.proto:
-        flag = "--threads" if args.threads else "--proto"
-        print(f"{flag} is not ported to nnstreamer_tpu_torch yet: the "
-              "concurrency and protocol passes (analysis/concurrency.py, "
-              "protocol.py, statemachine.py) wait for the next slice "
-              "(ROADMAP Queue A 5)", file=sys.stderr)
-        return 2
     if not args.pipeline and not args.files and not args.examples \
-            and not args.dogfood:
+            and not args.dogfood and not args.threads and not args.proto:
         ap.print_usage(sys.stderr)
         return 2
 
@@ -351,11 +438,21 @@ def main(argv=None) -> int:
         e2e = os.path.join(repo, "tests", "test_pipeline_e2e.py")
         if os.path.exists(e2e):
             files.append(e2e)
-    if files:
+    if files and not args.threads and not args.proto:
         rc = max(rc, lint_files(files, strict=args.strict,
                                 verbose=args.verbose, baseline=baseline,
                                 collected=collected, deep=args.deep,
                                 reconfig=reconfig))
+
+    if args.threads:
+        rc = max(rc, lint_threads(strict=args.strict, verbose=args.verbose,
+                                  baseline=baseline, collected=collected,
+                                  files=files or None))
+
+    if args.proto:
+        rc = max(rc, lint_proto(strict=args.strict, verbose=args.verbose,
+                                baseline=baseline, collected=collected,
+                                files=files or None))
 
     if args.dogfood:
         rc = max(rc, dogfood(strict=args.strict, baseline=baseline,

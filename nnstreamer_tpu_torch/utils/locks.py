@@ -1,14 +1,15 @@
 """nns-tsan dynamic side: opt-in tracked lock primitives.
 
-Port of ``nnstreamer_tpu/utils/locks.py``, copied whole (stdlib only):
-the port's metrics registry and request journal construct their locks
-through :func:`make_lock`.
+Port of ``nnstreamer_tpu/utils/locks.py`` (stdlib only): the port's
+metrics registry, request journal, sink window, stage queues and
+capture census construct their locks through :func:`make_lock`.
+:func:`report` also lists the names of the tracked locks taken.
 
 The threaded runtime's lock discipline is checked twice, from two
 directions that meet in the middle:
 
-* **statically** — the JAX package's ``analysis/concurrency`` pass reads its
-  package source and verifies the ``_GUARDED_BY`` contract, the nested
+* **statically** — :mod:`..analysis.concurrency` reads the package
+  source and verifies the ``_GUARDED_BY`` contract, the nested
   ``with`` lock-order graph, and thread join lifecycles (``lint
   --threads``);
 * **dynamically** — this module's :class:`TrackedLock` /
@@ -111,6 +112,9 @@ class LockOrderGraph:
         #: total first-entry acquisitions — the "tsan actually engaged"
         #: liveness signal (edges stay 0 when no two tracked locks nest)
         self._acquisitions = 0
+        #: the names of the tracked locks taken so far (the report's
+        #: census of what the order graph covers)
+        self._names: set = set()
 
     # -- per-thread stack --------------------------------------------------
     def _stack(self) -> List[list]:
@@ -152,9 +156,11 @@ class LockOrderGraph:
         if not new_edges:
             with self._mu:
                 self._acquisitions += 1
+                self._names.add(name)
             return
         with self._mu:
             self._acquisitions += 1
+            self._names.add(name)
             for a, b in new_edges:
                 self._edges.setdefault((a, b), site)
             cycles = [self._find_cycle(a, b) for a, b in new_edges]
@@ -251,6 +257,7 @@ class LockOrderGraph:
             return {
                 "edges": len(self._edges),
                 "acquisitions": self._acquisitions,
+                "locks": sorted(self._names),
                 "inversions": list(self._inversions),
                 "guard_violations": list(self._guard_violations),
             }
@@ -262,6 +269,7 @@ class LockOrderGraph:
             self._guard_violations.clear()
             self._seen.clear()
             self._acquisitions = 0
+            self._names.clear()
 
 
 #: the process-wide order graph (one per process, like core.log.metrics)

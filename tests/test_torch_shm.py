@@ -145,6 +145,34 @@ def test_open_before_create_and_unknown_backing(name):
         shm.ShmRing.create(name, 2, 64, backing="tape")
 
 
+def test_an_unsized_segment_is_not_ready_and_shmsrc_waits(name, monkeypatch):
+    """A POSIX segment opened between the producer's ``shm_open`` and its
+    ``ftruncate`` has nothing to map (``SharedMemory`` raises
+    ``ValueError``): the ring is not ready yet, and ``shmsrc`` waits on
+    as it does for a ring that is not there."""
+    store = shm.STORES["memory"]
+    real, calls = store.open, []
+
+    def unsized_twice(n):
+        calls.append(n)
+        if len(calls) <= 2:
+            raise ValueError("cannot mmap an empty file")
+        return real(n)
+
+    monkeypatch.setattr(store, "open", unsized_twice)
+    ring = shm.ShmRing.create(name, 2, 64, backing="memory")
+    try:
+        with pytest.raises(OSError, match="not ready"):
+            shm.ShmRing.open(name, backing="memory")
+        src = shm.ShmSrc({"socket_path": name, "backing": "memory",
+                          "connect_timeout": str(WAIT)})
+        src.start()
+        assert len(calls) == 3 and src._ring is not None
+        src.stop()
+    finally:
+        ring.free()
+
+
 def test_a_slot_holds_the_jax_wire_bytes(name):
     rng = np.random.default_rng(0)
     arrays = [rng.standard_normal((3, 4)).astype(np.float32),

@@ -1,6 +1,6 @@
 """The port's command-line tools: ``lint`` (with ``--deep``, ``--strict``,
-``--files``, ``--examples``, ``--dogfood``, ``--baseline``, ``--reconfig``;
-``--threads`` / ``--proto`` name the next slice and exit 2), ``doctor``
+``--files``, ``--examples``, ``--dogfood``, ``--baseline``, ``--reconfig``,
+``--threads`` and ``--proto`` against the port's baselines), ``doctor``
 (``--gate``, ``--json``, ``--bench``, on the CPU here), ``inspect`` and
 ``parse``, each beside the JAX package's where their output is the same."""
 
@@ -10,6 +10,10 @@ import os
 
 import pytest
 
+# imported here, not under a test's capsys: ``list_all``'s default ``out``
+# is the ``sys.stdout`` of the first import, and a captured stream closes
+# with its test (a later ``inspect.main([])`` in this worker would write to it)
+from nnstreamer_tpu.tools import inspect as jax_ins
 from nnstreamer_tpu_torch.tools import doctor, inspect as ins, lint, parse
 from nnstreamer_tpu_torch.utils.xray import registry
 
@@ -52,11 +56,45 @@ def test_lint_reconfig_needs_deep_and_flags_signature_knobs(capsys):
     assert "recompile-on-reconfig" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("flag,baseline,head", [
+    ("--threads", "torch_tsan_baseline.txt", "threads: "),
+    ("--proto", "torch_proto_baseline.txt", "proto: 7 file(s)"),
+])
+def test_lint_threads_and_proto_pass_strict_on_the_port(flag, baseline, head, capsys):
+    path = os.path.join(REPO, "tools", baseline)
+    assert lint.main([flag, "--strict", "--baseline", path]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith(head) and "0 error(s)" in out and "0 new" in out
+
+
 @pytest.mark.parametrize("flag", ["--threads", "--proto"])
-def test_lint_threads_and_proto_name_the_next_slice(flag, capsys):
-    assert lint.main([flag]) == 2
-    err = capsys.readouterr().err
-    assert "not ported" in err and "next slice" in err
+def test_lint_threads_and_proto_fail_without_the_baseline(flag, capsys):
+    """Without a baseline, --strict fails on warnings only where the port
+    has some: the daemon threads (--threads); the protocol pass has none."""
+    rc = lint.main([flag, "--strict"])
+    out = capsys.readouterr().out
+    assert rc == (1 if flag == "--threads" else 0)
+    assert ("daemon-thread" in out) == (flag == "--threads")
+
+
+@pytest.mark.parametrize("flag", ["--threads", "--proto"])
+def test_lint_threads_and_proto_over_files(flag, tmp_path, capsys):
+    """With --files, the pass reads those files instead of the package."""
+    f = tmp_path / "fix.py"
+    f.write_text("import threading\n\n\nclass Owner:\n    def start(self):\n"
+                 "        self._t = threading.Thread(target=print)\n"
+                 "        self._t.start()\n" if flag == "--threads" else
+                 'def stamp(buf):\n    buf.meta["_totally_new_key"] = 1\n')
+    assert lint.main([flag, "--files", str(f)]) == 1
+    out = capsys.readouterr().out
+    assert ("unjoined-thread" if flag == "--threads" else "meta-key-drift") in out
+
+
+def test_lint_update_baseline_round_trip(tmp_path, capsys):
+    path = str(tmp_path / "b.txt")
+    assert lint.main(["--threads", "--baseline", path, "--update-baseline"]) == 0
+    assert "baseline updated: 11 accepted" in capsys.readouterr().out
+    assert lint.main(["--threads", "--strict", "--baseline", path]) == 0
 
 
 def test_lint_usage_without_input(capsys):
@@ -143,8 +181,6 @@ def test_doctor_self_driving_pipeline(capsys):
 
 
 def test_inspect_lists_and_shows_with_aliases(capsys):
-    from nnstreamer_tpu.tools import inspect as jax_ins
-
     assert ins.main(["--kind", "filter"]) == 0
     out = capsys.readouterr().out
     assert "== filter" in out and "llm" in out and "custom-easy" in out
