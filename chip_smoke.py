@@ -533,12 +533,14 @@ WAIT_S = 60
 #: exits non-zero.  Their sum (1,200 s) is the 1,200 s the run is given,
 #: so a hang anywhere ends the run inside it.  learn's is 2.9 times its
 #: slower call: its first step loads cuDNN's backward kernels; weave's is
-#: 2.4 times its slower call
+#: 2.4 times its slower call; mesh's 2.5 times its first run (26.2 s), taken
+#: from xray, prefix, spec, elastic, batching and capi (each still over 2.4
+#: times its slowest run)
 PHASE_DEADLINE_S = dict(
-    build=70, kernels=60, serve=30, continuous=70, xray=75, query=50, weave=60,
-    prefix=70, spec=100, files=65, elastic=60, reference=30, vision=35, models=40,
-    batching=75, camera=30, asr=30, v4l2=35, transport=55, modelfiles=40, capi=70,
-    learn=50)
+    build=70, kernels=60, serve=30, continuous=70, xray=65, query=50, weave=60,
+    prefix=60, spec=85, files=65, elastic=55, mesh=65, reference=30, vision=35,
+    models=40, batching=60, camera=30, asr=30, v4l2=35, transport=55, modelfiles=40,
+    capi=60, learn=50)
 #: the run's budget, every phase and the kernel build included
 BUDGET_S = 400
 
@@ -2503,7 +2505,7 @@ TIMELINE = ("ttft_ms", "itl_ms", "queue_ms", "prefill_ms", "decode_ms")
 
 
 def serve_traffic(desc, prompts, groups, max_new, dev, inside=None, around=None,
-                  trace_mode=None, xray=False):
+                  trace_mode=None, xray=False, pipe_kw=None):
     """Serve ``prompts`` through the continuous pipeline ``desc`` (its
     filter named ``llm``) in ``groups``: each ``(indices, wait)`` is pushed
     at once, and the next group follows when each of its streams has its
@@ -2526,7 +2528,8 @@ def serve_traffic(desc, prompts, groups, max_new, dev, inside=None, around=None,
     the ``llm.serve`` counters, the census line, the timeline's p50 / p99
     / count per series, the seconds and peak memory of the pipeline's
     construction (the model's load) and the aggregate tok/s over the
-    window."""
+    window.  ``pipe_kw``: more ``Pipeline`` arguments (the mesh phase's
+    ``model_parallel``)."""
     import contextlib
 
     import numpy as np
@@ -2547,7 +2550,7 @@ def serve_traffic(desc, prompts, groups, max_new, dev, inside=None, around=None,
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    pipe = ntt.Pipeline(desc, trace_mode=trace_mode, xray=xray)
+    pipe = ntt.Pipeline(desc, trace_mode=trace_mode, xray=xray, **(pipe_kw or {}))
     res = dict(setup_s=time.perf_counter() - t0)
     res["setup_peak_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9
                             if dev.type == "cuda" else None)
@@ -8257,6 +8260,396 @@ def yolo_bucket_one(tree):
     return 0
 
 
+#: the mesh phase: a (data x model) mesh of MESH_SLOTS slots that all lie
+#: on cuda:0 (``NNS_TPU_DEVICE_SLOTS``), so the whole sharded code runs on
+#: CUDA: llama2_7b int4 tensor-parallel at model=2 in the continuous cell
+#: (the cell's first two prompts, 32 and 200 ids, MESH_NEW tokens each)
+#: against the same traffic unsharded, one static request through
+#: custom=tp:2, the kernels at the shard shapes, the per-frame quick-start
+#: at data=2 and a mesh=data:2 filter behind the query pair
+MESH_SLOTS = 2
+MESH_TP = 2
+MESH_DP = 2
+MESH_STREAMS = (0, 1)
+MESH_NEW = 32
+MESH_DESC = CONT_DESC.replace(f"max_new:{MAX_NEW}", f"max_new:{MESH_NEW}")
+MESH_STATIC_DESC = ("appsrc name=src ! tensor_filter name=llm framework=llm "
+                    "model=llama2_7b custom=quant:int4,param_dtype:bfloat16,"
+                    "max_seq:1024,max_new:{new},stream_chunk:{new},tp:2 "
+                    "! tensor_sink name=out")
+MESH_STATIC_NEW = 32
+#: teacher-forced logits, tensor-parallel against the unsharded step on the
+#: same tokens: max |tp - full| over a step <= this share of the step's max
+#: |full logit| (two bf16 evaluations that add the o and down partials in
+#: another order; the share the card-against-CPU bf16 check holds), and the
+#: served tokens equal the unsharded argmax wherever its top-1/top-2 gap
+#: is wider than the same share
+MESH_TIE = BF16_REF_TOL
+#: one slot's int4 mats at model=2 (packed rows, out F, launches per slot
+#: and decode step, output dtype: the tensor-parallel step's, bfloat16 for
+#: the column cuts, float32 for the row cuts' partials and the lm_head's
+#: vocabulary cut), held at the continuous step's 8 rows;
+#: flash at one slot's 16 heads (a prefill chunk of 32 on 704 keys, the
+#: static path's 1023-row bucket); the paged kernel at 16 of the 32 kv
+#: heads
+MESH_INT4 = {"wqkv/2": (2048, 6144, 32, "bf16"), "wo/2": (1024, 4096, 32, "f32"),
+             "wgu/2": (2048, 11008, 32, "bf16"), "w_down/2": (2752, 4096, 32, "f32"),
+             "lm_head/2": (2048, 16000, 1, "f32")}
+MESH_INT4_ROWS = 8
+MESH_FLASH = [(1, 32, 704, 16, 16, 128, True), (1, 1023, 1023, 16, 16, 128, True)]
+MESH_PAGED = ("7b_tp2", 8, 1, 16, 16, 128, PAGED_LENS, 64)
+#: the data-parallel cell: the per-frame quick-start, a backlog of
+#: MESH_FRAMES frames drained MESH_BATCH_MAX at a time, data=2 against one
+#: slot, every frame's logits within VISION_TOL of the frame's max |logit|
+MESH_FRAMES = 64
+MESH_BATCH_MAX = 64
+MESH_QUERY = ("tensor_query_serversrc name=ssrc port=0 id=91 ! "
+              "tensor_filter framework=jax model=scaler custom=scale:4.0,dims:8:8 "
+              "mesh=data:2 {acc} ! tensor_query_serversink id=91")
+
+
+@contextlib.contextmanager
+def device_slots(k):
+    """``NNS_TPU_DEVICE_SLOTS=k`` for the block (the mesh's slots per device)."""
+    old = os.environ.get("NNS_TPU_DEVICE_SLOTS")
+    os.environ["NNS_TPU_DEVICE_SLOTS"] = str(k)
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["NNS_TPU_DEVICE_SLOTS"]
+        else:
+            os.environ["NNS_TPU_DEVICE_SLOTS"] = old
+
+
+def mesh_teacher_forced(tp, full, cfg, prompt, ids, dev, dtype, chunk=32, bs=16):
+    """The tokens ``ids`` a stream served after ``prompt``, fed back through
+    ``forward_paged`` over the tensor-parallel params ``tp`` and over the
+    unsharded ``full`` ones (pools of their own, the prompt in ``chunk``
+    chunks, then one decode step a token): each step's logits, tensor-
+    parallel against unsharded (max |diff| over max |full|), and each
+    served token against the unsharded argmax where its top-1/top-2 gap is
+    wider than MESH_TIE of the step's max |logit|."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from nnstreamer_tpu_torch.models import llama
+
+    padded = math.ceil(len(prompt) / chunk) * chunk
+    blocks = math.ceil(max(len(prompt) + len(ids), padded) / bs) + 1
+    tables = torch.arange(blocks, dtype=torch.int32, device=dev)[None]
+    toks = np.zeros(padded, np.int32)
+    toks[:len(prompt)] = prompt
+    last = len(prompt) - 1
+    logits = {}
+    with torch.inference_mode():
+        for name, params in (("tp", tp), ("full", full)):
+            pool = llama.init_paged_cache(cfg, blocks, bs, dtype, device=dev,
+                                          tp=tp if name == "tp" else None)
+            rows = []
+            for start in range(0, last + 1, chunk):
+                off = min(chunk - 1, last - start)
+                lg, _ = llama.forward_paged(
+                    params, torch.from_numpy(toks[start:start + chunk][None]).to(dev),
+                    pool, tables, np.array([start], np.int64), cfg, dtype,
+                    logit_off=off)
+            rows.append(lg[0, -1])
+            for j, t in enumerate(ids[:-1]):
+                lg, _ = llama.forward_paged(
+                    params, torch.tensor([[t]], dtype=torch.int32, device=dev), pool,
+                    tables, np.array([len(prompt) + j], np.int64), cfg, dtype)
+                rows.append(lg[0, -1])
+            logits[name] = torch.stack(rows).float()
+            del pool
+    tp_l, full_l = logits["tp"], logits["full"]
+    scale = full_l.abs().amax(-1)
+    share = ((tp_l - full_l).abs().amax(-1) / scale).cpu().numpy()
+    top = full_l.topk(2, dim=-1)
+    gap = ((top.values[:, 0] - top.values[:, 1]) / scale).cpu().numpy()
+    want = top.indices[:, 0].cpu().numpy()
+    held = gap > MESH_TIE
+    got = np.asarray(ids)
+    return dict(steps=len(ids), max_logit_share=float(share.max()),
+                held=int(held.sum()), equal_held=int((got[held] == want[held]).sum()),
+                equal=int((got == want).sum()), near_ties=int((~held).sum()))
+
+
+def mesh_tp(dev, base=MESH_DESC, new=MESH_NEW, static_desc=MESH_STATIC_DESC,
+            static_new=MESH_STATIC_NEW, layers=N_LAYERS):
+    """Tensor parallelism on two slots of one card: the continuous cell's
+    first two prompts served unsharded, then at ``model_parallel=2`` (its
+    weights, pool and steps cut over the slots), each served token held
+    teacher-forced against the unsharded step; the census at
+    SERVE_PROGRAMS with no capture after the warm-up and each step's
+    launches those of two slots; then one static request through
+    ``custom=tp:2``, promoted to the pipeline's model axis."""
+    import numpy as np
+    import torch
+
+    import nnstreamer_tpu_torch as ntt
+    from nnstreamer_tpu_torch.filters.llm import SERVE_PROGRAMS
+    from nnstreamer_tpu_torch.ops import attention, int4_matmul as i4
+
+    prompts = [continuous_prompts()[i] for i in MESH_STREAMS]
+    groups = [(tuple(range(len(prompts))), "all")]
+    keep = {}
+
+    def grab(fw, loop, res):
+        keep.update(full=fw.bundle.params, dtype=fw.dtype)
+
+    full = serve_traffic(base, prompts, groups, new, dev, inside=grab)
+
+    def tp_inside(fw, loop, res):
+        check(fw.tp is not None and fw.tp.ways == MESH_TP and fw.tp.one_device,
+              f"the filter is not tensor-parallel over {MESH_TP} slots of one device")
+        check(loop._pool_sharding is not None
+              and "model" in str(loop._pool_sharding.spec), "the pool is not cut by head")
+        pools = loop._pool
+        check(isinstance(pools, list) and len(pools) == MESH_TP
+              and len({p["k"].data_ptr() for p in pools}) == MESH_TP,
+              "the pool is not one tensor per slot")
+        res["pool_heads_per_slot"] = int(pools[0]["k"].shape[3])
+        res["teacher"] = [mesh_teacher_forced(fw.tp, keep["full"], fw.cfg, p, ids, dev,
+                                              keep["dtype"])
+                          for p, ids in zip(prompts, res["ids"])]
+
+    tp = serve_traffic(base, prompts, groups, new, dev, inside=tp_inside,
+                       pipe_kw=dict(model_parallel=MESH_TP))
+    census = tp["census"]
+    check(len(census["signatures"]) == SERVE_PROGRAMS,
+          f"tensor-parallel census {census['signatures']}")
+    for r in tp["teacher"]:
+        check(r["max_logit_share"] <= MESH_TIE,
+              f"tensor-parallel logits {r['max_logit_share']} of max |logit| off")
+        check(r["equal_held"] == r["held"],
+              f"tensor-parallel tokens: {r['held'] - r['equal_held']} of {r['held']} "
+              "off the unsharded argmax past the tie gap")
+    if dev.type == "cuda":
+        # every replay of the decode step: both slots' int4 projections
+        # and lm_head, both slots' paged attention
+        steps = tp["stats"]["decode_steps"]
+        [step] = [v for k, v in tp["step_launches"].items() if "continuous" in k]
+        check(step.get("matmul_int4", 0) == steps * MESH_TP * (4 * layers + 1),
+              f"int4 launches {step} over {steps} tensor-parallel decode steps")
+        check(step.get("paged_attention", 0) == steps * MESH_TP * layers,
+              f"paged launches {step} over {steps} tensor-parallel decode steps")
+    # one static request through custom=tp:2
+    prompt = _serve_prompts()[0]
+    pipe = ntt.Pipeline(static_desc.format(new=static_new))
+    check(pipe.model_parallel == MESH_TP, "custom=tp:2 not promoted to model_parallel")
+    launches0 = {k: c.value for k, c in (("matmul_int4", i4.LAUNCHES),
+                                          ("flash_attention", attention.LAUNCHES))}
+    with pipe:
+        check(pipe.mesh_shape == (1, MESH_TP), f"mesh shape {pipe.mesh_shape}")
+        fw = pipe.element("llm").fw
+        t0 = time.perf_counter()
+        pipe.push("src", prompt)
+        ids = [int(pipe.pull("out", timeout=WAIT_S).tensors[0][0]) for _ in range(static_new)]
+        static_s = time.perf_counter() - t0
+        launches = {"matmul_int4": i4.LAUNCHES.value - launches0["matmul_int4"],
+                    "flash_attention": attention.LAUNCHES.value
+                    - launches0["flash_attention"]}
+        teacher = mesh_teacher_forced(fw.tp, keep["full"], fw.cfg, prompt, ids, dev,
+                                      keep["dtype"])
+        pipe.eos("src")
+        pipe.wait(timeout=WAIT_S)
+    check(teacher["max_logit_share"] <= MESH_TIE and teacher["equal_held"] == teacher["held"],
+          f"static tensor-parallel request off the unsharded step: {teacher}")
+    check(teacher["held"] > 0, f"static tensor-parallel request: no token past the tie "
+          f"gap, so none held: {teacher}")
+    del keep
+    return dict(full=full, tp=tp, static=dict(
+        prompt_len=len(prompt), ids=ids, request_s=static_s, launches=launches,
+        teacher=teacher, census=census_of(fw.census, fw.census.captures)))
+
+
+def mesh_kernel_rows(dev, bw, peak, flush):
+    """matmul_int4 at one slot's five mats at model=2 and the continuous
+    step's 8 rows, flash_attention at one slot's 16 heads and
+    paged_attention at 16 kv heads, each against its plain version
+    (``int4_row`` / ``flash_row`` / ``paged_row``: the same checks, bitwise
+    repeat and row-0 independence included)."""
+    import torch
+
+    from nnstreamer_tpu_torch.ops import int4_matmul as i4
+
+    gen = torch.Generator(device=dev).manual_seed(26)
+    rows = []
+    for name, (d2, f, per_token, odt_name) in MESH_INT4.items():
+        packed = torch.randint(-128, 128, (d2, f), generator=gen, device=dev,
+                               dtype=torch.int8)
+        scale = torch.rand((1, f), generator=gen, device=dev) * 1e-2 + 1e-3
+        w = (i4.unpack_int4(packed).float() * scale).to(torch.bfloat16)
+        rows.append(int4_row(dev, gen, bw, peak, flush, name, packed, scale, w,
+                             MESH_INT4_ROWS, per_token, odt_name))
+        print_row(rows[-1])
+        del packed, scale, w
+    for shape in MESH_FLASH:
+        rows.append(flash_row(dev, gen, bw, peak, flush, *shape))
+        print_row(rows[-1])
+    rows.append(paged_row(dev, gen, bw, peak, flush, *MESH_PAGED))
+    print_row(rows[-1])
+    return rows
+
+
+def mesh_dp_run(dev, frames, dp, size, acc):
+    """The per-frame quick-start's logits over a backlog of ``frames``
+    (the first held, the rest queued, then released: drains of
+    MESH_BATCH_MAX) at ``data_parallel=dp``; (logits, stats)."""
+    import numpy as np
+
+    import nnstreamer_tpu_torch as ntt
+    from nnstreamer_tpu_torch.core.log import metrics
+
+    cap = len(frames) + 8
+    pipe = ntt.Pipeline(PER_FRAME.format(size=size, cap=cap, acc=acc, tail=""),
+                        batch_max=MESH_BATCH_MAX, queue_capacity=cap,
+                        data_parallel=dp)
+    [st] = [s for s in pipe.stages if s.element.kind == "fused"]
+    stage = st.element
+    check(st.shardable, f"the per-frame stage {stage.name} is not shardable")
+    with pipe:
+        check(pipe.mesh_shape == (dp, 1), f"mesh shape {pipe.mesh_shape}")
+        pipe.push("src", frames[0])
+        outs = [pipe.pull("out", timeout=WAIT_S)]
+        warm_buckets(stage, frames[0], MESH_BATCH_MAX)
+        warm = stage.census.captures
+        metrics.reset()
+        started, release = hold_first(stage)
+        pipe.push("src", frames[1])
+        check(started.wait(WAIT_S), "the held stage never started")
+        for f in frames[2:]:
+            pipe.push("src", f)
+        runner = [r for r in pipe._unique_runners() if r.element is stage][0]
+        deadline = time.monotonic() + WAIT_S
+        while len(runner.queue._dq) < len(frames) - 2:
+            check(time.monotonic() < deadline, "backlog never queued")
+            time.sleep(0.001)
+        t0 = time.perf_counter()
+        release.set()
+        outs.extend(pipe.pull("out", timeout=WAIT_S) for _ in frames[1:])
+        wall = time.perf_counter() - t0
+        snap = metrics.snapshot()
+        census = census_of(stage.census, warm)
+        pipe.eos("src")
+        pipe.wait(timeout=WAIT_S)
+    rows = {k: v for k, v in snap.items() if k.startswith(f"{stage.name}.shard_rows.")}
+    logits = [np.asarray(o.tensors[0], np.float32).reshape(-1) for o in outs]
+    return logits, dict(frames_per_s=(len(frames) - 1) / wall, wall_s=wall,
+                        shard_rows=rows, shard_dispatch=snap.get(
+                            f"{stage.name}.shard_dispatch", 0.0),
+                        census=census)
+
+
+def mesh_dp(dev, size=224, frames_n=MESH_FRAMES, acc=""):
+    """The per-frame quick-start at ``data_parallel=2`` against one slot
+    over the same backlog: every frame's logits within VISION_TOL of its
+    max |logit| (bitwise counted), both replicas' row counters non-zero."""
+    import numpy as np
+
+    rng = np.random.default_rng(26)
+    frames = [rng.integers(0, 256, (1, size, size, 3), dtype=np.uint8)
+              for _ in range(frames_n)]
+    one, st1 = mesh_dp_run(dev, frames, 1, size, acc)
+    two, st2 = mesh_dp_run(dev, frames, MESH_DP, size, acc)
+    share = max(float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(two, one))
+    bitwise = sum(a.tobytes() == b.tobytes() for a, b in zip(two, one))
+    check(share <= VISION_TOL, f"data-parallel logits {share} of max |logit| off")
+    rows = st2["shard_rows"]
+    check(len(rows) == MESH_DP and all(v > 0 for v in rows.values()),
+          f"per-replica rows {rows}")
+    check(not st1["shard_rows"], f"one slot counted shard rows {st1['shard_rows']}")
+    return dict(frames=frames_n, one=st1, dp=st2, max_logit_share=share,
+                bitwise=bitwise)
+
+
+def mesh_query(dev, acc=""):
+    """A ``mesh=data:2`` filter behind ``tensor_query_serversrc`` answers
+    one client: the batch of 8 rows split over the two slots."""
+    import numpy as np
+
+    import nnstreamer_tpu_torch as ntt
+
+    srv = ntt.Pipeline(MESH_QUERY.format(acc=acc), fuse=False)
+    with srv:
+        fw = [e for e in srv.elements.values() if e.kind == "tensor_filter"][0].fw
+        check(fw.mesh is not None and fw.mesh.shape["data"] == MESH_DP,
+              f"the filter's mesh {fw.mesh}")
+        port = srv.element("ssrc").bound_port
+        cli = ntt.Pipeline(f"appsrc name=src ! tensor_query_client port={port} "
+                           "timeout=15 ! tensor_sink name=out")
+        with cli:
+            x = np.arange(64, dtype=np.float32).reshape(8, 8)
+            cli.push("src", x)
+            got = np.asarray(cli.pull("out", timeout=WAIT_S).tensors[0])
+            cli.eos("src")
+            cli.wait(timeout=WAIT_S)
+    check(got.tobytes() == (4.0 * x).tobytes(), "mesh=data:2 over the wire: wrong rows")
+    return dict(rows=8, slots=MESH_DP, bitwise=True)
+
+
+def phase_mesh(dev, bw=None, peak=None, flush=None, base=MESH_DESC, new=MESH_NEW,
+               static_desc=MESH_STATIC_DESC, static_new=MESH_STATIC_NEW,
+               layers=N_LAYERS, size=224, frames_n=MESH_FRAMES, acc="",
+               kernel_rows=True):
+    """The in-process mesh on MESH_SLOTS slots of ``dev``: tensor-parallel
+    serving (``mesh_tp``), the kernels at the shard shapes
+    (``mesh_kernel_rows``), data-parallel micro-batching (``mesh_dp``) and
+    ``mesh=data:2`` behind the query pair (``mesh_query``)."""
+    from nnstreamer_tpu_torch.parallel.mesh import local_devices
+
+    with device_slots(MESH_SLOTS):
+        slots = local_devices(dev.type)
+        check(len(slots) == MESH_SLOTS and all(s.device.type == dev.type for s in slots),
+              f"mesh slots {slots}")
+        out = dict(slots=[str(s.device) for s in slots])
+        out["tp"] = mesh_tp(dev, base=base, new=new, static_desc=static_desc,
+                            static_new=static_new, layers=layers)
+        out["kernels"] = mesh_kernel_rows(dev, bw, peak, flush) if kernel_rows else []
+        out["dp"] = mesh_dp(dev, size=size, frames_n=frames_n, acc=acc)
+        out["query"] = mesh_query(dev, acc=acc)
+    return out
+
+
+def print_mesh(m, card):
+    def gb(v):
+        return "(CPU: no peak)" if v is None else f"{v:.2f}"
+
+    t = m["tp"]
+    print(f"mesh: slots {m['slots']} ({card}: one card, two slots)", flush=True)
+    print(f"mesh: tensor-parallel model=2, {len(t['tp']['ids'])} streams x "
+          f"{len(t['tp']['ids'][0])} tokens: {t['tp']['aggregate_tok_s']:.2f} tok/s "
+          f"against {t['full']['aggregate_tok_s']:.2f} unsharded (one card, two slots); "
+          f"decode {[round(x, 2) for x in t['tp']['decode_tok_s']]} against "
+          f"{[round(x, 2) for x in t['full']['decode_tok_s']]} tok/s a stream; "
+          f"load {t['tp']['setup_s']:.1f} s (unsharded {t['full']['setup_s']:.1f}), "
+          f"peak {gb(t['tp']['peak_mem_gb'])} GB (unsharded "
+          f"{gb(t['full']['peak_mem_gb'])}), {t['tp']['pool_heads_per_slot']} kv heads "
+          f"a slot's pool", flush=True)
+    for i, r in enumerate(t["tp"]["teacher"]):
+        print(f"mesh: stream {i} teacher-forced against the unsharded step: logits "
+              f"{r['max_logit_share']:.4f} of max |logit| (tolerance {MESH_TIE}), tokens "
+              f"{r['equal_held']} of {r['held']} held equal, {r['equal']} of "
+              f"{r['steps']} in all, {r['near_ties']} near ties", flush=True)
+    print(f"census: mesh {t['tp']['census']}; launches {t['tp']['launches']}, "
+          f"by step {t['tp']['step_launches']}", flush=True)
+    s = t["static"]
+    print(f"mesh: static custom=tp:2, prompt {s['prompt_len']}, {len(s['ids'])} tokens in "
+          f"{s['request_s']:.2f} s, launches {s['launches']}, teacher-forced logits "
+          f"{s['teacher']['max_logit_share']:.4f}, tokens {s['teacher']['equal_held']} of "
+          f"{s['teacher']['held']} held", flush=True)
+    d = m["dp"]
+    print(f"mesh: data-parallel quick-start, {d['frames']} frames at batch_max "
+          f"{MESH_BATCH_MAX}: {d['dp']['frames_per_s']:.1f} frames/s at data=2 against "
+          f"{d['one']['frames_per_s']:.1f} on one slot (one card, two slots); logits "
+          f"{d['max_logit_share']:.5f} of max |logit| off, {d['bitwise']} of "
+          f"{d['frames']} bitwise; rows {d['dp']['shard_rows']}, census "
+          f"{d['dp']['census']}", flush=True)
+    print(f"mesh: mesh=data:2 behind the query pair {m['query']}", flush=True)
+
+
 def main():
     import torch
 
@@ -8446,6 +8839,14 @@ def main():
         save()
         torch.cuda.empty_cache()
 
+    with phase("mesh"):
+        flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+        mesh = detail["mesh"] = phase_mesh(dev, bw, peak, flush_buf.zero_)
+        del flush_buf
+        print_mesh(mesh, card)
+        save()
+        torch.cuda.empty_cache()
+
     with phase("reference"):
         detail["reference"] = []
         for ref in (phase_reference, phase_reference_paged, phase_reference_bf16):
@@ -8526,6 +8927,10 @@ def main():
     # launches of the new shapes, counted by captured step (verify,
     # propose) and around the draft's eager prefill calls
     int4_rows = [r for r in rows if r["kernel"] == "matmul_int4"]
+    mesh_int4 = [r for r in mesh["kernels"] if r["kernel"] == "matmul_int4"]
+    mesh_flash = {r["shape"]["Sq"]: r for r in mesh["kernels"]
+                  if r["kernel"] == "flash_attention"}
+    [mesh_paged] = [r for r in mesh["kernels"] if r["kernel"] == "paged_attention"]
 
     def per_step(B, key):
         return sum(r[key] * r["per_token"] for r in int4_rows if r["B"] == B)
@@ -8543,7 +8948,8 @@ def main():
                 spec=[spec["greedy"], *spec["sampled"], spec["accept"],
                       spec["accept_plain"]],
                 files=[files["int4"], files["int8"], files["text"]],
-                elastic=[elastic["greedy"], elastic["sampled"]])
+                elastic=[elastic["greedy"], elastic["sampled"]],
+                mesh=[mesh["tp"]["full"], mesh["tp"]["tp"], mesh["tp"]["static"]])
     by_phase = {k: {ph: sum(r["launches"].get(k, 0) for r in rs)
                     for ph, rs in runs.items()}
                 for k in ("matmul_int4", "flash_attention", "paged_attention")}
@@ -8555,40 +8961,55 @@ def main():
              source="nnstreamer_tpu_torch/csrc/int4_matmul.cu",
              replaces="nnstreamer_tpu/ops/int4_matmul.py:193",
              launches=both["matmul_int4"],
-             max_abs_err=max(r["max_abs_err"] for r in int4_rows),
-             max_row_err=max(r["max_row_err"] for r in int4_rows),
+             max_abs_err=max(r["max_abs_err"] for r in int4_rows + mesh_int4),
+             max_row_err=max(r["max_row_err"] for r in int4_rows + mesh_int4),
              **{k: per_step(1, k) for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
              bound_by="bytes",
              **{f"{what}_{k}": per_step(B, k) for what, B in (("step8", 8), ("chunk32", 32))
                 for k in ("ms", "bound_ms", "library_ms")},
              launches_by_phase=by_phase["matmul_int4"],
-             spec_launches=spec_shapes["matmul_int4"]),
+             spec_launches=spec_shapes["matmul_int4"],
+             # one slot's share of a tensor-parallel decode step (model=2,
+             # 8 rows), the five shard mats; max errors include them
+             **{f"tp2_step8_{k}": sum(r[k] * r["per_token"] for r in mesh_int4)
+                for k in ("ms", "bound_ms", "library_ms")},
+             tp2_max_row_err=max(r["max_row_err"] for r in mesh_int4)),
         dict(name="flash_attention", route="cuda",
              source="nnstreamer_tpu_torch/csrc/flash_attention.cu",
              replaces="nnstreamer_tpu/ops/attention.py:210",
              launches=both["flash_attention"],
-             max_abs_err=max(r["max_abs_err"] for r in rows
+             max_abs_err=max(r["max_abs_err"] for r in rows + mesh["kernels"]
                              if r["kernel"] == "flash_attention"),
-             max_row_err=max(r["max_row_err"] for r in rows
+             max_row_err=max(r["max_row_err"] for r in rows + mesh["kernels"]
                              if r["kernel"] == "flash_attention"),
              **{k: 32 * fl[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
              bound_by=fl["bound_by"],
              chunk_ms={str(n): N_LAYERS * r["ms"] for n, r in sorted(chunk.items())},
              launches_by_phase=by_phase["flash_attention"],
-             spec_launches=spec_shapes["flash_attention"]),
+             spec_launches=spec_shapes["flash_attention"],
+             # one slot's 16 heads at model=2: a request's 1023-row bucket
+             # and a 32-row chunk on 704 keys, 32 launches each
+             **{f"tp2_{k}": N_LAYERS * mesh_flash[1023][k]
+                for k in ("ms", "bound_ms", "library_ms")},
+             tp2_chunk704_ms=N_LAYERS * mesh_flash[32]["ms"],
+             tp2_max_row_err=max(r["max_row_err"] for r in mesh_flash.values())),
         dict(name="paged_attention", route="cuda",
              source="nnstreamer_tpu_torch/csrc/paged_attention.cu",
              replaces="nnstreamer_tpu/ops/attention.py:429",
              launches=both["paged_attention"],
-             max_abs_err=max(r["max_abs_err"] for r in paged_rows),
-             max_row_err=max(r["max_row_err"] for r in paged_rows),
+             max_abs_err=max(r["max_abs_err"] for r in paged_rows + [mesh_paged]),
+             max_row_err=max(r["max_row_err"] for r in paged_rows + [mesh_paged]),
              **{k: N_LAYERS * pg[k] for k in ("ms", "plain_ms", "bound_ms",
                                               "library_ms")},
              bound_by=pg["bound_by"],
              **{f"verify_{k}": N_LAYERS * vr[k] for k in ("ms", "bound_ms",
                                                           "library_ms")},
              launches_by_phase=by_phase["paged_attention"],
-             spec_launches=spec_shapes["paged_attention"]),
+             spec_launches=spec_shapes["paged_attention"],
+             # one slot's pool at model=2: 16 kv heads, 32 launches a step
+             **{f"tp2_{k}": N_LAYERS * mesh_paged[k] for k in ("ms", "bound_ms",
+                                                              "library_ms")},
+             tp2_max_row_err=mesh_paged["max_row_err"]),
         int8_summary(mf),
     ]
     detail["summary"] = summary

@@ -75,19 +75,15 @@ def analyze(
     failures) and a static memory/census report is attached as
     ``report.resources``.  No device is touched and no model storage is
     allocated.  The remaining keyword knobs parameterize its resource
-    model and default to the global Config; ``data_parallel`` or
-    ``model_parallel`` above 1 raise
-    :class:`~.tracecheck.MultiDeviceNotPorted` (ROADMAP Queue A 6).
+    model and default to the global Config (``data_parallel`` and
+    ``model_parallel`` are sized against ``parallel.mesh.local_devices()``,
+    as the runtime's mesh is).
 
     ``proto=True`` adds the protocol pass's findings over the port's
     serving protocol modules (:func:`.protocol.lint_package`: the
     alphabet, handler totality, the unanswered-path proof and the
     model-vs-code drift gate) — a property of the package, not of this
     pipeline."""
-    if deep:
-        from .tracecheck import _one_card
-
-        _one_card(data_parallel, model_parallel)
     source = pipeline if isinstance(pipeline, str) else None
     report = Report(source)
     if isinstance(pipeline, str):
@@ -136,12 +132,13 @@ def analyze(
 
         run("protocol", _run_proto)
     if deep:
-        from .tracecheck import deep_check
+        from .tracecheck import MultiDeviceNotPorted, deep_check
 
         try:
             ddiags, resources = deep_check(
                 graph, batch_max=batch_max, batch_buckets=batch_buckets,
                 adaptive_buckets=adaptive_buckets,
+                data_parallel=data_parallel, model_parallel=model_parallel,
                 dispatch_depth=dispatch_depth,
                 hbm_budget_bytes=hbm_budget_bytes,
                 max_compiled_variants=max_compiled_variants,
@@ -149,6 +146,8 @@ def analyze(
                 out_caps=caps_state.get("out_caps"))
             report.extend(ddiags)
             report.resources = resources
+        except MultiDeviceNotPorted:
+            raise  # a named refusal, not an analyzer bug
         except Exception as e:  # noqa: BLE001 - report, never crash
             report.add("analyzer-error", ERROR,
                        f"deep pass crashed: {e!r} — report this bug")

@@ -30,8 +30,14 @@ and reports, in one run:
 
 The pass touches no device: no storage is allocated on the card or the
 host for a model (``tests/test_torch_deep_analysis.py`` pins it).  The
-port runs on one card: ``data_parallel`` / ``model_parallel`` above 1
-raise :class:`MultiDeviceNotPorted` (ROADMAP Queue A 6).
+pipeline mesh is priced with the runtime's arithmetic
+(``pipeline/plan.mesh_plan`` over ``parallel.mesh.local_devices()``):
+shardable stages per slot (replica-rounded buckets, params whole on
+every device as the runtime places them, their pspecs checked by
+:func:`_pspec_audit`), the llm filter's weights and pool per slot, and the over-ask, ``model-divisibility`` and
+``mesh-axis-missing`` diagnostics in the JAX package's words.  A
+``tensor_trainer`` under a ``model`` axis raises
+:class:`MultiDeviceNotPorted` (its ``mesh=`` is not ported).
 """
 
 from __future__ import annotations
@@ -46,25 +52,25 @@ from ..elements.base import Element, SINK, SRC
 from ..filters.base import abstract_build
 from ..pipeline.batching import ladder as bucket_ladder
 from ..pipeline.graph import PipelineGraph
-from ..pipeline.plan import adaptive_variant_budget
+from ..pipeline.batching import shard_bucket_for, split_runs
+from ..pipeline.plan import adaptive_variant_budget, mesh_plan
 from ..pipeline.residency import FetchEdge, compute_floor_ms, fetch_ms
 from .capsflow import SAFE_CONFIGURE, _element_class, _kahn_order, propagate
 from .diagnostics import Diagnostic, ERROR, WARNING, node_label
 
 
 class MultiDeviceNotPorted(ValueError):
-    """A data or model axis wider than one card: the port's multi-device
-    slice (ROADMAP Queue A 6) is not ported yet."""
+    """A mesh the port does not carry yet: the trainer's ``mesh=`` (ROADMAP
+    Queue A 6)."""
 
 
-def _one_card(data_parallel: Optional[int], model_parallel: Optional[int]):
-    for name, v in (("data_parallel", data_parallel),
-                    ("model_parallel", model_parallel)):
-        if v is not None and int(v) > 1:
-            raise MultiDeviceNotPorted(
-                f"{name}={v}: multi-device plans wait for ROADMAP Queue A 6 "
-                "(mesh_plan, shard_bucket_for and the pspec audit are not "
-                "ported); the port plans for one card")
+def _one_card(model_par: int, label: str) -> None:
+    """A ``tensor_trainer`` runs on one slot: a ``model`` axis over 1
+    raises, naming it."""
+    if model_par > 1:
+        raise MultiDeviceNotPorted(
+            f"{label}: model_parallel={model_par}: the trainer's mesh= "
+            "waits for ROADMAP Queue A 6; the port trains on one card")
 
 
 def _mib(n: int) -> str:
@@ -143,7 +149,7 @@ class ResourceReport:
 
     stages: List[StageResource]
     batch_max: int
-    data_parallel: int  # 1: one card (ROADMAP Queue A 6)
+    data_parallel: int  # resolved replicas (1 = unsharded)
     model_parallel: int = 1
     dispatch_depth: int = 1
     ladder: Tuple[int, ...] = ()
@@ -311,7 +317,10 @@ def deep_check(
         buckets = sorted(set(buckets))
     adaptive = bool(adaptive_buckets if adaptive_buckets is not None
                     else cfg.adaptive_buckets)
-    _one_card(data_parallel, model_parallel)
+    dp_knob = max(0, data_parallel if data_parallel is not None
+                  else cfg.data_parallel)
+    mp_knob = max(0, model_parallel if model_parallel is not None
+                  else cfg.model_parallel)
     dispatch_depth = max(1, dispatch_depth if dispatch_depth is not None
                          else cfg.dispatch_depth)
     hbm_budget = (hbm_budget_bytes if hbm_budget_bytes is not None
@@ -323,7 +332,17 @@ def deep_check(
     rtt_ms = float(link_rtt_ms if link_rtt_ms is not None
                    else cfg.link_fetch_rtt_ms)
 
-    model_par = replicas = 1  # one card (ROADMAP Queue A 6)
+    from ..parallel.mesh import local_devices, one_device_slots
+
+    # what Pipeline._shared_mesh sizes against (no device is touched)
+    slots = local_devices()
+    n_devices = len(slots)
+    req_dp, req_mp = mesh_plan(dp_knob, mp_knob, batch_max, n_devices,
+                               absorb=one_device_slots(slots))
+    # model what could run; the over-ask itself is a diagnostic below
+    model_par = min(req_mp, n_devices)
+    replicas = min(req_dp, max(1, n_devices // model_par))
+    requested = req_dp
     diags: List[Diagnostic] = []
     if out_caps is None:
         # capsflow's own diagnostics are the syntactic pass's to report;
@@ -333,7 +352,7 @@ def deep_check(
     traces: Dict[int, _NodeTrace] = {}
     serving_stages: List[StageResource] = []
     for node in _kahn_order(graph):
-        serving = _llm_serving_stage(node, diags)
+        serving = _llm_serving_stage(node, diags, model_par)
         if serving is not None:
             # continuous LLM serving is priced STATICALLY (building the
             # element would materialize the full parameter set); True =
@@ -341,7 +360,7 @@ def deep_check(
             if isinstance(serving, StageResource):
                 serving_stages.append(serving)
             continue
-        train = _trainer_stage(node, diags)
+        train = _trainer_stage(node, diags, req_mp)
         if train is not None:
             # tensor_trainer: priced statically via the runtime's own
             # train_plan arithmetic (the model built on meta).  The
@@ -358,7 +377,7 @@ def deep_check(
             if isinstance(ring, StageResource):
                 serving_stages.append(ring)
             continue
-        got = _trace_node(graph, node, out_caps, diags)
+        got = _trace_node(graph, node, out_caps, diags, model_par)
         if got is not None:
             traces[node.id] = got
 
@@ -380,6 +399,26 @@ def deep_check(
             t.element.stop()
         except Exception:  # noqa: BLE001 - best-effort cleanup
             pass
+    # exactly when the runtime builds the mesh (a model axis configured,
+    # or a shardable stage with batching on), an over-asked plan fails
+    # start() (or the llm filter's open()) with this arithmetic
+    if requested * req_mp > n_devices and (
+            mp_knob != 1
+            or (batch_max > 1
+                and any(s.shard_eligible for s in report.stages))):
+        top = next((s for s in report.stages if s.shard_eligible), None)
+        if requested > 1 and req_mp > 1:
+            plan = f"data_parallel={requested} x model_parallel={req_mp}"
+        elif req_mp > 1:
+            plan = f"model_parallel={req_mp}"
+        else:
+            plan = f"data_parallel={requested}"
+        diags.append(Diagnostic(
+            "data-parallel-devices", ERROR,
+            f"{plan} needs {requested * req_mp} local devices, "
+            f"have {n_devices} — start() will fail with PipelineError",
+            path=top.label if top else "",
+            pos=top.pos if top else None))
     diags.extend(_budget_diags(report))
     return diags, report
 
@@ -442,7 +481,7 @@ def _reconfig_check(graph, reconfig: Dict) -> List[Diagnostic]:
     return diags
 
 
-def _llm_serving_stage(node, diags):
+def _llm_serving_stage(node, diags, model_par: int = 1):
     """Price a ``serve:continuous`` llm filter statically.
 
     Returns ``None`` when the node is not a continuous-serving llm
@@ -530,6 +569,14 @@ def _llm_serving_stage(node, diags):
                         **plan_kw)
     quant = str(opts.get("quant", "")).lower()
     param_dtype = str(opts.get("param_dtype", "float32"))
+    # tensor parallelism: the pipeline's model axis, or custom=tp: when
+    # the pipeline knob is off (the runtime promotes it the same way)
+    ways = model_par
+    if ways <= 1:
+        try:
+            ways = max(1, int(opts.get("tp", 1)))
+        except (TypeError, ValueError):
+            ways = 1
     params = llama.param_bytes_estimate(cfg, quant=quant,
                                         param_dtype=param_dtype)
     pool = plan["pool_bytes"]
@@ -537,6 +584,31 @@ def _llm_serving_stage(node, diags):
         draft_cfg, param_dtype=param_dtype)
         if draft_cfg is not None else 0)
     draft_pool = plan["draft_pool_bytes"]
+    if ways > 1:
+        problems = llama.tp_divisibility_problems(cfg, ways)
+        if draft_cfg is not None:
+            problems += [f"draft {p}" for p in
+                         llama.tp_divisibility_problems(draft_cfg, ways)]
+        if problems:
+            # open() raises the same arithmetic at runtime
+            diags.append(Diagnostic(
+                "model-divisibility", ERROR,
+                f"model geometry does not divide model_parallel={ways}: "
+                + "; ".join(problems)
+                + " — the llm filter's open() will fail",
+                path=label, pos=node.pos))
+        else:
+            # per slot: the cut mats and the lm_head divide by M, embed
+            # and norms are whole; the pool is cut by kv head
+            shard, repl = llama.param_bytes_split(cfg, quant=quant,
+                                                  param_dtype=param_dtype)
+            params = shard // ways + repl
+            pool = pool // ways
+            if draft_cfg is not None:
+                dsh, drep = llama.param_bytes_split(
+                    draft_cfg, param_dtype=param_dtype)
+                draft_params = dsh // ways + drep
+                draft_pool = draft_pool // ways
     # Per-slot in-flight activations of the decode step: the f32 logits
     # row dominates ([vocab] per slot per scan step — the k+1-wide
     # verify step multiplies it by spec_k+1 under speculation), plus
@@ -549,7 +621,7 @@ def _llm_serving_stage(node, diags):
         label=label, param_bytes=params + draft_params,
         act_row_bytes=act_row,
         rows_per_device=slots, variants=plan["programs"],
-        batchable=False, shard_eligible=False, sharded=False,
+        batchable=False, shard_eligible=False, sharded=ways > 1,
         pos=node.pos, pool_bytes=pool + draft_pool,
         draft_param_bytes=draft_params, draft_pool_bytes=draft_pool,
         prng_bytes=plan["prng_state_bytes"],
@@ -557,7 +629,7 @@ def _llm_serving_stage(node, diags):
         kv_groups=plan["kv_groups"])
 
 
-def _trainer_stage(node, diags):
+def _trainer_stage(node, diags, model_par: int = 1):
     """Price a ``tensor_trainer`` stage statically.
 
     Returns ``None`` when the node is not a trainer of this package's
@@ -577,6 +649,7 @@ def _trainer_stage(node, diags):
     if fw != "jax":
         return None
     label = node_label(node)
+    _one_card(model_par, label)
     from ..trainer.subplugin import train_plan
 
     try:
@@ -690,7 +763,48 @@ def _capsfilter_trace(graph, node, out_caps) -> Optional[_NodeTrace]:
         host_post=False, linear=linear)
 
 
-def _trace_node(graph, node, out_caps, diags) -> Optional[_NodeTrace]:
+def _pspec_audit(params, pspecs, model_par: int, label, pos,
+                 diags: List[Diagnostic]) -> None:
+    """Audit a bundle's ``param_pspecs`` against its leaves under a
+    ``model_parallel=model_par`` plan, as the runtime's placement checks
+    them (``parallel.sharding.check_pspecs``): appends
+    ``mesh-axis-missing`` (a spec names an axis the ``(data x model)``
+    mesh lacks) and ``model-divisibility`` (a cut dim does not divide),
+    both only when the plan cuts over ``model``.  Pairing and axes ride
+    the runtime's walk (``parallel.sharding.iter_param_specs``)."""
+    from ..parallel.sharding import iter_param_specs, spec_entry_axes
+
+    bad_axes: set = set()
+    bad_dims: List[str] = []
+    for path, p, s in iter_param_specs(params, pspecs):
+        shape = tuple(getattr(p, "shape", ()) or ())
+        for i, entry in enumerate(s or ()):
+            for a in spec_entry_axes(entry):
+                if a == "model":
+                    if i < len(shape) and shape[i] % model_par:
+                        bad_dims.append(f"{path}[{i}]={shape[i]}")
+                elif a != "data":
+                    bad_axes.add(str(a))
+    if model_par > 1 and bad_axes:
+        diags.append(Diagnostic(
+            "mesh-axis-missing", WARNING,
+            f"param_pspecs name mesh axes {sorted(bad_axes)} that the "
+            "pipeline's (data x model) mesh does not carry — those "
+            "leaves cannot place at the first sharded dispatch "
+            "(valid placement axes: 'data', 'model')",
+            path=label, pos=pos))
+    if model_par > 1 and bad_dims:
+        shown = ", ".join(bad_dims[:4]) + (", ..." if len(bad_dims) > 4
+                                           else "")
+        diags.append(Diagnostic(
+            "model-divisibility", ERROR,
+            f"param dims sharded over 'model' do not divide "
+            f"model_parallel={model_par}: {shown} — placement will fail",
+            path=label, pos=pos))
+
+
+def _trace_node(graph, node, out_caps, diags,
+                model_par: int = 1) -> Optional[_NodeTrace]:
     """Abstractly execute one node's device path; returns its trace record
     (for resource accounting) or None when the node has no device path."""
     if node.kind == "capsfilter":
@@ -780,6 +894,16 @@ def _trace_node(graph, node, out_caps, diags) -> Optional[_NodeTrace]:
         params = int(el.param_bytes())
     except Exception:  # noqa: BLE001 - accounting probe only
         params = 0
+    # the placement audit: the axis / divisibility diagnostics, on the
+    # meta tree (the params are priced whole: the runtime places them so)
+    try:
+        bundle = getattr(getattr(el, "fw", None), "bundle", None)
+        pspecs = getattr(bundle, "param_pspecs", None)
+        if pspecs is not None and bundle.params is not None:
+            _pspec_audit(bundle.params, pspecs, model_par,
+                         node_label(node), node.pos, diags)
+    except Exception:  # noqa: BLE001 - accounting probe only
+        pass
     try:
         batchable = bool(el.batch_capable())
     except Exception:  # noqa: BLE001 - capability probe only
@@ -835,9 +959,10 @@ def _resources(graph, traces: Dict[int, _NodeTrace], *, batch_max, buckets,
         batchable = fused or chain[0].batchable
         host_post = chain[-1].host_post
         shard_eligible = batchable and not host_post
-        # a >1 model axis only reaches batchable stages when batching is
-        # on (the runtime attaches the mesh to runners with batch_max>1)
-        sharded = False  # one card (ROADMAP Queue A 6)
+        # the mesh reaches shardable stages only with batching on (the
+        # runtime attaches it to runners with batch_max > 1)
+        sharded = shard_eligible and batch_max > 1 and (
+            replicas > 1 or model_par > 1)
         # a lone element outside the batching path runs its invoke
         # eagerly (ROADMAP Queue B 5): nothing is captured for it
         n_buckets = 1 if fused else 0
@@ -845,12 +970,20 @@ def _resources(graph, traces: Dict[int, _NodeTrace], *, batch_max, buckets,
         window = 1
         if batchable and batch_max > 1:
             window = dispatch_depth  # in-flight micro-batches per runner
-            n_buckets = len(lad)
-            rows = lad[-1]
-        param_total = sum(t.param_bytes for t in chain)
+            if sharded:
+                # one captured step per bucket and slot with rows (the
+                # JAX package: one program per bucket); rows per slot
+                sb = sorted({shard_bucket_for(b, replicas, buckets)
+                             for b in lad})
+                n_buckets = sum(replicas * sum(1 for k in split_runs(
+                    b // replicas, model_par) if k) for b in sb)
+                rows = split_runs(sb[-1] // replicas, model_par)[0]
+            else:
+                n_buckets = len(lad)
+                rows = lad[-1]
         stages.append(StageResource(
             label="+".join(t.element.name for t in chain),
-            param_bytes=param_total,
+            param_bytes=sum(t.param_bytes for t in chain),
             act_row_bytes=max(t.in_bytes + t.out_bytes for t in chain),
             rows_per_device=rows * window,
             variants=n_buckets,

@@ -12,10 +12,11 @@ refinement, the dispatch window, ingress donation; ``[ladders]`` holds
 warm-start ladders by stage name), the deep pass's budgets and link
 pricing (``hbm_budget_bytes``, ``link_d2h_mbps``, ``link_fetch_rtt_ms``),
 xray's switch, ledger tolerance and peak (``xray``,
-``xray_hbm_tolerance``, ``peak_tflops``), and each framework's free-form options
+``xray_hbm_tolerance``, ``peak_tflops``), the pipeline mesh's axes
+(``data_parallel``, ``model_parallel``: ``parallel/mesh.py``,
+``pipeline/plan.mesh_plan``), and each framework's free-form options
 (the ini's ``[filter-<name>]`` sections, ``framework_options``, parsed as
-the JAX package parses them; like it, nothing else reads them).  The JAX package's mesh knobs
-(``data_parallel``, ``model_parallel``) wait for the multi-device slice.
+the JAX package parses them; like it, nothing else reads them).
 Populated
 from (in priority order) :func:`set_config` > environment > the ini file
 named by ``NNS_TPU_CONF`` > defaults.
@@ -41,6 +42,8 @@ _ENV_STAGE_RESTARTS = "NNS_TPU_MAX_STAGE_RESTARTS"
 _ENV_BATCH_MAX = "NNS_TPU_BATCH_MAX"
 _ENV_ADAPTIVE = "NNS_TPU_ADAPTIVE_BUCKETS"
 _ENV_LADDERS = "NNS_TPU_BUCKET_LADDERS"
+_ENV_DATA_PARALLEL = "NNS_TPU_DATA_PARALLEL"
+_ENV_MODEL_PARALLEL = "NNS_TPU_MODEL_PARALLEL"
 _ENV_DISPATCH_DEPTH = "NNS_TPU_DISPATCH_DEPTH"
 _ENV_DONATE_INGRESS = "NNS_TPU_DONATE_INGRESS"
 _ENV_MAX_VARIANTS = "NNS_TPU_MAX_COMPILED_VARIANTS"
@@ -87,6 +90,17 @@ class Config:
     #: ``NNS_TPU_BUCKET_LADDERS=f:1|2|4|6|8;g:...``
     bucket_ladders: Dict[str, List[int]] = dataclasses.field(
         default_factory=dict)
+    #: data-parallel replicas a bucketed micro-batch is sharded over (the
+    #: mesh's ``data`` axis): 0 = every slot of one device once
+    #: batch_max > 1 (``NNS_TPU_DEVICE_SLOTS`` unset: one replica; no run
+    #: over distinct cards exists, so only a knob spans them), 1 = one
+    #: slot, N = exactly N slots.  Only shardable stages see the mesh.
+    data_parallel: int = 0
+    #: tensor-parallel ways over the mesh's ``model`` axis: 1 = off, N =
+    #: exactly N (the llm filter runs tensor-parallel on it; shardable
+    #: stages keep their params whole and split rows over it too), 0 =
+    #: every slot the ``data`` axis leaves.  Not gated on batch_max.
+    model_parallel: int = 1
     #: dispatch window of a batching stage: micro-batches dispatched but
     #: not yet emitted downstream (1 = drain, dispatch, emit in lockstep)
     dispatch_depth: int = 2
@@ -183,6 +197,10 @@ class Config:
                 cfg.bucket_ladders = {
                     stage: [int(v) for v in _split(sizes)]
                     for stage, sizes in cased.items("ladders")}
+            if ini.has_option("common", "data_parallel"):
+                cfg.data_parallel = ini.getint("common", "data_parallel")
+            if ini.has_option("common", "model_parallel"):
+                cfg.model_parallel = ini.getint("common", "model_parallel")
             if ini.has_option("common", "dispatch_depth"):
                 cfg.dispatch_depth = ini.getint("common", "dispatch_depth")
             if ini.has_option("common", "donate_ingress"):
@@ -236,6 +254,10 @@ class Config:
             cfg.max_stage_restarts = int(os.environ[_ENV_STAGE_RESTARTS])
         if os.environ.get(_ENV_BATCH_MAX):
             cfg.batch_max = int(os.environ[_ENV_BATCH_MAX])
+        if os.environ.get(_ENV_DATA_PARALLEL):
+            cfg.data_parallel = int(os.environ[_ENV_DATA_PARALLEL])
+        if os.environ.get(_ENV_MODEL_PARALLEL):
+            cfg.model_parallel = int(os.environ[_ENV_MODEL_PARALLEL])
         if os.environ.get(_ENV_DISPATCH_DEPTH):
             cfg.dispatch_depth = int(os.environ[_ENV_DISPATCH_DEPTH])
         if os.environ.get(_ENV_MAX_VARIANTS):

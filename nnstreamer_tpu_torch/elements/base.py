@@ -23,7 +23,10 @@ GstBaseTransform and the per-element chain functions).  An element has:
   weights it keeps, for the deep analyzer (``analysis/tracecheck.py``);
   ``PAD_TEMPLATES`` are the caps its sink pads admit, read offline.
 
-``place_params`` waits for the multi-device slice.
+* **the pipeline mesh** — :meth:`Element.place_params` places the
+  element's parameters on the mesh before its first sharded dispatch
+  and :meth:`Element.slot_device_fn` gives a slot's callable over them
+  (``parallel/``, ``pipeline/batching.py``).
 """
 
 from __future__ import annotations
@@ -197,6 +200,19 @@ class Element:
         buffer (a pure tensor_filter): what micro-batching vmaps, and what
         the planner marks batchable and restartable.  Default: False."""
         return False
+
+    def place_params(self, mesh) -> bool:
+        """Place this element's device parameters onto ``mesh``, once per
+        stage before its first sharded dispatch (``pipeline/batching.py``).
+        True when anything was placed.  Default: no parameters."""
+        return False
+
+    def slot_device_fn(self, in_spec: TensorsSpec, slot):
+        """One mesh slot's callable after :meth:`place_params`, over the
+        slot's copy of the placed parameters.  Default: :meth:`device_fn`'s
+        callable, which holds no parameters."""
+        df = self.device_fn(in_spec)
+        return None if df is None else df[0]
 
     # -- fusion ------------------------------------------------------------
     def device_fn(

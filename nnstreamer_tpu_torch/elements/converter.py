@@ -24,7 +24,8 @@ Port of ``nnstreamer_tpu/elements/converter.py`` (reference:
   ``protobuf``, ``python3``); an unknown name raises.
 
 The raw frames of ``v4l2src``, ``filesrc`` and ``tensor_src_iio`` come
-with those sources, which are not ported yet.
+from those sources (``elements/source.py``) and are converted here like
+any other bytes.
 """
 
 from __future__ import annotations

@@ -71,8 +71,12 @@ def _parse_output_combination(s: str) -> Optional[List[Tuple[str, int]]]:
     return combo
 
 
-def _load_framework(props: Dict[str, object]) -> Framework:
-    """framework= name or 'auto' (priority list from config)."""
+def _load_framework(props: Dict[str, object],
+                    mesh_provider=None) -> Framework:
+    """framework= name or 'auto' (priority list from config).
+    ``mesh_provider`` (the pipeline's ``_model_mesh``) is handed to the
+    framework before its open(), so a tensor-parallel framework (the llm
+    filter) opens on the pipeline's mesh."""
     fw_name = str(props.get("framework", "auto")).lower()
     candidates = (
         get_config().filter_priority if fw_name in ("auto", "") else [fw_name]
@@ -84,6 +88,8 @@ def _load_framework(props: Dict[str, object]) -> Framework:
             last_err = KeyError(f"framework {cand!r} not registered")
             continue
         fw: Framework = cls()
+        if mesh_provider is not None:
+            fw._mesh_provider = mesh_provider
         try:
             fw.open(props)
             return fw
@@ -148,7 +154,8 @@ class TensorFilter(Element):
 
     def _ensure_fw(self) -> Framework:
         if self.fw is None:
-            self.fw = _load_framework(self.props)
+            self.fw = _load_framework(
+                self.props, mesh_provider=getattr(self, "_mesh_provider", None))
         # the pipeline's armor (Pipeline(quarantine=...)), through which the
         # llm serve loop's nan_guard quarantines a poisoned prompt
         self.fw._armor = getattr(self, "_armor", None)
@@ -431,9 +438,19 @@ class TensorFilter(Element):
             if xr is not None and census is not None:
                 census.attach_xray(xr, self.name,
                                    lambda: getattr(self, "_trace_rec", None))
+            mesh = getattr(self, "_shard_mesh", None)
+            prep = None
+            if mesh is not None:
+                # this framework's params placed once, then each slot's
+                # callable over its view of them (a reloaded framework
+                # gets a runner, and a placement, of its own)
+                def prep(m, fw=fw):
+                    self._place_fw_params(fw, m)
+                    return fw.slot_fn
             entry = (fw, BatchRunner(
                 fn, getattr(self, "_batch_buckets", None), name=self.name,
-                ladder=getattr(self, "_batch_ladder", None), census=census))
+                ladder=getattr(self, "_batch_ladder", None), census=census,
+                mesh=mesh, prepare=prep))
             self._batchers = {id(fw): entry}
         rows = entry[1].run([tuple(self._select_inputs(b.tensors)) for b in bufs])
         self._record((time.perf_counter() - t0) / len(bufs))
@@ -442,6 +459,57 @@ class TensorFilter(Element):
         return [(SRC, b.with_tensors(
                     self._compose_outputs(b.tensors, list(row)), spec=spec))
                 for b, row in zip(bufs, rows)]
+
+    # -- the pipeline mesh ---------------------------------------------------
+    def place_params(self, mesh) -> bool:
+        """Place the framework's params onto ``mesh`` once (the sharded
+        runner's prepare), as the framework's ``place_params`` does."""
+        return self._place_fw_params(self._ensure_fw(), mesh)
+
+    def _place_fw_params(self, fw, mesh) -> bool:
+        place = getattr(fw, "place_params", None)
+        if place is None:
+            return False
+        split = place(mesh)
+        if split is None:
+            return False
+        n_shard, n_rep = split
+        from ..parallel.mesh import mesh_axis_size
+
+        if mesh_axis_size(mesh, "model") > 1 and n_shard + n_rep:
+            # the shard / replica split, beside .param_replications
+            metrics.count(f"{self.name}.param_shards", n_shard)
+            metrics.count(f"{self.name}.param_replicas", n_rep)
+        metrics.count(f"{self.name}.param_replications")
+        return True
+
+    def _slot_fn(self, fw, slot):
+        """One mesh slot's callable: the framework's over the slot's copy
+        of its placed params, the combinations around it."""
+        return self._combined(fw.slot_fn(slot))
+
+    def slot_device_fn(self, in_spec: TensorsSpec, slot):
+        fw = self._ensure_fw()
+        if getattr(fw, "slot_fn", None) is None:
+            return super().slot_device_fn(in_spec, slot)
+        return self._slot_fn(fw, slot)
+
+    def _combined(self, fn):
+        """``fn`` with the input / output combinations around it."""
+        if self.input_combination is None and self.output_combination is None:
+            return fn
+        combo_in, combo_out = self.input_combination, self.output_combination
+
+        def wrapped(arrays):
+            model_in = (tuple(arrays[i] for i in combo_in)
+                        if combo_in is not None else arrays)
+            outs = fn(model_in)
+            if combo_out is None:
+                return outs
+            return tuple(
+                (arrays if tag == "i" else outs)[i] for tag, i in combo_out)
+
+        return wrapped
 
     # -- fusion ------------------------------------------------------------
     def device_fn(self, in_spec: TensorsSpec):
@@ -465,18 +533,7 @@ class TensorFilter(Element):
         combined = self._combined_out_spec(out_spec)
         if combined is None:
             return None  # statically unknown output: the host path handles it
-        combo_in, combo_out = self.input_combination, self.output_combination
-
-        def wrapped(arrays):
-            model_in = (tuple(arrays[i] for i in combo_in)
-                        if combo_in is not None else arrays)
-            outs = fn(model_in)
-            if combo_out is None:
-                return outs
-            return tuple(
-                (arrays if tag == "i" else outs)[i] for tag, i in combo_out)
-
-        return wrapped, combined
+        return self._combined(fn), combined
 
     # -- abstract execution (lint --deep) -----------------------------------
     def abstract_invoke(self, in_spec: TensorsSpec):
@@ -533,7 +590,8 @@ class TensorFilter(Element):
         props = dict(self.props)
         if model is not None:
             props["model"] = model
-        new_fw = _load_framework(props)
+        new_fw = _load_framework(
+            props, mesh_provider=getattr(self, "_mesh_provider", None))
         new_in, new_out = new_fw.get_model_info()
         for have, new, what in ((self._in_spec, new_in, "input"),
                                 (self._out_spec, new_out, "output")):

@@ -110,11 +110,6 @@ class ByteTokenizer:
         return bytes([b]) if b < 256 else b""
 
 
-#: custom= options of the JAX package's llm filter whose paths this port
-#: does not carry yet; asking for one raises instead of serving another path
-_NOT_PORTED = ("tp",)
-
-
 #: captured steps of the continuous loop for its life: the ``[slots]``-row
 #: paged decode step; with a draft, the propose and the verify step in its
 #: place.  The JAX package's census has 3 / 5 programs: its prefill step
@@ -234,7 +229,21 @@ class LLMFramework(Framework):
     (train-while-serve): between static requests, or at the loop's next
     chunk boundary.
 
-    Not ported yet, and raising: ``tp:``.
+    **Tensor parallelism.**  Inside a pipeline with a ``model`` axis
+    (``Pipeline(model_parallel=M)``; ``custom=tp:M`` is promoted to it)
+    the filter opens on the pipeline's mesh (``_mesh_provider``); outside
+    one, ``custom=tp:M`` builds a ``(data=1, model=M)`` mesh of its own
+    over the local slots of its device.  The weights (and a draft's) are
+    cut over the model group's slots (``llama.place_tp``), the static
+    cache and the continuous loop's pools by kv head, one tensor per
+    slot; the tokens, positions, tables and sampler state stay on the
+    root slot.  Every step runs the same kernels per slot at the shard's
+    shapes, chosen per call.  With every slot on one device a step
+    (decode, propose, verify) is one captured graph; over distinct cards
+    the census runs the steps eagerly (``Census.eager``, not yet run on
+    such a machine).  A geometry that does not divide, or more slots than
+    there are, raises.  Weight swaps are refused under tensor
+    parallelism.
     """
 
     name = "llm"
@@ -266,16 +275,19 @@ class LLMFramework(Framework):
         self._requests = 0
         self._swapping = False
         self._requests_cv = threading.Condition()
+        #: tensor parallelism: the mesh the filter runs on and the cut
+        #: weights (``llama.TPParams``), else None
+        self.mesh = None
+        self.tp = None
 
     def open(self, props: Dict[str, object]) -> None:
         super().open(props)
         model = str(props.get("model") or "llama_tiny")
         opts = parse_custom_options(str(props.get("custom", "")))
-        for key in _NOT_PORTED:
-            if key in opts:
-                raise FrameworkError(
-                    f"custom={key}:{opts[key]} is not yet ported to "
-                    "nnstreamer_tpu_torch")
+        try:
+            tp = int(opts.pop("tp", 1))
+        except ValueError:
+            raise FrameworkError("custom=tp: expects an int") from None
         serve = str(opts.pop("serve", "")).lower()
         if serve not in ("", "continuous"):
             raise FrameworkError(f"custom=serve:{serve}: unknown serve mode "
@@ -324,6 +336,70 @@ class LLMFramework(Framework):
             self._open_draft(draft, draft_seed, opts)
         self._open_tokenizer(tok_path, stop_opt)
         self.census = Census(self.device)
+        self._setup_tp(tp)
+
+    def _setup_tp(self, tp: int) -> None:
+        """Open on the pipeline's mesh when it has a ``model`` axis, else
+        on a ``(data=1, model=tp)`` mesh of the filter's own for ``tp``
+        over 1; cut the weights (and the draft's) over the model group."""
+        from ..parallel.mesh import local_devices, make_mesh, mesh_axis_size
+
+        mesh = None
+        provider = getattr(self, "_mesh_provider", None)
+        if provider is not None:
+            try:
+                mesh = provider(self.device)
+            except Exception as e:
+                from ..pipeline.runtime import PipelineError
+
+                if isinstance(e, PipelineError):
+                    # a placement error of the pipeline (an over-ask, a
+                    # plan that does not divide) goes up as it is
+                    raise
+                raise FrameworkError(str(e)) from e
+            if mesh is not None and mesh_axis_size(mesh, "model") <= 1:
+                mesh = None
+        if mesh is None and tp > 1:
+            if self.device.type == "meta":
+                return  # abstract build: nothing to place
+            slots = local_devices(self.device.type)
+            if len(slots) < tp:
+                raise FrameworkError(
+                    f"tp:{tp} needs {tp} devices, have {len(slots)}")
+            mesh = make_mesh(model=tp, data=1, devices=slots[:tp])
+        if mesh is None:
+            return
+        ways = mesh_axis_size(mesh, "model")
+        problems = llama.tp_divisibility_problems(self.cfg, ways)
+        if self.draft_cfg is not None:
+            problems += [f"draft {p}" for p in
+                         llama.tp_divisibility_problems(self.draft_cfg, ways)]
+        if problems:
+            raise FrameworkError(
+                f"model geometry does not divide model_parallel={ways}: "
+                + "; ".join(problems))
+        if mesh.kind != self.device.type:
+            raise FrameworkError(
+                f"the pipeline mesh is on {mesh.kind}, the filter on "
+                f"{self.device.type} (accelerator=)")
+        group = mesh.model_group(0)
+        devs = [s.device for s in group]
+        if devs[0] != self.device:
+            raise FrameworkError(
+                f"the mesh's root slot is on {devs[0]}, the filter on "
+                f"{self.device}")
+        self.mesh = mesh
+        self.bundle.params = llama.place_tp(self.bundle.params, self.cfg, devs)
+        self.tp = self.bundle.params
+        if self.draft_bundle is not None:
+            self.draft_bundle.params = llama.place_tp(
+                self.draft_bundle.params, self.draft_cfg, devs)
+        if not self.tp.one_device:
+            # one stream cannot capture a step over several cards: the
+            # steps run eagerly (not yet run on such a machine)
+            self.census.eager = True
+            log.warning("llm filter: tensor-parallel over %d distinct "
+                        "devices runs its decode steps eagerly", ways)
 
     def _open_tokenizer(self, tok_path, stop_opt) -> None:
         """The JAX filter's tokenizer choice: an explicit
@@ -511,7 +587,8 @@ class LLMFramework(Framework):
     # -- train-while-serve: param hot-swap ----------------------------------
     def swap_params(self, tree, timeout: float = 30.0) -> Optional[int]:
         """Copy ``tree`` (the structure, shapes and dtypes of
-        ``bundle.params``) into the live weights.  Every captured step
+        ``bundle.params``) into the live weights (refused under tensor
+        parallelism: the weights are cut over slots).  Every captured step
         reads those tensors at fixed addresses (the int4 and paged kernels
         bake TMA maps into the graphs), so they are written in place,
         never rebound.  With a standing serve loop the copy is a control
@@ -522,6 +599,10 @@ class LLMFramework(Framework):
         swapped, and each decode set's captured step reads the new ones."""
         if self.bundle is None:
             raise FrameworkError("framework is not open")
+        if self.tp is not None:
+            raise FrameworkError(
+                "swap_params: the weights are cut over a tensor-parallel mesh; "
+                "a swap into the shards is not ported")
         if self._serve is not None:
             return self._serve.swap_params(tree, timeout)
         with self._requests_cv:
@@ -542,12 +623,24 @@ class LLMFramework(Framework):
 
     def param_bytes(self) -> int:
         """Live parameter bytes, the draft's included (int4 leaves count
-        their packed bytes): the deep pass's estimate and xray's ledger."""
+        their packed bytes): the deep pass's estimate and xray's ledger.
+        Under tensor parallelism every slot's shards count, a tensor that
+        slots on one device share once."""
         from .base import tree_param_bytes
 
         total = 0
         for b in (self.bundle, self.draft_bundle):
-            if b is not None and b.params is not None:
+            if b is None or b.params is None:
+                continue
+            if isinstance(b.params, llama.TPParams):
+                seen = set()
+                for _, ts in b.params.leaves():
+                    for t in ts:
+                        key = (str(t.device), t.data_ptr())
+                        if key not in seen:
+                            seen.add(key)
+                            total += t.numel() * t.element_size()
+            else:
                 total += tree_param_bytes(b.params)
         return total
 
@@ -721,7 +814,8 @@ class _StaticDecode:
         cfg, dev, params, dtype = fw.cfg, fw.device, fw.bundle.params, fw.dtype
         temperature, top_k, top_p = fw.temperature, fw.top_k, fw.top_p
         self.B = B
-        cache = self.cache = llama.init_cache(cfg, B, dtype=dtype, device=dev)
+        cache = self.cache = llama.init_cache(cfg, B, dtype=dtype, device=dev,
+                                              tp=fw.tp)
         gen = self.gen = torch.Generator(device=dev)
         tok = self.tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
         pos = self.pos = torch.zeros((), dtype=torch.long, device=dev)
@@ -737,6 +831,12 @@ class _StaticDecode:
         self.step = fw.census.capture(
             ("static", B, str(dtype), temperature > 0), step,
             generators=(gen,) if temperature > 0 else ())
+
+
+def _pool_parts(pool) -> List[Dict]:
+    """A pool's per-slot dicts: a tensor-parallel pool is a list of them
+    (``llama.init_paged_cache`` with ``tp=``), any other pool is one."""
+    return pool if isinstance(pool, list) else [pool]
 
 
 def paged_decode_step(params, cfg, dtype, pool: Dict, tok: torch.Tensor,
@@ -1395,14 +1495,15 @@ class _ContinuousLoop:
         spec = fw.draft_bundle is not None
         sampled = fw.temperature > 0
         pool = llama.init_paged_cache(cfg, self.n_blocks, bs, dtype=fw.dtype,
-                                      device=dev)
+                                      device=dev, tp=fw.tp)
         dparams = dpool = None
         if spec:
             # one allocator and one table set steer both pools: block j
             # holds both models' K/V of the same positions
             dparams = fw.draft_bundle.params
             dpool = llama.init_paged_cache(fw.draft_cfg, self.n_blocks, bs,
-                                           dtype=fw.dtype, device=dev)
+                                           dtype=fw.dtype, device=dev,
+                                           tp=dparams if fw.tp is not None else None)
         # The captured steps' static inputs on the card, which their graphs
         # read and write in place; the host's values go into them by
         # copies (from fresh pinned buffers: an earlier copy may still be
@@ -1438,8 +1539,14 @@ class _ContinuousLoop:
         self._pool, self._draft_pool = pool, dpool
         self._pool_nbytes = sum(
             t.numel() * t.element_size() for p_ in (pool, dpool) if p_
-            for t in (p_.values() if isinstance(p_, dict) else p_)
-            if isinstance(t, torch.Tensor))
+            for part in _pool_parts(p_) for t in part.values())
+        #: the pool's placement under tensor parallelism (cut by kv head)
+        self._pool_sharding = None
+        if fw.mesh is not None:
+            from ..parallel.sharding import NamedSharding
+
+            self._pool_sharding = NamedSharding(
+                fw.mesh, llama.paged_cache_pspecs()["k"])
         self._tok_h, self._tok_prev_h = tok_h, tok_prev_h
         eos = self.fw.tokenizer.eos if fw.stop_eos else -1
         admissions = 0
@@ -1457,8 +1564,9 @@ class _ContinuousLoop:
             new = alloc.take(1)[0]
             for p in (pool, dpool):
                 if p is not None:
-                    for key in ("k", "v"):
-                        p[key][:, new].copy_(p[key][:, src])
+                    for part in _pool_parts(p):
+                        for key in ("k", "v"):
+                            part[key][:, new].copy_(part[key][:, src])
             metrics.count("llm.serve.cow_forks")
             self._span(rec, "serve.cow_fork", t0, src=int(src), dst=int(new))
             return new
@@ -1527,7 +1635,10 @@ class _ContinuousLoop:
             card: gathered there, then copied into pinned memory on this
             thread's stream, waited for here)."""
             idx = upload(np.asarray(ids, np.int64), dev)
-            got = [pool[key].index_select(1, idx) for key in ("k", "v")]
+            # a tensor-parallel pool's shards joined on the kv-head axis
+            got = [torch.cat([part[key].index_select(1, idx.to(part[key].device))
+                              .to(dev) for part in _pool_parts(pool)], dim=3)
+                   for key in ("k", "v")]
             if dev.type == "cuda":
                 got, done = start_fetch(got)
                 done.synchronize()
@@ -1626,11 +1737,11 @@ class _ContinuousLoop:
             busy = {st["slot"] for st in self._admitting}
             freeslots = [i for i in range(B) if slots[i] is None
                          and remaining[i] == 0 and i not in busy]
-            if any(tuple(t.shape) != want or t.dtype != pool["k"].dtype
-                   for t in src):
+            pool_dt = _pool_parts(pool)[0]["k"].dtype
+            if any(tuple(t.shape) != want or t.dtype != pool_dt for t in src):
                 cmd["error"] = (
                     f"snapshot blocks {[tuple(t.shape) for t in src]} "
-                    f"{src[0].dtype}, the pool takes {want} {pool['k'].dtype}")
+                    f"{src[0].dtype}, the pool takes {want} {pool_dt}")
             elif not freeslots:
                 cmd["error"] = "no free slot to adopt into"
             elif need > self.max_blocks:
@@ -1655,9 +1766,14 @@ class _ContinuousLoop:
                 # into the pool in place: the captured steps (and the
                 # kernels' TMA maps) hold its address
                 idx = upload(np.asarray(blocks[:n_used], np.int64), dev)
+                parts = _pool_parts(pool)
                 for key, t in zip(("k", "v"), src):
                     pinned = dev.type == "cuda" and t.is_pinned()
-                    pool[key].index_copy_(1, idx, t.to(dev, non_blocking=pinned))
+                    # a tensor-parallel pool takes its kv heads' share
+                    for part, piece in zip(parts, t.chunk(len(parts), dim=3)):
+                        pd = part[key].device
+                        part[key].index_copy_(1, idx.to(pd), piece.to(
+                            pd, non_blocking=pinned and len(parts) == 1))
             tok_h[s] = int(snap["tok"])
             tok_prev_h[s] = int(snap.get("tok_prev", 0))
             tok[s] = int(tok_h[s])

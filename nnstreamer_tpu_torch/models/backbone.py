@@ -16,8 +16,14 @@ Weights: :func:`he_conv` draws from a seeded ``torch.Generator`` on the
 builder's device (torch cannot reproduce ``jax.random``), and
 :func:`params_from_jax` converts the JAX package's numpy trees (HWIO ->
 OIHW; a depthwise ``[kh, kw, 1, C]`` kernel becomes ``[C, 1, kh, kw]``,
-applied with ``groups=C``).  The JAX package's ``PartitionSpec`` helpers
-wait for the mesh slice.
+applied with ``groups=C``).  :func:`stem_pspecs` and
+:func:`sep_block_pspecs` are the JAX package's specs in this layout: a
+pointwise kernel (OIHW) and its scale and bias are cut over ``model`` on
+the output channels (dim 0 here, dim 3 of the JAX package's HWIO); the
+depthwise leaves are replicated.  The port checks these specs under a
+``model`` axis (the deep lint and the placement raise where a cut would
+not divide) but keeps the weights whole on every device: its forward is
+not written to compute on a cut (``filters/device_fw.place_params``).
 """
 
 from __future__ import annotations
@@ -58,6 +64,21 @@ def fm_size(size: int, stride: int) -> int:
     for _ in range(n):
         size = -(-size // 2)
     return size
+
+
+def stem_pspecs() -> Dict:
+    from ..parallel.sharding import P
+
+    return {"w": P("model"), "scale": P("model"), "bias": P("model")}
+
+
+def sep_block_pspecs() -> Dict:
+    """Pointwise kernels cut over their output channels (``model``);
+    depthwise, scale and bias of the depthwise conv replicated."""
+    from ..parallel.sharding import P
+
+    return {"dw": P(), "dw_scale": P(), "dw_bias": P(),
+            "pw": P("model"), "pw_scale": P("model"), "pw_bias": P("model")}
 
 
 def he_conv(gen: torch.Generator, kh: int, kw: int, cin: int,

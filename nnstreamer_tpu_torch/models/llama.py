@@ -16,12 +16,31 @@ the cache or pool tensors in place.  Prefill into an empty cache runs
 :func:`~..ops.attention.paged_attention`; int4 projections and the int4
 lm_head run :func:`~..ops.int4_matmul.matmul_int4`.  Every builder takes
 its ``device`` explicitly.
+
+**Tensor parallelism** over a mesh's ``model`` axis (Megatron layout,
+the JAX package's :func:`param_pspecs`): :func:`place_tp` cuts the tree
+over the slots of one model group into a :class:`TPParams` — q/k/v and
+gate/up by output columns (whole heads, GQA groups kept together), o and
+down by input rows, the lm_head by vocabulary; embed and norms whole on
+every device.  The int4 tree's fused mats are laid out per shard
+(``[q_s | k_s | v_s]``, ``[gate_s | up_s]``, not a contiguous cut of the
+fused axis) and its row-cut mats are unpacked, cut and packed again
+(the nibble planes are the halves of the input axis).  Given a
+:class:`TPParams`, :func:`forward`, :func:`forward_cached` and
+:func:`forward_paged` run each slot's heads and FFN columns with the same
+kernels at the shard's shapes, and after each row-cut product add the
+partials in slot order on the root slot
+(``parallel/sharding.fixed_order_sum``); the caches and pools
+(:func:`init_cache`, :func:`init_paged_cache` with ``tp=``) are one
+tensor per slot, cut by kv head.  :func:`params_from_jax` keeps working
+on the unsharded tree: placement is a step after it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -270,7 +289,7 @@ def _apply_quant(params: Dict, opts: Dict) -> Dict:
     return params
 
 
-def _mm(h, lp: Dict, key: str, dt):
+def _mm(h, lp: Dict, key: str, dt, out_dtype=None):
     """``h @ W`` for a layer dict that stores ``key`` full-precision,
     nibble-packed (``key_p``/``key_s``) or int8 (``key_q``/``key_s``).
 
@@ -278,15 +297,20 @@ def _mm(h, lp: Dict, key: str, dt):
     in the JAX package (exact algebra for per-output-channel scales; int8
     values are exact in bf16).  The product is ``torch.matmul`` on a
     ``dt`` copy of the int8 weights: XLA folds that convert into the
-    product's operand read, torch writes the copy and reads it back."""
+    product's operand read, torch writes the copy and reads it back.
+
+    ``out_dtype`` (a tensor-parallel partial: float32): the int4 kernel
+    writes its float32 sum unrounded; the other products are cast."""
     if key + "_p" in lp:
         B, T, D = h.shape
         y = matmul_int4(h.reshape(B * T, D).contiguous(), lp[key + "_p"],
-                        lp[key + "_s"])
+                        lp[key + "_s"], out_dtype=out_dtype)
         return y.reshape(B, T, -1)
     if key + "_q" in lp:
-        return (h @ lp[key + "_q"].to(dt)) * lp[key + "_s"].to(dt)
-    return h @ lp[key].to(dt)
+        y = (h @ lp[key + "_q"].to(dt)) * lp[key + "_s"].to(dt)
+    else:
+        y = h @ lp[key].to(dt)
+    return y if out_dtype is None else y.to(out_dtype)
 
 
 def _lm_head(params: Dict, x, dt):
@@ -328,17 +352,13 @@ def _rope(x, positions, theta):
     return out.to(x.dtype)
 
 
-def _block(cfg: LlamaConfig, lp, x, positions, kv=None,
-           pos_offset: Union[int, torch.Tensor, None] = None, paged=None):
-    """One transformer block.  ``kv=(k_cache, v_cache)`` ([B, S_max, Hkv,
-    hd] each) enables cached decode: x is the new suffix, written into the
-    caches in place at ``pos_offset`` (the Python int 0: prefill into an
-    empty cache; else a 0-d int64 tensor on x's device, the position the
-    suffix starts at).  ``paged=(tables, blk, off, lens)``
-    switches ``kv`` to one layer of the block pool ([n_blocks + 1, bs,
-    Hkv, hd]): the suffix row (b, t) is written at pool block
-    ``blk[b, t]``, offset ``off[b, t]``, then attended through the tables
-    (:func:`forward_paged` computes all four once per step)."""
+def _attn(cfg: LlamaConfig, lp, x, positions, kv=None,
+          pos_offset: Union[int, torch.Tensor, None] = None, paged=None,
+          out_dtype=None):
+    """The attention half of one transformer block (:func:`_block` says
+    what ``kv``, ``pos_offset`` and ``paged`` are): its o-projection's
+    output before the residual add, which under tensor parallelism is the
+    slot's partial of it (``out_dtype`` float32: see :func:`_block_tp`)."""
     B, T, D = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = x.dtype
@@ -396,8 +416,13 @@ def _block(cfg: LlamaConfig, lp, x, positions, kv=None,
         p = p / p.sum(dim=-1, keepdim=True)
         attn = torch.einsum("bhqk,bkhd->bqhd", p.to(dt), vr)
 
-    x = x + _mm(attn.reshape(B, T, H * hd), lp, "wo", dt)
+    return _mm(attn.reshape(B, T, H * hd), lp, "wo", dt, out_dtype)
 
+
+def _mlp(cfg: LlamaConfig, lp, x, out_dtype=None):
+    """The FFN half of one transformer block: its down-projection's
+    output, before the residual add."""
+    dt = x.dtype
     h = _rmsnorm(x, lp["ln_mlp"], cfg.norm_eps)
     if "wgu_p" in lp:  # int4 fused gate|up
         F_ = lp["wgu_p"].shape[-1] // 2
@@ -407,27 +432,328 @@ def _block(cfg: LlamaConfig, lp, x, positions, kv=None,
     else:
         gate = F.silu(_mm(h, lp, "w_gate", dt))
         up = _mm(h, lp, "w_up", dt)
-    return x + _mm(gate * up, lp, "w_down", dt)
+    return _mm(gate * up, lp, "w_down", dt, out_dtype)
+
+
+def _block(cfg: LlamaConfig, lp, x, positions, kv=None,
+           pos_offset: Union[int, torch.Tensor, None] = None, paged=None):
+    """One transformer block.  ``kv=(k_cache, v_cache)`` ([B, S_max, Hkv,
+    hd] each) enables cached decode: x is the new suffix, written into the
+    caches in place at ``pos_offset`` (the Python int 0: prefill into an
+    empty cache; else a 0-d int64 tensor on x's device, the position the
+    suffix starts at).  ``paged=(tables, blk, off, lens)``
+    switches ``kv`` to one layer of the block pool ([n_blocks + 1, bs,
+    Hkv, hd]): the suffix row (b, t) is written at pool block
+    ``blk[b, t]``, offset ``off[b, t]``, then attended through the tables
+    (:func:`forward_paged` computes all four once per step)."""
+    x = x + _attn(cfg, lp, x, positions, kv, pos_offset, paged)
+    return x + _mlp(cfg, lp, x)
 
 
 def _layer(params: Dict, i: int) -> Dict:
     return {k: v[i] for k, v in params["layers"].items()}
 
 
+# -- tensor parallelism over a mesh's model axis ----------------------------
+
+def param_pspecs(quant="") -> Dict:
+    """The tree's specs over the ``model`` mesh axis (the JAX package's
+    Megatron layout): q/k/v and gate/up cut on their output axis, o and
+    down on their input axis, the lm_head on the vocabulary; embed and
+    norms whole.  ``quant="int8"`` / ``"int4"`` give the specs of those
+    trees (a scale follows its mat's output axis; an input-cut mat's
+    scales stay whole).  The int4 fused groups name ``model`` on the fused
+    axis, as in the JAX package; :func:`place_tp` cuts them per member."""
+    from ..parallel.sharding import P
+
+    q = _quant_mode(quant if quant is not True else "int8")
+    if not q:
+        return {
+            "embed": P(None, None),
+            "layers": {
+                "wq": P(None, None, "model"),
+                "wk": P(None, None, "model"),
+                "wv": P(None, None, "model"),
+                "wo": P(None, "model", None),
+                "w_gate": P(None, None, "model"),
+                "w_up": P(None, None, "model"),
+                "w_down": P(None, "model", None),
+                "ln_attn": P(None, None),
+                "ln_mlp": P(None, None),
+            },
+            "ln_out": P(None),
+            "lm_head": P(None, "model"),
+        }
+    if q == "int4":
+        out_sharded = {"wqkv": True, "wo": False, "wgu": True, "w_down": False}
+        suffix = "_p"
+    else:
+        out_sharded = {"wq": True, "wk": True, "wv": True, "wo": False,
+                       "w_gate": True, "w_up": True, "w_down": False}
+        suffix = "_q"
+    lay = {"ln_attn": P(None, None), "ln_mlp": P(None, None)}
+    for k, on_out in out_sharded.items():
+        lay[k + suffix] = (P(None, None, "model") if on_out
+                           else P(None, "model", None))
+        lay[k + "_s"] = (P(None, None, "model") if on_out
+                         else P(None, None, None))
+    return {
+        "embed": P(None, None),
+        "layers": lay,
+        "ln_out": P(None),
+        "lm_head" + suffix: P(None, "model"),
+        "lm_head_s": P(None, "model"),
+    }
+
+
+def cache_pspecs() -> Dict:
+    """The dense KV cache ``[L, B, S_max, Hkv, hd]`` cut by kv head."""
+    from ..parallel.sharding import P
+
+    return {"k": P(None, None, None, "model", None),
+            "v": P(None, None, None, "model", None)}
+
+
+def paged_cache_pspecs() -> Dict:
+    """The block pool ``[L, n_blocks + 1, bs, Hkv, hd]`` cut by kv head:
+    a ``model_parallel=M`` loop holds ``pool_bytes / M`` per slot.  Each
+    slot's pool is a tensor of its own (:func:`init_paged_cache`), never
+    a strided view: the paged kernel reads it through TMA maps."""
+    from ..parallel.sharding import P
+
+    return {"k": P(None, None, None, "model"), "v": P(None, None, None, "model")}
+
+
+def tp_divisibility_problems(cfg: LlamaConfig, tp: int) -> List[str]:
+    """Dims that ``tp``-way tensor parallelism cannot split evenly (empty
+    when the geometry is clean): the one home of the arithmetic the
+    filter's open error and the deep lint's ``model-divisibility`` share."""
+    if tp <= 1:
+        return []
+    probs: List[str] = []
+    if (cfg.n_heads * cfg.head_dim) % tp:
+        probs.append(f"attention out dim n_heads*head_dim="
+                     f"{cfg.n_heads * cfg.head_dim}")
+    if (cfg.n_kv_heads * cfg.head_dim) % tp:
+        probs.append(f"kv out dim n_kv_heads*head_dim="
+                     f"{cfg.n_kv_heads * cfg.head_dim}")
+    if cfg.ffn_hidden % tp:
+        probs.append(f"ffn_hidden={cfg.ffn_hidden}")
+    if cfg.vocab % tp:
+        probs.append(f"vocab={cfg.vocab} (lm_head out)")
+    if cfg.n_kv_heads % tp:
+        probs.append(f"n_kv_heads={cfg.n_kv_heads} "
+                     "(the KV cache/pool shards the head axis)")
+    return probs
+
+
+def shard_config(cfg: LlamaConfig, tp: int) -> LlamaConfig:
+    """One shard's geometry: ``1/tp`` of the heads, kv heads and FFN
+    columns at the same head dim (``dim`` is cut with the heads so that
+    ``head_dim`` stays; the residual stream keeps the full width)."""
+    return dataclasses.replace(cfg, dim=cfg.dim // tp, n_heads=cfg.n_heads // tp,
+                               n_kv_heads=cfg.n_kv_heads // tp,
+                               ffn_hidden=cfg.ffn_hidden // tp)
+
+
+class TPParams:
+    """A parameter tree cut over the slots of one model group
+    (:func:`place_tp`): ``shards[s]`` is slot ``s``'s tree, on
+    ``devices[s]``; ``local`` is the shard geometry.  Slot 0 is the root:
+    the residual stream, the embedding lookup, the final norm and the
+    gathered logits live on its device."""
+
+    def __init__(self, shards: List[Dict], devices: Sequence[torch.device],
+                 cfg: LlamaConfig):
+        self.shards = shards
+        self.devices = [torch.device(d) for d in devices]
+        self.cfg = cfg
+        self.ways = len(shards)
+        self.local = shard_config(cfg, self.ways)
+        #: every slot on one device: a step over all of them is one stream
+        self.one_device = len({str(d) for d in self.devices}) == 1
+
+    @property
+    def root(self) -> torch.device:
+        return self.devices[0]
+
+    def on(self, s: int):
+        """Slot ``s``'s device as the current CUDA device (kernel wrappers
+        launch on the current device) where the slots span cards."""
+        if self.one_device or self.devices[s].type != "cuda":
+            return contextlib.nullcontext()
+        return torch.cuda.device(self.devices[s])
+
+    def to(self, x: torch.Tensor, s: int) -> torch.Tensor:
+        d = self.devices[s]
+        return x if x.device == d else x.to(d)
+
+    def sum(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        from ..parallel.sharding import fixed_order_sum
+
+        return fixed_order_sum(parts, self.root)
+
+    def leaves(self):
+        """``(path, [tensor per slot])`` for every leaf."""
+        def walk(trees, path):
+            if isinstance(trees[0], dict):
+                for k in trees[0]:
+                    yield from walk([t[k] for t in trees],
+                                    f"{path}.{k}" if path else k)
+            else:
+                yield path, trees
+
+        yield from walk(self.shards, "")
+
+
+def _cut(t: torch.Tensor, axis: int, s: int, ways: int) -> torch.Tensor:
+    n = t.shape[axis] // ways
+    return t.narrow(axis, s * n, n)
+
+
+def _cut_groups(t: torch.Tensor, sizes: Sequence[int], s: int, ways: int) -> torch.Tensor:
+    """Shard ``s`` of a mat fused on its last axis from members of
+    ``sizes``: each member cut by itself, the pieces side by side."""
+    out, start = [], 0
+    for n in sizes:
+        out.append(_cut(t.narrow(-1, start, n), -1, s, ways))
+        start += n
+    return torch.cat(out, dim=-1)
+
+
+def _cut_packed_rows(p: torch.Tensor, s: int, ways: int) -> torch.Tensor:
+    """Shard ``s`` of an int4 mat cut on its input axis: the packed rows
+    hold rows ``r`` and ``r + Din/2`` in one byte, so the mat is unpacked,
+    its logical rows ``[s*Din/ways, (s+1)*Din/ways)`` cut and packed
+    again (``ops/int4_matmul.pack_int4``'s layout) on the last two axes."""
+    t32 = p.to(torch.int32)
+    full = torch.cat([(t32 & 15) - 8, t32 >> 4], dim=-2)  # [..., Din, F]
+    rows = _cut(full, -2, s, ways)
+    h = rows.shape[-2] // 2
+    lo, hi = rows.narrow(-2, 0, h), rows.narrow(-2, h, h)
+    return (((hi & 0xF) << 4) | ((lo + 8) & 0xF)).to(torch.uint8).view(torch.int8)
+
+
+def place_tp(params: Dict, cfg: LlamaConfig,
+             devices: Sequence[torch.device]) -> TPParams:
+    """``params`` (the bf16 / float, ``quant:int8`` or ``quant:int4``
+    tree) cut over ``devices``, one slot each, by :func:`param_pspecs`:
+    output-cut mats by whole heads or FFN columns, the int4 fused groups
+    member by member (``[q_s | k_s | v_s]``, ``[gate_s | up_s]``), int4
+    input-cut mats repacked, input-cut mats' scales and every replicated
+    leaf whole (the same tensor on the tree's device).  Raises
+    ``ValueError`` naming the dims that do not divide."""
+    ways = len(devices)
+    probs = tp_divisibility_problems(cfg, ways)
+    if probs:
+        raise ValueError(f"model geometry does not divide model_parallel="
+                         f"{ways}: " + "; ".join(probs))
+    H, Hkv, hd, F_ = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.ffn_hidden
+    groups = {"wqkv": (H * hd, Hkv * hd, Hkv * hd), "wgu": (F_, F_)}
+    lay = params["layers"]
+    shards = []
+    for s, dev in enumerate(devices):
+        dev = torch.device(dev)
+
+        def put(t):  # a cut: a contiguous tensor of its own on dev
+            if t.device != dev:
+                return t.to(dev).contiguous()
+            return t.clone(memory_format=torch.contiguous_format)
+
+        def fresh(t):  # already a tensor of its own
+            return t if t.device == dev else t.to(dev)
+
+        whole = fresh
+
+        out_lay: Dict = {}
+        for key, t in lay.items():
+            name, _, kind = key.rpartition("_")
+            if kind not in ("p", "q", "s"):
+                name, kind = key, ""
+            if key in ("ln_attn", "ln_mlp"):
+                out_lay[key] = whole(t)
+            elif name in groups:  # int4 fused q|k|v, gate|up (and scales)
+                out_lay[key] = fresh(_cut_groups(t, groups[name], s, ways))
+            elif name in ("wo", "w_down"):
+                if kind == "p":
+                    out_lay[key] = fresh(_cut_packed_rows(t, s, ways))
+                elif kind == "s":
+                    out_lay[key] = whole(t)
+                else:
+                    out_lay[key] = put(_cut(t, 1, s, ways))
+            else:  # wq wk wv w_gate w_up (full, _q or _s): output columns
+                out_lay[key] = put(_cut(t, -1, s, ways))
+        tree = {"embed": whole(params["embed"]), "layers": out_lay,
+                "ln_out": whole(params["ln_out"])}
+        for key in ("lm_head", "lm_head_q", "lm_head_p", "lm_head_s"):
+            if key in params:
+                tree[key] = put(_cut(params[key], -1, s, ways))
+        shards.append(tree)
+    return TPParams(shards, devices, cfg)
+
+
+def _lm_head_tp(tp: TPParams, x: torch.Tensor, dt) -> torch.Tensor:
+    """Each slot's vocabulary columns, gathered on the root in slot order."""
+    parts = []
+    for s in range(tp.ways):
+        with tp.on(s):
+            parts.append(_lm_head(tp.shards[s], tp.to(x, s), dt))
+    return torch.cat([tp.to(p, 0) for p in parts], dim=-1)
+
+
+def _block_tp(tp: TPParams, i: int, x, slot_args) -> torch.Tensor:
+    """One block over the model group: each slot's heads, the partials
+    of the o-projection summed in slot order, then each slot's FFN
+    columns, the down-projection's partials summed likewise.  The
+    partials are float32 (the int4 kernel's sums unrounded) and their
+    sum rounds once to the compute dtype, as the unsharded product's
+    float32 accumulation does.  ``slot_args(s)`` gives slot ``s``'s
+    ``(positions, kv, pos_offset, paged)``."""
+    f32 = torch.float32
+    parts = []
+    for s in range(tp.ways):
+        with tp.on(s):
+            pos_s, kv, po, paged = slot_args(s)
+            parts.append(_attn(tp.local, _layer(tp.shards[s], i), tp.to(x, s),
+                               pos_s, kv, po, paged, out_dtype=f32))
+    x = x + tp.sum(parts).to(x.dtype)
+    parts = []
+    for s in range(tp.ways):
+        with tp.on(s):
+            parts.append(_mlp(tp.local, _layer(tp.shards[s], i), tp.to(x, s),
+                              out_dtype=f32))
+    return x + tp.sum(parts).to(x.dtype)
+
+
+def _to_slot(tp: TPParams, v, s: int):
+    return tp.to(v, s) if isinstance(v, torch.Tensor) else v
+
+
 def forward(params, tokens, cfg: LlamaConfig, compute_dtype="bfloat16"):
-    """Full-sequence forward -> logits [B, T, vocab] f32."""
+    """Full-sequence forward -> logits [B, T, vocab] f32 (a
+    :class:`TPParams` runs tensor-parallel)."""
     dt = torch_dtype(compute_dtype)
     B, T = tokens.shape
-    x = params["embed"][tokens].to(dt)
+    tp = params if isinstance(params, TPParams) else None
+    root = tp.shards[0] if tp is not None else params
+    x = root["embed"][tokens].to(dt)
     positions = torch.arange(T, device=x.device)
     for i in range(cfg.n_layers):
-        x = _block(cfg, _layer(params, i), x, positions)
-    x = _rmsnorm(x, params["ln_out"], cfg.norm_eps)
-    return _lm_head(params, x, dt)
+        if tp is not None:
+            x = _block_tp(tp, i, x, lambda s: (_to_slot(tp, positions, s),
+                                               None, None, None))
+        else:
+            x = _block(cfg, _layer(params, i), x, positions)
+    x = _rmsnorm(x, root["ln_out"], cfg.norm_eps)
+    return _lm_head_tp(tp, x, dt) if tp is not None else _lm_head(params, x, dt)
 
 
-def init_cache(cfg: LlamaConfig, batch: int, dtype="bfloat16", *, device):
-    """KV cache: k/v of [L, B, S_max, H_kv, head_dim]."""
+def init_cache(cfg: LlamaConfig, batch: int, dtype="bfloat16", *, device,
+               tp: Optional[TPParams] = None):
+    """KV cache: k/v of [L, B, S_max, H_kv, head_dim].  With ``tp``: one
+    such dict per slot at the shard's kv heads, on the slot's device."""
+    if tp is not None:
+        return [init_cache(tp.local, batch, dtype, device=d) for d in tp.devices]
     shape = (cfg.n_layers, batch, cfg.max_seq, cfg.n_kv_heads, cfg.head_dim)
     dt = torch_dtype(dtype)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
@@ -446,24 +772,34 @@ def forward_cached(params, tokens, cache, pos_offset: Union[int, torch.Tensor],
     on the tokens' device is the position of the suffix's first row,
     written with ``index_copy_`` and attended through a masked sweep of
     the cache, all on the card (a captured decode step advances it in
-    place).  Any other int is taken as that tensor."""
+    place).  Any other int is taken as that tensor.  A :class:`TPParams`
+    runs tensor-parallel over its per-slot ``cache`` list
+    (:func:`init_cache` with ``tp=``)."""
     dt = torch_dtype(compute_dtype)
     B, T = tokens.shape
-    x = params["embed"][tokens].to(dt)
+    tp = params if isinstance(params, TPParams) else None
+    root = tp.shards[0] if tp is not None else params
+    x = root["embed"][tokens].to(dt)
     if isinstance(pos_offset, int) and pos_offset != 0:
         pos_offset = torch.full((), pos_offset, dtype=torch.long, device=x.device)
     positions = pos_offset + torch.arange(T, device=x.device)[None, :]
     for i in range(cfg.n_layers):
-        x = _block(cfg, _layer(params, i), x, positions,
-                   kv=(cache["k"][i], cache["v"][i]), pos_offset=pos_offset)
-    x = _rmsnorm(x, params["ln_out"], cfg.norm_eps)
-    return _lm_head(params, x, dt), cache
+        if tp is not None:
+            x = _block_tp(tp, i, x, lambda s: (
+                _to_slot(tp, positions, s), (cache[s]["k"][i], cache[s]["v"][i]),
+                _to_slot(tp, pos_offset, s), None))
+        else:
+            x = _block(cfg, _layer(params, i), x, positions,
+                       kv=(cache["k"][i], cache["v"][i]), pos_offset=pos_offset)
+    x = _rmsnorm(x, root["ln_out"], cfg.norm_eps)
+    logits = _lm_head_tp(tp, x, dt) if tp is not None else _lm_head(params, x, dt)
+    return logits, cache
 
 
 # -- block-paged KV pool (continuous serving) -------------------------------
 
 def init_paged_cache(cfg: LlamaConfig, n_blocks: int, block_size: int,
-                     dtype="bfloat16", *, device):
+                     dtype="bfloat16", *, device, tp: Optional[TPParams] = None):
     """Block-pool KV cache: k/v of [L, n_blocks + 1, block_size, H_kv,
     head_dim] on ``device``.
 
@@ -472,7 +808,13 @@ def init_paged_cache(cfg: LlamaConfig, n_blocks: int, block_size: int,
     block tables' sentinel), takes the writes the JAX package DROPS (a
     parked row, a position past the row's reservation): torch has no
     dropping scatter, and a masked write would cost a host sync per layer.
-    No table entry of a live position ever points at it."""
+    No table entry of a live position ever points at it.
+
+    With ``tp``: one such dict per slot at the shard's kv heads, each a
+    tensor of its own on the slot's device (:func:`paged_cache_pspecs`)."""
+    if tp is not None:
+        return [init_paged_cache(tp.local, n_blocks, block_size, dtype, device=d)
+                for d in tp.devices]
     shape = (cfg.n_layers, n_blocks + 1, block_size, cfg.n_kv_heads,
              cfg.head_dim)
     dt = torch_dtype(dtype)
@@ -517,13 +859,21 @@ def forward_paged(params, tokens, pool, block_tables, pos, cfg: LlamaConfig,
 
     ``logit_off``: return logits for ONLY that suffix position — [B, 1,
     vocab]; a chunked-prefill step needs the last real token's logits,
-    and slicing before the lm_head keeps it at one row."""
+    and slicing before the lm_head keeps it at one row.
+
+    A :class:`TPParams` runs tensor-parallel over its per-slot ``pool``
+    list (:func:`init_paged_cache` with ``tp=``): the tables, positions
+    and lengths are computed once on the root slot, each slot attends its
+    own kv heads."""
     dt = torch_dtype(compute_dtype)
     B, T = tokens.shape
     dev = tokens.device
-    x = params["embed"][tokens].to(dt)
-    sink = pool["k"].shape[1] - 1  # == n_blocks, the tables' sentinel
-    bs = pool["k"].shape[2]
+    tp = params if isinstance(params, TPParams) else None
+    root = tp.shards[0] if tp is not None else params
+    pool0 = pool[0] if tp is not None else pool
+    x = root["embed"][tokens].to(dt)
+    sink = pool0["k"].shape[1] - 1  # == n_blocks, the tables' sentinel
+    bs = pool0["k"].shape[2]
     span = block_tables.shape[1] * bs
     p = torch.as_tensor(pos, dtype=torch.long).reshape(-1)
     pd = p if p.device == dev else upload(p, dev)
@@ -539,14 +889,26 @@ def forward_paged(params, tokens, pool, block_tables, pos, cfg: LlamaConfig,
     on_card = T == 1 or (dev.type == "cuda" and paged_route(
         B, T, cfg.n_heads // cfg.n_kv_heads) == "kernel")
     lens = _context_lens(pd if on_card else p.cpu(), T, span)
+    if tp is not None:
+        # each slot's copy of the step's indices (the same tensors where
+        # the slots share a device)
+        per = [tuple(_to_slot(tp, v, s) if v.device.type != "cpu" else v
+                     for v in (idx, block_tables, blk, off, lens))
+               for s in range(tp.ways)]
     for i in range(cfg.n_layers):
-        x = _block(cfg, _layer(params, i), x, idx,
-                   kv=(pool["k"][i], pool["v"][i]),
-                   paged=(block_tables, blk, off, lens))
-    x = _rmsnorm(x, params["ln_out"], cfg.norm_eps)
+        if tp is not None:
+            x = _block_tp(tp, i, x, lambda s: (
+                per[s][0], (pool[s]["k"][i], pool[s]["v"][i]), None,
+                per[s][1:]))
+        else:
+            x = _block(cfg, _layer(params, i), x, idx,
+                       kv=(pool["k"][i], pool["v"][i]),
+                       paged=(block_tables, blk, off, lens))
+    x = _rmsnorm(x, root["ln_out"], cfg.norm_eps)
     if logit_off is not None:
         x = x[:, int(logit_off):int(logit_off) + 1]
-    return _lm_head(params, x, dt), pool
+    logits = _lm_head_tp(tp, x, dt) if tp is not None else _lm_head(params, x, dt)
+    return logits, pool
 
 
 def filter_logits(logits, temperature: float, top_k: int = 0,
@@ -1027,6 +1389,21 @@ def param_bytes_estimate(cfg: LlamaConfig, quant: str = "",
     else:
         mats, scales = (big + head) * itemsize, 0
     return mats + scales + cfg.vocab * D * itemsize + 4 * (2 * L * D + D)
+
+
+def param_bytes_split(cfg: LlamaConfig, quant: str = "",
+                      param_dtype: str = "float32") -> Tuple[int, int]:
+    """``(cut, replicated)`` bytes of :func:`param_bytes_estimate` under
+    :func:`param_pspecs` (the JAX package's split): the layer mats and the
+    lm_head with their scales divide by the ``model`` width per slot,
+    embed and norms are whole on each.  The deep lint prices a
+    ``model_parallel=M`` pipeline's params per slot as ``cut / M +
+    replicated``."""
+    total = param_bytes_estimate(cfg, quant=quant, param_dtype=param_dtype)
+    itemsize = 2 if str(param_dtype) in ("bfloat16", "float16") else 4
+    replicated = cfg.vocab * cfg.dim * itemsize \
+        + 4 * (2 * cfg.n_layers * cfg.dim + cfg.dim)
+    return total - replicated, replicated
 
 
 def _build(preset: str, opts: Dict[str, str], device: torch.device) -> ModelBundle:

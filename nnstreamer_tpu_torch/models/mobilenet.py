@@ -11,8 +11,9 @@ scale/bias.
 Weights are deterministic he-normal random from ``custom=seed:N``
 (drawn by a ``torch.Generator`` on the build device: the values differ
 from the JAX package's ``jax.random`` ones); ``params_from_jax`` (from
-``backbone.py``) carries the JAX package's tree across for parity.  The ``param_pspecs``
-of the JAX package wait for the mesh slice.
+``backbone.py``) carries the JAX package's tree across for parity.
+:func:`param_pspecs` cuts the pointwise kernels and the head over their
+output channels (the ``model`` mesh axis); depthwise leaves replicate.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 from ..core.types import TensorsSpec
 from .backbone import (compute_dtype as torch_dtype, he_conv, make_ops,
                        nhwc_to_internal, prepare, rounded, sep_block_params,
-                       stem_params)
+                       sep_block_pspecs, stem_params, stem_pspecs)
 from .backbone import params_from_jax  # noqa: F401 - the model's converter
 from .zoo import ModelBundle, register_model
 
@@ -65,6 +66,18 @@ def init_params(width: float = 1.0, classes: int = 1001, seed: int = 0,
     return params
 
 
+def param_pspecs() -> Dict:
+    """Specs over the ``(data, model)`` mesh: pointwise kernels and the
+    head cut over their output channels, depthwise leaves replicated."""
+    from ..parallel.sharding import P
+
+    specs: Dict = {"stem": stem_pspecs()}
+    for i in range(len(_V1_BLOCKS)):
+        specs[f"block{i}"] = sep_block_pspecs()
+    specs["head"] = {"w": P("model"), "bias": P("model")}
+    return specs
+
+
 def apply(params, x, *, compute_dtype="bfloat16"):
     """Forward pass.  ``x``: NHWC float [B, H, W, 3]; returns float32
     logits [B, classes]."""
@@ -96,6 +109,7 @@ def build_bundle(params, opts: Dict[str, str], name: str) -> ModelBundle:
         in_spec=TensorsSpec.from_string(f"3:{size}:{size}:{batch}", "float32"),
         out_spec=TensorsSpec.from_string(f"{classes}:{batch}", "float32"),
         name=name,
+        param_pspecs=param_pspecs(),
     )
 
 

@@ -10,7 +10,8 @@ parameter tree and rounding:
 The layout is the ``pose_estimation`` decoder's contract.  Weights are
 deterministic random from ``custom=seed:N`` (a ``torch.Generator`` on the
 build device); :func:`params_from_jax` carries the JAX package's tree
-across.  The JAX package's ``param_pspecs`` wait for the mesh slice.
+across.  :func:`param_pspecs`: the backbone's pointwise kernels cut over
+the ``model`` mesh axis, the heads replicated.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 from ..core.types import TensorsSpec
 from .backbone import (compute_dtype as torch_dtype, fm_size, he_conv, make_ops,
                        nhwc_to_internal, prepare, rounded, sep_block_params,
-                       stem_params)
+                       sep_block_pspecs, stem_params, stem_pspecs)
 from .backbone import params_from_jax  # noqa: F401 - the model's converter
 from .zoo import ModelBundle, register_model
 
@@ -70,6 +71,17 @@ def apply(params, x, *, compute_dtype="bfloat16"):
             off.float().permute(0, 2, 3, 1))
 
 
+def param_pspecs() -> Dict:
+    from ..parallel.sharding import P
+
+    specs: Dict = {"stem": stem_pspecs()}
+    for i in range(len(_BACKBONE)):
+        specs[f"block{i}"] = sep_block_pspecs()
+    specs["head_heat"] = {"w": P(), "bias": P()}
+    specs["head_off"] = {"w": P(), "bias": P()}
+    return specs
+
+
 def build_bundle(params, opts: Dict[str, str], name: str) -> ModelBundle:
     """A bundle over float32 ``params``, cast once to ``custom=dtype``."""
     keypoints = int(opts.get("keypoints", KEYPOINTS))
@@ -87,6 +99,7 @@ def build_bundle(params, opts: Dict[str, str], name: str) -> ModelBundle:
             f"{keypoints}:{fm}:{fm}:{batch},{2 * keypoints}:{fm}:{fm}:{batch}",
             "float32,float32"),
         name=name,
+        param_pspecs=param_pspecs(),
     )
 
 

@@ -20,8 +20,9 @@ The resize is ``F.interpolate(mode="bilinear", align_corners=False)`` in
 float32, ``jax.image.resize(..., "bilinear")``'s half-pixel sampling when
 upsampling (no antialiasing applies).  Weights are deterministic random
 from ``custom=seed:N`` (a ``torch.Generator`` on the build device);
-:func:`params_from_jax` carries the JAX package's tree across.  The JAX
-package's ``param_pspecs`` wait for the mesh slice.
+:func:`params_from_jax` carries the JAX package's tree across.
+:func:`param_pspecs`: the backbone's pointwise kernels cut over the
+``model`` mesh axis, the ASPP and head convs replicated.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ import torch.nn.functional as F
 from ..core.types import TensorsSpec
 from .backbone import (compute_dtype as torch_dtype, fm_size, he_conv, make_ops,
                        nhwc_to_internal, prepare, rounded, sep_block_params,
-                       stem_params)
+                       sep_block_pspecs, stem_params, stem_pspecs)
 from .backbone import params_from_jax  # noqa: F401 - the model's converter
 from .zoo import ModelBundle, register_model
 
@@ -101,6 +102,17 @@ def apply(params, x, *, compute_dtype="bfloat16", upsample: bool = True):
     return logits.permute(0, 2, 3, 1)  # NCHW view -> NHWC
 
 
+def param_pspecs() -> Dict:
+    from ..parallel.sharding import P
+
+    specs: Dict = {"stem": stem_pspecs()}
+    for i in range(len(_BACKBONE)):
+        specs[f"block{i}"] = sep_block_pspecs()
+    for head in ("aspp_conv", "aspp_pool", "head"):
+        specs[head] = {"w": P(), "bias": P()}
+    return specs
+
+
 def build_bundle(params, opts: Dict[str, str], name: str) -> ModelBundle:
     """A bundle over float32 ``params``, cast once to ``custom=dtype``;
     with ``upsample`` unpinned it carries the native-stride variant."""
@@ -120,6 +132,7 @@ def build_bundle(params, opts: Dict[str, str], name: str) -> ModelBundle:
         in_spec=TensorsSpec.from_string(f"3:{size}:{size}:{batch}", "float32"),
         out_spec=spec(size if up else native),
         name=name,
+        param_pspecs=param_pspecs(),
     )
     if up and "upsample" not in opts:
         # an explicit upsample:1 asks for full resolution: only an

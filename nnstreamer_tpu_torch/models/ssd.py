@@ -25,7 +25,7 @@ import torch
 from ..core.types import TensorsSpec
 from .backbone import (compute_dtype as torch_dtype, he_conv, make_ops,
                        nhwc_to_internal, prepare, rounded, sep_block_params,
-                       stem_params)
+                       sep_block_pspecs, stem_params, stem_pspecs)
 from .backbone import params_from_jax  # noqa: F401 - the model's converter
 from .zoo import ModelBundle, register_model
 
@@ -147,6 +147,22 @@ def apply(params, x, *, anchors: torch.Tensor, classes: int,
     return boxes, torch.sigmoid(logits)
 
 
+def param_pspecs() -> Dict:
+    """The backbone's and the extras' pointwise kernels cut over
+    ``model``; the heads replicated."""
+    from ..parallel.sharding import P
+
+    specs: Dict = {"stem": stem_pspecs()}
+    for i in range(len(_BACKBONE)):
+        specs[f"block{i}"] = sep_block_pspecs()
+    for i in range(len(_EXTRA)):
+        specs[f"extra{i}"] = sep_block_pspecs()
+    for tag in ("a", "b"):
+        specs[f"head_{tag}"] = {"box": P(), "box_bias": P(),
+                                "cls": P(), "cls_bias": P()}
+    return specs
+
+
 def build_bundle(params, opts: Dict[str, str], device, name: str) -> ModelBundle:
     """A bundle over float32 ``params``, cast once to ``custom=dtype``."""
     classes = int(opts.get("classes", 91))
@@ -165,6 +181,7 @@ def build_bundle(params, opts: Dict[str, str], device, name: str) -> ModelBundle
         out_spec=TensorsSpec.from_string(
             f"4:{n}:{batch},{classes}:{n}:{batch}", "float32,float32"),
         name=name,
+        param_pspecs=param_pspecs(),
     )
 
 

@@ -25,8 +25,10 @@ so a captured stage never copies them from the host.
 Weights are deterministic he-normal random from ``custom=seed:N`` (a
 ``torch.Generator`` on the build device: not the JAX package's values);
 :func:`params_from_jax` carries the JAX package's trees across, lists
-(the C3 blocks' ``m``) included.  The JAX package's ``param_pspecs`` wait
-for the mesh slice.
+(the C3 blocks' ``m``) included.  :func:`param_pspecs`: the toy
+backbone's pointwise kernels cut over the ``model`` mesh axis, the heads
+replicated; yolov5s / yolov8 replicate every leaf
+(:func:`v5s_param_pspecs`), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ import torch.nn.functional as F
 from ..core.types import TensorsSpec
 from .backbone import (compute_dtype as torch_dtype, fm_size, he_conv, make_ops,
                        nhwc_to_internal, prepare, rounded, same_pads,
-                       sep_block_params, stem_params)
+                       sep_block_params, sep_block_pspecs, stem_params,
+                       stem_pspecs)
 from .backbone import params_from_jax  # noqa: F401 - the models' converter
 from .zoo import ModelBundle, register_model
 
@@ -83,6 +86,29 @@ def init_params(classes: int, width: float = 1.0, seed: int = 0,
             "b": torch.full((nout,), -4.0, device=dev),
         }
     return params
+
+
+def param_pspecs() -> Dict:
+    from ..parallel.sharding import P
+
+    specs: Dict = {"stem": stem_pspecs()}
+    for i in range(len(_BACKBONE)):
+        specs[f"down{i}"] = sep_block_pspecs()
+        specs[f"block{i}"] = sep_block_pspecs()
+        specs[f"head{i}"] = {"w": P(), "b": P()}
+    return specs
+
+
+def v5s_param_pspecs(params: Dict):
+    """Every leaf replicated (batch sharding is the detectors' serving
+    axis)."""
+    from ..parallel.sharding import P
+
+    if isinstance(params, dict):
+        return {k: v5s_param_pspecs(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [v5s_param_pspecs(v) for v in params]
+    return P()
 
 
 def num_predictions(size: int) -> int:
@@ -256,6 +282,7 @@ def build_bundle(params, opts: Dict[str, str], device, name: str,
         in_spec=TensorsSpec.from_string(f"3:{size}:{size}:{batch}", "float32"),
         out_spec=out,
         name=name,
+        param_pspecs=param_pspecs(),
     )
 
 
@@ -430,6 +457,7 @@ def build_bundle_v5s(params, opts: Dict[str, str], device, name: str) -> ModelBu
         in_spec=TensorsSpec.from_string(f"3:{size}:{size}:{batch}", "float32"),
         out_spec=TensorsSpec.from_string(f"{5 + classes}:{n}:{batch}", "float32"),
         name=name,
+        param_pspecs=v5s_param_pspecs(params),
     )
 
 

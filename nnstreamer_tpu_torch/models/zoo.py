@@ -53,6 +53,9 @@ class ModelBundle:
     #: vocab, models/tokenizer.py); the llm framework prefers it to its
     #: byte-level fallback
     tokenizer: object = None
+    #: a (partial) tree of ``parallel.sharding.P`` over ``params``: the
+    #: leaves to cut over a mesh's ``model`` axis (None: replicate all)
+    param_pspecs: object = None
 
 
 _builders: Dict[str, Callable[[Dict[str, str], torch.device], ModelBundle]] = {}

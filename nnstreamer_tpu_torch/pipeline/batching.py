@@ -28,8 +28,24 @@ bucket as the trigger batch dim (the runtime expects the ladder), and a
 padded dispatch adds the pad rows' share of the step's FLOPs to
 ``<stage>.pad_waste_flops``.
 
-Left out: the sharded mode (``_run_sharded``, ``_build_sharded``,
-``shard_bucket_for``: the multi-device slice).
+**Sharded mode** (a pipeline mesh, ``parallel/mesh.py``): given a mesh
+whose ``data`` or ``model`` axis is over 1, the bucket is rounded up to
+a multiple of the ``data`` width (:func:`shard_bucket_for`), each data
+replica takes an equal run of rows, and the replica's rows are split
+further over its ``model`` slots in contiguous runs (the first slots one
+row longer where they do not divide).  Every slot replays a step of its
+own, captured on the slot's stream and device for its row count, over
+the stage's parameters, placed once before the first sharded dispatch
+(``prepare``: whole on every device, so a ``model`` axis splits rows as
+``data`` does; only the llm filter computes on a cut).  All the slots'
+replays are launched before the caller waits on any, so they overlap.
+The real rows' outputs are copied onto the root slot's device in slot
+order.
+``vmap`` keeps rows apart, so a row's outputs do not depend on which
+slot computed it (bitwise where the step's kernels do not change with
+the row count).  Counters: ``<stage>.shard_dispatch``, and the rows each
+slot ran under ``<stage>.shard_rows.d<slot id>`` (``.d<data>m<model>``
+on a 2-D mesh).
 """
 
 from __future__ import annotations
@@ -186,6 +202,23 @@ class AdaptiveLadder:
         return bucket_for(n, sizes)
 
 
+def shard_bucket_for(n: int, replicas: int,
+                     buckets: Optional[Sequence[int]] = None) -> int:
+    """Bucket for a batch split over ``replicas``: the ladder bucket,
+    rounded up to a multiple of the replica count so every replica gets
+    the same number of rows (one captured step per bucket and slot, not
+    per remainder)."""
+    b = bucket_for(n, buckets)
+    return b + (-b) % max(1, replicas)
+
+
+def split_runs(n: int, parts: int) -> List[int]:
+    """``n`` rows over ``parts`` slots in contiguous runs, the first
+    ``n % parts`` one row longer."""
+    q, r = divmod(n, max(1, parts))
+    return [q + (1 if i < r else 0) for i in range(max(1, parts))]
+
+
 def _as_tensor(x) -> torch.Tensor:
     return x if isinstance(x, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(x))
@@ -197,21 +230,25 @@ def _row_signature(row: Sequence[torch.Tensor]) -> Tuple:
 
 class _BucketSet:
     """The static ``[bucket, ...]`` inputs of one (bucket, row signature)
-    and its captured vmapped step."""
+    and its captured vmapped step (in sharded mode: one slot's rows of the
+    bucket, on the slot's device and stream)."""
 
-    def __init__(self, runner: "BatchRunner", key, bucket: int, rows):
-        dev = runner.census.device
+    def __init__(self, runner: "BatchRunner", key, bucket: int, rows,
+                 fn=None, slot=None):
+        dev = slot.device if slot is not None else runner.census.device
         self.bucket = bucket
         self.inputs = [torch.empty((bucket, *t.shape), dtype=t.dtype, device=dev)
                        for t in rows[0]]
         self.outputs: Tuple = ()
         self.fill(rows)
-        vfn = torch.func.vmap(runner.fn)
+        vfn = torch.func.vmap(fn if fn is not None else runner.fn)
 
         def step():
             self.outputs = vfn(tuple(self.inputs))
 
-        self.step = runner.census.capture(key, step, kind="batch", rows=bucket)
+        self.step = runner.census.capture(
+            key, step, kind="batch", rows=bucket,
+            stream=slot.stream if slot is not None else None)
 
     def fill(self, rows) -> None:
         n = len(rows)
@@ -242,7 +279,8 @@ class BatchRunner:
     def __init__(self, fn: Callable, buckets: Optional[Sequence[int]] = None,
                  name: Optional[str] = None,
                  ladder: Optional[AdaptiveLadder] = None,
-                 census: Optional[Census] = None):
+                 census: Optional[Census] = None, mesh=None,
+                 prepare: Optional[Callable] = None):
         self.fn = fn
         self.buckets = tuple(sorted(set(buckets))) if buckets else None
         #: adaptive mode: the stage's AdaptiveLadder rounds (and observes
@@ -252,13 +290,43 @@ class BatchRunner:
         self._sets: Dict[Tuple, _BucketSet] = {}
         self._pad_metric = f"{name}.batch_pad_waste" if name else None
         self._waste_flops_metric = f"{name}.pad_waste_flops" if name else None
+        self._shard_metric = f"{name}.shard_rows" if name else None
+        self._dispatch_metric = f"{name}.shard_dispatch" if name else None
+        #: sharded mode (a mesh with a data or model axis over 1): the
+        #: mesh, its data width (``replicas``) and model width
+        self.mesh = None
+        self.replicas = 1
+        self.model_axis = 1
+        self._coords = None
+        if mesh is not None:
+            from ..parallel.mesh import device_coords, mesh_axis_size
+
+            d = mesh_axis_size(mesh, "data")
+            m = mesh_axis_size(mesh, "model")
+            # a (1, 1) mesh is the unsharded path; a model axis over 1
+            # engages the sharded path at data 1 too (the stage's params
+            # are placed over ``model``)
+            if d > 1 or m > 1:
+                self.mesh = mesh
+                self.replicas = d
+                self.model_axis = m
+                if m > 1:
+                    self._coords = device_coords(mesh)
+        #: ``prepare(mesh) -> slot_fn`` places the stage's params once,
+        #: before the first sharded dispatch; ``slot_fn(slot)`` gives that
+        #: slot's callable (None: ``fn`` on every slot)
+        self._prepare = prepare
+        self._slot_fns = None
 
     def dispatch(self, rows: List[Sequence]) -> Tuple[torch.Tensor, ...]:
         """Run per-buffer input rows as one replay of their bucket's step;
         returns the step's outputs cut to the real rows (``[n, ...]``
         views, valid until that step replays again: copy them before
-        queuing the next dispatch)."""
+        queuing the next dispatch).  Sharded: tensors of their own on the
+        root slot's device."""
         rows = [tuple(_as_tensor(x) for x in r) for r in rows]
+        if self.mesh is not None:
+            return self._dispatch_sharded(rows)
         n = len(rows)
         bucket = (self.ladder.bucket_for(n) if self.ladder is not None
                   else bucket_for(n, self.buckets))
@@ -282,8 +350,80 @@ class BatchRunner:
                               tr.flops * (bucket - n) / bucket)
         return tuple(o[:n] for o in st.outputs)
 
+    # -- sharded dispatch --------------------------------------------------
+    def _placed(self):
+        """Each mesh slot's callable, the stage's params placed on the
+        first call."""
+        if self._slot_fns is None:
+            slot_fn = self._prepare(self.mesh) if self._prepare is not None else None
+            self._slot_fns = [slot_fn(s) if slot_fn is not None else self.fn
+                              for s in self.mesh.flat]
+        return self._slot_fns
+
+    def _dispatch_sharded(self, rows: List[Tuple]) -> Tuple[torch.Tensor, ...]:
+        n = len(rows)
+        fns = self._placed()
+        if self.census is None:
+            self.census = Census(self.mesh.root.device)
+        if self.ladder is not None:
+            # minted sizes are replica-aligned (AdaptiveLadder.align): the
+            # rounding below leaves them as they are
+            self.ladder.observe(n)
+            bucket = shard_bucket_for(n, self.replicas, self.ladder.sizes())
+        else:
+            bucket = shard_bucket_for(n, self.replicas, self.buckets)
+        if bucket > n:
+            rows = rows + [rows[-1]] * (bucket - n)  # pad rows repeat the last
+            if self._pad_metric:
+                metrics.count(self._pad_metric, bucket - n)
+        per = bucket // self.replicas
+        sig = _row_signature(rows[0])
+        flat = self.mesh.flat
+        runs = []  # (slot index, first row, rows)
+        for di in range(self.replicas):
+            start = di * per
+            for mi, k in enumerate(split_runs(per, self.model_axis)):
+                if k:
+                    runs.append((di * self.model_axis + mi, start, k))
+                start += k
+        sets = []
+        for i, start, k in runs:
+            slot = flat[i]
+            key = (bucket, sig, slot.id)
+            st = self._sets.get(key)
+            if st is None:
+                st = self._sets[key] = _BucketSet(
+                    self, key, k, rows[start:start + k], fn=fns[i], slot=slot)
+            else:
+                st.fill(rows[start:start + k])
+            sets.append((slot, st))
+        # every slot's replay on its own stream, then one join: the
+        # slots' steps overlap (on one card too)
+        for _, st in sets:
+            st.step.launch()
+        for _, st in sets:
+            st.step.join()
+        if self._dispatch_metric:
+            metrics.count(self._dispatch_metric)
+            for (i, _, k), (slot, _) in zip(runs, sets):
+                if self._coords is None:
+                    key = f"{self._shard_metric}.d{slot.id}"
+                else:
+                    di, mi = self._coords[slot.id]
+                    key = f"{self._shard_metric}.d{di}m{mi}"
+                metrics.count(key, k)
+        root = self.mesh.root.device
+        outs = []
+        for t in range(len(sets[0][1].outputs)):
+            parts = [st.outputs[t] if st.outputs[t].device == root
+                     else st.outputs[t].to(root) for _, st in sets]
+            outs.append(torch.cat(parts, dim=0)[:n])
+        return tuple(outs)
+
     def run(self, rows: List[Sequence]) -> List[Tuple]:
         """Per-buffer input rows -> one output row per input row, in order,
         each a view of tensors of its own (one copy per output tensor)."""
         outs = self.dispatch(rows)
+        if self.mesh is not None:  # already tensors of their own
+            return split_rows(list(outs), len(rows))
         return split_rows([o.clone() for o in outs], len(rows))

@@ -93,6 +93,13 @@ class Step:
         self.track = track
 
     def replay(self) -> None:
+        self.launch()
+        self.join()
+
+    def launch(self) -> None:
+        """Start one replay on the step's stream, after the caller's work
+        so far; :meth:`join` makes the caller wait for it (steps on other
+        streams launched in between run beside it)."""
         tr = self.track
         if self._graph is None:
             if tr is None:
@@ -111,10 +118,14 @@ class Step:
                     pair = tr.begin(self._stream)
                     self._graph.replay()
                     tr.end(pair, self._stream)
-            caller.wait_stream(self._stream)
             for counter, n in self._launches.items():
                 counter.add(n)
         self.census._replayed(self.signature, self._launches)
+
+    def join(self) -> None:
+        """The caller's stream waits for the last :meth:`launch`."""
+        if self._graph is not None:
+            torch.cuda.current_stream(self._stream.device).wait_stream(self._stream)
 
     def add_work(self, flops: float, nbytes: float) -> None:
         """Data-dependent work of one replay that the warm-up's count could
@@ -147,6 +158,10 @@ class Census:
         self._lock = locks.make_lock("Census._lock")
         #: xray (``utils/xray.py``): (registry, stage, recorder) or None
         self._xray = None
+        #: run every step eagerly, also on the card: set by a path whose
+        #: step spans several devices (a tensor-parallel step over
+        #: distinct cards), which one stream cannot capture
+        self.eager = False
 
     def attach_xray(self, registry, stage: str, rec=None) -> None:
         """Register every later capture with xray's ``registry`` under
@@ -155,7 +170,8 @@ class Census:
 
     def capture(self, signature: Hashable, fn: Callable[[], None],
                 generators: Sequence[torch.Generator] = (), *,
-                kind: Optional[str] = None, rows: Optional[int] = None) -> Step:
+                kind: Optional[str] = None, rows: Optional[int] = None,
+                stream=None) -> Step:
         """Warm ``fn`` up and capture it under ``signature``.  ``fn`` takes
         no arguments and touches only tensors that outlive the step: it
         runs once here (its effects on those tensors and generators
@@ -165,7 +181,11 @@ class Census:
         capture registers under ``(stage, kind)`` (``kind``: the
         signature's leading name, else ``stage``; ``rows``: the bucket a
         batch step was captured for), with the warm-up's FLOPs and bytes
-        (``ops/cost.py``)."""
+        (``ops/cost.py``).  ``stream``: the capture-and-replay stream
+        (a mesh slot's, ``parallel/mesh.py``) and so the device the step
+        runs on; default a new stream on the census's device.  A census
+        made ``eager`` (a tensor-parallel step over distinct cards) runs
+        every step eagerly, by its owner's declared choice."""
         xr = self._xray
         counted = []
         warm = fn
@@ -177,8 +197,9 @@ class Census:
                     fn()
                 counted.append(c)
         t0 = time.perf_counter()
-        if self.device.type == "cuda":
-            step = self._capture_cuda(signature, fn, generators, warm)
+        dev = stream.device if stream is not None else self.device
+        if dev.type == "cuda" and not self.eager:
+            step = self._capture_cuda(signature, fn, generators, warm, stream)
         else:
             with kernels.held_launches():
                 warm()
@@ -197,9 +218,11 @@ class Census:
             self.captures += 1
         return step
 
-    def _capture_cuda(self, signature, fn, generators, warm) -> Step:
-        caller = torch.cuda.current_stream(self.device)
-        stream = torch.cuda.Stream(self.device)
+    def _capture_cuda(self, signature, fn, generators, warm, stream=None) -> Step:
+        dev = stream.device if stream is not None else self.device
+        caller = torch.cuda.current_stream(dev)
+        if stream is None:
+            stream = torch.cuda.Stream(dev)
         stream.wait_stream(caller)
         graph = torch.cuda.CUDAGraph()
         for gen in generators:

@@ -42,8 +42,13 @@ device source (``_donate``).  On the card ownership changes no copy: a
 captured step reads its own static input either way, each host frame
 goes there through pinned memory, and staging frames through reused
 pinned slots instead of a fresh pinned copy measured no faster
-(``PERF.md``).  The JAX package's ``shardable`` waits for the
-multi-device slice.
+(``PERF.md``).
+
+A batchable stage is ``shardable`` when its input spec is static and no
+deferred host mapping ends it (:func:`_element_shardable`): with a
+pipeline mesh (``Pipeline(data_parallel=, model_parallel=)``, resolved
+by :func:`mesh_plan`) its bucketed micro-batches are split over the
+mesh's slots (``pipeline/batching.py``).
 """
 
 from __future__ import annotations
@@ -79,6 +84,9 @@ class Stage:
     #: sources, sinks and elements with state across buffers (the llm
     #: filter, async emitters) stay fail-fast
     restartable: bool = False
+    #: batchable stage whose bucketed micro-batches may be split over the
+    #: pipeline mesh: a static input spec and no deferred host mapping
+    shardable: bool = False
 
 
 def chain_device(elements: List[Element]) -> Optional[torch.device]:
@@ -162,7 +170,10 @@ class FusedElement(Element):
         self._host_post = getattr(elements[-1], "host_post", None)
         fns: List[Callable] = []
         spec = specs[0]
+        #: each element's input spec along the chain
+        self._specs = []
         for el in self.chain:
+            self._specs.append(spec)
             df = el.device_fn(spec)
             if df is None:  # the planner only chains fusable elements
                 raise RuntimeError(f"element {el.name} not fusable")
@@ -236,6 +247,31 @@ class FusedElement(Element):
     def batch_capable(self) -> bool:
         return True
 
+    def place_params(self, mesh) -> bool:
+        """Place every chain element's params onto ``mesh``."""
+        moved = False
+        for el in self.chain:
+            moved = el.place_params(mesh) or moved
+        return moved
+
+    def _shard_prepare(self, mesh):
+        """The sharded runner's prepare hook: place once, then compose
+        each slot's chain over the slot's copy of the placed params."""
+        self.place_params(mesh)
+
+        def slot_fn(slot):
+            fns = [el.slot_device_fn(spec, slot)
+                   for el, spec in zip(self.chain, self._specs)]
+
+            def composed(arrays: Tuple) -> Tuple:
+                for f in fns:
+                    arrays = f(arrays)
+                return arrays
+
+            return composed
+
+        return slot_fn
+
     def process_batch(self, pad: str, bufs):
         """N same-signature buffers -> one replay of their bucket's
         vmapped step (``pipeline/batching.py``, through this stage's
@@ -246,10 +282,12 @@ class FusedElement(Element):
             from .batching import BatchRunner
 
             self._place(_as_tensor(bufs[0].tensors[0]))
+            mesh = getattr(self, "_shard_mesh", None)
             self._batcher = BatchRunner(
                 self.composed, getattr(self, "_batch_buckets", None),
                 name=self.name, ladder=getattr(self, "_batch_ladder", None),
-                census=self.census)
+                census=self.census, mesh=mesh,
+                prepare=self._shard_prepare if mesh is not None else None)
         out = self._batcher.dispatch([b.tensors for b in bufs])
         tensors, done = self._copy_out(out)
         return [(SRC, self._wrap(buf, row, done))
@@ -308,6 +346,60 @@ def adaptive_variant_budget(base_len: int, n_batchable: int,
     return base_len + ADAPTIVE_EXTRA_DEFAULT
 
 
+def replication_plan(data_parallel: int, batch_max: int,
+                     n_devices: int) -> int:
+    """The ``data``-axis replica count a pipeline runs with for its
+    ``data_parallel`` knob (0 = every slot, 1 = off, N = exactly N): the
+    one place those semantics live, shared by the runtime's mesh and the
+    deep lint.  1 whenever sharding is skipped (``batch_max`` 1, dp 1);
+    an over-ask is returned as asked, for the caller to raise."""
+    if batch_max <= 1 or data_parallel == 1:
+        return 1
+    dp = data_parallel or n_devices
+    return max(1, dp)
+
+
+def mesh_plan(data_parallel: int, model_parallel: int, batch_max: int,
+              n_devices: int, absorb: Optional[int] = None) -> Tuple[int, int]:
+    """The ``(data, model)`` axis sizes of the one pipeline mesh for the
+    two knobs (the JAX package's arithmetic, shared by the runtime and
+    the deep lint).  ``model_parallel``: 1 = off, N = exactly N, 0 =
+    every slot the ``data`` axis leaves (not gated on ``batch_max``: a
+    tensor-parallel llm filter needs no batching); ``data_parallel``:
+    :func:`replication_plan` over the slots the model axis leaves; both
+    auto with batching on: data takes them all.  ``absorb`` (default:
+    all): the slots an automatic ``data`` axis may take; the runtime and
+    the deep lint pass the slots of one device
+    (``parallel.mesh.one_device_slots``), as no run over distinct cards
+    exists yet, so a mesh spans cards only when a knob asks for it.
+    Over-asks are returned as asked."""
+    mp_knob = int(model_parallel)
+    dp_knob = int(data_parallel)
+    n_data = (n_devices if dp_knob or absorb is None
+              else max(1, min(n_devices, absorb)))
+    if mp_knob == 0:
+        dp_res = replication_plan(dp_knob, batch_max, n_data)
+        if dp_knob == 0 and batch_max > 1:
+            mp = 1  # the data axis absorbs (one device's slots, or all)
+        else:
+            mp = max(1, n_devices // max(1, dp_res))
+    else:
+        mp = max(1, mp_knob)
+    dp = replication_plan(dp_knob, batch_max, max(1, n_data // mp))
+    return dp, mp
+
+
+def _element_shardable(el: Element, batchable: bool) -> bool:
+    """Shard eligibility of a single-element stage: batchable, a static
+    negotiated input spec (a flexible stream would capture a sharded
+    step per buffer signature) and no deferred ``host_post``."""
+    if not batchable or getattr(el, "host_post", None) is not None:
+        return False
+    caps = el.in_caps.get(SINK)
+    spec = caps.spec if caps is not None else None
+    return spec is not None and spec.format.value == "static"
+
+
 def _element_batchable(el: Element) -> bool:
     """Can this single element's runner drain micro-batches?  A source
     has no input queue; the probe never vetoes planning by raising."""
@@ -338,7 +430,8 @@ def plan_stages(graph: PipelineGraph, elements: Dict[int, Element], *,
 
     def single(nid: int) -> Stage:
         b = _element_batchable(elements[nid])
-        return Stage(elements[nid], [nid], batchable=b, restartable=b)
+        return Stage(elements[nid], [nid], batchable=b, restartable=b,
+                     shardable=_element_shardable(elements[nid], b))
 
     if not fuse:
         return [single(n.id) for n in order]
@@ -443,6 +536,9 @@ def plan_stages(graph: PipelineGraph, elements: Dict[int, Element], *,
         if donate:
             log.info("ingress donation enabled for fused stage %s", fe.name)
         log.info("fused %d elements into one stage: %s", len(chain), fe.name)
-        stages.append(Stage(fe, chain, batchable=True, restartable=True))
+        # a fused chain negotiated a static spec by construction: only a
+        # deferred host_post keeps it off the mesh
+        stages.append(Stage(fe, chain, batchable=True, restartable=True,
+                            shardable=fe._host_post is None))
         consumed.update(chain)
     return stages

@@ -73,8 +73,16 @@ boundaries):
   and :meth:`Pipeline.explain` reports predicted against actual
   (``utils/xray.py``).
 
-Not ported yet (ROADMAP Queue A 6): the JAX package's mesh and sharded
-batching.
+* ``Pipeline(data_parallel=, model_parallel=)`` builds one ``(data,
+  model)`` mesh (``parallel/mesh.py``) over the local slots of the
+  filters' device kind, lazily and at most once (``pipeline/plan.
+  mesh_plan``): shardable stages with ``batch_max > 1`` split their
+  micro-batches over it, and the llm filter runs tensor-parallel on its
+  ``model`` axis (``custom=tp:N`` is promoted to ``model_parallel``).
+  ``data_parallel=0`` takes the slots of one device: a mesh spans
+  distinct cards only when a knob asks for it (no run over such a
+  mesh exists yet).  An over-ask raises :class:`PipelineError`; nothing
+  falls back to one slot.
 
 Threads, not asyncio: stages do blocking work (device dispatch, host
 copies) and release the interpreter lock inside torch.
@@ -86,6 +94,8 @@ import collections
 import threading
 import time
 from typing import Deque, Dict, List, Optional, Tuple, Union
+
+import torch
 
 from ..core.buffer import Buffer, Event, batch_signature
 from ..core.caps import Caps
@@ -100,7 +110,7 @@ from .graph import PipelineGraph
 from .parser import parse as parse_launch
 from . import residency as _residency
 from .batching import AdaptiveLadder, ladder
-from .plan import Stage, adaptive_variant_budget, plan_stages
+from .plan import Stage, adaptive_variant_budget, mesh_plan, plan_stages
 
 log = logger(__name__)
 
@@ -784,6 +794,29 @@ class _Runner:
             metrics.count(self._m_out)
 
 
+_LLM_FRAMEWORKS = ("llm", "llamacpp", "llama.cpp")
+
+
+def _llm_tp_alias(graph: PipelineGraph) -> int:
+    """Largest ``custom=tp:N`` of an llm tensor_filter in the graph (1 =
+    none): promoted to ``Pipeline(model_parallel=N)`` at construction so
+    the filter runs on the pipeline's mesh."""
+    from ..filters.base import parse_custom_options
+
+    tp = 1
+    for node in graph.nodes.values():
+        if node.kind != "tensor_filter":
+            continue
+        if str(node.props.get("framework", "")).lower() not in _LLM_FRAMEWORKS:
+            continue
+        opts = parse_custom_options(str(node.props.get("custom", "")))
+        try:
+            tp = max(tp, int(opts.get("tp", 1)))
+        except (TypeError, ValueError):
+            pass  # a non-literal tp: the filter's own open() rejects it
+    return tp
+
+
 class Pipeline:
     """Build + run a pipeline graph.
 
@@ -844,6 +877,8 @@ class Pipeline:
                  dispatch_depth: Optional[int] = None,
                  donate_ingress: Optional[bool] = None,
                  xray: Optional[bool] = None,
+                 data_parallel: Optional[int] = None,
+                 model_parallel: Optional[int] = None,
                  validate: Union[bool, str] = False):
         if validate:
             # lint before strict validation: the analyzer reports every
@@ -855,6 +890,8 @@ class Pipeline:
             if deep:  # the deep pass budgets with THIS pipeline's knobs
                 kw.update(batch_max=batch_max, batch_buckets=batch_buckets,
                           adaptive_buckets=adaptive_buckets,
+                          data_parallel=data_parallel,
+                          model_parallel=model_parallel,
                           dispatch_depth=dispatch_depth)
             if isinstance(graph, str):
                 source = graph
@@ -901,6 +938,12 @@ class Pipeline:
         self.bucket_ladders: Dict[str, List[int]] = dict(
             bucket_ladders if bucket_ladders is not None
             else cfg.bucket_ladders)
+        self.data_parallel = max(0, int(
+            data_parallel if data_parallel is not None
+            else cfg.data_parallel))
+        self.model_parallel = max(0, int(
+            model_parallel if model_parallel is not None
+            else cfg.model_parallel))
         self.dispatch_depth = max(1, int(
             dispatch_depth if dispatch_depth is not None
             else cfg.dispatch_depth))
@@ -947,6 +990,32 @@ class Pipeline:
         self._err_lock = threading.Lock()
         self._started = False
 
+        # custom=tp:N on an llm filter is promoted to the pipeline's
+        # model_parallel before any element opens, so the filter lands on
+        # the pipeline's mesh; an explicit model_parallel (0 or > 1) wins
+        tp_alias = _llm_tp_alias(graph)
+        if tp_alias > 1:
+            if self.model_parallel == 1:
+                log.warning(
+                    "tensor_filter llm custom=tp:%d is deprecated — "
+                    "promoted to Pipeline(model_parallel=%d); the filter "
+                    "now runs tensor-parallel on the pipeline's shared "
+                    "(data x model) mesh", tp_alias, tp_alias)
+                self.model_parallel = tp_alias
+            else:
+                log.warning(
+                    "custom=tp:%d ignored: the pipeline's explicit "
+                    "model_parallel=%d wins (tp: is a deprecated alias)",
+                    tp_alias, self.model_parallel)
+        # THE pipeline mesh: built at most once, from start() for sharded
+        # micro-batching or earlier from a tensor-parallel filter's
+        # _mesh_provider call in its open()
+        self._mesh_obj = None
+        self._mesh_built = False
+        self._mesh_lock = threading.Lock()
+        #: resolved (data, model) axis sizes once the mesh is built
+        self.mesh_shape: Tuple[int, int] = (1, 1)
+
         # 1. instantiate elements
         self.elements: Dict[int, Element] = {}
         for node in graph.nodes.values():
@@ -962,6 +1031,8 @@ class Pipeline:
             # a tensor_trainer with swap-to=<stage> copies its parameters
             # into that serving stage after each epoch through this
             el._swap_cb = self.swap_params
+            # a tensor-parallel framework opens on the pipeline's mesh
+            el._mesh_provider = self._model_mesh
             if self._journal_replay:
                 el._journal_replay = True
 
@@ -1058,6 +1129,27 @@ class Pipeline:
             self._dead = True
             raise PipelineError(
                 f"unknown element properties (typo?): {unknown}")
+        try:
+            mesh = self._build_mesh()
+        except Exception:
+            # elements already started: tear them down now, and a retried
+            # start() raises instead of returning a dead instance
+            self.stop()
+            self._dead = True
+            raise
+        if mesh is not None:
+            # read by each shardable stage's runner at its first batched
+            # dispatch; no other stage sees it
+            from ..parallel.mesh import mesh_axis_size
+
+            replicas = mesh_axis_size(mesh, "data")
+            for r in self._unique_runners():
+                if r.stage.shardable and r.batch_max > 1:
+                    r.element._shard_mesh = mesh
+                    lad = getattr(r.element, "_batch_ladder", None)
+                    if lad is not None:
+                        # minted sizes stay replica-aligned
+                        lad.align = max(1, replicas)
         if self._xray_reg is not None:
             # the predicted census, before any streaming thread captures,
             # and the deep lint's memory estimate (the reconciler reads it
@@ -1086,6 +1178,85 @@ class Pipeline:
             self._xray_recon.start()
         return self
 
+    @property
+    def mesh(self):
+        """THE pipeline mesh (None before it is built, or when the plan is
+        one slot)."""
+        return self._mesh_obj
+
+    def _model_mesh(self, device=None):
+        """The mesh provider handed to elements (the llm filter's
+        tensor-parallel path, called with its device): the pipeline mesh
+        when a ``model`` axis is configured, else None."""
+        if self.model_parallel == 1:
+            return None
+        return self._shared_mesh({device.type} if device is not None else set())
+
+    def _shared_mesh(self, kinds: set):
+        """Build (at most once) the pipeline mesh from the resolved
+        ``(data, model)`` plan over the local slots of ``kinds`` (the
+        device kind of the stages that use it: ``accelerator=``); None
+        when the plan is one slot.  Raises :class:`PipelineError` on an
+        over-ask, a plan that does not divide, or mixed device kinds."""
+        with self._mesh_lock:
+            if self._mesh_built:
+                have = self._mesh_obj.kind if self._mesh_obj is not None else None
+                if have is not None and kinds - {have}:
+                    raise PipelineError(
+                        f"a pipeline mesh takes one device kind: it is on "
+                        f"{have}, a stage asks for {sorted(kinds - {have})}")
+                return self._mesh_obj
+            from ..parallel.mesh import local_devices, make_mesh, one_device_slots
+
+            if len(kinds) > 1:
+                raise PipelineError(
+                    f"a pipeline mesh takes one device kind; its stages run "
+                    f"on {sorted(kinds)} (accelerator=)")
+            try:
+                devs = local_devices(next(iter(kinds)) if kinds else None)
+            except (RuntimeError, ValueError) as e:
+                raise PipelineError(str(e)) from e
+            dp, mp = mesh_plan(self.data_parallel, self.model_parallel,
+                               self.batch_max, len(devs),
+                               absorb=one_device_slots(devs))
+            if dp * mp > len(devs):
+                if mp == 1:
+                    raise PipelineError(
+                        f"data_parallel={dp} needs {dp} local devices, "
+                        f"have {len(devs)}")
+                raise PipelineError(
+                    f"data_parallel={dp} x model_parallel={mp} needs "
+                    f"{dp * mp} local devices, have {len(devs)}")
+            self.mesh_shape = (dp, mp)
+            if dp == 1 and mp == 1:
+                self._mesh_obj = None
+            else:
+                try:
+                    self._mesh_obj = make_mesh(data=dp, model=mp,
+                                               devices=devs[:dp * mp])
+                except ValueError as e:
+                    raise PipelineError(str(e)) from e
+            self._mesh_built = True
+            return self._mesh_obj
+
+    def _build_mesh(self):
+        """The pipeline mesh, or None for one-slot dispatch: built on the
+        thread driving start(), and only when a shardable stage batches
+        or a ``model`` axis is configured (a tensor-parallel filter may
+        have built it already, in its open())."""
+        dp_wanted = (self.batch_max > 1 and self.data_parallel != 1
+                     and any(s.shardable for s in self.stages))
+        mp_wanted = self.model_parallel != 1
+        if not (dp_wanted or mp_wanted or self._mesh_built):
+            return None
+        kinds = set()
+        for r in self._unique_runners():
+            if r.stage.shardable and r.batch_max > 1:
+                dev = getattr(r.element, "device", None)
+                if isinstance(dev, torch.device) and dev.type != "meta":
+                    kinds.add(dev.type)
+        return self._shared_mesh(kinds)
+
     def _install_xray_expectations(self) -> None:
         """The predicted census of every stage that captures, with the
         deep lint's arithmetic: the bucket ladder (or the adaptive budget)
@@ -1099,7 +1270,19 @@ class Pipeline:
             el = r.element
             target = getattr(el, "fused", el)  # a folded source's chain
             nm = target.name
-            if r.stage.batchable and r.batch_max > 1:
+            mesh = getattr(el, "_shard_mesh", None)
+            if r.stage.batchable and r.batch_max > 1 and mesh is not None:
+                # one captured step per bucket and slot with rows
+                from ..parallel.mesh import mesh_axis_size
+                from .batching import shard_bucket_for, split_runs
+
+                d, m = mesh_axis_size(mesh, "data"), mesh_axis_size(mesh, "model")
+                sb = {shard_bucket_for(b, d, self.batch_buckets)
+                      for b in ladder(r.batch_max, self.batch_buckets)}
+                reg.expect(nm, "batch", budget=sum(
+                    d * sum(1 for k in split_runs(b // d, m) if k) for b in sb),
+                    note="sharded bucket ladder: a step per bucket and slot")
+            elif r.stage.batchable and r.batch_max > 1:
                 if getattr(el, "_batch_ladder", None) is not None:
                     reg.expect(nm, "batch", budget=self._ladder_budget,
                                note="adaptive ladder budget")

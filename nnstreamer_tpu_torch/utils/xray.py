@@ -541,6 +541,8 @@ def predicted_hbm(pipeline) -> Optional[Dict[str, int]]:
                           batch_max=pipeline.batch_max,
                           batch_buckets=pipeline.batch_buckets,
                           adaptive_buckets=pipeline.adaptive_buckets,
+                          data_parallel=pipeline.data_parallel,
+                          model_parallel=pipeline.model_parallel,
                           dispatch_depth=pipeline.dispatch_depth)
             rep = getattr(got, "resources", None)
         except Exception:  # noqa: BLE001 - prediction is best-effort

@@ -92,6 +92,24 @@ def test_align_assignment_reruns_warm_mints():
     _same(mine, want)
 
 
+def test_sharded_rounding_still_applies():
+    """Minted sizes are replica-aligned, so ``shard_bucket_for``'s rounding
+    is a no-op on them: every replica still gets equal rows (the JAX
+    package's test, on both classes)."""
+    mine, want = _both((1, 2, 4, 8), budget=8, align=4, mint_after=1)
+    mine.observe(6)
+    want.observe(6)
+    _same(mine, want)
+    assert mine.sizes() == (1, 2, 4, 8)  # aligned up to 8: already a bucket
+    mine, want = _both((1, 2, 4, 16), budget=8, align=4, mint_after=1)
+    mine.observe(6)
+    want.observe(6)
+    _same(mine, want)
+    assert 8 in mine.sizes()  # minted as the aligned size
+    assert tb.shard_bucket_for(6, 4, mine.sizes()) == 8 == \
+        jb.shard_bucket_for(6, 4, want.sizes())
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_random_occupancy_streams_equal_jax(seed):
     """Long seeded streams of skewed occupancies, buckets and budgets:

@@ -65,8 +65,9 @@ def _frames(n):
 
 def _pipeline(pkg, desc, **kw):
     """The JAX package's pipelines on one device: the test process's
-    eight virtual CPU devices would otherwise shard its batches (a mode
-    the port leaves to the multi-device slice)."""
+    eight virtual CPU devices would otherwise shard its batches.  The
+    port's run on one slot (``NNS_TPU_DEVICE_SLOTS`` unset); its sharded
+    mode is held in ``tests/test_torch_sharded_batching.py``."""
     if pkg is nt:
         kw.setdefault("data_parallel", 1)
     return pkg.Pipeline(desc, **kw)

@@ -410,8 +410,10 @@ def test_sampled_stream_reproducible_and_independent_of_batch():
     ("draft:/tmp/x.gguf", "must be a preset"),
     ("slots:1,draft:llama_tiny", "paged kernel only"),
     ("draft:llama_tiny,spec_k:40", "<= 64 query rows"),
-    # still not ported
-    ("tp:2", "not yet ported"),
+    # ported since (id kept): tp:2 is the pipeline's model axis, which
+    # one slot (NNS_TPU_DEVICE_SLOTS unset) cannot hold
+    pytest.param("tp:2", "needs 2 local devices, have 1",
+                 id="tp:2-not yet ported"),
     # ported since (ids kept): a tokenizer file that is not there raises
     # naming it; quant:int8 opens a loop
     pytest.param("tokenizer:no_such_vocab.gguf", "no_such_vocab.gguf",

@@ -224,9 +224,20 @@ def test_lone_filter_is_eager_without_batching():
 
 
 @pytest.mark.parametrize("kw", [dict(data_parallel=4), dict(model_parallel=2)])
-def test_multi_device_plans_raise_named_error(kw):
+def test_multi_device_plans_raise_named_error(kw, monkeypatch):
+    """The mesh is priced since the mesh slice: on one slot (the
+    default) these plans over-ask and the lint says so in the JAX
+    package's words; only a tensor_trainer under a model axis still
+    raises the named error (its mesh= waits for ROADMAP Queue A 6)."""
+    monkeypatch.delenv("NNS_TPU_DEVICE_SLOTS", raising=False)
+    report = analyze(_pipe("deeptorch_mobilenet"), deep=True, batch_max=8, **kw)
+    diag = next(d for d in report if d.code == "data-parallel-devices")
+    n = kw.get("data_parallel", kw.get("model_parallel"))
+    assert f"needs {n} local devices, have 1" in diag.message
+    trainer = ("appsrc name=src ! tensor_trainer framework=jax "
+               "model=mlp:4:8:3 ! tensor_sink name=out")
     with pytest.raises(MultiDeviceNotPorted, match="Queue A 6"):
-        analyze(_pipe("deeptorch_mobilenet"), deep=True, batch_max=8, **kw)
+        analyze(trainer, deep=True, model_parallel=2)
 
 
 def test_budget_warnings_anchor_dominant_stage():

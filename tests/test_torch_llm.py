@@ -158,7 +158,11 @@ def test_opening_without_cpu_on_a_machine_without_cuda_raises(monkeypatch):
                  id="custom=serve:continuous accelerator=true:cpu-not yet ported"),
     # speculation needs the continuous loop
     ("custom=draft:llama_tiny accelerator=true:cpu", "requires serve:continuous"),
-    ("custom=tp:2 accelerator=true:cpu", "not yet ported"),
+    # tensor parallelism is ported (id kept): on one slot
+    # (NNS_TPU_DEVICE_SLOTS unset) tp:2 over-asks the pipeline's mesh
+    pytest.param("custom=tp:2 accelerator=true:cpu",
+                 "needs 2 local devices, have 1",
+                 id="custom=tp:2 accelerator=true:cpu-not yet ported"),
     # quant:int8 and tokenizer: are ported (ids kept): an unknown quant
     # raises, and so does a tokenizer file that is not there
     pytest.param("custom=quant:int3 accelerator=true:cpu", "unsupported quant",
