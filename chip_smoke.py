@@ -450,7 +450,8 @@ Phases, each of which must pass:
              ms and its start-up seconds, with the card's name and power
              limit.
 20. learn  — training and train-while-serve (``LEARN_*``; the learn
-             phase's own docstring).
+             phase's own docstring), and the trainer's ``mesh=data:2``
+             over two slots against the mesh-less trainer (``learn_mesh``).
 21. xray   — analysis and observability, run right after ``continuous``
              (``phase_xray``): ``analyze(CONT_DESC, deep=True)`` with
              ``torch.cuda.memory_allocated()`` unchanged across it; the
@@ -482,6 +483,26 @@ Phases, each of which must pass:
              or above the exact quantiles.  ``weave:`` lines: the merge's
              rings, spans and arrows, the largest clock uncertainty, the
              tokens/s the child received.
+
+23. mesh   — the in-process mesh (``phase_mesh``) on slots of ``cuda:0``:
+             llama2_7b int4 at ``model_parallel=2`` in the continuous cell
+             against the same traffic unsharded, teacher-forced; one
+             static ``custom=tp:2`` request; ring attention at
+             ``RING_SHAPE`` over ``MESH_RING`` slots against the flash
+             kernel, and ``forward_seq_parallel`` at ``SEQ_T`` tokens
+             against the dense forward on the same int4 tree; the kernels
+             at the shard shapes; the per-frame quick-start at
+             ``data_parallel=2``, every frame bitwise the one-slot run's;
+             ``mesh=data:2`` behind the query pair.
+24. dist   — the multi-process mesh (``phase_dist``): two child processes
+             (``--dist-rank``) join one gloo group through a ``file://``
+             rendezvous and serve the mesh phase's tensor-parallel traffic
+             with the model group across them: tokens equal on both ranks
+             and to the in-process TP's, the first decode step's logits
+             bitwise the in-process group's, a seq=2 ring across the ranks
+             bitwise the in-process ring; ``dist:`` lines with tok/s beside
+             the in-process and unsharded runs, the cross-rank sums' ms a
+             decode step and each kernel's launches per rank.
 
 Each phase prints ``phase: <name> <seconds> s`` when it ends and runs
 under its deadline (``PHASE_DEADLINE_S``: past it faulthandler prints
@@ -528,19 +549,19 @@ RATES = {"sxm": (3.35e12, 989e12), "pcie": (2.0e12, 756e12)}
 WAIT_S = 60
 #: each phase's deadline in seconds: about 2.5 times its time in the
 #: slower of two H100 runs (PERF.md section 4; the host-bound phases ran
-#: up to 1.46 times slower in one run than in the other), and at least
-#: 30 s; past it faulthandler prints every thread's stack and the process
-#: exits non-zero.  Their sum (1,200 s) is the 1,200 s the run is given,
-#: so a hang anywhere ends the run inside it.  learn's is 2.9 times its
-#: slower call: its first step loads cuDNN's backward kernels; weave's is
-#: 2.4 times its slower call; mesh's 2.5 times its first run (26.2 s), taken
-#: from xray, prefix, spec, elastic, batching and capi (each still over 2.4
-#: times its slowest run)
+#: up to 1.46 times slower in one run than in another), and at least 30 s;
+#: past it faulthandler prints every thread's stack and the process exits
+#: non-zero.  Their sum (1,200 s) is the 1,200 s the run is given, so a
+#: hang anywhere ends the run inside it.  dist's (2.6 times its first run,
+#: 25.3 s) and mesh's and learn's growth came out of xray, prefix, spec,
+#: files, elastic, vision, models, batching, v4l2, transport, modelfiles
+#: and capi, whose depth this slice cut (build's is 1.6 times: nvcc in
+#: parallel)
 PHASE_DEADLINE_S = dict(
-    build=70, kernels=60, serve=30, continuous=70, xray=65, query=50, weave=60,
-    prefix=60, spec=85, files=65, elastic=55, mesh=65, reference=30, vision=35,
-    models=40, batching=60, camera=30, asr=30, v4l2=35, transport=55, modelfiles=40,
-    capi=60, learn=50)
+    build=70, kernels=60, serve=30, continuous=70, xray=50, query=50, weave=60,
+    prefix=50, spec=75, files=45, elastic=50, mesh=90, dist=65, reference=30, vision=30,
+    models=35, batching=50, camera=30, asr=30, v4l2=30, transport=50, modelfiles=45,
+    capi=45, learn=60)
 #: the run's budget, every phase and the kernel build included
 BUDGET_S = 400
 
@@ -1748,7 +1769,7 @@ class QueryClient:
 XRAY_STREAMS = 2
 #: the xray phase's quick-start through the batching runner: frames pushed
 #: in one burst, and the batch_max of its bucket ladder
-XRAY_FRAMES = 61
+XRAY_FRAMES = 31
 XRAY_BATCH_MAX = 8
 #: bytes a pinned device-to-host copy of the link measurement moves, and
 #: how many copies are timed
@@ -2174,10 +2195,11 @@ def phase_query(dev, serve, cont):
     return out, live
 
 
-#: the weave phase's streams: the query phase's prompts of 32, 200, 64
-#: and 128 ids (``continuous_prompts()``), which its in-process clients
-#: sent to the same server; the child sends them one after another
-WEAVE_STREAMS = (0, 1, 4, 5)
+#: the weave phase's streams: the query phase's prompts of 32 and 200
+#: ids (``continuous_prompts()``), which its in-process clients sent to
+#: the same server; the child sends them one after another (four before
+#: the dist phase came: PERF.md section 4's cuts)
+WEAVE_STREAMS = (0, 1)
 WEAVE_TENANT = "weave"
 #: the SLO objectives the weave phase's report is held to: met (ten
 #: minutes at p50 and p99) and breached (p99 under one microsecond)
@@ -4406,7 +4428,7 @@ def print_vision(v):
 #: full resolution pinned by upsample:1), speech_commands and wav2vec2 +
 #: CTC (1 s windows of 16,000 samples, float32 as bench.py runs them)
 MODELS_BATCH = 64
-MODELS_TIMED = 25
+MODELS_TIMED = 12
 #: batches compared: fused against fuse=False, and in the cells' own checks
 MODELS_CMP = 3
 DIV = "tensor_transform mode=arithmetic option=typecast:float32,div:255.0"
@@ -4862,7 +4884,7 @@ def print_spec(r):
 #: classes, bf16, seed 0), drained into bucketed steps of up to
 #: BATCHING_MAX frames; no max-inflight, so the backlog is bounded by the
 #: queues (BATCHING_QUEUE) and the drain can fill its buckets
-BATCHING_FRAMES = 256
+BATCHING_FRAMES = 128
 BATCHING_MAX = 32
 BATCHING_RUNS = 1
 BATCHING_QUEUE = 64
@@ -6073,13 +6095,13 @@ def print_asr(a):
 #: detector's 320 px and decoded into a 640x480 RGBA overlay, the other
 #: queued to the compositor's base pad)
 V4L2_W, V4L2_H = 640, 480
-V4L2_FRAMES = 64
+V4L2_FRAMES = 32
 V4L2_RUNS = 1
 #: the stall run: frames written before the writer stalls, and the stall
 V4L2_STALL_AFTER = 16
 V4L2_STALL_S = 2.0
 #: frames replayed through filesrc ! tensor_converter ! filesink
-V4L2_REPLAY = 64
+V4L2_REPLAY = 32
 V4L2 = ("v4l2src device={fifo} width={w} height={h} format=RGB num-buffers={n} "
         "name=camsrc ! tee name=cam "
         "cam. ! videoscale width={size} height={size} method=bilinear ! tensor_converter ! "
@@ -6406,13 +6428,13 @@ FILES_DIR = os.path.join(ROOT, "build", "files")
 #: flight between the pusher and the far end (well under every queue on
 #: the way: edgesink's and the broker's 64 per subscriber, the shm ring's
 #: 8 slots), warm-up frames
-TRANSPORT_FRAMES = 128
+TRANSPORT_FRAMES = 64
 TRANSPORT_RUNS = 1
 TRANSPORT_WINDOW = 8
 TRANSPORT_WARM = 4
 #: shm frames from the producer process, datarepo samples and epochs,
 #: frames through the framework and SingleShot checks
-SHM_FRAMES = 128
+SHM_FRAMES = 32
 REPO_SAMPLES = 64
 REPO_EPOCHS = 2
 FW_FRAMES = 16
@@ -6888,7 +6910,7 @@ MF_ACT = (0.05, 128)
 MF_BLOCKS = ((64, 1), (128, 2), (128, 1), (256, 2), (256, 1), (512, 2), (512, 1),
              (512, 1), (512, 1), (512, 1), (512, 1), (1024, 2), (1024, 1))
 #: batches timed after the warm-up (the quantized cell; the float twin half)
-MF_TIMED = 20
+MF_TIMED = 10
 #: frames of the first batch held bitwise against the CPU's plain path
 MF_CHECKED = 16
 #: the float twin on the card against the CPU at f32 (TF32 off): a logit
@@ -7703,7 +7725,7 @@ def print_modelfiles(mf):
 #: file whose logits spread
 CAPI_INVOKES = 6
 CAPI_WARM = 2
-CAPI_TIMED = 8
+CAPI_TIMED = 4
 CAPI_WINDOW = 4
 CAPI_CHECK_BLOCKS = 4
 #: the sources the build phase compiles for it
@@ -8021,6 +8043,101 @@ def learn_step_check(dev, props, xs, ys, timed):
     return out
 
 
+#: the trainer's mesh: mesh=data:LEARN_MESH_SLOTS over as many slots of
+#: the card against the mesh-less trainer, float32, LEARN_MESH_EPOCHS
+#: epochs of the phase's training samples.  Held: data:1 bitwise
+#: mesh-less (losses and parameters), the census, and the first window's
+#: summed gradient within LEARN_MESH_GRAD_TOL of the mesh-less step's
+#: (the norm of the difference over the norm of the mesh-less tree): the
+#: same sums in another association, read before Adam, whose early
+#: steps are +-lr wherever a gradient stands above eps, turns a sign
+#: flip at round-off into a parameter gap.  A slot's part dropped or
+#: counted twice is computed from the slots' own buffers and printed
+#: beside it.  The loss trajectory is printed against the JAX test's
+#: rtol / atol, not held.
+LEARN_MESH_SLOTS = 2
+LEARN_MESH_EPOCHS = 2
+LEARN_MESH_RTOL, LEARN_MESH_ATOL = 1e-5, 1e-7
+LEARN_MESH_GRAD_TOL = 1e-4
+
+
+def tree_gap(a, b):
+    """The norm of ``a - b`` over the norm of ``b``, each over every leaf."""
+    num = sum(float((x.double() - y.double()).pow(2).sum()) for x, y in zip(a, b))
+    den = sum(float(y.double().pow(2).sum()) for y in b)
+    return (num / den) ** 0.5
+
+
+def learn_mesh(dev, props, xs, ys, n_train, epochs=LEARN_MESH_EPOCHS):
+    """The trainer driven directly at float32, mesh-less, at
+    ``mesh=data:1`` and at ``mesh=data:LEARN_MESH_SLOTS`` over slots of
+    ``dev``: each epoch's training loss, data:1 bitwise mesh-less (losses
+    and parameters), the split mesh's first summed gradient within
+    LEARN_MESH_GRAD_TOL of the mesh-less one (and the two faults' gaps),
+    its census one step program (a capture per slot and the update)
+    replayed every later window.  cuDNN runs its deterministic kernels
+    here."""
+    import numpy as np
+    import torch
+
+    from nnstreamer_tpu_torch.trainer.subplugin import Trainer
+
+    def run(mesh):
+        tr = Trainer()
+        tr.open(dict(props, dtype="float32", **({"mesh": mesh} if mesh else {})))
+        t0 = time.perf_counter()
+        losses, first = [], None
+        for _ in range(epochs):
+            for i in range(n_train):
+                tr.push_data([xs[i]], [ys[i]], False)
+                if first is None and tr.step == 1:
+                    first = ([p.grad.detach().clone() for p in tr._leaves],
+                             [[g.clone() for g in s] for s in tr._slot_grads or ()])
+            losses.append(tr.train_epoch()["training_loss"])
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        leaves = [t.detach().clone() for t in tr._leaves]
+        census = dict(tr.compile_counts(), captures=tr.census.captures,
+                      replays=tr.census.replays, steps=tr.step)
+        tr.close()
+        return losses, leaves, census, wall, first
+
+    # cuDNN's default weight-gradient kernels may add in any order (two
+    # mesh-less runs part in epoch 2 on the card); its deterministic ones
+    # make "data:1 is the mesh-less computation" a bitwise check
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with device_slots(LEARN_MESH_SLOTS):
+            l0, p0, c0, w0, (g0, _) = run(None)
+            l1, p1, c1, _, _ = run("data:1")
+            l2, p2, c2, w2, (g2, parts) = run(f"data:{LEARN_MESH_SLOTS}")
+    finally:
+        torch.backends.cudnn.deterministic = was
+    steps = c2["steps"]
+    check(l0 == l1 and all(torch.equal(a, b) for a, b in zip(p0, p1)),
+          f"data:1 is not the mesh-less trainer, bitwise: {l0} against {l1}")
+    gap = tree_gap(g2, g0)
+    faults = dict(
+        dropped=tree_gap(parts[0], g0),
+        doubled=tree_gap([LEARN_MESH_SLOTS * x for x in parts[0]], g0))
+    check(gap <= LEARN_MESH_GRAD_TOL,
+          f"data:{LEARN_MESH_SLOTS}'s first summed gradient {gap} off mesh-less")
+    check(min(faults.values()) > LEARN_MESH_GRAD_TOL,
+          f"a faulty sum would pass the gradient check: {faults}")
+    want = dict(step=1, captures=LEARN_MESH_SLOTS + 1,
+                replays=(steps - 1) * (LEARN_MESH_SLOTS + 1), steps=steps)
+    check(c2 == want, f"data:{LEARN_MESH_SLOTS} census {c2}, want {want}")
+    return dict(losses=l0, mesh_losses=l2, census=c2, slots=LEARN_MESH_SLOTS,
+                grad_gap=gap, faults=faults,
+                max_rel=float(np.max(np.abs(np.asarray(l2) - l0) / np.abs(l0))),
+                within_rtol=bool(np.allclose(l0, l2, rtol=LEARN_MESH_RTOL,
+                                             atol=LEARN_MESH_ATOL)),
+                max_param_abs=max(float((a - b).abs().max()) for a, b in zip(p0, p2)),
+                wall_s=w0, mesh_wall_s=w2)
+
+
 def learn_serve(dev, fmt, frames, labels):
     """Train-while-serve: a no-op swap (the trainer's initial tree, the
     filter's own draws) leaves the served logits bitwise; after each of the
@@ -8174,6 +8291,11 @@ def phase_learn(dev, size=224, classes=1001, batch=LEARN_BATCH, n_train=LEARN_TR
             dev, dict(opts, model="mobilenet_v1", optimizer="adam", learning_rate=LEARN_LR,
                       batch_size=batch, accelerator=acc.split("=", 1)[1] if acc else ""),
             xs, labels, timed)
+        out["mesh"] = learn_mesh(
+            dev, dict(opts, model="mobilenet_v1", optimizer="adam", learning_rate=LEARN_LR,
+                      batch_size=batch,
+                      accelerator=acc.split("=", 1)[1] if acc else ""),
+            xs, labels, n_train)
         out["serve"] = learn_serve(dev, fmt, frames, labels)
     finally:
         for f in os.listdir(files_dir):
@@ -8201,6 +8323,17 @@ def print_learn(r):
               f"{r['peak_mem_gb']:.2f} GB; dataset written in {r['write_s']:.1f} s, "
               f"straight run {r['straight_s']:.1f} s (its first epoch, the first "
               f"backward's kernel loads included, {r['first_epoch_s']:.1f} s)", flush=True)
+    m = r["mesh"]
+    print(f"learn: mesh=data:{m['slots']} over {m['slots']} slots of the card, float32: "
+          f"the first summed gradient {m['grad_gap']:.3e} of the mesh-less one's norm "
+          f"off (tolerance {LEARN_MESH_GRAD_TOL}; a slot's part dropped "
+          f"{m['faults']['dropped']:.3e}, counted twice {m['faults']['doubled']:.3e}); "
+          f"data:1 bitwise; census {m['census']}; losses (not held) "
+          f"{m['mesh_losses']} against mesh-less {m['losses']}, largest relative "
+          f"difference {m['max_rel']:.3e}, within rtol {LEARN_MESH_RTOL} / atol "
+          f"{LEARN_MESH_ATOL}: {m['within_rtol']}; parameters within "
+          f"{m['max_param_abs']:.3e}; {m['mesh_wall_s']:.2f} s against "
+          f"{m['wall_s']:.2f} s mesh-less", flush=True)
     print(f"learn: train-while-serve {r['serve']}", flush=True)
 
 
@@ -8300,9 +8433,27 @@ MESH_FLASH = [(1, 32, 704, 16, 16, 128, True), (1, 1023, 1023, 16, 16, 128, True
 MESH_PAGED = ("7b_tp2", 8, 1, 16, 16, 128, PAGED_LENS, 64)
 #: the data-parallel cell: the per-frame quick-start, a backlog of
 #: MESH_FRAMES frames drained MESH_BATCH_MAX at a time, data=2 against one
-#: slot, every frame's logits within VISION_TOL of the frame's max |logit|
+#: slot, every frame's logits bitwise the one-slot run's (each slot's step
+#: runs at the one-slot bucket's rows)
 MESH_FRAMES = 64
 MESH_BATCH_MAX = 64
+#: ring attention on MESH_RING slots of the card at llama2_7b's attention
+#: shape (B, T, H, D; bf16, causal) against the flash kernel over the
+#: whole sequence: max |ring - flash| <= RING_TOL of max |flash| (two
+#: float32 accumulations of the same bf16 products, the probabilities
+#: rounded to bf16 before the value product in both)
+MESH_RING = 4
+RING_SHAPE = (1, 4096, 32, 128)
+RING_TOL = 2e-2
+#: the sequence-parallel forward at llama2_7b's full width and depth,
+#: SEQ_T tokens over MESH_RING slots, against the dense forward on the
+#: same int4 tree, both at float32 compute (at bf16 two evaluations of 32
+#: random layers part by ~8% of max |logit| whatever attends, the tie gap
+#: of BF16_REF_TOL: the check could not tell a fault from rounding): max
+#: |sp - dense| <= SEQ_TOL of max |dense logit| (the JAX test's 2e-3), and
+#: the argmax equal wherever the dense top-1/top-2 gap is wider than that
+SEQ_T = 2048
+SEQ_TOL = 2e-3
 MESH_QUERY = ("tensor_query_serversrc name=ssrc port=0 id=91 ! "
               "tensor_filter framework=jax model=scaler custom=scale:4.0,dims:8:8 "
               "mesh=data:2 {acc} ! tensor_query_serversink id=91")
@@ -8376,6 +8527,37 @@ def mesh_teacher_forced(tp, full, cfg, prompt, ids, dev, dtype, chunk=32, bs=16)
                 equal=int((got == want).sum()), near_ties=int((~held).sum()))
 
 
+def first_step_logits(params, cfg, prompt, tok, dev, dtype, chunk=32, bs=16):
+    """``forward_paged`` over ``params`` (tensor-parallel or not): the
+    prompt in ``chunk`` chunks into a pool of its own, then one decode step
+    of ``tok``; that step's logits on the host (the dist phase's bitwise
+    check against the in-process tensor-parallel run)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from nnstreamer_tpu_torch.models import llama
+
+    tp = params if isinstance(params, llama.TPParams) else None
+    padded = math.ceil(len(prompt) / chunk) * chunk
+    blocks = math.ceil((padded + 1) / bs) + 1
+    tables = torch.arange(blocks, dtype=torch.int32, device=dev)[None]
+    toks = np.zeros(padded, np.int32)
+    toks[:len(prompt)] = prompt
+    with torch.inference_mode():
+        pool = llama.init_paged_cache(cfg, blocks, bs, dtype, device=dev, tp=tp)
+        for start in range(0, len(prompt), chunk):
+            llama.forward_paged(
+                params, torch.from_numpy(toks[start:start + chunk][None]).to(dev), pool,
+                tables, np.array([start], np.int64), cfg, dtype,
+                logit_off=min(chunk - 1, len(prompt) - 1 - start))
+        lg, _ = llama.forward_paged(
+            params, torch.tensor([[int(tok)]], dtype=torch.int32, device=dev), pool,
+            tables, np.array([len(prompt)], np.int64), cfg, dtype)
+        return lg[0, -1].float().cpu()
+
+
 def mesh_tp(dev, base=MESH_DESC, new=MESH_NEW, static_desc=MESH_STATIC_DESC,
             static_new=MESH_STATIC_NEW, layers=N_LAYERS):
     """Tensor parallelism on two slots of one card: the continuous cell's
@@ -8414,6 +8596,11 @@ def mesh_tp(dev, base=MESH_DESC, new=MESH_NEW, static_desc=MESH_STATIC_DESC,
         res["teacher"] = [mesh_teacher_forced(fw.tp, keep["full"], fw.cfg, p, ids, dev,
                                               keep["dtype"])
                           for p, ids in zip(prompts, res["ids"])]
+        # the dist phase's reference: this in-process group's first decode
+        # step of stream 0 (kept out of the json)
+        keep["first_logits"] = first_step_logits(fw.tp, fw.cfg, prompts[0],
+                                                 res["ids"][0][0], dev, keep["dtype"])
+        keep["cfg"] = fw.cfg
 
     tp = serve_traffic(base, prompts, groups, new, dev, inside=tp_inside,
                        pipe_kw=dict(model_parallel=MESH_TP))
@@ -8459,8 +8646,7 @@ def mesh_tp(dev, base=MESH_DESC, new=MESH_NEW, static_desc=MESH_STATIC_DESC,
           f"static tensor-parallel request off the unsharded step: {teacher}")
     check(teacher["held"] > 0, f"static tensor-parallel request: no token past the tie "
           f"gap, so none held: {teacher}")
-    del keep
-    return dict(full=full, tp=tp, static=dict(
+    return keep, dict(full=full, tp=tp, static=dict(
         prompt_len=len(prompt), ids=ids, request_s=static_s, launches=launches,
         teacher=teacher, census=census_of(fw.census, fw.census.captures)))
 
@@ -8533,6 +8719,14 @@ def mesh_dp_run(dev, frames, dp, size, acc):
         wall = time.perf_counter() - t0
         snap = metrics.snapshot()
         census = census_of(stage.census, warm)
+        # each slot's captured step at the drain's one-slot bucket and at
+        # half of it (the rows a slot's step ran before every slot ran
+        # the one-slot bucket): device ms a replay, CUDA events
+        slot_ms = {}
+        if dev.type == "cuda" and dp > 1:
+            for key, bs in stage._batcher._sets.items():
+                if key[1] in (MESH_BATCH_MAX // 2, MESH_BATCH_MAX):
+                    slot_ms[f"{key[1]} rows, slot {key[-1]}"] = step_card_ms(bs.step)
         pipe.eos("src")
         pipe.wait(timeout=WAIT_S)
     rows = {k: v for k, v in snap.items() if k.startswith(f"{stage.name}.shard_rows.")}
@@ -8540,13 +8734,13 @@ def mesh_dp_run(dev, frames, dp, size, acc):
     return logits, dict(frames_per_s=(len(frames) - 1) / wall, wall_s=wall,
                         shard_rows=rows, shard_dispatch=snap.get(
                             f"{stage.name}.shard_dispatch", 0.0),
-                        census=census)
+                        census=census, slot_step_ms=slot_ms)
 
 
 def mesh_dp(dev, size=224, frames_n=MESH_FRAMES, acc=""):
     """The per-frame quick-start at ``data_parallel=2`` against one slot
-    over the same backlog: every frame's logits within VISION_TOL of its
-    max |logit| (bitwise counted), both replicas' row counters non-zero."""
+    over the same backlog: every frame's logits bitwise the one-slot
+    run's, both replicas' row counters non-zero."""
     import numpy as np
 
     rng = np.random.default_rng(26)
@@ -8556,7 +8750,9 @@ def mesh_dp(dev, size=224, frames_n=MESH_FRAMES, acc=""):
     two, st2 = mesh_dp_run(dev, frames, MESH_DP, size, acc)
     share = max(float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(two, one))
     bitwise = sum(a.tobytes() == b.tobytes() for a, b in zip(two, one))
-    check(share <= VISION_TOL, f"data-parallel logits {share} of max |logit| off")
+    check(bitwise == frames_n,
+          f"data-parallel logits: {bitwise} of {frames_n} frames bitwise, "
+          f"{share} of max |logit| off")
     rows = st2["shard_rows"]
     check(len(rows) == MESH_DP and all(v > 0 for v in rows.values()),
           f"per-replica rows {rows}")
@@ -8593,11 +8789,15 @@ def mesh_query(dev, acc=""):
 def phase_mesh(dev, bw=None, peak=None, flush=None, base=MESH_DESC, new=MESH_NEW,
                static_desc=MESH_STATIC_DESC, static_new=MESH_STATIC_NEW,
                layers=N_LAYERS, size=224, frames_n=MESH_FRAMES, acc="",
-               kernel_rows=True):
+               kernel_rows=True, ring=None):
     """The in-process mesh on MESH_SLOTS slots of ``dev``: tensor-parallel
-    serving (``mesh_tp``), the kernels at the shard shapes
-    (``mesh_kernel_rows``), data-parallel micro-batching (``mesh_dp``) and
-    ``mesh=data:2`` behind the query pair (``mesh_query``)."""
+    serving (``mesh_tp``), ring attention and the sequence-parallel
+    forward on MESH_RING slots over the same int4 tree (``mesh_ring``;
+    ``ring``: its keyword arguments, to cut it on the CPU), the kernels at
+    the shard shapes (``mesh_kernel_rows``), data-parallel micro-batching
+    (``mesh_dp``) and ``mesh=data:2`` behind the query pair
+    (``mesh_query``).  Returns the results and the tensor-parallel first
+    decode step's logits of stream 0 (the dist phase's reference)."""
     from nnstreamer_tpu_torch.parallel.mesh import local_devices
 
     with device_slots(MESH_SLOTS):
@@ -8605,12 +8805,249 @@ def phase_mesh(dev, bw=None, peak=None, flush=None, base=MESH_DESC, new=MESH_NEW
         check(len(slots) == MESH_SLOTS and all(s.device.type == dev.type for s in slots),
               f"mesh slots {slots}")
         out = dict(slots=[str(s.device) for s in slots])
-        out["tp"] = mesh_tp(dev, base=base, new=new, static_desc=static_desc,
-                            static_new=static_new, layers=layers)
+        keep, out["tp"] = mesh_tp(dev, base=base, new=new, static_desc=static_desc,
+                                  static_new=static_new, layers=layers)
+        first_logits = keep.pop("first_logits")
+        out["ring"] = mesh_ring(dev, keep["full"], keep["cfg"], **(ring or {}))
+        del keep
         out["kernels"] = mesh_kernel_rows(dev, bw, peak, flush) if kernel_rows else []
         out["dp"] = mesh_dp(dev, size=size, frames_n=frames_n, acc=acc)
         out["query"] = mesh_query(dev, acc=acc)
+    return out, first_logits
+
+
+def mesh_ring(dev, full, cfg, shape=RING_SHAPE, seq_t=SEQ_T, seq_dtype="float32"):
+    """Ring attention over MESH_RING slots of ``dev`` against the flash
+    kernel on the whole sequence, and ``forward_seq_parallel`` over the
+    same slots against the dense ``forward`` on the int4 tree ``full``
+    (the mesh phase's, no second build), with their times."""
+    import torch
+
+    from nnstreamer_tpu_torch.models import llama
+    from nnstreamer_tpu_torch.ops.attention import flash_attention
+    from nnstreamer_tpu_torch.parallel import make_mesh, ring_attention
+    from nnstreamer_tpu_torch.parallel.mesh import local_devices
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    with device_slots(MESH_RING):
+        mesh = make_mesh(seq=MESH_RING, data=1, devices=local_devices(dev.type)[:MESH_RING])
+    gen = torch.Generator(device=dev).manual_seed(27)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+               for _ in range(3))
+    out = {}
+    with torch.inference_mode():
+        ring_attention(mesh, q, k, v)  # first-use costs
+        sync()
+        t0 = time.perf_counter()
+        got = ring_attention(mesh, q, k, v, causal=True)
+        sync()
+        out["ring_ms"] = (time.perf_counter() - t0) * 1e3
+        want = flash_attention(q, k, v, causal=True)
+        share = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+        check(got.dtype == torch.bfloat16 and got.shape == want.shape,
+              f"ring output {got.dtype} {tuple(got.shape)}")
+        check(share <= RING_TOL, f"ring attention {share} of max |flash| off")
+        out.update(shape=list(shape), slots=MESH_RING, max_share=share)
+        del q, k, v, got, want
+
+        toks = torch.randint(3, cfg.vocab, (1, seq_t), generator=torch.Generator()
+                             .manual_seed(27), dtype=torch.int64)
+        sync()
+        t0 = time.perf_counter()
+        dense = llama.forward(full, toks.to(dev), cfg, seq_dtype)
+        sync()
+        out["dense_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sp = llama.forward_seq_parallel(mesh, full, toks, cfg, seq_dtype)
+        sync()
+        out["seq_parallel_s"] = time.perf_counter() - t0
+        check(sp.shape == dense.shape and bool(torch.isfinite(sp).all()),
+              f"seq-parallel logits {tuple(sp.shape)}, finite {bool(torch.isfinite(sp).all())}")
+        scale = dense.abs().max()
+        share = float((sp - dense).abs().max() / scale)
+        top = dense[0].topk(2, dim=-1).values
+        held = ((top[:, 0] - top[:, 1]) / scale) > share
+        agree = (sp[0].argmax(-1) == dense[0].argmax(-1))
+        n_held = int(held.sum())
+        out.update(tokens=seq_t, max_logit_share=share, held=n_held,
+                   held_agree=float(agree[held].float().mean()) if n_held else 1.0,
+                   agree_all=float(agree.float().mean()))
+        del dense, sp
+    check(out["max_logit_share"] <= SEQ_TOL,
+          f"seq-parallel logits {out['max_logit_share']} of max |logit| off")
+    check(out["held_agree"] == 1.0,
+          f"seq-parallel argmax off the dense one past the gap: {out}")
     return out
+
+
+#: the dist phase: two ranks on the card in one gloo group (a ``file://``
+#: rendezvous under OUT_DIR), each running MESH_DESC at
+#: model_parallel=2 on the mesh phase's first two prompts (MESH_NEW
+#: tokens each), the first decode step of stream 0 teacher-forced, the
+#: cross-rank sums of one 8-slot decode step timed (DIST_SUM_REPS), and a
+#: seq=2 ring (one slot a rank) at RING_SHAPE with DIST_RING_T positions
+DIST_RANKS = 2
+DIST_RING_T = 2048
+DIST_SUM_REPS = 3
+
+
+def dist_rank(rank, rdv, out_dir):
+    """One rank of the dist phase (``--dist-rank``), run in a child
+    process: writes ``dist<rank>.json`` and ``dist<rank>.pt`` (the first
+    decode step's logits, the ring's output) under ``out_dir``."""
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from nnstreamer_tpu_torch.models import llama
+    from nnstreamer_tpu_torch.parallel import distributed as dist
+    from nnstreamer_tpu_torch.parallel import global_mesh, make_mesh, ring_attention
+    from nnstreamer_tpu_torch.parallel.mesh import Slot
+    from nnstreamer_tpu_torch.parallel.sharding import cross_rank_cat, cross_rank_sum
+
+    dev = torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+    with open(os.path.join(out_dir, "config.json")) as fh:
+        cfg = json.load(fh)
+    t0 = time.perf_counter()
+    check(dist.initialize(f"file://{rdv}", DIST_RANKS, rank, timeout_s=WAIT_S),
+          "no process group")
+    res = dict(rank=rank, join_s=time.perf_counter() - t0, device=str(dev))
+    tensors = {}
+    try:
+        prompts = [continuous_prompts()[i] for i in MESH_STREAMS]
+
+        def inside(fw, loop, r):
+            check(fw.tp is not None and fw.tp.group is not None and fw.tp.ways == DIST_RANKS
+                  and len(fw.tp.shards) == 1 and fw.census.eager,
+                  f"rank {rank}: not tensor-parallel across the ranks")
+            r["pool_heads"] = int(loop._pool[0]["k"].shape[3])
+            tensors["first_logits"] = first_step_logits(
+                fw.tp, fw.cfg, prompts[0], r["ids"][0][0], dev, fw.dtype)
+            # the cross-rank sums of one 8-slot decode step: two a layer
+            # of [8, 1, dim] float32 partials and the lm_head's gather
+            part = [torch.randn((fw.slots, 1, fw.cfg.dim), device=dev)]
+            cols = torch.randn((fw.slots, 1, fw.cfg.vocab // DIST_RANKS), device=dev)
+            times = []
+            for _ in range(DIST_SUM_REPS):
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                t1 = time.perf_counter()
+                for _ in range(2 * fw.cfg.n_layers):
+                    cross_rank_sum(part, dev, fw.tp.group)
+                cross_rank_cat(cols, -1, fw.tp.group)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                times.append((time.perf_counter() - t1) * 1e3)
+            r["sum_ms_per_step"] = float(np.median(times))
+
+        tp = serve_traffic(cfg["base"], prompts, [(tuple(range(len(prompts))), "all")],
+                           cfg["new"], dev, inside=inside,
+                           pipe_kw=dict(model_parallel=DIST_RANKS))
+        res.update({k: tp[k] for k in ("ids", "launches", "aggregate_tok_s", "decode_tok_s",
+                                       "census", "stats", "setup_s", "sum_ms_per_step",
+                                       "pool_heads", "peak_mem_gb", "window_s")})
+        # a seq=2 ring, one slot a rank, against the in-process ring on rank 0
+        gen = torch.Generator(device=dev).manual_seed(28)
+        q, k, v = (torch.randn(cfg["ring_shape"], generator=gen, device=dev,
+                               dtype=torch.bfloat16) for _ in range(3))
+        mesh = global_mesh(seq=DIST_RANKS, data=1)
+        check(mesh.spans_ranks() and len(mesh.local) == 1, f"ring mesh {mesh}")
+        with torch.inference_mode():
+            got = ring_attention(mesh, q, k, v, causal=True)
+            if rank == 0:
+                local = make_mesh(seq=DIST_RANKS, data=1,
+                                  devices=[Slot(i, dev, i) for i in range(DIST_RANKS)])
+                res["ring_bitwise_in_process"] = bool(torch.equal(
+                    got, ring_attention(local, q, k, v, causal=True)))
+        tensors["ring"] = got.cpu()
+    finally:
+        dist.shutdown()
+    torch.save(tensors, os.path.join(out_dir, f"dist{rank}.pt"))
+    with open(os.path.join(out_dir, f"dist{rank}.json"), "w") as fh:
+        json.dump(res, fh)
+    return 0
+
+
+def phase_dist(dev, mesh, first_logits, base=MESH_DESC, new=MESH_NEW,
+               ring_shape=(RING_SHAPE[0], DIST_RING_T) + RING_SHAPE[2:], out_dir=None):
+    """Two ranks on ``dev`` in one gloo group (``dist_rank`` in two child
+    processes, started together, each waited for at most WAIT_S and
+    killed in a ``finally``): both ranks' tokens equal to each other and
+    to the mesh phase's in-process tensor-parallel tokens, the first
+    decode step's logits bitwise the in-process group's, the seq=2 ring
+    across the ranks bitwise the in-process one, launches per rank.
+    ``out_dir``: the ranks' rendezvous and results (``OUT_DIR/dist`` by
+    default)."""
+    import torch
+
+    out_dir = out_dir or os.path.join(OUT_DIR, "dist")
+    os.makedirs(out_dir, exist_ok=True)
+    for f in os.listdir(out_dir):
+        os.remove(os.path.join(out_dir, f))
+    rdv = os.path.join(out_dir, "rendezvous")
+    with open(os.path.join(out_dir, "config.json"), "w") as fh:
+        json.dump(dict(base=base, new=new, ring_shape=list(ring_shape)), fh)
+    env = cli_env()
+    env["OMP_NUM_THREADS"] = "1"
+    t0 = time.perf_counter()
+    got = run_children([[sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--dist-rank",
+                         str(r), rdv, out_dir] for r in range(DIST_RANKS)], env)
+    wall = time.perf_counter() - t0
+    for r, (rc, so, se) in enumerate(got):
+        check(rc == 0, f"dist rank {r} exited {rc}:\n{so[-2000:]}\n{se[-4000:]}")
+    ranks = [json.load(open(os.path.join(out_dir, f"dist{r}.json"))) for r in range(DIST_RANKS)]
+    tens = [torch.load(os.path.join(out_dir, f"dist{r}.pt")) for r in range(DIST_RANKS)]
+    ref = mesh["tp"]["tp"]["ids"]
+    check(ranks[0]["ids"] == ranks[1]["ids"], "the ranks' tokens differ")
+    check(ranks[0]["ids"] == ref, "the ranks' tokens differ from the in-process TP's")
+    a, b = (t["first_logits"] for t in tens)
+    check(torch.equal(a, b), "the ranks' first decode-step logits differ")
+    bitwise = bool(torch.equal(a, first_logits))
+    share = float((a - first_logits).abs().max() / first_logits.abs().max())
+    check(bitwise, f"first decode-step logits not bitwise the in-process TP's "
+          f"({share} of max |logit|)")
+    check(torch.equal(tens[0]["ring"], tens[1]["ring"]), "the ranks' ring outputs differ")
+    check(ranks[0]["ring_bitwise_in_process"], "the cross-rank ring is not bitwise "
+          "the in-process one")
+    for r in ranks:
+        steps = r["stats"]["decode_steps"]
+        check(r["census"]["captures_after_warmup"] == 0, f"rank {r['rank']} census")
+        # each decode step: the rank's kv heads through the paged kernel in
+        # every layer, its int4 mats and lm_head columns (launches per rank)
+        check(steps > 0 and (dev.type != "cuda" or (
+            r["launches"].get("paged_attention", 0) >= steps * N_LAYERS
+            and r["launches"].get("matmul_int4", 0) >= steps * (4 * N_LAYERS + 1))),
+              f"rank {r['rank']}: launches {r['launches']} over {steps} decode steps")
+    return dict(ranks=ranks, wall_s=wall, first_logits_bitwise=bitwise,
+                first_logits_share=share, tokens_equal=True, ring_shape=list(ring_shape),
+                ring_bitwise=ranks[0]["ring_bitwise_in_process"])
+
+
+def print_dist(d, m, card):
+    r0, r1 = d["ranks"]
+    t = m["tp"]
+    print(f"dist: {DIST_RANKS} ranks on one card in a gloo group ({card}); join "
+          f"{r0['join_s']:.1f} s, load {r0['setup_s']:.1f} s, children {d['wall_s']:.1f} s",
+          flush=True)
+    print(f"dist: model_parallel=2 across the ranks, {len(r0['ids'])} streams x "
+          f"{len(r0['ids'][0])} tokens: {r0['aggregate_tok_s']:.2f} tok/s against "
+          f"{t['tp']['aggregate_tok_s']:.2f} in-process model=2 and "
+          f"{t['full']['aggregate_tok_s']:.2f} unsharded; tokens equal on both ranks and "
+          f"to the in-process TP's: {d['tokens_equal']}; first decode step bitwise the "
+          f"in-process TP's: {d['first_logits_bitwise']}", flush=True)
+    print(f"dist: cross-rank sums of one 8-slot decode step (64 sums, the lm_head "
+          f"gather): {r0['sum_ms_per_step']:.2f} ms (rank 1 "
+          f"{r1['sum_ms_per_step']:.2f}); "
+          f"decode steps {r0['stats']['decode_steps']}, prefill chunks "
+          f"{r0['stats']['prefill_chunks']}; launches rank 0 {r0['launches']}, rank 1 "
+          f"{r1['launches']}; {r0['pool_heads']} kv heads a rank's pool; census "
+          f"{r0['census']}", flush=True)
+    print(f"dist: seq=2 ring across the ranks at {d['ring_shape']} bf16 causal: bitwise "
+          f"the in-process ring {d['ring_bitwise']}", flush=True)
 
 
 def print_mesh(m, card):
@@ -8647,7 +9084,19 @@ def print_mesh(m, card):
           f"{d['max_logit_share']:.5f} of max |logit| off, {d['bitwise']} of "
           f"{d['frames']} bitwise; rows {d['dp']['shard_rows']}, census "
           f"{d['dp']['census']}", flush=True)
+    if d["dp"]["slot_step_ms"]:
+        print(f"mesh: data=2 slot steps, device ms a replay (CUDA events): "
+              f"{d['dp']['slot_step_ms']}", flush=True)
     print(f"mesh: mesh=data:2 behind the query pair {m['query']}", flush=True)
+    r = m["ring"]
+    print(f"mesh: ring attention seq={r['slots']} at {r['shape']} bf16 causal: "
+          f"{r['max_share']:.5f} of max |flash| off (tolerance {RING_TOL}), "
+          f"{r['ring_ms']:.1f} ms", flush=True)
+    print(f"mesh: forward_seq_parallel seq={r['slots']}, T={r['tokens']}, llama2_7b int4 "
+          f"32 layers, float32 compute: logits {r['max_logit_share']:.2e} of max |logit| off "
+          f"the dense forward (tolerance {SEQ_TOL}), argmax equal at {r['held_agree']:.4f} of "
+          f"the {r['held']} positions past that gap ({r['agree_all']:.4f} of all); "
+          f"{r['seq_parallel_s']:.2f} s against {r['dense_s']:.2f} s dense", flush=True)
 
 
 def main():
@@ -8658,6 +9107,9 @@ def main():
     if "--weave-client" in sys.argv[1:]:
         port, prompts, ring, new = sys.argv[sys.argv.index("--weave-client") + 1:][:4]
         return weave_client(int(port), prompts, ring, int(new))
+    if "--dist-rank" in sys.argv[1:]:
+        rank, rdv, out_dir = sys.argv[sys.argv.index("--dist-rank") + 1:][:3]
+        return dist_rank(int(rank), rdv, out_dir)
     if "--shm-producer" in sys.argv[1:]:
         name, frames_n, size, device = sys.argv[sys.argv.index("--shm-producer") + 1:][:4]
         return shm_producer(name, int(frames_n), int(size), device)
@@ -8841,11 +9293,17 @@ def main():
 
     with phase("mesh"):
         flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-        mesh = detail["mesh"] = phase_mesh(dev, bw, peak, flush_buf.zero_)
+        mesh, first_logits = phase_mesh(dev, bw, peak, flush_buf.zero_)
+        detail["mesh"] = mesh
         del flush_buf
         print_mesh(mesh, card)
         save()
         torch.cuda.empty_cache()
+
+    with phase("dist"):
+        dist = detail["dist"] = phase_dist(dev, mesh, first_logits)
+        print_dist(dist, mesh, card)
+        save()
 
     with phase("reference"):
         detail["reference"] = []
@@ -8921,7 +9379,8 @@ def main():
     # continuous decode step at the 7B 8-slot shape (32 launches), with
     # the verify step's 32 and the draft's propose launches beside it;
     # launches are those of every LLM phase (serve, continuous, prefix,
-    # spec, files, elastic), each counted from 0 after its warm-up (the files
+    # spec, files, elastic, mesh, and dist's two ranks, each rank's counted
+    # in its own process), each counted from 0 after its warm-up (the files
     # phase's static text request from its push), by phase in
     # launches_by_phase; spec_launches, the spec phase's greedy run's
     # launches of the new shapes, counted by captured step (verify,
@@ -8949,7 +9408,8 @@ def main():
                       spec["accept_plain"]],
                 files=[files["int4"], files["int8"], files["text"]],
                 elastic=[elastic["greedy"], elastic["sampled"]],
-                mesh=[mesh["tp"]["full"], mesh["tp"]["tp"], mesh["tp"]["static"]])
+                mesh=[mesh["tp"]["full"], mesh["tp"]["tp"], mesh["tp"]["static"]],
+                dist=dist["ranks"])
     by_phase = {k: {ph: sum(r["launches"].get(k, 0) for r in rs)
                     for ph, rs in runs.items()}
                 for k in ("matmul_int4", "flash_attention", "paged_attention")}

@@ -132,7 +132,7 @@ def analyze(
 
         run("protocol", _run_proto)
     if deep:
-        from .tracecheck import MultiDeviceNotPorted, deep_check
+        from .tracecheck import deep_check
 
         try:
             ddiags, resources = deep_check(
@@ -146,8 +146,6 @@ def analyze(
                 out_caps=caps_state.get("out_caps"))
             report.extend(ddiags)
             report.resources = resources
-        except MultiDeviceNotPorted:
-            raise  # a named refusal, not an analyzer bug
         except Exception as e:  # noqa: BLE001 - report, never crash
             report.add("analyzer-error", ERROR,
                        f"deep pass crashed: {e!r} — report this bug")

@@ -36,8 +36,10 @@ shardable stages per slot (replica-rounded buckets, params whole on
 every device as the runtime places them, their pspecs checked by
 :func:`_pspec_audit`), the llm filter's weights and pool per slot, and the over-ask, ``model-divisibility`` and
 ``mesh-axis-missing`` diagnostics in the JAX package's words.  A
-``tensor_trainer`` under a ``model`` axis raises
-:class:`MultiDeviceNotPorted` (its ``mesh=`` is not ported).
+``tensor_trainer`` trains on its own ``mesh=`` (not the pipeline's):
+priced with its weights whole on every device, one gradient tree per
+slot beside the summed one, and ``mesh-devices`` where the mesh asks
+for more slots than the process owns.
 """
 
 from __future__ import annotations
@@ -57,20 +59,6 @@ from ..pipeline.plan import adaptive_variant_budget, mesh_plan
 from ..pipeline.residency import FetchEdge, compute_floor_ms, fetch_ms
 from .capsflow import SAFE_CONFIGURE, _element_class, _kahn_order, propagate
 from .diagnostics import Diagnostic, ERROR, WARNING, node_label
-
-
-class MultiDeviceNotPorted(ValueError):
-    """A mesh the port does not carry yet: the trainer's ``mesh=`` (ROADMAP
-    Queue A 6)."""
-
-
-def _one_card(model_par: int, label: str) -> None:
-    """A ``tensor_trainer`` runs on one slot: a ``model`` axis over 1
-    raises, naming it."""
-    if model_par > 1:
-        raise MultiDeviceNotPorted(
-            f"{label}: model_parallel={model_par}: the trainer's mesh= "
-            "waits for ROADMAP Queue A 6; the port trains on one card")
 
 
 def _mib(n: int) -> str:
@@ -360,7 +348,7 @@ def deep_check(
             if isinstance(serving, StageResource):
                 serving_stages.append(serving)
             continue
-        train = _trainer_stage(node, diags, req_mp)
+        train = _trainer_stage(node, diags)
         if train is not None:
             # tensor_trainer: priced statically via the runtime's own
             # train_plan arithmetic (the model built on meta).  The
@@ -629,7 +617,7 @@ def _llm_serving_stage(node, diags, model_par: int = 1):
         kv_groups=plan["kv_groups"])
 
 
-def _trainer_stage(node, diags, model_par: int = 1):
+def _trainer_stage(node, diags):
     """Price a ``tensor_trainer`` stage statically.
 
     Returns ``None`` when the node is not a trainer of this package's
@@ -649,8 +637,7 @@ def _trainer_stage(node, diags, model_par: int = 1):
     if fw != "jax":
         return None
     label = node_label(node)
-    _one_card(model_par, label)
-    from ..trainer.subplugin import train_plan
+    from ..trainer.subplugin import TrainerError, mesh_sizes, train_plan
 
     try:
         plan = train_plan(dict(node.props))
@@ -664,12 +651,37 @@ def _trainer_stage(node, diags, model_par: int = 1):
             "be priced (use mlp:IN:...:OUT or a preset zoo name)",
             path=label, pos=node.pos))
         return True
+    # the trainer's own mesh= (a pipeline model axis does not place it):
+    # weights whole on every device, as the runtime places them; each
+    # slot's step writes a gradient tree of its own, summed into the
+    # parameters' (the act_row tree)
+    slot_grads = 0
+    spec = str(node.props.get("mesh", "") or "")
+    if spec:
+        from ..parallel.mesh import local_devices
+
+        n = len(local_devices())
+        try:
+            sizes = mesh_sizes(spec, n)
+        except (TrainerError, ValueError) as e:
+            diags.append(Diagnostic("mesh-devices", ERROR, str(e), path=label,
+                                    pos=node.pos))
+            return True
+        need = sizes["data"] * sizes["model"]
+        if need > n:
+            diags.append(Diagnostic(
+                "mesh-devices", ERROR,
+                f"mesh {spec!r} needs {need} devices, have {n}",
+                path=label, pos=node.pos))
+        if need > 1:
+            slot_grads = need * plan["grad_bytes"]
     return StageResource(
         label=label, param_bytes=plan["param_bytes"],
         act_row_bytes=plan["grad_bytes"],  # one gradient tree per step
         rows_per_device=1, variants=plan["programs"],
         batchable=False, shard_eligible=False, sharded=False,
-        pos=node.pos, train_bytes=plan["opt_bytes"] + plan["window_bytes"])
+        pos=node.pos,
+        train_bytes=plan["opt_bytes"] + plan["window_bytes"] + slot_grads)
 
 
 #: captured steps a device-mode aggregator runs for its life: none.  The

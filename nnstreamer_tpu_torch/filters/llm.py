@@ -244,6 +244,17 @@ class LLMFramework(Framework):
     such a machine).  A geometry that does not divide, or more slots than
     there are, raises.  Weight swaps are refused under tensor
     parallelism.
+
+    Under a process group (``parallel/distributed.py``) the pipeline's
+    mesh spans every rank's slots, and a model group may span ranks: each
+    rank runs the same pipeline on the same prompts (the JAX package's
+    multi-controller model), keeps only its own shards, computes the
+    residual, norms, embedding and sampler itself, and sums across the
+    ranks (``parallel/sharding.cross_rank_sum``), so every rank's sink
+    yields the same tokens.  Its steps run eagerly (a gloo collective is
+    host code), the loop admits a prompt once every rank has it and
+    leaves ``admit_timeout`` off, and drains, adoptions and swaps are
+    refused.
     """
 
     name = "llm"
@@ -383,18 +394,37 @@ class LLMFramework(Framework):
                 f"the pipeline mesh is on {mesh.kind}, the filter on "
                 f"{self.device.type} (accelerator=)")
         group = mesh.model_group(0)
-        devs = [s.device for s in group]
+        own = [i for i, s in enumerate(group) if s.addressable]
+        if not own or own != list(range(own[0], own[0] + len(own))):
+            raise FrameworkError(
+                f"this process's slots {own} of the model group are not one run")
+        devs = [group[i].device for i in own]
         if devs[0] != self.device:
             raise FrameworkError(
                 f"the mesh's root slot is on {devs[0]}, the filter on "
                 f"{self.device}")
+        from ..parallel.distributed import group_of
+
+        try:
+            pg = group_of(group)
+        except ValueError as e:
+            raise FrameworkError(str(e)) from e
         self.mesh = mesh
-        self.bundle.params = llama.place_tp(self.bundle.params, self.cfg, devs)
+        kw = dict(ways=len(group), first=own[0], group=pg)
+        self.bundle.params = llama.place_tp(self.bundle.params, self.cfg, devs, **kw)
         self.tp = self.bundle.params
         if self.draft_bundle is not None:
             self.draft_bundle.params = llama.place_tp(
-                self.draft_bundle.params, self.draft_cfg, devs)
-        if not self.tp.one_device:
+                self.draft_bundle.params, self.draft_cfg, devs, **kw)
+        if pg is not None:
+            # a cross-rank sum is host code (gloo), which no CUDA graph
+            # can hold: the steps run eagerly, in the same order on every
+            # rank (the loop admits only what every rank has)
+            self.census.eager = True
+            log.warning("llm filter: tensor-parallel over %d slots of %d "
+                        "processes runs its steps eagerly", ways,
+                        len({s.rank for s in group}))
+        elif not self.tp.one_device:
             # one stream cannot capture a step over several cards: the
             # steps run eagerly (not yet run on such a machine)
             self.census.eager = True
@@ -1244,6 +1274,9 @@ class _ContinuousLoop:
         #: and prefill-in-progress states: both crash-visible
         self._waiting: list = []
         self._admitting: list = []
+        #: under tensor parallelism across processes: prompts this rank
+        #: has that not every rank has yet (admitted in agreement only)
+        self._arrived: list = []
         self._live_slots: list = [None] * fw.slots  # (meta, emit) per slot
         #: stream id -> (reason, reap deadline), set by _mark_cancel from
         #: any thread, consumed by the serve thread at chunk boundaries
@@ -1365,6 +1398,13 @@ class _ContinuousLoop:
         """Queue one control command and wait until the serve thread has
         run it at a chunk boundary; returns its result or raises its
         error."""
+        tp = self.fw.tp
+        if tp is not None and tp.group is not None:
+            # a command runs at one rank's chunk boundary: the ranks'
+            # steps would part
+            raise FrameworkError(
+                f"serve-loop {cmd['kind']}: refused under tensor parallelism "
+                "across processes")
         cmd["ev"] = threading.Event()
         cmd["deadline"] = time.monotonic() + timeout
         with self._idle_lock:
@@ -1467,7 +1507,7 @@ class _ContinuousLoop:
                     self._abort(slot[0], slot[1], idx=1 << 30)
             for st in list(self._admitting):
                 self._abort(st["meta"], st["emit"])
-            for ent in list(self._waiting):
+            for ent in list(self._waiting) + list(self._arrived):
                 self._abort(ent[1], ent[2])
             with self._idle_lock:
                 self._error = e
@@ -1644,13 +1684,32 @@ class _ContinuousLoop:
                 done.synchronize()
             return got
 
+        group = fw.tp.group if fw.tp is not None else None
+
         def take_pending() -> None:
-            """The thread hand-off queue into the admission-order list."""
+            """The thread hand-off queue into the admission-order list.
+            Under tensor parallelism across processes every rank serves
+            the same prompts in the same order, and its steps are
+            collectives: a prompt joins the list only once every rank
+            has it (the ranks agree on the count, one small all-gather
+            per iteration with work), so every rank admits, prefills and
+            decodes alike.  An idle rank (nothing arrived, queued or
+            live) calls no collective: the others wait in theirs until
+            its prompt comes, within the group's timeout."""
+            got = self._waiting if group is None else self._arrived
             while True:
                 try:
-                    self._waiting.append(self._pending.get_nowait())
+                    got.append(self._pending.get_nowait())
                 except queue.Empty:
-                    return
+                    break
+            if group is None or not (self._arrived or self._waiting
+                                     or self._admitting or (remaining > 0).any()):
+                return
+            from ..parallel.distributed import agree_min
+
+            n = agree_min(len(self._arrived), group)
+            self._waiting.extend(self._arrived[:n])
+            del self._arrived[:n]
 
         def drain_cmd(cmd: Dict, rec, deferred: list) -> bool:
             """A drain at this chunk boundary; False when it did not run
@@ -1973,7 +2032,8 @@ class _ContinuousLoop:
                     # no amount of retiring satisfies it: deferring would
                     # wedge the FIFO head
                     reason = "reservation-impossible"
-                overdue = (fw.admit_timeout > 0
+                # (a clock read: off where the ranks must agree)
+                overdue = (fw.admit_timeout > 0 and group is None
                            and time.monotonic() - t_enq > fw.admit_timeout)
                 tenant = meta.get(META_TENANT)
                 quota = self._tenant_quota.get(tenant) if tenant is not None else None
@@ -2240,6 +2300,7 @@ class _ContinuousLoop:
             if not progressed:
                 with self._idle_lock:
                     if self._pending.empty() and not self._waiting \
+                            and not self._arrived \
                             and not self._admitting and not self._ctl \
                             and not (remaining > 0).any():
                         self._idle.set()

@@ -352,13 +352,9 @@ def _rope(x, positions, theta):
     return out.to(x.dtype)
 
 
-def _attn(cfg: LlamaConfig, lp, x, positions, kv=None,
-          pos_offset: Union[int, torch.Tensor, None] = None, paged=None,
-          out_dtype=None):
-    """The attention half of one transformer block (:func:`_block` says
-    what ``kv``, ``pos_offset`` and ``paged`` are): its o-projection's
-    output before the residual add, which under tensor parallelism is the
-    slot's partial of it (``out_dtype`` float32: see :func:`_block_tp`)."""
+def _qkv(cfg: LlamaConfig, lp, x, positions):
+    """The attention half's projections: q [B, T, H, hd] and k, v [B, T,
+    Hkv, hd], rotary applied to q and k."""
     B, T, D = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = x.dtype
@@ -375,9 +371,26 @@ def _attn(cfg: LlamaConfig, lp, x, positions, kv=None,
         v = _mm(h, lp, "wv", dt).reshape(B, T, Hkv, hd)
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
-    v = v.contiguous()
+    return q, k, v.contiguous()
 
-    if paged is not None:
+
+def _attn(cfg: LlamaConfig, lp, x, positions, kv=None,
+          pos_offset: Union[int, torch.Tensor, None] = None, paged=None,
+          out_dtype=None, attn_fn=None):
+    """The attention half of one transformer block (:func:`_block` says
+    what ``kv``, ``pos_offset``, ``paged`` and ``attn_fn`` are): its
+    o-projection's output before the residual add, which under tensor
+    parallelism is the slot's partial of it (``out_dtype`` float32: see
+    :func:`_block_tp`)."""
+    B, T, D = x.shape
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = x.dtype
+    q, k, v = _qkv(cfg, lp, x, positions)
+
+    if attn_fn is not None:
+        attn = attn_fn(q, repeat_kv_heads(k, H // Hkv),
+                       repeat_kv_heads(v, H // Hkv)).to(dt)
+    elif paged is not None:
         # suffix rows go to their (block, offset) first, then the row
         # attends its context through the tables
         k_pool, v_pool = kv
@@ -436,7 +449,8 @@ def _mlp(cfg: LlamaConfig, lp, x, out_dtype=None):
 
 
 def _block(cfg: LlamaConfig, lp, x, positions, kv=None,
-           pos_offset: Union[int, torch.Tensor, None] = None, paged=None):
+           pos_offset: Union[int, torch.Tensor, None] = None, paged=None,
+           attn_fn=None):
     """One transformer block.  ``kv=(k_cache, v_cache)`` ([B, S_max, Hkv,
     hd] each) enables cached decode: x is the new suffix, written into the
     caches in place at ``pos_offset`` (the Python int 0: prefill into an
@@ -445,8 +459,11 @@ def _block(cfg: LlamaConfig, lp, x, positions, kv=None,
     switches ``kv`` to one layer of the block pool ([n_blocks + 1, bs,
     Hkv, hd]): the suffix row (b, t) is written at pool block
     ``blk[b, t]``, offset ``off[b, t]``, then attended through the tables
-    (:func:`forward_paged` computes all four once per step)."""
-    x = x + _attn(cfg, lp, x, positions, kv, pos_offset, paged)
+    (:func:`forward_paged` computes all four once per step).
+    ``attn_fn(q, k, v)`` (K/V repeated to the query heads) overrides
+    causal attention over the suffix: ring attention under
+    :func:`forward_seq_parallel`."""
+    x = x + _attn(cfg, lp, x, positions, kv, pos_offset, paged, attn_fn=attn_fn)
     return x + _mlp(cfg, lp, x)
 
 
@@ -558,19 +575,31 @@ def shard_config(cfg: LlamaConfig, tp: int) -> LlamaConfig:
 
 class TPParams:
     """A parameter tree cut over the slots of one model group
-    (:func:`place_tp`): ``shards[s]`` is slot ``s``'s tree, on
-    ``devices[s]``; ``local`` is the shard geometry.  Slot 0 is the root:
-    the residual stream, the embedding lookup, the final norm and the
-    gathered logits live on its device."""
+    (:func:`place_tp`): ``shards[s]`` is the tree of this process's
+    ``s``-th slot of the group, on ``devices[s]``; ``local`` is the shard
+    geometry of a ``ways``-way cut.  The first of them is the process's
+    root: the residual stream, the embedding lookup, the final norm and
+    the gathered logits live on its device.
+
+    Where the group spans processes (``group``, a ``torch.distributed``
+    group; ``first``: the group index of this process's first slot) each
+    rank holds only its own shards, computes the residual, norms and
+    embedding itself, and every sum and gather crosses the ranks
+    (``parallel/sharding.cross_rank_sum``): every rank ends each layer
+    with the same residual, the in-process group's bits."""
 
     def __init__(self, shards: List[Dict], devices: Sequence[torch.device],
-                 cfg: LlamaConfig):
+                 cfg: LlamaConfig, *, ways: Optional[int] = None, first: int = 0,
+                 group=None):
         self.shards = shards
         self.devices = [torch.device(d) for d in devices]
         self.cfg = cfg
-        self.ways = len(shards)
+        self.ways = int(ways) if ways is not None else len(shards)
+        self.first = int(first)
+        self.group = group
         self.local = shard_config(cfg, self.ways)
-        #: every slot on one device: a step over all of them is one stream
+        #: every slot of this process on one device: a step over all of
+        #: them is one stream
         self.one_device = len({str(d) for d in self.devices}) == 1
 
     @property
@@ -589,8 +618,10 @@ class TPParams:
         return x if x.device == d else x.to(d)
 
     def sum(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
-        from ..parallel.sharding import fixed_order_sum
+        from ..parallel.sharding import cross_rank_sum, fixed_order_sum
 
+        if self.group is not None:
+            return cross_rank_sum(parts, self.root, self.group)
         return fixed_order_sum(parts, self.root)
 
     def leaves(self):
@@ -635,15 +666,20 @@ def _cut_packed_rows(p: torch.Tensor, s: int, ways: int) -> torch.Tensor:
 
 
 def place_tp(params: Dict, cfg: LlamaConfig,
-             devices: Sequence[torch.device]) -> TPParams:
+             devices: Sequence[torch.device], *, ways: Optional[int] = None,
+             first: int = 0, group=None) -> TPParams:
     """``params`` (the bf16 / float, ``quant:int8`` or ``quant:int4``
     tree) cut over ``devices``, one slot each, by :func:`param_pspecs`:
     output-cut mats by whole heads or FFN columns, the int4 fused groups
     member by member (``[q_s | k_s | v_s]``, ``[gate_s | up_s]``), int4
     input-cut mats repacked, input-cut mats' scales and every replicated
     leaf whole (the same tensor on the tree's device).  Raises
-    ``ValueError`` naming the dims that do not divide."""
-    ways = len(devices)
+    ``ValueError`` naming the dims that do not divide.
+
+    A group that spans processes: ``ways`` slots in all, this process's
+    ``devices`` being slots ``first ..`` of them, its collectives over
+    ``group``; only those shards are cut and kept."""
+    ways = int(ways) if ways is not None else len(devices)
     probs = tp_divisibility_problems(cfg, ways)
     if probs:
         raise ValueError(f"model geometry does not divide model_parallel="
@@ -652,7 +688,7 @@ def place_tp(params: Dict, cfg: LlamaConfig,
     groups = {"wqkv": (H * hd, Hkv * hd, Hkv * hd), "wgu": (F_, F_)}
     lay = params["layers"]
     shards = []
-    for s, dev in enumerate(devices):
+    for s, dev in enumerate(devices, start=first):
         dev = torch.device(dev)
 
         def put(t):  # a cut: a contiguous tensor of its own on dev
@@ -689,16 +725,22 @@ def place_tp(params: Dict, cfg: LlamaConfig,
             if key in params:
                 tree[key] = put(_cut(params[key], -1, s, ways))
         shards.append(tree)
-    return TPParams(shards, devices, cfg)
+    return TPParams(shards, devices, cfg, ways=ways, first=first, group=group)
 
 
 def _lm_head_tp(tp: TPParams, x: torch.Tensor, dt) -> torch.Tensor:
-    """Each slot's vocabulary columns, gathered on the root in slot order."""
+    """Each slot's vocabulary columns, gathered on the root in slot order
+    (from every rank, in rank order, where the group spans them)."""
     parts = []
-    for s in range(tp.ways):
+    for s in range(len(tp.shards)):
         with tp.on(s):
             parts.append(_lm_head(tp.shards[s], tp.to(x, s), dt))
-    return torch.cat([tp.to(p, 0) for p in parts], dim=-1)
+    out = torch.cat([tp.to(p, 0) for p in parts], dim=-1)
+    if tp.group is None:
+        return out
+    from ..parallel.sharding import cross_rank_cat
+
+    return cross_rank_cat(out, -1, tp.group)
 
 
 def _block_tp(tp: TPParams, i: int, x, slot_args) -> torch.Tensor:
@@ -711,14 +753,14 @@ def _block_tp(tp: TPParams, i: int, x, slot_args) -> torch.Tensor:
     ``(positions, kv, pos_offset, paged)``."""
     f32 = torch.float32
     parts = []
-    for s in range(tp.ways):
+    for s in range(len(tp.shards)):
         with tp.on(s):
             pos_s, kv, po, paged = slot_args(s)
             parts.append(_attn(tp.local, _layer(tp.shards[s], i), tp.to(x, s),
                                pos_s, kv, po, paged, out_dtype=f32))
     x = x + tp.sum(parts).to(x.dtype)
     parts = []
-    for s in range(tp.ways):
+    for s in range(len(tp.shards)):
         with tp.on(s):
             parts.append(_mlp(tp.local, _layer(tp.shards[s], i), tp.to(x, s),
                               out_dtype=f32))
@@ -746,6 +788,70 @@ def forward(params, tokens, cfg: LlamaConfig, compute_dtype="bfloat16"):
             x = _block(cfg, _layer(params, i), x, positions)
     x = _rmsnorm(x, root["ln_out"], cfg.norm_eps)
     return _lm_head_tp(tp, x, dt) if tp is not None else _lm_head(params, x, dt)
+
+
+def forward_seq_parallel(mesh, params, tokens, cfg: LlamaConfig,
+                         compute_dtype="bfloat16"):
+    """Sequence-parallel full forward -> logits [B, T, vocab] f32: the
+    tokens cut over ``mesh``'s ``seq`` axis, ``T / seq`` positions a slot
+    (global positions ``index * T_local + arange``), each layer's
+    attention a ring (``parallel/ring.ring_attention_local``) that
+    rotates the K/V shards, so no slot holds more than ``T / seq`` keys.
+    The weights are whole on every slot's device.  This process's slots
+    step together; the logits are gathered on the first of them (from
+    every rank where the ring spans ranks).  With ``seq`` <= 1 it is
+    :func:`forward`."""
+    from ..parallel.mesh import mesh_axis_size
+    from ..parallel.ring import ring_attention_local, seq_slots
+
+    n = mesh_axis_size(mesh, "seq")
+    if n <= 1:
+        return forward(params, tokens, cfg, compute_dtype)
+    dt = torch_dtype(compute_dtype)
+    line, own, group = seq_slots(mesh)
+    toks = torch.as_tensor(np.asarray(tokens)) if not isinstance(
+        tokens, torch.Tensor) else tokens
+    B, T = toks.shape
+    if T % n:
+        raise ValueError(f"sequence {T} does not divide over seq={n}")
+    Tl = T // n
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    trees: Dict[str, Dict] = {}
+    for i in own:
+        dev = line[i].device
+        if str(dev) not in trees:
+            trees[str(dev)] = _tree_to(params, dev)
+    tree = [trees[str(line[i].device)] for i in own]
+    xs, pos = [], []
+    for i, p in zip(own, tree):
+        dev = line[i].device
+        xs.append(p["embed"][toks[:, i * Tl:(i + 1) * Tl].to(dev)].to(dt))
+        pos.append(i * Tl + torch.arange(Tl, device=dev))
+    for layer in range(cfg.n_layers):
+        lps = [_layer(p, layer) for p in tree]
+        qkv = [_qkv(cfg, lp, x, ps) for lp, x, ps in zip(lps, xs, pos)]
+        attn = ring_attention_local(
+            [q for q, _, _ in qkv], [repeat_kv_heads(k, H // Hkv) for _, k, _ in qkv],
+            [repeat_kv_heads(v, H // Hkv) for _, _, v in qkv],
+            index=own[0], size=n, causal=True, group=group)
+        xs = [x + _mm(a.to(dt).reshape(B, Tl, H * hd), lp, "wo", dt)
+              for x, a, lp in zip(xs, attn, lps)]
+        xs = [x + _mlp(cfg, lp, x) for x, lp in zip(xs, lps)]
+    root = line[own[0]].device
+    out = torch.cat([_lm_head(p, _rmsnorm(x, p["ln_out"], cfg.norm_eps), dt).to(root)
+                     for x, p in zip(xs, tree)], dim=1)
+    if group is None:
+        return out
+    from ..parallel.sharding import cross_rank_cat
+
+    return cross_rank_cat(out, 1, group)
+
+
+def _tree_to(tree, dev: torch.device):
+    """A param tree on ``dev`` (the same tensors where they are there)."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree if tree.device == dev else tree.to(dev)
 
 
 def init_cache(cfg: LlamaConfig, batch: int, dtype="bfloat16", *, device,
@@ -894,7 +1000,7 @@ def forward_paged(params, tokens, pool, block_tables, pos, cfg: LlamaConfig,
         # the slots share a device)
         per = [tuple(_to_slot(tp, v, s) if v.device.type != "cpu" else v
                      for v in (idx, block_tables, blk, off, lens))
-               for s in range(tp.ways)]
+               for s in range(len(tp.shards))]
     for i in range(cfg.n_layers):
         if tp is not None:
             x = _block_tp(tp, i, x, lambda s: (

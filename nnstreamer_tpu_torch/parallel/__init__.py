@@ -1,10 +1,10 @@
-"""Parallelism: the in-process (data x model) mesh and sharded values.
+"""Parallelism: device meshes, sharded values, the process group, ring
+attention.
 
-Port of ``nnstreamer_tpu/parallel/``: the single-controller mesh one
-process builds over its local slots (``mesh.py``) and the sharded values
-placed on it (``sharding.py``).  The multi-process half
-(``distributed.py``) and ring attention (``ring.py``) are not ported yet:
-their names raise :class:`NotPortedError`.
+Port of ``nnstreamer_tpu/parallel/``: the mesh over a process's slots,
+or every rank's (``mesh.py``), the sharded values placed on it and the
+cross-slot and cross-rank sums (``sharding.py``), the process group
+(``distributed.py``) and sequence parallelism (``ring.py``).
 """
 
 from .mesh import (  # noqa: F401
@@ -31,27 +31,11 @@ from .sharding import (  # noqa: F401
     shard_batch,
     shard_params,
 )
-
-
-class NotPortedError(NotImplementedError):
-    """A name of the JAX package's ``parallel/`` whose module is not
-    ported yet (``distributed.py``, ``ring.py``)."""
-
-
-def _not_ported(name: str, module: str):
-    def fn(*args, **kwargs):
-        raise NotPortedError(
-            f"nnstreamer_tpu_torch.parallel.{name}: the JAX package's "
-            f"parallel/{module} is not ported yet")
-    fn.__name__ = name
-    return fn
-
-
-ring_attention = _not_ported("ring_attention", "ring.py")
-ring_attention_local = _not_ported("ring_attention_local", "ring.py")
-global_device_count = _not_ported("global_device_count", "distributed.py")
-global_mesh = _not_ported("global_mesh", "distributed.py")
-distributed_initialize = _not_ported("distributed_initialize", "distributed.py")
-distributed_is_initialized = _not_ported("distributed_is_initialized",
-                                         "distributed.py")
-local_device_count = _not_ported("local_device_count", "distributed.py")
+from .ring import ring_attention, ring_attention_local  # noqa: F401
+from .distributed import (  # noqa: F401
+    global_device_count,
+    global_mesh,
+    initialize as distributed_initialize,
+    is_initialized as distributed_is_initialized,
+    local_device_count,
+)

@@ -22,8 +22,15 @@ Axis conventions (the JAX package's): ``data`` (batch), ``model``
 is legal and free.  ``make_mesh``'s validation messages are the JAX
 package's, word for word.
 
-Not here: ``shard_map`` (the port has no tracer to map), and the
-multi-process half (``distributed.py``).
+Under a process group (``parallel/distributed.py``) every slot names
+the rank that owns it (:attr:`Slot.rank`).  :func:`local_devices` stays
+the process's own slots (their ids global: offset by the slots of the
+ranks before it), :func:`make_mesh` defaults to every rank's slots, as
+``jax.devices()`` is global after ``jax.distributed.initialize``, and a
+slot of another rank (not :attr:`~Slot.addressable`) holds no device
+work here.
+
+Not here: ``shard_map`` (the port has no tracer to map).
 """
 
 from __future__ import annotations
@@ -43,16 +50,26 @@ SLOTS_ENV = "NNS_TPU_DEVICE_SLOTS"
 
 class Slot:
     """One mesh position: a device, its mesh id (``id``, the index in
-    :func:`local_devices`) and a CUDA stream of its own (None on the CPU),
-    made at first use."""
+    every rank's slots, rank by rank), the rank that owns it and a CUDA
+    stream of its own (None on the CPU), made at first use."""
 
-    def __init__(self, id: int, device: torch.device, index: int = 0):
+    def __init__(self, id: int, device: torch.device, index: int = 0,
+                 rank: int = 0):
         self.id = int(id)
         self.device = torch.device(device)
         #: which of the slots sharing ``device`` this is
         self.index = int(index)
+        #: the process (``torch.distributed`` rank) that owns the slot
+        self.rank = int(rank)
         self._stream = None
         self._lock = threading.Lock()
+
+    @property
+    def addressable(self) -> bool:
+        """True when this process owns the slot (its tensors live here)."""
+        from .distributed import process_index
+
+        return self.rank == process_index()
 
     @property
     def stream(self):
@@ -64,7 +81,8 @@ class Slot:
             return self._stream
 
     def __repr__(self) -> str:
-        return f"Slot(id={self.id}, device={self.device}, index={self.index})"
+        rank = f", rank={self.rank}" if self.rank else ""
+        return f"Slot(id={self.id}, device={self.device}, index={self.index}{rank})"
 
 
 _slot_cache: Dict[Tuple[str, int], List[Slot]] = {}
@@ -91,7 +109,10 @@ def local_devices(kind: Optional[str] = None) -> List[Slot]:
     sharing a device.  ``kind`` None takes the cards when there are any,
     else the CPU, as ``jax.devices()`` takes the accelerator.  The same
     list (the same Slot objects, so the same streams) comes back while the
-    setting stays the same."""
+    setting stays the same.  Under a process group the process's slots
+    are on its own card (``distributed.local_card``) and their ids start
+    after the slots of the ranks before it."""
+    from . import distributed
     if kind is None:
         kind = "cuda" if torch.cuda.is_available() else "cpu"
     kind = "cuda" if kind in ("gpu", "cuda") else kind
@@ -104,20 +125,27 @@ def local_devices(kind: Optional[str] = None) -> List[Slot]:
         devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     else:
         devs = [torch.device("cpu")]
+    rank, first = distributed.process_index(), 0
+    if distributed.is_initialized():
+        devs = [distributed.local_card(kind)]
+        first = distributed.slot_offset(rank, kind)
     with _slot_lock:
-        key = (kind, k, len(devs))
+        key = (kind, k, tuple(str(d) for d in devs), rank, first)
         got = _slot_cache.get(key)
         if got is None:
             got = _slot_cache[key] = [
-                Slot(j * k + i, d, i) for j, d in enumerate(devs) for i in range(k)]
+                Slot(first + j * k + i, d, i, rank)
+                for j, d in enumerate(devs) for i in range(k)]
         return list(got)
 
 
 def one_device_slots(slots: Sequence[Slot]) -> int:
-    """How many of ``slots`` share the first one's device: all that an
-    automatic ``data`` axis takes (``pipeline/plan.mesh_plan``'s
-    ``absorb``), since no run over distinct cards exists yet."""
-    return sum(1 for s in slots if s.device == slots[0].device) if slots else 0
+    """How many of ``slots`` are the process's own and share the first
+    such one's device: all that an automatic ``data`` axis takes
+    (``pipeline/plan.mesh_plan``'s ``absorb``), since no run over distinct
+    cards exists yet."""
+    own = [s for s in slots if s.addressable]
+    return sum(1 for s in own if s.device == own[0].device) if own else 0
 
 
 def _as_slots(devices) -> List[Slot]:
@@ -151,24 +179,40 @@ class Mesh:
         return self.devices.reshape(-1)[0]
 
     @property
+    def local(self) -> List[Slot]:
+        """The slots this process owns, in mesh order."""
+        return [s for s in self.flat if s.addressable]
+
+    def spans_ranks(self) -> bool:
+        """True when slots of more than one process make up the mesh."""
+        return len({s.rank for s in self.flat}) > 1
+
+    @property
     def kind(self) -> str:
         return self.root.device.type
 
     def one_device(self) -> bool:
-        """True when every slot lies on the same device."""
-        return len({str(s.device) for s in self.flat}) == 1
+        """True when every slot lies on the same device of one process."""
+        return (not self.spans_ranks()
+                and len({str(s.device) for s in self.flat}) == 1)
+
+    def axis_line(self, axis: str, data_index: int = 0) -> List[Slot]:
+        """The slots along ``axis`` at ``data_index`` (every other axis at
+        0), in axis order."""
+        idx = [0] * len(self.axis_names)
+        if axis != "data":
+            idx[self.axis_names.index("data")] = data_index
+        ai = self.axis_names.index(axis)
+        out = []
+        for m in range(self.shape[axis]):
+            idx[ai] = m
+            out.append(self.devices[tuple(idx)])
+        return out
 
     def model_group(self, data_index: int = 0) -> List[Slot]:
         """The slots along ``model`` at ``data_index`` (every other axis
         at 0): one tensor-parallel group, its root first."""
-        idx = [0] * len(self.axis_names)
-        idx[self.axis_names.index("data")] = data_index
-        mi = self.axis_names.index("model")
-        out = []
-        for m in range(self.shape["model"]):
-            idx[mi] = m
-            out.append(self.devices[tuple(idx)])
-        return out
+        return self.axis_line("model", data_index)
 
     def __repr__(self) -> str:
         shape = {k: v for k, v in self.shape.items() if v > 1} or {"data": 1}
@@ -213,7 +257,11 @@ def make_mesh(
                 f"mesh axis {name!r} must be >= 1, got {v} "
                 "(only 'data' supports 0/None = auto-absorb)")
 
-    devs = _as_slots(devices if devices is not None else local_devices())
+    if devices is None:
+        from .distributed import global_devices
+
+        devices = global_devices()
+    devs = _as_slots(devices)
     n = len(devs)
     fixed = 1
     for name in AXES:

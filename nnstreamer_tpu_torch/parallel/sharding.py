@@ -18,7 +18,14 @@ whole, so slots that differ only along unnamed axes hold the same piece
   (possibly partial) spec tree, shared with the deep lint.
 * :func:`fixed_order_sum`: the cross-slot sum of the ``model`` axis,
   partials added in slot order on the root's device, so a replay is
-  bitwise repeatable.
+  bitwise repeatable; :func:`cross_rank_sum` the same sum over a group
+  whose slots span processes (an all-gather of the float32 partials,
+  then :func:`fixed_order_sum` in rank order on every rank: each rank
+  holds the in-process sum's bits), :func:`cross_rank_cat` a gather.
+* Under a mesh that spans processes a :class:`Sharded` holds only its
+  addressable shards (None for another rank's slots);
+  :func:`put_process_local` places the process's own rows (the port's
+  ``jax.make_array_from_process_local_data``).
 * :func:`slot_tree`: a placed tree seen from one slot;
   :func:`check_pspecs`: a spec tree checked against a mesh, nothing
   placed.
@@ -134,27 +141,39 @@ class Sharded:
 
     @property
     def addressable_shards(self) -> List[Tuple[Slot, torch.Tensor]]:
-        return list(zip(self.mesh.flat, self.shards))
+        """``(slot, piece)`` of the slots this process owns."""
+        return [(s, t) for s, t in zip(self.mesh.flat, self.shards)
+                if t is not None]
 
     def for_slot(self, slot: Slot) -> torch.Tensor:
         for s, t in zip(self.mesh.flat, self.shards):
             if s is slot:
+                if t is None:
+                    raise KeyError(f"{slot} belongs to rank {slot.rank}")
                 return t
         raise KeyError(slot)
 
     def full(self, device=None) -> torch.Tensor:
-        """The whole value on ``device`` (default the root slot's), each
-        piece copied in once, in mesh order."""
-        dev = torch.device(device) if device is not None else self.mesh.root.device
+        """The whole value on ``device`` (default the first addressable
+        slot's), each piece copied in once, in mesh order.  A value with
+        pieces only another rank holds raises."""
+        own = self.addressable_shards
+        dev = torch.device(device) if device is not None else own[0][0].device
         out = self._empty(dev)
         seen = set()
         for idx, t in zip(np.ndindex(self.mesh.devices.shape), self.shards):
+            if t is None:
+                continue
             sl = _piece(self.shape, self.spec, self.mesh, idx)
             key = tuple((s.start, s.stop) for s in sl)
             if key in seen:
                 continue
             seen.add(key)
             out[sl].copy_(t)
+        for idx in np.ndindex(self.mesh.devices.shape):
+            sl = _piece(self.shape, self.spec, self.mesh, idx)
+            if tuple((s.start, s.stop) for s in sl) not in seen:
+                raise ValueError(f"{self!r}: a piece lies only on another rank")
         return out
 
     def __repr__(self) -> str:
@@ -169,6 +188,9 @@ def put(x, mesh: Mesh, spec=None) -> Sharded:
     shards = []
     for idx, slot in zip(np.ndindex(mesh.devices.shape), mesh.flat):
         sl = _piece(tuple(t.shape), spec, mesh, idx)
+        if not slot.addressable:  # another rank's piece: no work here
+            shards.append(None)
+            continue
         key = (tuple((s.start, s.stop) for s in sl), str(slot.device))
         got = pieces.get(key)
         if got is None:
@@ -185,6 +207,34 @@ def put(x, mesh: Mesh, spec=None) -> Sharded:
         t.dim() == 4 and t.is_contiguous(memory_format=torch.channels_last))
     return Sharded(mesh, spec, shards, tuple(t.shape), t.dtype,
                    strides=t.stride() if dense else None)
+
+
+def put_process_local(x, mesh: Mesh, axis: str = "data") -> Sharded:
+    """The process's own rows of a batch split over ``axis`` (the port's
+    ``jax.make_array_from_process_local_data``): ``x`` holds the rows of
+    this process's positions along ``axis``, in order; the global value
+    has the rows of every process's positions.  Every rank passes the
+    same row count."""
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+    ways = mesh.shape[axis]
+    ai = mesh.axis_names.index(axis)
+    own = sorted({idx[ai] for idx, s in zip(np.ndindex(mesh.devices.shape),
+                                            mesh.flat) if s.addressable})
+    if not own or t.shape[0] % len(own):
+        raise ValueError(f"{t.shape[0]} local rows over this process's "
+                         f"{len(own)} {axis!r} positions")
+    per = t.shape[0] // len(own)
+    shards = []
+    for idx, slot in zip(np.ndindex(mesh.devices.shape), mesh.flat):
+        if not slot.addressable:
+            shards.append(None)
+            continue
+        j = own.index(idx[ai])
+        piece = t[j * per:(j + 1) * per]
+        shards.append(piece.to(slot.device) if piece.device != slot.device
+                      else piece.clone())
+    return Sharded(mesh, P(axis), shards, (per * ways,) + tuple(t.shape[1:]),
+                   t.dtype)
 
 
 def batch_sharding(mesh: Mesh, ndim: int, axis: str = "data") -> NamedSharding:
@@ -274,6 +324,28 @@ def fixed_order_sum(parts: Sequence[torch.Tensor], device) -> torch.Tensor:
     for p in parts[1:]:
         acc = acc + (p if p.device == dev else p.to(dev))
     return acc
+
+
+def cross_rank_sum(parts: Sequence[torch.Tensor], device, group) -> torch.Tensor:
+    """The :func:`fixed_order_sum` of a group whose slots span processes:
+    this process's partials (its slots', in slot order; every rank holds
+    as many) all-gathered, then summed on ``device`` in rank order, so
+    that every rank holds the same bits, the in-process sum's over the
+    same partials."""
+    from .distributed import all_gather
+
+    dev = torch.device(device)
+    local = torch.stack([p if p.device == dev else p.to(dev) for p in parts])
+    got = all_gather(local, group)
+    return fixed_order_sum([g[i] for g in got for i in range(len(parts))], dev)
+
+
+def cross_rank_cat(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim`` in rank order, on
+    ``t``'s device."""
+    from .distributed import all_gather
+
+    return torch.cat(all_gather(t, group), dim=dim)
 
 
 def slot_tree(tree, slot: Slot):

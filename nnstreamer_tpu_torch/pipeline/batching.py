@@ -34,7 +34,10 @@ a multiple of the ``data`` width (:func:`shard_bucket_for`), each data
 replica takes an equal run of rows, and the replica's rows are split
 further over its ``model`` slots in contiguous runs (the first slots one
 row longer where they do not divide).  Every slot replays a step of its
-own, captured on the slot's stream and device for its row count, over
+own, captured on the slot's stream and device at the one-slot bucket's
+row count (its own rows first, the rest pad: a kernel that picks its
+algorithm by the row count computes each row as the one-slot step does,
+at the price of every slot computing a whole bucket), over
 the stage's parameters, placed once before the first sharded dispatch
 (``prepare``: whole on every device, so a ``model`` axis splits rows as
 ``data`` does; only the llm filter computes on a cut).  All the slots'
@@ -42,8 +45,7 @@ replays are launched before the caller waits on any, so they overlap.
 The real rows' outputs are copied onto the root slot's device in slot
 order.
 ``vmap`` keeps rows apart, so a row's outputs do not depend on which
-slot computed it (bitwise where the step's kernels do not change with
-the row count).  Counters: ``<stage>.shard_dispatch``, and the rows each
+slot computed it: bitwise the one-slot run's.  Counters: ``<stage>.shard_dispatch``, and the rows each
 slot ran under ``<stage>.shard_rows.d<slot id>`` (``.d<data>m<model>``
 on a 2-D mesh).
 """
@@ -369,9 +371,15 @@ class BatchRunner:
             # minted sizes are replica-aligned (AdaptiveLadder.align): the
             # rounding below leaves them as they are
             self.ladder.observe(n)
-            bucket = shard_bucket_for(n, self.replicas, self.ladder.sizes())
+            sizes = self.ladder.sizes()
         else:
-            bucket = shard_bucket_for(n, self.replicas, self.buckets)
+            sizes = self.buckets
+        bucket = shard_bucket_for(n, self.replicas, sizes)
+        # every slot's step runs at the one-slot bucket's row count, its
+        # own rows first: a kernel that picks its algorithm by the row
+        # count (a CPU GEMM, cuDNN) then computes each row as the
+        # one-slot step does, bit for bit
+        full = bucket_for(n, sizes)
         if bucket > n:
             rows = rows + [rows[-1]] * (bucket - n)  # pad rows repeat the last
             if self._pad_metric:
@@ -389,11 +397,11 @@ class BatchRunner:
         sets = []
         for i, start, k in runs:
             slot = flat[i]
-            key = (bucket, sig, slot.id)
+            key = (bucket, full, sig, slot.id)
             st = self._sets.get(key)
             if st is None:
                 st = self._sets[key] = _BucketSet(
-                    self, key, k, rows[start:start + k], fn=fns[i], slot=slot)
+                    self, key, full, rows[start:start + k], fn=fns[i], slot=slot)
             else:
                 st.fill(rows[start:start + k])
             sets.append((slot, st))
@@ -415,8 +423,9 @@ class BatchRunner:
         root = self.mesh.root.device
         outs = []
         for t in range(len(sets[0][1].outputs)):
-            parts = [st.outputs[t] if st.outputs[t].device == root
-                     else st.outputs[t].to(root) for _, st in sets]
+            parts = [st.outputs[t][:k] if st.outputs[t].device == root
+                     else st.outputs[t][:k].to(root)
+                     for (_, _, k), (_, st) in zip(runs, sets)]
             outs.append(torch.cat(parts, dim=0)[:n])
         return tuple(outs)
 

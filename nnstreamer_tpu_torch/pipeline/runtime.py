@@ -82,7 +82,9 @@ boundaries):
   ``data_parallel=0`` takes the slots of one device: a mesh spans
   distinct cards only when a knob asks for it (no run over such a
   mesh exists yet).  An over-ask raises :class:`PipelineError`; nothing
-  falls back to one slot.
+  falls back to one slot.  Under a process group (``parallel/
+  distributed.py``) the mesh is built over every rank's slots: the llm
+  filter's model group may span ranks, a batching stage may not.
 
 Threads, not asyncio: stages do blocking work (device dispatch, host
 copies) and release the interpreter lock inside torch.
@@ -1145,6 +1147,14 @@ class Pipeline:
             replicas = mesh_axis_size(mesh, "data")
             for r in self._unique_runners():
                 if r.stage.shardable and r.batch_max > 1:
+                    if mesh.spans_ranks():
+                        self.stop()
+                        self._dead = True
+                        raise PipelineError(
+                            f"stage {r.element.name} would split its rows over "
+                            "a mesh that spans processes; only a tensor-parallel "
+                            "llm filter runs on one (batch_max=1 keeps the "
+                            "stage whole)")
                     r.element._shard_mesh = mesh
                     lad = getattr(r.element, "_batch_ladder", None)
                     if lad is not None:
@@ -1194,7 +1204,8 @@ class Pipeline:
 
     def _shared_mesh(self, kinds: set):
         """Build (at most once) the pipeline mesh from the resolved
-        ``(data, model)`` plan over the local slots of ``kinds`` (the
+        ``(data, model)`` plan over the slots of ``kinds`` (every rank's
+        under a process group, else the process's own; the
         device kind of the stages that use it: ``accelerator=``); None
         when the plan is one slot.  Raises :class:`PipelineError` on an
         over-ask, a plan that does not divide, or mixed device kinds."""
@@ -1206,14 +1217,17 @@ class Pipeline:
                         f"a pipeline mesh takes one device kind: it is on "
                         f"{have}, a stage asks for {sorted(kinds - {have})}")
                 return self._mesh_obj
-            from ..parallel.mesh import local_devices, make_mesh, one_device_slots
+            from ..parallel.distributed import global_devices
+            from ..parallel.mesh import make_mesh, one_device_slots
 
             if len(kinds) > 1:
                 raise PipelineError(
                     f"a pipeline mesh takes one device kind; its stages run "
                     f"on {sorted(kinds)} (accelerator=)")
             try:
-                devs = local_devices(next(iter(kinds)) if kinds else None)
+                # every rank's slots under a process group (the JAX
+                # package's global jax.devices()); the process's own else
+                devs = global_devices(next(iter(kinds)) if kinds else None)
             except (RuntimeError, ValueError) as e:
                 raise PipelineError(str(e)) from e
             dp, mp = mesh_plan(self.data_parallel, self.model_parallel,

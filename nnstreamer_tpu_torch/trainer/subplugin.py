@@ -31,11 +31,23 @@ framework=jax model=mlp:4:16:3 ...``) run as written.
   fails raises: nothing reverts to eager steps on the card.  On the CPU
   the same step runs eagerly, as every census does there.
 
+* **A mesh.**  ``mesh=data:N`` (or ``data:N,model:M``) trains over the
+  process's own slots (``parallel/mesh.local_devices``), as the JAX
+  package's trains over an ICI mesh: the window's rows split over every
+  slot of the mesh in contiguous runs, each slot computes its rows'
+  masked loss and its gradients (one step captured per slot on the
+  slot's stream, its gradient buffers written in place), the gradients
+  are summed in slot order (``parallel/sharding.fixed_order_sum``) and
+  one optimizer step updates the parameters every slot reads (slots on
+  one device share them; on distinct cards each card's copy is
+  refreshed from the root's).  The vision forwards are whole-model
+  functions, so a ``model`` axis keeps the weights whole and splits rows
+  as ``data`` does (``trainer.param_shards`` 0), as the serving stages
+  under one do.  A mesh of one slot is the mesh-less trainer.
+
 :func:`train_plan` prices a trainer without allocating it (the deep
 lint's ``train_state``), and :meth:`Trainer.attach_xray` counts its two
 captures under xray.
-
-Not ported yet: ``mesh=`` (raises; ROADMAP Queue A 6).
 """
 
 from __future__ import annotations
@@ -172,6 +184,23 @@ def _make_optimizer(opt: str, lr: float, leaves, capturable: bool):
     return torch.optim.Adam(leaves, lr=lr, capturable=capturable)
 
 
+def mesh_sizes(spec: str, n_devices: int) -> Dict[str, int]:
+    """``data:N`` / ``data:N,model:M`` as axis sizes (a size left out is
+    every device), with the JAX package's message for a bad axis."""
+    sizes = {"data": 1, "model": 1}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        name, _, n = part.partition(":")
+        name = name.strip() or "data"
+        if name not in sizes:
+            raise TrainerError(
+                f"bad mesh spec {spec!r}: axis {name!r} (valid: data, model)")
+        sizes[name] = int(n) if n else n_devices
+    return sizes
+
+
 def train_plan(props: Dict[str, object]) -> Optional[Dict[str, object]]:
     """Static plan of one trainer stage, without allocating it: the deep
     lint's pricing of its training state (``analysis/tracecheck.py``) and
@@ -262,7 +291,9 @@ class Trainer(TrainerSubplugin):
       run's);
     * ``host-accumulate`` — ``true`` stacks the whole epoch on the host and
       copies each minibatch into the window;
-    * ``mesh`` — not ported yet: raises :class:`TrainerError`.
+    * ``mesh`` — ``data:N`` / ``data:N,model:M`` over the process's own
+      slots (see the module docstring); more slots than the process owns
+      raise :class:`TrainerError`.
 
     A sample whose leading dimension is the model's batch of one (``[1, H,
     W, C]`` for a zoo model whose input is ``[1, H, W, C]``, as a serving
@@ -291,18 +322,23 @@ class Trainer(TrainerSubplugin):
         self._accs: List[torch.Tensor] = []
         self._step = self._eval = None
         self._captures = {"step": 0, "eval": 0}
+        self._mesh = None
+        #: per-slot steps under a mesh of more than one slot (the update,
+        #: ``_step``, sums their gradients)
+        self._slot_steps = None
+        self._slot_fns = None
+        #: per slot, the gradient buffers its step writes (in leaf order)
+        self._slot_grads = None
 
     # -- lifecycle ---------------------------------------------------------
     def open(self, props: Dict[str, object]) -> None:
         super().open(props)
-        if str(props.get("mesh", "") or ""):
-            raise TrainerError(
-                f"mesh={props.get('mesh')!r}: mesh training is not yet "
-                "ported to nnstreamer_tpu_torch")
         try:
             self.device = resolve_device(str(props.get("accelerator", "")))
         except FrameworkError as e:
             raise TrainerError(str(e)) from e
+        mesh_prop = str(props.get("mesh", "") or "")
+        self._mesh = self._setup_mesh(mesh_prop) if mesh_prop else None
         model = str(props.get("model", "mlp:4:16:3"))
         seed = int(props.get("seed", 0))
         if model.startswith("mlp:"):
@@ -339,9 +375,63 @@ class Trainer(TrainerSubplugin):
         load = props.get("model_load_path") or props.get("model-load-path")
         if load:
             self.load(str(load))
+        if self._mesh is not None:
+            self._place_on_mesh()
 
     def close(self) -> None:
         self._step = self._eval = None
+        self._slot_steps = None
+
+    # -- the mesh ----------------------------------------------------------
+    def _setup_mesh(self, spec: str):
+        """The ``(data, model)`` mesh of ``mesh=`` over the process's own
+        slots on the trainer's device kind (the JAX package's
+        ``_setup_mesh`` over ``jax.devices()``)."""
+        from ..parallel.distributed import global_device_count, is_initialized
+        from ..parallel.mesh import local_devices, make_mesh
+
+        slots = local_devices(self.device.type)
+        sizes = mesh_sizes(spec, len(slots))
+        need = sizes["data"] * sizes["model"]
+        if len(slots) < need:
+            if is_initialized() and global_device_count() >= need:
+                raise TrainerError(
+                    f"mesh {spec!r} needs {need} devices, have {len(slots)} in "
+                    "this process: the trainer feeds its own slots, not "
+                    "another rank's")
+            raise TrainerError(
+                f"mesh {spec!r} needs {need} devices, have {len(slots)}")
+        if slots[0].device != self.device:
+            raise TrainerError(f"the mesh's first slot is on {slots[0].device}, "
+                               f"the trainer on {self.device}")
+        kw = {"data": sizes["data"]}
+        if sizes["model"] > 1:
+            kw["model"] = sizes["model"]
+        return make_mesh(devices=slots[:need], **kw)
+
+    def _place_on_mesh(self) -> None:
+        """The parameters on every device of the mesh: the master tree on
+        the root's, a copy (requiring grad, refreshed after every update)
+        on each other card; slots on one device share one.  The counters
+        say what is placed: whole on every device, so under a ``model``
+        axis no leaf is cut (``param_shards`` 0)."""
+        from ..parallel.mesh import mesh_axis_size
+
+        slots = self._mesh.flat
+        self._replicas = {str(self.device): self.params}
+        for s in slots:
+            if str(s.device) not in self._replicas:
+                self._replicas[str(s.device)] = tree_map(
+                    lambda t, d=s.device: t.detach().to(d).requires_grad_(True),
+                    self.params)
+        if len(slots) > 1 and len(self._replicas) > 1:
+            # one stream cannot capture a step over several cards
+            self.census.eager = True
+        n = len(self._leaves)
+        if mesh_axis_size(self._mesh, "model") > 1:
+            metrics.count("trainer.param_shards", 0)
+            metrics.count("trainer.param_replicas", n)
+        metrics.count("trainer.param_replications")
 
     # -- data --------------------------------------------------------------
     def push_data(self, inputs, labels, is_validation: bool) -> None:
@@ -429,7 +519,9 @@ class Trainer(TrainerSubplugin):
         loss: a partial window replays the same captured step; ``count``
         is a value, never a shape)."""
         self._count.fill_(count)
-        if self._step is None:
+        if self._slot_fns is not None:
+            self._dispatch_slots()
+        elif self._step is None:
             # the capture's warm-up run IS this window's step: no step is
             # applied twice, none is lost
             self._step = self.census.capture(self._signature("step"), self._step_fn)
@@ -439,6 +531,25 @@ class Trainer(TrainerSubplugin):
         self._losses.append(self._loss.clone())
         self._accs.append(self._acc.clone())
         self.step += 1
+
+    def _dispatch_slots(self) -> None:
+        """One update step over the mesh: every slot's gradient step
+        launched on its stream before any is waited for, then the update
+        (the slot-order sum and the optimizer step) on the trainer's."""
+        if self._slot_steps is None:
+            self._slot_steps = [
+                self.census.capture(self._signature("step") + (s.id,), fn,
+                                    stream=s.stream)
+                for s, fn in zip(self._mesh.flat, self._slot_fns)]
+            self._step = self.census.capture(self._signature("update"),
+                                             self._step_fn)
+            self._captures["step"] += 1
+            return
+        for st in self._slot_steps:
+            st.launch()
+        for st in self._slot_steps:
+            st.join()
+        self._step.replay()
 
     def _evaluate(self, count: int) -> Tuple[float, float]:
         self._count.fill_(count)
@@ -509,11 +620,79 @@ class Trainer(TrainerSubplugin):
                 acc_out.copy_(acc)
 
         self._step_fn, self._eval_fn = step, evaluate
+        self._slot_fns = None
+        if self._mesh is not None and len(self._mesh.flat) > 1:
+            self._build_slot_steps()
+
+    def _build_slot_steps(self) -> None:
+        """The mesh's steps: per slot, its contiguous run of the window's
+        rows (its share of the masked loss's sum, over the global count),
+        its gradients into buffers of its own and its loss and accuracy
+        sums; then the update: each leaf's gradient the slot-order sum of
+        the slots' (the masked mean's gradient), one optimizer step, the
+        other cards' copies refreshed, the loss and accuracy the sums'.
+        A slot's step reads only its run of the window (a view; a copy
+        on another card), the rows past ``count`` masked out."""
+        from ..parallel.sharding import fixed_order_sum
+        from ..pipeline.batching import split_runs
+
+        slots = self._mesh.flat
+        wx, wy, count = self._wx, self._wy, self._count
+        leaves, opt, dev = self._leaves, self._opt, self.device
+        per_example = self._per_example_loss
+        runs, start = [], 0
+        for k in split_runs(wx.shape[0], len(slots)):
+            runs.append((start, start + k))
+            start += k
+        grads, sums, fns = [], [], []
+        for s, (a, b) in zip(slots, runs):
+            tree = self._replicas[str(s.device)]
+            mine = tree_flatten(tree)[0]
+            g = [torch.zeros_like(p, requires_grad=False) for p in mine]
+            out = torch.zeros(2, dtype=torch.float32, device=s.device)
+            grads.append(g)
+            sums.append(out)
+
+            def fn(tree=tree, mine=mine, g=g, out=out, a=a, b=b, d=s.device):
+                x, y = wx[a:b], wy[a:b]
+                if x.device != d:
+                    x, y = x.to(d), y.to(d)
+                c = count if count.device == d else count.to(d)
+                per, correct = per_example(tree, x, y)
+                rows = torch.arange(a, b, device=d)
+                mask = (rows < c).to(per.dtype)
+                cf = c.to(per.dtype)
+                loss = torch.sum(per * mask) / cf
+                for dst, gi in zip(g, torch.autograd.grad(loss, mine)):
+                    dst.copy_(gi)
+                out[0].copy_(loss.detach())
+                out[1].copy_(torch.sum(correct * mask) / cf)
+
+            fns.append(fn)
+        others = [tree_flatten(t)[0] for k, t in self._replicas.items()
+                  if k != str(dev)]
+        loss_out, acc_out = self._loss, self._acc
+
+        def update() -> None:
+            for j, p in enumerate(leaves):
+                p.grad.copy_(fixed_order_sum([g[j] for g in grads], dev))
+            opt.step()
+            with torch.no_grad():
+                for copy in others:
+                    for q, p in zip(copy, leaves):
+                        q.copy_(p)
+            both = fixed_order_sum(sums, dev)
+            loss_out.copy_(both[0])
+            acc_out.copy_(both[1])
+
+        self._slot_fns, self._step_fn, self._slot_grads = fns, update, grads
 
     def compile_counts(self) -> Dict[str, int]:
         """Captures per program — the census pin tests read (step and eval
         must each stay at 1 across epoch churn, partial windows and
-        host-accumulate)."""
+        host-accumulate).  Under a mesh the step is one capture per slot
+        and the update; they count as the one step program (the census
+        holds them all: ``census.captures``)."""
         return {k: n for k, n in self._captures.items() if n}
 
     # -- epochs ------------------------------------------------------------
@@ -582,10 +761,12 @@ class Trainer(TrainerSubplugin):
         return sum(p.nbytes for p in self._leaves) if self.params is not None else 0
 
     def train_state_bytes(self) -> int:
-        """Device-resident training state: the optimizer's moments and the
-        sample window (gradients are counted with the parameters)."""
+        """Device-resident training state: the optimizer's moments, the
+        sample window and, under a mesh, each slot's gradient tree (the
+        parameters' own gradients are counted with the parameters)."""
         total = sum(t.nbytes for st in self._opt.state.values()
                     for t in st.values() if isinstance(t, torch.Tensor))
+        total += sum(g.nbytes for grads in self._slot_grads or () for g in grads)
         return total + sum(w.nbytes for w in (self._wx, self._wy) if w is not None)
 
     def export_params(self):

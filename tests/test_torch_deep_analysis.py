@@ -19,7 +19,6 @@ from nnstreamer_tpu.core.types import TensorsSpec as JSpec
 from nnstreamer_tpu.filters.custom_easy import register_custom_easy as jax_register
 from nnstreamer_tpu.models.zoo import ModelBundle as JBundle, register_model as jax_model
 from nnstreamer_tpu_torch.analysis import PipelineLintError, analyze
-from nnstreamer_tpu_torch.analysis.tracecheck import MultiDeviceNotPorted
 from nnstreamer_tpu_torch.core.types import TensorsSpec
 from nnstreamer_tpu_torch.filters.custom_easy import register_custom_easy
 from nnstreamer_tpu_torch.models.zoo import ModelBundle, register_model
@@ -225,19 +224,24 @@ def test_lone_filter_is_eager_without_batching():
 
 @pytest.mark.parametrize("kw", [dict(data_parallel=4), dict(model_parallel=2)])
 def test_multi_device_plans_raise_named_error(kw, monkeypatch):
-    """The mesh is priced since the mesh slice: on one slot (the
-    default) these plans over-ask and the lint says so in the JAX
-    package's words; only a tensor_trainer under a model axis still
-    raises the named error (its mesh= waits for ROADMAP Queue A 6)."""
+    """The mesh is priced: on one slot (the default) these plans
+    over-ask and the lint says so in the JAX package's words.  A
+    tensor_trainer trains on its own mesh= (a pipeline model axis does
+    not place it): it is priced whole under the plan, and its mesh=
+    asking for more slots than there are is named."""
     monkeypatch.delenv("NNS_TPU_DEVICE_SLOTS", raising=False)
     report = analyze(_pipe("deeptorch_mobilenet"), deep=True, batch_max=8, **kw)
     diag = next(d for d in report if d.code == "data-parallel-devices")
     n = kw.get("data_parallel", kw.get("model_parallel"))
     assert f"needs {n} local devices, have 1" in diag.message
     trainer = ("appsrc name=src ! tensor_trainer framework=jax "
-               "model=mlp:4:8:3 ! tensor_sink name=out")
-    with pytest.raises(MultiDeviceNotPorted, match="Queue A 6"):
-        analyze(trainer, deep=True, model_parallel=2)
+               "model=mlp:4:8:3 {mesh}! tensor_sink name=out")
+    report = analyze(trainer.format(mesh=""), deep=True, **kw)
+    [stage] = [s for s in report.resources.stages if "tensor_trainer" in s.label]
+    assert stage.param_bytes == 4 * (4 * 8 + 8 + 8 * 3 + 3)
+    report = analyze(trainer.format(mesh="mesh=data:2 "), deep=True)
+    diag = next(d for d in report if d.code == "mesh-devices")
+    assert "mesh 'data:2' needs 2 devices, have 1" in diag.message
 
 
 def test_budget_warnings_anchor_dominant_stage():

@@ -521,7 +521,8 @@ def test_llm_static_swap_between_requests():
 def test_chip_smoke_learn_phase_rehearsal(tmp_path):
     """``chip_smoke.py``'s learn phase on the CPU at a rehearsal size: the
     straight run, the resume bitwise, the first replay against an eager
-    step, train-while-serve with its bitwise checks."""
+    step, the trainer's mesh against mesh-less, train-while-serve with its
+    bitwise checks."""
     import chip_smoke
 
     r = chip_smoke.phase_learn(
@@ -531,4 +532,11 @@ def test_chip_smoke_learn_phase_rehearsal(tmp_path):
     assert r["resume_bitwise"] and r["step_check"]["bitwise"]
     assert r["census"] == {"step": 1, "eval": 1, "captures": 2, "replays": 5, "steps": 5}
     assert r["serve"]["swaps"] == 3
+    # the trainer's mesh: data:2 over two slots, its first summed
+    # gradient held to mesh-less and data:1 bitwise in the phase; the
+    # faults it would catch read far above the tolerance
+    m = r["mesh"]
+    assert m["census"] == {"step": 1, "captures": 3, "replays": 9, "steps": 4}
+    assert m["grad_gap"] <= chip_smoke.LEARN_MESH_GRAD_TOL
+    assert min(m["faults"].values()) > 1e3 * chip_smoke.LEARN_MESH_GRAD_TOL
     assert not [f for f in os.listdir(tmp_path) if f.startswith("learn.")]

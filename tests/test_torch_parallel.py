@@ -7,9 +7,9 @@ the port's twins run on eight slots of the CPU
 messages are compared with the JAX package's exactly; sharded values and
 the ``mesh=data:N`` filter's outputs are compared bitwise with the
 unsharded port and the JAX package (``x * c`` in float32 in both), and the
-column-cut product within float32 rounding (``TOL``).  The JAX package's
-ring attention and multi-process tests wait for the next slice: the
-port's names raise :class:`NotPortedError`."""
+column-cut product within float32 rounding (``TOL``).  Ring attention
+and the process group are held against the JAX package in
+``tests/test_torch_ring.py`` and ``tests/test_torch_distributed.py``."""
 
 import subprocess
 import sys
@@ -188,11 +188,18 @@ def test_mesh_filter_fuses_its_split_step():
     assert got.tobytes() == ((x + 1.0) * 2.0).tobytes()
 
 
-def test_ring_and_distributed_names_are_not_ported():
-    for fn in (tpar.ring_attention, tpar.global_mesh,
-               tpar.distributed_initialize, tpar.global_device_count):
-        with pytest.raises(tpar.NotPortedError, match="not ported yet"):
-            fn()
+def test_ring_and_distributed_names_are_the_ported_modules():
+    """The JAX ``parallel/__init__``'s names, aliases included, are the
+    port's ``ring.py`` and ``distributed.py`` functions."""
+    from nnstreamer_tpu_torch.parallel import distributed, ring
+
+    assert tpar.ring_attention is ring.ring_attention
+    assert tpar.ring_attention_local is ring.ring_attention_local
+    assert tpar.distributed_initialize is distributed.initialize
+    assert tpar.distributed_is_initialized is distributed.is_initialized
+    for name in ("global_device_count", "global_mesh", "local_device_count"):
+        assert getattr(tpar, name) is getattr(distributed, name)
+    assert not hasattr(tpar, "NotPortedError")
 
 
 def test_query_service_pod_sharded():

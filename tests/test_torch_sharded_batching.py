@@ -131,13 +131,14 @@ def test_batch_runner_mesh_with_unit_data_axis_is_unsharded():
 
 def test_census_is_one_step_per_bucket_and_slot():
     """The port captures each replica's step on its own slot: bucket 8
-    over 4 replicas is four steps of 2 rows, one per slot (the JAX
-    package: one program per bucket)."""
+    over 4 replicas is four steps, one per slot, each at the one-slot
+    bucket's 8 rows (2 of them its own: the rows stay bitwise the
+    one-slot run's; the JAX package: one program per bucket)."""
     br = BatchRunner(lambda arrays: (arrays[0] * 2.0,), mesh=_mesh(4))
     br.run([(np.full((3,), float(i), np.float32),) for i in range(7)])
-    assert sorted(k[2] for k in br._sets) == [0, 1, 2, 3]
+    assert sorted(k[3] for k in br._sets) == [0, 1, 2, 3]
     assert {k[0] for k in br._sets} == {8}
-    assert all(st.bucket == 2 for st in br._sets.values())
+    assert all(st.bucket == 8 for st in br._sets.values())
     br.run([(np.full((3,), float(i), np.float32),) for i in range(5)])
     assert br.census.captures == 4  # the same bucket: replays only
 

@@ -248,11 +248,15 @@ def test_jax_written_checkpoint(tmp_path, monkeypatch):
         ckpt.load_checkpoint(str(tmp_path / "other.ckpt"))
 
 
-def test_named_errors():
-    """mesh= waits for the multi-device slice; with no card and no
+def test_named_errors(monkeypatch):
+    """mesh= with an axis the trainer lacks, or more slots than the
+    process owns, raises in the JAX trainer's words; with no card and no
     ``accelerator=true:cpu`` the trainer refuses to carry on on the CPU."""
-    with pytest.raises(TrainerError, match="mesh"):
+    monkeypatch.delenv("NNS_TPU_DEVICE_SLOTS", raising=False)
+    with pytest.raises(TrainerError, match="needs 2 devices, have 1"):
         _port({"model": "mlp:4:8:3", "mesh": "data:2"})
+    with pytest.raises(TrainerError, match="axis 'seq' \\(valid: data, model\\)"):
+        _port({"model": "mlp:4:8:3", "mesh": "seq:2"})
     tr = Trainer()
     if torch.cuda.is_available():
         tr.open({"model": "mlp:4:8:3"})
@@ -341,3 +345,157 @@ def test_zoo_trainer_keeps_float32_masters_and_computes_bf16():
     assert all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
                for p in ttr._leaves)
     assert not _bitwise(master, ttr.params)
+
+
+# -- mesh= (the trainer's own mesh over the process's slots) -------------------
+
+def _mesh_run(trainer, mesh, xs, ys, epochs=3):
+    p = {"model": "mlp:4:8:3", "learning_rate": 0.05, "batch_size": 8}
+    if mesh:
+        p["mesh"] = mesh
+    tr = trainer(p)
+    losses = []
+    for _ in range(epochs):
+        for i in range(len(xs)):
+            tr.push_data([xs[i]], [ys[i]], False)
+        losses.append(tr.train_epoch()["training_loss"])
+    return tr, losses
+
+
+def _jax_trainer(props):
+    tr = JaxTrainer()
+    tr.open(props)
+    return tr
+
+
+def test_mesh_data_parallel_trajectory(monkeypatch):
+    """The port of ``tests/test_learn.py::test_mesh_data_parallel_trajectory``:
+    data:4 over four slots against the mesh-less trainer, the 3-epoch
+    losses within the JAX test's rtol 1e-5 / atol 1e-7 and the parameters
+    within rtol 1e-5 / atol 1e-6 (the gradient is the slot-order sum of
+    per-slot partials, another order than one step's); a data:1 mesh
+    bitwise the mesh-less run; the JAX package's data:4 losses within
+    RTOL; the census: one step program (a capture per slot and the
+    update) and no eval."""
+    monkeypatch.setenv("NNS_TPU_DEVICE_SLOTS", "8")
+    rng = np.random.default_rng(0)
+    xs = rng.standard_normal((24, 4)).astype(np.float32)
+    ys = rng.integers(0, 3, (24, 1)).astype(np.int32)
+    t0, l0 = _mesh_run(_port, None, xs, ys)
+    t1, l1 = _mesh_run(_port, "data:1", xs, ys)
+    t4, l4 = _mesh_run(_port, "data:4", xs, ys)
+    assert l0 == l1 and _bitwise(t0.params, t1.params)
+    assert np.allclose(l0, l4, rtol=1e-5, atol=1e-7)
+    for a, b in zip(_host(t0.params), _host(t4.params)):
+        assert np.allclose(a, b, rtol=1e-5, atol=1e-6)
+    assert t4.compile_counts() == {"step": 1}
+    assert t4.census.captures == 5  # four slots' steps and the update
+    _, jl4 = _mesh_run(_jax_trainer, "data:4", xs, ys)
+    np.testing.assert_allclose(l4, jl4, rtol=RTOL)
+
+
+def test_mesh_2d_pspecs_shard_params(monkeypatch):
+    """The port of ``tests/test_learn.py::test_mesh_2d_pspecs_shard_params``
+    with the port's own counters: mobilenet_v1 at (data:2, model:2) trains
+    with a finite loss and a pinned census; the whole-model vision
+    forward keeps its weights whole under the model axis (as a serving
+    stage does: ``param_shards`` 0, every leaf a replica, one
+    replication), where the JAX package cuts the pointwise kernels."""
+    from nnstreamer_tpu_torch.core.log import metrics
+
+    monkeypatch.setenv("NNS_TPU_DEVICE_SLOTS", "8")
+    metrics.reset()
+    tr = _port({"model": "mobilenet_v1", "classes": "4", "width": "0.25",
+                "size": "32", "batch_size": 4, "mesh": "data:2,model:2",
+                "learning_rate": 0.01, "dtype": "float32"})
+    assert tr._mesh.shape["data"] == 2 and tr._mesh.shape["model"] == 2
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((32, 32, 3)).astype(np.float32)
+    for _ in range(2):
+        for i in range(4):
+            tr.push_data([x], [np.asarray([i % 4], np.int32)], False)
+        s = tr.train_epoch()
+    assert np.isfinite(s["training_loss"])
+    assert tr.compile_counts() == {"step": 1}
+    snap = metrics.snapshot()
+    assert snap.get("trainer.param_shards") == 0.0
+    assert snap.get("trainer.param_replicas") == float(len(tr._leaves))
+    assert snap.get("trainer.param_replications") == 1.0
+    # one whole copy: the four slots on one device read the same leaves
+    assert list(tr._replicas) == [str(tr.device)]
+
+
+def test_trainer_data_parallel_mesh(tmp_path, monkeypatch):
+    """The port of ``tests/test_trainer.py::test_trainer_data_parallel_mesh``:
+    data:8 over eight slots, 16 samples a window, a finite loss, and the
+    JAX trainer's epoch within RTOL."""
+    monkeypatch.setenv("NNS_TPU_DEVICE_SLOTS", "8")
+    rng = np.random.default_rng(1)
+    xs = rng.standard_normal((16, 4)).astype(np.float32)
+    ys = rng.integers(0, 3, (16, 1)).astype(np.int32)
+    stats = []
+    for make in (_port, _jax_trainer):
+        tr = make({"model": "mlp:4:8:3", "mesh": "data:8", "batch_size": 16,
+                   "learning_rate": 0.05})
+        for i in range(16):
+            tr.push_data([xs[i]], [ys[i]], is_validation=False)
+        stats.append(tr.train_epoch()["training_loss"])
+    assert np.isfinite(stats[0])
+    np.testing.assert_allclose(stats[0], stats[1], rtol=RTOL)
+
+
+def _gap(a, b):
+    """The norm of ``a - b`` over the norm of ``b``, over every leaf."""
+    num = sum(float((x.double() - y.double()).pow(2).sum()) for x, y in zip(a, b))
+    return (num / sum(float(y.double().pow(2).sum()) for y in b)) ** 0.5
+
+
+def test_mesh_first_summed_gradient_is_the_mesh_less_one(monkeypatch):
+    """mobilenet_v1 at float32 with Adam: each slot of data:2 reads only
+    its own run of the window (a partial window's rows past ``count``
+    masked), and the first window's slot-order sum of the slots'
+    gradients is the mesh-less step's within 1e-5 of its norm (the same
+    sums in another association; 3.9e-8 on the CPU), where one slot's
+    part alone or counted twice reads 0.57 or 0.66; the losses within the JAX
+    test's rtol 1e-5 / atol 1e-7, data:1 bitwise."""
+    monkeypatch.setenv("NNS_TPU_DEVICE_SLOTS", "2")
+    rng = np.random.default_rng(5)
+    xs = rng.standard_normal((10, 32, 32, 3)).astype(np.float32)
+    ys = rng.integers(0, 10, (10, 1)).astype(np.int32)
+
+    def run(mesh):
+        p = {"model": "mobilenet_v1", "classes": "10", "width": "0.25",
+             "size": "32", "batch_size": 4, "learning_rate": 1e-3,
+             "dtype": "float32"}
+        if mesh:
+            p["mesh"] = mesh
+        tr = _port(p)
+        apply = tr.apply_fn
+
+        def counted(params, x):
+            rows.add(x.shape[0])
+            return apply(params, x)
+
+        tr.apply_fn, rows = counted, set()
+        losses, first = [], None
+        for _ in range(2):
+            for i in range(10):
+                tr.push_data([xs[i]], [ys[i]], False)
+                if first is None and tr.step == 1:
+                    first = ([q.grad.clone() for q in tr._leaves],
+                             [[g.clone() for g in s] for s in tr._slot_grads or ()])
+            losses.append(tr.train_epoch()["training_loss"])
+        return tr, losses, first, rows
+
+    t0, l0, (g0, _), rows0 = run(None)
+    t1, l1, _, _ = run("data:1")
+    t2, l2, (g2, parts), rows2 = run("data:2")
+    assert l0 == l1 and _bitwise(t0.params, t1.params)
+    assert len(parts) == 2 and t2._slot_steps is not None
+    assert rows0 == {4} and rows2 == {2}  # each slot its own two rows
+    # a gradient tree per slot, as the deep lint prices it
+    assert t2.train_state_bytes() == t0.train_state_bytes() + 2 * t0.param_nbytes()
+    assert _gap(g2, g0) < 1e-5
+    assert _gap(parts[0], g0) > 0.1
+    assert _gap([2 * x for x in parts[0]], g0) > 0.1
+    assert np.allclose(l0, l2, rtol=1e-5, atol=1e-7)
